@@ -1,0 +1,514 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (exit code 1, no result line) if it fails:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build every CUDA kernel of the main path from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` for ``sm_90a`` and print ``ptxas``'s register / shared-memory
+   report;
+3. hold each kernel against its plain PyTorch version at the shapes of the
+   ``vusa_edge`` decode step (layer-0 packs of the real model below: wq/wk/wv/wo
+   768 -> 768, the LM head 768 -> 32000, the fused MLP 768 / 3072) and at edge
+   shapes (sparsity 0 and 0.99, all-zero rows, C % m != 0), for B in {1, 4}
+   and fp32 / bf16 activations and values.  Tolerance: max |kernel - plain|
+   <= 1e-4 * max |plain| for every dtype (bf16 inputs widen to fp32 exactly and
+   both sides accumulate in fp32, so only the summation order differs).  Row 0
+   at B = 4 must equal B = 1 bitwise.  Each kernel is timed with CUDA events
+   (L2 flushed before each launch, as the decode step finds it) beside the
+   plain version, one PyTorch library call on the dense weights and the
+   least time the card could take (bytes over 3.35 TB/s vs fp32 operations
+   over 67 TFLOP/s, H100 SXM data sheet; the bytes are x, the output, every
+   pack position and only the occupied slots' values);
+4. the main path: ``vusa_edge`` at full width (12 layers, d 768, ff 3072,
+   vocab 32000), numpy-seeded init, 85 % magnitude pruning,
+   ``Engine(packed_weights="all").generate`` with B = 4, prompt 32, 32 new
+   tokens.  The launch counters, set to 0 just before and read just after,
+   must be exactly 49 * 31 (``vusa_packed_matmul``) and 12 * 31
+   (``vusa_fused_mlp_matmul``), and the tokens finite and in range.  The same
+   weights in fp32: the first decode step's packed and dense logits must
+   agree to 1e-2 of the largest logit at full depth, and with the depth cut
+   to 2 layers packed and dense greedy tokens must be identical.  At full
+   depth free-running fp32 tokens can part at a near-tie; their agreement is
+   reported beside a witness that runs no kernel of the port: the dense
+   path against itself with every MLP's ff lanes permuted (the same
+   function, summed in another order).  bf16's token agreement and
+   first-step logit gap are reported too;
+5. one JSON line of every ported kernel (per-decode-step times at B = 4,
+   launches in the counted run and per decode step);
+6. the card line again and the result line.
+
+TF32 is switched off explicitly: every dense fp32 product here is true fp32.
+Details go to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.pruning import prune_tree  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.vusa_packed import (  # noqa: E402
+    reset_launch_counts,
+    vusa_fused_mlp_matmul,
+    vusa_packed_matmul,
+)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.common import strict_fp32  # noqa: E402
+from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.serve.packed import lm_decode_step_packed, packed_byte_ratios  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
+TOL = 1e-4  # kernel vs plain, of the largest plain output
+BATCH, PROMPT, MAX_NEW = 4, 32, 32
+DEPTH_CUT = 2  # layers of the fp32 token-identity check
+FP32_STEP_TOL = 1e-2  # fp32 first-step logits, packed vs dense, of the largest logit
+DEVICE = "cuda"
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if r.returncode != 0:
+        fail(f"nvidia-smi exited {r.returncode}: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# measurement helpers
+# --------------------------------------------------------------------------
+
+
+class Timer:
+    """Device time of one call, averaged over ``iters`` launches, each after
+    an L2 flush (a 128 MiB write) and a short device-side spin, so the call
+    is enqueued before its start event fires and finds a cold L2."""
+
+    def __init__(self, iters: int = 20):
+        self.iters = iters
+        self.flush = torch.empty(32 * 2**20, dtype=torch.float32, device=DEVICE)
+
+    def __call__(self, fn) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        events = []
+        for _ in range(self.iters):
+            self.flush.zero_()
+            torch.cuda._sleep(100_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in events) / self.iters
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max(max |want|, 1))."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1.0)
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pack_bytes_needed(values, positions) -> int:
+    """Bytes a kernel must read of one pack: every position (idle slots are
+    marked there), but a value only where the slot is occupied — an idle
+    slot's value never reaches the output."""
+    nnz = int((positions >= 0).sum())
+    return nbytes(positions) + values.element_size() * nnz
+
+
+def dtype_name(t) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def check_cases(name, kern, plain, xs):
+    """Kernel vs plain over the activations ``xs``, plus batch invariance."""
+    cases = []
+    for x in xs:
+        got, want = kern(x), plain(x)
+        err, rel = rel_err(got, want)
+        if rel > TOL:
+            fail(f"{name} x={x.dtype} B={x.shape[0]}: kernel vs plain error {err} ({rel} relative)")
+        if x.shape[0] > 1 and not torch.equal(kern(x[:1].contiguous())[0], got[0]):
+            fail(f"{name} x={x.dtype}: row 0 at B={x.shape[0]} differs from B=1")
+        cases.append({"B": x.shape[0], "x": dtype_name(x), "max_abs_err": err, "rel_err": rel})
+    return cases
+
+
+def check_packed_matmul(timer, name, lin, xs, time_it):
+    """B1 at one operand set; returns a record (timed at ``xs[-1]``)."""
+    rec = {"name": name, "shape": [lin.k, lin.c], "T": lin.values.shape[0], "S": lin.slots,
+           "values": dtype_name(lin.values)}
+
+    def kern(x):
+        return vusa_packed_matmul(x, lin.values, lin.positions, m=lin.m)
+
+    def plain(x):
+        return ref.vusa_packed_ref(x, lin.values, lin.positions, m=lin.m)
+
+    rec["cases"] = check_cases(name, kern, plain, xs)
+    if time_it:
+        x = xs[-1]
+        dense = ref.unpack_dense(lin.values, lin.positions, lin.m)[:, : lin.c]
+        dense = dense.contiguous().to(lin.values.dtype)
+        xd = x.to(dense.dtype)
+        nnz = int((lin.positions >= 0).sum())
+        out_bytes = x.shape[0] * lin.values.shape[0] * lin.m * 4
+        b_ms, b_by = bound_ms(nbytes(x) + pack_bytes_needed(lin.values, lin.positions)
+                              + out_bytes, 2 * x.shape[0] * nnz)
+        rec["timing"] = {
+            "B": x.shape[0], "x": dtype_name(x), "ms": timer(lambda: kern(x)),
+            "plain_ms": timer(lambda: plain(x)),
+            "library_ms": timer(lambda: torch.matmul(xd, dense)),
+            "library_call": "torch.matmul(x, W) on the dense weight",
+            "bound_ms": b_ms, "bound_by": b_by, "nnz": nnz,
+        }
+    return rec
+
+
+def check_fused_mlp(timer, name, gate, up, down_t, xs, time_it):
+    """B2 at one operand set; returns a record (timed at ``xs[-1]``)."""
+    operands = (gate.values, gate.positions, up.values, up.positions,
+                down_t.values, down_t.positions)
+    rec = {"name": name, "d": gate.k, "ff": gate.c, "T": gate.values.shape[0],
+           "S": [gate.slots, up.slots, down_t.slots], "values": dtype_name(gate.values)}
+
+    def kern(x):
+        return vusa_fused_mlp_matmul(x, *operands, m=gate.m)
+
+    def plain(x):
+        return ref.vusa_fused_mlp_ref(x, *operands, m=gate.m)
+
+    rec["cases"] = check_cases(name, kern, plain, xs)
+    if time_it:
+        x = xs[-1]
+        vd = gate.values.dtype
+        wg = ref.unpack_dense(gate.values, gate.positions, gate.m)[:, : gate.c].contiguous().to(vd)
+        wu = ref.unpack_dense(up.values, up.positions, up.m)[:, : up.c].contiguous().to(vd)
+        wd = ref.unpack_dense(down_t.values, down_t.positions, down_t.m)[:, : down_t.c]
+        wd = wd.T.contiguous().to(vd)
+        xd = x.to(vd)
+        silu = torch.nn.functional.silu
+        nnz = sum(int((p >= 0).sum()) for p in operands[1::2])
+        packs = sum(pack_bytes_needed(v, p) for v, p in zip(operands[::2], operands[1::2]))
+        b_ms, b_by = bound_ms(nbytes(x) + packs + x.shape[0] * down_t.k * 4,
+                              2 * x.shape[0] * nnz)
+        rec["timing"] = {
+            "B": x.shape[0], "x": dtype_name(x), "ms": timer(lambda: kern(x)),
+            "plain_ms": timer(lambda: plain(x)),
+            "library_ms": timer(lambda: torch.matmul(silu(xd @ wg) * (xd @ wu), wd)),
+            "library_call": "dense SwiGLU: three torch.matmul calls + silu",
+            "bound_ms": b_ms, "bound_by": b_by, "nnz": nnz,
+        }
+    return rec
+
+
+def kernel_phase(cfg, packed, rng):
+    """Phase 3.  Returns (records, per-decode-step totals per kernel)."""
+    timer = Timer()
+    dev = torch.device(DEVICE)
+
+    def xs_for(k):
+        out = []
+        for b in (1, BATCH):
+            x = torch.from_numpy(rng.standard_normal((b, k), dtype=np.float32)).to(dev)
+            out += [x, x.to(torch.bfloat16)]
+        return out  # the last one is the main path's: B = 4, bf16 activations
+
+    def as_lin(entry, layer=None):
+        v, p = entry["values"], entry["positions"]
+        if layer is not None:
+            v, p = v[layer], p[layer]
+        return ops.RowPackedLinear(values=v, positions=p, k=entry["k"], c=entry["c"],
+                                   a=entry["a"], m=entry["m"])
+
+    def bf16_copy(lin):
+        return dataclasses.replace(lin, values=lin.values.to(torch.bfloat16))
+
+    def sparse(k, c, s):
+        w = rng.standard_normal((k, c), dtype=np.float32)
+        return w * (rng.random((k, c)) >= s)
+
+    d, mlp = cfg.d_model, packed["mlp"]
+    # main-path shapes, timed: the model's own layer-0 packs and its head
+    attn_recs = [check_packed_matmul(timer, f"{n}[layer0]", as_lin(packed["attn"][n], 0),
+                                     xs_for(d), True) for n in ("wq", "wk", "wv", "wo")]
+    head_rec = check_packed_matmul(timer, "lm_head", as_lin(packed["head"]), xs_for(d), True)
+    trio = [as_lin(mlp[n], 0) for n in ("w_gate", "w_up", "w_down_t")]
+    mlp_rec = check_fused_mlp(timer, "mlp[layer0]", *trio, xs_for(d), True)
+    records = attn_recs + [head_rec, mlp_rec]
+    # bf16 values at the main-path shapes
+    records.append(check_packed_matmul(timer, "wq[layer0] bf16 values",
+                                       bf16_copy(as_lin(packed["attn"]["wq"], 0)), xs_for(d),
+                                       False))
+    records.append(check_fused_mlp(timer, "mlp[layer0] bf16 values",
+                                   *[bf16_copy(lin) for lin in trio], xs_for(d), False))
+    # edge shapes
+    zero_rows = sparse(768, 768, 0.85)
+    zero_rows[100:300] = 0.0
+    zero_rows[:, 200:260] = 0.0
+    for label, w in (("sparsity 0", sparse(768, 768, 0.0)),
+                     ("sparsity 0.99", sparse(768, 768, 0.99)),
+                     ("C % m != 0", sparse(768, 700, 0.85)), ("all-zero rows", zero_rows)):
+        records.append(check_packed_matmul(timer, label, ops.pack_linear_rows(w, device=dev),
+                                           xs_for(768), False))
+    for label, s, ff in (("mlp sparsity 0", 0.0, 3072), ("mlp sparsity 0.99", 0.99, 3072),
+                         ("mlp all-zero rows, ff % m != 0", 0.85, 3000)):
+        wg, wu, wd = sparse(768, ff, s), sparse(768, ff, s), sparse(ff, 768, s)
+        if ff % 128:
+            wg[10:300] = 0.0
+            wu[:, 40:400] = 0.0
+            wd[5:600] = 0.0
+        records.append(check_fused_mlp(
+            timer, label, ops.pack_linear_rows(wg, device=dev),
+            ops.pack_linear_rows(wu, device=dev), ops.pack_linear_rows_t(wd, device=dev),
+            xs_for(768), False))
+
+    # one decode step's worth: each layer's 4 projections + the head; L MLPs
+    L = cfg.n_layers
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    step = {
+        "vusa_packed_matmul": {
+            k: L * sum(r["timing"][k] for r in attn_recs) + head_rec["timing"][k] for k in keys
+        },
+        "vusa_fused_mlp_matmul": {k: L * mlp_rec["timing"][k] for k in keys},
+    }
+    step["vusa_packed_matmul"]["max_abs_err"] = max(
+        c["max_abs_err"] for r in attn_recs + [head_rec] for c in r["cases"])
+    step["vusa_fused_mlp_matmul"]["max_abs_err"] = max(c["max_abs_err"] for c in mlp_rec["cases"])
+    step["vusa_packed_matmul"]["bound_by"] = head_rec["timing"]["bound_by"]
+    step["vusa_fused_mlp_matmul"]["bound_by"] = mlp_rec["timing"]["bound_by"]
+    return records, step
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main path
+# --------------------------------------------------------------------------
+
+
+def model_phase(cfg, params, eng):
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab, size=(BATCH, PROMPT)).astype(np.int32)
+    eng.generate(prompts, max_new=4)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = eng.generate(prompts, max_new=MAX_NEW)  # <- the counted main-path run
+    counts = {"vusa_packed_matmul": vusa_packed_matmul.launches,
+              "vusa_fused_mlp_matmul": vusa_fused_mlp_matmul.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps = MAX_NEW - 1
+    want = {"vusa_packed_matmul": (4 * cfg.n_layers + 1) * steps,
+            "vusa_fused_mlp_matmul": cfg.n_layers * steps}
+    if counts != want:
+        fail(f"launch counts {counts} != expected {want}")
+    toks = out["tokens"]
+    if toks.shape != (BATCH, MAX_NEW) or not out["finite"]:
+        fail(f"main path: tokens {toks.shape}, finite={out['finite']}")
+    if toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail("main path: token ids outside the vocabulary")
+    res = {"launches": counts,
+           "main": {"tok_per_s": out["tok_per_s"], "decode_s": out["decode_s"],
+                    "prefill_s": out["prefill_s"], "peak_bytes": peak}}
+
+    def run(c, p, packed_weights):
+        e = Engine(c, p, ServeConfig(max_len=eng.sc.max_len, packed_weights=packed_weights),
+                   device=DEVICE)
+        e.generate(prompts, max_new=4)
+        return e, e.generate(prompts, max_new=MAX_NEW)
+
+    def first_step_logits(c, e, step_params=None):
+        """The first decode step's logits after ``e``'s (dense) prefill:
+        through ``e``'s pack if it has one, else dense with ``step_params``
+        (default ``e``'s own)."""
+        with torch.no_grad():
+            nxt, cache = e.prime(prompts)
+            if e.packed is not None:
+                return lm_decode_step_packed(e.params, e.packed, nxt, cache, c)[0]
+            return e.model.decode_step(e.params if step_params is None else step_params,
+                                       nxt, cache)[0]
+
+    def agreement(a, b) -> float:
+        return float((a["tokens"] == b["tokens"]).mean())
+
+    def permute_ff(p):
+        """The same function with every layer's MLP ff lanes permuted: the
+        dense path then sums the down projection over ff in another order.
+        No kernel of the port runs it; it is the witness of how far fp32
+        rounding alone moves this model."""
+        perm = torch.from_numpy(np.random.default_rng(2).permutation(cfg.d_ff)).to(DEVICE)
+        ffn = p["layers"]["ffn"]
+        ffn = {"w_gate": ffn["w_gate"][..., perm], "w_up": ffn["w_up"][..., perm],
+               "w_down": ffn["w_down"][:, perm]}
+        return {**p, "layers": {**p["layers"], "ffn": ffn}}
+
+    def fp32_study(c, p):
+        """Packed vs dense, and the witness (dense vs dense with the ff lanes
+        permuted), in fp32: free-running greedy token agreement over
+        ``MAX_NEW`` tokens, and the first decode step's logit gap (both
+        sides from the same prefill cache and token)."""
+        pe, pr = run(c, p, "all")
+        de, dr = run(c, p, False)
+        we, wr = run(c, permute_ff(p), False)
+        if not (pr["finite"] and dr["finite"] and wr["finite"]):
+            fail(f"fp32 {c.n_layers}-layer run produced non-finite logits")
+        ld = first_step_logits(c, de)
+        gap, rel = rel_err(first_step_logits(c, pe), ld)
+        wgap, wrel = rel_err(first_step_logits(c, de, we.params), ld)
+        return {"layers": c.n_layers, "packed_tok_per_s": pr["tok_per_s"],
+                "dense_tok_per_s": dr["tok_per_s"],
+                "token_agreement": agreement(pr, dr), "first_step_logit_gap": gap,
+                "first_step_logit_gap_rel": rel,
+                "witness_token_agreement": agreement(wr, dr),
+                "witness_first_step_logit_gap": wgap, "witness_first_step_logit_gap_rel": wrel}
+
+    dense_eng, dense = run(cfg, params, False)
+    gap, rel = rel_err(first_step_logits(cfg, eng), first_step_logits(cfg, dense_eng))
+    res["bf16"] = {"dense_tok_per_s": dense["tok_per_s"], "token_agreement": agreement(out, dense),
+                   "first_step_logit_gap": gap, "first_step_logit_gap_rel": rel}
+
+    # fp32 at full depth: the first step's packed and dense logits must agree
+    # closely; free-running tokens are reported beside the witness's, since
+    # a near-tie can part them (PERF.md, Open questions)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    res["fp32"] = fp32_study(cfg32, params)
+    if res["fp32"]["first_step_logit_gap_rel"] > FP32_STEP_TOL:
+        fail(f"fp32 first-step logits: packed vs dense gap {res['fp32']['first_step_logit_gap']} "
+             f"({res['fp32']['first_step_logit_gap_rel']} of the largest logit)")
+
+    # fp32 with the depth cut to DEPTH_CUT layers (same width and weights):
+    # packed and dense greedy tokens must be identical
+    def first_layers(tree):
+        return {k: first_layers(v) if isinstance(v, dict) else v[:DEPTH_CUT]
+                for k, v in tree.items()}
+
+    cut = dataclasses.replace(cfg32, n_layers=DEPTH_CUT)
+    res["fp32_depth_cut"] = fp32_study(cut, {**params, "layers": first_layers(params["layers"])})
+    if res["fp32_depth_cut"]["token_agreement"] != 1.0:
+        fail(f"fp32 {DEPTH_CUT}-layer packed and dense greedy tokens differ: "
+             f"{res['fp32_depth_cut']['token_agreement']} agree")
+    return res
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's kernels run only on the card")
+    strict_fp32()  # TF32 off: dense fp32 products are true fp32
+    t_start = time.monotonic()
+    card = card_line()
+    print(card, flush=True)
+
+    t0 = time.monotonic()
+    reports = build.build(force=True)
+    for name, rep in reports.items():
+        print(f"--- ptxas report: {name}.cu ---\n{rep.strip()}", flush=True)
+    print(f"built {list(reports)} in {time.monotonic() - t0:.1f}s", flush=True)
+
+    cfg = get_config("vusa_edge")
+    t0 = time.monotonic()
+    params = prune_tree(build_model(cfg).init(0, device=DEVICE), cfg.sparsity)
+    eng = Engine(cfg, params, ServeConfig(max_len=PROMPT + MAX_NEW + 8, packed_weights="all"),
+                 device=DEVICE)
+    ratios = packed_byte_ratios(eng.packed)
+    entries = [*eng.packed["mlp"].values(), *eng.packed["attn"].values(), eng.packed["head"]]
+    pack_bytes = sum(nbytes(e["values"], e["positions"]) for e in entries)
+    print(f"vusa_edge init+prune+pack {time.monotonic() - t0:.1f}s; pack bytes per decode step "
+          f"{pack_bytes} (byte ratio {ratios['total']:.4f} vs dense fp32)", flush=True)
+
+    records, step = kernel_phase(cfg, eng.packed, np.random.default_rng(0))
+    for r in records:
+        worst = max(c["rel_err"] for c in r["cases"])
+        line = f"kernel check {r['name']}: ok, worst error {worst:.3g} of max |plain|"
+        if "timing" in r:
+            t = r["timing"]
+            line += (f"; B={t['B']} {t['x']}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+                     f"library {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']})")
+        print(line, flush=True)
+
+    res = model_phase(cfg, params, eng)
+    main_, b16, f32 = res["main"], res["bf16"], res["fp32"]
+    print(f"main path: launches {res['launches']} over {MAX_NEW - 1} decode steps; bf16 packed "
+          f"{main_['tok_per_s']:.1f} tok/s (decode {main_['decode_s']:.4f} s, prefill "
+          f"{main_['prefill_s']:.4f} s, peak memory {main_['peak_bytes']} bytes), dense "
+          f"{b16['dense_tok_per_s']:.1f} tok/s, token agreement {b16['token_agreement']:.4f}, "
+          f"first-step logit gap {b16['first_step_logit_gap']:.4g} "
+          f"({b16['first_step_logit_gap_rel']:.3g} of max)", flush=True)
+    for r in (f32, res["fp32_depth_cut"]):
+        print(f"fp32 {r['layers']} layers: packed {r['packed_tok_per_s']:.1f} tok/s, dense "
+              f"{r['dense_tok_per_s']:.1f} tok/s; packed vs dense: token agreement "
+              f"{r['token_agreement']:.4f}, first-step logit gap {r['first_step_logit_gap']:.4g} "
+              f"({r['first_step_logit_gap_rel']:.3g} of max); witness (dense, ff lanes "
+              f"permuted) vs dense: token agreement {r['witness_token_agreement']:.4f}, "
+              f"first-step logit gap {r['witness_first_step_logit_gap']:.4g} "
+              f"({r['witness_first_step_logit_gap_rel']:.3g} of max)", flush=True)
+
+    replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
+                "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256"}
+    # one wrapper call of the fused MLP issues two CUDA launches (the
+    # per-window partials, then their ordered sum)
+    cuda_launches = {"vusa_packed_matmul": 1, "vusa_fused_mlp_matmul": 2}
+    kernels = [
+        {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/vusa_packed.cu",
+         "replaces": replaces[name], "launches": res["launches"][name],
+         "launches_per_step": res["launches"][name] / (MAX_NEW - 1),
+         "cuda_launches_per_call": cuda_launches[name],
+         "max_abs_err": step[name]["max_abs_err"], "ms": step[name]["ms"],
+         "plain_ms": step[name]["plain_ms"], "bound_ms": step[name]["bound_ms"],
+         "bound_by": step[name]["bound_by"], "library_ms": step[name]["library_ms"]}
+        for name in ("vusa_packed_matmul", "vusa_fused_mlp_matmul")
+    ]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"card": card, "kernels": kernels, "kernels_note": "ms, plain_ms, library_ms and "
+         "bound_ms summed over one decode step (48 projections + head; 12 MLPs) at B=4, bf16 "
+         "activations, fp32 values", "records": records, "model": res,
+         "pack_bytes_per_step": pack_bytes, "byte_ratios": ratios,
+         "seconds": time.monotonic() - t_start}, indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

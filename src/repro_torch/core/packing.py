@@ -1,0 +1,122 @@
+"""Row-wise VUSA pack (the paper's exact format), host-side numpy.
+
+A copy of the row format of the JAX package's ``core/packing.py``
+(``RowPacked``, ``pack_rows``, ``pack_rows_t``, ``validate_rows``,
+``unpack_rows``) with one change: ``pack_rows`` is vectorised.  The
+reference loops in Python over every (window, row) pair, about 1.1 M
+iterations for the whole ``vusa_edge`` decode step; here one ``nonzero``
+over the windowed matrix places every slot.  The output is byte-identical:
+slots in ascending lane order, ``ceil(max row-nnz / a)`` jobs, idle slots
+value 0 and position -1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["RowPacked", "pack_rows", "pack_rows_t", "unpack_rows", "validate_rows"]
+
+
+@dataclasses.dataclass
+class RowPacked:
+    """Row-wise VUSA pack of a (K, C) matrix over windows of ``m`` lanes.
+
+    values:    (T, K, J*A)       value slots (0 = idle)
+    positions: (T, K, J*A) int8  lane index within window (-1 = idle)
+
+    Job ``j`` slot block ``[j*A, (j+1)*A)`` is one pass of the physical
+    N x A array over window ``t`` (paper Section III-C: overflow rows force
+    extra passes; fully-dense still works at J = ceil(M/A)).
+    """
+
+    k: int
+    c: int
+    m: int
+    a: int
+    values: np.ndarray
+    row_positions: np.ndarray
+
+    @property
+    def n_jobs(self) -> int:
+        return self.values.shape[2] // self.a
+
+
+def pack_rows(w: np.ndarray, m: int = 128, a: int = 16) -> RowPacked:
+    """Pack (K, C) into the row-wise VUSA format (C padded to m)."""
+    w = np.asarray(w)
+    k, c = w.shape
+    c_pad = (-c) % m
+    if c_pad:
+        w = np.pad(w, ((0, 0), (0, c_pad)))
+    t = w.shape[1] // m
+    blk = w.reshape(k, t, m).transpose(1, 0, 2)  # (T, K, m): window t, row r
+    nz = blk != 0
+    # jobs needed per window = ceil(max row-nnz / a), at least one
+    max_nnz = max(int(nz.sum(axis=2).max(initial=1)), 1)
+    slots = -(-max_nnz // a) * a
+    values = np.zeros((t, k, slots), dtype=w.dtype)
+    positions = np.full((t, k, slots), -1, dtype=np.int8)
+    # a nonzero's slot is its rank among its row's nonzeros; nonzero() walks
+    # C order, so each row's slots fill in ascending lane order
+    rank = np.cumsum(nz, axis=2, dtype=np.int32) - 1
+    ti, ri, li = np.nonzero(nz)
+    si = rank[ti, ri, li]
+    values[ti, ri, si] = blk[ti, ri, li]
+    positions[ti, ri, si] = li.astype(np.int8)
+    return RowPacked(k=k, c=c, m=m, a=a, values=values, row_positions=positions)
+
+
+def pack_rows_t(w: np.ndarray, m: int = 128, a: int = 16) -> RowPacked:
+    """Row-pack ``w`` *transposed*: windows cover ``w``'s leading dim.
+
+    For a down-projection ``w_down`` of shape (ff, d) the fused MLP kernel
+    needs ff — ``w_down``'s *reduction* dim — to be the windowed lane dim,
+    so ``pack_rows_t(w_down)`` packs the (d, ff) transpose; ``unpack_rows``
+    of the result returns ``w.T``."""
+    return pack_rows(np.ascontiguousarray(np.asarray(w).T), m=m, a=a)
+
+
+def validate_rows(p: RowPacked) -> None:
+    """Check a :class:`RowPacked`'s structural invariants; raise ``ValueError``
+    naming the first violation.  A flipped position byte would scatter a
+    value into the wrong lane — finite and wrong — so bounds, dtype and shape
+    are checked before a pack is served."""
+    v, q = np.asarray(p.values), np.asarray(p.row_positions)
+    if v.shape != q.shape:
+        raise ValueError(f"values shape {v.shape} != positions shape {q.shape}")
+    if q.dtype != np.int8:
+        raise ValueError(f"positions dtype must be int8, got {q.dtype}")
+    if v.ndim != 3:
+        raise ValueError(f"expected (T, K, S) pack, got shape {v.shape}")
+    if p.m < 1 or p.a < 1 or p.m > 128:
+        raise ValueError(f"window m={p.m} / slots a={p.a} out of range (int8 lanes)")
+    t, k, slots = v.shape
+    if k != p.k:
+        raise ValueError(f"pack rows {k} != declared k={p.k}")
+    if slots % p.a:
+        raise ValueError(f"slot count {slots} not a multiple of a={p.a}")
+    if t * p.m < p.c:
+        raise ValueError(f"{t} windows of {p.m} lanes cover {t * p.m} < c={p.c} columns")
+    # widen before comparing: m=128 does not fit int8
+    q = q.astype(np.int32)
+    bad = (q < -1) | (q >= p.m)
+    if bad.any():
+        i = tuple(int(x) for x in np.argwhere(bad)[0])
+        raise ValueError(f"position {int(q[i])} at {i} outside [-1, {p.m}) — corrupt metadata")
+    if not np.isfinite(v).all():
+        i = tuple(int(x) for x in np.argwhere(~np.isfinite(v))[0])
+        raise ValueError(f"non-finite packed value at {i}")
+
+
+def unpack_rows(p: RowPacked) -> np.ndarray:
+    """Dense (K, C) matrix of a pack; repeated lanes in a row sum, exactly
+    as the kernels' one-hot reconstruction does."""
+    t, k, slots = p.values.shape
+    w = np.zeros((t, k, p.m + 1), dtype=p.values.dtype)  # lane m collects idle slots
+    lanes = np.where(p.row_positions >= 0, p.row_positions.astype(np.int64), p.m)
+    ti, ri = np.meshgrid(np.arange(t), np.arange(k), indexing="ij")
+    for s in range(slots):  # slot order, as the reference; (t, r) unique per slot
+        w[ti, ri, lanes[:, :, s]] += p.values[:, :, s]
+    return w[:, :, : p.m].transpose(1, 0, 2).reshape(k, t * p.m)[:, : p.c]

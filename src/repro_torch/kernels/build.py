@@ -1,0 +1,85 @@
+"""Build and load the port's CUDA kernels.
+
+Each source in ``csrc/`` has a plain C interface and compiles with ``nvcc``
+for ``sm_90a`` into its own shared library under ``kernels/build/`` (listed
+in ``.gitignore``), at first use.  The library name carries a hash of the
+source and the flags, so an edited source never loads a stale build, and
+the file appears atomically, so concurrent processes may build at once.
+Nothing here runs at import: the CPU tests import every module of the port
+on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["SOURCES", "build", "library", "nvcc_path"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("vusa_packed",)  # csrc/<name>.cu -> build/lib<name>-<hash>.so
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").is_file():
+            return str(Path(root, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=SOURCES, force: bool = False) -> dict:
+    """Compile the named sources, one ``nvcc`` each, all started together.
+    Returns ``{name: ptxas report}`` (registers, shared memory and spills per
+    kernel; empty for a library that was already built and not forced)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        lib = _lib_path(name)
+        if lib.exists() and not force:
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, lib)
+    reports = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _lib_path(name)
+    if not lib.exists():
+        build((name,))
+    return ctypes.CDLL(str(lib))

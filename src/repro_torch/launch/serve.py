@@ -1,0 +1,56 @@
+"""Serving launcher of the port: random init from a seed, magnitude pruning,
+optional VUSA packing, one batched ``generate``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --packed all
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --packed all --device cpu
+
+Port of the one-shot ``generate`` branch of the JAX package's
+``launch/serve.py``; the scheduler, streaming, mesh and fault options come
+with later slices (ROADMAP.md queue A).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from ..configs import get_config, get_smoke_config
+from ..core.pruning import prune_tree
+from ..models import build_model
+from ..serve import Engine, ServeConfig
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument(
+        "--packed", nargs="?", const="mlp", default=False, choices=("mlp", "all"),
+        help="VUSA-pack the decode step: bare flag or 'mlp' = MLP trio only, "
+        "'all' = + qkv/o and the untied LM head",
+    )
+    ap.add_argument("--sparsity", type=float, default=None)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params = build_model(cfg).init(0, device=args.device)
+    sp = cfg.sparsity if args.sparsity is None else args.sparsity
+    if sp > 0:
+        params = prune_tree(params, sp)
+    max_len = args.prompt_len + args.max_new + 8
+    eng = Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights=args.packed),
+                 device=args.device)
+    prompts = np.ones((args.batch, args.prompt_len), np.int32)
+    out = eng.generate(prompts, max_new=args.max_new)
+    print(f"prefill {out['prefill_s']*1e3:.1f}ms  decode {out['decode_s']*1e3:.1f}ms  "
+          f"{out['tok_per_s']:.0f} tok/s  finite={out['finite']}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,18 @@
+"""Shared serving-metric definitions (port of the JAX package's
+``serve/metrics.py``).
+
+Decode throughput is tokens *accepted* — delivered to the caller — divided
+by decode wall time.  Without speculative decoding every decoded token is
+accepted.
+"""
+
+from __future__ import annotations
+
+__all__ = ["tok_per_s"]
+
+
+def tok_per_s(accepted_tokens: int, decode_s: float) -> float:
+    """Accepted tokens per decode wall second.  ``accepted_tokens`` counts
+    tokens delivered beyond the first (prefill-billed) one; ``decode_s`` is
+    decode wall time only."""
+    return accepted_tokens / max(decode_s, 1e-9)
