@@ -12,33 +12,48 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
 3. hold each kernel against its plain PyTorch version at the shapes of the
    ``vusa_edge`` decode step (layer-0 packs of the real model below: wq/wk/wv/wo
    768 -> 768, the LM head 768 -> 32000, the fused MLP 768 / 3072) and at edge
-   shapes (sparsity 0 and 0.99, all-zero rows, C % m != 0), for B in {1, 4}
-   and fp32 / bf16 activations and values.  Tolerance: max |kernel - plain|
-   <= 1e-4 * max |plain| for every dtype (bf16 inputs widen to fp32 exactly and
-   both sides accumulate in fp32, so only the summation order differs).  Row 0
-   at B = 4 must equal B = 1 bitwise.  Each kernel is timed with CUDA events
+   shapes (sparsity 0 and 0.99, all-zero rows, C % m != 0, odd slot counts),
+   for B in {1, 4} and fp32 / bf16 activations: B1/B2 with fp32 and bf16
+   values, B3/B4 (the same kernels' int8 and int4 routes) with the int8 and
+   int4 packs of the same model.  Tolerance: max |kernel - plain| <= 1e-4 *
+   max |plain| for every dtype (bf16 inputs widen to fp32 exactly, int8/int4
+   values dequantize to the same fp32 products q * scale, and both sides
+   accumulate in fp32, so only the summation order differs).  Row 0 at
+   B = 4 must equal B = 1 bitwise.  Each kernel is timed with CUDA events
    (L2 flushed before each launch, as the decode step finds it) beside the
-   plain version, one PyTorch library call on the dense weights and the
-   least time the card could take (bytes over 3.35 TB/s vs fp32 operations
-   over 67 TFLOP/s, H100 SXM data sheet; the bytes are x, the output, every
-   pack position and only the occupied slots' values);
+   plain version, one PyTorch library call on the dense (dequantized) fp32
+   weights and the least time the card could take (bytes over 3.35 TB/s vs
+   fp32 operations over 67 TFLOP/s, H100 SXM data sheet; the bytes are x,
+   the output, every pack position, the value bytes of the occupied slots
+   only (int4: half a byte) and the quantized packs' fp32 scales);
 4. the main path: ``vusa_edge`` at full width (12 layers, d 768, ff 3072,
    vocab 32000), numpy-seeded init, 85 % magnitude pruning,
    ``Engine(packed_weights="all").generate`` with B = 4, prompt 32, 32 new
    tokens.  The launch counters, set to 0 just before and read just after,
    must be exactly 49 * 31 (``vusa_packed_matmul``) and 12 * 31
-   (``vusa_fused_mlp_matmul``), and the tokens finite and in range.  The same
-   weights in fp32: the first decode step's packed and dense logits must
-   agree to 1e-2 of the largest logit at full depth, and with the depth cut
-   to 2 layers packed and dense greedy tokens must be identical.  At full
-   depth free-running fp32 tokens can part at a near-tie; their agreement is
-   reported beside a witness that runs no kernel of the port: the dense
-   path against itself with every MLP's ff lanes permuted (the same
-   function, summed in another order).  bf16's token agreement and
-   first-step logit gap are reported too;
-5. one JSON line of every ported kernel (per-decode-step times at B = 4,
+   (``vusa_fused_mlp_matmul``), all on the float-value route, and the tokens
+   finite and in range.  The same weights in fp32: the first decode step's
+   packed and dense logits must agree to 1e-2 of the largest logit at full
+   depth, and with the depth cut to 2 layers packed and dense greedy tokens
+   must be identical.  At full depth free-running fp32 tokens can part at a
+   near-tie; their agreement is reported beside a witness that runs no
+   kernel of the port: the dense path against itself with every MLP's ff
+   lanes permuted (the same function, summed in another order).  bf16's
+   token agreement and first-step logit gap are reported too;
+5. the quantized main path: the same ``generate`` with
+   ``packed_values="int8"`` and ``"int4"``, each counted alone: B3 exactly
+   49 * 31 and B4 exactly 12 * 31 launches on that route and none on any
+   other, tokens finite and in range; tok/s, pack bytes per step and byte
+   ratio.  In fp32, each quantized engine against the dense engine on
+   ``qdq_lm_params`` (the same quantize-dequantize values), decoding from
+   one primed cache (the quantized engine prefills dense on the unquantized
+   weights): first-step logits within 1e-2 of the largest logit at full
+   depth, identical greedy tokens on the 2-layer cut, full-depth token
+   agreement reported beside phase 4's witness.  Decode tok/s of the three
+   packs taken in turns (reported, not gated);
+6. one JSON line of every ported kernel (per-decode-step times at B = 4,
    launches in the counted run and per decode step);
-6. the card line again and the result line.
+7. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -70,7 +85,13 @@ from repro_torch.kernels.vusa_packed import (  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.common import strict_fp32  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
-from repro_torch.serve.packed import lm_decode_step_packed, packed_byte_ratios  # noqa: E402
+from repro_torch.serve.packed import (  # noqa: E402
+    _as_linear,
+    _flat_entries,
+    lm_decode_step_packed,
+    packed_byte_ratios,
+    qdq_lm_params,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
@@ -79,6 +100,7 @@ BATCH, PROMPT, MAX_NEW = 4, 32, 32
 DEPTH_CUT = 2  # layers of the fp32 token-identity check
 FP32_STEP_TOL = 1e-2  # fp32 first-step logits, packed vs dense, of the largest logit
 DEVICE = "cuda"
+QDTYPES = ("int8", "int4")
 
 
 def fail(msg: str) -> None:
@@ -143,12 +165,28 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def pack_bytes_needed(values, positions) -> int:
+def pack_bytes_needed(lin) -> float:
     """Bytes a kernel must read of one pack: every position (idle slots are
-    marked there), but a value only where the slot is occupied — an idle
-    slot's value never reaches the output."""
-    nnz = int((positions >= 0).sum())
-    return nbytes(positions) + values.element_size() * nnz
+    marked there), a value only where the slot is occupied (an idle slot's
+    value never reaches the output; int4 holds half a byte per slot), and
+    every scale of a quantized pack."""
+    nnz = int((lin.positions >= 0).sum())
+    per_value = 0.5 if lin.value_dtype == "int4" else lin.values.element_size()
+    scales = 0 if lin.scales is None else nbytes(lin.scales)
+    return nbytes(lin.positions) + per_value * nnz + scales
+
+
+def dequantized_dense(lin) -> torch.Tensor:
+    """The (k, c) dense fp32 weight a pack holds (quantized values as
+    q * scale)."""
+    vals = ref.dequantize_values(lin.values, lin.scales, lin.value_dtype)
+    return ref.unpack_dense(vals, lin.positions, lin.m)[:, : lin.c].contiguous()
+
+
+def pack_bytes(packed) -> int:
+    """Device bytes of every pack entry: values, positions and scales."""
+    return sum(nbytes(*(e[k] for k in ("values", "positions", "scales") if k in e))
+               for e in _flat_entries(packed).values())
 
 
 def dtype_name(t) -> str:
@@ -175,63 +213,72 @@ def check_cases(name, kern, plain, xs):
 
 
 def check_packed_matmul(timer, name, lin, xs, time_it):
-    """B1 at one operand set; returns a record (timed at ``xs[-1]``)."""
+    """B1 (float values) or B3 (int8/int4 values) at one operand set; returns
+    a record (timed at ``xs[-1]``)."""
     rec = {"name": name, "shape": [lin.k, lin.c], "T": lin.values.shape[0], "S": lin.slots,
-           "values": dtype_name(lin.values)}
+           "values": dtype_name(lin.values), "value_dtype": lin.value_dtype}
+    args = (lin.values, lin.positions, lin.scales)
+    kw = {"m": lin.m, "value_dtype": lin.value_dtype}
 
     def kern(x):
-        return vusa_packed_matmul(x, lin.values, lin.positions, m=lin.m)
+        return vusa_packed_matmul(x, *args, **kw)
 
     def plain(x):
-        return ref.vusa_packed_ref(x, lin.values, lin.positions, m=lin.m)
+        return ref.vusa_packed_ref(x, *args, **kw)
 
     rec["cases"] = check_cases(name, kern, plain, xs)
     if time_it:
         x = xs[-1]
-        dense = ref.unpack_dense(lin.values, lin.positions, lin.m)[:, : lin.c]
-        dense = dense.contiguous().to(lin.values.dtype)
+        dense = dequantized_dense(lin)
+        if lin.value_dtype == "dense":
+            dense = dense.to(lin.values.dtype)
         xd = x.to(dense.dtype)
         nnz = int((lin.positions >= 0).sum())
+        dequant_ops = 0 if lin.value_dtype == "dense" else nnz
         out_bytes = x.shape[0] * lin.values.shape[0] * lin.m * 4
-        b_ms, b_by = bound_ms(nbytes(x) + pack_bytes_needed(lin.values, lin.positions)
-                              + out_bytes, 2 * x.shape[0] * nnz)
+        b_ms, b_by = bound_ms(nbytes(x) + pack_bytes_needed(lin) + out_bytes,
+                              2 * x.shape[0] * nnz + dequant_ops)
         rec["timing"] = {
             "B": x.shape[0], "x": dtype_name(x), "ms": timer(lambda: kern(x)),
             "plain_ms": timer(lambda: plain(x)),
             "library_ms": timer(lambda: torch.matmul(xd, dense)),
-            "library_call": "torch.matmul(x, W) on the dense weight",
+            "library_call": f"torch.matmul(x, W) on the dense {dtype_name(dense)} weight",
             "bound_ms": b_ms, "bound_by": b_by, "nnz": nnz,
         }
     return rec
 
 
 def check_fused_mlp(timer, name, gate, up, down_t, xs, time_it):
-    """B2 at one operand set; returns a record (timed at ``xs[-1]``)."""
-    operands = (gate.values, gate.positions, up.values, up.positions,
-                down_t.values, down_t.positions)
+    """B2 (float values) or B4 (int8/int4 values) at one operand set; returns
+    a record (timed at ``xs[-1]``)."""
+    lins = (gate, up, down_t)
+    args = (gate.values, gate.positions, up.values, up.positions, down_t.values,
+            down_t.positions, gate.scales, up.scales, down_t.scales)
+    kw = {"m": gate.m, "value_dtype": gate.value_dtype}
     rec = {"name": name, "d": gate.k, "ff": gate.c, "T": gate.values.shape[0],
-           "S": [gate.slots, up.slots, down_t.slots], "values": dtype_name(gate.values)}
+           "S": [lin.slots for lin in lins], "values": dtype_name(gate.values),
+           "value_dtype": gate.value_dtype}
 
     def kern(x):
-        return vusa_fused_mlp_matmul(x, *operands, m=gate.m)
+        return vusa_fused_mlp_matmul(x, *args, **kw)
 
     def plain(x):
-        return ref.vusa_fused_mlp_ref(x, *operands, m=gate.m)
+        return ref.vusa_fused_mlp_ref(x, *args, **kw)
 
     rec["cases"] = check_cases(name, kern, plain, xs)
     if time_it:
         x = xs[-1]
-        vd = gate.values.dtype
-        wg = ref.unpack_dense(gate.values, gate.positions, gate.m)[:, : gate.c].contiguous().to(vd)
-        wu = ref.unpack_dense(up.values, up.positions, up.m)[:, : up.c].contiguous().to(vd)
-        wd = ref.unpack_dense(down_t.values, down_t.positions, down_t.m)[:, : down_t.c]
-        wd = wd.T.contiguous().to(vd)
-        xd = x.to(vd)
+        wg, wu, wd = (dequantized_dense(lin) for lin in lins)
+        wd = wd.T.contiguous()
+        if gate.value_dtype == "dense":
+            wg, wu, wd = (w.to(gate.values.dtype) for w in (wg, wu, wd))
+        xd = x.to(wg.dtype)
         silu = torch.nn.functional.silu
-        nnz = sum(int((p >= 0).sum()) for p in operands[1::2])
-        packs = sum(pack_bytes_needed(v, p) for v, p in zip(operands[::2], operands[1::2]))
+        nnz = sum(int((lin.positions >= 0).sum()) for lin in lins)
+        dequant_ops = 0 if gate.value_dtype == "dense" else nnz
+        packs = sum(pack_bytes_needed(lin) for lin in lins)
         b_ms, b_by = bound_ms(nbytes(x) + packs + x.shape[0] * down_t.k * 4,
-                              2 * x.shape[0] * nnz)
+                              2 * x.shape[0] * nnz + dequant_ops)
         rec["timing"] = {
             "B": x.shape[0], "x": dtype_name(x), "ms": timer(lambda: kern(x)),
             "plain_ms": timer(lambda: plain(x)),
@@ -242,8 +289,10 @@ def check_fused_mlp(timer, name, gate, up, down_t, xs, time_it):
     return rec
 
 
-def kernel_phase(cfg, packed, rng):
-    """Phase 3.  Returns (records, per-decode-step totals per kernel)."""
+def kernel_phase(cfg, packs, rng):
+    """Phase 3 over ``packs`` (``{"dense": bf16-path pack, "int8": ...,
+    "int4": ...}`` of the model).  Returns (records, per-decode-step totals
+    per route: ``{route: {kernel: {...}}}``)."""
     timer = Timer()
     dev = torch.device(DEVICE)
 
@@ -254,13 +303,6 @@ def kernel_phase(cfg, packed, rng):
             out += [x, x.to(torch.bfloat16)]
         return out  # the last one is the main path's: B = 4, bf16 activations
 
-    def as_lin(entry, layer=None):
-        v, p = entry["values"], entry["positions"]
-        if layer is not None:
-            v, p = v[layer], p[layer]
-        return ops.RowPackedLinear(values=v, positions=p, k=entry["k"], c=entry["c"],
-                                   a=entry["a"], m=entry["m"])
-
     def bf16_copy(lin):
         return dataclasses.replace(lin, values=lin.values.to(torch.bfloat16))
 
@@ -268,29 +310,50 @@ def kernel_phase(cfg, packed, rng):
         w = rng.standard_normal((k, c), dtype=np.float32)
         return w * (rng.random((k, c)) >= s)
 
-    d, mlp = cfg.d_model, packed["mlp"]
-    # main-path shapes, timed: the model's own layer-0 packs and its head
-    attn_recs = [check_packed_matmul(timer, f"{n}[layer0]", as_lin(packed["attn"][n], 0),
-                                     xs_for(d), True) for n in ("wq", "wk", "wv", "wo")]
-    head_rec = check_packed_matmul(timer, "lm_head", as_lin(packed["head"]), xs_for(d), True)
-    trio = [as_lin(mlp[n], 0) for n in ("w_gate", "w_up", "w_down_t")]
-    mlp_rec = check_fused_mlp(timer, "mlp[layer0]", *trio, xs_for(d), True)
-    records = attn_recs + [head_rec, mlp_rec]
-    # bf16 values at the main-path shapes
-    records.append(check_packed_matmul(timer, "wq[layer0] bf16 values",
-                                       bf16_copy(as_lin(packed["attn"]["wq"], 0)), xs_for(d),
-                                       False))
-    records.append(check_fused_mlp(timer, "mlp[layer0] bf16 values",
-                                   *[bf16_copy(lin) for lin in trio], xs_for(d), False))
-    # edge shapes
+    d, L = cfg.d_model, cfg.n_layers
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    records, step = [], {}
+    for route, packed in packs.items():
+        tag = "" if route == "dense" else f" {route}"
+        mlp = packed["mlp"]
+        # main-path shapes, timed: the model's own layer-0 packs and its head
+        attn_recs = [check_packed_matmul(timer, f"{n}[layer0]{tag}",
+                                         _as_linear(packed["attn"][n], 0), xs_for(d), True)
+                     for n in ("wq", "wk", "wv", "wo")]
+        head_rec = check_packed_matmul(timer, f"lm_head{tag}", _as_linear(packed["head"]),
+                                       xs_for(d), True)
+        trio = [_as_linear(mlp[n], 0) for n in ("w_gate", "w_up", "w_down_t")]
+        mlp_rec = check_fused_mlp(timer, f"mlp[layer0]{tag}", *trio, xs_for(d), True)
+        records += attn_recs + [head_rec, mlp_rec]
+        if route == "dense":  # bf16 values at the main-path shapes
+            records.append(check_packed_matmul(timer, "wq[layer0] bf16 values",
+                                               bf16_copy(_as_linear(packed["attn"]["wq"], 0)),
+                                               xs_for(d), False))
+            records.append(check_fused_mlp(timer, "mlp[layer0] bf16 values",
+                                           *[bf16_copy(lin) for lin in trio], xs_for(d), False))
+        # one decode step's worth: each layer's 4 projections + the head; L MLPs
+        b_name = "vusa_packed_matmul" if route == "dense" else "vusa_packed_matmul_quantized"
+        f_name = "vusa_fused_mlp_matmul" if route == "dense" else "vusa_fused_mlp_matmul_quantized"
+        step[route] = {
+            b_name: {k: L * sum(r["timing"][k] for r in attn_recs) + head_rec["timing"][k]
+                     for k in keys},
+            f_name: {k: L * mlp_rec["timing"][k] for k in keys},
+        }
+        step[route][b_name]["max_abs_err"] = max(
+            c["max_abs_err"] for r in attn_recs + [head_rec] for c in r["cases"])
+        step[route][f_name]["max_abs_err"] = max(c["max_abs_err"] for c in mlp_rec["cases"])
+        step[route][b_name]["bound_by"] = head_rec["timing"]["bound_by"]
+        step[route][f_name]["bound_by"] = mlp_rec["timing"]["bound_by"]
+
+    # edge shapes, every route
     zero_rows = sparse(768, 768, 0.85)
     zero_rows[100:300] = 0.0
     zero_rows[:, 200:260] = 0.0
-    for label, w in (("sparsity 0", sparse(768, 768, 0.0)),
-                     ("sparsity 0.99", sparse(768, 768, 0.99)),
-                     ("C % m != 0", sparse(768, 700, 0.85)), ("all-zero rows", zero_rows)):
-        records.append(check_packed_matmul(timer, label, ops.pack_linear_rows(w, device=dev),
-                                           xs_for(768), False))
+    edges = (("sparsity 0", sparse(768, 768, 0.0), 16),
+             ("sparsity 0.99", sparse(768, 768, 0.99), 16),
+             ("C % m != 0", sparse(768, 700, 0.85), 16), ("all-zero rows", zero_rows, 16),
+             ("odd slot count (a = 3)", sparse(768, 768, 0.85), 3))
+    mlp_edges = []
     for label, s, ff in (("mlp sparsity 0", 0.0, 3072), ("mlp sparsity 0.99", 0.99, 3072),
                          ("mlp all-zero rows, ff % m != 0", 0.85, 3000)):
         wg, wu, wd = sparse(768, ff, s), sparse(768, ff, s), sparse(ff, 768, s)
@@ -298,25 +361,18 @@ def kernel_phase(cfg, packed, rng):
             wg[10:300] = 0.0
             wu[:, 40:400] = 0.0
             wd[5:600] = 0.0
-        records.append(check_fused_mlp(
-            timer, label, ops.pack_linear_rows(wg, device=dev),
-            ops.pack_linear_rows(wu, device=dev), ops.pack_linear_rows_t(wd, device=dev),
-            xs_for(768), False))
-
-    # one decode step's worth: each layer's 4 projections + the head; L MLPs
-    L = cfg.n_layers
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    step = {
-        "vusa_packed_matmul": {
-            k: L * sum(r["timing"][k] for r in attn_recs) + head_rec["timing"][k] for k in keys
-        },
-        "vusa_fused_mlp_matmul": {k: L * mlp_rec["timing"][k] for k in keys},
-    }
-    step["vusa_packed_matmul"]["max_abs_err"] = max(
-        c["max_abs_err"] for r in attn_recs + [head_rec] for c in r["cases"])
-    step["vusa_fused_mlp_matmul"]["max_abs_err"] = max(c["max_abs_err"] for c in mlp_rec["cases"])
-    step["vusa_packed_matmul"]["bound_by"] = head_rec["timing"]["bound_by"]
-    step["vusa_fused_mlp_matmul"]["bound_by"] = mlp_rec["timing"]["bound_by"]
+        mlp_edges.append((label, wg, wu, wd))
+    for route in packs:
+        vd = {"value_dtype": route, "device": dev}
+        tag = "" if route == "dense" else f" {route}"
+        for label, w, a in edges:
+            records.append(check_packed_matmul(
+                timer, label + tag, ops.pack_linear_rows(w, a=a, **vd), xs_for(768), False))
+        for label, wg, wu, wd in mlp_edges:
+            records.append(check_fused_mlp(
+                timer, label + tag, ops.pack_linear_rows(wg, **vd),
+                ops.pack_linear_rows(wu, **vd), ops.pack_linear_rows_t(wd, **vd),
+                xs_for(768), False))
     return records, step
 
 
@@ -325,26 +381,46 @@ def kernel_phase(cfg, packed, rng):
 # --------------------------------------------------------------------------
 
 
-def model_phase(cfg, params, eng):
-    prompts = np.random.default_rng(1).integers(1, cfg.vocab, size=(BATCH, PROMPT)).astype(np.int32)
+def prompts_for(cfg):
+    return np.random.default_rng(1).integers(1, cfg.vocab, size=(BATCH, PROMPT)).astype(np.int32)
+
+
+def counted_run(cfg, eng, route):
+    """Warm up, set every launch count to 0, run the main path once and read
+    the counts: exactly 49 * 31 ``vusa_packed_matmul`` and 12 * 31
+    ``vusa_fused_mlp_matmul`` launches, all on ``route``.  Returns
+    (generate's result, counts on ``route``, peak device bytes)."""
+    prompts = prompts_for(cfg)
     eng.generate(prompts, max_new=4)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     out = eng.generate(prompts, max_new=MAX_NEW)  # <- the counted main-path run
-    counts = {"vusa_packed_matmul": vusa_packed_matmul.launches,
-              "vusa_fused_mlp_matmul": vusa_fused_mlp_matmul.launches}
+    counts = {"vusa_packed_matmul": dict(vusa_packed_matmul.launches),
+              "vusa_fused_mlp_matmul": dict(vusa_fused_mlp_matmul.launches)}
     peak = torch.cuda.max_memory_allocated()
     steps = MAX_NEW - 1
-    want = {"vusa_packed_matmul": (4 * cfg.n_layers + 1) * steps,
-            "vusa_fused_mlp_matmul": cfg.n_layers * steps}
+    want = {name: {r: n * steps if r == route else 0 for r in counts[name]}
+            for name, n in (("vusa_packed_matmul", 4 * cfg.n_layers + 1),
+                            ("vusa_fused_mlp_matmul", cfg.n_layers))}
     if counts != want:
-        fail(f"launch counts {counts} != expected {want}")
+        fail(f"{route} main path: launch counts {counts} != expected {want}")
     toks = out["tokens"]
     if toks.shape != (BATCH, MAX_NEW) or not out["finite"]:
-        fail(f"main path: tokens {toks.shape}, finite={out['finite']}")
+        fail(f"{route} main path: tokens {toks.shape}, finite={out['finite']}")
     if toks.min() < 0 or toks.max() >= cfg.vocab:
-        fail("main path: token ids outside the vocabulary")
+        fail(f"{route} main path: token ids outside the vocabulary")
+    return out, {name: c[route] for name, c in counts.items()}, peak
+
+
+def first_layers(tree):
+    """A stacked layer tree cut to its first ``DEPTH_CUT`` layers."""
+    return {k: first_layers(v) if isinstance(v, dict) else v[:DEPTH_CUT] for k, v in tree.items()}
+
+
+def model_phase(cfg, params, eng):
+    prompts = prompts_for(cfg)
+    out, counts, peak = counted_run(cfg, eng, "dense")
     res = {"launches": counts,
            "main": {"tok_per_s": out["tok_per_s"], "decode_s": out["decode_s"],
                     "prefill_s": out["prefill_s"], "peak_bytes": peak}}
@@ -416,16 +492,79 @@ def model_phase(cfg, params, eng):
 
     # fp32 with the depth cut to DEPTH_CUT layers (same width and weights):
     # packed and dense greedy tokens must be identical
-    def first_layers(tree):
-        return {k: first_layers(v) if isinstance(v, dict) else v[:DEPTH_CUT]
-                for k, v in tree.items()}
-
     cut = dataclasses.replace(cfg32, n_layers=DEPTH_CUT)
     res["fp32_depth_cut"] = fp32_study(cut, {**params, "layers": first_layers(params["layers"])})
     if res["fp32_depth_cut"]["token_agreement"] != 1.0:
         fail(f"fp32 {DEPTH_CUT}-layer packed and dense greedy tokens differ: "
              f"{res['fp32_depth_cut']['token_agreement']} agree")
     return res
+
+
+def copy_cache(cache):
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
+
+
+def quantized_parity(c, p, route, max_len):
+    """fp32: the ``route`` packed engine against the dense engine on
+    ``qdq_lm_params``, both decoding from the quantized engine's primed
+    cache (it prefills dense on the unquantized weights; the oracle would
+    prefill on the qdq weights).  First-step logit gap and greedy token
+    agreement over ``MAX_NEW`` steps."""
+    qe = Engine(c, p, ServeConfig(max_len=max_len, packed_weights="all", packed_values=route),
+                device=DEVICE)
+    oe = Engine(c, qdq_lm_params(c, p, value_dtype=route), ServeConfig(max_len=max_len),
+                device=DEVICE)
+    with torch.no_grad():
+        tok, cache = qe.prime(prompts_for(c))
+        lq = lm_decode_step_packed(qe.params, qe.packed, tok, copy_cache(cache), c)[0]
+        lo = oe.model.decode_step(oe.params, tok, copy_cache(cache))[0]
+        tq, okq, _, _ = qe.decode_segment(tok, copy_cache(cache), MAX_NEW)
+        to, oko, _, _ = oe.decode_segment(tok, copy_cache(cache), MAX_NEW)
+    if not (bool(okq.all()) and bool(oko.all())):
+        fail(f"fp32 {c.n_layers}-layer {route} parity run produced non-finite logits")
+    gap, rel = rel_err(lq, lo)
+    return {"layers": c.n_layers, "first_step_logit_gap": gap, "first_step_logit_gap_rel": rel,
+            "token_agreement": float((tq == to).float().mean())}
+
+
+def quantized_phase(cfg, params, qengs):
+    """Phase 5: each quantized route's counted main-path run, and its fp32
+    decode parity against ``qdq_lm_params`` at full depth and on the
+    2-layer cut."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cut = dataclasses.replace(cfg32, n_layers=DEPTH_CUT)
+    cut_params = {**params, "layers": first_layers(params["layers"])}
+    res = {}
+    for route, e in qengs.items():
+        out, counts, peak = counted_run(cfg, e, route)
+        r = {"launches": counts, "tok_per_s": out["tok_per_s"], "decode_s": out["decode_s"],
+             "prefill_s": out["prefill_s"], "peak_bytes": peak,
+             "pack_bytes_per_step": pack_bytes(e.packed),
+             "byte_ratio": packed_byte_ratios(e.packed)["total"]}
+        r["fp32"] = quantized_parity(cfg32, params, route, e.sc.max_len)
+        if r["fp32"]["first_step_logit_gap_rel"] > FP32_STEP_TOL:
+            fail(f"fp32 {route} first-step logits: packed vs qdq dense gap "
+                 f"{r['fp32']['first_step_logit_gap']} ({r['fp32']['first_step_logit_gap_rel']} "
+                 "of the largest logit)")
+        r["fp32_depth_cut"] = quantized_parity(cut, cut_params, route, e.sc.max_len)
+        if r["fp32_depth_cut"]["token_agreement"] != 1.0:
+            fail(f"fp32 {DEPTH_CUT}-layer {route} packed and qdq dense greedy tokens differ: "
+                 f"{r['fp32_depth_cut']['token_agreement']} agree")
+        res[route] = r
+    return res
+
+
+def interleaved_tok_per_s(cfg, engines, rounds: int = 2):
+    """Decode tok/s of each pack's ``generate``, taken in turns (routes in
+    order, then reversed, per round) so that host drift during the call
+    falls on every route alike.  Reported, not gated."""
+    prompts = prompts_for(cfg)
+    order = [*engines, *reversed(engines)]
+    out = {route: [] for route in engines}
+    for _ in range(rounds):
+        for route in order:
+            out[route].append(engines[route].generate(prompts, max_new=MAX_NEW)["tok_per_s"])
+    return out
 
 
 def main() -> None:
@@ -445,15 +584,21 @@ def main() -> None:
     cfg = get_config("vusa_edge")
     t0 = time.monotonic()
     params = prune_tree(build_model(cfg).init(0, device=DEVICE), cfg.sparsity)
-    eng = Engine(cfg, params, ServeConfig(max_len=PROMPT + MAX_NEW + 8, packed_weights="all"),
-                 device=DEVICE)
-    ratios = packed_byte_ratios(eng.packed)
-    entries = [*eng.packed["mlp"].values(), *eng.packed["attn"].values(), eng.packed["head"]]
-    pack_bytes = sum(nbytes(e["values"], e["positions"]) for e in entries)
-    print(f"vusa_edge init+prune+pack {time.monotonic() - t0:.1f}s; pack bytes per decode step "
-          f"{pack_bytes} (byte ratio {ratios['total']:.4f} vs dense fp32)", flush=True)
+    max_len = PROMPT + MAX_NEW + 8
+    eng = Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights="all"), device=DEVICE)
+    qengs = {route: Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights="all",
+                                                    packed_values=route), device=DEVICE)
+             for route in QDTYPES}
+    engines = {"dense": eng, **qengs}
+    ratios = {route: packed_byte_ratios(e.packed) for route, e in engines.items()}
+    sizes = {route: pack_bytes(e.packed) for route, e in engines.items()}
+    print(f"vusa_edge init+prune+pack (3 packs) {time.monotonic() - t0:.1f}s; pack bytes per "
+          "decode step (byte ratio vs dense fp32): " + ", ".join(
+              f"{'fp32' if r == 'dense' else r} values {sizes[r]} ({ratios[r]['total']:.4f})"
+              for r in engines), flush=True)
 
-    records, step = kernel_phase(cfg, eng.packed, np.random.default_rng(0))
+    records, step = kernel_phase(cfg, {r: e.packed for r, e in engines.items()},
+                                 np.random.default_rng(0))
     for r in records:
         worst = max(c["rel_err"] for c in r["cases"])
         line = f"kernel check {r['name']}: ok, worst error {worst:.3g} of max |plain|"
@@ -480,28 +625,62 @@ def main() -> None:
               f"first-step logit gap {r['witness_first_step_logit_gap']:.4g} "
               f"({r['witness_first_step_logit_gap_rel']:.3g} of max)", flush=True)
 
+    quant = quantized_phase(cfg, params, qengs)
+    for route, q in quant.items():
+        print(f"{route} main path: launches {q['launches']} over {MAX_NEW - 1} decode steps; "
+              f"{q['tok_per_s']:.1f} tok/s (fp32-value pack {main_['tok_per_s']:.1f}, dense "
+              f"{b16['dense_tok_per_s']:.1f}; decode {q['decode_s']:.4f} s, peak memory "
+              f"{q['peak_bytes']} bytes); pack bytes per step {q['pack_bytes_per_step']}, byte "
+              f"ratio {q['byte_ratio']:.4f}", flush=True)
+        for r in (q["fp32"], q["fp32_depth_cut"]):
+            witness = (f32 if r["layers"] == cfg.n_layers else res["fp32_depth_cut"])
+            print(f"fp32 {r['layers']} layers, {route} packed vs dense on qdq params from one "
+                  f"primed cache: token agreement {r['token_agreement']:.4f}, first-step logit "
+                  f"gap {r['first_step_logit_gap']:.4g} ({r['first_step_logit_gap_rel']:.3g} of "
+                  f"max); witness token agreement {witness['witness_token_agreement']:.4f}",
+                  flush=True)
+
+    turns = interleaved_tok_per_s(cfg, engines)
+    print("decode tok/s taken in turns (B=4, bf16 activations): " + "; ".join(
+        f"{'fp32' if r == 'dense' else r} values {sorted(v)}" for r, v in turns.items()),
+        flush=True)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
-                "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256"}
+                "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
+                "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
+                "vusa_fused_mlp_matmul_quantized": "src/repro/kernels/vusa_packed.py:294"}
     # one wrapper call of the fused MLP issues two CUDA launches (the
     # per-window partials, then their ordered sum)
     cuda_launches = {"vusa_packed_matmul": 1, "vusa_fused_mlp_matmul": 2}
-    kernels = [
-        {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/vusa_packed.cu",
-         "replaces": replaces[name], "launches": res["launches"][name],
-         "launches_per_step": res["launches"][name] / (MAX_NEW - 1),
-         "cuda_launches_per_call": cuda_launches[name],
-         "max_abs_err": step[name]["max_abs_err"], "ms": step[name]["ms"],
-         "plain_ms": step[name]["plain_ms"], "bound_ms": step[name]["bound_ms"],
-         "bound_by": step[name]["bound_by"], "library_ms": step[name]["library_ms"]}
-        for name in ("vusa_packed_matmul", "vusa_fused_mlp_matmul")
-    ]
+    launches = {"dense": res["launches"], **{r: q["launches"] for r, q in quant.items()}}
+
+    def entry(name, route):
+        wrapper = name.removesuffix("_quantized")
+        st = step[route][name]
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/vusa_packed.cu",
+                "replaces": replaces[name], "launches": launches[route][wrapper],
+                "launches_per_step": launches[route][wrapper] / (MAX_NEW - 1),
+                "cuda_launches_per_call": cuda_launches[wrapper],
+                "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
+                "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+                "library_ms": st["library_ms"]}
+
+    kernels = [entry("vusa_packed_matmul", "dense"), entry("vusa_fused_mlp_matmul", "dense")]
+    for name in ("vusa_packed_matmul_quantized", "vusa_fused_mlp_matmul_quantized"):
+        k = entry(name, "int8")
+        k["value_dtype"] = "int8"
+        k["int4"] = {key: v for key, v in entry(name, "int4").items()
+                     if key not in ("name", "route", "source", "replaces")}
+        kernels.append(k)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "kernels_note": "ms, plain_ms, library_ms and "
          "bound_ms summed over one decode step (48 projections + head; 12 MLPs) at B=4, bf16 "
-         "activations, fp32 values", "records": records, "model": res,
-         "pack_bytes_per_step": pack_bytes, "byte_ratios": ratios,
+         "activations; B1/B2 with fp32 values, B3/B4 int8 at top level and int4 under 'int4'",
+         "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
+         "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

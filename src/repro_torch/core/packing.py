@@ -2,7 +2,9 @@
 
 A copy of the row format of the JAX package's ``core/packing.py``
 (``RowPacked``, ``pack_rows``, ``pack_rows_t``, ``validate_rows``,
-``unpack_rows``) with one change: ``pack_rows`` is vectorised.  The
+``unpack_rows``) and of its quantized variant (``QuantizedRowPacked``,
+``quantize_rows``, ``dequantize_rows``, the int4 nibble codec), with one
+change: ``pack_rows`` is vectorised.  The
 reference loops in Python over every (window, row) pair, about 1.1 M
 iterations for the whole ``vusa_edge`` decode step; here one ``nonzero``
 over the windowed matrix places every slot.  The output is byte-identical:
@@ -16,7 +18,11 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["RowPacked", "pack_rows", "pack_rows_t", "unpack_rows", "validate_rows"]
+__all__ = [
+    "RowPacked", "pack_rows", "pack_rows_t", "unpack_rows", "validate_rows",
+    "QUANT_DTYPES", "QMAX", "QuantizedRowPacked", "pack_nibbles", "unpack_nibbles",
+    "quantize_rows", "dequantize_rows",
+]
 
 
 @dataclasses.dataclass
@@ -120,3 +126,99 @@ def unpack_rows(p: RowPacked) -> np.ndarray:
     for s in range(slots):  # slot order, as the reference; (t, r) unique per slot
         w[ti, ri, lanes[:, :, s]] += p.values[:, :, s]
     return w[:, :, : p.m].transpose(1, 0, 2).reshape(k, t * p.m)[:, : p.c]
+
+
+# --------------------------------------------------------------------------
+# Quantized row-wise pack: int8 / int4-nibble values + per-window fp32 scales
+# --------------------------------------------------------------------------
+
+QUANT_DTYPES = ("int8", "int4")
+QMAX = {"int8": 127, "int4": 7}
+
+
+@dataclasses.dataclass
+class QuantizedRowPacked:
+    """Row-wise VUSA pack with integer-quantized value slots.
+
+    values:    (T, K, S) int8 for ``int8``; (T, K, S//2) int8 for ``int4``
+               (two slots per byte: slot 2i in the low nibble, 2i+1 high)
+    positions: (T, K, S) int8  lane index within window (-1 = idle), always
+               one byte per slot whatever the value dtype
+    scales:    (T, K) float32  per-(window, row) dequant scale; all-zero
+               rows carry scale 1.0 so dequant stays finite
+    dense_itemsize: bytes per element of the *original* dense matrix, the
+               denominator of byte-ratio accounting
+    """
+
+    k: int
+    c: int
+    m: int
+    a: int
+    value_dtype: str
+    values: np.ndarray
+    row_positions: np.ndarray
+    scales: np.ndarray
+    dense_itemsize: int
+
+
+def pack_nibbles(q: np.ndarray) -> np.ndarray:
+    """Pack int4-range int8 values (..., S) into (..., S//2) bytes, S even.
+    Slot ``2i`` lands in the low nibble, ``2i+1`` in the high nibble."""
+    if q.shape[-1] % 2:
+        raise ValueError(f"slot count {q.shape[-1]} must be even to nibble-pack")
+    u = q.astype(np.uint8)
+    lo, hi = u[..., 0::2], u[..., 1::2]
+    return (((hi & 0xF) << 4) | (lo & 0xF)).astype(np.int8)
+
+
+def unpack_nibbles(b: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`pack_nibbles`: (..., S//2) bytes -> (..., S) int8.
+    ``(b << 4) >> 4`` sign-extends the low nibble, ``b >> 4`` the high one
+    (int8 arithmetic shifts)."""
+    b = b.astype(np.int8)
+    lo = ((b << 4) >> 4).astype(np.int8)
+    hi = (b >> 4).astype(np.int8)
+    out = np.empty(b.shape[:-1] + (b.shape[-1] * 2,), dtype=np.int8)
+    out[..., 0::2] = lo
+    out[..., 1::2] = hi
+    return out
+
+
+def quantize_rows(p: RowPacked, value_dtype: str) -> QuantizedRowPacked:
+    """Quantize a :class:`RowPacked`'s value slots to ``int8`` or ``int4``.
+
+    Symmetric per-(window, row) scaling: scale = amax / qmax over the row's
+    slots within the window, q = clip(round(v / scale)).  For ``int4`` the
+    slot axis is first padded to even (value 0, position -1: an idle slot)
+    and then nibble-packed two slots per byte."""
+    if value_dtype not in QUANT_DTYPES:
+        raise ValueError(f"value_dtype must be one of {QUANT_DTYPES}, got {value_dtype!r}")
+    qmax = QMAX[value_dtype]
+    vals = np.asarray(p.values, dtype=np.float32)
+    positions = np.asarray(p.row_positions)
+    amax = np.abs(vals).max(axis=2)
+    scales = np.where(amax > 0, amax / qmax, 1.0).astype(np.float32)
+    q = np.clip(np.rint(vals / scales[:, :, None]), -qmax, qmax).astype(np.int8)
+    if value_dtype == "int4":
+        if q.shape[2] % 2:
+            q = np.pad(q, ((0, 0), (0, 0), (0, 1)))
+            positions = np.pad(positions, ((0, 0), (0, 0), (0, 1)), constant_values=-1)
+        q = pack_nibbles(q)
+    return QuantizedRowPacked(
+        k=p.k, c=p.c, m=p.m, a=p.a, value_dtype=value_dtype,
+        values=q, row_positions=np.ascontiguousarray(positions),
+        scales=scales, dense_itemsize=int(np.asarray(p.values).dtype.itemsize),
+    )
+
+
+def dequantize_rows(q: QuantizedRowPacked) -> RowPacked:
+    """Expand a quantized pack back to a float32 :class:`RowPacked`: each
+    value is ``q * scale`` in float32, the product the kernels rebuild."""
+    raw = np.asarray(q.values)
+    if q.value_dtype == "int4":
+        raw = unpack_nibbles(raw)
+    vals = raw.astype(np.float32) * np.asarray(q.scales, np.float32)[:, :, None]
+    return RowPacked(
+        k=q.k, c=q.c, m=q.m, a=q.a,
+        values=vals, row_positions=np.asarray(q.row_positions),
+    )

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the two packed-matmul kernels.
+"""Plain PyTorch versions of the packed-matmul kernels.
 
 Port of the JAX package's ``kernels/ref.py`` oracles for the row-wise VUSA
-format.  They consume the *packed* operands, so kernel-vs-plain equality
-checks the kernel and ``unpack_rows``-vs-dense checks the packer.  The
+format, with the quantized packs' dequant (``dequantize_values``, the twin
+of the Pallas kernels' ``_dequant``) applied first when scales are given.
+They consume the *packed* operands, so kernel-vs-plain equality checks the
+kernel and ``unpack_rows``-vs-dense checks the packer.  The
 wrappers in :mod:`repro_torch.kernels.vusa_packed` run these for tensors on
 the CPU; ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
@@ -12,7 +14,30 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["vusa_packed_ref", "vusa_fused_mlp_ref", "unpack_dense"]
+__all__ = ["vusa_packed_ref", "vusa_fused_mlp_ref", "unpack_dense", "dequantize_values"]
+
+VALUE_DTYPES = ("dense", "int8", "int4")
+
+
+def dequantize_values(
+    raw: torch.Tensor, scales: torch.Tensor | None, value_dtype: str = "dense"
+) -> torch.Tensor:
+    """fp32 value slots (..., S) of a pack's raw values.
+
+    ``dense`` widens float values.  ``int8`` and ``int4`` multiply each slot
+    by its row's fp32 scale (``scales`` has the raw values' shape without
+    the slot axis); ``int4`` first decodes two slots per byte, the low
+    nibble as ``(b << 4) >> 4`` and the high as ``b >> 4`` on int8, slot
+    2i low and 2i+1 high."""
+    if value_dtype not in VALUE_DTYPES:
+        raise ValueError(f"value_dtype must be one of {VALUE_DTYPES}, got {value_dtype!r}")
+    if value_dtype == "dense":
+        return raw.float()
+    if value_dtype == "int4":
+        lo = torch.bitwise_right_shift(torch.bitwise_left_shift(raw, 4), 4)
+        hi = torch.bitwise_right_shift(raw, 4)
+        raw = torch.stack([lo, hi], dim=-1).reshape(*raw.shape[:-1], 2 * raw.shape[-1])
+    return raw.float() * scales.float()[..., None]
 
 
 def unpack_dense(values: torch.Tensor, positions: torch.Tensor, m: int = 128) -> torch.Tensor:
@@ -30,12 +55,19 @@ def unpack_dense(values: torch.Tensor, positions: torch.Tensor, m: int = 128) ->
 
 
 def vusa_packed_ref(
-    x: torch.Tensor, values: torch.Tensor, positions: torch.Tensor, m: int = 128
+    x: torch.Tensor,
+    values: torch.Tensor,
+    positions: torch.Tensor,
+    scales: torch.Tensor | None = None,
+    m: int = 128,
+    value_dtype: str = "dense",
 ) -> torch.Tensor:
     """``y[b, t*m + l] = sum_k x[b, k] * sum_s values[t, k, s] * [positions[t, k, s] == l]``.
 
-    x: (B, K); values/positions: (T, K, S).  Returns (B, T*m) fp32."""
-    return x.float() @ unpack_dense(values, positions, m)
+    x: (B, K); values/positions: (T, K, S) (int4 values (T, K, S/2));
+    scales (T, K) for quantized values.  Returns (B, T*m) fp32."""
+    vals = dequantize_values(values, scales, value_dtype)
+    return x.float() @ unpack_dense(vals, positions, m)
 
 
 def vusa_fused_mlp_ref(
@@ -46,16 +78,25 @@ def vusa_fused_mlp_ref(
     up_positions: torch.Tensor,
     down_values: torch.Tensor,
     down_positions: torch.Tensor,
+    gate_scales: torch.Tensor | None = None,
+    up_scales: torch.Tensor | None = None,
+    down_scales: torch.Tensor | None = None,
     m: int = 128,
+    value_dtype: str = "dense",
 ) -> torch.Tensor:
     """``silu(x @ Wg) * (x @ Wu) @ Wd`` over row-packed operands.
 
     ``gate``/``up`` pack (K, ff); ``down`` packs ``w_down`` *transposed*
-    (D, ff), so the ff reduction dim is the windowed one.  Returns (B, D)
+    (D, ff), so the ff reduction dim is the windowed one.  Quantized packs
+    carry scales (T, K) for gate/up and (T, D) for down.  Returns (B, D)
     fp32."""
-    wg = unpack_dense(gate_values, gate_positions, m)  # (K, T*m)
-    wu = unpack_dense(up_values, up_positions, m)
-    wdt = unpack_dense(down_values, down_positions, m)  # (D, T*m) = w_down.T padded
+
+    def dense(values, positions, scales):
+        return unpack_dense(dequantize_values(values, scales, value_dtype), positions, m)
+
+    wg = dense(gate_values, gate_positions, gate_scales)  # (K, T*m)
+    wu = dense(up_values, up_positions, up_scales)
+    wdt = dense(down_values, down_positions, down_scales)  # (D, T*m) = w_down.T padded
     xf = x.float()
     h = F.silu(xf @ wg) * (xf @ wu)  # (B, T*m)
     return h @ wdt.T

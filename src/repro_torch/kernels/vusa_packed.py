@@ -2,16 +2,19 @@
 
 ``vusa_packed_matmul`` and ``vusa_fused_mlp_matmul`` are the port's
 counterparts of the JAX package's Pallas kernels of the same names
-(``repro/kernels/vusa_packed.py``).  Each wrapper checks device, dtype,
-shape and contiguity, allocates the output (and the fused MLP's per-window
-scratch) with ``torch.empty``, launches on the current stream and raises if
-the launch was refused.  Tensors on the CPU take the plain PyTorch version
-in :mod:`repro_torch.kernels.ref` — only because they lie on the CPU; a CUDA
-tensor launches the kernel or raises.
+(``repro/kernels/vusa_packed.py``), with the same ``value_dtype`` routes:
+``"dense"`` (fp32 or bf16 values: ``_kernel`` / ``_fused_mlp_kernel``) and
+``"int8"`` / ``"int4"`` (raw quantized value bytes plus per-(window, row)
+fp32 scales: ``_qkernel`` / ``_fused_mlp_qkernel``).  Each wrapper checks
+device, dtype, shape and contiguity, allocates the output (and the fused
+MLP's per-window scratch) with ``torch.empty``, launches on the current
+stream and raises if the launch was refused.  Tensors on the CPU take the
+plain PyTorch version in :mod:`repro_torch.kernels.ref` — only because they
+lie on the CPU; a CUDA tensor launches the kernel or raises.
 
-Each wrapper carries a plain integer ``launches``, incremented where (and
-only where) its kernel is launched, so a run can show that the main path
-went through the kernel.
+Each wrapper carries ``launches``, a dict of plain integers by route
+(``dense``, ``int8``, ``int4``), incremented where (and only where) its
+kernel is launched, so a run can show which kernels the path went through.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import functools
 import torch
 
 from .build import library
-from .ref import vusa_fused_mlp_ref, vusa_packed_ref
+from .ref import VALUE_DTYPES, vusa_fused_mlp_ref, vusa_packed_ref
 
 __all__ = ["vusa_packed_matmul", "vusa_fused_mlp_matmul", "reset_launch_counts"]
 
@@ -34,10 +37,11 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = library("vusa_packed")
-    lib.vusa_packed_matmul.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.vusa_packed_matmul.argtypes = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.vusa_packed_matmul.restype = _I
     lib.vusa_fused_mlp_matmul.argtypes = [
-        _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+        _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+        _P,
     ]
     lib.vusa_fused_mlp_matmul.restype = _I
     lib.vusa_error_string.argtypes = [_I]
@@ -59,18 +63,53 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def _check_pack(name: str, values: torch.Tensor, positions: torch.Tensor, k: int) -> None:
-    if values.ndim != 3 or values.shape != positions.shape:
+def _check_pack(
+    name: str,
+    values: torch.Tensor,
+    positions: torch.Tensor,
+    k: int,
+    scales: torch.Tensor | None,
+    value_dtype: str,
+) -> None:
+    """A (T, K, S) pack of ``value_dtype``: float values of the positions'
+    shape, or int8 value bytes that decode to the position slots (two slots
+    per byte for int4) with (T, K) fp32 scales."""
+    if value_dtype not in VALUE_DTYPES:
+        raise ValueError(f"{name}: value_dtype must be one of {VALUE_DTYPES}, got {value_dtype!r}")
+    if positions.ndim != 3 or values.ndim != 3:
         raise ValueError(
             f"{name}: values {tuple(values.shape)} / positions {tuple(positions.shape)} "
             "must both be (T, K, S)"
         )
-    if values.shape[1] != k:
-        raise ValueError(f"{name}: pack rows {values.shape[1]} != reduction dim {k}")
-    if values.dtype not in _FLOATS:
-        raise TypeError(f"{name}: values must be float32 or bfloat16, got {values.dtype}")
+    if positions.shape[1] != k:
+        raise ValueError(f"{name}: pack rows {positions.shape[1]} != reduction dim {k}")
     if positions.dtype != torch.int8:
         raise TypeError(f"{name}: positions must be int8, got {positions.dtype}")
+    if value_dtype == "dense":
+        if values.shape != positions.shape:
+            raise ValueError(
+                f"{name}: values {tuple(values.shape)} != positions {tuple(positions.shape)}"
+            )
+        if values.dtype not in _FLOATS:
+            raise TypeError(f"{name}: values must be float32 or bfloat16, got {values.dtype}")
+        if scales is not None:
+            raise ValueError(f"{name}: dense values take no scales")
+        return
+    if values.dtype != torch.int8:
+        raise TypeError(f"{name}: {value_dtype} values must be int8 bytes, got {values.dtype}")
+    nib = 2 if value_dtype == "int4" else 1
+    if values.shape[:2] != positions.shape[:2] or values.shape[2] * nib != positions.shape[2]:
+        raise ValueError(
+            f"{name}: {value_dtype} values {tuple(values.shape)} do not decode to "
+            f"positions {tuple(positions.shape)}"
+        )
+    if scales is None:
+        raise ValueError(f"{name}: {value_dtype} values need scales")
+    if scales.dtype != torch.float32 or scales.shape != positions.shape[:2]:
+        raise ValueError(
+            f"{name}: scales must be float32 of shape {tuple(positions.shape[:2])}, got "
+            f"{scales.dtype} {tuple(scales.shape)}"
+        )
 
 
 def _check_x(x: torch.Tensor, m: int) -> None:
@@ -82,9 +121,9 @@ def _check_x(x: torch.Tensor, m: int) -> None:
         raise ValueError(f"window m={m} outside [1, 128] (int8 lane positions)")
 
 
-def _require_contiguous(**tensors: torch.Tensor) -> None:
+def _require_contiguous(**tensors: torch.Tensor | None) -> None:
     for name, t in tensors.items():
-        if not t.is_contiguous():
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the CUDA kernel")
 
 
@@ -98,33 +137,49 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _value_kind(values: torch.Tensor, value_dtype: str) -> int:
+    """The C interface's value kind: 0 fp32, 1 bf16, 2 int8, 3 int4."""
+    if value_dtype == "dense":
+        return int(values.dtype == torch.bfloat16)
+    return 2 if value_dtype == "int8" else 3
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def vusa_packed_matmul(
-    x: torch.Tensor, values: torch.Tensor, positions: torch.Tensor, m: int = 128
+    x: torch.Tensor,
+    values: torch.Tensor,
+    positions: torch.Tensor,
+    scales: torch.Tensor | None = None,
+    m: int = 128,
+    value_dtype: str = "dense",
 ) -> torch.Tensor:
     """``y[b, t*m + l] = sum_k x[b, k] * sum_s values[t, k, s] * [positions[t, k, s] == l]``.
 
-    x: (B, K) fp32/bf16; values (T, K, S) fp32/bf16; positions (T, K, S)
-    int8 (-1 = idle slot).  Returns (B, T*m) fp32.  Row b of the result does
-    not depend on B (bitwise)."""
+    x: (B, K) fp32/bf16; positions (T, K, S) int8 (-1 = idle slot); values
+    (T, K, S) fp32/bf16 for ``value_dtype="dense"``, (T, K, S) int8 for
+    ``"int8"``, (T, K, S/2) int8 nibble pairs for ``"int4"``, each slot then
+    worth ``q * scales[t, k]`` (scales (T, K) fp32).  Returns (B, T*m) fp32.
+    Row b of the result does not depend on B (bitwise)."""
     _check_x(x, m)
-    _check_pack("vusa_packed_matmul", values, positions, x.shape[1])
-    if _on_cpu(x, values, positions):
-        return vusa_packed_ref(x, values, positions, m)
-    _require_contiguous(x=x, values=values, positions=positions)
+    _check_pack("vusa_packed_matmul", values, positions, x.shape[1], scales, value_dtype)
+    operands = (x, values, positions) + (() if scales is None else (scales,))
+    if _on_cpu(*operands):
+        return vusa_packed_ref(x, values, positions, scales, m, value_dtype)
+    _require_contiguous(x=x, values=values, positions=positions, scales=scales)
     b, k = x.shape
-    t, _, s = values.shape
+    t, _, s = positions.shape
     out = torch.empty((b, t * m), dtype=torch.float32, device=x.device)
     err = _lib().vusa_packed_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16),
-        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        values.data_ptr(), _value_kind(values, value_dtype), _ptr(scales),
         positions.data_ptr(), out.data_ptr(), b, k, t, s, m, _stream(x.device),
     )
     _raise_on(err, "vusa_packed_matmul")
-    vusa_packed_matmul.launches += 1
+    vusa_packed_matmul.launches[value_dtype] += 1
     return out
-
-
-vusa_packed_matmul.launches = 0
 
 
 def vusa_fused_mlp_matmul(
@@ -135,52 +190,64 @@ def vusa_fused_mlp_matmul(
     up_positions: torch.Tensor,
     down_values: torch.Tensor,
     down_positions: torch.Tensor,
+    gate_scales: torch.Tensor | None = None,
+    up_scales: torch.Tensor | None = None,
+    down_scales: torch.Tensor | None = None,
     m: int = 128,
+    value_dtype: str = "dense",
 ) -> torch.Tensor:
     """Whole SwiGLU MLP ``silu(x @ Wg) * (x @ Wu) @ Wd`` over row-packed
     operands, all windowed over the same ff windows: gate/up (T, K, S) pack
-    (K, ff), down (T, D, Sd) packs ``w_down`` transposed.  Returns (B, D)
-    fp32.  The (B, ff) hidden state never reaches device memory; per-window
-    (B, D) partials are summed over windows in order in a second launch."""
+    (K, ff), down (T, D, Sd) packs ``w_down`` transposed.  Quantized packs
+    (``value_dtype`` ``"int8"``/``"int4"``) carry scales (T, K) for gate/up
+    and (T, D) for down.  Returns (B, D) fp32.  The (B, ff) hidden state
+    never reaches device memory; per-window (B, D) partials are summed over
+    windows in order in a second launch."""
     _check_x(x, m)
     k = x.shape[1]
-    _check_pack("gate", gate_values, gate_positions, k)
-    _check_pack("up", up_values, up_positions, k)
-    _check_pack("down", down_values, down_positions, down_values.shape[1])
-    t = gate_values.shape[0]
-    if up_values.shape[0] != t or down_values.shape[0] != t:
+    _check_pack("gate", gate_values, gate_positions, k, gate_scales, value_dtype)
+    _check_pack("up", up_values, up_positions, k, up_scales, value_dtype)
+    _check_pack("down", down_values, down_positions, down_positions.shape[1], down_scales,
+                value_dtype)
+    t = gate_positions.shape[0]
+    if up_positions.shape[0] != t or down_positions.shape[0] != t:
         raise ValueError(
-            f"window counts differ: gate {t}, up {up_values.shape[0]}, down {down_values.shape[0]}"
+            f"window counts differ: gate {t}, up {up_positions.shape[0]}, "
+            f"down {down_positions.shape[0]}"
         )
     if not gate_values.dtype == up_values.dtype == down_values.dtype:
         raise TypeError("gate/up/down values must share one dtype")
-    ops = (x, gate_values, gate_positions, up_values, up_positions, down_values, down_positions)
-    if _on_cpu(*ops):
-        return vusa_fused_mlp_ref(*ops, m=m)
+    packs = (gate_values, gate_positions, up_values, up_positions, down_values, down_positions)
+    scales = (gate_scales, up_scales, down_scales)
+    if _on_cpu(x, *packs, *(s for s in scales if s is not None)):
+        return vusa_fused_mlp_ref(x, *packs, *scales, m, value_dtype)
     _require_contiguous(
         x=x, gate_values=gate_values, gate_positions=gate_positions, up_values=up_values,
         up_positions=up_positions, down_values=down_values, down_positions=down_positions,
+        gate_scales=gate_scales, up_scales=up_scales, down_scales=down_scales,
     )
     b = x.shape[0]
-    d = down_values.shape[1]
+    d = down_positions.shape[1]
     partial = torch.empty((t, b, d), dtype=torch.float32, device=x.device)
     out = torch.empty((b, d), dtype=torch.float32, device=x.device)
     err = _lib().vusa_fused_mlp_matmul(
-        x.data_ptr(), int(x.dtype == torch.bfloat16),
-        gate_values.data_ptr(), gate_positions.data_ptr(), gate_values.shape[2],
-        up_values.data_ptr(), up_positions.data_ptr(), up_values.shape[2],
-        down_values.data_ptr(), down_positions.data_ptr(), down_values.shape[2],
-        int(gate_values.dtype == torch.bfloat16),
+        x.data_ptr(), int(x.dtype == torch.bfloat16), _value_kind(gate_values, value_dtype),
+        gate_values.data_ptr(), _ptr(gate_scales), gate_positions.data_ptr(),
+        gate_positions.shape[2],
+        up_values.data_ptr(), _ptr(up_scales), up_positions.data_ptr(), up_positions.shape[2],
+        down_values.data_ptr(), _ptr(down_scales), down_positions.data_ptr(),
+        down_positions.shape[2],
         partial.data_ptr(), out.data_ptr(), b, k, d, t, m, _stream(x.device),
     )
     _raise_on(err, "vusa_fused_mlp_matmul")
-    vusa_fused_mlp_matmul.launches += 1
+    vusa_fused_mlp_matmul.launches[value_dtype] += 1
     return out
 
 
-vusa_fused_mlp_matmul.launches = 0
-
-
 def reset_launch_counts() -> None:
-    vusa_packed_matmul.launches = 0
-    vusa_fused_mlp_matmul.launches = 0
+    """Set every launch count of both wrappers to 0."""
+    vusa_packed_matmul.launches = dict.fromkeys(VALUE_DTYPES, 0)
+    vusa_fused_mlp_matmul.launches = dict.fromkeys(VALUE_DTYPES, 0)
+
+
+reset_launch_counts()

@@ -3,6 +3,8 @@ optional VUSA packing, one batched ``generate``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --packed all
     PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --packed all --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --packed all \
+        --packed-values int8 --device cpu
 
 Port of the one-shot ``generate`` branch of the JAX package's
 ``launch/serve.py``; the scheduler, streaming, mesh and fault options come
@@ -30,6 +32,11 @@ def main(argv=None):
         help="VUSA-pack the decode step: bare flag or 'mlp' = MLP trio only, "
         "'all' = + qkv/o and the untied LM head",
     )
+    ap.add_argument(
+        "--packed-values", default="bf16", choices=("bf16", "int8", "int4"),
+        help="packed value precision: bf16 = the params' own dtype, int8/int4 = "
+        "quantized with per-(window, row) fp32 scales",
+    )
     ap.add_argument("--sparsity", type=float, default=None)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -43,8 +50,9 @@ def main(argv=None):
     if sp > 0:
         params = prune_tree(params, sp)
     max_len = args.prompt_len + args.max_new + 8
-    eng = Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights=args.packed),
-                 device=args.device)
+    sc = ServeConfig(max_len=max_len, packed_weights=args.packed,
+                     packed_values=args.packed_values)
+    eng = Engine(cfg, params, sc, device=args.device)
     prompts = np.ones((args.batch, args.prompt_len), np.int32)
     out = eng.generate(prompts, max_new=args.max_new)
     print(f"prefill {out['prefill_s']*1e3:.1f}ms  decode {out['decode_s']*1e3:.1f}ms  "

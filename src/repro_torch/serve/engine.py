@@ -37,6 +37,10 @@ class ServeConfig:
     # untied LM head — the whole decode step
     packed_weights: bool | str = False
     fused_mlp: bool = True  # fused-MLP kernel (False = three packed matmuls)
+    # packed value precision: "bf16" keeps the params' own float dtype in
+    # the pack (no cast); "int8"/"int4" quantize value slots with
+    # per-(window, row) fp32 scales, dequantized inside the kernels
+    packed_values: str = "bf16"
     vusa_m: int = 128  # window lanes
     vusa_a: int = 16  # physical slots per row per job
 
@@ -44,6 +48,10 @@ class ServeConfig:
         if self.packed_weights not in (False, "mlp", "all"):
             raise ValueError(
                 f"packed_weights must be False, 'mlp' or 'all', got {self.packed_weights!r}"
+            )
+        if self.packed_values not in ("bf16", "int8", "int4"):
+            raise ValueError(
+                f"packed_values must be 'bf16', 'int8' or 'int4', got {self.packed_values!r}"
             )
 
 
@@ -72,6 +80,7 @@ class Engine:
             self._packed = pack_lm_weights(
                 cfg, self.params, self.sc.vusa_m, self.sc.vusa_a,
                 scope=self.sc.packed_weights, fused_mlp=self.sc.fused_mlp,
+                value_dtype="dense" if self.sc.packed_values == "bf16" else self.sc.packed_values,
             )
 
     @property
