@@ -51,9 +51,34 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    depth, identical greedy tokens on the 2-layer cut, full-depth token
    agreement reported beside phase 4's witness.  Decode tok/s of the three
    packs taken in turns (reported, not gated);
-6. one JSON line of every ported kernel (per-decode-step times at B = 4,
-   launches in the counted run and per decode step);
-7. the card line again and the result line.
+6. paper workloads, the paper's own A/B comparison at full size: every
+   im2col GEMM of ResNet-18 (21, pruned to 85 %) and MobileNetV1 (28,
+   75 %) at 224 x 224, B = output pixels, weights ``normal(K, C)`` from a
+   numpy seed magnitude-pruned per layer by the quantile rule of
+   ``benchmarks/run.py _prune_masks`` (copied here), activations
+   ``normal(B, K)`` fp32 from the same generator.  Each model is one
+   counted run: all counts set to 0, then per GEMM
+   ``ops.apply_packed(x, ops.pack_linear(w, 32, 8, 128))`` (B5,
+   ``vusa_spmm``) and ``ops.matmul`` on x and w zero-padded to the
+   reference's tile contract (B6, ``dense_matmul``); exactly one launch of
+   each per GEMM and none of B1-B4.  Each output within 1e-4 of the largest
+   |plain| of its plain version, and within 1e-3 (of the largest |x @ w|,
+   at least 1) of ``x @ w`` in true fp32; bf16 x on three GEMMs per model
+   (B5 then rounds its output to bf16, as its plain version does: one bf16
+   step, 2**-7 of the value, allowed on top).  Per GEMM, CUDA events with L2
+   flushed: kernel, plain version, ``torch.matmul(x, w)`` fp32 as the
+   library call, and the bound (bytes over 3.35 TB/s against fp32
+   operations over 67 TFLOP/s; B5: values, ``row_idx``, x and y with
+   2*B*T*J*A*Tn operations; B6: the padded operands and output with
+   2*M*N*K).  Per model: the sums, the B5/B6 ratio, the packs'
+   compression and virtual growth, beside the cycle simulator's VUSA 3x6
+   (``schedule_widths_fast`` + ``ws_cycles``, as ``benchmarks/run.py``
+   reckons it) and standard 3x6 (``gemm_cycles_standard``) cycles for the
+   same masks;
+7. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+   launches in the counted run and per decode step; B5/B6 per ResNet-18
+   image, MobileNetV1 under ``mobilenetv1``);
+8. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -70,17 +95,29 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.pruning import prune_tree  # noqa: E402
+from repro_torch.core.simulator import gemm_cycles_standard, ws_cycles  # noqa: E402
+from repro_torch.core.vusa import schedule_widths_fast  # noqa: E402
+from repro_torch.core.workloads import mobilenetv1_gemms, resnet18_gemms  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.dense_matmul import (  # noqa: E402
+    dense_matmul,
+    reset_launch_counts as reset_dense_counts,
+)
 from repro_torch.kernels.vusa_packed import (  # noqa: E402
     reset_launch_counts,
     vusa_fused_mlp_matmul,
     vusa_packed_matmul,
+)
+from repro_torch.kernels.vusa_spmm import (  # noqa: E402
+    reset_launch_counts as reset_spmm_counts,
+    vusa_spmm,
 )
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.common import strict_fp32  # noqa: E402
@@ -101,6 +138,11 @@ DEPTH_CUT = 2  # layers of the fp32 token-identity check
 FP32_STEP_TOL = 1e-2  # fp32 first-step logits, packed vs dense, of the largest logit
 DEVICE = "cuda"
 QDTYPES = ("int8", "int4")
+# paper workloads: (name, GEMMs, pruning rate); the seed of weights and x
+PAPER_MODELS = (("resnet18", resnet18_gemms, 0.85), ("mobilenetv1", mobilenetv1_gemms, 0.75))
+PAPER_SEED = 0
+EXACT_TOL = 1e-3  # kernels vs x @ w in fp32, of the largest |x @ w| (at least 1)
+VUSA_NMA = (3, 6, 3)  # the paper's VUSA 3x6: N rows, M SPEs, A MACs
 
 
 def fail(msg: str) -> None:
@@ -567,6 +609,165 @@ def interleaved_tok_per_s(cfg, engines, rounds: int = 2):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 6: paper workloads, block-VUSA (B5) against the dense baseline (B6)
+# --------------------------------------------------------------------------
+
+
+def prune_weights(gemms, rate, rng):
+    """Per GEMM a ``normal(K, C)`` weight magnitude-pruned to ``rate`` by the
+    quantile rule of ``benchmarks/run.py _prune_masks`` (same draws, same
+    masks), as fp32."""
+    out = []
+    for g in gemms:
+        w = rng.normal(size=(g.K, g.C))
+        thresh = np.quantile(np.abs(w), rate)
+        out.append((w * (np.abs(w) > thresh)).astype(np.float32))
+    return out
+
+
+def tile_pad(d: int) -> int:
+    """``d`` zero-padded to the reference's ``dense_matmul`` contract: a
+    dimension above 128 must be a multiple of 128."""
+    return d if d <= 128 or d % 128 == 0 else -(-d // 128) * 128
+
+
+def reset_all_launch_counts() -> None:
+    reset_launch_counts()
+    reset_spmm_counts()
+    reset_dense_counts()
+
+
+def all_launch_counts() -> dict:
+    return {"vusa_spmm": vusa_spmm.launches, "dense_matmul": dense_matmul.launches,
+            "vusa_packed_matmul": sum(vusa_packed_matmul.launches.values()),
+            "vusa_fused_mlp_matmul": sum(vusa_fused_mlp_matmul.launches.values())}
+
+
+def check_rounded(name, got, want):
+    """Kernel vs plain: within TOL of the largest |plain| plus one rounding
+    step of the output dtype (bf16: 2**-7 of the value; fp32: none)."""
+    step = 2.0**-7 if got.dtype == torch.bfloat16 else 0.0
+    err = (got.float() - want.float()).abs()
+    scale = max(float(want.float().abs().max()), 1.0)
+    if not bool((err <= TOL * scale + step * want.float().abs()).all()):
+        fail(f"{name}: kernel vs plain error {float(err.max())} ({float(err.max()) / scale} "
+             "relative)")
+    return float(err.max())
+
+
+def simulator_cycles(gemms, masks) -> dict:
+    """VUSA 3x6 cycles (``schedule_widths_fast`` + ``ws_cycles`` per achieved
+    window width, as ``benchmarks/run.py _evaluate_model``) and standard 3x6
+    cycles (``gemm_cycles_standard``) for the same masks."""
+    n, m, a = VUSA_NMA
+    vusa = 0
+    for g, mask in zip(gemms, masks):
+        hist, _ = schedule_widths_fast(mask, n, m, a)
+        vusa += sum(int(hist[w]) * ws_cycles(g.B, n, w) for w in range(a, m + 1))
+    std = sum(gemm_cycles_standard(g, n, m) for g in gemms)
+    return {"vusa_3x6": vusa, "standard_3x6": std, "ratio": vusa / std}
+
+
+def paper_model(timer, name, gemms, rate):
+    """One model of phase 6: the counted run, the checks, the timings."""
+    rng = np.random.default_rng(PAPER_SEED)
+    ws = prune_weights(gemms, rate, rng)
+    xs = [torch.from_numpy(rng.standard_normal((g.B, g.K), dtype=np.float32)).to(DEVICE)
+          for g in gemms]
+    packs = [ops.pack_linear(w, 32, 8, 128, device=DEVICE) for w in ws]
+    dense = [torch.from_numpy(w).to(DEVICE) for w in ws]
+    padded = []  # B6 operands at the reference's tile contract (exact: zeros)
+    for g, x, w in zip(gemms, xs, dense):
+        kp, np_ = tile_pad(g.K), tile_pad(g.C)
+        padded.append((F.pad(x, (0, kp - g.K)).contiguous(),
+                       F.pad(w, (0, np_ - g.C, 0, kp - g.K)).contiguous()))
+    torch.cuda.synchronize()
+
+    reset_all_launch_counts()
+    outs = [(ops.apply_packed(x, p), ops.matmul(xp, wp))  # <- the counted run
+            for x, p, (xp, wp) in zip(xs, packs, padded)]
+    torch.cuda.synchronize()
+    counts = all_launch_counts()
+    want = {"vusa_spmm": len(gemms), "dense_matmul": len(gemms), "vusa_packed_matmul": 0,
+            "vusa_fused_mlp_matmul": 0}
+    if counts != want:
+        fail(f"paper workloads {name}: launch counts {counts} != expected {want}")
+
+    bf16_at = {0, len(gemms) // 2, len(gemms) - 1}
+    rows = []
+    for i, (g, x, p, w, (xp, wp), (y5, y6)) in enumerate(zip(gemms, xs, packs, dense, padded,
+                                                           outs)):
+        tag = f"paper workloads {name} {g.name}"
+        exact = torch.matmul(x, w)
+        err5 = check_rounded(f"{tag} vusa_spmm", y5, ops.apply_packed_ref(x, p))
+        err6 = check_rounded(f"{tag} dense_matmul", y6, ref.dense_matmul_ref(xp, wp))
+        for kname, y in (("vusa_spmm", y5), ("dense_matmul", y6[:, : g.C])):
+            e, r = rel_err(y, exact)
+            if r > EXACT_TOL:
+                fail(f"{tag} {kname} vs x @ w: error {e} ({r} relative)")
+        bf16 = {}
+        if i in bf16_at:
+            xb, xpb, wpb = x.to(torch.bfloat16), xp.to(torch.bfloat16), wp.to(torch.bfloat16)
+            bf16 = {"vusa_spmm": check_rounded(f"{tag} vusa_spmm bf16 x", ops.apply_packed(xb, p),
+                                               ops.apply_packed_ref(xb, p)),
+                    "dense_matmul": check_rounded(f"{tag} dense_matmul bf16",
+                                                  ops.matmul(xpb, wpb),
+                                                  ref.dense_matmul_ref(xpb, wpb))}
+        xk = F.pad(x, (0, p.k_padded - p.k)).contiguous()
+        t, j, a, tn = p.values.shape
+        b5 = bound_ms(nbytes(p.values, p.row_idx, xk) + g.B * t * tn * 4, 2 * g.B * t * j * a * tn)
+        b6 = bound_ms(nbytes(xp, wp) + xp.shape[0] * wp.shape[1] * 4,
+                      2 * xp.shape[0] * wp.shape[1] * xp.shape[1])
+        rows.append({
+            "gemm": g.name, "B": g.B, "K": g.K, "C": g.C, "k_padded": p.k_padded,
+            "T": t, "J": j, "A": a, "compression": p.compression,
+            "virtual_growth": p.virtual_growth, "logical_flops": 2 * g.B * g.K * g.C,
+            "library_ms": timer(lambda: torch.matmul(x, w)),
+            "vusa_spmm": {"ms": timer(lambda: vusa_spmm(xk, p.values, p.row_idx)),
+                          "plain_ms": timer(lambda: ref.vusa_spmm_ref(xk, p.values, p.row_idx)),
+                          "bound_ms": b5[0], "bound_by": b5[1], "max_abs_err": err5,
+                          "max_abs_err_bf16": bf16.get("vusa_spmm"),
+                          "flops": 2 * g.B * t * j * a * tn},
+            "dense_matmul": {"ms": timer(lambda: ops.matmul(xp, wp)),
+                             "plain_ms": timer(lambda: ref.dense_matmul_ref(xp, wp)),
+                             "bound_ms": b6[0], "bound_by": b6[1], "max_abs_err": err6,
+                             "max_abs_err_bf16": bf16.get("dense_matmul"),
+                             "flops": 2 * xp.shape[0] * wp.shape[1] * xp.shape[1],
+                             "padded": [xp.shape[0], xp.shape[1], wp.shape[1]]},
+        })
+
+    def total(kname):
+        ks = [r[kname] for r in rows]
+        out = {k: sum(r[k] for r in ks) for k in ("ms", "plain_ms", "bound_ms", "flops")}
+        by_ops = sum(r["bound_ms"] for r in ks if r["bound_by"] == "operations")
+        out["bound_by"] = "operations" if 2 * by_ops >= out["bound_ms"] else "bytes"
+        out["max_abs_err"] = max(r["max_abs_err"] for r in ks)  # fp32 x
+        out["max_abs_err_bf16"] = max(r["max_abs_err_bf16"] for r in ks
+                                      if r["max_abs_err_bf16"] is not None)
+        out["library_ms"] = sum(r["library_ms"] for r in rows)
+        out["launches"] = counts[kname]
+        return out
+
+    packed_bytes = sum(nbytes(p.values, p.row_idx) for p in packs)
+    return {
+        "gemms": len(gemms), "rate": rate, "launches": counts,
+        "vusa_spmm": total("vusa_spmm"), "dense_matmul": total("dense_matmul"),
+        "logical_flops": sum(r["logical_flops"] for r in rows),
+        "compression_sum": sum(p.compression for p in packs),
+        "byte_ratio": packed_bytes / sum(nbytes(w) for w in dense),
+        "virtual_growth_mean": float(np.mean([p.virtual_growth for p in packs])),
+        "simulator": simulator_cycles(gemms, [w != 0 for w in ws]),
+        "per_gemm": rows,
+    }
+
+
+def paper_phase():
+    """Phase 6 over ``PAPER_MODELS``; returns ``{model: summary}``."""
+    timer = Timer()
+    return {name: paper_model(timer, name, fn(), rate) for name, fn, rate in PAPER_MODELS}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run only on the card")
@@ -645,6 +846,23 @@ def main() -> None:
         f"{'fp32' if r == 'dense' else r} values {sorted(v)}" for r, v in turns.items()),
         flush=True)
 
+    t0 = time.monotonic()
+    paper = paper_phase()
+    for name, m in paper.items():
+        b5, b6, sim = m["vusa_spmm"], m["dense_matmul"], m["simulator"]
+        print(f"paper workloads {name} ({m['gemms']} GEMMs, {m['rate']:.0%} pruned, one image): "
+              f"launches {m['launches']}; B5 vusa_spmm {b5['ms']:.4f} ms, B6 dense_matmul "
+              f"{b6['ms']:.4f} ms, B5/B6 {b5['ms'] / b6['ms']:.4f}; plain {b5['plain_ms']:.4f} / "
+              f"{b6['plain_ms']:.4f} ms, library torch.matmul fp32 {b5['library_ms']:.4f} ms, "
+              f"bound {b5['bound_ms']:.4f} / {b6['bound_ms']:.4f} ms by {b5['bound_by']} / "
+              f"{b6['bound_by']}; fp32 operations B5 {b5['flops']} B6 {b6['flops']} logical "
+              f"{m['logical_flops']}; sum of compression {m['compression_sum']:.4f}, packed / "
+              f"dense bytes {m['byte_ratio']:.4f}, mean virtual growth "
+              f"{m['virtual_growth_mean']:.4f}; simulator VUSA 3x6 {sim['vusa_3x6']} cycles, "
+              f"standard 3x6 {sim['standard_3x6']}, VUSA / standard {sim['ratio']:.4f}",
+              flush=True)
+    print(f"paper workloads phase {time.monotonic() - t0:.1f}s", flush=True)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -673,13 +891,24 @@ def main() -> None:
         k["int4"] = {key: v for key, v in entry(name, "int4").items()
                      if key not in ("name", "route", "source", "replaces")}
         kernels.append(k)
+    keys = ("launches", "max_abs_err", "max_abs_err_bf16", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    for name, replaced in (("vusa_spmm", "src/repro/kernels/vusa_spmm.py:34"),
+                           ("dense_matmul", "src/repro/kernels/dense_matmul.py:21")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaced,
+                        **{k: paper["resnet18"][name][k] for k in keys},
+                        "mobilenetv1": {k: paper["mobilenetv1"][name][k] for k in keys}})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "kernels_note": "ms, plain_ms, library_ms and "
          "bound_ms summed over one decode step (48 projections + head; 12 MLPs) at B=4, bf16 "
-         "activations; B1/B2 with fp32 values, B3/B4 int8 at top level and int4 under 'int4'",
+         "activations; B1/B2 with fp32 values, B3/B4 int8 at top level and int4 under 'int4'; "
+         "vusa_spmm/dense_matmul summed over the 21 GEMMs of one ResNet-18 image (MobileNetV1's "
+         "28 under 'mobilenetv1')",
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
+         "paper_workloads": paper,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,1 +1,2 @@
-"""Host-side pack format and pruning."""
+"""Host-side numpy: the pack formats, pruning, and the paper's scheduler, growth,
+cycle and area/power models and workloads."""

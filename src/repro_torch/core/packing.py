@@ -1,28 +1,195 @@
-"""Row-wise VUSA pack (the paper's exact format), host-side numpy.
+"""VUSA pack formats, host-side numpy.
 
-A copy of the row format of the JAX package's ``core/packing.py``
-(``RowPacked``, ``pack_rows``, ``pack_rows_t``, ``validate_rows``,
-``unpack_rows``) and of its quantized variant (``QuantizedRowPacked``,
-``quantize_rows``, ``dequantize_rows``, the int4 nibble codec), with one
-change: ``pack_rows`` is vectorised.  The
-reference loops in Python over every (window, row) pair, about 1.1 M
-iterations for the whole ``vusa_edge`` decode step; here one ``nonzero``
-over the windowed matrix places every slot.  The output is byte-identical:
-slots in ascending lane order, ``ceil(max row-nnz / a)`` jobs, idle slots
-value 0 and position -1.
+A copy of the JAX package's ``core/packing.py``, in its three formats:
+
+* ``pack_exact`` — the paper's scalar-granularity format: per row tile, the
+  greedy scheduler's jobs with per-row MAC<->SPE assignments (Section III);
+* ``pack_blocks`` — the block format the ``vusa_spmm`` kernel consumes: the
+  reduction dim is cut into windows of ``m_blk`` rows; per output tile of
+  ``tile_n`` columns only rows holding a non-zero are kept, packed into jobs
+  of ``a_blk`` rows plus an int32 row-index map;
+* ``pack_rows`` — the row-wise format of the decode path (``RowPacked``,
+  ``pack_rows_t``, ``validate_rows``, ``unpack_rows``), with its quantized
+  variant (``QuantizedRowPacked``, ``quantize_rows``, ``dequantize_rows``,
+  the int4 nibble codec).
+
+One change: ``pack_rows`` is vectorised.  The reference loops in Python over
+every (window, row) pair, about 1.1 M iterations for the whole ``vusa_edge``
+decode step; here one ``nonzero`` over the windowed matrix places every
+slot.  The output is byte-identical: slots in ascending lane order,
+``ceil(max row-nnz / a)`` jobs, idle slots value 0 and position -1.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Tuple
 
 import numpy as np
 
+from .vusa import Job, mac_assignment, schedule_matrix
+
 __all__ = [
+    "ExactPacked", "pack_exact", "unpack_exact", "BlockPacked", "pack_blocks", "unpack_blocks",
     "RowPacked", "pack_rows", "pack_rows_t", "unpack_rows", "validate_rows",
     "QUANT_DTYPES", "QMAX", "QuantizedRowPacked", "pack_nibbles", "unpack_nibbles",
     "quantize_rows", "dequantize_rows",
 ]
+
+
+# --------------------------------------------------------------------------
+# Exact (scalar) VUSA format
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ExactPacked:
+    """Scalar VUSA pack of a (K, C) matrix on an (N, M, A) array."""
+
+    N: int
+    M: int
+    A: int
+    rows: int
+    cols: int
+    # Per row-tile: list of (job, values (N, A), spe_positions (N, A) int, -1 = idle MAC)
+    tiles: List[List[Tuple[Job, np.ndarray, np.ndarray]]]
+
+    @property
+    def n_jobs(self) -> int:
+        return sum(len(t) for t in self.tiles)
+
+
+def pack_exact(w: np.ndarray, N: int, M: int, A: int) -> ExactPacked:
+    k, c = w.shape
+    sched = schedule_matrix(w != 0, N, M, A)
+    tiles = []
+    for t, jobs in enumerate(sched.jobs):
+        r0 = t * N
+        rows = min(N, k - r0)
+        packed_jobs = []
+        for job in jobs:
+            vals = np.zeros((N, A), dtype=w.dtype)
+            pos = np.full((N, A), -1, dtype=np.int64)
+            for r in range(rows):
+                row = w[r0 + r, job.start : job.start + job.width]
+                nz = np.flatnonzero(row)
+                macs = mac_assignment(nz, M, A)
+                assert macs is not None, "scheduler produced an infeasible window"
+                for p, j in zip(nz, macs):
+                    vals[r, j] = row[p]
+                    pos[r, j] = p
+            packed_jobs.append((job, vals, pos))
+        tiles.append(packed_jobs)
+    return ExactPacked(N=N, M=M, A=A, rows=k, cols=c, tiles=tiles)
+
+
+def unpack_exact(p: ExactPacked) -> np.ndarray:
+    w = np.zeros((p.rows, p.cols), dtype=p.tiles[0][0][1].dtype if p.tiles else np.float32)
+    for t, jobs in enumerate(p.tiles):
+        r0 = t * p.N
+        for job, vals, pos in jobs:
+            for r in range(min(p.N, p.rows - r0)):
+                for j in range(p.A):
+                    if pos[r, j] >= 0:
+                        w[r0 + r, job.start + pos[r, j]] = vals[r, j]
+    return w
+
+
+# --------------------------------------------------------------------------
+# Block VUSA format (the vusa_spmm kernel's operands)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BlockPacked:
+    """Block-VUSA pack of a (K, C) matrix.
+
+    values : (n_tiles, n_jobs, a_blk, tile_n) — packed non-zero weight rows
+    row_idx: (n_tiles, n_jobs, a_blk) int32   — absolute K index per packed
+             row (padding rows point at 0 with zero values, so the gathered
+             contribution is exactly zero)
+    """
+
+    k: int
+    c: int
+    m_blk: int
+    a_blk: int
+    tile_n: int
+    values: np.ndarray
+    row_idx: np.ndarray
+
+    @property
+    def n_tiles(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def n_jobs(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def compression(self) -> float:
+        """Packed weight bytes / dense weight bytes (index bytes included)."""
+        dense = self.k * self.c * self.values.dtype.itemsize
+        packed = self.values.size * self.values.dtype.itemsize + self.row_idx.size * 4
+        return packed / dense
+
+    @property
+    def virtual_growth(self) -> float:
+        """Mean K-rows covered per physical a_blk-row job (the M/A analogue)."""
+        return self.k * self.n_tiles / (self.n_jobs * self.a_blk * self.n_tiles)
+
+
+def pack_blocks(w: np.ndarray, m_blk: int, a_blk: int, tile_n: int) -> BlockPacked:
+    """Pack (K, C) sparse ``w``; K % m_blk == 0, C % tile_n == 0, m_blk % a_blk == 0.
+
+    Jobs of a tile run windows ascending, then kept rows ascending within a
+    window; a tile with fewer jobs than the most any tile needs is padded
+    with jobs of rows at index 0 and value 0."""
+    k, c = w.shape
+    assert k % m_blk == 0 and c % tile_n == 0 and m_blk % a_blk == 0, (k, c, m_blk, a_blk, tile_n)
+    n_tiles = c // tile_n
+    n_win = k // m_blk
+
+    # Per (tile, window): rows with any non-zero -> ceil(nnz_rows/a_blk) jobs.
+    jobs_per_tile = np.zeros(n_tiles, dtype=np.int64)
+    tile_jobs: List[List[Tuple[int, np.ndarray]]] = [[] for _ in range(n_tiles)]
+    for t in range(n_tiles):
+        for wi in range(n_win):
+            blk = w[wi * m_blk : (wi + 1) * m_blk, t * tile_n : (t + 1) * tile_n]
+            nz_rows = np.flatnonzero((blk != 0).any(axis=1)) + wi * m_blk
+            if len(nz_rows) == 0:
+                continue  # fully-zero window: no job at all (MAC gating)
+            for j0 in range(0, len(nz_rows), a_blk):
+                rows = nz_rows[j0 : j0 + a_blk]
+                tile_jobs[t].append((wi, rows))
+        jobs_per_tile[t] = len(tile_jobs[t])
+
+    n_jobs = int(jobs_per_tile.max())
+    values = np.zeros((n_tiles, n_jobs, a_blk, tile_n), dtype=w.dtype)
+    row_idx = np.zeros((n_tiles, n_jobs, a_blk), dtype=np.int32)
+    for t in range(n_tiles):
+        for j, (wi, rows) in enumerate(tile_jobs[t]):
+            if len(rows):
+                values[t, j, : len(rows)] = w[rows, t * tile_n : (t + 1) * tile_n]
+                row_idx[t, j, : len(rows)] = rows
+    return BlockPacked(
+        k=k, c=c, m_blk=m_blk, a_blk=a_blk, tile_n=tile_n, values=values, row_idx=row_idx
+    )
+
+
+def unpack_blocks(p: BlockPacked) -> np.ndarray:
+    w = np.zeros((p.k, p.c), dtype=p.values.dtype)
+    for t in range(p.n_tiles):
+        for j in range(p.n_jobs):
+            for a in range(p.a_blk):
+                # padding rows have zero values; adding is safe and exact
+                w[p.row_idx[t, j, a], t * p.tile_n : (t + 1) * p.tile_n] += p.values[t, j, a]
+    return w
+
+
+# --------------------------------------------------------------------------
+# Row-wise VUSA format (the vusa_packed kernels' operands)
+# --------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

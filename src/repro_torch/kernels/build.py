@@ -3,8 +3,9 @@
 Each source in ``csrc/`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own shared library under ``kernels/build/`` (listed
 in ``.gitignore``), at first use.  The library name carries a hash of the
-source and the flags, so an edited source never loads a stale build, and
-the file appears atomically, so concurrent processes may build at once.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source never loads a stale build, and the file appears atomically, so
+concurrent processes may build at once.
 Nothing here runs at import: the CPU tests import every module of the port
 on a machine without ``nvcc``.
 """
@@ -23,7 +24,8 @@ __all__ = ["SOURCES", "build", "library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("vusa_packed",)  # csrc/<name>.cu -> build/lib<name>-<hash>.so
+# csrc/<name>.cu -> build/lib<name>-<hash>.so
+SOURCES = ("vusa_packed", "vusa_spmm", "dense_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +45,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

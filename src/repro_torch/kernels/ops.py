@@ -1,12 +1,17 @@
-"""Row-packed linear layers on top of the packed-matmul kernels.
+"""Packed linear layers on top of the port's kernels.
 
-Port of the row-format part of the JAX package's ``kernels/ops.py``:
-``RowPackedLinear`` (float values, or int8/int4 values with per-(window,
-row) scales), the packers, ``dequantize_linear_values`` and the appliers
-that reshape, slice ``[:c]`` and cast the fp32 kernel output back to the
-activation dtype.  The reference's ``k_blk`` heuristic and autotune cache
-budgeted TPU VMEM; the CUDA kernels have no such knob, so neither exists
-here.
+Port of the JAX package's ``kernels/ops.py``:
+
+* the block-VUSA layer and the dense baseline, the paper's A/B pair:
+  ``PackedLinear``, ``pack_linear``, ``apply_packed`` (kernel ``vusa_spmm``)
+  and ``matmul`` (kernel ``dense_matmul``);
+* the row format: ``RowPackedLinear`` (float values, or int8/int4 values
+  with per-(window, row) scales), the packers, ``dequantize_linear_values``
+  and the appliers that reshape, slice ``[:c]`` and cast the fp32 kernel
+  output back to the activation dtype.
+
+The reference's ``k_blk`` heuristic and autotune cache budgeted TPU VMEM;
+the CUDA kernels have no such knob, so neither exists here.
 """
 
 from __future__ import annotations
@@ -15,16 +20,111 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..core.packing import QUANT_DTYPES, RowPacked, pack_rows, pack_rows_t, quantize_rows
-from .ref import dequantize_values, vusa_fused_mlp_ref, vusa_packed_ref
+from ..core.packing import (
+    QUANT_DTYPES,
+    RowPacked,
+    pack_blocks,
+    pack_rows,
+    pack_rows_t,
+    quantize_rows,
+)
+from .dense_matmul import dense_matmul
+from .ref import dequantize_values, vusa_fused_mlp_ref, vusa_packed_ref, vusa_spmm_ref
 from .vusa_packed import vusa_fused_mlp_matmul, vusa_packed_matmul
+from .vusa_spmm import vusa_spmm
 
 __all__ = [
+    "PackedLinear", "pack_linear", "apply_packed", "apply_packed_ref", "matmul",
     "RowPackedLinear", "pack_linear_rows", "pack_linear_rows_t", "linear_from_pack",
     "dequantize_linear_values", "apply_row_packed", "apply_row_packed_ref", "apply_fused_mlp",
     "apply_fused_mlp_ref",
 ]
+
+
+# --------------------------------------------------------------------------
+# Block-VUSA linear and the dense baseline
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PackedLinear:
+    """Device-resident block-VUSA pack of a (k, c) weight: per output tile
+    of ``Tn`` columns, jobs of ``A`` kept rows and their row indices."""
+
+    values: torch.Tensor  # (T, J, A, Tn) fp32
+    row_idx: torch.Tensor  # (T, J, A) int32
+    k: int  # logical K (pre-padding)
+    c: int  # logical C (pre-padding)
+    k_padded: int = 0
+
+    @property
+    def compression(self) -> float:
+        dense = self.k * self.c * self.values.element_size()
+        packed = self.values.numel() * self.values.element_size() + self.row_idx.numel() * 4
+        return packed / dense
+
+    @property
+    def virtual_growth(self) -> float:
+        """Padded K rows per job row, the pack's ``BlockPacked.virtual_growth``
+        (the M/A analogue)."""
+        _, j, a, _ = self.values.shape
+        return max(self.k_padded, self.k) / (j * a)
+
+
+def pack_linear(
+    w, m_blk: int = 32, a_blk: int = 8, tile_n: int = 128, device=None
+) -> PackedLinear:
+    """Block-pack a sparse (K, C) weight, K zero-padded to ``m_blk`` and C to
+    ``tile_n``.  Values land as fp32, the kernel's value type (the
+    reference's ``jnp.asarray`` also lands a float64 pack as fp32), on
+    ``device``: by default the tensor's own device, ``cuda`` for an array."""
+    host, _, dev, _ = _host(w)
+    k, c = host.shape
+    k_pad, c_pad = (-k) % m_blk, (-c) % tile_n
+    if k_pad or c_pad:
+        host = np.pad(host, ((0, k_pad), (0, c_pad)))
+    bp = pack_blocks(host, m_blk=m_blk, a_blk=a_blk, tile_n=tile_n)
+    device = device or dev or "cuda"
+    return PackedLinear(
+        values=torch.from_numpy(bp.values).to(device, torch.float32),
+        row_idx=torch.from_numpy(bp.row_idx).to(device),
+        k=k, c=c, k_padded=k + k_pad,
+    )
+
+
+def _packed_input(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """x (..., K) flattened to (B, K) and zero-padded to the pack's K."""
+    xf = x.reshape(-1, x.shape[-1])
+    if p.k_padded > p.k:  # the weight was K-padded at pack time
+        xf = F.pad(xf, (0, p.k_padded - p.k))
+    return xf.contiguous()
+
+
+def apply_packed(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """y = x @ W for block-packed W.  x: (..., K) -> (..., C) in ``x.dtype``."""
+    y = vusa_spmm(_packed_input(x, p), p.values, p.row_idx)
+    return y[:, : p.c].reshape(*x.shape[:-1], p.c)
+
+
+def apply_packed_ref(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    y = vusa_spmm_ref(_packed_input(x, p), p.values, p.row_idx)
+    return y[:, : p.c].reshape(*x.shape[:-1], p.c)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Dense baseline (M, K) @ (K, N) -> (M, N) fp32.  Accepts the shapes
+    the reference's ``ops.matmul`` accepts: ``bm`` is 128, 8 or 1, whichever
+    first divides M, and N and K must be multiples of 128 or at most 128."""
+    m = x.shape[0]
+    bm = 128 if m % 128 == 0 else (8 if m % 8 == 0 else 1)
+    return dense_matmul(x, w, bm=bm)
+
+
+# --------------------------------------------------------------------------
+# Row-wise VUSA linear
+# --------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

@@ -1,12 +1,14 @@
-"""Plain PyTorch versions of the packed-matmul kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Port of the JAX package's ``kernels/ref.py`` oracles for the row-wise VUSA
-format, with the quantized packs' dequant (``dequantize_values``, the twin
-of the Pallas kernels' ``_dequant``) applied first when scales are given.
-They consume the *packed* operands, so kernel-vs-plain equality checks the
-kernel and ``unpack_rows``-vs-dense checks the packer.  The
-wrappers in :mod:`repro_torch.kernels.vusa_packed` run these for tensors on
-the CPU; ``chip_smoke.py`` holds the CUDA kernels against them on the card.
+Port of the JAX package's ``kernels/ref.py`` oracles: the dense baseline
+(``dense_matmul_ref``), the block-VUSA product (``vusa_spmm_ref``) and the
+row-wise VUSA products, with the quantized packs' dequant
+(``dequantize_values``, the twin of the Pallas kernels' ``_dequant``)
+applied first when scales are given.  The packed ones consume the *packed*
+operands, so kernel-vs-plain equality checks the kernel and
+unpack-vs-dense checks the packer.  The wrappers in
+:mod:`repro_torch.kernels` run these for tensors on the CPU;
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -14,9 +16,32 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["vusa_packed_ref", "vusa_fused_mlp_ref", "unpack_dense", "dequantize_values"]
+__all__ = [
+    "dense_matmul_ref", "vusa_spmm_ref", "vusa_packed_ref", "vusa_fused_mlp_ref", "unpack_dense",
+    "dequantize_values",
+]
 
 VALUE_DTYPES = ("dense", "int8", "int4")
+
+
+def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) with both operands widened to fp32, fp32 out.
+
+    The reference's oracle rounds its result to ``x.dtype``; its kernel,
+    like the one here, returns fp32, so the plain version does too."""
+    return x.float() @ w.float()
+
+
+def vusa_spmm_ref(x: torch.Tensor, values: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
+    """Block-VUSA packed matmul.
+
+    x: (B, K); values (T, J, A, Tn) packed weight rows per output tile;
+    row_idx (T, J, A) absolute K index per packed row (padding rows point at
+    0 with value 0).  Returns (B, T * Tn) in ``x.dtype``, contracted in fp32."""
+    t, j, a, tn = values.shape
+    xg = x[:, row_idx.long()]  # (B, T, J, A): the SPE -> MAC shifter
+    y = torch.einsum("btja,tjan->btn", xg.float(), values.float())
+    return y.reshape(x.shape[0], t * tn).to(x.dtype)
 
 
 def dequantize_values(

@@ -9,7 +9,10 @@ that has only the port:
 Tolerance: 1e-4 of the largest output for fp32 and bf16 activations alike
 (bf16 widens to fp32 exactly; both sides accumulate in fp32; int8/int4
 values dequantize to the same fp32 products ``q * scale`` on both sides).
-Row 0 of a B = 4 call must equal a B = 1 call bitwise.
+Row 0 of a B = 4 call must equal a B = 1 call bitwise.  The block-VUSA
+kernel returns ``x.dtype``: with bf16 ``x`` both sides round their fp32 sum
+to bf16 once, so they may part by one bf16 step (2**-7 of the value) on
+top of the 1e-4.
 """
 
 import numpy as np
@@ -17,15 +20,21 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.dense_matmul import dense_matmul
 from repro_torch.kernels.ops import (
     apply_fused_mlp,
     apply_fused_mlp_ref,
+    apply_packed,
+    apply_packed_ref,
     apply_row_packed,
     apply_row_packed_ref,
+    matmul,
+    pack_linear,
     pack_linear_rows,
     pack_linear_rows_t,
 )
 from repro_torch.kernels.vusa_packed import vusa_packed_matmul
+from repro_torch.kernels.vusa_spmm import vusa_spmm
 
 
 def _sparse(rng, k, c, sparsity):
@@ -36,6 +45,76 @@ def _sparse(rng, k, c, sparsity):
 def _close(got, want, tol=1e-4):
     err = float((got.float() - want.float()).abs().max())
     assert err <= tol * max(float(want.float().abs().max()), 1.0), err
+
+
+def _close_rounded(got, want):
+    """1e-4 of the largest output plus one rounding step of ``got.dtype``."""
+    step = 2.0**-7 if got.dtype == torch.bfloat16 else 0.0
+    err = (got.float() - want.float()).abs()
+    tol = 1e-4 * max(float(want.float().abs().max()), 1.0) + step * want.float().abs()
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,k,c,sp,m_blk,a_blk",
+    [
+        (8, 256, 384, 0.9, 32, 8),
+        (4, 100, 130, 0.85, 32, 8),
+        (16, 512, 256, 0.0, 32, 8),
+        (2, 64, 128, 0.99, 16, 8),
+        (1, 147, 64, 0.85, 32, 8),
+        (8450, 576, 200, 0.85, 32, 8),  # BM = 64 blocks, a ragged last one
+    ],
+)
+def test_vusa_spmm_matches_plain_on_card(b, k, c, sp, m_blk, a_blk):
+    """B5 vs its plain version: the shapes of tests/test_kernels.py, B = 1,
+    C % 128 != 0, an all-zero window, B large enough for BM = 64 blocks;
+    fp32 and bf16 x; rows independent of B; a NaN in x[:, 0] reaches the
+    same outputs as in the plain version (padding rows point at row 0 and
+    are multiplied)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    w = _sparse(rng, k, c, sp)
+    w[:m_blk, :] = 0.0  # the first window of every tile holds no job
+    p = pack_linear(w, m_blk, a_blk, 128, device=dev)
+    x = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32)).to(dev)
+    for xx in (x, x.to(torch.bfloat16)):
+        got = apply_packed(xx, p)
+        assert got.shape == (b, c) and got.dtype == xx.dtype
+        _close_rounded(got, apply_packed_ref(xx, p))
+        assert torch.equal(apply_packed(xx[:1], p)[0], got[0])
+    _close(apply_packed(x, p), x @ torch.from_numpy(w).to(dev), 1e-3)
+    xn = x.clone()
+    xn[:, 0] = float("nan")
+    xp = torch.nn.functional.pad(xn, (0, p.k_padded - k))
+    got, want = vusa_spmm(xp, p.values, p.row_idx), ref.vusa_spmm_ref(xp, p.values, p.row_idx)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "m,k,n", [(8, 128, 128), (128, 256, 384), (16, 64, 256), (49, 9, 32), (8450, 256, 384)]
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_matmul_matches_plain_on_card(m, k, n, dtype):
+    """B6 vs its plain version at the shapes of tests/test_kernels.py and
+    ragged ones (M = 49 and 8450 take bm = 1, K = 9, N = 32; 8450 rows run
+    BM = 64 blocks), fp32 and bf16 operands; rows independent of M."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dev, dtype)
+    got = matmul(x, w)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    _close(got, ref.dense_matmul_ref(x, w))
+    assert torch.equal(dense_matmul(x[:1], w)[0], got[0])
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -32,7 +32,10 @@ def _port_modules():
 def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
     assert {"repro_torch.serve.engine", "repro_torch.kernels.vusa_packed",
-            "repro_torch.launch.serve", "repro_torch.convert"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.convert",
+            "repro_torch.kernels.vusa_spmm", "repro_torch.kernels.dense_matmul",
+            "repro_torch.core.vusa", "repro_torch.core.growth", "repro_torch.core.simulator",
+            "repro_torch.core.hwmodel", "repro_torch.core.workloads"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
