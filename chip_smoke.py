@@ -59,21 +59,32 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    ``normal(B, K)`` fp32 from the same generator.  Each model is one
    counted run: all counts set to 0, then per GEMM
    ``ops.apply_packed(x, ops.pack_linear(w, 32, 8, 128))`` (B5,
-   ``vusa_spmm``) and ``ops.matmul`` on x and w zero-padded to the
-   reference's tile contract (B6, ``dense_matmul``); exactly one launch of
-   each per GEMM and none of B1-B4.  Each output within 1e-4 of the largest
-   |plain| of its plain version, and within 1e-3 (of the largest |x @ w|,
-   at least 1) of ``x @ w`` in true fp32; bf16 x on three GEMMs per model
+   ``vusa_spmm`` with ``ncols = C``) and ``ops.matmul`` on x and w
+   zero-padded to the reference's tile contract (B6, ``dense_matmul``);
+   exactly one counted launch of each per GEMM and none of B1-B4.  A call
+   whose plan splits the reduction issues a second CUDA launch, the ordered
+   sum of the slices: each library counts the CUDA launches the runtime
+   accepts, read before and after each call of the counted run, and each
+   GEMM's count must equal its plan's (``tile_plan.cuda_launches``);
+   ``cuda_launches_per_call`` is their mean per GEMM.  Each
+   output within 1e-4 of the largest |plain| of its plain version, and
+   within 1e-3 (of the largest |x @ w|, at least 1) of ``x @ w`` in true
+   fp32; bf16 x on three GEMMs per model
    (B5 then rounds its output to bf16, as its plain version does: one bf16
    step, 2**-7 of the value, allowed on top).  Per GEMM, CUDA events with L2
    flushed: kernel, plain version, ``torch.matmul(x, w)`` fp32 as the
-   library call, and the bound (bytes over 3.35 TB/s against fp32
-   operations over 67 TFLOP/s; B5: values, ``row_idx``, x and y with
-   2*B*T*J*A*Tn operations; B6: the padded operands and output with
-   2*M*N*K).  Per model: the sums, the B5/B6 ratio, the packs'
-   compression and virtual growth, beside the cycle simulator's VUSA 3x6
-   (``schedule_widths_fast`` + ``ws_cycles``, as ``benchmarks/run.py``
-   reckons it) and standard 3x6 (``gemm_cycles_standard``) cycles for the
+   library call, and the bound (bytes over 3.35 TB/s against the kernels'
+   TF32 tensor-core operations over 495 TFLOP/s, three per logical fp32
+   product, the 3xTF32 split; B5: values, ``row_idx``, x and the (B, C)
+   output with 2*B*J*A*C logical operations; B6: the padded operands and
+   output with 2*M*N*K; the fp32 67 TFLOP/s bound of earlier runs kept
+   beside it as ``bound_fp32_ms``), and each kernel's launch plan (slices
+   S, tile BM x BN, stage KS, ``kernels/tile_plan.py``).  Per ResNet-18
+   layer group (conv0, layer1-4, fc): B5, B6 and library ms and logical
+   TFLOP/s (2*B*K*C over the time).  Per model: the sums, the B5/B6 ratio,
+   the packs' compression and virtual growth, beside the cycle simulator's
+   VUSA 3x6 (``schedule_widths_fast`` + ``ws_cycles``, as
+   ``benchmarks/run.py`` reckons it) and standard 3x6 (``gemm_cycles_standard``) cycles for the
    same masks;
 7. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step; B5/B6 per ResNet-18
@@ -105,8 +116,9 @@ from repro_torch.core.pruning import prune_tree  # noqa: E402
 from repro_torch.core.simulator import gemm_cycles_standard, ws_cycles  # noqa: E402
 from repro_torch.core.vusa import schedule_widths_fast  # noqa: E402
 from repro_torch.core.workloads import mobilenetv1_gemms, resnet18_gemms  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref, tile_plan  # noqa: E402
 from repro_torch.kernels.dense_matmul import (  # noqa: E402
+    cuda_launches as dense_cuda_launches,
     dense_matmul,
     reset_launch_counts as reset_dense_counts,
 )
@@ -116,6 +128,7 @@ from repro_torch.kernels.vusa_packed import (  # noqa: E402
     vusa_packed_matmul,
 )
 from repro_torch.kernels.vusa_spmm import (  # noqa: E402
+    cuda_launches as spmm_cuda_launches,
     reset_launch_counts as reset_spmm_counts,
     vusa_spmm,
 )
@@ -132,6 +145,8 @@ from repro_torch.serve.packed import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
+TF32_PASSES = 3  # B5/B6 run three TF32 products per fp32 one (3xTF32)
 TOL = 1e-4  # kernel vs plain, of the largest plain output
 BATCH, PROMPT, MAX_NEW = 4, 32, 32
 DEPTH_CUT = 2  # layers of the fp32 token-identity check
@@ -143,6 +158,13 @@ PAPER_MODELS = (("resnet18", resnet18_gemms, 0.85), ("mobilenetv1", mobilenetv1_
 PAPER_SEED = 0
 EXACT_TOL = 1e-3  # kernels vs x @ w in fp32, of the largest |x @ w| (at least 1)
 VUSA_NMA = (3, 6, 3)  # the paper's VUSA 3x6: N rows, M SPEs, A MACs
+# ResNet-18's layer groups by GEMM name (the 1x1 downsample convs in their group)
+RESNET18_GROUPS = (("conv0", ("conv0",)),
+                   ("layer1", tuple(f"conv{i}" for i in range(1, 5))),
+                   ("layer2", tuple(f"conv{i}" for i in range(5, 10))),
+                   ("layer3", tuple(f"conv{i}" for i in range(10, 15))),
+                   ("layer4", tuple(f"conv{i}" for i in range(15, 20))),
+                   ("fc", ("fc",)))
 
 
 def fail(msg: str) -> None:
@@ -198,8 +220,8 @@ def rel_err(got, want) -> tuple[float, float]:
     return err, err / max(float(want.float().abs().max()), 1.0)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -685,8 +707,14 @@ def paper_model(timer, name, gemms, rate):
     torch.cuda.synchronize()
 
     reset_all_launch_counts()
-    outs = [(ops.apply_packed(x, p), ops.matmul(xp, wp))  # <- the counted run
-            for x, p, (xp, wp) in zip(xs, packs, padded)]
+    outs, cuda = [], []  # <- the counted run; CUDA launches per call from the libraries
+    for x, p, (xp, wp) in zip(xs, packs, padded):
+        c0 = spmm_cuda_launches()
+        y5 = ops.apply_packed(x, p)
+        c1 = dense_cuda_launches()
+        y6 = ops.matmul(xp, wp)
+        outs.append((y5, y6))
+        cuda.append((spmm_cuda_launches() - c0, dense_cuda_launches() - c1))
     torch.cuda.synchronize()
     counts = all_launch_counts()
     want = {"vusa_spmm": len(gemms), "dense_matmul": len(gemms), "vusa_packed_matmul": 0,
@@ -696,8 +724,8 @@ def paper_model(timer, name, gemms, rate):
 
     bf16_at = {0, len(gemms) // 2, len(gemms) - 1}
     rows = []
-    for i, (g, x, p, w, (xp, wp), (y5, y6)) in enumerate(zip(gemms, xs, packs, dense, padded,
-                                                           outs)):
+    for i, (g, x, p, w, (xp, wp), (y5, y6), (c5, c6)) in enumerate(
+            zip(gemms, xs, packs, dense, padded, outs, cuda)):
         tag = f"paper workloads {name} {g.name}"
         exact = torch.matmul(x, w)
         err5 = check_rounded(f"{tag} vusa_spmm", y5, ops.apply_packed_ref(x, p))
@@ -716,30 +744,44 @@ def paper_model(timer, name, gemms, rate):
                                                   ref.dense_matmul_ref(xpb, wpb))}
         xk = F.pad(x, (0, p.k_padded - p.k)).contiguous()
         t, j, a, tn = p.values.shape
-        b5 = bound_ms(nbytes(p.values, p.row_idx, xk) + g.B * t * tn * 4, 2 * g.B * t * j * a * tn)
-        b6 = bound_ms(nbytes(xp, wp) + xp.shape[0] * wp.shape[1] * 4,
-                      2 * xp.shape[0] * wp.shape[1] * xp.shape[1])
+        flops5 = 2 * g.B * j * a * g.C
+        flops6 = 2 * xp.shape[0] * wp.shape[1] * xp.shape[1]
+        bytes5 = nbytes(p.values, p.row_idx, xk) + g.B * g.C * 4
+        bytes6 = nbytes(xp, wp) + xp.shape[0] * wp.shape[1] * 4
+        b5 = bound_ms(bytes5, TF32_PASSES * flops5, TF32_FLOPS)
+        b6 = bound_ms(bytes6, TF32_PASSES * flops6, TF32_FLOPS)
+        plan5, plan6 = tile_plan.plan(j * a), tile_plan.plan(xp.shape[1])
+        for kname, got, want in (
+                ("vusa_spmm", c5, tile_plan.cuda_launches(plan5, g.B, g.C)),
+                ("dense_matmul", c6, tile_plan.cuda_launches(plan6, xp.shape[0], wp.shape[1]))):
+            if got != want:
+                fail(f"{tag} {kname}: {got} CUDA launches in the counted run, its plan takes "
+                     f"{want}")
         rows.append({
             "gemm": g.name, "B": g.B, "K": g.K, "C": g.C, "k_padded": p.k_padded,
             "T": t, "J": j, "A": a, "compression": p.compression,
             "virtual_growth": p.virtual_growth, "logical_flops": 2 * g.B * g.K * g.C,
             "library_ms": timer(lambda: torch.matmul(x, w)),
-            "vusa_spmm": {"ms": timer(lambda: vusa_spmm(xk, p.values, p.row_idx)),
-                          "plain_ms": timer(lambda: ref.vusa_spmm_ref(xk, p.values, p.row_idx)),
-                          "bound_ms": b5[0], "bound_by": b5[1], "max_abs_err": err5,
+            "vusa_spmm": {"ms": timer(lambda: vusa_spmm(xk, p.values, p.row_idx, g.C)),
+                          "plain_ms": timer(lambda: ref.vusa_spmm_ref(xk, p.values, p.row_idx,
+                                                                      g.C)),
+                          "bound_ms": b5[0], "bound_by": b5[1],
+                          "bound_fp32_ms": bound_ms(bytes5, flops5)[0], "max_abs_err": err5,
                           "max_abs_err_bf16": bf16.get("vusa_spmm"),
-                          "flops": 2 * g.B * t * j * a * tn},
+                          "flops": flops5, "plan": plan5._asdict(), "cuda_launches": c5},
             "dense_matmul": {"ms": timer(lambda: ops.matmul(xp, wp)),
                              "plain_ms": timer(lambda: ref.dense_matmul_ref(xp, wp)),
-                             "bound_ms": b6[0], "bound_by": b6[1], "max_abs_err": err6,
-                             "max_abs_err_bf16": bf16.get("dense_matmul"),
-                             "flops": 2 * xp.shape[0] * wp.shape[1] * xp.shape[1],
-                             "padded": [xp.shape[0], xp.shape[1], wp.shape[1]]},
+                             "bound_ms": b6[0], "bound_by": b6[1],
+                             "bound_fp32_ms": bound_ms(bytes6, flops6)[0], "max_abs_err": err6,
+                             "max_abs_err_bf16": bf16.get("dense_matmul"), "flops": flops6,
+                             "padded": [xp.shape[0], xp.shape[1], wp.shape[1]],
+                             "plan": plan6._asdict(), "cuda_launches": c6},
         })
 
     def total(kname):
         ks = [r[kname] for r in rows]
-        out = {k: sum(r[k] for r in ks) for k in ("ms", "plain_ms", "bound_ms", "flops")}
+        out = {k: sum(r[k] for r in ks)
+               for k in ("ms", "plain_ms", "bound_ms", "bound_fp32_ms", "flops")}
         by_ops = sum(r["bound_ms"] for r in ks if r["bound_by"] == "operations")
         out["bound_by"] = "operations" if 2 * by_ops >= out["bound_ms"] else "bytes"
         out["max_abs_err"] = max(r["max_abs_err"] for r in ks)  # fp32 x
@@ -747,7 +789,18 @@ def paper_model(timer, name, gemms, rate):
                                       if r["max_abs_err_bf16"] is not None)
         out["library_ms"] = sum(r["library_ms"] for r in rows)
         out["launches"] = counts[kname]
+        out["cuda_launches_per_call"] = sum(r["cuda_launches"] for r in ks) / len(ks)
         return out
+
+    groups = {}
+    for gname, members in (RESNET18_GROUPS if name == "resnet18" else ()):
+        rs = [r for r in rows if r["gemm"] in members]
+        flops = sum(r["logical_flops"] for r in rs)
+        groups[gname] = {"gemms": len(rs), "logical_flops": flops}
+        for key, ms in (("vusa_spmm", sum(r["vusa_spmm"]["ms"] for r in rs)),
+                        ("dense_matmul", sum(r["dense_matmul"]["ms"] for r in rs)),
+                        ("library", sum(r["library_ms"] for r in rs))):
+            groups[gname][key] = {"ms": ms, "logical_tflop_per_s": flops / ms / 1e9}
 
     packed_bytes = sum(nbytes(p.values, p.row_idx) for p in packs)
     return {
@@ -758,7 +811,7 @@ def paper_model(timer, name, gemms, rate):
         "byte_ratio": packed_bytes / sum(nbytes(w) for w in dense),
         "virtual_growth_mean": float(np.mean([p.virtual_growth for p in packs])),
         "simulator": simulator_cycles(gemms, [w != 0 for w in ws]),
-        "per_gemm": rows,
+        "layer_groups": groups, "per_gemm": rows,
     }
 
 
@@ -855,12 +908,19 @@ def main() -> None:
               f"{b6['ms']:.4f} ms, B5/B6 {b5['ms'] / b6['ms']:.4f}; plain {b5['plain_ms']:.4f} / "
               f"{b6['plain_ms']:.4f} ms, library torch.matmul fp32 {b5['library_ms']:.4f} ms, "
               f"bound {b5['bound_ms']:.4f} / {b6['bound_ms']:.4f} ms by {b5['bound_by']} / "
-              f"{b6['bound_by']}; fp32 operations B5 {b5['flops']} B6 {b6['flops']} logical "
-              f"{m['logical_flops']}; sum of compression {m['compression_sum']:.4f}, packed / "
-              f"dense bytes {m['byte_ratio']:.4f}, mean virtual growth "
-              f"{m['virtual_growth_mean']:.4f}; simulator VUSA 3x6 {sim['vusa_3x6']} cycles, "
-              f"standard 3x6 {sim['standard_3x6']}, VUSA / standard {sim['ratio']:.4f}",
+              f"{b6['bound_by']} (3xTF32; fp32 at 67 TFLOP/s {b5['bound_fp32_ms']:.4f} / "
+              f"{b6['bound_fp32_ms']:.4f}); CUDA launches per call "
+              f"{b5['cuda_launches_per_call']:.4f} / {b6['cuda_launches_per_call']:.4f}; fp32 "
+              f"operations B5 {b5['flops']} B6 {b6['flops']} logical {m['logical_flops']}; "
+              f"sum of compression {m['compression_sum']:.4f}, packed / dense bytes "
+              f"{m['byte_ratio']:.4f}, mean virtual growth {m['virtual_growth_mean']:.4f}; "
+              f"simulator VUSA 3x6 {sim['vusa_3x6']} cycles, standard 3x6 "
+              f"{sim['standard_3x6']}, VUSA / standard {sim['ratio']:.4f}",
               flush=True)
+        for gname, grp in m["layer_groups"].items():
+            print(f"paper workloads {name} {gname} ({grp['gemms']} GEMMs): " + ", ".join(
+                f"{key} {grp[key]['ms']:.4f} ms ({grp[key]['logical_tflop_per_s']:.2f} logical "
+                "TFLOP/s)" for key in ("vusa_spmm", "dense_matmul", "library")), flush=True)
     print(f"paper workloads phase {time.monotonic() - t0:.1f}s", flush=True)
 
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
@@ -891,8 +951,8 @@ def main() -> None:
         k["int4"] = {key: v for key, v in entry(name, "int4").items()
                      if key not in ("name", "route", "source", "replaces")}
         kernels.append(k)
-    keys = ("launches", "max_abs_err", "max_abs_err_bf16", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+    keys = ("launches", "cuda_launches_per_call", "max_abs_err", "max_abs_err_bf16", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaced in (("vusa_spmm", "src/repro/kernels/vusa_spmm.py:34"),
                            ("dense_matmul", "src/repro/kernels/dense_matmul.py:21")):
         kernels.append({"name": name, "route": "cuda",
@@ -906,7 +966,10 @@ def main() -> None:
          "bound_ms summed over one decode step (48 projections + head; 12 MLPs) at B=4, bf16 "
          "activations; B1/B2 with fp32 values, B3/B4 int8 at top level and int4 under 'int4'; "
          "vusa_spmm/dense_matmul summed over the 21 GEMMs of one ResNet-18 image (MobileNetV1's "
-         "28 under 'mobilenetv1')",
+         "28 under 'mobilenetv1'), their cuda_launches_per_call the mean over those GEMMs of the "
+         "CUDA launches each library counted in the counted run (2 where the plan splits the "
+         "reduction), their bound_ms with TF32 tensor-core operations over 495 TFLOP/s, three "
+         "per logical fp32 product (3xTF32)",
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
          "paper_workloads": paper,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,

@@ -6,65 +6,59 @@
 // bf16 (widened to fp32 exactly on load), y (M, N) fp32, accumulated in
 // fp32 over K in one fixed order.
 //
-// What bounds it on this card: mostly operations at the paper's workloads
-// (M, the output pixels, reuses every weight M times; 2*M*N*K fp32
-// operations over 67 TFLOP/s against (M*K + K*N + M*N) * 4 bytes over
-// 3.35 TB/s), bytes where M is 1 (the fully connected layers) or K is tiny
-// (MobileNetV1's depthwise layers, K = 9).
+// What bounds it on this card: by the data sheet, mostly operations at the
+// paper's workloads (M, the output pixels, reuses every weight M times;
+// 2*M*N*K fp32 operations over 67 TFLOP/s against (M*K + K*N + M*N) * 4
+// bytes over 3.35 TB/s), bytes where M is 1 (the fully connected layers)
+// or K is tiny (MobileNetV1's depthwise layers, K = 9).  In practice each
+// GEMM lasts a few microseconds and parallelism and latency decide it, most
+// of all on the deep layers, whose few output tiles each reduce up to
+// K = 4608.
 //
-// What the design does about it: a shared-memory tiled SGEMM with register
-// blocking and a stage of prefetch (tile_gemm.cuh), the same skeleton and
-// the same 16-byte weight loads as the block-VUSA kernel (vusa_spmm.cu),
-// with x's columns read in order instead of gathered.  The
-// TPU kernel carries its output block across a sequential K grid axis;
-// here one block owns a BM x 128 output tile and walks K itself, so no
-// partial sum leaves the block (no split-K, no atomics).  The kernel
-// checks its own edges (rows, columns and K need not be multiples of the
-// tile); the wrapper keeps the reference's shape contract.
+// What the design does about it: the skeleton of tile_gemm.cuh, the same as
+// the block-VUSA kernel's (vusa_spmm.cu), with x's columns read in order
+// instead of gathered: 32 x 64 output tiles, 16-byte cp.async of x rows and
+// weight rows into a three-stage shared-memory ring, split-precision TF32
+// tensor-core products (3xTF32), and, for K above 256, an ordered split of
+// K into slices of at most 128 rows whose fp32 partials a second launch
+// sums in slice order (the TPU kernel carries its output block across a
+// sequential K grid axis; here the K ranges run in parallel and meet in one
+// fixed order, no atomics; the wrapper runs the rows in chunks whose
+// partials fit a fixed workspace, kernels/tile_plan.py).  Rows with a
+// ragged K (K % 4 != 0) or a ragged N take 4-byte copies, and bf16
+// operands plain loads.  The kernel checks
+// its own edges (rows, columns and K need not be multiples of the tile);
+// the wrapper keeps the reference's shape contract.
 
 #include "tile_gemm.cuh"
 
 namespace {
 
-using tile_gemm::BN;
-
-__device__ __forceinline__ float4 widen4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {  // bf16 -> fp32 is exact
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
-}
-
-template <typename WT>
+template <typename W>
 struct DenseOp {
-  const WT* w;  // (K, N)
-  int nk;       // K
-  int ncols;    // N
-  bool vec;     // rows start 16-byte (fp32) / 8-byte (bf16) aligned: N % 4 == 0
+  static constexpr bool kGather = false;
+  using WT = W;
+  const W* w;  // (K, N)
+  int ldw;     // N
+  bool w_vec;  // fp32 rows 16-byte aligned: N % 4 == 0 and w aligned
 
   __device__ __forceinline__ int x_col(int, int k) const { return k; }
-  // columns t*BN + 4*c4 .. +3 of row k: one vector load inside the matrix,
-  // element by element (0 past N) at a ragged edge
-  __device__ __forceinline__ float4 w4(int t, int k, int c4) const {
-    const int n = t * BN + 4 * c4;
-    const WT* p = w + (size_t)k * ncols + n;
-    if (vec && n + 3 < ncols) return widen4(p);
-    float v[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) v[c] = n + c < ncols ? tile_gemm::to_f32(p[c]) : 0.f;
-    return make_float4(v[0], v[1], v[2], v[3]);
+  __device__ __forceinline__ const W* w_row(int n0, int k) const {
+    return w + (size_t)k * ldw + n0;
   }
 };
 
 template <typename XT, typename WT>
-cudaError_t launch_dense(const void* x, const void* w, void* out, int M, int K, int N,
-                         cudaStream_t stream) {
-  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % (4 * sizeof(WT)) == 0;
-  const DenseOp<WT> op{static_cast<const WT*>(w), K, N, vec};
-  return tile_gemm::launch(static_cast<const XT*>(x), K, static_cast<float*>(out), N, M,
-                           (N + BN - 1) / BN, op, stream);
+cudaError_t launch_dense(const void* x, const void* w, void* out, float* part, int M,
+                         int K, int N, int S, int bm, int bn, int ks, cudaStream_t stream) {
+  const bool x_vec = std::is_same<XT, float>::value && K % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool w_vec = std::is_same<WT, float>::value && N % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const DenseOp<WT> op{static_cast<const WT*>(w), N, w_vec};
+  const tile_gemm::Problem pb{M, K, x_vec, K, N, S, part};
+  return tile_gemm::launch(static_cast<const XT*>(x), static_cast<float*>(out), pb, bm, bn, ks,
+                           op, stream);
 }
 
 }  // namespace
@@ -72,19 +66,28 @@ cudaError_t launch_dense(const void* x, const void* w, void* out, int M, int K, 
 extern "C" {
 
 // x (M, K) fp32 (x_bf16 = 0) or bf16 (1); w (K, N) fp32 or bf16 (w_bf16);
-// out (M, N) fp32.  Returns a cudaError_t (0 = launched).
-int dense_matmul(const void* x, int x_bf16, const void* w, int w_bf16, void* out, int M, int K,
-                 int N, void* stream) {
-  if (M < 0 || K < 0 || N < 0 || (N + BN - 1) / BN > 65535) return cudaErrorInvalidValue;
+// out (M, N) fp32.  The plan (S, bm, bn, ks) comes from the host
+// (kernels/tile_plan.py); part holds S*M*N fp32 when S > 1.  Returns a
+// cudaError_t (0 = launched).
+int dense_matmul(const void* x, int x_bf16, const void* w, int w_bf16, void* out, void* part,
+                 int M, int K, int N, int S, int bm, int bn, int ks, void* stream) {
+  if (M < 0 || K < 0 || N < 0) return cudaErrorInvalidValue;
   if (M == 0 || N == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
   if (x_bf16) {
-    if (w_bf16) return launch_dense<__nv_bfloat16, __nv_bfloat16>(x, w, out, M, K, N, st);
-    return launch_dense<__nv_bfloat16, float>(x, w, out, M, K, N, st);
+    if (w_bf16)
+      return launch_dense<__nv_bfloat16, __nv_bfloat16>(x, w, out, p, M, K, N, S, bm, bn, ks,
+                                                        st);
+    return launch_dense<__nv_bfloat16, float>(x, w, out, p, M, K, N, S, bm, bn, ks, st);
   }
-  if (w_bf16) return launch_dense<float, __nv_bfloat16>(x, w, out, M, K, N, st);
-  return launch_dense<float, float>(x, w, out, M, K, N, st);
+  if (w_bf16)
+    return launch_dense<float, __nv_bfloat16>(x, w, out, p, M, K, N, S, bm, bn, ks, st);
+  return launch_dense<float, float>(x, w, out, p, M, K, N, S, bm, bn, ks, st);
 }
+
+// CUDA launches this library has issued since it was loaded.
+unsigned long long dense_matmul_cuda_launches() { return tile_gemm::cuda_launches.load(); }
 
 const char* dense_matmul_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

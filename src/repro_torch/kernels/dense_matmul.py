@@ -6,12 +6,19 @@ standard systolic-array baseline.  It keeps the reference's shape contract:
 with ``bm, bn, bk`` cut to at most ``m, n, k``, each must divide its
 dimension, or the call raises (the reference asserts).  The CUDA kernel
 tiles on its own and checks its own edges, so the block sizes are the
-contract only.  Tensors on the CPU take the plain PyTorch version
-:func:`repro_torch.kernels.ref.dense_matmul_ref` — only because they lie on
-the CPU; a CUDA tensor launches the kernel or raises.
+contract only; the launch plan (``tile_plan.plan``: reduction slices and
+tile) depends on K only, and a plan with more than one slice gets an fp32
+workspace from ``torch.empty`` and runs the rows in chunks
+(``tile_plan.row_chunks``) whose partials fit it.  Tensors on the CPU take
+the plain PyTorch version :func:`repro_torch.kernels.ref.dense_matmul_ref`
+— only because they lie on the CPU; a CUDA tensor launches the kernel or
+raises.
 
 ``dense_matmul.launches`` is a plain integer, incremented where (and only
-where) the kernel is launched.
+where) the kernel is launched: once a call, whatever the number of CUDA
+launches it takes (per row chunk the tile kernel, then the ordered sum of
+its slices).  ``cuda_launches()`` reads the library's own count of the CUDA
+launches it has issued.
 """
 
 from __future__ import annotations
@@ -23,9 +30,10 @@ import torch
 
 from .build import library
 from .ref import dense_matmul_ref
+from .tile_plan import plan, row_chunks, workspace_bytes
 from .vusa_packed import _on_cpu, _require_contiguous, _stream
 
-__all__ = ["dense_matmul", "reset_launch_counts"]
+__all__ = ["dense_matmul", "reset_launch_counts", "cuda_launches"]
 
 _FLOATS = (torch.float32, torch.bfloat16)
 _P = ctypes.c_void_p
@@ -35,8 +43,10 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = library("dense_matmul")
-    lib.dense_matmul.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _P]
+    lib.dense_matmul.argtypes = [_P, _I, _P, _I, _P, _P, *[_I] * 7, _P]
     lib.dense_matmul.restype = _I
+    lib.dense_matmul_cuda_launches.argtypes = []
+    lib.dense_matmul_cuda_launches.restype = ctypes.c_ulonglong
     lib.dense_matmul_error_string.argtypes = [_I]
     lib.dense_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -59,19 +69,31 @@ def dense_matmul(
     if _on_cpu(x, w):
         return dense_matmul_ref(x, w)
     _require_contiguous(x=x, w=w)
+    pl = plan(k)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = _lib().dense_matmul(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-                              int(w.dtype == torch.bfloat16), out.data_ptr(), m, k, n,
-                              _stream(x.device))
-    if err != 0:
-        msg = _lib().dense_matmul_error_string(err).decode()
-        raise RuntimeError(f"dense_matmul: CUDA launch failed with error {err} ({msg})")
+    part = torch.empty(workspace_bytes(pl, m, n) // 4, dtype=torch.float32, device=x.device)
+    lib = _lib()
+    for r0, r1 in row_chunks(pl, m, n):
+        err = lib.dense_matmul(x.data_ptr() + r0 * k * x.element_size(),
+                               int(x.dtype == torch.bfloat16), w.data_ptr(),
+                               int(w.dtype == torch.bfloat16), out.data_ptr() + r0 * n * 4,
+                               part.data_ptr(), r1 - r0, k, n, *pl, _stream(x.device))
+        if err != 0:
+            msg = lib.dense_matmul_error_string(err).decode()
+            raise RuntimeError(f"dense_matmul: CUDA launch failed with error {err} ({msg})")
     dense_matmul.launches += 1
     return out
 
 
 def reset_launch_counts() -> None:
     dense_matmul.launches = 0
+
+
+def cuda_launches() -> int:
+    """CUDA launches the kernel library has issued since it was loaded
+    (it counts each launch the runtime accepts; builds the library on first
+    use)."""
+    return int(_lib().dense_matmul_cuda_launches())
 
 
 reset_launch_counts()

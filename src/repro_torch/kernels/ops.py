@@ -104,13 +104,13 @@ def _packed_input(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
 
 def apply_packed(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     """y = x @ W for block-packed W.  x: (..., K) -> (..., C) in ``x.dtype``."""
-    y = vusa_spmm(_packed_input(x, p), p.values, p.row_idx)
-    return y[:, : p.c].reshape(*x.shape[:-1], p.c)
+    y = vusa_spmm(_packed_input(x, p), p.values, p.row_idx, p.c)
+    return y.reshape(*x.shape[:-1], p.c)
 
 
 def apply_packed_ref(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
-    y = vusa_spmm_ref(_packed_input(x, p), p.values, p.row_idx)
-    return y[:, : p.c].reshape(*x.shape[:-1], p.c)
+    y = vusa_spmm_ref(_packed_input(x, p), p.values, p.row_idx, p.c)
+    return y.reshape(*x.shape[:-1], p.c)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

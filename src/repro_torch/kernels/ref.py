@@ -6,7 +6,9 @@ row-wise VUSA products, with the quantized packs' dequant
 (``dequantize_values``, the twin of the Pallas kernels' ``_dequant``)
 applied first when scales are given.  The packed ones consume the *packed*
 operands, so kernel-vs-plain equality checks the kernel and
-unpack-vs-dense checks the packer.  The wrappers in
+unpack-vs-dense checks the packer.  ``tf32_split`` and ``matmul_3xtf32``
+emulate the split-precision TF32 products of ``csrc/tile_gemm.cuh`` for
+the tests; no kernel wrapper uses them.  The wrappers in
 :mod:`repro_torch.kernels` run these for tensors on the CPU;
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "dense_matmul_ref", "vusa_spmm_ref", "vusa_packed_ref", "vusa_fused_mlp_ref", "unpack_dense",
-    "dequantize_values",
+    "dequantize_values", "tf32_truncate", "tf32_split", "matmul_3xtf32",
 ]
 
 VALUE_DTYPES = ("dense", "int8", "int4")
@@ -32,16 +34,49 @@ def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def vusa_spmm_ref(x: torch.Tensor, values: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
+def vusa_spmm_ref(
+    x: torch.Tensor, values: torch.Tensor, row_idx: torch.Tensor, ncols: int | None = None
+) -> torch.Tensor:
     """Block-VUSA packed matmul.
 
     x: (B, K); values (T, J, A, Tn) packed weight rows per output tile;
     row_idx (T, J, A) absolute K index per packed row (padding rows point at
-    0 with value 0).  Returns (B, T * Tn) in ``x.dtype``, contracted in fp32."""
+    0 with value 0).  Returns (B, ncols) in ``x.dtype``, contracted in fp32;
+    ``ncols`` defaults to T * Tn."""
     t, j, a, tn = values.shape
     xg = x[:, row_idx.long()]  # (B, T, J, A): the SPE -> MAC shifter
     y = torch.einsum("btja,tjan->btn", xg.float(), values.float())
-    return y.reshape(x.shape[0], t * tn).to(x.dtype)
+    return y.reshape(x.shape[0], t * tn)[:, :ncols].to(x.dtype)
+
+
+def tf32_truncate(v: torch.Tensor) -> torch.Tensor:
+    """fp32 cut to TF32 (10 mantissa bits) toward zero, as the tile kernels
+    cut it: the low 13 bits of the fp32 pattern cleared with an integer op.
+    Non-finite values are kept."""
+    v = v.float()
+    cut = torch.bitwise_and(v.view(torch.int32), ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(v), cut, v)
+
+
+def tf32_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(v) and lo = tf32(v - hi), both cut toward
+    zero; lo = 0 where v (and so hi) is not finite."""
+    v = v.float()
+    hi = tf32_truncate(v)
+    lo = tf32_truncate(v - hi)
+    return hi, torch.where(torch.isfinite(v), lo, torch.zeros_like(lo))
+
+
+def matmul_3xtf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``hi_x @ hi_w + (hi_x @ lo_w + lo_x @ hi_w)`` in fp64: the value the
+    tile kernels' split-precision products approximate (their fp32
+    accumulation adds its own rounding).  As in their epilogue, where the
+    ``hi_x @ hi_w`` sum is +-inf it stands alone: the cross terms may hold
+    inf * 0 there."""
+    xh, xl = (t.double() for t in tf32_split(x))
+    wh, wl = (t.double() for t in tf32_split(w))
+    hh = xh @ wh
+    return torch.where(torch.isinf(hh), hh, xh @ wl + xl @ wh + hh)
 
 
 def dequantize_values(

@@ -9,17 +9,26 @@ that has only the port:
 Tolerance: 1e-4 of the largest output for fp32 and bf16 activations alike
 (bf16 widens to fp32 exactly; both sides accumulate in fp32; int8/int4
 values dequantize to the same fp32 products ``q * scale`` on both sides).
-Row 0 of a B = 4 call must equal a B = 1 call bitwise.  The block-VUSA
-kernel returns ``x.dtype``: with bf16 ``x`` both sides round their fp32 sum
-to bf16 once, so they may part by one bf16 step (2**-7 of the value) on
-top of the 1e-4.
+Row 0 of a B = 4 call must equal a B = 1 call bitwise.  B5/B6 also run
+the shapes that split the reduction and take 64-column tiles (ResNet-18's
+layer4, layer3 and layer1 GEMMs and its fully connected layer): two calls
+are bitwise equal, rows of a sub-batch equal the same rows of the whole
+batch bitwise, a NaN, +inf or -inf in x[:, 0] gives NaN, +inf and -inf at
+exactly the outputs where the plain version gives them, and a batch whose
+partials exceed the workspace runs in row chunks with the same bits, and
+each library counts its own CUDA launches.  The
+block-VUSA kernel returns ``x.dtype``: with bf16 ``x`` both sides round
+their fp32 sum to bf16 once, so they may part by one bf16 step (2**-7 of
+the value) on top of the 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import dense_matmul as dense_mod
+from repro_torch.kernels import ref, tile_plan
+from repro_torch.kernels import vusa_spmm as spmm_mod
 from repro_torch.kernels.dense_matmul import dense_matmul
 from repro_torch.kernels.ops import (
     apply_fused_mlp,
@@ -55,6 +64,11 @@ def _close_rounded(got, want):
     assert bool((err <= tol).all()), float(err.max())
 
 
+def _same_nonfinite(got, want):
+    for pat in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(pat(got), pat(want)), pat.__name__
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "b,k,c,sp,m_blk,a_blk",
@@ -64,15 +78,19 @@ def _close_rounded(got, want):
         (16, 512, 256, 0.0, 32, 8),
         (2, 64, 128, 0.99, 16, 8),
         (1, 147, 64, 0.85, 32, 8),
-        (8450, 576, 200, 0.85, 32, 8),  # BM = 64 blocks, a ragged last one
+        (8450, 576, 200, 0.85, 32, 8),  # many row blocks, a ragged last one
+        (49, 4608, 512, 0.85, 32, 8),  # ResNet-18 layer4: 18 ordered slices
+        (196, 2304, 256, 0.85, 32, 8),  # layer3: 9 slices
+        (3136, 576, 64, 0.85, 32, 8),  # layer1: 64-column tiles, 3 slices
+        (1, 512, 1000, 0.85, 32, 8),  # the fully connected layer
     ],
 )
 def test_vusa_spmm_matches_plain_on_card(b, k, c, sp, m_blk, a_blk):
     """B5 vs its plain version: the shapes of tests/test_kernels.py, B = 1,
-    C % 128 != 0, an all-zero window, B large enough for BM = 64 blocks;
-    fp32 and bf16 x; rows independent of B; a NaN in x[:, 0] reaches the
-    same outputs as in the plain version (padding rows point at row 0 and
-    are multiplied)."""
+    C % 128 != 0, an all-zero window, many row blocks, split reductions and
+    64-column tiles; fp32 and bf16 x; two calls bitwise equal; rows
+    independent of B; a NaN in x[:, 0] reaches the same outputs as in the
+    plain version (padding rows point at row 0 and are multiplied)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -86,34 +104,85 @@ def test_vusa_spmm_matches_plain_on_card(b, k, c, sp, m_blk, a_blk):
         assert got.shape == (b, c) and got.dtype == xx.dtype
         _close_rounded(got, apply_packed_ref(xx, p))
         assert torch.equal(apply_packed(xx[:1], p)[0], got[0])
+        assert torch.equal(apply_packed(xx, p), got)
+        lo, hi = b // 3, b // 3 + min(b, 37)
+        assert torch.equal(apply_packed(xx[lo:hi], p), got[lo:hi])
     _close(apply_packed(x, p), x @ torch.from_numpy(w).to(dev), 1e-3)
-    xn = x.clone()
-    xn[:, 0] = float("nan")
-    xp = torch.nn.functional.pad(xn, (0, p.k_padded - k))
-    got, want = vusa_spmm(xp, p.values, p.row_idx), ref.vusa_spmm_ref(xp, p.values, p.row_idx)
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        xn = x.clone()
+        xn[:, 0] = bad
+        xp = torch.nn.functional.pad(xn, (0, p.k_padded - k))
+        _same_nonfinite(vusa_spmm(xp, p.values, p.row_idx),
+                        ref.vusa_spmm_ref(xp, p.values, p.row_idx))
     torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "m,k,n", [(8, 128, 128), (128, 256, 384), (16, 64, 256), (49, 9, 32), (8450, 256, 384)]
+    "m,k,n",
+    [(8, 128, 128), (128, 256, 384), (16, 64, 256), (49, 9, 32), (8450, 256, 384),
+     (49, 4608, 512), (196, 2304, 256), (3136, 576, 64), (1, 512, 1000)],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_matmul_matches_plain_on_card(m, k, n, dtype):
-    """B6 vs its plain version at the shapes of tests/test_kernels.py and
+    """B6 vs its plain version at the shapes of tests/test_kernels.py,
     ragged ones (M = 49 and 8450 take bm = 1, K = 9, N = 32; 8450 rows run
-    BM = 64 blocks), fp32 and bf16 operands; rows independent of M."""
+    many row blocks) and ResNet-18's split and 64-column shapes (through
+    ``dense_matmul`` with whole-dimension blocks where K or N is outside
+    ``ops.matmul``'s contract), fp32 and bf16 operands; two calls bitwise
+    equal; rows independent of M; a NaN in x[:, 0] reaches the outputs it
+    reaches in the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev, dtype)
     w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dev, dtype)
-    got = matmul(x, w)
+    in_contract = all(d <= 128 or d % 128 == 0 for d in (k, n))
+    mm = matmul if in_contract else (lambda a, b: dense_matmul(a, b, 1, n, k))
+    got = mm(x, w)
     assert got.shape == (m, n) and got.dtype == torch.float32
     _close(got, ref.dense_matmul_ref(x, w))
-    assert torch.equal(dense_matmul(x[:1], w)[0], got[0])
+    assert torch.equal(dense_matmul(x[:1], w, 1, n, k)[0], got[0])
+    assert torch.equal(mm(x, w), got)
+    lo, hi = m // 3, m // 3 + min(m, 37)
+    assert torch.equal(mm(x[lo:hi], w), got[lo:hi])
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        xn = x.clone()
+        xn[:, 0] = bad
+        _same_nonfinite(mm(xn, w), ref.dense_matmul_ref(xn, w))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["vusa_spmm", "dense_matmul"])
+def test_many_rows_run_in_row_chunks_on_card(kernel):
+    """B5/B6 at K = 4608 (36 slices) and 1024 columns with 1000 rows, whose
+    partials exceed the 64 MiB workspace: the call runs three row chunks
+    (six CUDA launches, counted by the library itself), stays within 1e-4 of
+    the plain version, and its rows equal a sub-batch's bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    m, k, n = 1000, 4608, 1024
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+    w = _sparse(rng, k, n, 0.85)
+    if kernel == "vusa_spmm":
+        p = pack_linear(w, 32, 8, 128, device=dev)
+        mod, call, want = spmm_mod, (lambda a: apply_packed(a, p)), apply_packed_ref(x, p)
+        pl = tile_plan.plan(p.values.shape[1] * p.values.shape[2])
+    else:
+        wt = torch.from_numpy(w).to(dev)
+        mod, call, want = dense_mod, (lambda a: matmul(a, wt)), ref.dense_matmul_ref(x, wt)
+        pl = tile_plan.plan(k)
+    assert pl.S == 36 and len(tile_plan.row_chunks(pl, m, n)) == 3
+    c0 = mod.cuda_launches()
+    got = call(x)
+    torch.cuda.synchronize()
+    assert mod.cuda_launches() - c0 == tile_plan.cuda_launches(pl, m, n) == 6
+    _close(got, want)
+    assert torch.equal(call(x[450:520]), got[450:520])
     torch.cuda.synchronize()
 
 
@@ -190,3 +259,25 @@ def test_quantized_cuda_kernels_match_plain_on_card(dt):
     _close(got, apply_fused_mlp_ref(x, pg, pu, pd))
     assert torch.equal(apply_fused_mlp(x[:1], pg, pu, pd)[0], got[0])
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_each_library_counts_its_own_cuda_launches():
+    """The B5 and B6 libraries count the CUDA launches they issue, each its
+    own: one B5 call with one slice (1 launch) and one B6 call at K = 4608
+    (36 slices: the tile kernel and the ordered sum, 2 launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    p = pack_linear(_sparse(rng, 100, 64, 0.5), 32, 8, 128, device=dev)
+    x5 = torch.from_numpy(rng.normal(size=(4, 100)).astype(np.float32)).to(dev)
+    x6 = torch.from_numpy(rng.normal(size=(8, 4608)).astype(np.float32)).to(dev)
+    w6 = torch.from_numpy(rng.normal(size=(4608, 128)).astype(np.float32)).to(dev)
+    apply_packed(x5, p)  # both libraries loaded before the first read
+    matmul(x6, w6)
+    c5, c6 = spmm_mod.cuda_launches(), dense_mod.cuda_launches()
+    apply_packed(x5, p)
+    matmul(x6, w6)
+    torch.cuda.synchronize()
+    assert (spmm_mod.cuda_launches() - c5, dense_mod.cuda_launches() - c6) == (1, 2)
