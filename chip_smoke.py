@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--spin-cycles N]
+
+``--spin-cycles`` sets the kernel timer's device spin before each timed
+call (default 10^6 cycles, about 0.5 ms); it is there to show that a
+reading does not depend on it.
 
 Phases, each of which fails the run (exit code 1, no result line) if it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the main path from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` and print ``ptxas``'s register / shared-memory
-   report;
+   report; then time an empty kernel of the B1-B4 library under the kernel
+   timer below: the floor of one launch, printed on its own line;
 3. hold each kernel against its plain PyTorch version at the shapes of the
    ``vusa_edge`` decode step (layer-0 packs of the real model below: wq/wk/wv/wo
    768 -> 768, the LM head 768 -> 32000, the fused MLP 768 / 3072) and at edge
-   shapes (sparsity 0 and 0.99, all-zero rows, C % m != 0, odd slot counts),
-   for B in {1, 4} and fp32 / bf16 activations: B1/B2 with fp32 and bf16
+   shapes (sparsity 0 and 0.99, all-zero rows, C % m != 0, odd slot counts,
+   and for B1/B3 K = 1000, whose last slice is short, with a = 16 and with
+   a = 3, whose chunk starts take narrower copies, and K = 3072, the
+   ``fused_mlp=False`` w_down shape), for B in {1, 4} and fp32 / bf16
+   activations; every B1/B3 call's CUDA launches, counted by the library,
+   must equal its ``row_plan`` (one launch, or two when the plan splits K): B1/B2 with fp32 and bf16
    values, B3/B4 (the same kernels' int8 and int4 routes) with the int8 and
    int4 packs of the same model.  Tolerance: max |kernel - plain| <= 1e-4 *
    max |plain| for every dtype (bf16 inputs widen to fp32 exactly, int8/int4
@@ -31,7 +40,10 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    ``Engine(packed_weights="all").generate`` with B = 4, prompt 32, 32 new
    tokens.  The launch counters, set to 0 just before and read just after,
    must be exactly 49 * 31 (``vusa_packed_matmul``) and 12 * 31
-   (``vusa_fused_mlp_matmul``), all on the float-value route, and the tokens
+   (``vusa_fused_mlp_matmul``), all on the float-value route, the CUDA
+   launches the B1-B4 library counts for each entry point in that run equal
+   to the plan's (``row_plan`` for each projection and the head, two per
+   fused MLP), and the tokens
    finite and in range.  The same weights in fp32: the first decode step's
    packed and dense logits must agree to 1e-2 of the largest logit at full
    depth, and with the depth cut to 2 layers packed and dense greedy tokens
@@ -43,7 +55,7 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
 5. the quantized main path: the same ``generate`` with
    ``packed_values="int8"`` and ``"int4"``, each counted alone: B3 exactly
    49 * 31 and B4 exactly 12 * 31 launches on that route and none on any
-   other, tokens finite and in range; tok/s, pack bytes per step and byte
+   other, CUDA launches as planned, tokens finite and in range; tok/s, pack bytes per step and byte
    ratio.  In fp32, each quantized engine against the dense engine on
    ``qdq_lm_params`` (the same quantize-dequantize values), decoding from
    one primed cache (the quantized engine prefills dense on the unquantized
@@ -87,7 +99,8 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    ``benchmarks/run.py`` reckons it) and standard 3x6 (``gemm_cycles_standard``) cycles for the
    same masks;
 7. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
-   launches in the counted run and per decode step; B5/B6 per ResNet-18
+   launches in the counted run and per decode step, CUDA launches per call
+   as counted; B5/B6 per ResNet-18
    image, MobileNetV1 under ``mobilenetv1``);
 8. the card line again and the result line.
 
@@ -97,6 +110,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -116,13 +130,15 @@ from repro_torch.core.pruning import prune_tree  # noqa: E402
 from repro_torch.core.simulator import gemm_cycles_standard, ws_cycles  # noqa: E402
 from repro_torch.core.vusa import schedule_widths_fast  # noqa: E402
 from repro_torch.core.workloads import mobilenetv1_gemms, resnet18_gemms  # noqa: E402
-from repro_torch.kernels import build, ops, ref, tile_plan  # noqa: E402
+from repro_torch.kernels import build, ops, ref, row_plan, tile_plan  # noqa: E402
 from repro_torch.kernels.dense_matmul import (  # noqa: E402
     cuda_launches as dense_cuda_launches,
     dense_matmul,
     reset_launch_counts as reset_dense_counts,
 )
 from repro_torch.kernels.vusa_packed import (  # noqa: E402
+    cuda_launches as packed_cuda_launches,
+    empty_kernel,
     reset_launch_counts,
     vusa_fused_mlp_matmul,
     vusa_packed_matmul,
@@ -148,6 +164,7 @@ FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 TF32_PASSES = 3  # B5/B6 run three TF32 products per fp32 one (3xTF32)
 TOL = 1e-4  # kernel vs plain, of the largest plain output
+SPIN_CYCLES = 1_000_000  # the timer's device spin before each timed call (--spin-cycles)
 BATCH, PROMPT, MAX_NEW = 4, 32, 32
 DEPTH_CUT = 2  # layers of the fp32 token-identity check
 FP32_STEP_TOL = 1e-2  # fp32 first-step logits, packed vs dense, of the largest logit
@@ -189,8 +206,10 @@ def card_line() -> str:
 
 class Timer:
     """Device time of one call, averaged over ``iters`` launches, each after
-    an L2 flush (a 128 MiB write) and a short device-side spin, so the call
-    is enqueued before its start event fires and finds a cold L2."""
+    an L2 flush (a 128 MiB write) and a device-side spin of SPIN_CYCLES
+    (about 0.5 ms by default), so the call is enqueued before its start
+    event fires (a wrapper's host work is not timed, even on a slow host)
+    and finds a cold L2."""
 
     def __init__(self, iters: int = 20):
         self.iters = iters
@@ -203,7 +222,7 @@ class Timer:
         events = []
         for _ in range(self.iters):
             self.flush.zero_()
-            torch.cuda._sleep(100_000)
+            torch.cuda._sleep(SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -290,7 +309,17 @@ def check_packed_matmul(timer, name, lin, xs, time_it):
     def plain(x):
         return ref.vusa_packed_ref(x, *args, **kw)
 
-    rec["cases"] = check_cases(name, kern, plain, xs)
+    def counted(x):  # the CUDA launches of one call, held against its plan
+        c0 = packed_cuda_launches("vusa_packed_matmul")
+        y = kern(x)
+        got = packed_cuda_launches("vusa_packed_matmul") - c0
+        want = row_plan.cuda_launches(row_plan.row_plan(lin.k), x.shape[0], y.shape[1])
+        if got != want:
+            fail(f"{name} B={x.shape[0]}: {got} CUDA launches, its plan takes {want}")
+        return y
+
+    rec["plan"] = row_plan.row_plan(lin.k)._asdict()
+    rec["cases"] = check_cases(name, counted, plain, xs)
     if time_it:
         x = xs[-1]
         dense = dequantized_dense(lin)
@@ -416,7 +445,10 @@ def kernel_phase(cfg, packs, rng):
     edges = (("sparsity 0", sparse(768, 768, 0.0), 16),
              ("sparsity 0.99", sparse(768, 768, 0.99), 16),
              ("C % m != 0", sparse(768, 700, 0.85), 16), ("all-zero rows", zero_rows, 16),
-             ("odd slot count (a = 3)", sparse(768, 768, 0.85), 3))
+             ("odd slot count (a = 3)", sparse(768, 768, 0.85), 3),
+             ("K = 1000, a slice off the slice size", sparse(1000, 768, 0.85), 16),
+             ("K = 1000, a = 3: unaligned chunk starts", sparse(1000, 768, 0.85), 3),
+             ("K = 3072, the w_down shape", sparse(3072, 768, 0.85), 16))
     mlp_edges = []
     for label, s, ff in (("mlp sparsity 0", 0.0, 3072), ("mlp sparsity 0.99", 0.99, 3072),
                          ("mlp all-zero rows, ff % m != 0", 0.85, 3000)):
@@ -431,7 +463,8 @@ def kernel_phase(cfg, packs, rng):
         tag = "" if route == "dense" else f" {route}"
         for label, w, a in edges:
             records.append(check_packed_matmul(
-                timer, label + tag, ops.pack_linear_rows(w, a=a, **vd), xs_for(768), False))
+                timer, label + tag, ops.pack_linear_rows(w, a=a, **vd), xs_for(w.shape[0]),
+                False))
         for label, wg, wu, wd in mlp_edges:
             records.append(check_fused_mlp(
                 timer, label + tag, ops.pack_linear_rows(wg, **vd),
@@ -449,19 +482,37 @@ def prompts_for(cfg):
     return np.random.default_rng(1).integers(1, cfg.vocab, size=(BATCH, PROMPT)).astype(np.int32)
 
 
+def planned_cuda_launches(cfg, packed) -> dict:
+    """CUDA launches one decode step at B = ``BATCH`` must issue, by entry
+    point: each projection and the head by its ``row_plan`` (K alone), and
+    two per fused MLP (the per-window partials, their ordered sum)."""
+    def calls(lin):
+        return row_plan.cuda_launches(row_plan.row_plan(lin.k), BATCH,
+                                      lin.values.shape[0] * lin.m)
+
+    attn = sum(calls(_as_linear(packed["attn"][n], 0)) for n in ("wq", "wk", "wv", "wo"))
+    return {"vusa_packed_matmul": cfg.n_layers * attn + calls(_as_linear(packed["head"])),
+            "vusa_fused_mlp_matmul": 2 * cfg.n_layers}
+
+
 def counted_run(cfg, eng, route):
     """Warm up, set every launch count to 0, run the main path once and read
     the counts: exactly 49 * 31 ``vusa_packed_matmul`` and 12 * 31
-    ``vusa_fused_mlp_matmul`` launches, all on ``route``.  Returns
-    (generate's result, counts on ``route``, peak device bytes)."""
+    ``vusa_fused_mlp_matmul`` launches, all on ``route``, and the CUDA
+    launches that the kernel library counts for each entry point equal to
+    the plan's (``planned_cuda_launches``).  Returns (generate's result,
+    counts on ``route``, CUDA launches per call, peak device bytes)."""
     prompts = prompts_for(cfg)
     eng.generate(prompts, max_new=4)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    entries = ("vusa_packed_matmul", "vusa_fused_mlp_matmul")
+    cuda0 = {name: packed_cuda_launches(name) for name in entries}
     reset_launch_counts()
     out = eng.generate(prompts, max_new=MAX_NEW)  # <- the counted main-path run
     counts = {"vusa_packed_matmul": dict(vusa_packed_matmul.launches),
               "vusa_fused_mlp_matmul": dict(vusa_fused_mlp_matmul.launches)}
+    cuda = {name: packed_cuda_launches(name) - cuda0[name] for name in entries}
     peak = torch.cuda.max_memory_allocated()
     steps = MAX_NEW - 1
     want = {name: {r: n * steps if r == route else 0 for r in counts[name]}
@@ -469,12 +520,16 @@ def counted_run(cfg, eng, route):
                             ("vusa_fused_mlp_matmul", cfg.n_layers))}
     if counts != want:
         fail(f"{route} main path: launch counts {counts} != expected {want}")
+    want_cuda = {name: n * steps for name, n in planned_cuda_launches(cfg, eng.packed).items()}
+    if cuda != want_cuda:
+        fail(f"{route} main path: CUDA launches {cuda} != the plan's {want_cuda}")
     toks = out["tokens"]
     if toks.shape != (BATCH, MAX_NEW) or not out["finite"]:
         fail(f"{route} main path: tokens {toks.shape}, finite={out['finite']}")
     if toks.min() < 0 or toks.max() >= cfg.vocab:
         fail(f"{route} main path: token ids outside the vocabulary")
-    return out, {name: c[route] for name, c in counts.items()}, peak
+    per_call = {name: cuda[name] / counts[name][route] for name in entries}
+    return out, {name: c[route] for name, c in counts.items()}, per_call, peak
 
 
 def first_layers(tree):
@@ -484,8 +539,8 @@ def first_layers(tree):
 
 def model_phase(cfg, params, eng):
     prompts = prompts_for(cfg)
-    out, counts, peak = counted_run(cfg, eng, "dense")
-    res = {"launches": counts,
+    out, counts, per_call, peak = counted_run(cfg, eng, "dense")
+    res = {"launches": counts, "cuda_launches_per_call": per_call,
            "main": {"tok_per_s": out["tok_per_s"], "decode_s": out["decode_s"],
                     "prefill_s": out["prefill_s"], "peak_bytes": peak}}
 
@@ -600,8 +655,9 @@ def quantized_phase(cfg, params, qengs):
     cut_params = {**params, "layers": first_layers(params["layers"])}
     res = {}
     for route, e in qengs.items():
-        out, counts, peak = counted_run(cfg, e, route)
-        r = {"launches": counts, "tok_per_s": out["tok_per_s"], "decode_s": out["decode_s"],
+        out, counts, per_call, peak = counted_run(cfg, e, route)
+        r = {"launches": counts, "cuda_launches_per_call": per_call,
+             "tok_per_s": out["tok_per_s"], "decode_s": out["decode_s"],
              "prefill_s": out["prefill_s"], "peak_bytes": peak,
              "pack_bytes_per_step": pack_bytes(e.packed),
              "byte_ratio": packed_byte_ratios(e.packed)["total"]}
@@ -851,6 +907,9 @@ def main() -> None:
               f"{'fp32' if r == 'dense' else r} values {sizes[r]} ({ratios[r]['total']:.4f})"
               for r in engines), flush=True)
 
+    floor_ms = Timer()(lambda: empty_kernel(DEVICE))
+    print(f"launch floor: an empty kernel takes {floor_ms:.4f} ms under the kernel timer (L2 "
+          f"flushed, device spin of {SPIN_CYCLES} cycles, CUDA events)", flush=True)
     records, step = kernel_phase(cfg, {r: e.packed for r, e in engines.items()},
                                  np.random.default_rng(0))
     for r in records:
@@ -864,7 +923,8 @@ def main() -> None:
 
     res = model_phase(cfg, params, eng)
     main_, b16, f32 = res["main"], res["bf16"], res["fp32"]
-    print(f"main path: launches {res['launches']} over {MAX_NEW - 1} decode steps; bf16 packed "
+    print(f"main path: launches {res['launches']} over {MAX_NEW - 1} decode steps, CUDA launches "
+          f"per call {res['cuda_launches_per_call']} (counted, equal to the plan); bf16 packed "
           f"{main_['tok_per_s']:.1f} tok/s (decode {main_['decode_s']:.4f} s, prefill "
           f"{main_['prefill_s']:.4f} s, peak memory {main_['peak_bytes']} bytes), dense "
           f"{b16['dense_tok_per_s']:.1f} tok/s, token agreement {b16['token_agreement']:.4f}, "
@@ -881,7 +941,8 @@ def main() -> None:
 
     quant = quantized_phase(cfg, params, qengs)
     for route, q in quant.items():
-        print(f"{route} main path: launches {q['launches']} over {MAX_NEW - 1} decode steps; "
+        print(f"{route} main path: launches {q['launches']} over {MAX_NEW - 1} decode steps, "
+              f"CUDA launches per call {q['cuda_launches_per_call']} (counted); "
               f"{q['tok_per_s']:.1f} tok/s (fp32-value pack {main_['tok_per_s']:.1f}, dense "
               f"{b16['dense_tok_per_s']:.1f}; decode {q['decode_s']:.4f} s, peak memory "
               f"{q['peak_bytes']} bytes); pack bytes per step {q['pack_bytes_per_step']}, byte "
@@ -927,10 +988,9 @@ def main() -> None:
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
                 "vusa_fused_mlp_matmul_quantized": "src/repro/kernels/vusa_packed.py:294"}
-    # one wrapper call of the fused MLP issues two CUDA launches (the
-    # per-window partials, then their ordered sum)
-    cuda_launches = {"vusa_packed_matmul": 1, "vusa_fused_mlp_matmul": 2}
     launches = {"dense": res["launches"], **{r: q["launches"] for r, q in quant.items()}}
+    cuda_per_call = {"dense": res["cuda_launches_per_call"],
+                     **{r: q["cuda_launches_per_call"] for r, q in quant.items()}}
 
     def entry(name, route):
         wrapper = name.removesuffix("_quantized")
@@ -939,7 +999,7 @@ def main() -> None:
                 "source": "src/repro_torch/kernels/csrc/vusa_packed.cu",
                 "replaces": replaces[name], "launches": launches[route][wrapper],
                 "launches_per_step": launches[route][wrapper] / (MAX_NEW - 1),
-                "cuda_launches_per_call": cuda_launches[wrapper],
+                "cuda_launches_per_call": cuda_per_call[route][wrapper],
                 "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
                 "library_ms": st["library_ms"]}
@@ -962,9 +1022,13 @@ def main() -> None:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels, "kernels_note": "ms, plain_ms, library_ms and "
+        {"card": card, "timer_spin_cycles": SPIN_CYCLES, "launch_floor_ms": floor_ms,
+         "kernels": kernels,
+         "kernels_note": "ms, plain_ms, library_ms and "
          "bound_ms summed over one decode step (48 projections + head; 12 MLPs) at B=4, bf16 "
          "activations; B1/B2 with fp32 values, B3/B4 int8 at top level and int4 under 'int4'; "
+         "B1-B4's cuda_launches_per_call counted by the vusa_packed library over the counted "
+         "main-path run, per wrapper call; "
          "vusa_spmm/dense_matmul summed over the 21 GEMMs of one ResNet-18 image (MobileNetV1's "
          "28 under 'mobilenetv1'), their cuda_launches_per_call the mean over those GEMMs of the "
          "CUDA launches each library counted in the counted run (2 where the plan splits the "
@@ -982,4 +1046,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
+    ap.add_argument("--spin-cycles", type=int, default=SPIN_CYCLES,
+                    help="the kernel timer's device spin before each timed call, in cycles")
+    SPIN_CYCLES = ap.parse_args().spin_cycles
     main()

@@ -1,6 +1,6 @@
-// PTX wrappers used by tile_gemm.cuh (built for sm_90a): asynchronous
-// global -> shared copies, programmatic dependent launch and TF32
-// tensor-core products.
+// PTX wrappers used by tile_gemm.cuh and vusa_packed.cu (built for
+// sm_90a): asynchronous global -> shared copies, programmatic dependent
+// launch and TF32 tensor-core products.
 
 #pragma once
 
@@ -20,8 +20,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                : "memory");
 }
 
-// 4 bytes from global to shared memory; src_bytes = 0 writes a zero and
-// reads nothing.
+// 8 bytes from global to shared memory; only the first src_bytes (0..8)
+// are read, the rest written as zeros.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory; only the first src_bytes (0..4)
+// are read (src_bytes = 0 writes a zero and reads nothing).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(src_bytes)

@@ -8,7 +8,9 @@ applied first when scales are given.  The packed ones consume the *packed*
 operands, so kernel-vs-plain equality checks the kernel and
 unpack-vs-dense checks the packer.  ``tf32_split`` and ``matmul_3xtf32``
 emulate the split-precision TF32 products of ``csrc/tile_gemm.cuh`` for
-the tests; no kernel wrapper uses them.  The wrappers in
+the tests, and ``vusa_packed_sliced_ref`` the order of operations of the
+row-packed kernel in ``csrc/vusa_packed.cu``; no kernel wrapper uses them.
+The wrappers in
 :mod:`repro_torch.kernels` run these for tensors on the CPU;
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
@@ -18,9 +20,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .row_plan import CHUNK, PARTS, ROWS
+
 __all__ = [
     "dense_matmul_ref", "vusa_spmm_ref", "vusa_packed_ref", "vusa_fused_mlp_ref", "unpack_dense",
-    "dequantize_values", "tf32_truncate", "tf32_split", "matmul_3xtf32",
+    "dequantize_values", "tf32_truncate", "tf32_split", "matmul_3xtf32", "vusa_packed_sliced_ref",
 ]
 
 VALUE_DTYPES = ("dense", "int8", "int4")
@@ -160,3 +164,38 @@ def vusa_fused_mlp_ref(
     xf = x.float()
     h = F.silu(xf @ wg) * (xf @ wu)  # (B, T*m)
     return h @ wdt.T
+
+
+def vusa_packed_sliced_ref(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    positions: torch.Tensor,
+    scales: torch.Tensor | None = None,
+    m: int = 128,
+    value_dtype: str = "dense",
+) -> torch.Tensor:
+    """``vusa_packed_ref`` in the order of operations of the row-packed
+    CUDA kernel, whose geometry ``row_plan`` holds: the K packed rows cut
+    into ordered slices of ``ROWS``, each slice walked in chunks of
+    ``CHUNK`` rows; per output, ``PARTS`` sums, the p-th over the p-th
+    ``CHUNK / PARTS`` rows of every chunk, each in ascending k, added in
+    order at the slice's end; then the slices summed in order.  Each step
+    is one fp32 rounding of an fp64 product and sum (the kernel's fmaf, but
+    for a rare double rounding).  Every operation is elementwise over the
+    batch, so row b of the result does not depend on B, bitwise.  Returns
+    (B, T*m) fp32."""
+    w = unpack_dense(dequantize_values(values, scales, value_dtype), positions, m).double()
+    xd = x.double()
+    k, per = w.shape[0], CHUNK // PARTS
+    out = None
+    for k0 in range(0, max(k, 1), ROWS):
+        acc = [torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+               for _ in range(PARTS)]
+        for kk in range(k0, min(k0 + ROWS, k)):
+            h = (kk - k0) % CHUNK // per
+            acc[h] = (acc[h].double() + xd[:, kk, None] * w[kk]).float()
+        part = acc[0]
+        for a in acc[1:]:
+            part = part + a
+        out = part if out is None else out + part
+    return out

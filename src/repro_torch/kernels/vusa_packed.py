@@ -14,7 +14,14 @@ lie on the CPU; a CUDA tensor launches the kernel or raises.
 
 Each wrapper carries ``launches``, a dict of plain integers by route
 (``dense``, ``int8``, ``int4``), incremented where (and only where) its
-kernel is launched, so a run can show which kernels the path went through.
+kernel is launched (once a call), so a run can show which kernels the path
+went through.  ``cuda_launches()`` reads the library's own count of the
+CUDA launches each entry point has issued: ``vusa_packed_matmul`` takes
+one per row chunk with one reduction slice, else two (the sliced kernel and
+the ordered sum of its slices, ``row_plan``); ``vusa_fused_mlp_matmul``
+two (the per-window partials and their ordered sum).  ``empty_kernel()``
+launches an empty kernel of the same library: the floor of a launch under a
+timer.
 """
 
 from __future__ import annotations
@@ -26,8 +33,12 @@ import torch
 
 from .build import library
 from .ref import VALUE_DTYPES, vusa_fused_mlp_ref, vusa_packed_ref
+from .row_plan import row_chunks, row_plan, workspace_bytes
 
-__all__ = ["vusa_packed_matmul", "vusa_fused_mlp_matmul", "reset_launch_counts"]
+__all__ = [
+    "vusa_packed_matmul", "vusa_fused_mlp_matmul", "reset_launch_counts", "cuda_launches",
+    "empty_kernel",
+]
 
 _FLOATS = (torch.float32, torch.bfloat16)
 _P = ctypes.c_void_p
@@ -37,13 +48,17 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = library("vusa_packed")
-    lib.vusa_packed_matmul.argtypes = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.vusa_packed_matmul.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, *[_I] * 7, _P]
     lib.vusa_packed_matmul.restype = _I
     lib.vusa_fused_mlp_matmul.argtypes = [
         _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
         _P,
     ]
     lib.vusa_fused_mlp_matmul.restype = _I
+    lib.vusa_packed_empty.argtypes = [_P]
+    lib.vusa_packed_empty.restype = _I
+    lib.vusa_packed_cuda_launches.argtypes = [_I]
+    lib.vusa_packed_cuda_launches.restype = ctypes.c_ulonglong
     lib.vusa_error_string.argtypes = [_I]
     lib.vusa_error_string.restype = ctypes.c_char_p
     return lib
@@ -162,7 +177,10 @@ def vusa_packed_matmul(
     (T, K, S) fp32/bf16 for ``value_dtype="dense"``, (T, K, S) int8 for
     ``"int8"``, (T, K, S/2) int8 nibble pairs for ``"int4"``, each slot then
     worth ``q * scales[t, k]`` (scales (T, K) fp32).  Returns (B, T*m) fp32.
-    Row b of the result does not depend on B (bitwise)."""
+    Row b of the result does not depend on B (bitwise): the launch plan
+    (``row_plan``: ordered slices of the K rows) depends on K alone, and a
+    plan with more than one slice gets an fp32 workspace from
+    ``torch.empty`` and runs the rows in chunks whose partials fit it."""
     _check_x(x, m)
     _check_pack("vusa_packed_matmul", values, positions, x.shape[1], scales, value_dtype)
     operands = (x, values, positions) + (() if scales is None else (scales,))
@@ -171,13 +189,18 @@ def vusa_packed_matmul(
     _require_contiguous(x=x, values=values, positions=positions, scales=scales)
     b, k = x.shape
     t, _, s = positions.shape
-    out = torch.empty((b, t * m), dtype=torch.float32, device=x.device)
-    err = _lib().vusa_packed_matmul(
-        x.data_ptr(), int(x.dtype == torch.bfloat16),
-        values.data_ptr(), _value_kind(values, value_dtype), _ptr(scales),
-        positions.data_ptr(), out.data_ptr(), b, k, t, s, m, _stream(x.device),
-    )
-    _raise_on(err, "vusa_packed_matmul")
+    ncols = t * m
+    pl = row_plan(k)
+    out = torch.empty((b, ncols), dtype=torch.float32, device=x.device)
+    part = torch.empty(workspace_bytes(pl, b, ncols) // 4, dtype=torch.float32, device=x.device)
+    lib, kind, stream = _lib(), _value_kind(values, value_dtype), _stream(x.device)
+    for r0, r1 in row_chunks(pl, b, ncols):
+        err = lib.vusa_packed_matmul(
+            x.data_ptr() + r0 * k * x.element_size(), int(x.dtype == torch.bfloat16),
+            values.data_ptr(), kind, _ptr(scales), positions.data_ptr(),
+            out.data_ptr() + r0 * ncols * 4, part.data_ptr(), r1 - r0, k, t, s, m, *pl, stream,
+        )
+        _raise_on(err, "vusa_packed_matmul")
     vusa_packed_matmul.launches[value_dtype] += 1
     return out
 
@@ -248,6 +271,23 @@ def reset_launch_counts() -> None:
     """Set every launch count of both wrappers to 0."""
     vusa_packed_matmul.launches = dict.fromkeys(VALUE_DTYPES, 0)
     vusa_fused_mlp_matmul.launches = dict.fromkeys(VALUE_DTYPES, 0)
+
+
+_ENTRIES = ("vusa_packed_matmul", "vusa_fused_mlp_matmul", "empty_kernel")
+
+
+def cuda_launches(entry: str) -> int:
+    """CUDA launches the kernel library has issued since it was loaded, by
+    the entry point ``entry`` (``"vusa_packed_matmul"``,
+    ``"vusa_fused_mlp_matmul"`` or ``"empty_kernel"``).  The library counts
+    each launch the runtime accepts; reading builds it on first use."""
+    return int(_lib().vusa_packed_cuda_launches(_ENTRIES.index(entry)))
+
+
+def empty_kernel(device: torch.device | str = "cuda") -> None:
+    """Launch an empty kernel of this library on ``device``'s current
+    stream: the floor of one launch under a timer."""
+    _raise_on(_lib().vusa_packed_empty(_stream(torch.device(device))), "empty_kernel")
 
 
 reset_launch_counts()

@@ -16,7 +16,12 @@ are bitwise equal, rows of a sub-batch equal the same rows of the whole
 batch bitwise, a NaN, +inf or -inf in x[:, 0] gives NaN, +inf and -inf at
 exactly the outputs where the plain version gives them, and a batch whose
 partials exceed the workspace runs in row chunks with the same bits, and
-each library counts its own CUDA launches.  The
+each library counts its own CUDA launches.  B1/B3 (the row-packed matmul,
+all four value kinds, fp32 and bf16 x) run K = 768, 1000 and 3072 with 3
+and 48 slots per row (4 for int4, whose slots pair in bytes), packs with
+repeated lanes, lanes past m and NaN in idle slots, at B = 1, 4 and 9:
+within 1e-4 of the plain version, row 0 bitwise equal to B = 1, and the
+CUDA launches the library counts per call equal to ``row_plan``'s.  The
 block-VUSA kernel returns ``x.dtype``: with bf16 ``x`` both sides round
 their fp32 sum to bf16 once, so they may part by one bf16 step (2**-7 of
 the value) on top of the 1e-4.
@@ -27,7 +32,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import dense_matmul as dense_mod
-from repro_torch.kernels import ref, tile_plan
+from repro_torch.kernels import ref, row_plan, tile_plan
+from repro_torch.kernels import vusa_packed as packed_mod
 from repro_torch.kernels import vusa_spmm as spmm_mod
 from repro_torch.kernels.dense_matmul import dense_matmul
 from repro_torch.kernels.ops import (
@@ -261,11 +267,73 @@ def test_quantized_cuda_kernels_match_plain_on_card(dt):
     torch.cuda.synchronize()
 
 
+def _random_pack(rng, t, k, s, kind, dev):
+    """A (T, K, S) pack drawn at random, not from a weight: positions in
+    [-1, 128) (so some lanes repeat within a row and, at m < 128, some lie
+    past the window), idle slots holding NaN values, ``kind``'s values
+    (and scales)."""
+    pos = rng.integers(-1, 128, size=(t, k, s)).astype(np.int8)
+    scales = None
+    if kind in ("float32", "bfloat16"):
+        vals = rng.normal(size=(t, k, s)).astype(np.float32)
+        vals[pos < 0] = np.nan
+        values = torch.from_numpy(vals).to(dev, getattr(torch, kind))
+    else:
+        nbytes = s // 2 if kind == "int4" else s
+        values = torch.from_numpy(rng.integers(-128, 128, size=(t, k, nbytes)).astype(np.int8))
+        values = values.to(dev)
+        scales = torch.from_numpy(rng.random((t, k)).astype(np.float32) * 0.1).to(dev)
+    return values, torch.from_numpy(pos).to(dev), scales
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("k", [768, 1000, 3072])
+@pytest.mark.parametrize("s,m", [(3, 100), (48, 128)])
+def test_row_packed_matmul_matches_plain_on_card(kind, k, s, m):
+    """B1/B3 vs the plain version within 1e-4 of the largest output, fp32
+    and bf16 x, B = 1, 4 and 9; row 0 of each call bitwise equal to B = 1;
+    the CUDA launches counted per call equal to ``row_plan``'s; and the
+    kernel vs ``ref.vusa_packed_sliced_ref``, its order of operations
+    emulated on the CPU, within 8 fp32 ulps of the largest output (the
+    emulation's fp64 product and sum may round twice where the kernel's
+    fmaf rounds once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(k + s)
+    s = s + (s % 2 if kind == "int4" else 0)  # int4 pairs its slots in bytes
+    vd = kind if kind in ("int8", "int4") else "dense"
+    values, positions, scales = _random_pack(rng, 3, k, s, kind, dev)
+    x = torch.from_numpy(rng.normal(size=(9, k)).astype(np.float32)).to(dev)
+    plan = row_plan.row_plan(k)
+    cpu = [None if a is None else a.cpu() for a in (values, positions, scales)]
+    for xx in (x, x.to(torch.bfloat16)):
+        one = packed_mod.vusa_packed_matmul(xx[:1], values, positions, scales, m=m,
+                                            value_dtype=vd)
+        emu = ref.vusa_packed_sliced_ref(xx.cpu(), *cpu, m=m, value_dtype=vd)
+        for b in (1, 4, 9):
+            c0 = packed_mod.cuda_launches("vusa_packed_matmul")
+            got = packed_mod.vusa_packed_matmul(xx[:b], values, positions, scales, m=m,
+                                                value_dtype=vd)
+            torch.cuda.synchronize()
+            assert (packed_mod.cuda_launches("vusa_packed_matmul") - c0
+                    == row_plan.cuda_launches(plan, b, 3 * m) == 2)
+            assert got.shape == (b, 3 * m) and bool(torch.isfinite(got).all())
+            _close(got, ref.vusa_packed_ref(xx[:b], values, positions, scales, m, vd))
+            assert torch.equal(got[0], one[0])
+            ulps = 8 * torch.finfo(torch.float32).eps * float(emu.abs().max())
+            assert float((got.cpu() - emu[:b]).abs().max()) <= ulps
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_each_library_counts_its_own_cuda_launches():
-    """The B5 and B6 libraries count the CUDA launches they issue, each its
-    own: one B5 call with one slice (1 launch) and one B6 call at K = 4608
-    (36 slices: the tile kernel and the ordered sum, 2 launches)."""
+    """The B1-B4, B5 and B6 libraries count the CUDA launches they issue,
+    each its own: one B5 call with one slice (1 launch), one B6 call at
+    K = 4608 (36 slices: the tile kernel and the ordered sum, 2 launches),
+    B1 calls at K = 64 (one slice, 1 launch) and K = 768 (12 slices, 2),
+    and one fused MLP (the partials and their ordered sum, 2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -274,10 +342,27 @@ def test_each_library_counts_its_own_cuda_launches():
     x5 = torch.from_numpy(rng.normal(size=(4, 100)).astype(np.float32)).to(dev)
     x6 = torch.from_numpy(rng.normal(size=(8, 4608)).astype(np.float32)).to(dev)
     w6 = torch.from_numpy(rng.normal(size=(4608, 128)).astype(np.float32)).to(dev)
-    apply_packed(x5, p)  # both libraries loaded before the first read
-    matmul(x6, w6)
+    r64, r768 = (pack_linear_rows(_sparse(rng, k, 256, 0.85), device=dev) for k in (64, 768))
+    x64, x256, x768 = (torch.from_numpy(rng.normal(size=(4, k)).astype(np.float32)).to(dev)
+                       for k in (64, 256, 768))
+    wg, wu = _sparse(rng, 256, 300, 0.85), _sparse(rng, 256, 300, 0.85)
+    pg, pu = pack_linear_rows(wg, device=dev), pack_linear_rows(wu, device=dev)
+    pd = pack_linear_rows_t(_sparse(rng, 300, 256, 0.85), device=dev)
+
+    def run():
+        apply_packed(x5, p)
+        matmul(x6, w6)
+        apply_row_packed(x64, r64)
+        apply_row_packed(x768, r768)
+        apply_fused_mlp(x256, pg, pu, pd)
+
+    run()  # every library loaded before the first read
+    entries = ("vusa_packed_matmul", "vusa_fused_mlp_matmul", "empty_kernel")
     c5, c6 = spmm_mod.cuda_launches(), dense_mod.cuda_launches()
-    apply_packed(x5, p)
-    matmul(x6, w6)
+    cp = {e: packed_mod.cuda_launches(e) for e in entries}
+    run()
     torch.cuda.synchronize()
     assert (spmm_mod.cuda_launches() - c5, dense_mod.cuda_launches() - c6) == (1, 2)
+    got = {e: packed_mod.cuda_launches(e) - n for e, n in cp.items()}
+    assert got == {"vusa_packed_matmul": 1 + 2, "vusa_fused_mlp_matmul": 2, "empty_kernel": 0}
+    assert sum(got.values()) == 5
