@@ -21,8 +21,11 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    and for B1/B3 K = 1000, whose last slice is short, with a = 16 and with
    a = 3, whose chunk starts take narrower copies, and K = 3072, the
    ``fused_mlp=False`` w_down shape), for B in {1, 4} and fp32 / bf16
-   activations; every B1/B3 call's CUDA launches, counted by the library,
-   must equal its ``row_plan`` (one launch, or two when the plan splits K): B1/B2 with fp32 and bf16
+   activations, and for B2/B4 an odd slot count (a = 3), d = 1000 (K and D
+   off the slice size) and ff % m != 0; every call's CUDA launches, counted
+   by the library, must equal its plan's (B1/B3 ``row_plan``: one launch,
+   or two when the plan splits K; B2/B4 ``mlp_plan``: the cluster kernel
+   and the ordered window sum): B1/B2 with fp32 and bf16
    values, B3/B4 (the same kernels' int8 and int4 routes) with the int8 and
    int4 packs of the same model.  Tolerance: max |kernel - plain| <= 1e-4 *
    max |plain| for every dtype (bf16 inputs widen to fp32 exactly, int8/int4
@@ -42,8 +45,8 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    must be exactly 49 * 31 (``vusa_packed_matmul``) and 12 * 31
    (``vusa_fused_mlp_matmul``), all on the float-value route, the CUDA
    launches the B1-B4 library counts for each entry point in that run equal
-   to the plan's (``row_plan`` for each projection and the head, two per
-   fused MLP), and the tokens
+   to the plan's (``row_plan`` for each projection and the head,
+   ``mlp_plan`` for each fused MLP), and the tokens
    finite and in range.  The same weights in fp32: the first decode step's
    packed and dense logits must agree to 1e-2 of the largest logit at full
    depth, and with the depth cut to 2 layers packed and dense greedy tokens
@@ -130,7 +133,7 @@ from repro_torch.core.pruning import prune_tree  # noqa: E402
 from repro_torch.core.simulator import gemm_cycles_standard, ws_cycles  # noqa: E402
 from repro_torch.core.vusa import schedule_widths_fast  # noqa: E402
 from repro_torch.core.workloads import mobilenetv1_gemms, resnet18_gemms  # noqa: E402
-from repro_torch.kernels import build, ops, ref, row_plan, tile_plan  # noqa: E402
+from repro_torch.kernels import build, mlp_plan, ops, ref, row_plan, tile_plan  # noqa: E402
 from repro_torch.kernels.dense_matmul import (  # noqa: E402
     cuda_launches as dense_cuda_launches,
     dense_matmul,
@@ -358,7 +361,19 @@ def check_fused_mlp(timer, name, gate, up, down_t, xs, time_it):
     def plain(x):
         return ref.vusa_fused_mlp_ref(x, *args, **kw)
 
-    rec["cases"] = check_cases(name, kern, plain, xs)
+    plan = mlp_plan.mlp_plan(gate.k, down_t.k)
+
+    def counted(x):  # the CUDA launches of one call, held against its plan
+        c0 = packed_cuda_launches("vusa_fused_mlp_matmul")
+        y = kern(x)
+        got = packed_cuda_launches("vusa_fused_mlp_matmul") - c0
+        want = mlp_plan.cuda_launches(plan, x.shape[0], down_t.k, gate.values.shape[0])
+        if got != want:
+            fail(f"{name} B={x.shape[0]}: {got} CUDA launches, its plan takes {want}")
+        return y
+
+    rec["plan"] = plan._asdict()
+    rec["cases"] = check_cases(name, counted, plain, xs)
     if time_it:
         x = xs[-1]
         wg, wu, wd = (dequantized_dense(lin) for lin in lins)
@@ -450,14 +465,17 @@ def kernel_phase(cfg, packs, rng):
              ("K = 1000, a = 3: unaligned chunk starts", sparse(1000, 768, 0.85), 3),
              ("K = 3072, the w_down shape", sparse(3072, 768, 0.85), 16))
     mlp_edges = []
-    for label, s, ff in (("mlp sparsity 0", 0.0, 3072), ("mlp sparsity 0.99", 0.99, 3072),
-                         ("mlp all-zero rows, ff % m != 0", 0.85, 3000)):
-        wg, wu, wd = sparse(768, ff, s), sparse(768, ff, s), sparse(ff, 768, s)
+    for label, s, dm, ff, a in (
+            ("mlp sparsity 0", 0.0, 768, 3072, 16), ("mlp sparsity 0.99", 0.99, 768, 3072, 16),
+            ("mlp all-zero rows, ff % m != 0", 0.85, 768, 3000, 16),
+            ("mlp odd slot count (a = 3)", 0.85, 768, 3072, 3),
+            ("mlp d = 1000, slices off the slice size, a = 3", 0.85, 1000, 3072, 3)):
+        wg, wu, wd = sparse(dm, ff, s), sparse(dm, ff, s), sparse(ff, dm, s)
         if ff % 128:
             wg[10:300] = 0.0
             wu[:, 40:400] = 0.0
             wd[5:600] = 0.0
-        mlp_edges.append((label, wg, wu, wd))
+        mlp_edges.append((label, wg, wu, wd, a))
     for route in packs:
         vd = {"value_dtype": route, "device": dev}
         tag = "" if route == "dense" else f" {route}"
@@ -465,11 +483,11 @@ def kernel_phase(cfg, packs, rng):
             records.append(check_packed_matmul(
                 timer, label + tag, ops.pack_linear_rows(w, a=a, **vd), xs_for(w.shape[0]),
                 False))
-        for label, wg, wu, wd in mlp_edges:
+        for label, wg, wu, wd, a in mlp_edges:
             records.append(check_fused_mlp(
-                timer, label + tag, ops.pack_linear_rows(wg, **vd),
-                ops.pack_linear_rows(wu, **vd), ops.pack_linear_rows_t(wd, **vd),
-                xs_for(768), False))
+                timer, label + tag, ops.pack_linear_rows(wg, a=a, **vd),
+                ops.pack_linear_rows(wu, a=a, **vd), ops.pack_linear_rows_t(wd, a=a, **vd),
+                xs_for(wg.shape[0]), False))
     return records, step
 
 
@@ -485,14 +503,17 @@ def prompts_for(cfg):
 def planned_cuda_launches(cfg, packed) -> dict:
     """CUDA launches one decode step at B = ``BATCH`` must issue, by entry
     point: each projection and the head by its ``row_plan`` (K alone), and
-    two per fused MLP (the per-window partials, their ordered sum)."""
+    each fused MLP by its ``mlp_plan`` (K and D)."""
     def calls(lin):
         return row_plan.cuda_launches(row_plan.row_plan(lin.k), BATCH,
                                       lin.values.shape[0] * lin.m)
 
     attn = sum(calls(_as_linear(packed["attn"][n], 0)) for n in ("wq", "wk", "wv", "wo"))
+    gate, down_t = (_as_linear(packed["mlp"][n], 0) for n in ("w_gate", "w_down_t"))
+    mlp = mlp_plan.cuda_launches(mlp_plan.mlp_plan(gate.k, down_t.k), BATCH, down_t.k,
+                                 gate.values.shape[0])
     return {"vusa_packed_matmul": cfg.n_layers * attn + calls(_as_linear(packed["head"])),
-            "vusa_fused_mlp_matmul": 2 * cfg.n_layers}
+            "vusa_fused_mlp_matmul": cfg.n_layers * mlp}
 
 
 def counted_run(cfg, eng, route):

@@ -1,6 +1,6 @@
 // PTX wrappers used by tile_gemm.cuh and vusa_packed.cu (built for
 // sm_90a): asynchronous global -> shared copies, programmatic dependent
-// launch and TF32 tensor-core products.
+// launch, the split cluster barrier and TF32 tensor-core products.
 
 #pragma once
 
@@ -50,6 +50,19 @@ __device__ __forceinline__ void cp_async_wait() {
 // depends on has completed and its memory writes are visible.
 __device__ __forceinline__ void grid_dependency_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Arrive at the cluster barrier without ordering memory: for a block whose
+// reads of the other blocks' shared memory have completed and that only
+// has to keep its own alive until theirs have too.  Every thread arrives
+// once, then waits with cluster_wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// Wait until every thread of the cluster has arrived.
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // d += a (16 x 8, row-major fragment) * b (8 x 8, column fragment), TF32

@@ -8,7 +8,7 @@
 //   * vusa_fused_mlp_matmul, dense values  <- `_fused_mlp_kernel`
 //     (+ `_matmul_packed_window`), called from `vusa_fused_mlp_matmul`;
 //   * vusa_fused_mlp_matmul, int8/int4     <- `_fused_mlp_qkernel`.
-// The quantized kernels are the float ones with another value loader: each
+// The quantized kernels are the float ones with another value kind: each
 // slot's value is rebuilt as q * scale[window, row] where the slot is read,
 // so only the quantized bytes ever come from device memory.
 //
@@ -22,6 +22,28 @@
 // (window, row).  A 768 x 768 projection is about 0.2 us of bytes, so what
 // decides its time is how many SMs work on it and how long each waits.
 //
+// Both kernels stream packed rows the same way, with the device functions
+// of namespace `rowpk`:
+// - Chunks of RKC = 32 consecutive packed rows of one window (their values
+//   and positions are contiguous in the (T, R, S) layout) are copied into
+//   shared-memory stages with cp.async, consecutive threads on consecutive
+//   pieces, several chunks in flight before the first is used.  The copy
+//   width (16, 8 or 4 bytes, or plain byte loads) is picked on the host
+//   from the alignment of the pointers and of the chunk strides: an odd S
+//   or a row count off the slice size takes narrower copies in the same
+//   kernel.
+// - The rebuild (`rebuild_chunk`), from shared memory: one thread per slot
+//   (per four slots of a row when S is a multiple of 4, as the packer's S
+//   is), into a zeroed (RKC, 128) fp32 tile (two tiles, so zeroing the next
+//   one overlaps this one's use).  Each occupied slot stores its value
+//   straight into its lane and checks that the slot before it is occupied
+//   with a lower lane, as in every row the packer writes; a row that fails
+//   the check (a lane may repeat) is rebuilt in slot order by one thread.
+// - The multiply (`multiply_chunk`): 512 threads as (lane l, part h of
+//   PARTS = 4 of the chunk's rows) hold their 8 weights in registers and
+//   accumulate x[b, k] * W[k, l] for the batch rows that exist (a branch
+//   uniform in the block skips the tile's missing rows), k ascending.
+//
 // The row-packed matmul (B1/B3), `row_packed_kernel`:
 // - An ordered split of the reduction.  The host (kernels/row_plan.py)
 //   cuts the K packed rows into `slices` slices of ROWS = 64 rows, from K
@@ -31,44 +53,52 @@
 //   slice the block writes the output; else each writes an fp32 partial
 //   (slices, B, T*m), and a second launch (sum_slices_kernel, a
 //   programmatic dependent launch) sums them in slice order 0..slices-1.
-// - Coalesced, overlapped loads.  A slice's rows of window t are contiguous
-//   in the (T, K, S) layout: rows * S position bytes and rows * S * {4, 2,
-//   1, 1/2} value bytes.  The block copies them in two chunks of RKC = 32
-//   rows into NS = 2 shared-memory stages with cp.async, consecutive
-//   threads on consecutive 16-byte pieces, both in flight from the start,
-//   so the second chunk lands while the first is rebuilt and multiplied.
-//   The copy width (16, 8 or 4 bytes, or plain byte loads) is picked on
-//   the host from the alignment of the pointers and of the chunk strides:
-//   an odd S or a K off the slice size takes narrower copies in the same
-//   kernel.
-// - The rebuild, from shared memory: one thread per slot (per four slots
-//   of a row when S is a multiple of 4, as the packer's S is), into a zeroed
-//   (RKC, 128) fp32 tile (two tiles, so zeroing the next one overlaps this
-//   one's use; the zeroing is two 16-byte stores a thread).  Each occupied
-//   slot stores its value straight into its lane and checks that the slot
-//   before it is occupied with a lower lane, as in every row the packer
-//   writes; a row that fails the check (a lane may repeat) is rebuilt in
-//   slot order by one thread.
-//   Then 512 threads as (lane l, part h of PARTS = 4 of the chunk's rows)
-//   hold their 8 weights in registers and accumulate x[b, k] * W[k, l] for
-//   the batch rows that exist (a branch uniform in the block skips the
-//   tile's missing rows); the four parts meet once, in the epilogue.
+// - A slice's two chunks go into NS = 2 stages, both in flight from the
+//   start; the four parts of each output meet once, in the epilogue.
 //
-// The fused SwiGLU MLP (B2/B4), `fused_mlp_partial_kernel`: one block per
-// (ff window, batch tile) rebuilds gate, up and the window's w_down rows
-// chunk by chunk in shared memory, keeps the (nb, m) hidden slice there,
-// and writes the window's (B, D) partial; `sum_windows_kernel` sums the
-// partials over windows in order.  It still loads without overlap.
+// The fused SwiGLU MLP (B2/B4), `fused_mlp_kernel`: silu(x @ Wg) * (x @ Wu)
+// @ Wd, gate/up packed (T, K, S) over the ff windows and w_down packed
+// transposed (T, D, Sd), its lanes the window's ff rows.
+// - One thread block cluster of G = 8 blocks per (ff window t, batch tile):
+//   192 blocks at T = 24, B <= 8.  The host (kernels/mlp_plan.py) cuts the
+//   K gate/up rows and the D down rows into G ordered slices each (`rows`
+//   and `down_rows`, multiples of RKC, from K and from D alone: 96 and 96
+//   at K = D = 768) and passes (G, rows, down_rows); the entry point
+//   refuses any other.
+// - Block r streams its gate slice, its up slice and its down slice as one
+//   sequence of chunks through a ring of NS = 4 stages (nine chunks at
+//   768 / 3072: every down chunk is in flight while gate and up are
+//   multiplied).  Its gate and up sums (four parts each, added in part
+//   order) stay in its shared memory.
+// - After a cluster barrier, each block reads the G blocks' gate and up
+//   sums through distributed shared memory, adds them in rank order
+//   0..G-1 and forms the window's h = silu(gate) * up (g / (1 + expf(-g))
+//   * u) for its batch rows in shared memory: the (B, ff) hidden state
+//   never reaches device memory.
+// - Each block then gathers its down rows, a chunk at a time, one thread
+//   per (row, batch row): out[b, c] = the sum over the row's slots, in slot
+//   order, of v * h[b, position] (fmaf).  The block writes the window's
+//   (B, D) partial; a second launch (sum_slices_kernel, a programmatic
+//   dependent launch) sums the T partials in window order.  A block
+//   arrives at a second cluster barrier (relaxed: no memory ordering) once
+//   it has read the other blocks' sums and waits on it before it exits, so
+//   its own sums stay alive until every block has read them.
+// - What bounds it: each block's serial walk over its chunks (wait, zero,
+//   rebuild, multiply, with barriers between), not the bytes, which stream
+//   at a fraction of the card's rate; scripts/fused_mlp_phases.py times
+//   the phases.  A kernel this size also runs faster with its copy loops
+//   kept short (they are inlined at every issue).
 //
 // Contracts (the speculative-decoding slice relies on them):
 //   * row b of an output never depends on B.  No block shape, slice size
-//     or summation order changes with B: the plan is a function of K, each
-//     output element of B1/B3 sums its slice's rows in ascending order in
-//     each of four fixed parts per chunk (fmaf), adds the parts in order,
-//     and the slices are summed in order; B2/B4 accumulate over k, then over the
-//     window's lanes, in one fixed order, and sum the windows in order;
-//   * no float atomics: a split reduction is summed by a second kernel in
-//     a fixed order;
+//     or summation order changes with B: each plan is a function of the
+//     pack shapes only (K for B1/B3; K and D for B2/B4); each sum over
+//     packed rows runs in ascending k in each of four fixed parts per
+//     chunk (fmaf) and adds the parts in order; B1/B3 then add the slices,
+//     B2/B4 the cluster's slices in rank order and, after the down gather
+//     in slot order, the windows in order;
+//   * no float atomics: a split reduction is summed in a fixed order, by a
+//     second kernel or through distributed shared memory;
 //   * a dequantized value is exactly the fp32 product q * scale (__fmul_rn:
 //     never contracted into an fma with the add that follows), as the plain
 //     version and the host-side dequant compute it.
@@ -76,21 +106,27 @@
 // Semantics kept from the reference's one-hot reconstruction: a row's slots
 // add into their lanes in slot order (a repeated lane sums), idle slots
 // (position -1) and positions outside [0, m) contribute nothing, and their
-// values are never used, so a NaN in an idle slot stays out.
+// values are never used, so a NaN in an idle slot stays out.  Padded ff
+// lanes are exact no-ops: their gate and up sums are zero (silu(0) * 0 ==
+// 0) and no down slot points at them.
 //
 // Launch accounting: every kernel launch that the CUDA runtime accepts adds
 // one to `cuda_launches[entry]` (0 vusa_packed_matmul, 1
 // vusa_fused_mlp_matmul, 2 vusa_packed_empty), read by
 // vusa_packed_cuda_launches.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 #include <type_traits>
 
 #include "ptx.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -98,234 +134,30 @@ namespace {
 enum Entry { kPackedEntry = 0, kFusedEntry = 1, kEmptyEntry = 2, kEntries = 3 };
 static std::atomic<unsigned long long> cuda_launches[kEntries];
 
-constexpr int NT = 256;               // threads per block
-constexpr int KC = 128;               // packed rows rebuilt per chunk, one thread each
 constexpr int BT = 8;                 // batch rows per block
 constexpr int MMAX = 128;             // widest window: int8 lane positions
-constexpr int WS = MMAX + 1;          // smem row stride: column reads hit distinct banks
-constexpr int GROUPS = NT / MMAX;     // thread groups over the batch rows
-constexpr int ACC = BT / GROUPS;      // outputs per thread
-constexpr size_t SMEM_MATMUL = (size_t)(KC * WS + BT * KC) * sizeof(float);
-constexpr size_t SMEM_FUSED = SMEM_MATMUL + (size_t)(BT * MMAX) * sizeof(float);
-
-static_assert(NT >= KC, "one thread per rebuilt row");
-static_assert(KC == MMAX, "the fused MLP's down chunk maps threads as the lanes do");
-static_assert(NT % MMAX == 0 && BT % GROUPS == 0, "thread/output mapping");
+constexpr int WS = MMAX + 1;          // smem row stride of h: column reads hit distinct banks
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Value loaders.  A pack's rows are its (window, row) pairs, flattened as
-// t * R + r (R = K, or D for the fused MLP's transposed w_down pack); a
-// loader's row(i) reads row i's slots as fp32.  The quantized loaders read
-// row i's scale once and multiply each slot's integer by it.
 enum ValueKind { kF32 = 0, kBF16 = 1, kInt8 = 2, kInt4 = 3 };
 
-template <typename VT>
-struct FloatValues {  // (T, R, S) fp32 or bf16
-  const VT* v;
-  int S;
-  struct Row {
-    const VT* v;
-    __device__ __forceinline__ float operator[](int s) const { return to_f32(v[s]); }
-  };
-  static FloatValues make(const void* v, const void*, int S) {
-    return {static_cast<const VT*>(v), S};
-  }
-  __device__ __forceinline__ Row row(size_t i) const { return {v + i * S}; }
-};
-
-struct Int8Values {  // (T, R, S) int8, scales (T, R) fp32
-  const int8_t* q;
-  const float* scale;
-  int S;
-  struct Row {
-    const int8_t* q;
-    float scale;
-    __device__ __forceinline__ float operator[](int s) const {
-      return __fmul_rn(static_cast<float>(q[s]), scale);
-    }
-  };
-  static Int8Values make(const void* q, const void* scale, int S) {
-    return {static_cast<const int8_t*>(q), static_cast<const float*>(scale), S};
-  }
-  __device__ __forceinline__ Row row(size_t i) const { return {q + i * S, scale[i]}; }
-};
-
-struct Int4Values {  // (T, R, S/2) int8 nibble pairs, scales (T, R) fp32
-  const int8_t* q;
-  const float* scale;
-  int S;  // logical slots (even); S/2 bytes per row
-  struct Row {
-    const int8_t* q;
-    float scale;
-    // slot 2i is byte i's low nibble, slot 2i+1 its high one, both
-    // sign-extended.  The low nibble is shifted to the top of a 32-bit word
-    // and back arithmetically: (b << 4) >> 4 on an int8_t would promote to
-    // int first and not sign-extend.
-    __device__ __forceinline__ float operator[](int s) const {
-      const int8_t b = q[s >> 1];
-      const uint32_t low = static_cast<uint32_t>(static_cast<uint8_t>(b)) << 28;
-      const int n = (s & 1) ? (static_cast<int>(b) >> 4) : (static_cast<int>(low) >> 28);
-      return __fmul_rn(static_cast<float>(n), scale);
-    }
-  };
-  static Int4Values make(const void* q, const void* scale, int S) {
-    return {static_cast<const int8_t*>(q), static_cast<const float*>(scale), S};
-  }
-  __device__ __forceinline__ Row row(size_t i) const { return {q + i * (S >> 1), scale[i]}; }
-};
-
-// Rebuild rows [row0, row0 + rows) of a pack (flattened row index) into W
-// (rows x m, stride WS).  Thread r owns row r: it zeroes the row, then adds
-// the row's slots into their lanes in slot order.  No two threads touch one
-// row, so no atomics are needed and a repeated lane sums in a fixed order.
-// A value is read only for an occupied slot.
-template <typename Vals>
-__device__ __forceinline__ void rebuild_rows(float* W, const Vals& vals,
-                                             const int8_t* __restrict__ pos, size_t row0,
-                                             int rows, int S, int m) {
-  const int r = threadIdx.x;
-  if (r < rows) {
-    float* row = W + r * WS;
-    for (int j = 0; j < m; ++j) row[j] = 0.f;
-    const auto v = vals.row(row0 + r);
-    const int8_t* p = pos + (row0 + r) * S;
-    for (int s = 0; s < S; ++s) {
-      const int q = p[s];
-      if (q >= 0 && q < m) row[q] += v[s];
-    }
-  }
-}
-
-// acc[i] += sum_k x[b, k] * W_window[k, l] for this thread's outputs
-// (b = g + GROUPS * i, l), k ascending.  x points at the tile's first row
-// (nb rows of length K); the window's K pack rows start at row0.
-template <typename XT, typename Vals>
-__device__ void window_matmul(const XT* __restrict__ x, int nb, int K, const Vals& vals,
-                              const int8_t* __restrict__ pos, size_t row0, int S, int m,
-                              float* W, float* xs, float (&acc)[ACC]) {
-  const int tid = threadIdx.x;
-  const int l = tid % MMAX, g = tid / MMAX;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    for (int i = tid; i < BT * KC; i += NT) {
-      const int b = i / KC, kk = i % KC;
-      xs[i] = (b < nb && kk < kc) ? to_f32(x[(size_t)b * K + k0 + kk]) : 0.f;
-    }
-    rebuild_rows(W, vals, pos, row0 + k0, kc, S, m);
-    __syncthreads();
-    if (l < m) {
-      for (int kk = 0; kk < kc; ++kk) {
-        const float w = W[kk * WS + l];
-#pragma unroll
-        for (int i = 0; i < ACC; ++i) acc[i] = fmaf(xs[(g + GROUPS * i) * KC + kk], w, acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// One block per (ff window t, batch tile): gate and up for the window, the
-// (nb, m) slice of silu(gate) * up in shared memory, then the window's w_down
-// rows (transposed pack: rows are the D outputs, lanes the window's ff rows)
-// rebuilt in chunks of KC outputs.  Writes the window's (nb, D) partial.
-template <typename XT, typename Vals>
-__global__ void __launch_bounds__(NT)
-fused_mlp_partial_kernel(const XT* __restrict__ x, const Vals gv, const int8_t* __restrict__ gp,
-                         int Sg, const Vals uv, const int8_t* __restrict__ up, int Su,
-                         const Vals dv, const int8_t* __restrict__ dp, int Sd,
-                         float* __restrict__ partial, int B, int K, int D, int m) {
-  extern __shared__ float smem[];
-  float* W = smem;
-  float* xs = W + KC * WS;
-  float* hs = xs + BT * KC;
-  const int t = blockIdx.x;
-  const int b0 = blockIdx.y * BT;
-  const int nb = min(BT, B - b0);
-  const XT* xb = x + (size_t)b0 * K;
-  float gate[ACC], upv[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) gate[i] = upv[i] = 0.f;
-  window_matmul<XT, Vals>(xb, nb, K, gv, gp, (size_t)t * K, Sg, m, W, xs, gate);
-  window_matmul<XT, Vals>(xb, nb, K, uv, up, (size_t)t * K, Su, m, W, xs, upv);
-  const int l = threadIdx.x % MMAX, g = threadIdx.x / MMAX;
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) {
-    // lanes past m and rows past nb hold exact zeros: padded ff lanes are
-    // no-ops (silu(0) * 0 == 0)
-    const float gi = gate[i];
-    hs[(g + GROUPS * i) * MMAX + l] = (l < m) ? gi / (1.f + expf(-gi)) * upv[i] : 0.f;
-  }
-  __syncthreads();
-  const int c = threadIdx.x % KC;
-  for (int c0 = 0; c0 < D; c0 += KC) {
-    const int cc = min(KC, D - c0);
-    rebuild_rows(W, dv, dp, (size_t)t * D + c0, cc, Sd, m);
-    __syncthreads();
-    if (c < cc) {
-      float acc[ACC];
-#pragma unroll
-      for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
-      for (int j = 0; j < m; ++j) {
-        const float w = W[c * WS + j];
-#pragma unroll
-        for (int i = 0; i < ACC; ++i) acc[i] = fmaf(hs[(g + GROUPS * i) * MMAX + j], w, acc[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < ACC; ++i) {
-        const int b = g + GROUPS * i;
-        if (b < nb) partial[((size_t)t * B + b0 + b) * D + c0 + c] = acc[i];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// out[i] = sum over windows t = 0..T-1 of partial[t, i], in that order.
-__global__ void sum_windows_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                   int T, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    float s = 0.f;
-    for (int t = 0; t < T; ++t) s += partial[(size_t)t * n + i];
-    out[i] = s;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// B1/B3: the row-packed matmul (see the header).
+// Streaming packed rows: the device code both kernels share (see the header).
 // ---------------------------------------------------------------------------
 namespace rowpk {
 
 constexpr int RNT = 512;  // threads per block
-constexpr int ROWS = 64;  // packed rows per slice: the plan's slice size
 constexpr int RKC = 32;   // packed rows per chunk
-constexpr int NS = 2;     // shared-memory stages: one per chunk of a slice
 constexpr int UNROLL = 3; // slots a thread rebuilds at once
 constexpr int PARTS = RNT / MMAX;  // threads per lane, each over a part of a chunk's rows
 constexpr int PART_ROWS = RKC / PARTS;
 constexpr size_t SMEM_LIMIT = 232448;  // a block's dynamic shared memory on sm_90
-// W (two tiles and their rows' flags), the x tile, the slice's scales and
-// the epilogue's parts
-constexpr size_t SMEM_FIXED =
-    (size_t)(2 * RKC * MMAX + 2 * RKC + BT * ROWS + ROWS + (PARTS - 1) * BT * MMAX) *
-    sizeof(float);
 
 static_assert(RNT == PARTS * MMAX && RKC % PARTS == 0, "PARTS threads per lane");
-static_assert(ROWS == NS * RKC, "a slice's chunks are in flight together");
 static_assert(PART_ROWS % 4 == 0 && (RKC * MMAX) % (4 * RNT) == 0 && RKC <= RNT,
               "16-byte x reads and zeroing");
-
-// What the host passes besides the operands.
-struct Problem {
-  int B, K, T, S, m;
-  int slices;        // ordered reduction slices of ROWS rows (the plan)
-  int rbv;           // value bytes per packed row: S * {4, 2, 1}, S / 2 for int4
-  int vvec, pvec;    // copy widths of the value and position streams: 16, 8, 4 or 1
-  int sv, stage;     // bytes of a stage's values; of a whole stage (16-byte multiples)
-  float* part;       // (slices, B, T*m) fp32 partials, used when slices > 1
-};
 
 // Copy n bytes from src to dst (shared) with every thread of the block, in
 // pieces of vec bytes (cp.async; the last piece may be partial and reads
@@ -333,16 +165,42 @@ struct Problem {
 __device__ __forceinline__ void copy_chunk(unsigned char* dst, const unsigned char* src, int n,
                                            int vec) {
   const int tid = threadIdx.x;
+  // the loops are not unrolled: this code is inlined at every issue, and a
+  // larger kernel runs slower
   if (vec == 16) {
+#pragma unroll 1
     for (int i = 16 * tid; i < n; i += 16 * RNT)
       ptx::cp_async16(dst + i, src + i, min(16, n - i));
   } else if (vec == 8) {
+#pragma unroll 1
     for (int i = 8 * tid; i < n; i += 8 * RNT) ptx::cp_async8(dst + i, src + i, min(8, n - i));
   } else if (vec == 4) {
+#pragma unroll 1
     for (int i = 4 * tid; i < n; i += 4 * RNT) ptx::cp_async4(dst + i, src + i, min(4, n - i));
   } else {
+#pragma unroll 1
     for (int i = tid; i < n; i += RNT) dst[i] = __ldg(src + i);
   }
+}
+
+// One pack as the kernels stream it: its (T, R, S) values (rbv bytes a
+// row), positions and (T, R) scales, the copy widths of its two streams,
+// and where its positions start in a stage (sv bytes after the values).
+struct Stream {
+  const unsigned char* vals;
+  const float* scales;
+  const int8_t* pos;
+  int S, rbv, vvec, pvec, sv;
+};
+
+// Start copying the kc packed rows from flattened row `row` (t * R + r) of
+// `p` into the stage st (values, then positions at st + sv).  The caller
+// commits the group.
+__device__ __forceinline__ void issue_chunk(unsigned char* st, const Stream& p, size_t row,
+                                            int kc) {
+  copy_chunk(st, p.vals + row * p.rbv, kc * p.rbv, p.vvec);
+  copy_chunk(st + p.sv, reinterpret_cast<const unsigned char*>(p.pos) + row * p.S, kc * p.S,
+             p.pvec);
 }
 
 // Slot s of row r of a chunk's values in shared memory, as fp32.
@@ -355,7 +213,11 @@ __device__ __forceinline__ float slot_value(const unsigned char* v, int r, int s
     return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(v)[r * S + s]);
   } else if constexpr (VK == kInt8) {
     return __fmul_rn(static_cast<float>(reinterpret_cast<const int8_t*>(v)[r * S + s]), scale);
-  } else {  // int4: as Int4Values
+  } else {
+    // int4: slot 2i is byte i's low nibble, slot 2i+1 its high one, both
+    // sign-extended.  The low nibble is shifted to the top of a 32-bit word
+    // and back arithmetically: (b << 4) >> 4 on an int8_t would promote to
+    // int first and not sign-extend.
     const int8_t b = reinterpret_cast<const int8_t*>(v)[r * (S >> 1) + (s >> 1)];
     const uint32_t low = static_cast<uint32_t>(static_cast<uint8_t>(b)) << 28;
     const int n = (s & 1) ? (static_cast<int>(b) >> 4) : (static_cast<int>(low) >> 28);
@@ -380,7 +242,7 @@ __device__ __forceinline__ void quad_values(const unsigned char* v, int i, float
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       out[k] = __fmul_rn(static_cast<float>(static_cast<int8_t>(u >> (8 * k))), scale);
-  } else {  // int4: bytes i/2 and i/2 + 1, low nibble first, as Int4Values
+  } else {  // int4: bytes i/2 and i/2 + 1, low nibble first, as slot_value
     const uint32_t u = *reinterpret_cast<const uint16_t*>(v + i / 2);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -392,18 +254,107 @@ __device__ __forceinline__ void quad_values(const unsigned char* v, int i, float
   }
 }
 
+// Zero W tile `buf` of two (RKC, MMAX) tiles and its rows' flags.
+__device__ __forceinline__ void zero_tile(float* W, int* flags, int buf) {
+  const int tid = threadIdx.x;
+  float4* w4 = reinterpret_cast<float4*>(W + buf * RKC * MMAX);
+#pragma unroll
+  for (int i = 0; i < RKC * MMAX / 4 / RNT; ++i)
+    w4[tid + i * RNT] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < RKC) flags[buf * RKC + tid] = 0;
+}
+
+// Rebuild a chunk's kc packed rows (S slots each), staged at st (values;
+// positions at st + sv), into the zeroed tile Wc with flags fl; sc holds
+// the chunk's rows' scales (quantized kinds).  One thread per slot (per
+// four slots of a row where S is a multiple of 4): slot i of the chunk is
+// slot i % S of row i / S, and its position byte and value lie at i.  Each
+// occupied slot stores 0 + v into its lane.  That is the sequential
+// `W[q] += v` over the row's slots in order, bitwise, when the occupied
+// slots come first with ascending lanes, as the packer writes them; a slot
+// that finds otherwise flags its row, and one thread then rebuilds each
+// flagged row in slot order (a repeated lane sums).  Every thread of the
+// block calls it; it ends with a barrier.
+template <int VK>
+__device__ __forceinline__ void rebuild_chunk(float* Wc, int* fl, const unsigned char* st,
+                                              int sv, const float* sc, int kc, int S, int m) {
+  const int tid = threadIdx.x;
+  const int8_t* ps = reinterpret_cast<const int8_t*>(st + sv);
+  const float inv_s = 1.f / S;  // (i + 0.5) * inv_s rounds down to i / S for i < RKC * S
+  const int n = kc * S;
+  int redo = 0;
+  if (S % 4 == 0) {
+    // four slots of one row per thread: one 4-byte read of positions, one
+    // read of four values
+    for (int i = 4 * tid; i < n; i += 4 * RNT) {
+      const int r = static_cast<int>((i + 0.5f) * inv_s), s = i - r * S;
+      const uint32_t qs = *reinterpret_cast<const uint32_t*>(ps + i);
+      float v[4];
+      quad_values<VK>(st, i, sc[r], v);
+      int prev = s > 0 ? ps[i - 1] : 0;
+      bool bad = false;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int q = static_cast<int8_t>(qs >> (8 * u));
+        if (q >= 0 && q < m) {
+          Wc[r * MMAX + q] = __fadd_rn(v[u], 0.f);
+          bad |= s + u > 0 && (prev < 0 || prev >= q);
+        }
+        prev = q;
+      }
+      if (bad) fl[r] = redo = 1;
+    }
+  } else {
+    for (int i0 = tid; i0 < n; i0 += UNROLL * RNT) {
+      // UNROLL slots at once, every load first (a slot past n reads the
+      // last one again and stores nothing; an idle slot's value is loaded
+      // but never used)
+      int q[UNROLL], qp[UNROLL], r[UNROLL];
+      float v[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = min(i0 + u * RNT, n - 1);
+        r[u] = static_cast<int>((i + 0.5f) * inv_s);
+        q[u] = ps[i];
+        qp[u] = ps[max(i - 1, 0)];
+        v[u] = slot_value<VK>(st, r[u], i - r[u] * S, S, sc[r[u]]);
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = i0 + u * RNT, s = i - r[u] * S;
+        if (i < n && q[u] >= 0 && q[u] < m) {
+          Wc[r[u] * MMAX + q[u]] = __fadd_rn(v[u], 0.f);
+          if (s > 0 && (qp[u] < 0 || qp[u] >= q[u])) fl[r[u]] = redo = 1;
+        }
+      }
+    }
+  }
+  if (__syncthreads_or(redo)) {
+    if (tid < kc && fl[tid]) {
+      float* Wr = Wc + tid * MMAX;
+      for (int j = 0; j < MMAX; ++j) Wr[j] = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const int q = ps[tid * S + s];
+        if (q >= 0 && q < m) Wr[q] += slot_value<VK>(st, tid, s, S, sc[tid]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // acc[b] += x[b, k] * w[k] over rows k = 0..PART_ROWS-1 (all, or those below
-// ke), k ascending, for batch rows B0..B0+NB-1; the x rows (stride ROWS in
+// ke), k ascending, for batch rows B0..B0+NB-1; the x rows (stride ld in
 // shared memory) are read into registers first, so the loads overlap.
 template <int B0, int NB, bool ALL>
-__device__ __forceinline__ void multiply_rows(const float* xc, const float (&w)[PART_ROWS],
-                                              int ke, float (&acc)[BT]) {
+__device__ __forceinline__ void multiply_rows(const float* xc, int ld,
+                                              const float (&w)[PART_ROWS], int ke,
+                                              float (&acc)[BT]) {
   float4 xv[NB][PART_ROWS / 4];
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
     for (int k4 = 0; k4 < PART_ROWS / 4; ++k4)
-      xv[b][k4] = reinterpret_cast<const float4*>(xc + (B0 + b) * ROWS)[k4];
+      xv[b][k4] = reinterpret_cast<const float4*>(xc + (B0 + b) * ld)[k4];
 #pragma unroll
   for (int kk = 0; kk < PART_ROWS; ++kk) {
     if (ALL || kk < ke) {
@@ -417,32 +368,179 @@ __device__ __forceinline__ void multiply_rows(const float* xc, const float (&w)[
 // multiply_rows for the nb batch rows that exist (a branch uniform in the
 // block), four at a time.
 template <bool ALL>
-__device__ __forceinline__ void multiply(int nb, const float* xc, const float (&w)[PART_ROWS],
-                                         int ke, float (&acc)[BT]) {
+__device__ __forceinline__ void multiply(int nb, const float* xc, int ld,
+                                         const float (&w)[PART_ROWS], int ke, float (&acc)[BT]) {
   static_assert(BT == 8, "the cases below");
   switch (nb) {
-    case 1: multiply_rows<0, 1, ALL>(xc, w, ke, acc); break;
-    case 2: multiply_rows<0, 2, ALL>(xc, w, ke, acc); break;
-    case 3: multiply_rows<0, 3, ALL>(xc, w, ke, acc); break;
-    case 4: multiply_rows<0, 4, ALL>(xc, w, ke, acc); break;
+    case 1: multiply_rows<0, 1, ALL>(xc, ld, w, ke, acc); break;
+    case 2: multiply_rows<0, 2, ALL>(xc, ld, w, ke, acc); break;
+    case 3: multiply_rows<0, 3, ALL>(xc, ld, w, ke, acc); break;
+    case 4: multiply_rows<0, 4, ALL>(xc, ld, w, ke, acc); break;
     default:
-      multiply_rows<0, 4, ALL>(xc, w, ke, acc);
+      multiply_rows<0, 4, ALL>(xc, ld, w, ke, acc);
       switch (nb) {
-        case 5: multiply_rows<4, 1, ALL>(xc, w, ke, acc); break;
-        case 6: multiply_rows<4, 2, ALL>(xc, w, ke, acc); break;
-        case 7: multiply_rows<4, 3, ALL>(xc, w, ke, acc); break;
-        default: multiply_rows<4, 4, ALL>(xc, w, ke, acc); break;
+        case 5: multiply_rows<4, 1, ALL>(xc, ld, w, ke, acc); break;
+        case 6: multiply_rows<4, 2, ALL>(xc, ld, w, ke, acc); break;
+        case 7: multiply_rows<4, 3, ALL>(xc, ld, w, ke, acc); break;
+        default: multiply_rows<4, 4, ALL>(xc, ld, w, ke, acc); break;
       }
   }
 }
+
+// This thread's part of a rebuilt chunk (kc rows in tile Wc) multiplied
+// into acc: lane l = tid % MMAX, part h = tid / MMAX, rows h * PART_ROWS ..
+// of the chunk, ascending.  xc: the chunk's first x column (row stride ld).
+__device__ __forceinline__ void multiply_chunk(int nb, const float* xc, int ld, const float* Wc,
+                                               int kc, int m, float (&acc)[BT]) {
+  const int l = threadIdx.x % MMAX, h = threadIdx.x / MMAX;
+  if (l < m) {
+    const float* wc = Wc + h * PART_ROWS * MMAX + l;
+    const int ke = kc - h * PART_ROWS;
+    float w[PART_ROWS];
+#pragma unroll
+    for (int kk = 0; kk < PART_ROWS; ++kk) w[kk] = wc[kk * MMAX];
+    if (ke >= PART_ROWS)
+      multiply<true>(nb, xc + h * PART_ROWS, ld, w, ke, acc);
+    else
+      multiply<false>(nb, xc + h * PART_ROWS, ld, w, ke, acc);
+  }
+}
+
+// out[i] = part[0][i] + part[1][i] + ... + part[slices-1][i], in that
+// order, for n4 groups of four consecutive i (16-byte loads and stores)
+// or, where V is 1, for n4 single i.  Launched as a programmatic dependent
+// of the kernel that writes the partials: its launch overlaps that
+// kernel's tail, and it waits for the partials before it reads them.
+template <int V>
+__global__ void sum_slices_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                  size_t n4, int slices) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  const Vec* p = reinterpret_cast<const Vec*>(part);
+  Vec* o = reinterpret_cast<Vec*>(out);
+  ptx::grid_dependency_wait();
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    Vec s = p[i];
+    auto add = [&](const Vec& v) {
+      if constexpr (V == 4) {
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      } else {
+        s += v;
+      }
+    };
+    // eight partials loaded before they are added, in order: the loads
+    // overlap, the sums do not change
+    int z = 1;
+    for (; z + 8 <= slices; z += 8) {
+      Vec v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = p[(size_t)(z + u) * n4 + i];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) add(v[u]);
+    }
+    for (; z < slices; ++z) add(p[(size_t)z * n4 + i]);
+    o[i] = s;
+  }
+}
+
+// Launch sum_slices_kernel over n outputs as a programmatic dependent of
+// the kernel last launched on `stream`; counted for `entry`.
+cudaError_t launch_ordered_sum(const float* part, float* out, size_t n, int slices,
+                               cudaStream_t stream, Entry entry) {
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(out) |
+                                  reinterpret_cast<uintptr_t>(part)) % 16 == 0;
+  const size_t n4 = vec ? n / 4 : n;
+  const size_t want = (n4 + 255) / 256;
+  cudaLaunchAttribute dependent[1];
+  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(want < 4096 ? want : 4096));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cfg.attrs = dependent;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, vec ? sum_slices_kernel<4> : sum_slices_kernel<1>, part, out, n4,
+                         slices);
+  if (e == cudaSuccess) ++cuda_launches[entry];
+  return e;
+}
+
+// The widest copy (16, 8 or 4 bytes; else 1, plain loads) that every
+// chunk start p + t * t_stride + c * c_stride is aligned to.
+int copy_width(const void* p, size_t t_stride, size_t c_stride) {
+  size_t a = reinterpret_cast<uintptr_t>(p) | t_stride | c_stride | 16;
+  a &= ~a + 1;  // the lowest set bit
+  return a >= 4 ? static_cast<int>(a) : 1;
+}
+
+size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// A pack's Stream for value kind VK: R rows a window, T windows.  Chunk
+// starts lie at whole windows and whole RKC-row chunks (every slice size
+// is a multiple of RKC), which the copy widths are picked for.
+template <int VK>
+Stream make_stream(const void* vals, const void* scales, const void* pos, int S, int R, int T) {
+  Stream p{static_cast<const unsigned char*>(vals), static_cast<const float*>(scales),
+           static_cast<const int8_t*>(pos), S, 0, 0, 0, 0};
+  p.rbv = VK == kF32 ? 4 * S : VK == kBF16 ? 2 * S : VK == kInt8 ? S : S / 2;
+  const size_t t_v = T > 1 ? (size_t)R * p.rbv : 0;  // window strides, where used
+  const size_t t_p = T > 1 ? (size_t)R * S : 0;
+  p.vvec = copy_width(vals, t_v, (size_t)RKC * p.rbv);
+  p.pvec = copy_width(pos, t_p, (size_t)RKC * S);
+  p.sv = static_cast<int>(align16((size_t)RKC * p.rbv));
+  return p;
+}
+
+// Bytes of a stage that holds one chunk of `p`.
+size_t stage_bytes(const Stream& p) { return p.sv + align16((size_t)RKC * p.S); }
+
+// Opt `kern` in to SMEM_LIMIT bytes of dynamic shared memory, once per
+// device: bit d of `done` for device d (two first calls racing both set
+// the same attribute).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kern, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_LIMIT);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// B1/B3: the row-packed matmul (see the header).
+// ---------------------------------------------------------------------------
+constexpr int ROWS = 64;  // packed rows per slice: the plan's slice size
+constexpr int NS = 2;     // shared-memory stages: one per chunk of a slice
+// W (two tiles and their rows' flags), the x tile, the slice's scales and
+// the epilogue's parts
+constexpr size_t SMEM_FIXED =
+    (size_t)(2 * RKC * MMAX + 2 * RKC + BT * ROWS + ROWS + (PARTS - 1) * BT * MMAX) *
+    sizeof(float);
+
+static_assert(ROWS == NS * RKC, "a slice's chunks are in flight together");
+
+// What the host passes besides x and the output.
+struct Problem {
+  int B, K, T, m;
+  int slices;        // ordered reduction slices of ROWS rows (the plan)
+  int stage;         // bytes of a stage (16-byte multiple)
+  Stream pk;         // the pack
+  float* part;       // (slices, B, T*m) fp32 partials, used when slices > 1
+};
 
 // One block per (window t, slice z, tile of <= BT batch rows); at most 64
 // registers a thread, so two blocks share an SM.
 template <typename XT, int VK>
 __global__ void __launch_bounds__(RNT, 2)
-    row_packed_kernel(const XT* __restrict__ x, const unsigned char* __restrict__ vals,
-                      const float* __restrict__ scales, const int8_t* __restrict__ pos,
-                      float* __restrict__ out, const Problem pb) {
+    row_packed_kernel(const XT* __restrict__ x, float* __restrict__ out, const Problem pb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int t = blockIdx.x, z = blockIdx.y, b0 = blockIdx.z * BT;
@@ -450,7 +548,6 @@ __global__ void __launch_bounds__(RNT, 2)
   const int k0 = z * ROWS;
   const int rows = max(0, min(ROWS, pb.K - k0));  // packed rows of this slice
   const int nch = (rows + RKC - 1) / RKC;
-  const float inv_s = 1.f / pb.S;  // (i + 0.5) * inv_s rounds down to i / S for i < RKC * S
   const size_t row0 = (size_t)t * pb.K + k0;  // flattened pack row of the slice's first row
 
   unsigned char* stages = smem_raw;  // NS (values, positions) stages
@@ -460,37 +557,23 @@ __global__ void __launch_bounds__(RNT, 2)
   float* red = scl + ROWS;                                         // (PARTS - 1, BT, MMAX)
   int* flags = reinterpret_cast<int*>(red + (PARTS - 1) * BT * MMAX);  // two (RKC)
 
-  auto issue = [&](int c) {
-    if (c < nch) {
-      const int kc = min(RKC, rows - c * RKC);
-      const size_t r = row0 + (size_t)c * RKC;
-      unsigned char* st = stages + c * pb.stage;
-      copy_chunk(st, vals + r * pb.rbv, kc * pb.rbv, pb.vvec);
-      copy_chunk(st + pb.sv, reinterpret_cast<const unsigned char*>(pos) + r * pb.S, kc * pb.S,
-                 pb.pvec);
-    }
-    ptx::cp_async_commit();
-  };
-  auto zero_tile = [&](int buf) {  // a W tile and its rows' flags
-    float4* w4 = reinterpret_cast<float4*>(W + buf * RKC * MMAX);
-#pragma unroll
-    for (int i = 0; i < RKC * MMAX / 4 / RNT; ++i)
-      w4[tid + i * RNT] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tid < RKC) flags[buf * RKC + tid] = 0;
-  };
-
   // prologue: the slice's chunks in flight, one commit group each; the x
   // tile and the scales by plain loads meanwhile
 #pragma unroll
-  for (int c = 0; c < NS; ++c) issue(c);
+  for (int c = 0; c < NS; ++c) {
+    if (c < nch)
+      issue_chunk(stages + c * pb.stage, pb.pk, row0 + (size_t)c * RKC,
+                  min(RKC, rows - c * RKC));
+    ptx::cp_async_commit();
+  }
   for (int i = tid; i < BT * ROWS; i += RNT) {
     const int b = i / ROWS, kk = i % ROWS;
     xs[i] = (b < nb && kk < rows) ? to_f32(x[(size_t)(b0 + b) * pb.K + k0 + kk]) : 0.f;
   }
   if constexpr (VK >= kInt8) {
-    for (int i = tid; i < rows; i += RNT) scl[i] = scales[row0 + i];
+    for (int i = tid; i < rows; i += RNT) scl[i] = pb.pk.scales[row0 + i];
   }
-  zero_tile(0);
+  zero_tile(W, flags, 0);
 
   const int l = tid % MMAX, h = tid / MMAX;
   float acc[BT];
@@ -503,95 +586,12 @@ __global__ void __launch_bounds__(RNT, 2)
     else
       ptx::cp_async_wait<0>();
     __syncthreads();  // ... everyone's; chunk c - 1 is multiplied
-    if (c + 1 < nch) zero_tile((c + 1) & 1);
-
+    if (c + 1 < nch) zero_tile(W, flags, (c + 1) & 1);
     const int kc = min(RKC, rows - c * RKC);
-    const unsigned char* st = stages + c * pb.stage;
-    const int8_t* ps = reinterpret_cast<const int8_t*>(st + pb.sv);
     float* Wc = W + (c & 1) * RKC * MMAX;
-    // rebuild, one thread per slot (per four slots of a row where S is a
-    // multiple of 4): slot i of the chunk is slot i % S of row i / S, and
-    // its position byte and value lie at i.  Each occupied
-    // slot stores 0 + v into its lane.  That is the sequential `W[q] += v`
-    // over the row's slots in order, bitwise, when the occupied slots come
-    // first with ascending lanes, as the packer writes them; a slot that
-    // finds otherwise flags its row, and one thread then rebuilds each
-    // flagged row in slot order (a repeated lane sums).
-    int* fl = flags + (c & 1) * RKC;
-    const float* sc = scl + c * RKC;
-    const int n = kc * pb.S;
-    int redo = 0;
-    if (pb.S % 4 == 0) {
-      // four slots of one row per thread: one 4-byte read of positions,
-      // one read of four values
-      for (int i = 4 * tid; i < n; i += 4 * RNT) {
-        const int r = static_cast<int>((i + 0.5f) * inv_s), s = i - r * pb.S;
-        const uint32_t qs = *reinterpret_cast<const uint32_t*>(ps + i);
-        float v[4];
-        quad_values<VK>(st, i, sc[r], v);
-        int prev = s > 0 ? ps[i - 1] : 0;
-        bool bad = false;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int q = static_cast<int8_t>(qs >> (8 * u));
-          if (q >= 0 && q < pb.m) {
-            Wc[r * MMAX + q] = __fadd_rn(v[u], 0.f);
-            bad |= s + u > 0 && (prev < 0 || prev >= q);
-          }
-          prev = q;
-        }
-        if (bad) fl[r] = redo = 1;
-      }
-    } else {
-      for (int i0 = tid; i0 < n; i0 += UNROLL * RNT) {
-        // UNROLL slots at once, every load first (a slot past n reads the
-        // last one again and stores nothing; an idle slot's value is loaded
-        // but never used)
-        int q[UNROLL], qp[UNROLL], r[UNROLL];
-        float v[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int i = min(i0 + u * RNT, n - 1);
-          r[u] = static_cast<int>((i + 0.5f) * inv_s);
-          q[u] = ps[i];
-          qp[u] = ps[max(i - 1, 0)];
-          v[u] = slot_value<VK>(st, r[u], i - r[u] * pb.S, pb.S, sc[r[u]]);
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int i = i0 + u * RNT, s = i - r[u] * pb.S;
-          if (i < n && q[u] >= 0 && q[u] < pb.m) {
-            Wc[r[u] * MMAX + q[u]] = __fadd_rn(v[u], 0.f);
-            if (s > 0 && (qp[u] < 0 || qp[u] >= q[u])) fl[r[u]] = redo = 1;
-          }
-        }
-      }
-    }
-    if (__syncthreads_or(redo)) {
-      if (tid < kc && fl[tid]) {
-        float* Wr = Wc + tid * MMAX;
-        for (int j = 0; j < MMAX; ++j) Wr[j] = 0.f;
-        for (int s = 0; s < pb.S; ++s) {
-          const int q = ps[tid * pb.S + s];
-          if (q >= 0 && q < pb.m) Wr[q] += slot_value<VK>(st, tid, s, pb.S, sc[tid]);
-        }
-      }
-      __syncthreads();
-    }
-
-    // multiply: this thread's part of the chunk's rows, ascending
-    if (l < pb.m) {
-      const float* xc = xs + c * RKC + h * PART_ROWS;
-      const float* wc = Wc + h * PART_ROWS * MMAX + l;
-      const int ke = kc - h * PART_ROWS;
-      float w[PART_ROWS];
-#pragma unroll
-      for (int kk = 0; kk < PART_ROWS; ++kk) w[kk] = wc[kk * MMAX];
-      if (ke >= PART_ROWS)
-        multiply<true>(nb, xc, w, ke, acc);
-      else
-        multiply<false>(nb, xc, w, ke, acc);
-    }
+    rebuild_chunk<VK>(Wc, flags + (c & 1) * RKC, stages + c * pb.stage, pb.pk.sv,
+                      scl + c * RKC, kc, pb.pk.S, pb.m);
+    multiply_chunk(nb, xs + c * RKC, ROWS, Wc, kc, pb.m, acc);
   }
 
   // epilogue: the parts' sums added in part order, into the output (one
@@ -617,168 +617,310 @@ __global__ void __launch_bounds__(RNT, 2)
   }
 }
 
-// out[i] = part[0][i] + part[1][i] + ... + part[slices-1][i], in that
-// order, for n4 groups of four consecutive i (16-byte loads and stores)
-// or, where V is 1, for n4 single i.  Launched as a programmatic dependent
-// of row_packed_kernel: its launch overlaps that kernel's tail, and it
-// waits for the partials before it reads them.
-template <int V>
-__global__ void sum_slices_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                  size_t n4, int slices) {
-  using Vec = typename std::conditional<V == 4, float4, float>::type;
-  const Vec* p = reinterpret_cast<const Vec*>(part);
-  Vec* o = reinterpret_cast<Vec*>(out);
-  ptx::grid_dependency_wait();
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    Vec s = p[i];
-    for (int z = 1; z < slices; ++z) {
-      const Vec v = p[(size_t)z * n4 + i];
-      if constexpr (V == 4) {
-        s.x += v.x;
-        s.y += v.y;
-        s.z += v.z;
-        s.w += v.w;
-      } else {
-        s += v;
-      }
-    }
-    o[i] = s;
-  }
-}
-
-// The widest copy (16, 8 or 4 bytes; else 1, plain loads) that every
-// chunk start p + t * t_stride + c * c_stride is aligned to.
-int copy_width(const void* p, size_t t_stride, size_t c_stride) {
-  size_t a = reinterpret_cast<uintptr_t>(p) | t_stride | c_stride | 16;
-  a &= ~a + 1;  // the lowest set bit
-  return a >= 4 ? static_cast<int>(a) : 1;
-}
-
-size_t align16(size_t n) { return (n + 15) / 16 * 16; }
-
 template <typename XT, int VK>
 cudaError_t launch(const void* x, const void* values, const void* scales, const void* positions,
-                   void* out, Problem pb, cudaStream_t stream) {
-  pb.rbv = VK == kF32 ? 4 * pb.S : VK == kBF16 ? 2 * pb.S : VK == kInt8 ? pb.S : pb.S / 2;
-  const size_t t_v = pb.T > 1 ? (size_t)pb.K * pb.rbv : 0;  // window strides, where used
-  const size_t t_p = pb.T > 1 ? (size_t)pb.K * pb.S : 0;
-  pb.vvec = copy_width(values, t_v, (size_t)RKC * pb.rbv);
-  pb.pvec = copy_width(positions, t_p, (size_t)RKC * pb.S);
-  const size_t sv = align16((size_t)RKC * pb.rbv), stage = sv + align16((size_t)RKC * pb.S);
+                   int S, void* out, Problem pb, cudaStream_t stream) {
+  pb.pk = make_stream<VK>(values, scales, positions, S, pb.K, pb.T);
+  const size_t stage = stage_bytes(pb.pk);
   const size_t smem = NS * stage + SMEM_FIXED;
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  pb.sv = static_cast<int>(sv);
   pb.stage = static_cast<int>(stage);
 
   auto kern = row_packed_kernel<XT, VK>;
-  // the most any S may need, once per instantiation and device (bit d for
-  // device d; two first calls racing both set the same attribute)
+  // the most any S may need, once per instantiation and device
   static std::atomic<unsigned long long> opted_in{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = opt_in(kern, opted_in);
   if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(opted_in.load() & bit)) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_LIMIT);
-    if (e != cudaSuccess) return e;
-    opted_in.fetch_or(bit);
-  }
   const dim3 grid(pb.T, pb.slices, (pb.B + BT - 1) / BT);
-  kern<<<grid, RNT, smem, stream>>>(static_cast<const XT*>(x),
-                                   static_cast<const unsigned char*>(values),
-                                   static_cast<const float*>(scales),
-                                   static_cast<const int8_t*>(positions),
-                                   static_cast<float*>(out), pb);
+  kern<<<grid, RNT, smem, stream>>>(static_cast<const XT*>(x), static_cast<float*>(out), pb);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   ++cuda_launches[kPackedEntry];
   if (pb.slices == 1) return cudaSuccess;
-
-  const size_t n = (size_t)pb.B * pb.T * pb.m;
-  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(out) |
-                                  reinterpret_cast<uintptr_t>(pb.part)) % 16 == 0;
-  const size_t n4 = vec ? n / 4 : n;
-  const size_t want = (n4 + 255) / 256;
-  cudaLaunchAttribute dependent[1];
-  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  dependent[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(want < 4096 ? want : 4096));
-  cfg.blockDim = dim3(256);
-  cfg.stream = stream;
-  cfg.attrs = dependent;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, vec ? sum_slices_kernel<4> : sum_slices_kernel<1>,
-                         static_cast<const float*>(pb.part), static_cast<float*>(out), n4,
-                         pb.slices);
-  if (e == cudaSuccess) ++cuda_launches[kPackedEntry];
-  return e;
+  return launch_ordered_sum(pb.part, static_cast<float*>(out), (size_t)pb.B * pb.T * pb.m,
+                            pb.slices, stream, kPackedEntry);
 }
 
 template <typename XT>
 cudaError_t for_x(const void* x, const void* values, int kind, const void* scales,
-                  const void* positions, void* out, const Problem& pb, cudaStream_t st) {
+                  const void* positions, int S, void* out, const Problem& pb, cudaStream_t st) {
   switch (kind) {
-    case kF32: return launch<XT, kF32>(x, values, scales, positions, out, pb, st);
-    case kBF16: return launch<XT, kBF16>(x, values, scales, positions, out, pb, st);
-    case kInt8: return launch<XT, kInt8>(x, values, scales, positions, out, pb, st);
-    case kInt4: return launch<XT, kInt4>(x, values, scales, positions, out, pb, st);
+    case kF32: return launch<XT, kF32>(x, values, scales, positions, S, out, pb, st);
+    case kBF16: return launch<XT, kBF16>(x, values, scales, positions, S, out, pb, st);
+    case kInt8: return launch<XT, kInt8>(x, values, scales, positions, S, out, pb, st);
+    case kInt4: return launch<XT, kInt4>(x, values, scales, positions, S, out, pb, st);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace rowpk
 
-__global__ void empty_kernel() {}
+// ---------------------------------------------------------------------------
+// B2/B4: the fused SwiGLU MLP (see the header).
+// ---------------------------------------------------------------------------
+namespace mlp {
 
-template <typename XT, typename Vals>
-cudaError_t launch_fused(const void* x, const void* gv, const void* gs, const void* gp, int Sg,
-                         const void* uv, const void* us, const void* up, int Su, const void* dv,
-                         const void* ds, const void* dp, int Sd, void* partial, void* out, int B,
-                         int K, int D, int T, int m, cudaStream_t stream) {
-  auto kern = fused_mlp_partial_kernel<XT, Vals>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_FUSED);
+using rowpk::PARTS;
+using rowpk::RKC;
+using rowpk::RNT;
+using rowpk::Stream;
+
+constexpr int G = 8;   // blocks per cluster: the plan's cluster size (the portable maximum)
+constexpr int NS = 4;  // shared-memory stages of the chunk ring
+enum Pack { kGate = 0, kUp = 1, kDown = 2 };
+
+// Ordered slice size of n packed rows over the G blocks of a cluster: a
+// multiple of RKC, at least RKC.
+int slice_rows(int n) {
+  const int per = (n + G - 1) / G;
+  return std::max(1, (per + RKC - 1) / RKC) * RKC;
+}
+
+// What the host passes besides x.
+struct Problem {
+  int B, K, D, m;
+  int rows, drows;   // the plan: gate/up rows and down rows per cluster rank
+  int stage;         // bytes of a ring stage (16-byte multiple)
+  Stream pk[3];      // gate, up, down_t
+  float* part;       // (T, B, D) fp32 window partials
+};
+
+// Shared memory besides the ring: the two W tiles (later up's parts),
+// gate's parts, h, the x tile, the three slices' scales and the tiles'
+// flags.
+size_t smem_fixed(int rows, int drows) {
+  return (size_t)(2 * RKC * MMAX + PARTS * BT * MMAX + BT * WS + BT * rows + 2 * rows + drows +
+                  2 * RKC) *
+         sizeof(float);
+}
+
+// One cluster of G blocks per (ff window t, tile of <= BT batch rows);
+// block r of the cluster takes the r-th slices (see the header).  At most
+// 64 registers a thread, so two blocks share an SM.
+template <typename XT, int VK>
+__global__ void __launch_bounds__(RNT, 2)
+    fused_mlp_kernel(const XT* __restrict__ x, const Problem pb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int r = static_cast<int>(cluster.block_rank());
+  const int t = blockIdx.x / G, b0 = blockIdx.y * BT;
+  const int nb = min(BT, pb.B - b0);
+  const int k0 = r * pb.rows, d0 = r * pb.drows;
+  const int krows = max(0, min(pb.rows, pb.K - k0));  // gate (and up) rows of this slice
+  const int drows = max(0, min(pb.drows, pb.D - d0));  // down rows of this slice
+  const int nk = (krows + RKC - 1) / RKC;             // chunks of gate, and of up
+  const int nch = 2 * nk + (drows + RKC - 1) / RKC;   // gate's, then up's, then down's
+
+  unsigned char* stages = smem_raw;                               // NS ring stages
+  float* W = reinterpret_cast<float*>(smem_raw + NS * pb.stage);  // two (RKC, MMAX) tiles
+  float* pu = W;                              // then up's parts, (PARTS, BT, MMAX)
+  float* pg = W + 2 * RKC * MMAX;             // gate's parts, (PARTS, BT, MMAX)
+  float* hs = pg + PARTS * BT * MMAX;         // (BT, WS): h of the window
+  float* xs = hs + BT * WS;                   // (BT, rows)
+  float* scl = xs + BT * pb.rows;             // gate (rows), up (rows), down (drows)
+  int* flags = reinterpret_cast<int*>(scl + 2 * pb.rows + pb.drows);  // two (RKC)
+
+  // chunk c of the sequence: its pack, its first row in the slice, its rows
+  auto chunk_of = [&](int c, int& p, int& j0, int& kc) {
+    p = c < nk ? kGate : c < 2 * nk ? kUp : kDown;
+    j0 = (c - p * nk) * RKC;
+    kc = min(RKC, (p == kDown ? drows : krows) - j0);
+  };
+  auto issue = [&](int c) {  // chunk c into stage c % NS, one commit group
+    if (c < nch) {
+      int p, j0, kc;
+      chunk_of(c, p, j0, kc);
+      const size_t row = (size_t)t * (p == kDown ? pb.D : pb.K) + (p == kDown ? d0 : k0) + j0;
+      rowpk::issue_chunk(stages + (c % NS) * pb.stage, pb.pk[p], row, kc);
+    }
+    ptx::cp_async_commit();
+  };
+
+  // prologue: NS chunks in flight; the x tile and the slices' scales by
+  // plain loads meanwhile
+#pragma unroll 1
+  for (int c = 0; c < NS; ++c) issue(c);
+  for (int i = tid; i < BT * pb.rows; i += RNT) {
+    const int b = i / pb.rows, kk = i % pb.rows;
+    xs[i] = (b < nb && kk < krows) ? to_f32(x[(size_t)(b0 + b) * pb.K + k0 + kk]) : 0.f;
+  }
+  if constexpr (VK >= kInt8) {
+    for (int i = tid; i < krows; i += RNT) {
+      scl[i] = pb.pk[kGate].scales[(size_t)t * pb.K + k0 + i];
+      scl[pb.rows + i] = pb.pk[kUp].scales[(size_t)t * pb.K + k0 + i];
+    }
+    for (int i = tid; i < drows; i += RNT)
+      scl[2 * pb.rows + i] = pb.pk[kDown].scales[(size_t)t * pb.D + d0 + i];
+  }
+  rowpk::zero_tile(W, flags, 0);
+
+  const int l = tid % MMAX, h = tid / MMAX;
+  float acc[BT];
+#pragma unroll
+  for (int b = 0; b < BT; ++b) acc[b] = 0.f;
+  auto park = [&](float* dst) {  // this thread's sums into its (h, b, l) slots
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      dst[(h * BT + b) * MMAX + l] = acc[b];
+      acc[b] = 0.f;
+    }
+  };
+  if (nk == 0) park(pg);  // no gate rows: gate's parts are zeros
+
+  // gate, then up: rebuild and multiply chunk by chunk
+  for (int c = 0; c < 2 * nk; ++c) {
+    ptx::cp_async_wait<NS - 1>();  // chunk c has landed (this thread's copies) ...
+    __syncthreads();               // ... everyone's; chunk c - 1 is multiplied
+    if (c + 1 < 2 * nk) rowpk::zero_tile(W, flags, (c + 1) & 1);
+    int p, j0, kc;
+    chunk_of(c, p, j0, kc);
+    float* Wc = W + (c & 1) * RKC * MMAX;
+    rowpk::rebuild_chunk<VK>(Wc, flags + (c & 1) * RKC, stages + (c % NS) * pb.stage,
+                             pb.pk[p].sv, scl + p * pb.rows + j0, kc, pb.pk[p].S, pb.m);
+    issue(c + NS);  // the stage is rebuilt: refill it
+    rowpk::multiply_chunk(nb, xs + j0, pb.rows, Wc, kc, pb.m, acc);
+    if (c == nk - 1) park(pg);
+  }
+  __syncthreads();  // every multiply is done: the W tiles take up's parts
+  park(pu);
+  __syncthreads();
+  // the block's gate and up sums: the parts added in part order, into part 0
+  for (int i = tid; i < BT * MMAX; i += RNT) {
+    float g = pg[i], u = pu[i];
+#pragma unroll
+    for (int q = 1; q < PARTS; ++q) {
+      g += pg[q * BT * MMAX + i];
+      u += pu[q * BT * MMAX + i];
+    }
+    pg[i] = g;
+    pu[i] = u;
+  }
+  cluster.sync();  // every block's sums are written
+
+  // h of the window: the cluster's sums added in rank order 0..G-1
+  for (int i = tid; i < BT * MMAX; i += RNT) {
+    const int b = i / MMAX, ll = i % MMAX;
+    if (b < nb && ll < pb.m) {
+      float gv[G], uv[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        gv[q] = cluster.map_shared_rank(pg, q)[i];
+        uv[q] = cluster.map_shared_rank(pu, q)[i];
+      }
+      float g = gv[0], u = uv[0];
+#pragma unroll
+      for (int q = 1; q < G; ++q) {
+        g += gv[q];
+        u += uv[q];
+      }
+      hs[b * WS + ll] = g / (1.f + expf(-g)) * u;
+    }
+  }
+
+  // this block's reads of the other blocks' sums are done (their values are
+  // in hs): arrive now, wait before leaving
+  ptx::cluster_arrive_relaxed();
+
+  // down: each (row, batch row) gathers h over the row's slots in slot order
+  const Stream& dn = pb.pk[kDown];
+  for (int c = 2 * nk; c < nch; ++c) {
+    ptx::cp_async_wait<NS - 1>();
+    __syncthreads();  // chunk c has landed; h is written
+    int p, j0, kc;
+    chunk_of(c, p, j0, kc);
+    const unsigned char* st = stages + (c % NS) * pb.stage;
+    const int8_t* ps = reinterpret_cast<const int8_t*>(st + dn.sv);
+    const float* sc = scl + 2 * pb.rows + j0;
+    const int S = dn.S;
+    for (int i = tid; i < kc * BT; i += RNT) {
+      const int row = i / BT, b = i % BT;
+      if (b >= nb) continue;
+      const float* hb = hs + b * WS;
+      float a = 0.f;
+      if (S % 4 == 0) {
+        for (int s = 0; s < S; s += 4) {
+          const uint32_t qs = *reinterpret_cast<const uint32_t*>(ps + row * S + s);
+          float v[4];
+          rowpk::quad_values<VK>(st, row * S + s, sc[row], v);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int q = static_cast<int8_t>(qs >> (8 * u));
+            if (q >= 0 && q < pb.m) a = fmaf(v[u], hb[q], a);
+          }
+        }
+      } else {
+        for (int s = 0; s < S; ++s) {
+          const int q = ps[row * S + s];
+          if (q >= 0 && q < pb.m)
+            a = fmaf(rowpk::slot_value<VK>(st, row, s, S, sc[row]), hb[q], a);
+        }
+      }
+      pb.part[((size_t)t * pb.B + b0 + b) * pb.D + d0 + j0 + row] = a;
+    }
+    if (c + NS < nch) {
+      __syncthreads();  // the stage is read: refill it
+      issue(c + NS);
+    } else {
+      ptx::cp_async_commit();  // one (empty) group per chunk, as above
+    }
+  }
+  ptx::cluster_wait();  // no block leaves while another may still read its sums
+}
+
+template <typename XT, int VK>
+cudaError_t launch(const void* x, const void* const (&vals)[3], const void* const (&scales)[3],
+                   const void* const (&pos)[3], const int (&S)[3], void* out, Problem pb, int T,
+                   cudaStream_t stream) {
+  size_t stage = 0;
+  for (int p = 0; p < 3; ++p) {
+    pb.pk[p] = rowpk::make_stream<VK>(vals[p], scales[p], pos[p], S[p], p == kDown ? pb.D : pb.K,
+                                      T);
+    stage = std::max(stage, rowpk::stage_bytes(pb.pk[p]));
+  }
+  const size_t smem = NS * stage + smem_fixed(pb.rows, pb.drows);
+  if (smem > rowpk::SMEM_LIMIT) return cudaErrorInvalidValue;
+  pb.stage = static_cast<int>(stage);
+
+  auto kern = fused_mlp_kernel<XT, VK>;
+  static std::atomic<unsigned long long> opted_in{0};
+  cudaError_t e = rowpk::opt_in(kern, opted_in);
   if (e != cudaSuccess) return e;
-  const dim3 grid(T, (B + BT - 1) / BT);
-  kern<<<grid, NT, SMEM_FUSED, stream>>>(
-      static_cast<const XT*>(x), Vals::make(gv, gs, Sg), static_cast<const int8_t*>(gp), Sg,
-      Vals::make(uv, us, Su), static_cast<const int8_t*>(up), Su, Vals::make(dv, ds, Sd),
-      static_cast<const int8_t*>(dp), Sd, static_cast<float*>(partial), B, K, D, m);
-  e = cudaGetLastError();
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = G;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G * T, (pb.B + BT - 1) / BT);
+  cfg.blockDim = dim3(RNT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const XT*>(x), pb);
   if (e != cudaSuccess) return e;
   ++cuda_launches[kFusedEntry];
-  const int n = B * D;
-  sum_windows_kernel<<<(n + NT - 1) / NT, NT, 0, stream>>>(static_cast<const float*>(partial),
-                                                           static_cast<float*>(out), T, n);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) ++cuda_launches[kFusedEntry];
-  return e;
+  return rowpk::launch_ordered_sum(pb.part, static_cast<float*>(out), (size_t)pb.B * pb.D, T,
+                                   stream, kFusedEntry);
 }
 
 template <typename XT>
-cudaError_t fused_for_x(const void* x, int kind, const void* gv, const void* gs, const void* gp,
-                        int Sg, const void* uv, const void* us, const void* up, int Su,
-                        const void* dv, const void* ds, const void* dp, int Sd, void* partial,
-                        void* out, int B, int K, int D, int T, int m, cudaStream_t st) {
+cudaError_t for_x(const void* x, int kind, const void* const (&vals)[3],
+                  const void* const (&scales)[3], const void* const (&pos)[3], const int (&S)[3],
+                  void* out, const Problem& pb, int T, cudaStream_t st) {
   switch (kind) {
-    case kF32:
-      return launch_fused<XT, FloatValues<float>>(x, gv, gs, gp, Sg, uv, us, up, Su, dv, ds, dp,
-                                                  Sd, partial, out, B, K, D, T, m, st);
-    case kBF16:
-      return launch_fused<XT, FloatValues<__nv_bfloat16>>(x, gv, gs, gp, Sg, uv, us, up, Su, dv,
-                                                          ds, dp, Sd, partial, out, B, K, D, T, m,
-                                                          st);
-    case kInt8:
-      return launch_fused<XT, Int8Values>(x, gv, gs, gp, Sg, uv, us, up, Su, dv, ds, dp, Sd,
-                                          partial, out, B, K, D, T, m, st);
-    case kInt4:
-      return launch_fused<XT, Int4Values>(x, gv, gs, gp, Sg, uv, us, up, Su, dv, ds, dp, Sd,
-                                          partial, out, B, K, D, T, m, st);
+    case kF32: return launch<XT, kF32>(x, vals, scales, pos, S, out, pb, T, st);
+    case kBF16: return launch<XT, kBF16>(x, vals, scales, pos, S, out, pb, T, st);
+    case kInt8: return launch<XT, kInt8>(x, vals, scales, pos, S, out, pb, T, st);
+    case kInt4: return launch<XT, kInt4>(x, vals, scales, pos, S, out, pb, T, st);
   }
   return cudaErrorInvalidValue;
 }
+
+}  // namespace mlp
+
+__global__ void empty_kernel() {}
 
 // Quantized kinds need scales, and int4 an even slot count (two per byte).
 bool bad_values(int kind, const void* scales, int S) {
@@ -808,34 +950,44 @@ int vusa_packed_matmul(const void* x, int x_bf16, const void* values, int value_
       slices > 65535 || (B + BT - 1) / BT > 65535)
     return cudaErrorInvalidValue;
   if (B == 0 || T == 0) return cudaSuccess;
-  const rowpk::Problem pb{B, K, T, S, m, slices, 0, 0, 0, 0, 0, static_cast<float*>(part)};
+  const rowpk::Problem pb{B, K, T, m, slices, 0, {}, static_cast<float*>(part)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return rowpk::for_x<__nv_bfloat16>(x, values, value_kind, scales, positions, out, pb, st);
-  return rowpk::for_x<float>(x, values, value_kind, scales, positions, out, pb, st);
+    return rowpk::for_x<__nv_bfloat16>(x, values, value_kind, scales, positions, S, out, pb, st);
+  return rowpk::for_x<float>(x, values, value_kind, scales, positions, S, out, pb, st);
 }
 
 // x (B, K); gate/up (T, K, Sg/Su) packs with scales (T, K); down_t (T, D, Sd)
 // with scales (T, D); all values of one value_kind (as above; scales
 // ignored for float kinds); partial (T, B, D) fp32 scratch; out (B, D) fp32.
+// The plan (cluster, rows, down_rows) comes from the host
+// (kernels/mlp_plan.py): cluster must be G = 8, rows and down_rows the
+// ordered slice sizes of K and of D (slice_rows).  Returns a cudaError_t.
 int vusa_fused_mlp_matmul(const void* x, int x_bf16, int value_kind, const void* gv,
                           const void* gs, const void* gp, int Sg, const void* uv, const void* us,
                           const void* up, int Su, const void* dv, const void* ds, const void* dp,
                           int Sd, void* partial, void* out, int B, int K, int D, int T, int m,
-                          void* stream) {
-  if (m < 1 || m > MMAX || B < 0 || K < 0 || D < 0 || T < 0) return cudaErrorInvalidValue;
+                          int cluster, int rows, int down_rows, void* stream) {
+  if (m < 1 || m > MMAX || B < 0 || K < 0 || D < 0 || T < 0 || Sg < 0 || Su < 0 || Sd < 0)
+    return cudaErrorInvalidValue;
   if (bad_values(value_kind, gs, Sg) || bad_values(value_kind, us, Su) ||
       bad_values(value_kind, ds, Sd))
     return cudaErrorInvalidValue;
+  if (cluster != mlp::G || rows != mlp::slice_rows(K) || down_rows != mlp::slice_rows(D) ||
+      (B + BT - 1) / BT > 65535 || (size_t)mlp::G * T > 0x7fffffffu)
+    return cudaErrorInvalidValue;
   if (B == 0 || D == 0) return cudaSuccess;
-  if (T == 0) return cudaMemsetAsync(out, 0, (size_t)B * D * sizeof(float),
-                                     static_cast<cudaStream_t>(stream));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T == 0) return cudaMemsetAsync(out, 0, (size_t)B * D * sizeof(float), st);
+  if (partial == nullptr) return cudaErrorInvalidValue;
+  const void* const vals[3] = {gv, uv, dv};
+  const void* const scales[3] = {gs, us, ds};
+  const void* const pos[3] = {gp, up, dp};
+  const int S[3] = {Sg, Su, Sd};
+  const mlp::Problem pb{B, K, D, m, rows, down_rows, 0, {}, static_cast<float*>(partial)};
   if (x_bf16)
-    return fused_for_x<__nv_bfloat16>(x, value_kind, gv, gs, gp, Sg, uv, us, up, Su, dv, ds, dp,
-                                      Sd, partial, out, B, K, D, T, m, st);
-  return fused_for_x<float>(x, value_kind, gv, gs, gp, Sg, uv, us, up, Su, dv, ds, dp, Sd,
-                            partial, out, B, K, D, T, m, st);
+    return mlp::for_x<__nv_bfloat16>(x, value_kind, vals, scales, pos, S, out, pb, T, st);
+  return mlp::for_x<float>(x, value_kind, vals, scales, pos, S, out, pb, T, st);
 }
 
 // One launch of an empty kernel: the floor of a launch under a timer.

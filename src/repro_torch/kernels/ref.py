@@ -8,8 +8,9 @@ applied first when scales are given.  The packed ones consume the *packed*
 operands, so kernel-vs-plain equality checks the kernel and
 unpack-vs-dense checks the packer.  ``tf32_split`` and ``matmul_3xtf32``
 emulate the split-precision TF32 products of ``csrc/tile_gemm.cuh`` for
-the tests, and ``vusa_packed_sliced_ref`` the order of operations of the
-row-packed kernel in ``csrc/vusa_packed.cu``; no kernel wrapper uses them.
+the tests, and ``vusa_packed_sliced_ref`` and ``vusa_fused_mlp_sliced_ref``
+the orders of operations of the row-packed kernel and of the fused MLP
+kernel in ``csrc/vusa_packed.cu``; no kernel wrapper uses them.
 The wrappers in
 :mod:`repro_torch.kernels` run these for tensors on the CPU;
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
@@ -20,11 +21,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .mlp_plan import mlp_plan
 from .row_plan import CHUNK, PARTS, ROWS
 
 __all__ = [
     "dense_matmul_ref", "vusa_spmm_ref", "vusa_packed_ref", "vusa_fused_mlp_ref", "unpack_dense",
     "dequantize_values", "tf32_truncate", "tf32_split", "matmul_3xtf32", "vusa_packed_sliced_ref",
+    "vusa_fused_mlp_sliced_ref",
 ]
 
 VALUE_DTYPES = ("dense", "int8", "int4")
@@ -166,6 +169,37 @@ def vusa_fused_mlp_ref(
     return h @ wdt.T
 
 
+def _slice_sums(x: torch.Tensor, w: torch.Tensor, rows: int, slices: int) -> list[torch.Tensor]:
+    """The fp32 sums of x @ w over ``slices`` ordered slices of ``rows``
+    packed rows of the dense (K, N) weight w (a slice past K sums to zero),
+    in the kernels' order: each slice walked in chunks of ``CHUNK`` rows;
+    per output, ``PARTS`` sums, the p-th over the p-th ``CHUNK / PARTS`` rows
+    of every chunk, each in ascending k, added in order at the slice's end.
+    Each step is one fp32 rounding of an fp64 product and sum (the kernel's
+    fmaf, but for a rare double rounding)."""
+    w, xd = w.double(), x.double()
+    per = CHUNK // PARTS
+    out = []
+    for k0 in range(0, slices * rows, rows):
+        acc = [torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+               for _ in range(PARTS)]
+        for kk in range(k0, min(k0 + rows, w.shape[0])):
+            h = (kk - k0) % CHUNK // per
+            acc[h] = (acc[h].double() + xd[:, kk, None] * w[kk]).float()
+        part = acc[0]
+        for a in acc[1:]:
+            part = part + a
+        out.append(part)
+    return out
+
+
+def _sum_in_order(parts: list[torch.Tensor]) -> torch.Tensor:
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
 def vusa_packed_sliced_ref(
     x: torch.Tensor,
     values: torch.Tensor,
@@ -176,26 +210,63 @@ def vusa_packed_sliced_ref(
 ) -> torch.Tensor:
     """``vusa_packed_ref`` in the order of operations of the row-packed
     CUDA kernel, whose geometry ``row_plan`` holds: the K packed rows cut
-    into ordered slices of ``ROWS``, each slice walked in chunks of
-    ``CHUNK`` rows; per output, ``PARTS`` sums, the p-th over the p-th
-    ``CHUNK / PARTS`` rows of every chunk, each in ascending k, added in
-    order at the slice's end; then the slices summed in order.  Each step
-    is one fp32 rounding of an fp64 product and sum (the kernel's fmaf, but
-    for a rare double rounding).  Every operation is elementwise over the
-    batch, so row b of the result does not depend on B, bitwise.  Returns
-    (B, T*m) fp32."""
-    w = unpack_dense(dequantize_values(values, scales, value_dtype), positions, m).double()
-    xd = x.double()
-    k, per = w.shape[0], CHUNK // PARTS
-    out = None
-    for k0 in range(0, max(k, 1), ROWS):
-        acc = [torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
-               for _ in range(PARTS)]
-        for kk in range(k0, min(k0 + ROWS, k)):
-            h = (kk - k0) % CHUNK // per
-            acc[h] = (acc[h].double() + xd[:, kk, None] * w[kk]).float()
-        part = acc[0]
-        for a in acc[1:]:
-            part = part + a
-        out = part if out is None else out + part
-    return out
+    into ordered slices of ``ROWS``, each summed as ``_slice_sums`` says,
+    then the slices summed in order.  Every operation is elementwise over
+    the batch, so row b of the result does not depend on B, bitwise.
+    Returns (B, T*m) fp32."""
+    w = unpack_dense(dequantize_values(values, scales, value_dtype), positions, m)
+    k = w.shape[0]
+    return _sum_in_order(_slice_sums(x, w, ROWS, max(1, -(-k // ROWS))))
+
+
+def vusa_fused_mlp_sliced_ref(
+    x: torch.Tensor,
+    gate_values: torch.Tensor,
+    gate_positions: torch.Tensor,
+    up_values: torch.Tensor,
+    up_positions: torch.Tensor,
+    down_values: torch.Tensor,
+    down_positions: torch.Tensor,
+    gate_scales: torch.Tensor | None = None,
+    up_scales: torch.Tensor | None = None,
+    down_scales: torch.Tensor | None = None,
+    m: int = 128,
+    value_dtype: str = "dense",
+) -> torch.Tensor:
+    """``vusa_fused_mlp_ref`` in the order of operations of the fused MLP
+    CUDA kernel, whose geometry ``mlp_plan`` holds.  gate and up: the K
+    packed rows cut into the plan's ``cluster`` ordered slices of ``rows``,
+    each summed as ``_slice_sums`` says, the slices added in rank order;
+    h = g / (1 + exp(-g)) * u in fp32, one rounding a step; down: per
+    window, output row and batch row, the row's slots in slot order, each
+    occupied slot (position in [0, m)) adding v * h[position] with one fp32
+    rounding of the fp64 product and sum (the kernel's fmaf); idle slots and
+    positions outside the window are skipped, their values never used; then
+    the window partials added in window order.  Every operation is
+    elementwise over the batch, so row b of the result does not depend on
+    B, bitwise.  Returns (B, D) fp32."""
+    t, d = down_positions.shape[:2]
+    plan = mlp_plan(x.shape[1], d)
+
+    def gate_up(values, positions, scales):
+        w = unpack_dense(dequantize_values(values, scales, value_dtype), positions, m)
+        return _sum_in_order(_slice_sums(x, w, plan.rows, plan.cluster))  # (B, T*m)
+
+    g = gate_up(gate_values, gate_positions, gate_scales)
+    u = gate_up(up_values, up_positions, up_scales)
+    h = (g / (1.0 + torch.exp(-g)) * u).double()
+    vd = dequantize_values(down_values, down_scales, value_dtype).double()  # (T, D, S)
+    pos = down_positions.long()
+    parts = []
+    for w in range(t):
+        acc = torch.zeros((x.shape[0], d), dtype=torch.float32, device=x.device)
+        for s in range(pos.shape[2]):
+            q = pos[w, :, s]
+            live = (q >= 0) & (q < m)
+            hq = h[:, w * m + q.clamp(0, m - 1)]  # (B, D)
+            step = (acc.double() + torch.where(live, vd[w, :, s], 0.0) * hq).float()
+            acc = torch.where(live, step, acc)
+        parts.append(acc)
+    if not parts:
+        return torch.zeros((x.shape[0], d), dtype=torch.float32, device=x.device)
+    return _sum_in_order(parts)

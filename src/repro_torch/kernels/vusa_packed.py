@@ -19,9 +19,14 @@ went through.  ``cuda_launches()`` reads the library's own count of the
 CUDA launches each entry point has issued: ``vusa_packed_matmul`` takes
 one per row chunk with one reduction slice, else two (the sliced kernel and
 the ordered sum of its slices, ``row_plan``); ``vusa_fused_mlp_matmul``
-two (the per-window partials and their ordered sum).  ``empty_kernel()``
-launches an empty kernel of the same library: the floor of a launch under a
-timer.
+two (``mlp_plan``): the cluster kernel, in which each (ff window, batch
+tile) cluster of eight blocks forms the window's hidden slice on chip and
+writes the window's (B, D) partial, and the ordered sum of the window
+partials.  Both are bounded by latency at decode sizes, not by the bytes
+of the packs: the plans spread each call over enough blocks to fill the
+card, and each block keeps several chunks of packed rows in flight.
+``empty_kernel()`` launches an empty kernel of the same library: the floor
+of a launch under a timer.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import functools
 import torch
 
 from .build import library
+from .mlp_plan import mlp_plan
 from .ref import VALUE_DTYPES, vusa_fused_mlp_ref, vusa_packed_ref
 from .row_plan import row_chunks, row_plan, workspace_bytes
 
@@ -51,8 +57,7 @@ def _lib():
     lib.vusa_packed_matmul.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, *[_I] * 7, _P]
     lib.vusa_packed_matmul.restype = _I
     lib.vusa_fused_mlp_matmul.argtypes = [
-        _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-        _P,
+        _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, *[_I] * 8, _P,
     ]
     lib.vusa_fused_mlp_matmul.restype = _I
     lib.vusa_packed_empty.argtypes = [_P]
@@ -224,8 +229,11 @@ def vusa_fused_mlp_matmul(
     (K, ff), down (T, D, Sd) packs ``w_down`` transposed.  Quantized packs
     (``value_dtype`` ``"int8"``/``"int4"``) carry scales (T, K) for gate/up
     and (T, D) for down.  Returns (B, D) fp32.  The (B, ff) hidden state
-    never reaches device memory; per-window (B, D) partials are summed over
-    windows in order in a second launch."""
+    never reaches device memory; per-window (B, D) partials, in an fp32
+    scratch from ``torch.empty``, are summed over windows in order in a
+    second launch.  Row b of the result does not depend on B (bitwise): the
+    launch plan (``mlp_plan``: ordered slices of the K and the D rows over
+    a cluster's blocks) depends on K and D alone."""
     _check_x(x, m)
     k = x.shape[1]
     _check_pack("gate", gate_values, gate_positions, k, gate_scales, value_dtype)
@@ -260,7 +268,7 @@ def vusa_fused_mlp_matmul(
         up_values.data_ptr(), _ptr(up_scales), up_positions.data_ptr(), up_positions.shape[2],
         down_values.data_ptr(), _ptr(down_scales), down_positions.data_ptr(),
         down_positions.shape[2],
-        partial.data_ptr(), out.data_ptr(), b, k, d, t, m, _stream(x.device),
+        partial.data_ptr(), out.data_ptr(), b, k, d, t, m, *mlp_plan(k, d), _stream(x.device),
     )
     _raise_on(err, "vusa_fused_mlp_matmul")
     vusa_fused_mlp_matmul.launches[value_dtype] += 1

@@ -21,10 +21,15 @@ all four value kinds, fp32 and bf16 x) run K = 768, 1000 and 3072 with 3
 and 48 slots per row (4 for int4, whose slots pair in bytes), packs with
 repeated lanes, lanes past m and NaN in idle slots, at B = 1, 4 and 9:
 within 1e-4 of the plain version, row 0 bitwise equal to B = 1, and the
-CUDA launches the library counts per call equal to ``row_plan``'s.  The
-block-VUSA kernel returns ``x.dtype``: with bf16 ``x`` both sides round
-their fp32 sum to bf16 once, so they may part by one bf16 step (2**-7 of
-the value) on top of the 1e-4.
+CUDA launches the library counts per call equal to ``row_plan``'s.  B2/B4
+(the fused MLP, all four value kinds) run random packs of three different
+slot counts (odd ones included) with repeated lanes, lanes past m and NaN
+in idle slots, K and D off the slice size, at B = 1, 4 and 9 (two batch
+tiles): within 1e-4 of the plain version, row 0 bitwise equal to B = 1,
+CUDA launches as ``mlp_plan`` counts them, and within a stated number of
+ulps of ``ref.vusa_fused_mlp_sliced_ref``.  The block-VUSA kernel returns
+``x.dtype``: with bf16 ``x`` both sides round their fp32 sum to bf16 once,
+so they may part by one bf16 step (2**-7 of the value) on top of the 1e-4.
 """
 
 import numpy as np
@@ -32,7 +37,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import dense_matmul as dense_mod
-from repro_torch.kernels import ref, row_plan, tile_plan
+from repro_torch.kernels import mlp_plan, ref, row_plan, tile_plan
 from repro_torch.kernels import vusa_packed as packed_mod
 from repro_torch.kernels import vusa_spmm as spmm_mod
 from repro_torch.kernels.dense_matmul import dense_matmul
@@ -328,12 +333,65 @@ def test_row_packed_matmul_matches_plain_on_card(kind, k, s, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("k,d,slots,m",
+                         [(1000, 1000, (3, 48, 5), 100), (768, 700, (48, 16, 32), 128)])
+def test_fused_mlp_matches_sliced_on_card(kind, k, d, slots, m):
+    """B2/B4 vs the plain version within 1e-4 of the largest output, fp32
+    and bf16 x, B = 1, 4 and 9; row 0 of each call bitwise equal to B = 1;
+    the CUDA launches counted per call equal to ``mlp_plan``'s; and the
+    kernel vs ``ref.vusa_fused_mlp_sliced_ref``, its order of operations
+    emulated on the CPU, within 8 fp32 ulps of the largest output plus 4
+    ulps of each output's magnitude sum |h| @ |Wd|: the kernel's expf in
+    silu may differ from the CPU's exp by 2 ulps, which moves each h by at
+    most about 3 ulps, and the down sum carries that through |v| * |h| (the
+    8 ulps cover the emulation's rare double rounding, as for B1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(k + d)
+    t = 3
+    vd = kind if kind in ("int8", "int4") else "dense"
+    packs = []
+    for rows, s in zip((k, k, d), slots):
+        packs.append(_random_pack(rng, t, rows, s + (s % 2 if kind == "int4" else 0), kind, dev))
+    (gv, gp, gs), (uv, up, us), (dv, dp, ds) = packs
+    args = (gv, gp, uv, up, dv, dp, gs, us, ds)
+    cpu = [None if a is None else a.cpu() for a in args]
+    x = torch.from_numpy(rng.normal(size=(9, k)).astype(np.float32)).to(dev)
+    plan = mlp_plan.mlp_plan(k, d)
+    eps = torch.finfo(torch.float32).eps
+    for xx in (x, x.to(torch.bfloat16)):
+        one = packed_mod.vusa_fused_mlp_matmul(xx[:1], *args, m=m, value_dtype=vd)
+        emu = ref.vusa_fused_mlp_sliced_ref(xx.cpu(), *cpu, m=m, value_dtype=vd)
+        # |h| @ |Wd| per output: what an error in h moves the output by
+        wg, wu, wd = (ref.unpack_dense(ref.dequantize_values(v, sc, vd), p, m)
+                      for v, p, sc in ((cpu[0], cpu[1], cpu[6]), (cpu[2], cpu[3], cpu[7]),
+                                       (cpu[4], cpu[5], cpu[8])))
+        xf = xx.cpu().float()
+        mag = (torch.nn.functional.silu(xf @ wg) * (xf @ wu)).abs() @ wd.abs().T
+        for b in (1, 4, 9):
+            c0 = packed_mod.cuda_launches("vusa_fused_mlp_matmul")
+            got = packed_mod.vusa_fused_mlp_matmul(xx[:b], *args, m=m, value_dtype=vd)
+            torch.cuda.synchronize()
+            assert (packed_mod.cuda_launches("vusa_fused_mlp_matmul") - c0
+                    == mlp_plan.cuda_launches(plan, b, d, t) == 2)
+            assert got.shape == (b, d) and bool(torch.isfinite(got).all())
+            _close(got, ref.vusa_fused_mlp_ref(xx[:b], *args, m, vd))
+            assert torch.equal(got[0], one[0])
+            tol = 8 * eps * float(emu.abs().max()) + 4 * eps * mag[:b]
+            assert bool(((got.cpu() - emu[:b]).abs() <= tol).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 def test_each_library_counts_its_own_cuda_launches():
     """The B1-B4, B5 and B6 libraries count the CUDA launches they issue,
     each its own: one B5 call with one slice (1 launch), one B6 call at
     K = 4608 (36 slices: the tile kernel and the ordered sum, 2 launches),
     B1 calls at K = 64 (one slice, 1 launch) and K = 768 (12 slices, 2),
-    and one fused MLP (the partials and their ordered sum, 2)."""
+    and one fused MLP (as its ``mlp_plan`` counts: the cluster kernel and
+    the ordered sum of its window partials)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -364,5 +422,6 @@ def test_each_library_counts_its_own_cuda_launches():
     torch.cuda.synchronize()
     assert (spmm_mod.cuda_launches() - c5, dense_mod.cuda_launches() - c6) == (1, 2)
     got = {e: packed_mod.cuda_launches(e) - n for e, n in cp.items()}
-    assert got == {"vusa_packed_matmul": 1 + 2, "vusa_fused_mlp_matmul": 2, "empty_kernel": 0}
-    assert sum(got.values()) == 5
+    fused = mlp_plan.cuda_launches(mlp_plan.mlp_plan(256, 256), 4, 256, pg.values.shape[0])
+    assert got == {"vusa_packed_matmul": 1 + 2, "vusa_fused_mlp_matmul": fused, "empty_kernel": 0}
+    assert sum(got.values()) == 3 + fused
