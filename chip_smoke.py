@@ -20,7 +20,8 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    shapes (sparsity 0 and 0.99, all-zero rows, C % m != 0, odd slot counts,
    and for B1/B3 K = 1000, whose last slice is short, with a = 16 and with
    a = 3, whose chunk starts take narrower copies, and K = 3072, the
-   ``fused_mlp=False`` w_down shape), for B in {1, 4} and fp32 / bf16
+   ``fused_mlp=False`` w_down shape), for B in {1, 4, 5} (5 = the rows of
+   the batched speculative verify, ``draft_k`` + 1) and fp32 / bf16
    activations, and for B2/B4 an odd slot count (a = 3), d = 1000 (K and D
    off the slice size) and ff % m != 0; every call's CUDA launches, counted
    by the library, must equal its plan's (B1/B3 ``row_plan``: one launch,
@@ -31,7 +32,7 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    max |plain| for every dtype (bf16 inputs widen to fp32 exactly, int8/int4
    values dequantize to the same fp32 products q * scale, and both sides
    accumulate in fp32, so only the summation order differs).  Row 0 at
-   B = 4 must equal B = 1 bitwise.  Each kernel is timed with CUDA events
+   B = 4 and at B = 5 must equal B = 1 bitwise.  Each kernel is timed with CUDA events
    (L2 flushed before each launch, as the decode step finds it) beside the
    plain version, one PyTorch library call on the dense (dequantized) fp32
    weights and the least time the card could take (bytes over 3.35 TB/s vs
@@ -41,7 +42,8 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
 4. the main path: ``vusa_edge`` at full width (12 layers, d 768, ff 3072,
    vocab 32000), numpy-seeded init, 85 % magnitude pruning,
    ``Engine(packed_weights="all").generate`` with B = 4, prompt 32, 32 new
-   tokens.  The launch counters, set to 0 just before and read just after,
+   tokens, in the eager loop (``fused=False``, as in phases 4-5; phase 7
+   runs the CUDA graph).  The launch counters, set to 0 just before and read just after,
    must be exactly 49 * 31 (``vusa_packed_matmul``) and 12 * 31
    (``vusa_fused_mlp_matmul``), all on the float-value route, the CUDA
    launches the B1-B4 library counts for each entry point in that run equal
@@ -101,11 +103,35 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    VUSA 3x6 (``schedule_widths_fast`` + ``ws_cycles``, as
    ``benchmarks/run.py`` reckons it) and standard 3x6 (``gemm_cycles_standard``) cycles for the
    same masks;
-7. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
-   launches in the counted run and per decode step, CUDA launches per call
-   as counted; B5/B6 per ResNet-18
+7. graph decode: phase 4's ``generate`` (B = 4, prompt 32, 32 new tokens)
+   with ``fused=True``, each decode step a replay of one step captured in
+   a CUDA graph, dense and packed with fp32, int8 and int4 values: the
+   tokens must equal the eager loop's bitwise, greedy and sampled (the
+   engine's seeded Gumbel noise); on the packed routes the graph's
+   launches (replays x the wrapper launches captured in one step) must be
+   exactly 49 * 31 and 12 * 31 on the route.  Reported: tok/s of graph and
+   eager taken in turns, ms per step, and from a ``torch.profiler`` trace
+   of 8 replays (device activity) the device's busy time per step (the
+   union of its events' intervals) over the step's time between CUDA
+   events, the host time outside it, the device events and the B1-B4
+   kernels' time per step; the same for 8 eager steps on the fp32 pack.
+   One packed step captured in debug mode: its DOT dump's B1-B4 kernel
+   nodes must be the step's planned CUDA launches (49 row-packed, 12
+   fused-MLP kernels, 61 ordered sums);
+8. speculative: full-width ``vusa_edge`` on weights with the tier
+   structure of ``tests/test_spec_decode.py`` (a 1 % core and a 14 %
+   detail tier), B = 1, ``draft_k`` 4, drafter at 99 % sparsity, 32 new
+   tokens, the verifier dense and packed with fp32 and with int8 values:
+   speculative tokens (one round a graph replay) must equal plain graph
+   decode's bitwise, greedy and sampled.  Reported: acceptance, rounds,
+   tok/s in turns, and on the packed routes one drafter step's and one
+   5-token verify's device time (B1-B4 kernels and all) from a trace of 3
+   of each;
+9. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+   launches in the counted run and per decode step, the graph run's
+   launches, CUDA launches per call as counted; B5/B6 per ResNet-18
    image, MobileNetV1 under ``mobilenetv1``);
-8. the card line again and the result line.
+10. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -173,6 +199,10 @@ DEPTH_CUT = 2  # layers of the fp32 token-identity check
 FP32_STEP_TOL = 1e-2  # fp32 first-step logits, packed vs dense, of the largest logit
 DEVICE = "cuda"
 QDTYPES = ("int8", "int4")
+DRAFT_K, DRAFT_SPARSITY = 4, 0.99  # the speculative phase's drafter
+VERIFY_ROWS = DRAFT_K + 1  # rows of the batched verify: contract 1 is checked there too
+PROFILED_STEPS = 8  # decode steps (graph replays) under the profiler per trace
+LIBRARY_KERNELS = ("row_packed_kernel", "fused_mlp_kernel", "sum_slices_kernel")
 # paper workloads: (name, GEMMs, pruning rate); the seed of weights and x
 PAPER_MODELS = (("resnet18", resnet18_gemms, 0.85), ("mobilenetv1", mobilenetv1_gemms, 0.75))
 PAPER_SEED = 0
@@ -405,11 +435,11 @@ def kernel_phase(cfg, packs, rng):
     dev = torch.device(DEVICE)
 
     def xs_for(k):
-        out = []
-        for b in (1, BATCH):
-            x = torch.from_numpy(rng.standard_normal((b, k), dtype=np.float32)).to(dev)
-            out += [x, x.to(torch.bfloat16)]
-        return out  # the last one is the main path's: B = 4, bf16 activations
+        x1, x4 = (torch.from_numpy(rng.standard_normal((b, k), dtype=np.float32)).to(dev)
+                  for b in (1, BATCH))
+        x5 = torch.cat([x4, x1])  # VERIFY_ROWS: the batched speculative verify's rows
+        # the last one is the main path's: B = 4, bf16 activations
+        return [v for x in (x1, x5, x4) for v in (x, x.to(torch.bfloat16))]
 
     def bf16_copy(lin):
         return dataclasses.replace(lin, values=lin.values.to(torch.bfloat16))
@@ -566,7 +596,8 @@ def model_phase(cfg, params, eng):
                     "prefill_s": out["prefill_s"], "peak_bytes": peak}}
 
     def run(c, p, packed_weights):
-        e = Engine(c, p, ServeConfig(max_len=eng.sc.max_len, packed_weights=packed_weights),
+        e = Engine(c, p, ServeConfig(max_len=eng.sc.max_len, packed_weights=packed_weights,
+                                     fused=False),
                    device=DEVICE)
         e.generate(prompts, max_new=4)
         return e, e.generate(prompts, max_new=MAX_NEW)
@@ -650,9 +681,11 @@ def quantized_parity(c, p, route, max_len):
     cache (it prefills dense on the unquantized weights; the oracle would
     prefill on the qdq weights).  First-step logit gap and greedy token
     agreement over ``MAX_NEW`` steps."""
-    qe = Engine(c, p, ServeConfig(max_len=max_len, packed_weights="all", packed_values=route),
+    qe = Engine(c, p, ServeConfig(max_len=max_len, packed_weights="all", packed_values=route,
+                                  fused=False),
                 device=DEVICE)
-    oe = Engine(c, qdq_lm_params(c, p, value_dtype=route), ServeConfig(max_len=max_len),
+    oe = Engine(c, qdq_lm_params(c, p, value_dtype=route),
+                ServeConfig(max_len=max_len, fused=False),
                 device=DEVICE)
     with torch.no_grad():
         tok, cache = qe.prime(prompts_for(c))
@@ -898,6 +931,242 @@ def paper_phase():
     return {name: paper_model(timer, name, fn(), rate) for name, fn, rate in PAPER_MODELS}
 
 
+# --------------------------------------------------------------------------
+# phase 7: the decode loop as a CUDA graph; phase 8: speculative decoding
+# --------------------------------------------------------------------------
+
+
+def profile_window(fn) -> dict:
+    """``fn()`` under ``torch.profiler`` (device activity only), ended by a
+    synchronize: wall ms on the host clock, the device's busy ms (the union
+    of the intervals of the trace's device events), their summed ms, and
+    the summed ms of the B1-B4 library's kernels; and, outside the
+    profiler, ``fn()``'s ms between two CUDA events (``unprofiled_ms``:
+    tracing slows the host).  Busy is None when the trace holds no device
+    event (then the device time is not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    unprofiled_ms = start.elapsed_time(end)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms,
+            "busy_ms": busy / 1e3 if spans else None,
+            "device_sum_ms": sum(b - a for a, b in spans) / 1e3, "device_events": len(spans),
+            "library_kernel_ms": sum(e.time_range.elapsed_us() for e in dev
+                                     if any(k in e.name for k in LIBRARY_KERNELS)) / 1e3}
+
+
+def per_step(prof: dict, steps: int) -> dict:
+    """A trace's numbers per step, the busy share (busy over wall) and the
+    host time outside the device's busy time."""
+    busy = prof["busy_ms"]
+    out = {k: v / steps for k, v in prof.items() if k.endswith("_ms") and v is not None}
+    out["busy_share"] = None if busy is None else busy / prof["wall_ms"]
+    out["busy_share_unprofiled"] = None if busy is None else busy / prof["unprofiled_ms"]
+    out["host_outside_ms"] = None if busy is None else (prof["wall_ms"] - busy) / steps
+    out["device_events"] = prof["device_events"] / steps
+    return out
+
+
+def trace_line(what, tr) -> str:
+    """One report line of a ``per_step`` trace."""
+    if tr["busy_share"] is None:
+        return f"{what}: device time not measured (no device event in the trace)"
+    return (f"{what}: {tr['unprofiled_ms']:.4f} ms a step between CUDA events, device busy "
+            f"{tr['busy_ms']:.4f} ms ({tr['busy_share_unprofiled']:.4f} of the step; "
+            f"{tr['device_events']:.0f} device events, B1-B4 kernels "
+            f"{tr['library_kernel_ms']:.4f} ms); under the trace {tr['wall_ms']:.4f} ms a "
+            f"step, busy share {tr['busy_share']:.4f}, host outside "
+            f"{tr['host_outside_ms']:.4f} ms")
+
+
+def use(e, **kw):
+    """Set ``e``'s per-call serving options (``fused``, ``temperature``,
+    ``speculative``); the packs stay."""
+    e.sc = dataclasses.replace(e.sc, **kw)
+    return e
+
+
+def graph_phase(cfg, engines):
+    """Phase 7 over ``engines`` (``{"dense", "fp32", "int8", "int4"}``): the
+    captured step's tokens against the eager loop's, greedy and sampled;
+    the graph's launches (replays x the launches captured in one step)
+    against the counted run's; tok/s of graph and eager in turns; a
+    profiler trace of ``PROFILED_STEPS`` replays (and of as many eager steps
+    on the fp32-value pack)."""
+    prompts = prompts_for(cfg)
+    steps = MAX_NEW - 1
+    res = {}
+    for route, e in engines.items():
+        r = {"tok_per_s": {"graph": [], "eager": []}}
+        for temp in (0.0, 1.0):
+            g0 = use(e, fused=True, temperature=temp).graph_launches()
+            graph = e.generate(prompts, max_new=MAX_NEW)
+            g1 = e.graph_launches()
+            eager = use(e, fused=False).generate(prompts, max_new=MAX_NEW)
+            if temp == 0.0:  # the first turn: graph, eager
+                r["tok_per_s"]["graph"].append(graph["tok_per_s"])
+                r["tok_per_s"]["eager"].append(eager["tok_per_s"])
+            tag = f"graph decode {route} {'sampled' if temp else 'greedy'}"
+            if not (graph["finite"] and eager["finite"]):
+                fail(f"{tag}: non-finite logits")
+            if not np.array_equal(graph["tokens"], eager["tokens"]):
+                fail(f"{tag}: graph tokens differ from the eager loop's at "
+                     f"{np.argwhere(graph['tokens'] != eager['tokens'])[0].tolist()}")
+            if temp == 0.0 and route != "dense":
+                vd = "dense" if route == "fp32" else route
+                got = {n: {k: v - g0.get(n, {}).get(k, 0) for k, v in c.items()}
+                       for n, c in g1.items()}
+                want = {name: {k: n * steps if k == vd else 0 for k in got[name]}
+                        for name, n in (("vusa_packed_matmul", 4 * cfg.n_layers + 1),
+                                        ("vusa_fused_mlp_matmul", cfg.n_layers))}
+                if got != want:
+                    fail(f"{tag}: graph launches {got} != expected {want}")
+                r["graph_launches"] = {n: c[vd] for n, c in got.items()}
+        turns = r["tok_per_s"]  # the second turn, reversed: eager, graph
+        turns["eager"].append(use(e, temperature=0.0).generate(prompts, MAX_NEW)["tok_per_s"])
+        turns["graph"].append(use(e, fused=True).generate(prompts, MAX_NEW)["tok_per_s"])
+        r["ms_per_step"] = {k: [1e3 * BATCH / t for t in v] for k, v in turns.items()}
+        with torch.no_grad():
+            tok, cache = e.prime(prompts)
+            r["trace_graph"] = per_step(profile_window(lambda: use(e, fused=True).decode_segment(
+                tok, copy_cache(cache), PROFILED_STEPS)), PROFILED_STEPS)
+            if route == "fp32":
+                r["graph_structure"] = graph_structure(cfg, e)
+                r["trace_eager"] = per_step(profile_window(lambda: use(e, fused=False)
+                                                           .decode_segment(tok, copy_cache(cache),
+                                                                           PROFILED_STEPS)),
+                                            PROFILED_STEPS)
+        use(e, fused=False)
+        res[route] = r
+    return res
+
+
+def graph_structure(cfg, e) -> dict:
+    """One packed decode step (B = ``BATCH``) captured in a CUDA graph in
+    debug mode, its DOT dump written to ``chiprun_out/decode_step_graph.dot``
+    and read: the graph's nodes and edges, and its kernel nodes of the B1-B4
+    library by kernel.  They must be the step's planned CUDA launches
+    (``planned_cuda_launches``): 49 row-packed and 12 fused-MLP kernels and
+    one ordered sum for each call whose plan takes one, so the capture kept
+    every launch of the library, its clusters included (the fused MLP's
+    result depends on them, and the graph's tokens equal the eager
+    loop's).  The dump shows no edge types: whether the capture kept the
+    dependent launches' programmatic edges is not read here."""
+    with torch.no_grad():
+        tok, cache = e.prime(prompts_for(cfg))
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the dump
+        graph.enable_debug_mode()
+        with torch.cuda.graph(graph):
+            lm_decode_step_packed(e.params, e.packed, tok, cache, cfg)
+    path = ROOT / "chiprun_out" / "decode_step_graph.dot"
+    path.parent.mkdir(exist_ok=True)
+    graph.debug_dump(str(path))
+    if not path.exists():
+        fail("graph decode: the runtime wrote no DOT dump of the captured step")
+    ids = [ln for ln in path.read_text().splitlines() if ln.startswith("| {ID | ")]
+    out = {"dot": str(path.relative_to(ROOT)), "nodes": len(ids),
+           "edges": path.read_text().count("->"),
+           **{k: sum(k in ln for ln in ids) for k in LIBRARY_KERNELS}}
+    planned = planned_cuda_launches(cfg, e.packed)
+    want = {"row_packed_kernel": 4 * cfg.n_layers + 1, "fused_mlp_kernel": cfg.n_layers}
+    want["sum_slices_kernel"] = sum(planned.values()) - sum(want.values())
+    if {k: out[k] for k in LIBRARY_KERNELS} != want:
+        fail(f"graph decode: the captured step holds library kernels "
+             f"{ {k: out[k] for k in LIBRARY_KERNELS} }, the plan takes {want}")
+    return out
+
+
+def tiered(tree):
+    """The tier structure of ``tests/test_spec_decode.py::_tiered`` on every
+    matrix: the top 1 % of magnitudes kept, the next 14 % scaled by 0.03,
+    zeros elsewhere, so a 99 %-sparse drafter keeps exactly the core."""
+    if isinstance(tree, dict):
+        return {k: tiered(v) for k, v in tree.items()}
+    if tree.ndim < 2:
+        return tree
+    a = tree.abs()
+    srt = a.flatten().sort(descending=True).values
+    t1, t2 = (srt[max(int(f * a.numel()) - 1, 0)] for f in (0.01, 0.15))
+    return torch.where(a >= t1, tree, torch.where(a >= t2, tree * 0.03, torch.zeros_like(tree)))
+
+
+def spec_phase(cfg, raw, max_len):
+    """Phase 8: ``vusa_edge`` at full width on ``tiered`` params (from the
+    unpruned init ``raw``), B = 1, the drafter at ``DRAFT_SPARSITY``
+    drafting ``DRAFT_K`` tokens a round, the verifier dense and packed
+    with fp32 and with int8 values: speculative tokens against plain graph
+    decode's, greedy and sampled; acceptance, rounds, tok/s in turns; on
+    the packed routes one drafter step's and one verify's device time (a
+    trace of 3 of each)."""
+    params = tiered(raw)
+    prompt = prompts_for(cfg)[:1]
+    res, drafter = {}, None
+    for route in ("fp32", "int8", "dense"):
+        t0 = time.monotonic()
+        e = Engine(cfg, params, ServeConfig(
+            max_len=max_len, packed_weights=False if route == "dense" else "all",
+            packed_values="int8" if route == "int8" else "bf16", speculative=drafter is None,
+            draft_k=DRAFT_K, draft_sparsity=DRAFT_SPARSITY), device=DEVICE)
+        # the drafter depends on the weights and DRAFT_SPARSITY alone: built
+        # by the first engine, handed to the others
+        drafter = e.draft_packed if drafter is None else drafter
+        e._draft_packed = drafter
+        r = {"build_s": time.monotonic() - t0,
+             "draft_pack_bytes": pack_bytes(e.draft_packed),
+             "verify_pack_bytes": None if e.packed is None else pack_bytes(e.packed),
+             "tok_per_s": {"speculative": [], "plain": []}}
+        for temp in (0.0, 1.0):
+            spec = use(e, speculative=True, temperature=temp).generate(prompt, MAX_NEW)
+            plain = use(e, speculative=False).generate(prompt, MAX_NEW)
+            tag = f"speculative {route} {'sampled' if temp else 'greedy'}"
+            if not (spec["finite"] and plain["finite"]):
+                fail(f"{tag}: non-finite logits")
+            if not np.array_equal(spec["tokens"], plain["tokens"]):
+                fail(f"{tag}: speculative tokens differ from plain decode's at "
+                     f"{np.argwhere(spec['tokens'] != plain['tokens'])[0].tolist()}")
+            r["sampled" if temp else "greedy"] = {
+                k: spec[k] for k in ("spec_rounds", "spec_proposed", "spec_accepted",
+                                     "acceptance_rate")}
+            if temp == 0.0:  # the first turn: speculative, plain
+                r["tok_per_s"]["speculative"].append(spec["tok_per_s"])
+                r["tok_per_s"]["plain"].append(plain["tok_per_s"])
+        turns = r["tok_per_s"]  # the second turn, reversed: plain, speculative
+        turns["plain"].append(use(e, temperature=0.0).generate(prompt, MAX_NEW)["tok_per_s"])
+        turns["speculative"].append(use(e, speculative=True).generate(prompt, MAX_NEW)
+                                    ["tok_per_s"])
+        if e.packed is None:
+            res[route] = r
+            continue
+        with torch.no_grad():
+            tok, cache = e.prime(prompt)
+            seq = tok.repeat(1, VERIFY_ROWS)
+            for name, pk, x in (("drafter_step", e.draft_packed, tok),
+                                ("verify", e.packed, seq)):
+                r[name] = per_step(profile_window(lambda pk=pk, x=x: [
+                    lm_decode_step_packed(e.params, pk, x, c, cfg)
+                    for c in [copy_cache(cache)] for _ in range(3)]), 3)
+        res[route] = r
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run only on the card")
@@ -914,10 +1183,14 @@ def main() -> None:
 
     cfg = get_config("vusa_edge")
     t0 = time.monotonic()
-    params = prune_tree(build_model(cfg).init(0, device=DEVICE), cfg.sparsity)
+    raw = build_model(cfg).init(0, device=DEVICE)  # unpruned: phase 8 tiers it
+    params = prune_tree(raw, cfg.sparsity)
     max_len = PROMPT + MAX_NEW + 8
-    eng = Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights="all"), device=DEVICE)
+    # fused=False: the counted runs and the phases before 7 take the eager loop
+    eng = Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights="all", fused=False),
+                 device=DEVICE)
     qengs = {route: Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights="all",
+                                                    fused=False,
                                                     packed_values=route), device=DEVICE)
              for route in QDTYPES}
     engines = {"dense": eng, **qengs}
@@ -1005,6 +1278,48 @@ def main() -> None:
                 "TFLOP/s)" for key in ("vusa_spmm", "dense_matmul", "library")), flush=True)
     print(f"paper workloads phase {time.monotonic() - t0:.1f}s", flush=True)
 
+    t0 = time.monotonic()
+    dense_eng = Engine(cfg, params, ServeConfig(max_len=max_len, fused=False), device=DEVICE)
+    graph = graph_phase(cfg, {"dense": dense_eng, "fp32": eng, **qengs})
+    for route, g in graph.items():
+        line = (f"graph decode {route}: graph tokens equal the eager loop's (greedy and "
+                f"sampled); tok/s in turns graph {g['tok_per_s']['graph']}, eager "
+                f"{g['tok_per_s']['eager']}; ms per step graph "
+                f"{min(g['ms_per_step']['graph']):.4f}, eager "
+                f"{min(g['ms_per_step']['eager']):.4f} (the better of 2)")
+        if "graph_launches" in g:
+            line += f"; graph launches {g['graph_launches']} (replays x captured)"
+        print(line, flush=True)
+        print(trace_line(f"graph decode {route}, {PROFILED_STEPS} replays", g["trace_graph"]),
+              flush=True)
+        if "graph_structure" in g:
+            print(f"graph decode {route}, one step captured in debug mode: "
+                  f"{g['graph_structure']}", flush=True)
+        if "trace_eager" in g:
+            print(trace_line(f"graph decode {route}, {PROFILED_STEPS} eager steps",
+                             g["trace_eager"]), flush=True)
+    print(f"graph decode phase {time.monotonic() - t0:.1f}s", flush=True)
+
+    t0 = time.monotonic()
+    spec = spec_phase(cfg, raw, max_len)
+    for route, r in spec.items():
+        g = r["greedy"]
+        line = (f"speculative {route} (B=1, k={DRAFT_K}, drafter {DRAFT_SPARSITY:.0%} sparse, "
+                f"{r['draft_pack_bytes']} pack bytes vs the verifier's {r['verify_pack_bytes']}): "
+                f"tokens equal plain graph decode's (greedy and sampled); greedy acceptance "
+                f"{g['acceptance_rate']:.4f} over {g['spec_rounds']} rounds "
+                f"({g['spec_accepted']}/{g['spec_proposed']}), sampled "
+                f"{r['sampled']['acceptance_rate']:.4f}; tok/s in turns speculative "
+                f"{r['tok_per_s']['speculative']}, plain {r['tok_per_s']['plain']}; built in "
+                f"{r['build_s']:.1f}s")
+        if "verify" in r:
+            d, v = r["drafter_step"], r["verify"]
+            line += (f"; drafter step {d['library_kernel_ms']:.4f} ms in B1-B4 kernels "
+                     f"({d['device_sum_ms']:.4f} ms all device), verify of {VERIFY_ROWS} tokens "
+                     f"{v['library_kernel_ms']:.4f} ms ({v['device_sum_ms']:.4f} ms)")
+        print(line, flush=True)
+    print(f"speculative phase {time.monotonic() - t0:.1f}s", flush=True)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -1020,6 +1335,8 @@ def main() -> None:
                 "source": "src/repro_torch/kernels/csrc/vusa_packed.cu",
                 "replaces": replaces[name], "launches": launches[route][wrapper],
                 "launches_per_step": launches[route][wrapper] / (MAX_NEW - 1),
+                "graph_launches": graph["fp32" if route == "dense" else route][
+                    "graph_launches"][wrapper],
                 "cuda_launches_per_call": cuda_per_call[route][wrapper],
                 "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
@@ -1049,14 +1366,15 @@ def main() -> None:
          "bound_ms summed over one decode step (48 projections + head; 12 MLPs) at B=4, bf16 "
          "activations; B1/B2 with fp32 values, B3/B4 int8 at top level and int4 under 'int4'; "
          "B1-B4's cuda_launches_per_call counted by the vusa_packed library over the counted "
-         "main-path run, per wrapper call; "
+         "main-path run, per wrapper call; B1-B4's graph_launches the launches of phase 7's "
+         "greedy graph run: replays x the launches captured in one step; "
          "vusa_spmm/dense_matmul summed over the 21 GEMMs of one ResNet-18 image (MobileNetV1's "
          "28 under 'mobilenetv1'), their cuda_launches_per_call the mean over those GEMMs of the "
          "CUDA launches each library counted in the counted run (2 where the plan splits the "
          "reduction), their bound_ms with TF32 tensor-core operations over 495 TFLOP/s, three "
          "per logical fp32 product (3xTF32)",
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
-         "paper_workloads": paper,
+         "paper_workloads": paper, "graph_decode": graph, "speculative": spec,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

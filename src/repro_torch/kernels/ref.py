@@ -11,9 +11,10 @@ emulate the split-precision TF32 products of ``csrc/tile_gemm.cuh`` for
 the tests, and ``vusa_packed_sliced_ref`` and ``vusa_fused_mlp_sliced_ref``
 the orders of operations of the row-packed kernel and of the fused MLP
 kernel in ``csrc/vusa_packed.cu``; no kernel wrapper uses them.
-The wrappers in
-:mod:`repro_torch.kernels` run these for tensors on the CPU;
-``chip_smoke.py`` holds the CUDA kernels against them on the card.
+The wrappers in :mod:`repro_torch.kernels` run these for tensors on the
+CPU (the two decode products one row at a time, so that row b does not
+depend on B there either, the kernels' contract); ``chip_smoke.py`` holds
+the CUDA kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -132,9 +133,28 @@ def vusa_packed_ref(
     """``y[b, t*m + l] = sum_k x[b, k] * sum_s values[t, k, s] * [positions[t, k, s] == l]``.
 
     x: (B, K); values/positions: (T, K, S) (int4 values (T, K, S/2));
-    scales (T, K) for quantized values.  Returns (B, T*m) fp32."""
-    vals = dequantize_values(values, scales, value_dtype)
-    return x.float() @ unpack_dense(vals, positions, m)
+    scales (T, K) for quantized values.  Returns (B, T*m) fp32.  Computed
+    one row of x at a time (``_by_row``), so that row b does not depend on
+    B, bitwise, as the CUDA kernel's does: the batched speculative verify
+    relies on it."""
+    w = _dense(values, positions, scales, m, value_dtype)
+    return _by_row(x, lambda row: row @ w)
+
+
+def _dense(values, positions, scales, m, value_dtype) -> torch.Tensor:
+    """The dense fp32 (K, T*m) weight of a pack of any value kind."""
+    return unpack_dense(dequantize_values(values, scales, value_dtype), positions, m)
+
+
+def _by_row(x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` over fp32 ``x`` (B, K) one row at a time, each row copied to
+    fresh memory: row b of the result does not depend on B, bitwise.  A CPU
+    GEMM's order of operations changes with the row count (and may with
+    the alignment of its operand), so ``x @ w`` alone is not row-stable."""
+    xf = x.float()
+    if xf.shape[0] == 0:
+        return fn(xf)
+    return torch.cat([fn(row.clone()) for row in xf.split(1)])
 
 
 def vusa_fused_mlp_ref(
@@ -156,17 +176,11 @@ def vusa_fused_mlp_ref(
     ``gate``/``up`` pack (K, ff); ``down`` packs ``w_down`` *transposed*
     (D, ff), so the ff reduction dim is the windowed one.  Quantized packs
     carry scales (T, K) for gate/up and (T, D) for down.  Returns (B, D)
-    fp32."""
-
-    def dense(values, positions, scales):
-        return unpack_dense(dequantize_values(values, scales, value_dtype), positions, m)
-
-    wg = dense(gate_values, gate_positions, gate_scales)  # (K, T*m)
-    wu = dense(up_values, up_positions, up_scales)
-    wdt = dense(down_values, down_positions, down_scales)  # (D, T*m) = w_down.T padded
-    xf = x.float()
-    h = F.silu(xf @ wg) * (xf @ wu)  # (B, T*m)
-    return h @ wdt.T
+    fp32, one row of x at a time (row b does not depend on B, bitwise)."""
+    wg = _dense(gate_values, gate_positions, gate_scales, m, value_dtype)  # (K, T*m)
+    wu = _dense(up_values, up_positions, up_scales, m, value_dtype)
+    wdt = _dense(down_values, down_positions, down_scales, m, value_dtype)  # w_down.T padded
+    return _by_row(x, lambda row: (F.silu(row @ wg) * (row @ wu)) @ wdt.T)
 
 
 def _slice_sums(x: torch.Tensor, w: torch.Tensor, rows: int, slices: int) -> list[torch.Tensor]:

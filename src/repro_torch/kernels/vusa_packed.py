@@ -9,7 +9,8 @@ fp32 scales: ``_qkernel`` / ``_fused_mlp_qkernel``).  Each wrapper checks
 device, dtype, shape and contiguity, allocates the output (and the fused
 MLP's per-window scratch) with ``torch.empty``, launches on the current
 stream and raises if the launch was refused.  Tensors on the CPU take the
-plain PyTorch version in :mod:`repro_torch.kernels.ref` — only because they
+plain PyTorch version in :mod:`repro_torch.kernels.ref` (one row at a
+time, so that row b does not depend on B there either) — only because they
 lie on the CPU; a CUDA tensor launches the kernel or raises.
 
 Each wrapper carries ``launches``, a dict of plain integers by route

@@ -77,10 +77,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 
 def rope(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):
-    """Rotary embedding tables (sin, cos) for integer ``positions`` (..., seq)."""
+    """Rotary embedding tables (sin, cos) for integer ``positions`` (..., seq).
+    No host value is copied to the device, so a decode step that calls it
+    stays free of host syncs and can be captured in a CUDA graph."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
+    freqs = torch.pow(float(theta), exps)
     angles = positions[..., None].float() * freqs  # (..., seq, hd/2)
     return torch.sin(angles), torch.cos(angles)
 

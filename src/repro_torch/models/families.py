@@ -1,4 +1,5 @@
-"""Decoder-only dense LM: specs, forward, prefill and one-token decode.
+"""Decoder-only dense LM: specs, forward, prefill and decode (one token, or
+s tokens for the speculative verify).
 
 Port of the dense-LM part of the JAX package's ``models/families.py``.  The
 parameter layout is the reference's: every layer parameter carries a
@@ -87,7 +88,8 @@ def lm_forward(params, batch, cfg):
 
 
 def lm_cache_specs(cfg, batch: int, max_len: int) -> dict:
-    """Shapes and dtypes of the decode cache; ``pos`` is a host integer."""
+    """Shapes and dtypes of the decode cache's K/V; ``pos`` is a 0-d
+    ``torch.long`` tensor beside them (``lm_init_cache``)."""
     kv = ((cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd), act_dtype(cfg))
     return {"k": kv, "v": kv}
 
@@ -97,36 +99,46 @@ def lm_init_cache(cfg, batch: int, max_len: int, device) -> dict:
         name: torch.zeros(shape, dtype=dtype, device=device)
         for name, (shape, dtype) in lm_cache_specs(cfg, batch, max_len).items()
     }
-    cache["pos"] = 0
+    cache["pos"] = torch.zeros((), dtype=torch.long, device=device)
     return cache
 
 
 def lm_decode_step(params, token, cache, cfg):
-    """token: (B, 1) int.  Returns (logits (B, 1, V), cache with ``pos + 1``).
+    """token: (B, s) int (s = 1 normal decode; s > 1 the speculative
+    verify).  Returns (logits (B, s, V), cache with ``pos + s``).
 
-    The cache tensors are updated in place (see ``attention_decode``)."""
-    if token.shape[1] != 1:
-        raise NotImplementedError(
-            "multi-token decode (speculative verify) is not ported yet: ROADMAP.md A9"
-        )
+    The cache is updated in place: K/V rows (see ``attention_decode``) and
+    the device scalar ``pos``, which is advanced, never rebound, so a CUDA
+    graph that replays the step keeps reading the same tensor.  With
+    ``s > 1`` the step runs as a chain of ``s`` exact single-token steps: a
+    ``torch.matmul`` over s rows is not bitwise the s one-row products
+    (the GEMM's order of operations changes with the row count), while the
+    chain is bitwise the sequential steps by construction, as in the
+    reference."""
+    if token.shape[1] > 1:
+        logits = []
+        for i in range(token.shape[1]):
+            lg, cache = lm_decode_step(params, token[:, i : i + 1], cache, cfg)
+            logits.append(lg)
+        return torch.cat(logits, dim=1), cache
     x = _embed_tokens(params, token, cfg)
-    pos = cache["pos"]
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
-        y, _ = attention_decode(
+        x = x + attention_decode(
             lp["attn"], rms_norm(x, lp["norm1"]), cfg,
-            {"k": cache["k"][i], "v": cache["v"][i], "pos": pos},
+            {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]},
         )
-        x = x + y
         x = x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
     x = rms_norm(x, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    cache["pos"].add_(1)
+    return logits, cache
 
 
 def lm_prefill(params, batch, cfg, max_len: int, lengths=None):
     """Run the prompt and bulk-write the KV cache.  Returns (logits (B, V) at
-    each row's last real token, cache with ``pos`` = padded prompt length).
+    each row's last real token, cache with ``pos`` = padded prompt length,
+    a 0-d tensor on the tokens' device).
 
     ``lengths`` (B,) enables masked prefill of right-padded prompts: padded
     keys get exactly-zero probability and each row's logits are taken at its
@@ -152,7 +164,7 @@ def lm_prefill(params, batch, cfg, max_len: int, lengths=None):
         x = x + y
         x = x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
     xf = rms_norm(x, params["final_norm"])
-    cache["pos"] = s
+    cache["pos"].fill_(s)
     if lengths is None:
         last = xf[:, -1]
     else:  # each row's last real token (bucket padding sits after it)

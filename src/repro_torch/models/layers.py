@@ -211,44 +211,73 @@ def attention(
     return (y, k, v) if return_kv else y
 
 
+def _write_rows(cache_t: torch.Tensor, positions: torch.Tensor, rows: torch.Tensor) -> None:
+    """Write ``rows`` (B, s, ...) into ``cache_t`` (B, S_max, ...) at the
+    consecutive slots ``positions`` (s,), in place; rows past ``S_max`` are
+    dropped (the reference's ``mode="drop"``), never clamped onto the last
+    slot.  A row past the end is sent to the last slot carrying that slot's
+    final value (the first row aimed there, or what the slot holds), so
+    every write to one slot carries the same bits and the result does not
+    depend on the order the writes land in.  All on the device: no host
+    sync."""
+    s_max, s = cache_t.shape[1], rows.shape[1]
+    idx = positions.clamp(max=s_max - 1)
+    inside = (positions < s_max).view(1, s, *[1] * (rows.ndim - 2))
+    src = torch.where(inside, rows.to(cache_t.dtype), cache_t.index_select(1, idx))
+    if s > 1:  # row i takes the data of the first row aimed at its slot
+        first = torch.minimum(torch.arange(s, device=positions.device),
+                              (s_max - 1 - positions[0]).clamp(min=0))
+        src = src.index_select(1, first)
+    cache_t.index_copy_(1, idx, src)
+
+
 def attention_decode(
     p: dict,
-    x: torch.Tensor,  # (B, 1, d)
+    x: torch.Tensor,  # (B, s, d)
     cfg,
-    cache: dict,  # {"k": (B, S_max, kvh, hd), "v": ..., "pos": int}
+    cache: dict,  # {"k": (B, S_max, kvh, hd), "v": ..., "pos": 0-d long tensor}
     wmm=None,  # optional weight-matmul override (see _project_qkv)
-) -> tuple[torch.Tensor, dict]:
-    """One-token decode against a contiguous KV cache.
+) -> torch.Tensor:
+    """Decode ``s`` tokens against a contiguous KV cache; returns y (B, s, d).
 
-    The new K/V row is written into the cache tensors *in place* (the
-    reference returns an updated copy; in place saves a full cache copy per
-    layer and step).  ``pos`` is a host integer — the number of tokens
-    already cached — so the step needs no device-to-host sync."""
+    ``pos`` is a 0-d ``torch.long`` tensor on the cache's device — the
+    number of tokens already cached — from which the rope positions, the
+    cache write and the validity mask are derived, so the step makes no
+    host sync and a CUDA graph can replay it at any position.  The new K/V
+    rows are written into the cache tensors *in place* (the reference
+    returns an updated copy; in place saves a full cache copy per layer and
+    step); ``pos`` itself is the caller's to advance.  Rows past the cache
+    end are dropped; the engine's length guard keeps decode short of it.
+
+    With ``s > 1`` (the speculative verify) the ``s`` tokens take positions
+    ``pos .. pos+s-1`` and all their K/V rows are written before attending.
+    The attend then runs one query row at a time with exactly the
+    single-token shapes: row ``i`` sees ``slots <= pos+i``, the sequential
+    step's allow set, and the rows written past it get probability exactly
+    0, so each row is bitwise the sequential step's.  Bit-parity of the
+    surrounding matmuls is the caller's contract: ``wmm`` must be
+    row-stable across row counts (the packed kernels are; a ``torch.matmul``
+    in general is not, so the dense path chains single-token steps)."""
     b, s, d = x.shape
-    if s != 1:
-        raise NotImplementedError(
-            "multi-token decode (speculative verify) is not ported yet: ROADMAP.md A9"
-        )
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
-    pos = int(cache["pos"])
     k_cache, v_cache = cache["k"], cache["v"]
     s_max = k_cache.shape[1]
-    if pos >= s_max:
-        raise IndexError(f"decode position {pos} is past the cache length {s_max}")
-    positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    positions = cache["pos"] + torch.arange(s, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions, wmm=wmm)
-    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+    _write_rows(k_cache, positions, k_new)
+    _write_rows(v_cache, positions, v_new)
     slots = torch.arange(s_max, device=x.device)
-    valid = slots <= pos
-    q = q.reshape(b, 1, kvh, nh // kvh, hd)
-    out = _direct_attend(q, k_cache, v_cache, MaskSpec("causal"), positions, slots, valid)
-    out = out.reshape(b, 1, nh, hd)
+    q = q.reshape(b, s, kvh, nh // kvh, hd)
+    rows = [
+        _direct_attend(q[:, i : i + 1].contiguous(), k_cache, v_cache, MaskSpec("causal"),
+                       positions[i : i + 1], slots, slots <= positions[i])
+        for i in range(s)  # s = draft_k + 1 at most: small
+    ]
+    out = rows[0] if s == 1 else torch.cat(rows, dim=1)
+    out = out.reshape(b, s, nh, hd)
     if wmm is None:
-        y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
-    else:
-        y = wmm("wo", out.reshape(b, 1, nh * hd)).to(x.dtype)
-    return y, {"k": k_cache, "v": v_cache, "pos": pos + 1}
+        return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
+    return wmm("wo", out.reshape(b, s, nh * hd)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

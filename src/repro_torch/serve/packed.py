@@ -335,20 +335,35 @@ def qdq_lm_params(
 # --------------------------------------------------------------------------
 
 
+def _full_pack(packed) -> bool:
+    """Every matmul of the step packed: scope "all" with a packed head."""
+    return packed.get("attn") is not None and packed.get("head") is not None
+
+
 def lm_decode_step_packed(params, packed, token, cache, cfg):
-    """One-token decode step with VUSA-packed weights (dense family).
-    token: (B, 1).  Returns (logits (B, 1, V), cache with ``pos + 1``); the
-    cache tensors are updated in place."""
+    """Decode step with VUSA-packed weights (dense family).  token: (B, 1),
+    or (B, s) for the speculative verify.  Returns (logits (B, s, V), cache
+    with ``pos + s``); the cache tensors and the device scalar ``pos`` are
+    updated in place (see ``families.lm_decode_step``).
+
+    A *full* pack (``_full_pack``) verifies the s tokens in one batched
+    pass: every matmul goes through the packed kernels with B*s rows, whose
+    row b does not depend on the row count (bitwise), and
+    ``attention_decode`` attends one query row at a time, so the pass is
+    bitwise s sequential steps.  A partial pack still routes some rows
+    through ``torch.matmul``, which is not row-stable, so it chains s
+    single-token steps, as the reference does."""
     if cfg.family != "dense":
         raise ValueError("the packed decode path targets the dense family")
-    if token.shape[1] != 1:
-        raise NotImplementedError(
-            "multi-token packed decode (speculative verify) is not ported yet: ROADMAP.md A9"
-        )
+    if token.shape[1] > 1 and not _full_pack(packed):
+        logits = []
+        for i in range(token.shape[1]):
+            lg, cache = lm_decode_step_packed(params, packed, token[:, i : i + 1], cache, cfg)
+            logits.append(lg)
+        return torch.cat(logits, dim=1), cache
     mlp, attn = packed["mlp"], packed["attn"]
     fused = packed.get("fused_mlp", "w_down_t" in mlp)
     x = _embed_tokens(params, token, cfg)
-    pos = cache["pos"]
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         wmm = None
@@ -356,11 +371,10 @@ def lm_decode_step_packed(params, packed, token, cache, cfg):
             def wmm(name, x2, i=i):
                 return apply_row_packed(x2, _as_linear(attn[name], i))
 
-        y, _ = attention_decode(
+        x = x + attention_decode(
             lp["attn"], rms_norm(x, lp["norm1"]), cfg,
-            {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}, wmm=wmm,
+            {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]}, wmm=wmm,
         )
-        x = x + y
         h = rms_norm(x, lp["norm2"])
         b, s, d = h.shape
         hf = h.reshape(b * s, d)
@@ -381,4 +395,5 @@ def lm_decode_step_packed(params, packed, token, cache, cfg):
     else:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         logits = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    cache["pos"].add_(token.shape[1])
+    return logits, cache

@@ -30,7 +30,19 @@ CUDA launches as ``mlp_plan`` counts them, and within a stated number of
 ulps of ``ref.vusa_fused_mlp_sliced_ref``.  The block-VUSA kernel returns
 ``x.dtype``: with bf16 ``x`` both sides round their fp32 sum to bf16 once,
 so they may part by one bf16 step (2**-7 of the value) on top of the 1e-4.
+
+The engine's CUDA-graph loop and speculative decoding run ``vusa_edge`` at
+full width cut to 2 layers (numpy-seeded init, 85 % pruning, or the tier
+structure of ``tests/test_spec_decode.py`` for the drafter), dense and
+packed with fp32, int8 and int4 values: the graph loop's tokens equal the
+eager loop's bitwise, greedy and sampled; speculative tokens equal plain
+decode's bitwise; the full pack's batched verify equals sequential steps
+bitwise (the kernels' and the glue's row stability at 5 rows); and one
+eager decode step and one verify make no host sync
+(``torch.cuda.set_sync_debug_mode("error")``).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -55,6 +67,11 @@ from repro_torch.kernels.ops import (
 )
 from repro_torch.kernels.vusa_packed import vusa_packed_matmul
 from repro_torch.kernels.vusa_spmm import vusa_spmm
+from repro_torch.configs import get_config
+from repro_torch.core.pruning import prune_tree
+from repro_torch.models import build_model
+from repro_torch.serve import Engine, ServeConfig
+from repro_torch.serve.packed import lm_decode_step_packed
 
 
 def _sparse(rng, k, c, sparsity):
@@ -425,3 +442,121 @@ def test_each_library_counts_its_own_cuda_launches():
     fused = mlp_plan.cuda_launches(mlp_plan.mlp_plan(256, 256), 4, 256, pg.values.shape[0])
     assert got == {"vusa_packed_matmul": 1 + 2, "vusa_fused_mlp_matmul": fused, "empty_kernel": 0}
     assert sum(got.values()) == 3 + fused
+
+
+# ---------------------------------------------------------------------------
+# the engine on the card: CUDA-graph loop, speculative decoding, no syncs
+# ---------------------------------------------------------------------------
+
+ROUTES = {"dense": {}, "fp32": {"packed_weights": "all"},
+          "int8": {"packed_weights": "all", "packed_values": "int8"},
+          "int4": {"packed_weights": "all", "packed_values": "int4"}}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _edge2():
+    """Full-width ``vusa_edge`` (fp32 activations) cut to 2 layers."""
+    return dataclasses.replace(get_config("vusa_edge"), n_layers=2, dtype="float32")
+
+
+def _tiered(tree):
+    """The tier structure of ``tests/test_spec_decode.py::_tiered``: the top
+    1 % of magnitudes kept, the next 14 % scaled by 0.03, zeros elsewhere."""
+    if isinstance(tree, dict):
+        return {k: _tiered(v) for k, v in tree.items()}
+    if tree.ndim < 2:
+        return tree
+    a = tree.abs().flatten().sort(descending=True).values
+    t1 = a[max(int(0.01 * a.numel()) - 1, 0)]
+    t2 = a[max(int(0.15 * a.numel()) - 1, 0)]
+    return torch.where(tree.abs() >= t1, tree,
+                       torch.where(tree.abs() >= t2, tree * 0.03, torch.zeros_like(tree)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_graph_loop_equals_eager_loop_on_card(route, temperature):
+    dev = _card()
+    cfg = _edge2()
+    params = prune_tree(build_model(cfg).init(0, device=dev), 0.85)
+    eng = Engine(cfg, params, ServeConfig(max_len=32, temperature=temperature,
+                                          **ROUTES[route]), device=dev)
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab, (4, 8)).astype(np.int32)
+    graph = eng.generate(prompts, max_new=12)
+    eng.sc = dataclasses.replace(eng.sc, fused=False)
+    eager = eng.generate(prompts, max_new=12)
+    np.testing.assert_array_equal(graph["tokens"], eager["tokens"])
+    assert graph["finite"] and eager["finite"]
+    if route != "dense":  # replays x the launches captured in one step
+        vd = "dense" if route == "fp32" else route
+        got = eng.graph_launches()
+        assert got["vusa_packed_matmul"][vd] == 11 * (4 * cfg.n_layers + 1)
+        assert got["vusa_fused_mlp_matmul"][vd] == 11 * cfg.n_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("route", ["dense", "fp32", "int8"])
+def test_spec_equals_plain_decode_on_card(route, temperature):
+    dev = _card()
+    cfg = _edge2()
+    params = _tiered(build_model(cfg).init(0, device=dev))
+    sc = ServeConfig(max_len=48, temperature=temperature, **ROUTES[route])
+    plain = Engine(cfg, params, sc, device=dev)
+    spec = Engine(cfg, params, dataclasses.replace(sc, speculative=True), device=dev)
+    for seed in (3, 4):
+        prompt = np.random.default_rng(seed).integers(1, cfg.vocab, (1, 8)).astype(np.int32)
+        want = plain.generate(prompt, max_new=24)
+        got = spec.generate(prompt, max_new=24)
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        assert got["finite"] and got["spec_proposed"] == 4 * got["spec_rounds"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fp32", "int8", "int4"])
+def test_batched_verify_equals_sequential_steps_on_card(route):
+    """The full pack verifies 5 tokens in one pass through B1-B4 at 5 rows;
+    logits and cache must be bitwise 5 single-token steps."""
+    dev = _card()
+    cfg = _edge2()
+    params = prune_tree(build_model(cfg).init(0, device=dev), 0.85)
+    eng = Engine(cfg, params, ServeConfig(max_len=32, **ROUTES[route]), device=dev)
+    toks = torch.tensor([[11, 7, 300, 4000, 31999]], device=dev)
+    with torch.no_grad():
+        _, c1 = eng.prime(np.array([[1, 2, 3, 4]], np.int32))
+        _, c2 = eng.prime(np.array([[1, 2, 3, 4]], np.int32))
+        multi, c1 = lm_decode_step_packed(eng.params, eng.packed, toks, c1, cfg)
+        seq = torch.cat([lm_decode_step_packed(eng.params, eng.packed, toks[:, i : i + 1], c2,
+                                               cfg)[0] for i in range(5)], dim=1)
+    assert torch.equal(multi, seq)
+    assert torch.equal(c1["k"], c2["k"]) and torch.equal(c1["v"], c2["v"])
+    assert int(c1["pos"]) == int(c2["pos"]) == 9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["dense", "fp32"])
+def test_decode_step_makes_no_host_sync_on_card(route):
+    dev = _card()
+    cfg = _edge2()
+    params = prune_tree(build_model(cfg).init(0, device=dev), 0.85)
+    eng = Engine(cfg, params, ServeConfig(max_len=32, fused=False, temperature=1.0,
+                                          **ROUTES[route]), device=dev)
+    tok, cache = eng.prime(np.array([[1, 2, 3, 4]], np.int32))
+    noise = eng.gumbel_noise(1, 1)
+    eng.decode_segment(tok, cache, 1, noise)  # kernels built and loaded first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            eng.decode_segment(tok, cache, 1, noise)
+            if route == "fp32":
+                lm_decode_step_packed(eng.params, eng.packed, tok.repeat(1, 5), cache, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
