@@ -127,11 +127,39 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    tok/s in turns, and on the packed routes one drafter step's and one
    5-token verify's device time (B1-B4 kernels and all) from a trace of 3
    of each;
-9. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+9. scheduler: continuous batching over phase 4's weights, bf16 activations,
+   ``max_len`` 256, 8 slots, segments of 8 steps (the pool step, all 8
+   rows, captured in a CUDA graph and replayed).  Traffic from a numpy
+   seed: 24 requests, prompts of 8-160 tokens (a third behind one shared
+   64-token prefix, two repeating an earlier prompt whose length is not a
+   multiple of the page, with another seed), 8-64 new tokens, no EOS.
+   Gates: the pool step's row i at 8 rows bitwise equal to a B = 1 step on
+   the same cache row, dense and packed fp32/int8/int4, slot pool and
+   paged pool; under sequential admission (arrivals over 0-0.25 s) every
+   completion bitwise equal to one-shot ``generate`` of its prompt at B = 1
+   with its seed, dense and fp32 greedy and sampled, int8 greedy, and the
+   graph's B1-B4 launches exactly segments x 8 x (49, 12) on the route;
+   the paged pool (no prefix cache, no chunking, worst-case arena) bitwise
+   equal to the slot pool under batched admission, all arrivals at 0,
+   dense and fp32; ``prime_many`` rows against ``prime`` in fp32 within
+   1e-3 of the largest logit on a 2-layer cut, the gap at 4, 8 and 12
+   layers reported beside a witness with no padding (the same prompt twice
+   in a batch of 2): the random deep model amplifies the row count's
+   rounding (ROADMAP C6, C9); the paged pool with the
+   prefix cache, pages of 16, chunks of 64 and an arena small enough to
+   preempt (fp32, arrivals over 0-0.25 s): every request OK with its
+   ``max_new`` tokens, the host mirrors equal to the device's tables at
+   every sync, prefix hits, copy-on-write copies, prefill chunks and
+   preemptions each above 0, its token agreement with the slot pool
+   reported.  Reported: ``stats()`` (sustained tok/s, TTFT and ITL p50 /
+   p99, slot occupancy, HBM bytes per active request, prefix hit rate),
+   the pool step's ms per step beside one-shot ``generate``'s at B = 8
+   (dense and fp32, in turns), the pool's memory and the phase's seconds;
+10. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, CUDA launches per call as counted; B5/B6 per ResNet-18
    image, MobileNetV1 under ``mobilenetv1``);
-10. the card line again and the result line.
+11. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -179,7 +207,15 @@ from repro_torch.kernels.vusa_spmm import (  # noqa: E402
 )
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.common import strict_fp32  # noqa: E402
-from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.models.cache import (  # noqa: E402
+    PagedLayout,
+    bind_slot_pages,
+    init_paged_pool,
+    paged_view,
+    write_prefill_pages,
+    write_slots,
+)
+from repro_torch.serve import Engine, Request, Scheduler, ServeConfig  # noqa: E402
 from repro_torch.serve.packed import (  # noqa: E402
     _as_linear,
     _flat_entries,
@@ -203,6 +239,13 @@ DRAFT_K, DRAFT_SPARSITY = 4, 0.99  # the speculative phase's drafter
 VERIFY_ROWS = DRAFT_K + 1  # rows of the batched verify: contract 1 is checked there too
 PROFILED_STEPS = 8  # decode steps (graph replays) under the profiler per trace
 LIBRARY_KERNELS = ("row_packed_kernel", "fused_mlp_kernel", "sum_slices_kernel")
+# the scheduler phase: pool geometry, traffic and the paged pool's settings
+SCHED_MAX_LEN, SCHED_SLOTS, SCHED_SEGMENT = 256, 8, 8
+SCHED_REQUESTS, SCHED_PREFIX, SCHED_PROMPTS, SCHED_NEW = 24, 64, (8, 160), (8, 64)
+SCHED_ARRIVALS_S = 0.25  # arrival offsets are drawn over [0, this)
+SCHED_PAGE, SCHED_CHUNK, SCHED_ARENA = 16, 64, 48  # the preempting paged run
+SCHED_SEED = 3
+PRIME_TOL = 1e-3  # prime_many vs prime, fp32 logits, of the largest (2-layer cut)
 # paper workloads: (name, GEMMs, pruning rate); the seed of weights and x
 PAPER_MODELS = (("resnet18", resnet18_gemms, 0.85), ("mobilenetv1", mobilenetv1_gemms, 0.75))
 PAPER_SEED = 0
@@ -1167,6 +1210,263 @@ def spec_phase(cfg, raw, max_len):
     return res
 
 
+
+# --------------------------------------------------------------------------
+# phase 9: continuous batching, slot pool and paged pool
+# --------------------------------------------------------------------------
+
+
+def sched_traffic(cfg, arrivals: bool) -> list:
+    """The phase's requests, from numpy seed ``SCHED_SEED``: prompts of
+    ``SCHED_PROMPTS`` tokens, every third behind one shared
+    ``SCHED_PREFIX``-token prefix (a system prompt), ``SCHED_NEW`` new
+    tokens, no EOS; requests 0 and 1 take a prompt whose length is not a
+    page multiple and the most new tokens, and requests 8 and 9 repeat
+    them with other seeds (admitted in a later round while 0 and 1 still
+    decode, so their tail pages are copied on write).  Arrival offsets
+    over ``[0, SCHED_ARRIVALS_S)``, in request order, or all 0."""
+    rng = np.random.default_rng(SCHED_SEED)
+    prefix = rng.integers(1, cfg.vocab, SCHED_PREFIX)
+    lo, hi = SCHED_PROMPTS
+    reqs = []
+    for i in range(SCHED_REQUESTS):
+        n = int(rng.integers(lo, hi + 1))
+        if i in (0, 1):
+            n += 1 if n % SCHED_PAGE == 0 else 0
+        prompt = rng.integers(1, cfg.vocab, n)
+        if i % 3 == 2:
+            n = max(n, SCHED_PREFIX + 8)
+            prompt = np.concatenate([prefix, rng.integers(1, cfg.vocab, n - SCHED_PREFIX)])
+        if i in (8, 9):
+            prompt = reqs[i - 8].prompt.copy()
+        new = SCHED_NEW[1] if i in (0, 1) else int(rng.integers(SCHED_NEW[0], SCHED_NEW[1] + 1))
+        reqs.append(Request(prompt=prompt.astype(np.int32), max_new=new, seed=1000 + i))
+    offsets = np.sort(rng.uniform(0.0, SCHED_ARRIVALS_S, SCHED_REQUESTS)) if arrivals else None
+    return [dataclasses.replace(r, arrival_s=float(offsets[i]) if arrivals else 0.0)
+            for i, r in enumerate(reqs)]
+
+
+def sched_use(e, **kw):
+    """``e`` set up for the phase: ``max_len`` 256, the CUDA-graph loop, the
+    slot pool unless ``kw`` says otherwise."""
+    base = dict(max_len=SCHED_MAX_LEN, fused=True, temperature=0.0, page_size=0,
+                prefix_cache=True, prefill_chunk=0, arena_blocks=0)
+    return use(e, **{**base, **kw})
+
+
+def sched_run(e, reqs, admission="batched", on_sync=None):
+    """One scheduler over ``e`` serving ``reqs``: (scheduler, completions,
+    B1-B4 launches of its pool graph's replays by wrapper and route)."""
+    sched = Scheduler(e, slots=SCHED_SLOTS, segment=SCHED_SEGMENT, admission=admission)
+    g0 = e.graph_launches()
+    done = sched.run([dataclasses.replace(r) for r in reqs], on_sync=on_sync)
+    g1 = e.graph_launches()
+    got = {n: {k: v - g0.get(n, {}).get(k, 0) for k, v in c.items()} for n, c in g1.items()}
+    return sched, done, got
+
+
+def row_stability(cfg, e, paged: bool) -> None:
+    """The pool step at ``SCHED_SLOTS`` rows (``rowwise``, as the scheduler
+    runs it) on 8 caches primed from prompts of ragged lengths, row i
+    against a B = 1 step on a copy of cache i: bitwise, logits and every
+    row; in the slot pool or gathered from a paged pool."""
+    rng = np.random.default_rng(SCHED_SEED + 1)
+    lens = [int(n) for n in rng.integers(SCHED_PROMPTS[0], SCHED_PROMPTS[1] + 1, SCHED_SLOTS)]
+    tag = f"scheduler row stability {'paged' if paged else 'slot'}"
+    with torch.no_grad():
+        primed = [e.prime(rng.integers(1, cfg.vocab, (1, n)).astype(np.int32)) for n in lens]
+        token = torch.cat([t for t, _ in primed])
+        ones = [e._logits(token[i : i + 1], copy_cache(c), e.packed)
+                for i, (_, c) in enumerate(primed)]
+        batched = {k: torch.cat([c[k] for _, c in primed], dim=1) for k in ("k", "v")}
+        if paged:
+            lay = PagedLayout.build(SCHED_SLOTS, SCHED_MAX_LEN, SCHED_PAGE)
+            pst = init_paged_pool(e.model.cache_specs(1, SCHED_MAX_LEN), lay, DEVICE)
+            rows = (lay.reserved + np.arange(SCHED_SLOTS * lay.n_pages)).reshape(SCHED_SLOTS, -1)
+            write_prefill_pages(pst["arena"], rows, batched)
+            bind_slot_pages(pst["table"], pst["pos"], list(range(SCHED_SLOTS)), rows, lens)
+            cache = paged_view(pst)
+        else:
+            cache = e.model.init_slot_cache(SCHED_SLOTS, SCHED_MAX_LEN, device=DEVICE)
+            write_slots(cache, list(range(SCHED_SLOTS)), {**batched, "pos": None},
+                        e.model.cache_batch_axes(SCHED_MAX_LEN), lens)
+        many = e._logits(token, cache, e.packed, rowwise=True)
+    for i, one in enumerate(ones):
+        if not torch.equal(many[i : i + 1], one):
+            fail(f"{tag}: row {i} at {SCHED_SLOTS} rows differs from a B = 1 step by "
+                 f"{float((many[i : i + 1].float() - one.float()).abs().max()):.3g}")
+
+
+def oracle_tokens(e, reqs) -> list:
+    """One-shot ``generate`` of each request alone (B = 1) with its seed."""
+    out = []
+    for r in reqs:
+        use(e, seed=r.seed)
+        out.append(e.generate(r.prompt[None], max_new=r.max_new)["tokens"][0])
+    return out
+
+
+def prime_gap(cfg, params, reqs, layers: int) -> dict:
+    """``prime_many`` (the traffic's first ``SCHED_SLOTS`` prompts in their
+    length buckets, as batched admission primes them) against ``prime`` of
+    each prompt alone, fp32 logits, at ``layers`` layers: the largest gap
+    over the largest |logit|, and whether every row was bitwise equal
+    (ROADMAP C9).  Beside it a witness without any padding or masking: each
+    prompt primed twice in one batch of 2, row 0 against ``prime``, so only
+    the row count differs."""
+    c32 = dataclasses.replace(cfg, dtype="float32", n_layers=layers)
+
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:layers] for k, v in tree.items()}
+
+    p = {**params, "layers": cut(params["layers"])}
+    e = Engine(c32, p, ServeConfig(max_len=SCHED_MAX_LEN), device=DEVICE)
+    groups = {}
+    for r in reqs[: SCHED_SLOTS]:
+        groups.setdefault(e.bucket_len(len(r.prompt)), []).append(r)
+    worst, witness, top, bitwise = 0.0, 0.0, 0.0, True
+
+    def prefill(tokens, lengths=None):
+        t = torch.as_tensor(tokens, device=DEVICE).long()
+        lens = None if lengths is None else torch.tensor(lengths, device=DEVICE)
+        return e.model.prefill(e.params, {"tokens": t}, SCHED_MAX_LEN, lengths=lens)[0].float()
+
+    with torch.no_grad():
+        for blen, grp in groups.items():
+            toks = np.zeros((len(grp), blen), np.int32)
+            for j, r in enumerate(grp):
+                toks[j, : len(r.prompt)] = r.prompt
+            many = prefill(toks, [len(r.prompt) for r in grp])
+            for j, r in enumerate(grp):
+                one = prefill(r.prompt[None])[0]
+                two = prefill(np.stack([r.prompt, r.prompt]))[0]
+                worst = max(worst, float((many[j] - one).abs().max()))
+                witness = max(witness, float((two - one).abs().max()))
+                top = max(top, float(one.abs().max()))
+                bitwise &= torch.equal(many[j], one)
+    return {"layers": layers, "max_abs_gap": worst, "max_abs_logit": top,
+            "gap_rel": worst / max(top, 1.0), "bitwise": bitwise,
+            "witness_b2_gap_rel": witness / max(top, 1.0)}
+
+
+def pool_ms_per_step(e, segments: int = 3) -> float:
+    """Device-clock ms of one pool step at ``SCHED_SLOTS`` rows: ``segments``
+    segments of replays of the captured step, between CUDA events."""
+    sched = Scheduler(e, slots=SCHED_SLOTS, segment=SCHED_SEGMENT)
+    e.prepare_pool(sched._pool)
+    e.pool_segment(sched._pool)  # warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(segments):
+        e.pool_segment(sched._pool)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (segments * SCHED_SEGMENT)
+
+
+def sched_stats(sched) -> dict:
+    keys = ("requests", "decoded_tokens", "segments", "sustained_tok_per_s", "tok_per_s",
+            "decode_s", "admit_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s",
+            "latency_p50_s", "latency_p99_s", "slot_occupancy", "hbm_bytes_per_active_request",
+            "kv_pool_bytes", "prefix_lookups", "prefix_hits", "prefix_hit_rate", "cow_copies",
+            "prefill_chunks", "preempted", "cache_evictions", "failed", "timed_out")
+    st = sched.stats()
+    return {k: st[k] for k in keys}
+
+
+def same_tokens(a, b) -> float:
+    """Share of requests whose token streams are equal."""
+    return sum(np.array_equal(a[rid].tokens, b[rid].tokens) for rid in a) / len(a)
+
+
+def scheduler_phase(cfg, params, engines) -> dict:
+    """Phase 9 over ``engines`` (``{"dense", "fp32", "int8", "int4"}``, the
+    packs of phases 4-7, set to ``max_len`` 256 here)."""
+    t_phase = time.monotonic()
+    res = {"row_stability": {}, "sequential": {}, "paged_vs_slot": {}}
+    for route, e in engines.items():
+        sched_use(e)
+        for paged in (False, True):
+            row_stability(cfg, e, paged)
+        res["row_stability"][route] = "bitwise (slot and paged)"
+    timed = sched_traffic(cfg, arrivals=True)
+    at_zero = sched_traffic(cfg, arrivals=False)
+    for route, temps in (("dense", (0.0, 1.0)), ("fp32", (0.0, 1.0)), ("int8", (0.0,))):
+        e = engines[route]
+        for temp in temps:
+            tag = f"scheduler sequential {route} {'sampled' if temp else 'greedy'}"
+            sched, done, launches = sched_run(sched_use(e, temperature=temp), timed, "sequential")
+            want = oracle_tokens(sched_use(e, temperature=temp), timed)
+            for rid, w in enumerate(want):
+                if done[rid].status.value != "OK" or not np.array_equal(done[rid].tokens, w):
+                    fail(f"{tag}: request {rid} ({done[rid].status.value}) differs from one-shot "
+                         f"generate at B = 1")
+            st = sched_stats(sched)
+            if e.packed is not None:
+                vd = "dense" if route == "fp32" else route
+                steps = st["segments"] * SCHED_SEGMENT
+                want_l = {name: {k: n * steps if k == vd else 0 for k in launches[name]}
+                          for name, n in (("vusa_packed_matmul", 4 * cfg.n_layers + 1),
+                                          ("vusa_fused_mlp_matmul", cfg.n_layers))}
+                if launches != want_l:
+                    fail(f"{tag}: pool graph launches {launches} != expected {want_l}")
+                st["graph_launches"] = {n: c[vd] for n, c in launches.items()}
+            res["sequential"][f"{route} {'sampled' if temp else 'greedy'}"] = st
+    for route in ("dense", "fp32"):
+        e = engines[route]
+        ss, slot, _ = sched_run(sched_use(e), at_zero, "batched")
+        sp, paged, _ = sched_run(sched_use(e, page_size=SCHED_PAGE, prefix_cache=False), at_zero)
+        if not sp.paged or same_tokens(slot, paged) != 1.0:
+            fail(f"scheduler paged {route}: the paged pool's tokens differ from the slot pool's "
+                 f"under batched admission ({same_tokens(slot, paged):.4f} equal)")
+        res["paged_vs_slot"][route] = {"slot": sched_stats(ss), "paged": sched_stats(sp)}
+    res["prime_many_vs_prime"] = [prime_gap(cfg, params, timed, n)
+                                  for n in (DEPTH_CUT, 4, 8, cfg.n_layers)]
+    cut = res["prime_many_vs_prime"][0]
+    if cut["gap_rel"] > PRIME_TOL:
+        fail(f"scheduler prime_many vs prime ({cut['layers']} layers, fp32): gap "
+             f"{cut['gap_rel']:.3g} of the largest logit > {PRIME_TOL}")
+    e = engines["fp32"]
+    syncs = []
+
+    def check_mirror(s):
+        syncs.append(s.verify_paged_mirror())
+
+    ss, slot, _ = sched_run(sched_use(e), timed, "batched")
+    sp, paged, _ = sched_run(sched_use(e, page_size=SCHED_PAGE, prefill_chunk=SCHED_CHUNK,
+                                      arena_blocks=SCHED_ARENA), timed, on_sync=check_mirror)
+    st = sched_stats(sp)
+    bad = [rid for rid, c in paged.items()
+           if c.status.value != "OK" or len(c.tokens) != timed[rid].max_new]
+    if bad:
+        fail(f"scheduler paged prefix/chunk/preempt: requests {bad} did not complete OK")
+    for k in ("prefix_hits", "cow_copies", "prefill_chunks", "preempted"):
+        if not st[k] > 0:
+            fail(f"scheduler paged prefix/chunk/preempt: {k} = {st[k]}, the mechanism never fired")
+    res["traffic"] = {"slot_batched": sched_stats(ss), "paged": st,
+                      "mirror_checks": len(syncs), "token_agreement": same_tokens(slot, paged),
+                      "arena_blocks": SCHED_ARENA}
+    timing = {}
+    prompts8 = np.random.default_rng(SCHED_SEED + 2).integers(
+        1, cfg.vocab, (SCHED_SLOTS, PROMPT)).astype(np.int32)
+    for route in ("dense", "fp32"):
+        e = sched_use(engines[route])
+        turns = {"pool": [], "generate_b8": []}
+        for order in (("pool", "generate_b8"), ("generate_b8", "pool")):
+            for what in order:
+                if what == "pool":
+                    turns[what].append(pool_ms_per_step(e))
+                else:
+                    out = e.generate(prompts8, max_new=MAX_NEW)
+                    turns[what].append(1e3 * out["decode_s"] / (MAX_NEW - 1))
+        timing[route] = turns
+    res["ms_per_step"] = timing
+    res["noise_table_bytes"] = SCHED_SLOTS * SCHED_MAX_LEN * cfg.padded_vocab * 4
+    res["seconds"] = time.monotonic() - t_phase
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run only on the card")
@@ -1320,6 +1620,52 @@ def main() -> None:
         print(line, flush=True)
     print(f"speculative phase {time.monotonic() - t0:.1f}s", flush=True)
 
+    sched = scheduler_phase(cfg, params, {"dense": dense_eng, "fp32": eng, **qengs})
+    print(f"scheduler ({SCHED_SLOTS} slots, segments of {SCHED_SEGMENT}, max_len "
+          f"{SCHED_MAX_LEN}, {SCHED_REQUESTS} requests): the pool step's rows equal B = 1 steps "
+          f"bitwise on every route, slot and paged: {sched['row_stability']}", flush=True)
+    for what, st in sched["sequential"].items():
+        print(f"scheduler sequential admission {what}: every completion equals one-shot "
+              f"generate at B = 1; {st['segments']} segments, "
+              f"{st['sustained_tok_per_s']:.1f} sustained tok/s, TTFT p50 "
+              f"{st['ttft_p50_s'] * 1e3:.1f} ms p99 {st['ttft_p99_s'] * 1e3:.1f} ms, ITL p50 "
+              f"{st['itl_p50_s'] * 1e3:.1f} ms p99 {st['itl_p99_s'] * 1e3:.1f} ms, occupancy "
+              f"{st['slot_occupancy']:.4f}" + (f", graph launches {st['graph_launches']}"
+                                               if "graph_launches" in st else ""), flush=True)
+    for route, r in sched["paged_vs_slot"].items():
+        print(f"scheduler paged (no prefix cache, no chunks, worst-case arena) {route}: tokens "
+              f"equal the slot pool's under batched admission, all arrivals at 0 (slot "
+              f"{r['slot']['sustained_tok_per_s']:.1f} / paged "
+              f"{r['paged']['sustained_tok_per_s']:.1f} sustained tok/s)", flush=True)
+    for g in sched["prime_many_vs_prime"]:
+        print(f"scheduler prime_many vs prime, fp32, {g['layers']} layers: gap "
+              f"{g['max_abs_gap']:.4g} ({g['gap_rel']:.3g} of the largest logit), bitwise "
+              f"{g['bitwise']}; witness, the same prompt twice in a batch of 2 without padding: "
+              f"{g['witness_b2_gap_rel']:.3g} of the largest logit", flush=True)
+    tr = sched["traffic"]
+    for what in ("slot_batched", "paged"):
+        st = tr[what]
+        print(f"scheduler traffic fp32 {what}: {st['sustained_tok_per_s']:.1f} sustained tok/s "
+              f"({st['decoded_tokens']} tokens, decode {st['decode_s']:.3f} s, admission "
+              f"{st['admit_s']:.3f} s), TTFT p50 {st['ttft_p50_s'] * 1e3:.1f} ms p99 "
+              f"{st['ttft_p99_s'] * 1e3:.1f} ms, ITL p50 {st['itl_p50_s'] * 1e3:.1f} ms p99 "
+              f"{st['itl_p99_s'] * 1e3:.1f} ms, occupancy {st['slot_occupancy']:.4f}, HBM bytes "
+              f"per active request {st['hbm_bytes_per_active_request']:.0f} (pool "
+              f"{st['kv_pool_bytes']:.0f}), prefix hit rate {st['prefix_hit_rate']:.4f}, hits "
+              f"{st['prefix_hits']:.0f}, COW {st['cow_copies']:.0f}, chunks "
+              f"{st['prefill_chunks']}, preempted {st['preempted']}", flush=True)
+    print(f"scheduler traffic: paged (prefix cache, pages of {SCHED_PAGE}, chunks of "
+          f"{SCHED_CHUNK}, arena of {tr['arena_blocks']} blocks) all OK, host mirrors equal the "
+          f"device's at {tr['mirror_checks']} syncs; token agreement with the slot pool "
+          f"{tr['token_agreement']:.4f}", flush=True)
+    for route, t in sched["ms_per_step"].items():
+        print(f"scheduler ms per step {route} (in turns): pool step at {SCHED_SLOTS} rows "
+              f"{t['pool']}, one-shot generate at B = {SCHED_SLOTS} {t['generate_b8']}",
+              flush=True)
+    print(f"scheduler memory: noise table {sched['noise_table_bytes']} bytes, slot pool KV "
+          f"{sched['paged_vs_slot']['fp32']['slot']['kv_pool_bytes']:.0f} bytes; phase "
+          f"{sched['seconds']:.1f}s ({card})", flush=True)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -1375,6 +1721,7 @@ def main() -> None:
          "per logical fp32 product (3xTF32)",
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
          "paper_workloads": paper, "graph_decode": graph, "speculative": spec,
+         "scheduler": sched,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

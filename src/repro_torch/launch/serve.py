@@ -7,12 +7,17 @@ optional VUSA packing, one batched ``generate``.
         --packed-values int8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --packed all \
         --speculative --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --device cpu \
+        --requests 8 --slots 4 --page-size 16
 
-Port of the one-shot ``generate`` branch of the JAX package's
-``launch/serve.py``, with its speculative options; the scheduler,
-streaming, mesh and fault options come with later slices (ROADMAP.md
-queue A).  ``--no-fused`` decodes in the eager host loop instead of the
-CUDA graph.
+Port of the JAX package's ``launch/serve.py``: one batched ``generate``,
+with its speculative options, or with ``--requests N`` N synthetic
+requests through the continuous-batching ``Scheduler`` (``--slots``,
+``--deadline-s``, ``--queue-cap`` / ``--shed-policy``, and the paged pool:
+``--page-size``, ``--arena-blocks``, ``--prefix-cache``,
+``--prefill-chunk``).  The streaming, mesh and fault options come with
+later slices (ROADMAP.md queue A).  ``--no-fused`` decodes in the eager
+host loop instead of the CUDA graph.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import numpy as np
 from ..configs import get_config, get_smoke_config
 from ..core.pruning import prune_tree
 from ..models import build_model
-from ..serve import Engine, ServeConfig
+from ..serve import Engine, Request, Scheduler, ServeConfig
 
 
 def main(argv=None):
@@ -61,7 +66,50 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    ap.add_argument(
+        "--requests", type=int, default=0,
+        help="serve N synthetic requests through the continuous-batching "
+        "Scheduler (0 = one-shot batched generate)",
+    )
+    ap.add_argument("--slots", type=int, default=4, help="scheduler slot pool size")
+    ap.add_argument(
+        "--deadline-s", type=float, default=None,
+        help="per-request deadline (from arrival); blown deadlines finish TIMEOUT",
+    )
+    ap.add_argument(
+        "--queue-cap", type=int, default=None,
+        help="bound the scheduler queue; overflow handled per --shed-policy",
+    )
+    ap.add_argument(
+        "--shed-policy", default="reject",
+        choices=("reject", "shed-oldest", "shed-lowest-priority"),
+        help="who pays when the queue is full",
+    )
+    ap.add_argument(
+        "--page-size", type=int, default=0,
+        help="KV block size in tokens; >0 switches the scheduler to the paged "
+        "arena pool with prefix sharing, 0 = slot pool",
+    )
+    ap.add_argument(
+        "--arena-blocks", type=int, default=0,
+        help="total paged-arena blocks (0 = auto: enough for every slot at "
+        "max_len); smaller arenas admit lazily and preempt under pressure",
+    )
+    ap.add_argument(
+        "--prefix-cache", action=argparse.BooleanOptionalAction, default=True,
+        help="share identical prompt-prefix pages between requests "
+        "(--no-prefix-cache disables; only meaningful with --page-size)",
+    )
+    ap.add_argument(
+        "--prefill-chunk", type=int, default=0,
+        help="chunk long prompt prefills to this many tokens and co-schedule "
+        "the chunks with decode segments (0 = whole-prompt prefill; "
+        "requires --page-size)",
+    )
     args = ap.parse_args(argv)
+    if args.speculative and args.requests > 0:
+        ap.error("--speculative serves one-shot generate; the scheduler's speculative "
+                 "segments are not ported yet (ROADMAP.md A9)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = build_model(cfg).init(0, device=args.device)
@@ -71,11 +119,17 @@ def main(argv=None):
     batch = args.batch if args.batch is not None else (1 if args.speculative else 4)
     headroom = args.draft_k if args.speculative else 0
     max_len = args.prompt_len + args.max_new + headroom + 8
+    if args.page_size > 0:  # the page size must divide max_len
+        max_len = -(-max_len // args.page_size) * args.page_size
     sc = ServeConfig(max_len=max_len, packed_weights=args.packed,
                      packed_values=args.packed_values, fused=not args.no_fused,
                      speculative=args.speculative, draft_k=args.draft_k,
-                     draft_sparsity=args.draft_sparsity)
+                     draft_sparsity=args.draft_sparsity, page_size=args.page_size,
+                     arena_blocks=args.arena_blocks, prefix_cache=args.prefix_cache,
+                     prefill_chunk=args.prefill_chunk)
     eng = Engine(cfg, params, sc, device=args.device)
+    if args.requests > 0:
+        return _serve_requests(args, cfg, eng)
     prompts = np.ones((batch, args.prompt_len), np.int32)
     out = eng.generate(prompts, max_new=args.max_new)
     line = (f"prefill {out['prefill_s']*1e3:.1f}ms  decode {out['decode_s']*1e3:.1f}ms  "
@@ -85,6 +139,37 @@ def main(argv=None):
                  f"{out['spec_proposed']} ({out['acceptance_rate']:.2f})")
     print(line)
     return out
+
+
+def _serve_requests(args, cfg, eng):
+    """``--requests N``: N random prompts of ``--prompt-len`` tokens through
+    the scheduler, then its stats."""
+    sched = Scheduler(eng, slots=args.slots, queue_cap=args.queue_cap,
+                      shed_policy=args.shed_policy)
+    rng = np.random.default_rng(0)
+    for r in range(args.requests):
+        sched.submit(Request(
+            prompt=rng.integers(1, cfg.vocab, size=args.prompt_len).astype(np.int32),
+            max_new=args.max_new, seed=r, deadline_s=args.deadline_s,
+        ))
+    done = sched.run()
+    st = sched.stats()
+    print(f"{st['requests']} completions  {st['sustained_tok_per_s']:.0f} tok/s  "
+          f"latency p50 {st['latency_p50_s']*1e3:.0f}ms  "
+          f"ttft p50 {st['ttft_p50_s']*1e3:.0f}ms")
+    print("  " + "  ".join(f"{k}={st[k]}" for k in
+                           ("rejected", "shed", "timed_out", "cancelled", "failed")))
+    if args.page_size > 0:
+        print(f"  arena {st['kv_pool_bytes']/2**20:.1f}MiB "
+              f"blocks live={st['blocks_live']:.0f} free={st['blocks_free']:.0f} "
+              f"cached={st['blocks_cached']:.0f}  "
+              f"prefix hit rate {st['prefix_hit_rate']:.2f}  "
+              f"cow={st['cow_copies']}  preempted={st['preempted']}  "
+              f"hbm/req {st['hbm_bytes_per_active_request']/2**10:.1f}KiB")
+    bad = sum(1 for c in done.values() if c.status.value != "OK")
+    if bad:
+        print(f"  {bad} requests did not deliver tokens")
+    return done
 
 
 if __name__ == "__main__":

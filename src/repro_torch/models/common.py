@@ -17,7 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "init_params", "rms_norm", "rope", "apply_rope", "strict_fp32"]
+__all__ = ["ParamSpec", "init_params", "rms_norm", "rope", "apply_rope", "strict_fp32",
+           "per_row"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,11 +69,26 @@ def strict_fp32() -> None:
 # --------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in fp32 with the reference's ``(1 + scale)`` gain."""
+def per_row(fn, x: torch.Tensor, rowwise: bool) -> torch.Tensor:
+    """``fn(x)``, or with ``rowwise`` ``fn`` of each batch row alone,
+    concatenated.  Each row then goes through exactly the call a batch of
+    one makes, shapes included, so its bits are the B = 1 result's.  A GEMM
+    or a reduction over B rows is not bitwise the B one-row calls: the
+    library picks its kernel, and so its order of operations, by shape.
+    Elementwise operations need no such care."""
+    if not rowwise or x.shape[0] == 1:
+        return fn(x)
+    return torch.cat([fn(x[b : b + 1]) for b in range(x.shape[0])])
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             rowwise: bool = False) -> torch.Tensor:
+    """RMSNorm in fp32 with the reference's ``(1 + scale)`` gain.  With
+    ``rowwise`` the mean, the one reduction, runs one batch row at a time
+    (``per_row``)."""
     dtype = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    var = per_row(lambda r: r.mean(dim=-1, keepdim=True), x.square(), rowwise)
     return (x * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dtype)
 
 

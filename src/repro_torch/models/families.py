@@ -12,12 +12,14 @@ from __future__ import annotations
 
 import torch
 
-from .common import ParamSpec, rms_norm
-from .layers import MaskSpec, attention, attention_decode, attention_specs, mlp, mlp_specs
+from .common import ParamSpec, per_row, rms_norm
+from .layers import (
+    MaskSpec, attention, attention_chunk, attention_decode, attention_specs, mlp, mlp_specs,
+)
 
 __all__ = [
     "lm_specs", "lm_forward", "lm_cache_specs", "lm_init_cache", "lm_decode_step",
-    "lm_prefill", "act_dtype", "layer_params",
+    "lm_prefill", "lm_prefill_chunk", "act_dtype", "layer_params", "layer_cache",
 ]
 
 
@@ -88,57 +90,67 @@ def lm_forward(params, batch, cfg):
 
 
 def lm_cache_specs(cfg, batch: int, max_len: int) -> dict:
-    """Shapes and dtypes of the decode cache's K/V; ``pos`` is a 0-d
-    ``torch.long`` tensor beside them (``lm_init_cache``)."""
+    """``{name: (shape, dtype)}`` of the decode cache: K/V of every layer,
+    and ``pos``, a (batch,) ``torch.long`` tensor, one position per row."""
     kv = ((cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd), act_dtype(cfg))
-    return {"k": kv, "v": kv}
+    return {"k": kv, "v": kv, "pos": ((batch,), torch.long)}
 
 
 def lm_init_cache(cfg, batch: int, max_len: int, device) -> dict:
-    cache = {
+    return {
         name: torch.zeros(shape, dtype=dtype, device=device)
         for name, (shape, dtype) in lm_cache_specs(cfg, batch, max_len).items()
     }
-    cache["pos"] = torch.zeros((), dtype=torch.long, device=device)
-    return cache
 
 
-def lm_decode_step(params, token, cache, cfg):
+def layer_cache(cache: dict, i: int) -> dict:
+    """Layer ``i``'s view of a decode cache: ``{"k", "v", "pos"}`` of a
+    contiguous cache, plus ``"table"`` when the K/V are a paged arena
+    (``models/cache.py paged_view``)."""
+    out = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]}
+    if "table" in cache:
+        out["table"] = cache["table"]
+    return out
+
+
+def lm_decode_step(params, token, cache, cfg, rowwise: bool = False):
     """token: (B, s) int (s = 1 normal decode; s > 1 the speculative
     verify).  Returns (logits (B, s, V), cache with ``pos + s``).
 
     The cache is updated in place: K/V rows (see ``attention_decode``) and
-    the device scalar ``pos``, which is advanced, never rebound, so a CUDA
-    graph that replays the step keeps reading the same tensor.  With
+    the (B,) device tensor ``pos``, which is advanced, never rebound, so a
+    CUDA graph that replays the step keeps reading the same tensor.  With
     ``s > 1`` the step runs as a chain of ``s`` exact single-token steps: a
     ``torch.matmul`` over s rows is not bitwise the s one-row products
     (the GEMM's order of operations changes with the row count), while the
     chain is bitwise the sequential steps by construction, as in the
-    reference."""
+    reference.  ``rowwise`` computes every product, norm and attend one
+    batch row at a time, so row b is bitwise a B = 1 step on its own cache
+    row (the scheduler's pool step); the cache may then also be paged."""
     if token.shape[1] > 1:
         logits = []
         for i in range(token.shape[1]):
-            lg, cache = lm_decode_step(params, token[:, i : i + 1], cache, cfg)
+            lg, cache = lm_decode_step(params, token[:, i : i + 1], cache, cfg, rowwise)
             logits.append(lg)
         return torch.cat(logits, dim=1), cache
     x = _embed_tokens(params, token, cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
-        x = x + attention_decode(
-            lp["attn"], rms_norm(x, lp["norm1"]), cfg,
-            {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]},
-        )
-        x = x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
-    x = rms_norm(x, params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
+        x = x + attention_decode(lp["attn"], rms_norm(x, lp["norm1"], rowwise=rowwise), cfg,
+                                 layer_cache(cache, i), rowwise=rowwise)
+        x = x + mlp(lp["ffn"], rms_norm(x, lp["norm2"], rowwise=rowwise), rowwise)
+    x = rms_norm(x, params["final_norm"], rowwise=rowwise)
+    head = _head(params, cfg).to(x.dtype)
+    logits = per_row(lambda r: torch.einsum("bsd,dv->bsv", r, head), x, rowwise)
     cache["pos"].add_(1)
     return logits, cache
 
 
 def lm_prefill(params, batch, cfg, max_len: int, lengths=None):
     """Run the prompt and bulk-write the KV cache.  Returns (logits (B, V) at
-    each row's last real token, cache with ``pos`` = padded prompt length,
-    a 0-d tensor on the tokens' device).
+    each row's last real token, cache with every row's ``pos`` = the padded
+    prompt length, on the tokens' device; the scheduler's ``write_slots``
+    sets each row's true length).
 
     ``lengths`` (B,) enables masked prefill of right-padded prompts: padded
     keys get exactly-zero probability and each row's logits are taken at its
@@ -171,3 +183,46 @@ def lm_prefill(params, batch, cfg, max_len: int, lengths=None):
         last = xf[torch.arange(b, device=xf.device), lengths - 1]
     logits = torch.einsum("bd,dv->bv", last, _head(params, cfg).to(xf.dtype))
     return logits, cache
+
+
+def lm_prefill_chunk(params, tokens, cfg, arena, table_row, start: int, true_len: int,
+                     write_from: int):
+    """One chunk of a paged chunked prefill (Sarathi-style).
+
+    ``tokens`` (1, C) is a chunk of a single prompt whose first token sits at
+    absolute position ``start``; ``true_len`` counts its real tokens (the
+    final chunk is right-padded to C).  Each layer attends the chunk
+    causally over everything resident in ``table_row``'s blocks plus itself
+    (``attention_chunk``), then the chunk's K/V rows are written into
+    ``arena`` (``{"k", "v"}``, each (L, n_blocks, page, kvh, hd)) in place at
+    their block-table addresses.  Rows below ``write_from`` are *not*
+    written: prefix-shared pages are already resident and stay read-only
+    (``write_from = start + true_len`` makes the call a pure re-peek, e.g.
+    the first-token logits after a fully matched prefix).
+
+    Returns ``(logits (1, V), arena)``: the logits at the chunk's last real
+    token, meaningful on the final chunk only."""
+    x = _embed_tokens(params, tokens, cfg)
+    c = x.shape[1]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        y, k_c, v_c = attention_chunk(lp["attn"], rms_norm(x, lp["norm1"]), cfg,
+                                      arena["k"][i], arena["v"][i], table_row, start, true_len)
+        x = x + y
+        x = x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
+        ks.append(k_c[0])
+        vs.append(v_c[0])
+    page, n_pages = arena["k"].shape[2], table_row.shape[0]
+    keep = [j for j in range(min(c, true_len))
+            if start + j >= write_from and start + j < n_pages * page]
+    if keep:
+        rows = torch.tensor(keep, device=x.device)
+        dst = table_row[(start + rows) // page] * page + (start + rows) % page
+        for name, new in (("k", ks), ("v", vs)):
+            a = arena[name]
+            a.flatten(1, 2).index_copy_(1, dst, torch.stack(new)[:, rows].to(a.dtype))
+    xf = rms_norm(x, params["final_norm"])
+    last = xf[:, min(max(true_len, 1), c) - 1]  # (1, d)
+    logits = torch.einsum("bd,dv->bv", last, _head(params, cfg).to(xf.dtype))
+    return logits, arena

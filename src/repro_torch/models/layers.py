@@ -19,10 +19,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, apply_rope, rms_norm, rope
+from .cache import paged_gather, paged_scatter_token
+from .common import ParamSpec, apply_rope, per_row, rms_norm, rope
 
 __all__ = [
-    "attention_specs", "mlp_specs", "MaskSpec", "attention", "attention_decode", "mlp",
+    "attention_specs", "mlp_specs", "MaskSpec", "attention", "attention_decode",
+    "attention_chunk", "mlp",
 ]
 
 _NEG_INF = -1e30
@@ -73,10 +75,10 @@ class MaskSpec:
     kind: str = "causal"
 
     def __call__(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-        """(Q,) x (K,) int positions -> (Q, K) bool allow-mask."""
+        """(..., Q) x (K,) int positions -> (..., Q, K) bool allow-mask."""
         if self.kind != "causal":
             raise NotImplementedError(f"mask kind {self.kind!r} is not ported yet")
-        return k_pos[None, :] <= q_pos[:, None]
+        return k_pos[None, :] <= q_pos[..., :, None]
 
 
 # --------------------------------------------------------------------------
@@ -105,7 +107,7 @@ def _flash_attend(
     scale = hd**-0.5
     if kv_valid is None:
         kv_valid = torch.ones((sk,), dtype=torch.bool, device=q.device)
-    per_row = kv_valid.ndim == 2
+    row_valid = kv_valid.ndim == 2
     qf = q.float()
     m = torch.full((b, kvh, g, sq), _NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
@@ -115,7 +117,7 @@ def _flash_attend(
         vi = v[:, k0 : k0 + kv_chunk]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, ki) * scale
         allow = mask(q_pos, k_pos[k0 : k0 + kv_chunk])  # (Q, K)
-        if per_row:
+        if row_valid:
             allow = (allow[None] & kv_valid[:, None, k0 : k0 + kv_chunk])[:, None, None]
         else:
             allow = allow & kv_valid[None, k0 : k0 + kv_chunk]
@@ -140,19 +142,35 @@ def _direct_attend(
     k: torch.Tensor,  # (B, Sk, KVH, hd)
     v: torch.Tensor,
     mask: MaskSpec,
-    q_pos: torch.Tensor,  # (1,)
+    q_pos: torch.Tensor,  # (B, 1): each row's own position
     k_pos: torch.Tensor,  # (Sk,)
-    kv_valid: torch.Tensor,  # (Sk,)
+    kv_valid: torch.Tensor,  # (B, Sk)
+    rowwise: bool = False,
 ) -> torch.Tensor:
-    """Unchunked fp32 decode attention, as the reference's ``decode_direct``."""
+    """Unchunked fp32 decode attention, as the reference's ``decode_direct``.
+    With ``rowwise`` the two products and the softmax sum run one batch row
+    at a time (``per_row``); the max is exact in any order and the rest is
+    elementwise, so row b is bitwise the B = 1 attend."""
     scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
-    allow = mask(q_pos, k_pos) & kv_valid[None, :]
-    s = s.masked_fill(~allow, _NEG_INF)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows = range(q.shape[0]) if rowwise and q.shape[0] > 1 else None
+    if rows is None:
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+    else:
+        s = torch.cat([torch.einsum("bqhgd,bkhd->bhgqk", qf[j : j + 1], kf[j : j + 1])
+                       for j in rows])
+    s = s * scale
+    allow = mask(q_pos, k_pos) & kv_valid[:, None, :]  # (B, 1, Sk)
+    s = s.masked_fill(~allow[:, None, None], _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgqk,bkhd->bhgqd", p / torch.clamp_min(l, 1e-30), v.float())
+    l = per_row(lambda r: r.sum(dim=-1, keepdim=True), p, rowwise)
+    p = p / torch.clamp_min(l, 1e-30)
+    if rows is None:
+        out = torch.einsum("bhgqk,bkhd->bhgqd", p, vf)
+    else:
+        out = torch.cat([torch.einsum("bhgqk,bkhd->bhgqd", p[j : j + 1], vf[j : j + 1])
+                         for j in rows])
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B, 1, KVH, G, hd)
 
 
@@ -161,17 +179,19 @@ def _direct_attend(
 # --------------------------------------------------------------------------
 
 
-def _project_qkv(p, x, cfg, positions, wmm=None):
+def _project_qkv(p, x, cfg, positions, wmm=None, rowwise=False):
     """QKV projection.  ``wmm(name, x) -> x @ W_name`` on the flattened head
     dim optionally overrides the weight matmuls — the hook the VUSA-packed
     decode path (serve/packed.py) uses to run the projections through the
-    row-packed kernel while sharing the rope/bias/norm glue."""
+    row-packed kernel while sharing the rope/bias/norm glue.  ``rowwise``
+    runs the dense products one batch row at a time (``per_row``); each
+    weight is cast to the activation dtype once, not once per row.
+    ``positions`` is (S,) shared by every row, or (B, s) per row."""
     b, s, d = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     if wmm is None:
-        q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(x.dtype))
-        k = torch.einsum("bsd,dnh->bsnh", x, p["wk"].to(x.dtype))
-        v = torch.einsum("bsd,dnh->bsnh", x, p["wv"].to(x.dtype))
+        q, k, v = (per_row(lambda r, w=p[n].to(x.dtype): torch.einsum("bsd,dnh->bsnh", r, w),
+                         x, rowwise) for n in ("wq", "wk", "wv"))
     else:
         q = wmm("wq", x).reshape(b, s, nh, hd).to(x.dtype)
         k = wmm("wk", x).reshape(b, s, kvh, hd).to(x.dtype)
@@ -181,8 +201,8 @@ def _project_qkv(p, x, cfg, positions, wmm=None):
         k = k + p["bk"].to(x.dtype)[None, None]
         v = v + p["bv"].to(x.dtype)[None, None]
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, p["q_norm"], rowwise=rowwise)
+        k = rms_norm(k, p["k_norm"], rowwise=rowwise)
     sin, cos = rope(positions, hd, cfg.rope_theta)
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
@@ -211,43 +231,65 @@ def attention(
     return (y, k, v) if return_kv else y
 
 
-def _write_rows(cache_t: torch.Tensor, positions: torch.Tensor, rows: torch.Tensor) -> None:
-    """Write ``rows`` (B, s, ...) into ``cache_t`` (B, S_max, ...) at the
-    consecutive slots ``positions`` (s,), in place; rows past ``S_max`` are
-    dropped (the reference's ``mode="drop"``), never clamped onto the last
-    slot.  A row past the end is sent to the last slot carrying that slot's
+def _write_rows(caches, positions: torch.Tensor, rows) -> None:
+    """Write each of ``rows`` (B, s, ...) into the matching cache of
+    ``caches`` (B, S_max, ...) at each batch row's consecutive slots
+    ``positions`` (B, s), in place; rows past ``S_max`` are dropped (the
+    reference's ``mode="drop"``), never clamped onto the last slot.  A row
+    past the end is sent to its batch row's last slot carrying that slot's
     final value (the first row aimed there, or what the slot holds), so
     every write to one slot carries the same bits and the result does not
-    depend on the order the writes land in.  All on the device: no host
-    sync."""
-    s_max, s = cache_t.shape[1], rows.shape[1]
+    depend on the order the writes land in.  The slot index is computed
+    once for all the caches (K and V); each cache is read and written
+    through its flat (B * S_max) view with ``index_select`` and
+    ``index_copy_``.  All on the device: no host sync."""
+    b, s = positions.shape
+    s_max, dev = caches[0].shape[1], positions.device
     idx = positions.clamp(max=s_max - 1)
-    inside = (positions < s_max).view(1, s, *[1] * (rows.ndim - 2))
-    src = torch.where(inside, rows.to(cache_t.dtype), cache_t.index_select(1, idx))
+    flat = (torch.arange(0, b * s_max, s_max, device=dev)[:, None] + idx).reshape(-1)
+    inside = (positions < s_max).reshape(-1)
+    pick = None
     if s > 1:  # row i takes the data of the first row aimed at its slot
-        first = torch.minimum(torch.arange(s, device=positions.device),
-                              (s_max - 1 - positions[0]).clamp(min=0))
-        src = src.index_select(1, first)
-    cache_t.index_copy_(1, idx, src)
+        first = torch.minimum(torch.arange(s, device=dev)[None],
+                              (s_max - 1 - positions[:, :1]).clamp(min=0))
+        pick = (torch.arange(0, b * s, s, device=dev)[:, None] + first).reshape(-1)
+    for cache_t, new in zip(caches, rows):
+        assert cache_t.is_contiguous(), "the cache is written through its flat view"
+        view = cache_t.flatten(0, 1)
+        new = new.flatten(0, 1).to(cache_t.dtype)
+        src = torch.where(inside.view(-1, *[1] * (new.ndim - 1)), new,
+                          view.index_select(0, flat))
+        if pick is not None:
+            src = src.index_select(0, pick)
+        view.index_copy_(0, flat, src)
 
 
 def attention_decode(
     p: dict,
     x: torch.Tensor,  # (B, s, d)
     cfg,
-    cache: dict,  # {"k": (B, S_max, kvh, hd), "v": ..., "pos": 0-d long tensor}
+    cache: dict,  # {"k": (B, S_max, kvh, hd), "v": ..., "pos": (B,) long}, or paged
     wmm=None,  # optional weight-matmul override (see _project_qkv)
+    rowwise: bool = False,
 ) -> torch.Tensor:
-    """Decode ``s`` tokens against a contiguous KV cache; returns y (B, s, d).
+    """Decode ``s`` tokens against a KV cache; returns y (B, s, d).
 
-    ``pos`` is a 0-d ``torch.long`` tensor on the cache's device — the
-    number of tokens already cached — from which the rope positions, the
-    cache write and the validity mask are derived, so the step makes no
-    host sync and a CUDA graph can replay it at any position.  The new K/V
-    rows are written into the cache tensors *in place* (the reference
-    returns an updated copy; in place saves a full cache copy per layer and
-    step); ``pos`` itself is the caller's to advance.  Rows past the cache
-    end are dropped; the engine's length guard keeps decode short of it.
+    ``pos`` is a (B,) ``torch.long`` tensor on the cache's device — the
+    number of tokens row b has cached — from which each row's rope
+    positions, cache write and validity mask are derived, so rows may sit
+    at ragged positions (the scheduler's slots), the step makes no host
+    sync and a CUDA graph can replay it at any positions.  The new K/V rows
+    are written into the cache tensors *in place* (the reference returns an
+    updated copy; in place saves a full cache copy per layer and step);
+    ``pos`` itself is the caller's to advance.  Rows past the cache end are
+    dropped; the engine's length guard keeps decode short of it.
+
+    The cache may also be *paged*: ``{"k": (n_blocks, page, kvh, hd), "v":
+    ..., "table": (B, n_pages) long, "pos": (B,)}``.  The new row is written
+    into the arena at the block table's address (``paged_scatter_token``),
+    then the table gathers exactly the contiguous (B, max_len, ...) view the
+    slot pool holds, so from there on the attend is the same computation and
+    the tokens the same bits.  Paged decode takes one token per row.
 
     With ``s > 1`` (the speculative verify) the ``s`` tokens take positions
     ``pos .. pos+s-1`` and all their K/V rows are written before attending.
@@ -257,27 +299,69 @@ def attention_decode(
     0, so each row is bitwise the sequential step's.  Bit-parity of the
     surrounding matmuls is the caller's contract: ``wmm`` must be
     row-stable across row counts (the packed kernels are; a ``torch.matmul``
-    in general is not, so the dense path chains single-token steps)."""
+    in general is not, so the dense path chains single-token steps).
+    ``rowwise`` runs the dense products and the attend's products and sum
+    one batch row at a time, so row b is bitwise a B = 1 step on its cache
+    row (the scheduler's pool step)."""
     b, s, d = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
-    k_cache, v_cache = cache["k"], cache["v"]
-    s_max = k_cache.shape[1]
-    positions = cache["pos"] + torch.arange(s, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions, wmm=wmm)
-    _write_rows(k_cache, positions, k_new)
-    _write_rows(v_cache, positions, v_new)
-    slots = torch.arange(s_max, device=x.device)
+    positions = cache["pos"][:, None] + torch.arange(s, device=x.device)  # (B, s)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, wmm=wmm, rowwise=rowwise)
+    if "table" in cache:
+        assert s == 1, "paged decode takes one token per row"
+        table = cache["table"]
+        paged_scatter_token(cache["k"], table, positions, k_new)
+        paged_scatter_token(cache["v"], table, positions, v_new)
+        k_cache, v_cache = paged_gather(cache["k"], table), paged_gather(cache["v"], table)
+    else:
+        k_cache, v_cache = cache["k"], cache["v"]
+        _write_rows((k_cache, v_cache), positions, (k_new, v_new))
+    slots = torch.arange(k_cache.shape[1], device=x.device)
     q = q.reshape(b, s, kvh, nh // kvh, hd)
     rows = [
         _direct_attend(q[:, i : i + 1].contiguous(), k_cache, v_cache, MaskSpec("causal"),
-                       positions[i : i + 1], slots, slots <= positions[i])
+                       positions[:, i : i + 1], slots, slots[None, :] <= positions[:, i : i + 1],
+                       rowwise)
         for i in range(s)  # s = draft_k + 1 at most: small
     ]
     out = rows[0] if s == 1 else torch.cat(rows, dim=1)
     out = out.reshape(b, s, nh, hd)
     if wmm is None:
-        return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
+        wo = p["wo"].to(x.dtype)
+        return per_row(lambda r: torch.einsum("bsnh,nhd->bsd", r, wo), out, rowwise)
     return wmm("wo", out.reshape(b, s, nh * hd)).to(x.dtype)
+
+
+def attention_chunk(
+    p: dict,
+    x: torch.Tensor,  # (1, C, d) — one prefill chunk of a single request
+    cfg,
+    arena_k: torch.Tensor,  # (n_blocks, page, kvh, hd)
+    arena_v: torch.Tensor,
+    table: torch.Tensor,  # (n_pages,) long — the request's block table
+    start: int,  # absolute position of the chunk's first token
+    true_len: int,  # real (non-padding) tokens in the chunk
+):
+    """Chunked-prefill attention (Sarathi-style): one chunk of a long prompt
+    attends causally over everything already resident in the request's
+    block table plus itself.  The chunk's K/V are written into the gathered
+    table view by row index (rows past ``max_len`` dropped, as
+    ``_write_rows`` does).  Returns ``(y, k_chunk, v_chunk)``; the caller
+    writes the chunk rows into the arena (masking padding and
+    prefix-shared rows)."""
+    b, c, d = x.shape
+    nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    positions = start + torch.arange(c, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    k_all = paged_gather(arena_k, table[None])
+    v_all = paged_gather(arena_v, table[None])
+    _write_rows((k_all, v_all), positions[None], (k_new, v_new))
+    rows = torch.arange(k_all.shape[1], device=x.device)
+    q = q.reshape(b, c, kvh, nh // kvh, hd)
+    out = _flash_attend(q, k_all, v_all, MaskSpec("causal"), positions, rows,
+                        kv_valid=rows < start + true_len)
+    out = out.reshape(b, c, nh, hd)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype)), k_new, v_new
 
 
 # --------------------------------------------------------------------------
@@ -285,6 +369,7 @@ def attention_decode(
 # --------------------------------------------------------------------------
 
 
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
-    return h @ p["w_down"].to(x.dtype)
+def mlp(p: dict, x: torch.Tensor, rowwise: bool = False) -> torch.Tensor:
+    """SwiGLU MLP; ``rowwise`` as in ``_project_qkv`` (weights cast once)."""
+    wg, wu, wd = (p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down"))
+    return per_row(lambda r: (F.silu(r @ wg) * (r @ wu)) @ wd, x, rowwise)

@@ -43,11 +43,65 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
         return F.lm_init_cache(self.cfg, batch, max_len, torch.device(device))
 
-    def decode_step(self, params: dict, token, cache: dict):
-        return F.lm_decode_step(params, token, cache, self.cfg)
+    def cache_specs(self, batch: int, max_len: int) -> dict:
+        return F.lm_cache_specs(self.cfg, batch, max_len)
+
+    def decode_step(self, params: dict, token, cache: dict, rowwise: bool = False):
+        return F.lm_decode_step(params, token, cache, self.cfg, rowwise=rowwise)
 
     def prefill(self, params: dict, batch: dict, max_len: int, lengths=None):
         return F.lm_prefill(params, batch, self.cfg, max_len, lengths=lengths)
+
+    # ---- slot pool (continuous batching; see serve/scheduler.py) ----
+    def init_slot_cache(self, slots: int, max_len: int, device="cuda") -> dict:
+        """The slot pool: one decode cache whose batch axis is the slot
+        axis, each row with its own ``pos``."""
+        from .cache import init_slot_cache
+
+        return init_slot_cache(self.cache_specs(slots, max_len), torch.device(device))
+
+    def cache_batch_axes(self, max_len: int) -> dict:
+        """Per-leaf batch axis (:func:`repro_torch.models.cache.batch_axes`)
+        for scattering batched prefill caches into slots."""
+        from .cache import batch_axes
+
+        return batch_axes(self.cache_specs(1, max_len), self.cache_specs(2, max_len))
+
+    def write_slots(self, slot_cache, idx, batched_cache, axes, pos) -> None:
+        """Scatter a batched (B = N) cache into slots ``idx`` in place;
+        ``pos`` (N,) sets each slot's true sequence position."""
+        from .cache import write_slots
+
+        write_slots(slot_cache, idx, batched_cache, axes, pos)
+
+    def reset_slot(self, slot_cache, i: int, max_len: int) -> None:
+        from .cache import reset_slot
+
+        reset_slot(slot_cache, i, self.cache_batch_axes(max_len))
+
+    def read_slot(self, slot_cache, i: int, max_len: int) -> dict:
+        from .cache import read_slot
+
+        return read_slot(slot_cache, i, self.cache_batch_axes(max_len))
+
+    # ---- paged pool ----
+    def paged_seq_len(self, max_len: int):
+        """``max_len`` if this family's cache is KV-shaped and can be paged,
+        else None."""
+        from .cache import paged_seq_len
+
+        return paged_seq_len(self.cache_specs(1, max_len))
+
+    def init_paged_pool(self, layout, max_len: int, device="cuda") -> dict:
+        from .cache import init_paged_pool
+
+        return init_paged_pool(self.cache_specs(1, max_len), layout, torch.device(device))
+
+    def prefill_chunk(self, params, tokens, arena, table_row, start: int, true_len: int,
+                      write_from: int):
+        """One chunk of a paged chunked prefill (``families.lm_prefill_chunk``)."""
+        return F.lm_prefill_chunk(params, tokens, self.cfg, arena, table_row, start, true_len,
+                                  write_from)
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -2,19 +2,24 @@
 through VUSA-packed weights (``ServeConfig.packed_weights``), and
 self-speculative decoding (``ServeConfig.speculative``).
 
-Port of the one-shot part of the JAX package's ``serve/engine.py``.  The
+Port of the JAX package's ``serve/engine.py``: one-shot ``generate``, and
+the entry points the continuous-batching scheduler (``serve/scheduler.py``)
+drives — ``prime`` and ``prime_many`` (bucketed masked prefill),
+``prefill_chunk`` (paged chunked prefill) and the pool step.  The
 reference fuses the decode loop into one ``lax.scan`` and the speculative
 decode into one ``lax.while_loop``.  Here, with ``ServeConfig.fused`` (the
 default) on a CUDA device, one decode step is captured in a CUDA graph
-once per batch size and replayed once per token, and one speculative
-round (``draft_k`` drafter steps, the verify, the accept scan) in another,
-replayed round after round.  ``fused=False`` keeps the eager host loop as
+once per batch size and replayed once per token, one speculative round
+(``draft_k`` drafter steps, the verify, the accept scan) in another,
+replayed round after round, and a scheduler's pool step (all its slots,
+each row at its own position) in a third, replayed ``segment`` times a
+segment.  ``fused=False`` keeps the eager host loop as
 the parity oracle, as the reference keeps its host loop.  On the CPU there
 are no graphs: ``fused=True`` runs the same step eagerly.  A capture or
 replay that fails raises; nothing falls back to the eager loop.
 
-Nothing in a step waits for the device: the position is a device scalar
-in the cache, each token is chosen on the device and feeds the next step,
+Nothing in a step waits for the device: the positions are a (B,) device
+tensor in the cache, each token is chosen on the device and feeds the next step,
 the integrity flags (``isfinite`` over the fp32 logits) stay there, and
 tokens and flags are fetched once at the end.  The speculative loop reads
 its emitted count once per batch of rounds (``_spec_decode``).
@@ -62,6 +67,28 @@ class ServeConfig:
     vusa_m: int = 128  # window lanes
     vusa_a: int = 16  # physical slots per row per job
     fused: bool = True  # CUDA-graph decode loop on the card (False = eager host loop)
+    # prompt-length buckets for batched masked prefill (``prime_many``); an
+    # empty tuple = powers of two from 8 up to max_len, which always ends
+    # the set
+    prefill_buckets: tuple = ()
+    # paged KV pool of the scheduler: 0 = the slot pool (one contiguous
+    # cache row per slot); > 0 = blocks of this many rows in a shared arena
+    # with per-slot block tables.  Must divide max_len (the gathered block
+    # view must equal the slot pool's cache shape for bit-parity).
+    page_size: int = 0
+    # share identical prompt prefixes between requests: full pages by
+    # refcounted block reuse, partial tail pages by copy-on-write.  Only
+    # meaningful with page_size > 0.
+    prefix_cache: bool = True
+    # arena capacity in user blocks; 0 = worst case (slots * max_len / page,
+    # no oversubscription).  Smaller values oversubscribe: admission checks
+    # the worst case per request, mid-flight exhaustion preempts.
+    arena_blocks: int = 0
+    # chunked prefill: > 0 = prompts longer than this prefill in chunks of
+    # this many tokens, one chunk per admitting slot between decode
+    # segments.  Requires page_size > 0 and a page multiple.  0 = whole
+    # prompts.
+    prefill_chunk: int = 0
     # self-speculative decoding: the same weights magnitude-pruned at
     # ``draft_sparsity`` and packed at scope "all" draft ``draft_k`` greedy
     # tokens a round; the configured path verifies them in one multi-token
@@ -80,6 +107,20 @@ class ServeConfig:
             raise ValueError(
                 f"packed_values must be 'bf16', 'int8' or 'int4', got {self.packed_values!r}"
             )
+        if self.page_size < 0 or (self.page_size and self.max_len % self.page_size):
+            raise ValueError(
+                f"page_size {self.page_size} must be 0 (slot pool) or divide "
+                f"max_len {self.max_len} (the paged view's bit-parity contract)"
+            )
+        if self.prefill_chunk:
+            if not self.page_size:
+                raise ValueError("prefill_chunk requires page_size > 0 "
+                                 "(chunks write through block tables)")
+            if self.prefill_chunk % self.page_size:
+                raise ValueError(
+                    f"prefill_chunk {self.prefill_chunk} must be a multiple of "
+                    f"page_size {self.page_size}"
+                )
         if self.speculative:
             if self.draft_k < 1:
                 raise ValueError(f"draft_k must be >= 1, got {self.draft_k}")
@@ -127,6 +168,28 @@ class _SpecLoop:
 
 
 @dataclasses.dataclass
+class _Pool:
+    """Device state of a scheduler's slot pool, stepped by ``_pool_step``
+    (all ``slots`` rows at once) and replayed ``segment`` steps per
+    segment: the input token (slots, 1); the cache — the slot pool's (K/V
+    and a (slots,) ``pos``) or, with ``paged``, the paged pool's
+    ``{"arena", "table", "pos"}`` (``models/cache.py``); each slot's
+    emitted-token count, which picks its noise row; the step's column in
+    the (slots, segment) token and flag outputs; and the (slots, n, V)
+    Gumbel noise table, each slot's rows copied in at admission (made at
+    the first sampled segment)."""
+
+    token: torch.Tensor
+    cache: dict
+    paged: bool
+    count: torch.Tensor
+    col: torch.Tensor
+    toks: torch.Tensor
+    oks: torch.Tensor
+    noise: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
 class _Graph:
     """A captured CUDA graph, the static state it replays against, the
     wrapper launches captured in one replay (by wrapper and route) and the
@@ -148,18 +211,22 @@ def _wrapper_counts() -> Dict[str, Dict[str, int]]:
 class Engine:
     def __init__(
         self, cfg: ArchConfig, params: dict, sc: Optional[ServeConfig] = None,
-        device="cuda",
+        device="cuda", clock=None,
     ):
         """``params``: the reference-layout parameter dict (moved to
         ``device``).  Switches TF32 off process-wide (``strict_fp32``): the
         dense path's fp32 products are true fp32, as in the reference.  The
         packs (the verifier's and, with ``speculative``, the drafter's) are
-        built here; ``fused``, ``temperature`` and ``seed`` are read at each
-        call."""
+        built here; ``fused``, ``temperature``, ``seed`` and ``max_len`` are
+        read at each call.  ``clock`` injects the timing source (default
+        ``time.monotonic``); the scheduler inherits it, so engine and
+        scheduler timings share one timeline."""
         strict_fp32()
         self.cfg = cfg
         self.sc = ServeConfig() if sc is None else sc
         self.device = torch.device(device)
+        self._clock = clock or time.monotonic
+        self._make_buckets(self.sc)  # refuses a bucket outside [1, max_len] now
         self.model = build_model(cfg)
         self.params = _to(params, self.device)
         self._packed = None
@@ -217,14 +284,16 @@ class Engine:
             )
 
     # -- one step -------------------------------------------------------------
-    def _logits(self, token, cache, packed) -> torch.Tensor:
+    def _logits(self, token, cache, packed, rowwise: bool = False) -> torch.Tensor:
         """(B, s, V) logits of ``token`` (B, s) through ``packed`` (dense
-        when None); advances the cache in place."""
+        when None); advances the cache in place.  ``rowwise``: row b bitwise
+        a B = 1 step (``families.lm_decode_step``)."""
         if packed is not None:
             from .packed import lm_decode_step_packed
 
-            return lm_decode_step_packed(self.params, packed, token, cache, self.cfg)[0]
-        return self.model.decode_step(self.params, token, cache)[0]
+            return lm_decode_step_packed(self.params, packed, token, cache, self.cfg,
+                                         rowwise=rowwise)[0]
+        return self.model.decode_step(self.params, token, cache, rowwise=rowwise)[0]
 
     def _choose(self, logits, noise, at) -> torch.Tensor:
         """Token ids (R,) from fp32 ``logits`` (R, V): argmax, or with a
@@ -284,6 +353,34 @@ class Engine:
         st.count.add_(nem)
         st.rounds.add_(1)
 
+    def _pool_step(self, st: _Pool) -> None:
+        """One decode step of every slot of a scheduler's pool.  Row b is
+        bitwise a B = 1 step on slot b's own cache row: the step runs
+        ``rowwise`` (the norms' means, the attend's products and sum and the
+        dense products one row at a time; the packed kernels on all rows,
+        their row b independent of B), and slot
+        b draws its noise row ``count[b]`` from its own table, as one-shot
+        ``generate`` at B = 1 does.  Free slots decode along with the pool:
+        their positions and counts drift, their writes land past the cache
+        (dropped) or in their scratch blocks, and their count is clamped to
+        the noise table, all without a host sync."""
+        from ..models.cache import paged_view
+
+        cache = paged_view(st.cache) if st.paged else st.cache
+        logits = self._logits(st.token, cache, self._packed, rowwise=True)[:, -1].float()
+        if self.sc.temperature > 0:
+            rows = torch.arange(logits.shape[0], device=logits.device)
+            g = st.noise[rows, st.count.clamp(max=st.noise.shape[1] - 1)]
+            nxt = torch.argmax(logits / self.sc.temperature + g, dim=-1)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        at = st.col.view(1)
+        st.toks.index_copy_(1, at, nxt[:, None])
+        st.oks.index_copy_(1, at, torch.isfinite(logits).all(dim=-1)[:, None])
+        st.token.copy_(nxt[:, None])
+        st.count.add_(1)
+        st.col.add_(1)
+
     # -- CUDA graphs ----------------------------------------------------------
     def _capture(self, body, state) -> _Graph:
         """Run ``body(state)`` once on a side stream (the warm-up: cuBLAS
@@ -313,7 +410,7 @@ class Engine:
 
     def _step_graph(self, b: int) -> _Graph:
         """The captured decode step at batch ``b`` (built at first use)."""
-        key = ("step", b, self.sc.temperature > 0)
+        key = ("step", b, self.sc.temperature > 0, self.sc.max_len)
         if key not in self._graphs:
             n, dev = self.sc.max_len, self.device
             st = _Loop(
@@ -329,7 +426,7 @@ class Engine:
 
     def _spec_graph(self) -> _Graph:
         """The captured speculative round at B = 1 (built at first use)."""
-        key = ("spec", 1, self.sc.temperature > 0)
+        key = ("spec", 1, self.sc.temperature > 0, self.sc.max_len)
         if key not in self._graphs:
             n, dev = self.sc.max_len + self.sc.draft_k + 1, self.device
             st = _SpecLoop(
@@ -343,6 +440,56 @@ class Engine:
             )
             self._graphs[key] = self._capture(self._spec_round, st)
         return self._graphs[key]
+
+    def new_pool(self, slots: int, segment: int, layout=None) -> _Pool:
+        """A scheduler's pool state: the slot pool, or with ``layout``
+        (``models.cache.PagedLayout``) the paged pool, every slot free."""
+        dev, n = self.device, self.sc.max_len
+        if layout is None:
+            cache = self.model.init_slot_cache(slots, n, device=dev)
+        else:
+            cache = self.model.init_paged_pool(layout, n, device=dev)
+        return _Pool(
+            token=torch.zeros((slots, 1), dtype=torch.long, device=dev), cache=cache,
+            paged=layout is not None,
+            count=torch.zeros((slots,), dtype=torch.long, device=dev),
+            col=torch.zeros((), dtype=torch.long, device=dev),
+            toks=torch.zeros((slots, segment), dtype=torch.long, device=dev),
+            oks=torch.ones((slots, segment), dtype=torch.bool, device=dev),
+        )
+
+    def prepare_pool(self, st: _Pool) -> None:
+        """Make the pool ready for this temperature: the noise table when
+        sampling and, with ``fused`` on a CUDA device, the pool step captured
+        in a CUDA graph (one per pool and temperature).  The capture's
+        warm-up runs one step, so call this while every slot is free (the
+        scheduler does, at the start of each run)."""
+        if self.sc.temperature > 0 and st.noise is None:
+            st.noise = torch.zeros((st.token.shape[0], self.sc.max_len, self.cfg.padded_vocab),
+                                   dtype=torch.float32, device=self.device)
+        key = ("pool", id(st), self.sc.temperature)
+        if self._graphed() and key not in self._graphs:
+            with torch.no_grad():
+                self._graphs[key] = self._capture(self._pool_step, st)
+
+    @torch.no_grad()
+    def pool_segment(self, st: _Pool) -> torch.Tensor:
+        """``segment`` steps of the whole pool with no host sync: replays of
+        the captured pool step with ``fused`` on a CUDA device, else the
+        step run eagerly.  Returns the (2, slots, segment) device tensor of
+        the segment's tokens and integrity flags, for the one fetch of the
+        segment sync."""
+        st.col.zero_()
+        segment = st.toks.shape[1]
+        if self._graphed():
+            g = self._graphs[("pool", id(st), self.sc.temperature)]
+            for _ in range(segment):
+                g.graph.replay()
+            g.replays += segment
+        else:
+            for _ in range(segment):
+                self._pool_step(st)
+        return torch.stack([st.toks, st.oks.long()])
 
     def graph_launches(self) -> Dict[str, Dict[str, int]]:
         """Kernel launches the graph replays made since the engine was built,
@@ -369,14 +516,16 @@ class Engine:
             st.noise[: noise.shape[0]].copy_(noise)
 
     # -- reusable entry points ------------------------------------------------
-    def gumbel_noise(self, n: int, b: int) -> Optional[torch.Tensor]:
+    def gumbel_noise(self, n: int, b: int, seed: Optional[int] = None) -> Optional[torch.Tensor]:
         """The (n, b, V) Gumbel noise of emitted tokens 0..n-1, one (b, V)
-        draw each from a generator seeded by ``ServeConfig.seed``, so row t
-        depends on the seed and t alone; None when greedy."""
+        draw each from a generator seeded by ``seed`` (default
+        ``ServeConfig.seed``), so row t depends on the seed and t alone;
+        None when greedy.  The scheduler draws a request's rows at b = 1
+        with the request's seed: the rows one-shot ``generate`` draws."""
         if self.sc.temperature <= 0:
             return None
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.sc.seed)
+        gen.manual_seed(self.sc.seed if seed is None else seed)
         shape = (b, self.cfg.padded_vocab)
         u = torch.stack([torch.rand(shape, generator=gen, device=self.device)
                          for _ in range(n)]) if n else torch.empty((0, *shape), device=self.device)
@@ -394,6 +543,81 @@ class Engine:
         tokens = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
         logits, cache = self.model.prefill(self.params, {"tokens": tokens}, self.sc.max_len)
         return torch.argmax(logits.float(), dim=-1)[:, None], cache
+
+    @torch.no_grad()
+    def prime_many(self, prompts, lengths):
+        """Batched masked prefill of one length bucket: ``prompts`` (N, Sb)
+        right-padded to a shared bucket length, ``lengths`` (N,) true prompt
+        lengths.  Returns ``(first_tokens (N, 1), batched cache)``; the
+        cache's ``pos`` holds the padded bucket length (``write_slots`` sets
+        each slot's true one).  Each row is ``prime`` of its unpadded prompt
+        to within rounding, not bitwise: a GEMM over N * Sb rows sums in
+        another order than one over the prompt's own rows (ROADMAP C9)."""
+        prompts = np.asarray(prompts, np.int32)
+        if prompts.shape[1] > self.sc.max_len:
+            raise ValueError(
+                f"bucket length {prompts.shape[1]} exceeds max_len {self.sc.max_len}"
+            )
+        self._validate_tokens(prompts)
+        tokens = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
+        lens = torch.as_tensor(np.asarray(lengths, np.int64), device=self.device)
+        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, self.sc.max_len,
+                                           lengths=lens)
+        return torch.argmax(logits.float(), dim=-1)[:, None], cache
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens, arena, table_row, start: int, true_len: int,
+                      write_from: int):
+        """One chunk of a paged chunked prefill at B = 1
+        (``families.lm_prefill_chunk``): writes ``arena`` in place and
+        returns ``(logits (1, V), arena)``."""
+        self._validate_tokens(tokens)
+        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
+        table = torch.as_tensor(np.asarray(table_row, np.int64), device=self.device)
+        return self.model.prefill_chunk(self.params, toks, arena, table, int(start),
+                                        int(true_len), int(write_from))
+
+    # -- prompt-length buckets -------------------------------------------------
+    @staticmethod
+    def _make_buckets(sc: ServeConfig) -> list:
+        if sc.prefill_buckets:
+            bks = sorted(set(int(b) for b in sc.prefill_buckets))
+            if bks[0] < 1 or bks[-1] > sc.max_len:
+                raise ValueError(f"prefill_buckets {bks} outside [1, max_len={sc.max_len}]")
+            if bks[-1] < sc.max_len:
+                # always cover max_len: a longer prompt maps to a bucket
+                bks.append(sc.max_len)
+            return bks
+        bks, b = [], 8
+        while b < sc.max_len:
+            bks.append(b)
+            b *= 2
+        bks.append(sc.max_len)
+        return bks
+
+    @property
+    def prefill_buckets(self) -> tuple:
+        return tuple(self._make_buckets(self.sc))
+
+    @property
+    def batched_prefill(self) -> bool:
+        """True when the family supports one-dispatch bucketed admission
+        (the dense family, the only one the port serves)."""
+        return self.cfg.family == "dense"
+
+    @property
+    def paged_supported(self) -> bool:
+        """True when the family can serve from a paged KV pool: a KV-shaped
+        cache and batched prefill."""
+        return self.batched_prefill and self.model.paged_seq_len(self.sc.max_len) is not None
+
+    def bucket_len(self, n: int) -> int:
+        """Smallest configured bucket >= n (the bucket set always covers
+        max_len, and prime/prime_many reject prompts past it)."""
+        for b in self._make_buckets(self.sc):
+            if b >= n:
+                return b
+        return n
 
     @torch.no_grad()
     def decode_segment(self, token, cache, steps: int, noise=None):
@@ -493,12 +717,12 @@ class Engine:
                     self._spec_graph()
                 else:
                     self._step_graph(b)
-        t0 = time.monotonic()
+        t0 = self._clock()
         nxt, cache = self.prime(prompts)
         self._sync()
-        t_prefill = time.monotonic() - t0
+        t_prefill = self._clock() - t0
 
-        t0 = time.monotonic()
+        t0 = self._clock()
         if spec:
             buf, okb, count, rounds = self._spec_decode(nxt, cache, budget, noise)
             toks, okg = buf[None], okb
@@ -506,7 +730,7 @@ class Engine:
             toks, okg, _, _ = self.decode_segment(nxt, cache, budget, noise)
         tokens = torch.cat([nxt, toks], dim=1).cpu().numpy().astype(np.int32)  # the one fetch
         finite = bool(okg.all())
-        t_decode = time.monotonic() - t0
+        t_decode = self._clock() - t0
         out = {
             "tokens": tokens,
             "finite": finite,

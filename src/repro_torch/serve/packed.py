@@ -26,8 +26,8 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..core.packing import dequantize_rows, pack_rows, pack_rows_t, quantize_rows, unpack_rows
 from ..kernels.ops import RowPackedLinear, apply_fused_mlp, apply_row_packed, linear_from_pack
-from ..models.common import rms_norm
-from ..models.families import _embed_tokens, layer_params
+from ..models.families import _embed_tokens, layer_cache, layer_params
+from ..models.common import per_row, rms_norm
 from ..models.layers import attention_decode
 
 __all__ = [
@@ -340,7 +340,7 @@ def _full_pack(packed) -> bool:
     return packed.get("attn") is not None and packed.get("head") is not None
 
 
-def lm_decode_step_packed(params, packed, token, cache, cfg):
+def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = False):
     """Decode step with VUSA-packed weights (dense family).  token: (B, 1),
     or (B, s) for the speculative verify.  Returns (logits (B, s, V), cache
     with ``pos + s``); the cache tensors and the device scalar ``pos`` are
@@ -352,13 +352,20 @@ def lm_decode_step_packed(params, packed, token, cache, cfg):
     ``attention_decode`` attends one query row at a time, so the pass is
     bitwise s sequential steps.  A partial pack still routes some rows
     through ``torch.matmul``, which is not row-stable, so it chains s
-    single-token steps, as the reference does."""
+    single-token steps, as the reference does.
+
+    ``rowwise`` (the scheduler's pool step) computes the norms, the attend
+    and any dense product one batch row at a time, so row b is bitwise a
+    B = 1 step on its own cache row; the packed kernels run on all rows at
+    once (their row b does not depend on B).  The cache may then be
+    paged."""
     if cfg.family != "dense":
         raise ValueError("the packed decode path targets the dense family")
     if token.shape[1] > 1 and not _full_pack(packed):
         logits = []
         for i in range(token.shape[1]):
-            lg, cache = lm_decode_step_packed(params, packed, token[:, i : i + 1], cache, cfg)
+            lg, cache = lm_decode_step_packed(params, packed, token[:, i : i + 1], cache, cfg,
+                                              rowwise)
             logits.append(lg)
         return torch.cat(logits, dim=1), cache
     mlp, attn = packed["mlp"], packed["attn"]
@@ -371,11 +378,9 @@ def lm_decode_step_packed(params, packed, token, cache, cfg):
             def wmm(name, x2, i=i):
                 return apply_row_packed(x2, _as_linear(attn[name], i))
 
-        x = x + attention_decode(
-            lp["attn"], rms_norm(x, lp["norm1"]), cfg,
-            {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]}, wmm=wmm,
-        )
-        h = rms_norm(x, lp["norm2"])
+        x = x + attention_decode(lp["attn"], rms_norm(x, lp["norm1"], rowwise=rowwise), cfg,
+                                 layer_cache(cache, i), wmm=wmm, rowwise=rowwise)
+        h = rms_norm(x, lp["norm2"], rowwise=rowwise)
         b, s, d = h.shape
         hf = h.reshape(b * s, d)
         if fused:
@@ -388,12 +393,12 @@ def lm_decode_step_packed(params, packed, token, cache, cfg):
             up = apply_row_packed(hf, _as_linear(mlp["w_up"], i))
             y2 = apply_row_packed((gate * up).to(hf.dtype), _as_linear(mlp["w_down"], i))
         x = x + y2.reshape(b, s, d).to(x.dtype)
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"], rowwise=rowwise)
     if packed.get("head") is not None:
         b, s, d = x.shape
         logits = apply_row_packed(x.reshape(b * s, d), _as_linear(packed["head"])).reshape(b, s, -1)
     else:
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+        head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(x.dtype)
+        logits = per_row(lambda r: torch.einsum("bsd,dv->bsv", r, head), x, rowwise)
     cache["pos"].add_(token.shape[1])
     return logits, cache

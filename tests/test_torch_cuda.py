@@ -39,7 +39,13 @@ eager loop's bitwise, greedy and sampled; speculative tokens equal plain
 decode's bitwise; the full pack's batched verify equals sequential steps
 bitwise (the kernels' and the glue's row stability at 5 rows); and one
 eager decode step and one verify make no host sync
-(``torch.cuda.set_sync_debug_mode("error")``).
+(``torch.cuda.set_sync_debug_mode("error")``).  The scheduler's pool step
+(fp32 activations, where batched GEMMs and reductions part from one-row
+ones on the card): row i at 4 rows bitwise a B = 1 step on its cache row,
+slot pool and paged pool, all four routes; the scheduler's graph tokens
+equal the eager pool step's and, under sequential admission, one-shot
+``generate``'s at B = 1, greedy and sampled; one pool step makes no host
+sync.
 """
 
 import dataclasses
@@ -560,3 +566,113 @@ def test_decode_step_makes_no_host_sync_on_card(route):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the scheduler's pool step on the card
+# ---------------------------------------------------------------------------
+
+
+def _pool_caches(eng, cfg, lens, paged: bool):
+    """``len(lens)`` caches primed from prompts of ``lens`` tokens, and the
+    pool cache (slot pool, or a paged pool with pages of 8) holding them."""
+    from repro_torch.models.cache import (PagedLayout, bind_slot_pages, init_paged_pool,
+                                          paged_view, write_prefill_pages, write_slots)
+
+    rng = np.random.default_rng(9)
+    primed = [eng.prime(rng.integers(1, cfg.vocab, (1, n)).astype(np.int32)) for n in lens]
+    batched = {k: torch.cat([c[k] for _, c in primed], dim=1) for k in ("k", "v")}
+    n, max_len = len(lens), eng.sc.max_len
+    if paged:
+        lay = PagedLayout.build(n, max_len, 8)
+        pool = init_paged_pool(eng.model.cache_specs(1, max_len), lay, eng.device)
+        rows = (lay.reserved + np.arange(n * lay.n_pages)).reshape(n, -1)
+        write_prefill_pages(pool["arena"], rows, batched)
+        bind_slot_pages(pool["table"], pool["pos"], list(range(n)), rows, lens)
+        return primed, paged_view(pool)
+    pool = eng.model.init_slot_cache(n, max_len, device=eng.device)
+    write_slots(pool, list(range(n)), {**batched, "pos": None},
+                eng.model.cache_batch_axes(max_len), lens)
+    return primed, pool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_pool_step_rows_equal_b1_steps_on_card(route, paged):
+    """The pool step at 4 rows (``rowwise``) on caches at ragged positions:
+    row i bitwise a B = 1 step on cache i, fp32 activations (where batched
+    GEMMs and reductions part from one-row ones on the card)."""
+    dev = _card()
+    cfg = _edge2()
+    params = prune_tree(build_model(cfg).init(0, device=dev), 0.85)
+    eng = Engine(cfg, params, ServeConfig(max_len=32, **ROUTES[route]), device=dev)
+    with torch.no_grad():
+        primed, pool = _pool_caches(eng, cfg, [3, 9, 5, 12], paged)
+        token = torch.cat([t for t, _ in primed])
+        many = eng._logits(token, pool, eng.packed, rowwise=True)
+        for i, (_, c) in enumerate(primed):
+            assert torch.equal(many[i : i + 1], eng._logits(token[i : i + 1], c, eng.packed)), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("route", ["dense", "fp32", "int4"])
+def test_scheduler_graph_equals_eager_pool_and_one_shot_on_card(route, temperature):
+    """The scheduler's pool step replayed as a CUDA graph gives the eager
+    pool step's tokens, and under sequential admission each completion
+    equals one-shot generate at B = 1 with its seed, bitwise; the graph's
+    B1-B4 launches are replays x the step's."""
+    from repro_torch.serve import Request, Scheduler
+
+    dev = _card()
+    cfg = _edge2()
+    params = prune_tree(build_model(cfg).init(0, device=dev), 0.85)
+    sc = ServeConfig(max_len=48, temperature=temperature, **ROUTES[route])
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab, n).astype(np.int32), max_new=m, seed=7 + i)
+            for i, (n, m) in enumerate([(5, 12), (17, 6), (9, 10), (3, 8), (12, 7)])]
+    eng = Engine(cfg, params, sc, device=dev)
+    sched = Scheduler(eng, slots=3, segment=4, admission="sequential")
+    graph = sched.run([dataclasses.replace(r) for r in reqs])
+    steps = sched.stats()["segments"] * 4
+    eager_eng = Engine(cfg, params, sc, device=dev)
+    eager_eng._graphed = lambda: False
+    eager = Scheduler(eager_eng, slots=3, segment=4, admission="sequential").run(
+        [dataclasses.replace(r) for r in reqs])
+    oracle = Engine(cfg, params, sc, device=dev)
+    for rid, r in enumerate(reqs):
+        np.testing.assert_array_equal(graph[rid].tokens, eager[rid].tokens)
+        oracle.sc.seed = r.seed
+        np.testing.assert_array_equal(
+            graph[rid].tokens, oracle.generate(r.prompt[None], max_new=r.max_new)["tokens"][0])
+    if route != "dense":
+        vd = "dense" if route == "fp32" else route
+        got = eng.graph_launches()
+        assert got["vusa_packed_matmul"][vd] == steps * (4 * cfg.n_layers + 1)
+        assert got["vusa_fused_mlp_matmul"][vd] == steps * cfg.n_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_pool_step_makes_no_host_sync_on_card(paged):
+    """One pool step (sampled, so the per-slot noise gather runs too) makes
+    no host sync."""
+    from repro_torch.serve import Scheduler
+
+    dev = _card()
+    cfg = _edge2()
+    params = prune_tree(build_model(cfg).init(0, device=dev), 0.85)
+    eng = Engine(cfg, params, ServeConfig(max_len=32, temperature=1.0, packed_weights="all",
+                                          page_size=8 if paged else 0), device=dev)
+    eng._graphed = lambda: False
+    sched = Scheduler(eng, slots=3, segment=2)  # the two steps write columns 0 and 1
+    eng.prepare_pool(sched._pool)
+    with torch.no_grad():
+        eng._pool_step(sched._pool)  # kernels built and loaded first
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._pool_step(sched._pool)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")

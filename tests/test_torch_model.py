@@ -89,8 +89,8 @@ def test_prefill_and_eight_decode_steps_match(pair, use_lengths):
     _close(got_logits, want_logits)
     for name in ("k", "v"):
         _close(cache[name], ref_cache[name])
-    assert cache["pos"].ndim == 0 and cache["pos"].dtype == torch.long
-    assert int(cache["pos"]) == int(ref_cache["pos"]) == s
+    assert cache["pos"].shape == (b,) and cache["pos"].dtype == torch.long
+    assert cache["pos"].tolist() == [int(ref_cache["pos"])] * b == [s] * b
     if use_lengths:
         return  # decode after masked prefill needs per-row pos (the scheduler's job)
     ref_step = jax.jit(ref_m.decode_step)
@@ -99,7 +99,7 @@ def test_prefill_and_eight_decode_steps_match(pair, use_lengths):
         want, ref_cache = ref_step(params, jnp.asarray(tok), ref_cache)
         got, cache = m.decode_step(tparams, torch.from_numpy(tok).long(), cache)
         _close(got, want, f"step {step}")
-    assert int(cache["pos"]) == int(ref_cache["pos"]) == s + 8
+    assert cache["pos"].tolist() == [int(ref_cache["pos"])] * b == [s + 8] * b
 
 
 @pytest.mark.parametrize("scope", ["mlp", "all"])

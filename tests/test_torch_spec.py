@@ -160,7 +160,7 @@ def test_rows_past_the_cache_end_are_dropped():
                       (7, [0] * 7 + [1]), (8, [0] * 8), (11, [0] * 8)):
         cache = torch.zeros(1, 8, 1, 1)
         rows = torch.arange(1.0, 4.0).view(1, 3, 1, 1)
-        _write_rows(cache, torch.tensor(pos) + torch.arange(3), rows)
+        _write_rows((cache,), (torch.tensor(pos) + torch.arange(3))[None], (rows,))
         assert cache.flatten().tolist() == want, pos
 
 
