@@ -20,8 +20,9 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    shapes (sparsity 0 and 0.99, all-zero rows, C % m != 0, odd slot counts,
    and for B1/B3 K = 1000, whose last slice is short, with a = 16 and with
    a = 3, whose chunk starts take narrower copies, and K = 3072, the
-   ``fused_mlp=False`` w_down shape), for B in {1, 4, 5} (5 = the rows of
-   the batched speculative verify, ``draft_k`` + 1) and fp32 / bf16
+   ``fused_mlp=False`` w_down shape), for B in {1, 4, 5, 40} (5 = the rows
+   of the batched speculative verify, ``draft_k`` + 1; 40 = the scheduler's
+   pool verify, 8 slots x 5, five 8-row batch tiles) and fp32 / bf16
    activations, and for B2/B4 an odd slot count (a = 3), d = 1000 (K and D
    off the slice size) and ff % m != 0; every call's CUDA launches, counted
    by the library, must equal its plan's (B1/B3 ``row_plan``: one launch,
@@ -31,8 +32,9 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    int4 packs of the same model.  Tolerance: max |kernel - plain| <= 1e-4 *
    max |plain| for every dtype (bf16 inputs widen to fp32 exactly, int8/int4
    values dequantize to the same fp32 products q * scale, and both sides
-   accumulate in fp32, so only the summation order differs).  Row 0 at
-   B = 4 and at B = 5 must equal B = 1 bitwise.  Each kernel is timed with CUDA events
+   accumulate in fp32, so only the summation order differs).  The first
+   and the last row at B = 4, 5 and 40 (rows 0 and 39 of the pool verify)
+   must equal B = 1 bitwise.  Each kernel is timed with CUDA events
    (L2 flushed before each launch, as the decode step finds it) beside the
    plain version, one PyTorch library call on the dense (dequantized) fp32
    weights and the least time the card could take (bytes over 3.35 TB/s vs
@@ -155,11 +157,45 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    p99, slot occupancy, HBM bytes per active request, prefix hit rate),
    the pool step's ms per step beside one-shot ``generate``'s at B = 8
    (dense and fp32, in turns), the pool's memory and the phase's seconds;
-10. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+10. speculative scheduler: phase 9's pool (8 slots, segments of 8
+   rounds) and 24-request traffic under sequential admission (each
+   request primed alone at its exact length, on both pools), on phase
+   8's tiered weights, bf16 activations, ``max_len`` 272 (a segment of
+   rounds writes 8 x 5 rows), ``draft_k`` 4, the drafter at 99 %
+   sparsity; the verifier dense and packed with fp32 and int8 values.
+   Each round is one replay of the pool's captured speculative round:
+   4 drafter steps on every slot, one verify of 8 x 5 rows through
+   B1-B4, the accept scan.  Gates, greedy and sampled, slot and paged
+   pool (pages of 16, no prefix cache): every completion bitwise the
+   plain scheduler's on the same pool and route; paged bitwise the slot
+   pool; the pool graph's B1-B4 launches exactly rounds x (4 x (49, 12)
+   on the float route + (49, 12) on the verifier's); launch counts set to
+   0 before the phase and B1-B4 counted on the float and int8 routes
+   after it.  Reported: acceptance, ``stats()`` beside the plain
+   scheduler's, ms per pool round (CUDA events, slot and paged) beside a
+   plain pool step at the same ``max_len``;
+11. failure model: phase 9's model and traffic, fp32 values, sequential
+   admission, each fault a run of its own against a clean run: value
+   NaNs in the pack (the guard trips in the replayed packed pool graph,
+   the pack is quarantined, the pool replays its dense twin, each tripped
+   request completes FAILED_FALLBACK_OK with the dense scheduler's tokens,
+   bitwise); cache poison of two requests on a dense engine, slot pool and
+   paged pool (retried without quarantine, every request's tokens clean);
+   a persistent poison (FAILED after one retry); the speculative
+   verifier's quarantine (dense, bitwise the dense scheduler at
+   ``max_len`` 272); the journal with an unclean close after 5 syncs and
+   ``AsyncEngine.recover`` (completions bitwise a crash-free run); the
+   watchdog (3 s) on a transient hang (re-queued, tokens bitwise); a hot
+   swap through ``AsyncEngine`` to a 90 %-pruned pack and back (wave 1 in
+   flight at the swap, nothing dropped, wave 2 bitwise a fresh engine on
+   the new pack, the two fingerprints journaled).  Reported: the phase's
+   seconds;
+12. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
-   launches, CUDA launches per call as counted; B5/B6 per ResNet-18
-   image, MobileNetV1 under ``mobilenetv1``);
-11. the card line again and the result line.
+   launches, phase 10's speculative pool graph launches, CUDA launches per
+   call as counted; B5/B6 per ResNet-18 image, MobileNetV1 under
+   ``mobilenetv1``);
+13. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -168,10 +204,13 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -246,6 +285,11 @@ SCHED_ARRIVALS_S = 0.25  # arrival offsets are drawn over [0, this)
 SCHED_PAGE, SCHED_CHUNK, SCHED_ARENA = 16, 64, 48  # the preempting paged run
 SCHED_SEED = 3
 PRIME_TOL = 1e-3  # prime_many vs prime, fp32 logits, of the largest (2-layer cut)
+# the speculative scheduler phase: phase 9's pool and traffic; max_len covers
+# the longest request plus a segment of rounds, SCHED_SEGMENT x VERIFY_ROWS rows
+POOL_VERIFY_ROWS = SCHED_SLOTS * VERIFY_ROWS  # the pool verify's rows through B1-B4
+SPEC_MAX_LEN = 272
+WATCHDOG_S = 3.0  # the failure phase's watchdog: well past a sync gap of phase 9's traffic
 # paper workloads: (name, GEMMs, pruning rate); the seed of weights and x
 PAPER_MODELS = (("resnet18", resnet18_gemms, 0.85), ("mobilenetv1", mobilenetv1_gemms, 0.75))
 PAPER_SEED = 0
@@ -358,15 +402,17 @@ def dtype_name(t) -> str:
 
 
 def check_cases(name, kern, plain, xs):
-    """Kernel vs plain over the activations ``xs``, plus batch invariance."""
+    """Kernel vs plain over the activations ``xs``, plus batch invariance:
+    the first and the last row at B rows equal to B = 1, bitwise."""
     cases = []
     for x in xs:
         got, want = kern(x), plain(x)
         err, rel = rel_err(got, want)
         if rel > TOL:
             fail(f"{name} x={x.dtype} B={x.shape[0]}: kernel vs plain error {err} ({rel} relative)")
-        if x.shape[0] > 1 and not torch.equal(kern(x[:1].contiguous())[0], got[0]):
-            fail(f"{name} x={x.dtype}: row 0 at B={x.shape[0]} differs from B=1")
+        for row in ((0, x.shape[0] - 1) if x.shape[0] > 1 else ()):
+            if not torch.equal(kern(x[row : row + 1].contiguous())[0], got[row]):
+                fail(f"{name} x={x.dtype}: row {row} at B={x.shape[0]} differs from B=1")
         cases.append({"B": x.shape[0], "x": dtype_name(x), "max_abs_err": err, "rel_err": rel})
     return cases
 
@@ -481,8 +527,10 @@ def kernel_phase(cfg, packs, rng):
         x1, x4 = (torch.from_numpy(rng.standard_normal((b, k), dtype=np.float32)).to(dev)
                   for b in (1, BATCH))
         x5 = torch.cat([x4, x1])  # VERIFY_ROWS: the batched speculative verify's rows
+        x40 = torch.from_numpy(rng.standard_normal((POOL_VERIFY_ROWS, k),
+                                                   dtype=np.float32)).to(dev)
         # the last one is the main path's: B = 4, bf16 activations
-        return [v for x in (x1, x5, x4) for v in (x, x.to(torch.bfloat16))]
+        return [v for x in (x1, x5, x40, x4) for v in (x, x.to(torch.bfloat16))]
 
     def bf16_copy(lin):
         return dataclasses.replace(lin, values=lin.values.to(torch.bfloat16))
@@ -1350,8 +1398,10 @@ def prime_gap(cfg, params, reqs, layers: int) -> dict:
 
 
 def pool_ms_per_step(e, segments: int = 3) -> float:
-    """Device-clock ms of one pool step at ``SCHED_SLOTS`` rows: ``segments``
-    segments of replays of the captured step, between CUDA events."""
+    """Device-clock ms of one pool step (a speculative round on a
+    speculative engine) at ``SCHED_SLOTS`` slots, every slot free (a step
+    does the same work at any position): ``segments`` segments of replays
+    of the captured step, between CUDA events."""
     sched = Scheduler(e, slots=SCHED_SLOTS, segment=SCHED_SEGMENT)
     e.prepare_pool(sched._pool)
     e.pool_segment(sched._pool)  # warm
@@ -1362,6 +1412,7 @@ def pool_ms_per_step(e, segments: int = 3) -> float:
         e.pool_segment(sched._pool)
     end.record()
     torch.cuda.synchronize()
+    e.release_pool(sched._pool)
     return start.elapsed_time(end) / (segments * SCHED_SEGMENT)
 
 
@@ -1465,6 +1516,308 @@ def scheduler_phase(cfg, params, engines) -> dict:
     res["noise_table_bytes"] = SCHED_SLOTS * SCHED_MAX_LEN * cfg.padded_vocab * 4
     res["seconds"] = time.monotonic() - t_phase
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 10: the scheduler's speculative rounds, slot pool and paged pool
+# --------------------------------------------------------------------------
+
+
+def spec_sched_phase(cfg, raw) -> dict:
+    """Phase 10: phase 9's pool (8 slots, segments of 8) and 24-request
+    traffic under sequential admission, on phase 8's tiered weights, bf16
+    activations, ``max_len`` ``SPEC_MAX_LEN``; the verifier dense and packed
+    with fp32 and int8 values, the drafter at ``DRAFT_SPARSITY``.  Per
+    route, pool (slot, paged) and temperature: the speculative scheduler
+    against the plain one on the same engine, bitwise; paged against the
+    slot pool, bitwise; the speculative pool graph's B1-B4 launches against
+    rounds x (draft_k x (49, 12) on the float route + (49, 12) on the
+    verifier's).  Reported: acceptance, ``stats()``, ms per pool round."""
+    t_phase = time.monotonic()
+    params = tiered(raw)
+    timed = sched_traffic(cfg, arrivals=True)
+    per = {"vusa_packed_matmul": 4 * cfg.n_layers + 1, "vusa_fused_mlp_matmul": cfg.n_layers}
+    res, drafter = {"runs": {}, "ms_per_round": {}, "graph_launches": {}}, None
+    reset_launch_counts()
+    for route in ("fp32", "int8", "dense"):
+        e = Engine(cfg, params, ServeConfig(
+            max_len=SPEC_MAX_LEN, packed_weights=False if route == "dense" else "all",
+            packed_values="int8" if route == "int8" else "bf16", speculative=True,
+            draft_k=DRAFT_K, draft_sparsity=DRAFT_SPARSITY), device=DEVICE)
+        drafter = e.draft_packed if drafter is None else drafter
+        e._draft_packed = drafter  # the drafter depends on the weights alone
+        vd = {"fp32": "dense", "int8": "int8", "dense": None}[route]
+        for temp in (0.0, 1.0):
+            tag = f"speculative scheduler {route} {'sampled' if temp else 'greedy'}"
+            got = {}
+            for paged in (False, True):
+                pool = "paged" if paged else "slot"
+                kw = dict(max_len=SPEC_MAX_LEN, temperature=temp,
+                          page_size=SCHED_PAGE if paged else 0, prefix_cache=False)
+                sp, spec, launches = sched_run(sched_use(e, speculative=True, **kw), timed,
+                                               "sequential")
+                spl, plain, _ = sched_run(sched_use(e, speculative=False, **kw), timed,
+                                          "sequential")
+                for rid, c in spec.items():
+                    if c.status.value != "OK" or not np.array_equal(c.tokens,
+                                                                    plain[rid].tokens):
+                        fail(f"{tag} {pool}: request {rid} ({c.status.value}) differs from the "
+                             "plain scheduler's")
+                rounds = sp.stats()["segments"] * SCHED_SEGMENT
+                want_l = {}
+                for name, n in per.items():
+                    want_l[name] = {"dense": rounds * DRAFT_K * n}
+                    if vd is not None:
+                        want_l[name][vd] = want_l[name].get(vd, 0) + rounds * n
+                got_l = {name: {k: v for k, v in c.items() if v}
+                         for name, c in launches.items()}
+                if got_l != want_l:
+                    fail(f"{tag} {pool}: pool graph launches {got_l} != expected {want_l}")
+                res["graph_launches"][f"{route} {pool} {'sampled' if temp else 'greedy'}"] = got_l
+                st, stp = sched_stats(sp), sched_stats(spl)
+                st.update({k: sp.stats()[k] for k in ("acceptance_rate", "spec_proposed",
+                                                      "spec_accepted")})
+                st["rounds"] = rounds
+                res["runs"][f"{route} {pool} {'sampled' if temp else 'greedy'}"] = {
+                    "speculative": st, "plain": stp}
+                got[pool] = spec
+            if same_tokens(got["slot"], got["paged"]) != 1.0:
+                fail(f"{tag}: the paged pool's tokens differ from the slot pool's")
+        res["ms_per_round"][route] = {
+            "slot": pool_ms_per_step(sched_use(e, speculative=True, max_len=SPEC_MAX_LEN)),
+            "paged": pool_ms_per_step(sched_use(e, speculative=True, max_len=SPEC_MAX_LEN,
+                                                page_size=SCHED_PAGE)),
+            "plain_pool_step": pool_ms_per_step(sched_use(e, speculative=False,
+                                                          max_len=SPEC_MAX_LEN))}
+    res["launches"] = {"vusa_packed_matmul": dict(vusa_packed_matmul.launches),
+                       "vusa_fused_mlp_matmul": dict(vusa_fused_mlp_matmul.launches)}
+    for name, c in res["launches"].items():
+        for route in ("dense", "int8"):
+            if not c.get(route):
+                fail(f"speculative scheduler: {name} never launched on the {route} route")
+    res["seconds"] = time.monotonic() - t_phase
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 11: the failure model
+# --------------------------------------------------------------------------
+
+
+def failure_phase(cfg, params, raw) -> dict:
+    """Phase 11 over phase 9's model (fp32 values) and traffic, sequential
+    admission, each fault a run of its own: value NaNs in the pack, cache
+    poison (slot pool and paged), a persistent poison, the speculative
+    verifier's quarantine, the journal with an unclean close and
+    ``AsyncEngine.recover``, the watchdog on a transient hang, and a hot
+    swap through ``AsyncEngine``; each against a clean run, bitwise."""
+    from repro_torch.checkpoint.ckpt import read_records
+    from repro_torch.serve import AsyncEngine, FaultConfig, Journal, JournalTap, replay
+    from repro_torch.serve.packed import pack_fingerprint
+
+    t_phase = time.monotonic()
+    timed = sched_traffic(cfg, arrivals=True)
+    out_dir = ROOT / "build" / "journals"  # gitignored, made at run time
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = {}
+
+    def engine(route="fp32", p=params, max_len=SCHED_MAX_LEN, **kw):
+        return Engine(cfg, p, ServeConfig(max_len=max_len, packed_weights=False if route ==
+                                          "dense" else "all", **kw), device=DEVICE)
+
+    def run(e, reqs=timed, **kw):
+        sched = Scheduler(e, slots=SCHED_SLOTS, segment=SCHED_SEGMENT, admission="sequential",
+                          **kw)
+        return sched, sched.run([dataclasses.replace(r) for r in reqs])
+
+    def same(tag, got, want, statuses=("OK",)):
+        for rid, w in want.items():
+            c = got[rid]
+            if c.status.value not in statuses or not np.array_equal(c.tokens, w.tokens):
+                fail(f"failure {tag}: request {rid} ({c.status.value}) differs from the clean run")
+
+    def counters(sched):
+        st = sched.stats()
+        return {k: st[k] for k in ("fallback", "failed", "quarantined", "preempted", "stalled")}
+
+    _, clean_dense = run(engine("dense"))
+    fp32 = engine()
+    _, clean_fp32 = run(fp32)
+
+    # value NaNs: the guard trips in the replayed packed pool graph
+    e = engine(faults=FaultConfig(pack_value_nans=2))
+    sched, done = run(e)
+    g_packed = e._graphs[e._pool_key(sched._pool, False)]
+    g_dense = e._graphs[e._pool_key(sched._pool, True)]
+    tripped = [rid for rid, c in done.items() if c.status.value == "FAILED_FALLBACK_OK"]
+    if not (e.quarantined and tripped and g_packed.replays > 0 and g_dense.replays > 0):
+        fail(f"failure value NaNs: quarantined {e.quarantined}, tripped {tripped}, replays "
+             f"packed {g_packed.replays} dense {g_dense.replays}")
+    same("value NaNs", done, clean_dense, ("OK", "FAILED_FALLBACK_OK"))
+    res["value_nans"] = {**counters(sched), "tripped": len(tripped),
+                         "packed_replays": g_packed.replays, "dense_replays": g_dense.replays}
+
+    # cache poison on a dense engine, slot pool and paged pool; persistent
+    poisoned = (3, 11)
+    for name, kw, once in (("cache_poison_slot", {}, True),
+                           ("cache_poison_paged", {"page_size": SCHED_PAGE,
+                                                   "prefix_cache": False}, True),
+                           ("persistent_poison", {}, False)):
+        e = engine("dense", faults=FaultConfig(cache_nan_rids=poisoned, cache_nan_once=once),
+                   **kw)
+        sched, done = run(e)
+        want = "FAILED_FALLBACK_OK" if once else "FAILED"
+        for rid in poisoned:
+            if done[rid].status.value != want:
+                fail(f"failure {name}: request {rid} {done[rid].status.value}, not {want}")
+        same(name, {r: c for r, c in done.items() if r not in poisoned or once},
+             {r: c for r, c in clean_dense.items() if r not in poisoned or once},
+             ("OK", "FAILED_FALLBACK_OK"))
+        res[name] = counters(sched)
+        if e.quarantined or res[name]["fallback"] != len(poisoned):
+            fail(f"failure {name}: {res[name]}")
+
+    # the speculative verifier's quarantine falls back dense
+    e = engine(max_len=SPEC_MAX_LEN, speculative=True, draft_k=DRAFT_K,
+               draft_sparsity=DRAFT_SPARSITY, faults=FaultConfig(pack_value_nans=2))
+    sched, done = run(e)
+    _, clean_272 = run(engine("dense", max_len=SPEC_MAX_LEN))
+    if not e.quarantined:
+        fail("failure speculative quarantine: the pack was not quarantined")
+    same("speculative quarantine", done, clean_272, ("OK", "FAILED_FALLBACK_OK"))
+    res["spec_quarantine"] = counters(sched)
+
+    # the journal: an unclean close mid-run, then AsyncEngine.recover
+    path = out_dir / "failure_journal"
+    if path.exists():
+        path.unlink()
+    journal = Journal(path)
+    tap = JournalTap(journal)
+    sched = Scheduler(fp32, slots=SCHED_SLOTS, segment=SCHED_SEGMENT, admission="sequential")
+    for r in timed:
+        tap.note_submit(sched.submit(dataclasses.replace(r)), r)
+    journal.sync()
+
+    class Crash(RuntimeError):
+        pass
+
+    syncs = []
+
+    def crash(s):
+        syncs.append(1)
+        if len(syncs) > 5:
+            raise Crash()
+        tap.on_sync(s)
+
+    try:
+        sched.run(on_sync=crash)
+        fail("failure journal: the run did not reach its crash point")
+    except Crash:
+        pass
+    journal._fh.close()  # no close marker, no sync: the journal reads as a crash
+    mid = replay(path)
+
+    async def recover():
+        eng = AsyncEngine.recover(path, Scheduler(fp32, slots=SCHED_SLOTS,
+                                                  segment=SCHED_SEGMENT,
+                                                  admission="sequential"))
+        async with eng:
+            return {rid: await eng.stream_for(rid).completion() for rid in range(len(timed))}
+
+    done = run_async("failure journal recovery", recover)
+    same("journal recovery", done, clean_fp32)
+    final = replay(path)
+    if not (final.closed and not final.pending and mid.pending and mid.completed):
+        fail(f"failure journal: mid pending {len(mid.pending)} completed "
+             f"{len(mid.completed)}; final closed {final.closed} pending {len(final.pending)}")
+    res["journal"] = {"proven_before_recovery": len(mid.completed),
+                      "recovered": len(mid.pending), "bytes": path.stat().st_size}
+
+    # the watchdog on a transient hang
+    hang = 5
+    fp32.sc.faults = FaultConfig(decode_hang_rids=(hang,))
+    sched = Scheduler(fp32, slots=SCHED_SLOTS, segment=SCHED_SEGMENT, admission="sequential")
+
+    async def watched():
+        async with AsyncEngine(sched, watchdog_s=WATCHDOG_S) as eng:
+            streams = [eng.submit(dataclasses.replace(r), rid=i) for i, r in enumerate(timed)]
+            return {i: await s.completion() for i, s in enumerate(streams)}
+
+    t0 = time.monotonic()
+    done = run_async("failure watchdog", watched)
+    fp32.sc.faults = None
+    same("watchdog", done, clean_fp32)
+    if hang not in sched._stall_retried:
+        fail("failure watchdog: the hang never fired")
+    res["watchdog"] = {"seconds": time.monotonic() - t0, "watchdog_s": WATCHDOG_S,
+                       "requeued": len(sched._stall_retried)}
+
+    # the hot swap: wave 1 in flight at the swap, wave 2 on the new pack,
+    # wave 3 after swapping back
+    p90 = prune_tree(raw, 0.90)
+    fresh = engine(p=p90)
+    waves = [[dataclasses.replace(r, arrival_s=0.0) for r in timed[j : j + 8]]
+             for j in (0, 8, 16)]
+    _, want2 = run(fresh, waves[1])
+    fp0 = pack_fingerprint(fp32.packed)
+    path = out_dir / "swap_journal"
+    if path.exists():
+        path.unlink()
+
+    async def swap():
+        async with AsyncEngine(Scheduler(fp32, slots=SCHED_SLOTS, segment=SCHED_SEGMENT,
+                                         admission="sequential"),
+                               journal=Journal(path)) as eng:
+            s1 = [eng.submit(r, rid=i) for i, r in enumerate(waves[0])]
+            for s in s1:  # every request of wave 1 is in flight (8 slots)
+                await s.__anext__()
+            ok1 = await eng.hot_swap(p90)
+            s2 = [eng.submit(r, rid=8 + i) for i, r in enumerate(waves[1])]
+            c2 = [await s.completion() for s in s2]
+            ok2 = await eng.hot_swap(params)
+            s3 = [eng.submit(r, rid=16 + i) for i, r in enumerate(waves[2])]
+            return ok1, ok2, [await s.completion() for s in s1], c2, [
+                await s.completion() for s in s3]
+
+    ok1, ok2, c1, c2, c3 = run_async("failure hot swap", swap)
+    same("hot swap wave 1", dict(enumerate(c1)), {i: clean_fp32[i] for i in range(8)})
+    same("hot swap wave 2 (new pack)", dict(enumerate(c2)), want2)
+    same("hot swap wave 3", {16 + i: c for i, c in enumerate(c3)},
+         {i: clean_fp32[i] for i in range(16, 24)})
+    records = [json.loads(p) for p in read_records(path)[0]]
+    fps = [r["fp"] for r in records if r.get("t") == "swap"]
+    if not (ok1 and ok2 and fps == [pack_fingerprint(fresh.packed), fp0] and fps[0] != fp0):
+        fail(f"failure hot swap: swapped {ok1} {ok2}, journaled fingerprints {fps}")
+    state = replay(path)
+    if not (state.closed and sorted(state.completed) == list(range(24))):
+        fail(f"failure hot swap: the journal proves {len(state.completed)} of 24 completions")
+    res["hot_swap"] = {"fingerprints": fps, "dropped": 0}
+    res["seconds"] = time.monotonic() - t_phase
+    return res
+
+
+def run_async(what: str, coro_fn, timeout: float = 300.0):
+    """``asyncio.run(coro_fn())`` on a daemon thread: a run with no result
+    in ``timeout`` s fails the phase and ends the process at once (a hung
+    worker thread must not hold the exit); an exception fails it too."""
+    box = {}
+
+    def target():
+        try:
+            box["out"] = asyncio.run(coro_fn())
+        except BaseException as exc:  # handed to the main thread's fail()
+            box["err"] = exc
+
+    t = threading.Thread(target=target, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        print(f"chip_smoke: FAILED: {what}: no result in {timeout:.0f} s", file=sys.stderr,
+              flush=True)
+        os._exit(1)
+    if "err" in box:
+        fail(f"{what}: {box['err']!r}")
+    return box["out"]
 
 
 def main() -> None:
@@ -1666,6 +2019,34 @@ def main() -> None:
           f"{sched['paged_vs_slot']['fp32']['slot']['kv_pool_bytes']:.0f} bytes; phase "
           f"{sched['seconds']:.1f}s ({card})", flush=True)
 
+    t0 = time.monotonic()
+    sspec = spec_sched_phase(cfg, raw)
+    for what, r in sspec["runs"].items():
+        sp, pl = r["speculative"], r["plain"]
+        print(f"speculative scheduler {what}: every completion equals the plain scheduler's "
+              f"(and paged the slot pool's); acceptance {sp['acceptance_rate']:.4f} "
+              f"({sp['spec_accepted']}/{sp['spec_proposed']}) over {sp['rounds']} rounds; "
+              f"sustained tok/s {sp['sustained_tok_per_s']:.1f} (plain {pl['sustained_tok_per_s']:.1f}"
+              f"), decode {sp['decode_s']:.3f} s (plain {pl['decode_s']:.3f}), TTFT p50 "
+              f"{sp['ttft_p50_s'] * 1e3:.1f} ms (plain {pl['ttft_p50_s'] * 1e3:.1f}), ITL p50 "
+              f"{sp['itl_p50_s'] * 1e3:.1f} ms p99 {sp['itl_p99_s'] * 1e3:.1f} (plain "
+              f"{pl['itl_p50_s'] * 1e3:.1f} / {pl['itl_p99_s'] * 1e3:.1f}); graph launches "
+              f"{sspec['graph_launches'][what]}", flush=True)
+    for route, t in sspec["ms_per_round"].items():
+        print(f"speculative scheduler ms per pool round {route}: slot {t['slot']:.4f}, paged "
+              f"{t['paged']:.4f} (a plain pool step {t['plain_pool_step']:.4f}) at "
+              f"{SCHED_SLOTS} slots, a verify of {POOL_VERIFY_ROWS} rows", flush=True)
+    print(f"speculative scheduler phase {time.monotonic() - t0:.1f}s ({card})", flush=True)
+
+    fails = failure_phase(cfg, params, raw)
+    for what, r in fails.items():
+        if what != "seconds":
+            print(f"failure model {what}: {r}", flush=True)
+    print(f"failure model phase {fails['seconds']:.1f}s: value NaNs quarantined with dense "
+          f"fallback, cache poison retried (slot, paged), persistent poison FAILED, "
+          f"speculative quarantine dense, journal recovery, watchdog re-queue and hot swap "
+          f"bitwise ({card})", flush=True)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -1683,6 +2064,8 @@ def main() -> None:
                 "launches_per_step": launches[route][wrapper] / (MAX_NEW - 1),
                 "graph_launches": graph["fp32" if route == "dense" else route][
                     "graph_launches"][wrapper],
+                "spec_pool_graph_launches": sum(
+                    c[wrapper].get(route, 0) for c in sspec["graph_launches"].values()),
                 "cuda_launches_per_call": cuda_per_call[route][wrapper],
                 "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
@@ -1714,6 +2097,10 @@ def main() -> None:
          "B1-B4's cuda_launches_per_call counted by the vusa_packed library over the counted "
          "main-path run, per wrapper call; B1-B4's graph_launches the launches of phase 7's "
          "greedy graph run: replays x the launches captured in one step; "
+         "spec_pool_graph_launches the launches of phase 10's speculative pool graphs on the "
+         "record's value route (replays x captured, summed over its runs; the drafter's and "
+         "fp32 verifiers' on the float route, int8 verifiers' on int8; int4 is not a verifier "
+         "route there); "
          "vusa_spmm/dense_matmul summed over the 21 GEMMs of one ResNet-18 image (MobileNetV1's "
          "28 under 'mobilenetv1'), their cuda_launches_per_call the mean over those GEMMs of the "
          "CUDA launches each library counted in the counted run (2 where the plan splits the "
@@ -1721,7 +2108,7 @@ def main() -> None:
          "per logical fp32 product (3xTF32)",
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
          "paper_workloads": paper, "graph_decode": graph, "speculative": spec,
-         "scheduler": sched,
+         "scheduler": sched, "speculative_scheduler": sspec, "failure_model": fails,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

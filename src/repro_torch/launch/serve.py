@@ -9,27 +9,45 @@ optional VUSA packing, one batched ``generate``.
         --speculative --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --device cpu \
         --requests 8 --slots 4 --page-size 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --device cpu \
+        --requests 8 --slots 4 --packed all --speculative
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --device cpu \
+        --requests 8 --slots 4 --fault-rate 0.2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --device cpu \
+        --requests 8 --slots 4 --stream --journal /tmp/j --watchdog-s 2
 
 Port of the JAX package's ``launch/serve.py``: one batched ``generate``,
 with its speculative options, or with ``--requests N`` N synthetic
 requests through the continuous-batching ``Scheduler`` (``--slots``,
-``--deadline-s``, ``--queue-cap`` / ``--shed-policy``, and the paged pool:
+``--deadline-s``, ``--queue-cap`` / ``--shed-policy``, the paged pool:
 ``--page-size``, ``--arena-blocks``, ``--prefix-cache``,
-``--prefill-chunk``).  The streaming, mesh and fault options come with
-later slices (ROADMAP.md queue A).  ``--no-fused`` decodes in the eager
-host loop instead of the CUDA graph.
+``--prefill-chunk``; ``--speculative`` serves the scheduler's speculative
+rounds; ``--fault-rate`` NaN-poisons that seeded fraction of requests'
+caches to exercise the guard and the dense retry).  ``--stream`` serves the
+same requests through the asyncio ``AsyncEngine``; ``--journal PATH``
+journals every request event (implies ``--stream``), ``--recover`` replays
+a crashed journal first (proven completions come back as they are, the
+rest re-execute with the same tokens) and ``--watchdog-s`` arms the stall
+watchdog.  SIGINT / SIGTERM drain instead of dying mid-segment: admission
+stops, in-flight requests finish (bounded by ``--drain-timeout-s``), the
+stats print and the journal closes clean.  The mesh options come with a
+later slice (ROADMAP.md A12).  ``--no-fused`` decodes in the eager host
+loop instead of the CUDA graph.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import os
+import signal
 
 import numpy as np
 
 from ..configs import get_config, get_smoke_config
 from ..core.pruning import prune_tree
 from ..models import build_model
-from ..serve import Engine, Request, Scheduler, ServeConfig
+from ..serve import AsyncEngine, Engine, FaultConfig, Journal, Request, Scheduler, ServeConfig
 
 
 def main(argv=None):
@@ -49,7 +67,8 @@ def main(argv=None):
     ap.add_argument(
         "--speculative", action="store_true",
         help="self-speculative decoding: a high-sparsity pack of the same weights drafts "
-        "--draft-k tokens a round, the configured path verifies them in one step (B=1)",
+        "--draft-k tokens a round, the configured path verifies them in one step (one-shot "
+        "generate at B=1, or every slot of the scheduler with --requests)",
     )
     ap.add_argument("--draft-k", type=int, default=4, help="drafted tokens per round")
     ap.add_argument(
@@ -106,10 +125,45 @@ def main(argv=None):
         "the chunks with decode segments (0 = whole-prompt prefill; "
         "requires --page-size)",
     )
+    ap.add_argument(
+        "--fault-rate", type=float, default=0.0,
+        help="chaos mode: seeded fraction of requests whose cache gets NaN-poisoned at "
+        "admission (exercises the guard and the dense retry)",
+    )
+    ap.add_argument(
+        "--stream", action="store_true",
+        help="serve through the asyncio AsyncEngine (token streaming, watchdog, clean "
+        "drain on SIGINT/SIGTERM); requires --requests",
+    )
+    ap.add_argument(
+        "--journal", default=None, metavar="PATH",
+        help="write-ahead journal every request event to PATH (CRC32-framed, fsync'd at "
+        "segment syncs); implies --stream",
+    )
+    ap.add_argument(
+        "--recover", action="store_true",
+        help="replay --journal before serving: journaled completions are honoured, "
+        "in-flight requests re-execute under their original seeds",
+    )
+    ap.add_argument(
+        "--watchdog-s", type=float, default=None,
+        help="abort a segment that syncs nothing for this long as STALLED (default: off)",
+    )
+    ap.add_argument(
+        "--drain-timeout-s", type=float, default=30.0,
+        help="on SIGINT/SIGTERM, give in-flight requests this long to finish before "
+        "aborting them (CANCELLED)",
+    )
     args = ap.parse_args(argv)
-    if args.speculative and args.requests > 0:
-        ap.error("--speculative serves one-shot generate; the scheduler's speculative "
-                 "segments are not ported yet (ROADMAP.md A9)")
+    if args.recover and not args.journal:
+        ap.error("--recover requires --journal")
+    if args.journal:
+        args.stream = True
+    if args.stream and args.requests <= 0:
+        ap.error("--stream/--journal require --requests N")
+    if args.speculative and args.requests == 0 and args.batch not in (None, 1):
+        ap.error("--speculative one-shot generate serves --batch 1 "
+                 "(use --requests N for batched speculative serving)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = build_model(cfg).init(0, device=args.device)
@@ -117,7 +171,11 @@ def main(argv=None):
     if sp > 0:
         params = prune_tree(params, sp)
     batch = args.batch if args.batch is not None else (1 if args.speculative else 4)
-    headroom = args.draft_k if args.speculative else 0
+    headroom = 0
+    if args.speculative:
+        # a round writes up to draft_k rows past the budget; the scheduler
+        # budgets a whole segment of rounds, 8 * (draft_k + 1) rows
+        headroom = 8 * args.draft_k if args.requests > 0 else args.draft_k
     max_len = args.prompt_len + args.max_new + headroom + 8
     if args.page_size > 0:  # the page size must divide max_len
         max_len = -(-max_len // args.page_size) * args.page_size
@@ -126,7 +184,9 @@ def main(argv=None):
                      speculative=args.speculative, draft_k=args.draft_k,
                      draft_sparsity=args.draft_sparsity, page_size=args.page_size,
                      arena_blocks=args.arena_blocks, prefix_cache=args.prefix_cache,
-                     prefill_chunk=args.prefill_chunk)
+                     prefill_chunk=args.prefill_chunk,
+                     faults=FaultConfig(cache_nan_rate=args.fault_rate)
+                     if args.fault_rate > 0 else None)
     eng = Engine(cfg, params, sc, device=args.device)
     if args.requests > 0:
         return _serve_requests(args, cfg, eng)
@@ -141,24 +201,91 @@ def main(argv=None):
     return out
 
 
+def _requests(args, cfg) -> list:
+    """The synthetic workload: ``--requests`` random prompts of
+    ``--prompt-len`` tokens from numpy seed 0, request r with seed r (a pure
+    function of the flags, so a recovered run rebuilds the same requests)."""
+    rng = np.random.default_rng(0)
+    return [Request(prompt=rng.integers(1, cfg.vocab, size=args.prompt_len).astype(np.int32),
+                    max_new=args.max_new, seed=r, deadline_s=args.deadline_s)
+            for r in range(args.requests)]
+
+
+async def _serve_streaming(args, cfg, sched) -> dict:
+    """Drive the workload through the AsyncEngine: streaming consumption,
+    optional journaling and recovery, and a drain on SIGINT/SIGTERM.  A
+    recovered run submits only the requests the journal does not already
+    own.  Returns the engine's lifetime stats."""
+    if args.recover and os.path.exists(args.journal):
+        engine = AsyncEngine.recover(args.journal, sched, watchdog_s=args.watchdog_s)
+        print(f"recovered journal {args.journal}: {len(engine._completed)} completions "
+              f"proven, {len(engine.recovered_rids)} requests re-queued")
+    else:
+        journal = Journal(args.journal) if args.journal else None
+        engine = AsyncEngine(sched, journal=journal, watchdog_s=args.watchdog_s)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    try:
+        async with engine:
+            known = set(engine.recovered_rids) | {
+                rid for rid in range(args.requests) if engine.completion_for(rid) is not None}
+            streams = [engine.stream_for(r) if r in known else engine.submit(req, rid=r)
+                       for r, req in enumerate(_requests(args, cfg))]
+
+            async def consume():
+                total = 0
+                for s in streams:
+                    async for _ in s:
+                        total += 1
+                return total
+
+            work = asyncio.ensure_future(consume())
+            interrupt = asyncio.ensure_future(stop.wait())
+            done, _ = await asyncio.wait({work, interrupt},
+                                         return_when=asyncio.FIRST_COMPLETED)
+            if interrupt in done:
+                print("signal: draining...")
+                clean = await engine.drain(args.drain_timeout_s)
+                print("drained clean" if clean else
+                      f"drain blew {args.drain_timeout_s}s; in-flight work aborted")
+                work.cancel()
+            else:
+                interrupt.cancel()
+                print(f"streamed {work.result()} tokens")
+            st = engine.stats()
+            print(f"{st['requests_completed']:.0f} completions  ttft p50/p99 "
+                  f"{st['ttft_p50_s']*1e3:.0f}/{st['ttft_p99_s']*1e3:.0f}ms  itl p50/p99 "
+                  f"{st['itl_p50_s']*1e3:.0f}/{st['itl_p99_s']*1e3:.0f}ms  journal "
+                  f"records={st['journal_records']:.0f} syncs={st['journal_syncs']:.0f}")
+    finally:
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.remove_signal_handler(sig)
+    return st
+
+
 def _serve_requests(args, cfg, eng):
-    """``--requests N``: N random prompts of ``--prompt-len`` tokens through
-    the scheduler, then its stats."""
+    """``--requests N``: the workload through the scheduler (or, with
+    ``--stream``, the AsyncEngine), then its stats."""
     sched = Scheduler(eng, slots=args.slots, queue_cap=args.queue_cap,
                       shed_policy=args.shed_policy)
-    rng = np.random.default_rng(0)
-    for r in range(args.requests):
-        sched.submit(Request(
-            prompt=rng.integers(1, cfg.vocab, size=args.prompt_len).astype(np.int32),
-            max_new=args.max_new, seed=r, deadline_s=args.deadline_s,
-        ))
+    if args.stream:
+        return asyncio.run(_serve_streaming(args, cfg, sched))
+    for req in _requests(args, cfg):
+        sched.submit(req)
     done = sched.run()
     st = sched.stats()
     print(f"{st['requests']} completions  {st['sustained_tok_per_s']:.0f} tok/s  "
           f"latency p50 {st['latency_p50_s']*1e3:.0f}ms  "
           f"ttft p50 {st['ttft_p50_s']*1e3:.0f}ms")
+    if args.speculative:
+        print(f"  speculative: acceptance {st['acceptance_rate']:.2f}  accepted tok/s "
+              f"{st['tok_per_s']:.0f}  proposed={st['spec_proposed']} "
+              f"accepted={st['spec_accepted']}")
     print("  " + "  ".join(f"{k}={st[k]}" for k in
-                           ("rejected", "shed", "timed_out", "cancelled", "failed")))
+                           ("rejected", "shed", "timed_out", "cancelled", "fallback", "failed",
+                            "quarantined")))
     if args.page_size > 0:
         print(f"  arena {st['kv_pool_bytes']/2**20:.1f}MiB "
               f"blocks live={st['blocks_live']:.0f} free={st['blocks_free']:.0f} "
@@ -166,7 +293,7 @@ def _serve_requests(args, cfg, eng):
               f"prefix hit rate {st['prefix_hit_rate']:.2f}  "
               f"cow={st['cow_copies']}  preempted={st['preempted']}  "
               f"hbm/req {st['hbm_bytes_per_active_request']/2**10:.1f}KiB")
-    bad = sum(1 for c in done.values() if c.status.value != "OK")
+    bad = sum(1 for c in done.values() if c.status.value not in ("OK", "FAILED_FALLBACK_OK"))
     if bad:
         print(f"  {bad} requests did not deliver tokens")
     return done

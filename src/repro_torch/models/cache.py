@@ -50,6 +50,7 @@ __all__ = [
     "write_slots",
     "batch_axes",
     "reset_slot",
+    "poison_slot",
     # paged pool
     "PagedLayout",
     "BlockAllocator",
@@ -57,7 +58,7 @@ __all__ = [
     "init_paged_pool",
     "paged_view",
     "paged_gather",
-    "paged_scatter_token",
+    "paged_scatter_rows",
     "write_prefill_pages",
     "bind_slot_pages",
     "zero_blocks",
@@ -67,6 +68,7 @@ __all__ = [
     "paged_pool_bytes",
     "paged_block_bytes",
     "paged_host_mirror",
+    "paged_poison_block",
     "prefix_page_digests",
     "prefix_tail_digests",
 ]
@@ -142,6 +144,22 @@ def reset_slot(slot_cache: dict, i: int, axes: Dict[str, int]) -> None:
     state."""
     for name, leaf in slot_cache.items():
         leaf.narrow(axes[name], i, 1).zero_()
+
+
+def poison_slot(slot_cache: dict, i: int, axes: Dict[str, int], value=float("nan")) -> None:
+    """Write ``value`` (NaN by default) into element ``(layer 0, slot i,
+    row 0, 0, ...)`` of every floating leaf, in place: the cache-poisoning
+    hook behind ``FaultConfig.cache_nan_rate`` (the reference's
+    ``poison_slot`` writes the same element of its slot-stacked leaves).
+    Row 0 is inside every prompt, so the NaN reaches the slot's logits
+    within one step.  Integer leaves (``pos``) are left alone: NaN has no
+    integer encoding, and a corrupt position would change control flow, not
+    numerics."""
+    for name, leaf in slot_cache.items():
+        if leaf.is_floating_point():
+            idx = [0] * leaf.ndim
+            idx[axes[name]] = i
+            leaf[tuple(idx)] = value
 
 
 # ==========================================================================
@@ -232,8 +250,8 @@ def paged_view(pstate: dict) -> dict:
     """The decode step's cache dict for a paged pool: the arena leaves, the
     block tables and the positions.  Each layer's attention gathers its
     table rows into the contiguous (slots, max_len, ...) view
-    (:func:`paged_gather`) and writes its new row through the table
-    (:func:`paged_scatter_token`)."""
+    (:func:`paged_gather`) and writes its new rows through the table
+    (:func:`paged_scatter_rows`)."""
     return {**pstate["arena"], "table": pstate["table"], "pos": pstate["pos"]}
 
 
@@ -246,19 +264,23 @@ def paged_gather(arena_t: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return arena_t[table].reshape(table.shape[0], -1, *arena_t.shape[2:])
 
 
-def paged_scatter_token(arena_t: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
-                        rows: torch.Tensor) -> None:
-    """Write one decoded row per slot into one layer's arena leaf
-    ``arena_t`` (n_blocks, page, ...), in place — the write half of the
-    decode step: row i (``rows`` (B, 1, ...)) lands in block
-    ``table[i, pos_i // page]`` at offset ``pos_i % page`` (``positions``
-    (B, 1)).  The page index is clamped to the table, so a free slot whose
-    position drifts past ``max_len`` keeps writing into its own table (its
-    scratch block), with no host sync.  Distinct slots target distinct
-    blocks (the allocator never maps one user block writable into two
-    tables, and scratch blocks are per slot), so the writes do not
-    collide."""
+def paged_scatter_rows(arena_t: torch.Tensor, table: torch.Tensor, start: torch.Tensor,
+                       rows: torch.Tensor) -> None:
+    """Write ``S`` consecutive rows per slot into one layer's arena leaf
+    ``arena_t`` (n_blocks, page, ...), in place: row j of slot i (``rows``
+    (B, S, ...)) lands at position ``start[i] + j`` (``start`` (B,)), in
+    block ``table[i, pos // page]`` at offset ``pos % page``.  S = 1 is a
+    decode step's write; S = ``draft_k`` + 1 the speculative verify's, whose
+    rejected tail is written too and stays masked past ``pos`` until
+    overwritten, as in the slot pool (the reference's
+    ``paged_scatter_rows``).  The page index is clamped to the table, so a
+    row past a slot's pages lands in the block its table holds there: its
+    scratch block for a free slot, whose position drifts past ``max_len``,
+    with no host sync.  Distinct slots target distinct blocks (the
+    allocator never maps one user block writable into two tables, and
+    scratch blocks are per slot), so the writes do not collide."""
     page = arena_t.shape[1]
+    positions = start[:, None] + torch.arange(rows.shape[1], device=start.device)
     blk = table.gather(1, (positions // page).clamp(max=table.shape[1] - 1))
     flat = (blk * page + positions % page).reshape(-1)
     arena_t.flatten(0, 1).index_copy_(0, flat, rows.flatten(0, 1).to(arena_t.dtype))
@@ -330,6 +352,17 @@ def paged_reset_slot(pstate: dict, i: int, scratch_id: int) -> None:
     allocator's call (shared blocks may have other readers)."""
     pstate["table"][i].fill_(scratch_id)
     pstate["pos"][i].fill_(0)
+
+
+def paged_poison_block(arena: dict, blk: int, value=float("nan")) -> None:
+    """Write ``value`` (NaN by default) into element ``(layer 0, blk, 0,
+    ...)`` of every floating arena leaf, in place: :func:`poison_slot` on
+    the paged layout.  The caller passes a *private* block of the target
+    slot (the scheduler privatizes one first), so the poison reaches one
+    request even under prefix sharing."""
+    for a in arena.values():
+        if a.is_floating_point():
+            a[(0, blk) + (0,) * (a.ndim - 2)] = value
 
 
 def paged_pool_bytes(pstate: dict) -> int:

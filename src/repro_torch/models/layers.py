@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .cache import paged_gather, paged_scatter_token
+from .cache import paged_gather, paged_scatter_rows
 from .common import ParamSpec, apply_rope, per_row, rms_norm, rope
 
 __all__ = [
@@ -285,11 +285,12 @@ def attention_decode(
     dropped; the engine's length guard keeps decode short of it.
 
     The cache may also be *paged*: ``{"k": (n_blocks, page, kvh, hd), "v":
-    ..., "table": (B, n_pages) long, "pos": (B,)}``.  The new row is written
-    into the arena at the block table's address (``paged_scatter_token``),
-    then the table gathers exactly the contiguous (B, max_len, ...) view the
-    slot pool holds, so from there on the attend is the same computation and
-    the tokens the same bits.  Paged decode takes one token per row.
+    ..., "table": (B, n_pages) long, "pos": (B,)}``.  All ``s`` new rows are
+    written into the arena at the block table's addresses
+    (``paged_scatter_rows``) before the table gathers exactly the contiguous
+    (B, max_len, ...) view the slot pool holds, so from there on the attend
+    is the same computation and the tokens the same bits, for the
+    speculative verify's ``s`` rows too.
 
     With ``s > 1`` (the speculative verify) the ``s`` tokens take positions
     ``pos .. pos+s-1`` and all their K/V rows are written before attending.
@@ -308,10 +309,9 @@ def attention_decode(
     positions = cache["pos"][:, None] + torch.arange(s, device=x.device)  # (B, s)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions, wmm=wmm, rowwise=rowwise)
     if "table" in cache:
-        assert s == 1, "paged decode takes one token per row"
         table = cache["table"]
-        paged_scatter_token(cache["k"], table, positions, k_new)
-        paged_scatter_token(cache["v"], table, positions, v_new)
+        paged_scatter_rows(cache["k"], table, cache["pos"], k_new)
+        paged_scatter_rows(cache["v"], table, cache["pos"], v_new)
         k_cache, v_cache = paged_gather(cache["k"], table), paged_gather(cache["v"], table)
     else:
         k_cache, v_cache = cache["k"], cache["v"]

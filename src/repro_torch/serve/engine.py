@@ -5,15 +5,16 @@ self-speculative decoding (``ServeConfig.speculative``).
 Port of the JAX package's ``serve/engine.py``: one-shot ``generate``, and
 the entry points the continuous-batching scheduler (``serve/scheduler.py``)
 drives — ``prime`` and ``prime_many`` (bucketed masked prefill),
-``prefill_chunk`` (paged chunked prefill) and the pool step.  The
-reference fuses the decode loop into one ``lax.scan`` and the speculative
-decode into one ``lax.while_loop``.  Here, with ``ServeConfig.fused`` (the
-default) on a CUDA device, one decode step is captured in a CUDA graph
-once per batch size and replayed once per token, one speculative round
-(``draft_k`` drafter steps, the verify, the accept scan) in another,
-replayed round after round, and a scheduler's pool step (all its slots,
-each row at its own position) in a third, replayed ``segment`` times a
-segment.  ``fused=False`` keeps the eager host loop as
+``prefill_chunk`` (paged chunked prefill), the pool step and the pool's
+speculative round.  The reference fuses the decode loop into one
+``lax.scan`` and the speculative decode into one ``lax.while_loop``.
+Here, with ``ServeConfig.fused`` (the default) on a CUDA device, one
+decode step is captured in a CUDA graph once per batch size and replayed
+once per token, one speculative round (``draft_k`` drafter steps, the
+verify, the accept scan) in another, replayed round after round, and a
+scheduler's pool step (all its slots, each row at its own position) or,
+on a speculative engine, its pool round in a third, replayed ``segment``
+times a segment.  ``fused=False`` keeps the eager host loop as
 the parity oracle, as the reference keeps its host loop.  On the CPU there
 are no graphs: ``fused=True`` runs the same step eagerly.  A capture or
 replay that fails raises; nothing falls back to the eager loop.
@@ -23,6 +24,16 @@ tensor in the cache, each token is chosen on the device and feeds the next step,
 the integrity flags (``isfinite`` over the fp32 logits) stay there, and
 tokens and flags are fetched once at the end.  The speculative loop reads
 its emitted count once per batch of rounds (``_spec_decode``).
+
+Integrity and degradation: a pack may carry a seeded fault plan
+(``ServeConfig.faults``: position flips the pack validation refuses, value
+NaNs only the run-time guard sees).  When a guard trips under packed
+weights the scheduler quarantines the pack (``quarantine_packed``) and
+every later step runs dense; the dense twin of each pool graph is captured
+with the packed one at ``prepare_pool``, while every slot is free, so the
+switch never captures on a live pool.  ``reload_packed`` rebuilds the pack
+(a hot swap) and drops every captured graph, since they hold the old
+pack's addresses; the next ``prepare_pool`` captures afresh.
 
 Sampling is Gumbel-max over a noise table drawn once per ``generate`` from
 a ``torch.Generator`` seeded by ``ServeConfig.seed``, one (B, V) draw per
@@ -45,6 +56,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..models import build_model
 from ..models.common import strict_fp32
+from .faults import FaultConfig
 from .metrics import acceptance_rate, tok_per_s
 
 __all__ = ["ServeConfig", "Engine"]
@@ -89,11 +101,16 @@ class ServeConfig:
     # segments.  Requires page_size > 0 and a page multiple.  0 = whole
     # prompts.
     prefill_chunk: int = 0
+    # seeded fault plan (``serve/faults.py``); None = no faults.  Pack
+    # corruption lands at pack build (position flips before validation,
+    # value NaNs after); cache poisoning and stalls are the scheduler's.
+    faults: Optional[FaultConfig] = None
     # self-speculative decoding: the same weights magnitude-pruned at
     # ``draft_sparsity`` and packed at scope "all" draft ``draft_k`` greedy
     # tokens a round; the configured path verifies them in one multi-token
     # step and the longest matching prefix is accepted.  Tokens are
-    # bit-identical to plain decode, greedy and sampled.  B = 1 only.
+    # bit-identical to plain decode, greedy and sampled.  ``generate``
+    # serves B = 1; the scheduler serves it on its whole pool.
     speculative: bool = False
     draft_k: int = 4
     draft_sparsity: float = 0.99
@@ -177,7 +194,11 @@ class _Pool:
     emitted-token count, which picks its noise row; the step's column in
     the (slots, segment) token and flag outputs; and the (slots, n, V)
     Gumbel noise table, each slot's rows copied in at admission (made at
-    the first sampled segment)."""
+    the first sampled segment).  With ``spec`` each replay is one
+    speculative round of every slot (``_pool_spec_round``): the outputs
+    are (slots, segment, draft_k + 1) tokens and flags, written a round
+    wide at the round's column, and ``nems`` (slots, segment) holds each
+    round's emitted count."""
 
     token: torch.Tensor
     cache: dict
@@ -187,6 +208,8 @@ class _Pool:
     toks: torch.Tensor
     oks: torch.Tensor
     noise: Optional[torch.Tensor] = None
+    spec: bool = False
+    nems: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -225,21 +248,43 @@ class Engine:
         self.cfg = cfg
         self.sc = ServeConfig() if sc is None else sc
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # pin "cuda" to the current card, so a worker thread can set it
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._clock = clock or time.monotonic
         self._make_buckets(self.sc)  # refuses a bucket outside [1, max_len] now
         self.model = build_model(cfg)
         self.params = _to(params, self.device)
-        self._packed = None
-        if self.sc.packed_weights:
-            from .packed import pack_lm_weights
-
-            self._packed = pack_lm_weights(
-                cfg, self.params, self.sc.vusa_m, self.sc.vusa_a,
-                scope=self.sc.packed_weights, fused_mlp=self.sc.fused_mlp,
-                value_dtype="dense" if self.sc.packed_values == "bf16" else self.sc.packed_values,
-            )
+        self._quarantined = False
+        self._packed = (self._build_pack(self.params, self.sc.faults)
+                        if self.sc.packed_weights else None)
         self._draft_packed = self._build_draft_pack() if self.sc.speculative else None
         self._graphs: Dict[tuple, _Graph] = {}
+        # replays x captured launches of graphs dropped by a pack swap, so
+        # ``graph_launches`` stays the engine's lifetime count
+        self._dropped_launches: Dict[str, Dict[str, int]] = {}
+
+    def _build_pack(self, params, faults: Optional[FaultConfig] = None) -> Dict:
+        """The verifier's pack of ``params`` per the ServeConfig, with the
+        fault plan's corruption: position flips land *before* validation,
+        so a corrupt metadata byte makes the Engine refuse the pack here;
+        value NaNs land *after* it, the post-load corruption only the
+        run-time guard can catch.  Used at init and by ``reload_packed``."""
+        from .packed import pack_lm_weights, validate_packed
+
+        packed = pack_lm_weights(
+            self.cfg, params, self.sc.vusa_m, self.sc.vusa_a, scope=self.sc.packed_weights,
+            fused_mlp=self.sc.fused_mlp,
+            value_dtype="dense" if self.sc.packed_values == "bf16" else self.sc.packed_values,
+        )
+        f = faults
+        if f is not None and (f.pack_position_flips or f.pack_value_nans):
+            from .faults import corrupt_pack_positions, corrupt_pack_values
+
+            packed = corrupt_pack_positions(packed, f)
+            validate_packed(packed)
+            packed = corrupt_pack_values(packed, f)
+        return packed
 
     def _build_draft_pack(self) -> Dict:
         """The drafter: the same weights magnitude-pruned at
@@ -263,6 +308,60 @@ class Engine:
     @property
     def draft_packed(self) -> Optional[Dict]:
         return self._draft_packed
+
+    # -- integrity / degradation ----------------------------------------------
+    @property
+    def quarantined(self) -> bool:
+        return self._quarantined
+
+    @property
+    def packed_active(self) -> bool:
+        """True while decode runs through the packed path."""
+        return self._packed is not None and not self._quarantined
+
+    def quarantine_packed(self) -> bool:
+        """Drop the packed path for good (the scheduler calls this when a
+        slot trips the guard under packed weights: the corrupt bytes may be
+        anywhere in the pack).  The dense weights are always resident, so
+        the dense path needs no reload, and the pools' dense graphs were
+        captured with the packed ones.  True if the engine switched."""
+        if not self.packed_active:
+            return False
+        self._quarantined = True
+        return True
+
+    def reload_packed(self, params=None) -> bool:
+        """Hot-swap the packed path: rebuild the pack from ``params``
+        (default: the engine's own, e.g. to re-arm the packed path after a
+        quarantine), validate it, clear any quarantine, and drop every
+        captured graph (they hold the old pack's and params' addresses; the
+        next ``prepare_pool`` or ``generate`` captures afresh).  No fault
+        corruption is applied to a swapped-in pack; the run-time guard still
+        covers it.  The drafter keeps its pack: its precision moves only the
+        acceptance rate.  The caller makes sure nothing is in flight (the
+        streaming front end drains first).  False when the engine serves no
+        pack."""
+        if not self.sc.packed_weights:
+            return False
+        from .packed import validate_packed
+
+        if params is not None:
+            self.params = _to(params, self.device)
+        packed = self._build_pack(self.params)
+        validate_packed(packed)
+        self._packed = packed
+        self._quarantined = False
+        self._drop_graphs()
+        self._sync()
+        return True
+
+    def _route_pack(self, dense: Optional[bool] = None) -> Optional[Dict]:
+        """The pack a step verifies through: None (the dense path) when
+        ``dense``, or, with ``dense`` None, when the pack is quarantined or
+        there is none."""
+        if dense is None:
+            dense = self._quarantined
+        return None if dense else self._packed
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -308,7 +407,7 @@ class Engine:
         """One decode step on ``st``: the token at ``st.count`` and its
         integrity flag (``isfinite`` over the fp32 logits) written to the
         outputs, the token fed back, the count and ``pos`` advanced."""
-        logits = self._logits(st.token, st.cache, self._packed)[:, -1].float()
+        logits = self._logits(st.token, st.cache, self._route_pack())[:, -1].float()
         at = st.count.view(1)
         nxt = self._choose(logits, st.noise, at)[:, None]
         st.toks.index_copy_(1, at, nxt)
@@ -340,7 +439,7 @@ class Engine:
             drafts.append(tok)
         seq = torch.cat([st.token, *drafts], dim=1)  # (1, k + 1)
         cache["pos"].copy_(pos0)  # the verify rewrites rows pos0 .. pos0 + k
-        logits = self._logits(seq, cache, self._packed)[0].float()  # (k + 1, V)
+        logits = self._logits(seq, cache, self._route_pack())[0].float()  # (k + 1, V)
         at = st.count + torch.arange(k + 1, device=logits.device)
         v = self._choose(logits, st.noise, at)
         matched = (v[:k] == seq[0, 1:]).int().cumprod(dim=0).bool()
@@ -353,7 +452,7 @@ class Engine:
         st.count.add_(nem)
         st.rounds.add_(1)
 
-    def _pool_step(self, st: _Pool) -> None:
+    def _pool_step(self, st: _Pool, dense: Optional[bool] = None) -> None:
         """One decode step of every slot of a scheduler's pool.  Row b is
         bitwise a B = 1 step on slot b's own cache row: the step runs
         ``rowwise`` (the norms' means, the attend's products and sum and the
@@ -363,11 +462,13 @@ class Engine:
         ``generate`` at B = 1 does.  Free slots decode along with the pool:
         their positions and counts drift, their writes land past the cache
         (dropped) or in their scratch blocks, and their count is clamped to
-        the noise table, all without a host sync."""
+        the noise table, all without a host sync.  ``dense`` as in
+        ``_route_pack``."""
         from ..models.cache import paged_view
 
         cache = paged_view(st.cache) if st.paged else st.cache
-        logits = self._logits(st.token, cache, self._packed, rowwise=True)[:, -1].float()
+        logits = self._logits(st.token, cache, self._route_pack(dense),
+                              rowwise=True)[:, -1].float()
         if self.sc.temperature > 0:
             rows = torch.arange(logits.shape[0], device=logits.device)
             g = st.noise[rows, st.count.clamp(max=st.noise.shape[1] - 1)]
@@ -379,6 +480,55 @@ class Engine:
         st.oks.index_copy_(1, at, torch.isfinite(logits).all(dim=-1)[:, None])
         st.token.copy_(nxt[:, None])
         st.count.add_(1)
+        st.col.add_(1)
+
+    def _pool_spec_round(self, st: _Pool, dense: Optional[bool] = None) -> None:
+        """One speculative round of every slot of a scheduler's pool: the
+        pool twin of ``_spec_round``.  ``draft_k`` drafter steps on all
+        slots, each slot's ``pos`` rewound to its own round start, one
+        verify of the (slots, draft_k + 1) tokens through the verifier
+        (``dense`` as in ``_route_pack``), the accept scan per slot, and
+        ``pos += nem`` per slot.  Everything runs ``rowwise`` as
+        ``_pool_step`` does (the packed kernels on all slots x (draft_k +
+        1) rows at once, their rows independent of the row count), and slot
+        b draws its noise rows ``count[b] + arange(draft_k + 1)`` from its
+        own table, so row b is bitwise a B = 1 ``_spec_round`` on slot b's
+        cache row.  The round's tokens (rejected positions 0), flags and
+        emitted count land at column ``col`` of the outputs.  Free slots
+        draft and verify along with the pool: their writes drop past the
+        cache (slot pool) or land in their scratch blocks (paged), their
+        noise index is clamped, with no host sync."""
+        from ..models.cache import paged_view
+
+        k = self.sc.draft_k
+        cache = paged_view(st.cache) if st.paged else st.cache
+        pos = st.cache["pos"]
+        pos0 = pos.clone()
+        tok, drafts = st.token, []
+        for _ in range(k):
+            lg = self._logits(tok, cache, self._draft_packed, rowwise=True)
+            tok = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+            drafts.append(tok)
+        seq = torch.cat([st.token, *drafts], dim=1)  # (slots, k + 1)
+        pos.copy_(pos0)  # the verify rewrites rows pos0 .. pos0 + k of every slot
+        logits = self._logits(seq, cache, self._route_pack(dense), rowwise=True).float()
+        at = st.count[:, None] + torch.arange(k + 1, device=logits.device)  # (slots, k + 1)
+        if self.sc.temperature > 0:
+            rows = torch.arange(logits.shape[0], device=logits.device)[:, None]
+            g = st.noise[rows, at.clamp(max=st.noise.shape[1] - 1)]
+            v = torch.argmax(logits / self.sc.temperature + g, dim=-1)
+        else:
+            v = torch.argmax(logits, dim=-1)
+        matched = (v[:, :k] == seq[:, 1:]).int().cumprod(dim=1).bool()
+        accept = torch.cat([torch.ones_like(matched[:, :1]), matched], dim=1)
+        nem = accept.sum(dim=1)  # (slots,), 1 .. k + 1
+        col = st.col.view(1)
+        st.toks.index_copy_(1, col, torch.where(accept, v, 0)[:, None])
+        st.oks.index_copy_(1, col, torch.isfinite(logits).all(dim=-1)[:, None])
+        st.nems.index_copy_(1, col, nem[:, None])
+        pos.copy_(pos0 + nem)
+        st.token.copy_(v.gather(1, nem[:, None] - 1))
+        st.count.add_(nem)
         st.col.add_(1)
 
     # -- CUDA graphs ----------------------------------------------------------
@@ -410,7 +560,7 @@ class Engine:
 
     def _step_graph(self, b: int) -> _Graph:
         """The captured decode step at batch ``b`` (built at first use)."""
-        key = ("step", b, self.sc.temperature > 0, self.sc.max_len)
+        key = ("step", b, self.sc.temperature > 0, self.sc.max_len, self._quarantined)
         if key not in self._graphs:
             n, dev = self.sc.max_len, self.device
             st = _Loop(
@@ -426,7 +576,7 @@ class Engine:
 
     def _spec_graph(self) -> _Graph:
         """The captured speculative round at B = 1 (built at first use)."""
-        key = ("spec", 1, self.sc.temperature > 0, self.sc.max_len)
+        key = ("spec", 1, self.sc.temperature > 0, self.sc.max_len, self._quarantined)
         if key not in self._graphs:
             n, dev = self.sc.max_len + self.sc.draft_k + 1, self.device
             st = _SpecLoop(
@@ -441,55 +591,106 @@ class Engine:
             self._graphs[key] = self._capture(self._spec_round, st)
         return self._graphs[key]
 
-    def new_pool(self, slots: int, segment: int, layout=None) -> _Pool:
+    def new_pool(self, slots: int, segment: int, layout=None, spec: bool = False) -> _Pool:
         """A scheduler's pool state: the slot pool, or with ``layout``
-        (``models.cache.PagedLayout``) the paged pool, every slot free."""
+        (``models.cache.PagedLayout``) the paged pool, every slot free;
+        ``spec`` sizes the outputs for speculative rounds."""
         dev, n = self.device, self.sc.max_len
         if layout is None:
             cache = self.model.init_slot_cache(slots, n, device=dev)
         else:
             cache = self.model.init_paged_pool(layout, n, device=dev)
+        grid = (slots, segment, self.sc.draft_k + 1) if spec else (slots, segment)
         return _Pool(
             token=torch.zeros((slots, 1), dtype=torch.long, device=dev), cache=cache,
             paged=layout is not None,
             count=torch.zeros((slots,), dtype=torch.long, device=dev),
             col=torch.zeros((), dtype=torch.long, device=dev),
-            toks=torch.zeros((slots, segment), dtype=torch.long, device=dev),
-            oks=torch.ones((slots, segment), dtype=torch.bool, device=dev),
+            toks=torch.zeros(grid, dtype=torch.long, device=dev),
+            oks=torch.ones(grid, dtype=torch.bool, device=dev),
+            spec=spec,
+            nems=torch.zeros((slots, segment), dtype=torch.long, device=dev) if spec else None,
         )
+
+    def _pool_body(self, st: _Pool, dense: bool):
+        if st.spec:
+            return lambda s: self._pool_spec_round(s, dense)
+        return lambda s: self._pool_step(s, dense)
+
+    def _pool_key(self, st: _Pool, dense: bool) -> tuple:
+        return ("pool", id(st), self.sc.temperature, dense)
 
     def prepare_pool(self, st: _Pool) -> None:
         """Make the pool ready for this temperature: the noise table when
-        sampling and, with ``fused`` on a CUDA device, the pool step captured
-        in a CUDA graph (one per pool and temperature).  The capture's
-        warm-up runs one step, so call this while every slot is free (the
-        scheduler does, at the start of each run)."""
+        sampling and, with ``fused`` on a CUDA device, the pool step (or
+        speculative round) captured in a CUDA graph, one per pool,
+        temperature and verifier route: the packed one and its dense twin,
+        which a quarantine switches to mid-run.  A capture's warm-up runs
+        one step, so call this while every slot is free (the scheduler does,
+        at the start of each run)."""
         if self.sc.temperature > 0 and st.noise is None:
             st.noise = torch.zeros((st.token.shape[0], self.sc.max_len, self.cfg.padded_vocab),
                                    dtype=torch.float32, device=self.device)
-        key = ("pool", id(st), self.sc.temperature)
-        if self._graphed() and key not in self._graphs:
-            with torch.no_grad():
-                self._graphs[key] = self._capture(self._pool_step, st)
+        if not self._graphed():
+            return
+        routes = (True,) if self._packed is None or self._quarantined else (False, True)
+        # the warm-up writes the outputs at ``col``: after a run it stands at
+        # ``segment``, one past the grid (a recapture after a pack swap)
+        st.col.zero_()
+        with torch.no_grad():
+            for dense in routes:
+                key = self._pool_key(st, dense)
+                if key not in self._graphs:
+                    self._graphs[key] = self._capture(self._pool_body(st, dense), st)
+
+    def release_pool(self, st: _Pool) -> None:
+        """Drop the pool's captured graphs (the next ``prepare_pool``
+        captures afresh)."""
+        self._drop_graphs([key for key in self._graphs if key[:2] == ("pool", id(st))])
 
     @torch.no_grad()
     def pool_segment(self, st: _Pool) -> torch.Tensor:
-        """``segment`` steps of the whole pool with no host sync: replays of
-        the captured pool step with ``fused`` on a CUDA device, else the
-        step run eagerly.  Returns the (2, slots, segment) device tensor of
-        the segment's tokens and integrity flags, for the one fetch of the
-        segment sync."""
+        """``segment`` steps (or speculative rounds) of the whole pool with
+        no host sync, on the verifier route the engine is on: replays of the
+        captured graph with ``fused`` on a CUDA device, else the step run
+        eagerly.  Returns, for the one fetch of the segment sync, the (2,
+        slots, segment) device tensor of the segment's tokens and integrity
+        flags or, speculative, the (slots, segment, 2 (draft_k + 1) + 1)
+        tensor of the round tokens, the round flags and the emitted
+        counts."""
         st.col.zero_()
         segment = st.toks.shape[1]
+        dense = self._packed is None or self._quarantined
         if self._graphed():
-            g = self._graphs[("pool", id(st), self.sc.temperature)]
+            g = self._graphs.get(self._pool_key(st, dense))
+            if g is None:
+                raise RuntimeError("the pool's graph was not captured: call prepare_pool while "
+                                   "every slot is free")
             for _ in range(segment):
                 g.graph.replay()
             g.replays += segment
         else:
+            body = self._pool_body(st, dense)
             for _ in range(segment):
-                self._pool_step(st)
+                body(st)
+        if st.spec:
+            return torch.cat([st.toks, st.oks.long(), st.nems[..., None]], dim=2)
         return torch.stack([st.toks, st.oks.long()])
+
+    @staticmethod
+    def _add_launches(out: Dict[str, Dict[str, int]], name: str, routes: Dict[str, int],
+                      times: int = 1) -> None:
+        acc = out.setdefault(name, dict.fromkeys(routes, 0))
+        for route, n in routes.items():
+            acc[route] = acc.get(route, 0) + n * times
+
+    def _drop_graphs(self, keys=None) -> None:
+        """Drop the captured graphs ``keys`` (default: all), keeping their
+        launches in ``graph_launches``."""
+        for key in list(self._graphs) if keys is None else keys:
+            g = self._graphs.pop(key)
+            for name, routes in g.launches.items():
+                self._add_launches(self._dropped_launches, name, routes, g.replays)
 
     def graph_launches(self) -> Dict[str, Dict[str, int]]:
         """Kernel launches the graph replays made since the engine was built,
@@ -497,11 +698,11 @@ class Engine:
         replay.  The wrappers' own counts see the capture, not the
         replays."""
         out: Dict[str, Dict[str, int]] = {}
+        for name, routes in self._dropped_launches.items():
+            self._add_launches(out, name, routes)
         for g in self._graphs.values():
             for name, routes in g.launches.items():
-                acc = out.setdefault(name, dict.fromkeys(routes, 0))
-                for route, n in routes.items():
-                    acc[route] += n * g.replays
+                self._add_launches(out, name, routes, g.replays)
         return out
 
     @staticmethod

@@ -32,7 +32,7 @@ from ..models.layers import attention_decode
 
 __all__ = [
     "pack_lm_weights", "lm_decode_step_packed", "packed_byte_ratios", "validate_packed",
-    "qdq_lm_params",
+    "qdq_lm_params", "pack_fingerprint",
 ]
 
 ATTN_NAMES = ("wq", "wk", "wv", "wo")
@@ -164,6 +164,35 @@ def _flat_entries(packed: Dict) -> Dict[str, Dict]:
     if packed.get("head") is not None:
         flat["lm_head"] = packed["head"]
     return flat
+
+
+def _host_bytes(t: torch.Tensor) -> bytes:
+    """A tensor's raw bytes in C order, read from the host."""
+    return t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+
+
+def pack_fingerprint(packed: Dict) -> int:
+    """CRC32 over every entry's name, geometry and ``values`` /
+    ``positions`` / ``scales`` bytes (the reference's ``pack_fingerprint``,
+    the same fields in the same order): a cheap identity of a loaded pack.
+    Hot swaps journal it, so the journal alone tells which pack served
+    which tokens; two packs built from the same params at the same config
+    fingerprint the same.  One host fetch per leaf; never on the decode
+    path."""
+    import zlib
+
+    crc = 0
+    flat = _flat_entries(packed)
+    for name in sorted(flat):
+        e = flat[name]
+        crc = zlib.crc32(name.encode(), crc)
+        geom = (int(e["m"]), int(e["a"]), int(e["k"]), int(e["c"]),
+                e.get("value_dtype", "dense"))
+        crc = zlib.crc32(repr(geom).encode(), crc)
+        for leaf in ("values", "positions", "scales"):
+            if e.get(leaf) is not None:
+                crc = zlib.crc32(_host_bytes(e[leaf]), crc)
+    return crc
 
 
 def _first(mask: torch.Tensor):

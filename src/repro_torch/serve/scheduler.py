@@ -1,8 +1,9 @@
 """Continuous-batching scheduler over the engine's pool step.
 
-Port of the JAX package's ``serve/scheduler.py`` (slot and paged pools;
-its speculative grids and its fault, quarantine and watchdog paths come
-with later slices, ROADMAP.md A9 and A10).  ``Engine.generate`` serves one
+Port of the JAX package's ``serve/scheduler.py``: slot and paged pools,
+plain and speculative segments, and the failure model (integrity guard,
+quarantine and dense retry, seeded faults, stalls and the watchdog's
+abort).  ``Engine.generate`` serves one
 fixed batch of equal-length prompts for a fixed ``max_new``; real traffic
 is ragged.  :class:`Scheduler` keeps a fixed pool of in-flight *slots* and
 alternates two phases:
@@ -14,13 +15,20 @@ alternates two phases:
               prefill (``Engine.prime_many``) and written into its slots in
               one in-place scatter per cache leaf
               (``models.cache.write_slots``); ``"sequential"`` primes each
-              request alone at its exact length (``Engine.prime``).
+              request alone at its exact length (``Engine.prime``), on
+              either pool.
   decode      one *segment*: ``segment`` replays of the pool step (all
               slots, captured in a CUDA graph on the card), then one fetch
               of the (slots, segment) tokens and integrity flags; finished
               slots (EOS or budget) retire and free up for the next round.
               First-token EOS/budget checks are deferred to this sync, so
-              admission never waits for the device.
+              admission never waits for the device.  On a speculative
+              engine each replay is one draft/verify *round* of every slot
+              (``Engine._pool_spec_round``): a slot advances 1 ..
+              ``draft_k`` + 1 tokens a round, the grids come back a round
+              wide with each round's emitted count, and the host consumes
+              ``tokens[i, r, :nem[i, r]]``, cutting at EOS or a tripped
+              flag inside the round.
 
 The pool is one decode cache whose batch axis is the slot axis, each row
 with its own ``pos`` (the reference vmaps B = 1 caches; the packed kernels
@@ -40,10 +48,18 @@ state is replaced at the next admission.
 Hardening rides the same sync points: deadlines (shed at admission when the
 queue wait already blew them, retired TIMEOUT at a sync otherwise),
 cancellation (queued: at once; in flight: at the next sync), ``queue_cap``
-with three shed policies, priorities, and the integrity guard: a slot whose
-``isfinite`` flag trips completes FAILED with its tokens cut at the first
-bad step.  The reference's dense retry (``FAILED_FALLBACK_OK``) needs
-``Engine.quarantine_packed``, which the port does not have yet (A10).
+with three shed policies, priorities, and the integrity guard.  A slot
+whose ``isfinite`` flag trips is cut at the first bad position; under
+packed weights the pack is quarantined (``Engine.quarantine_packed``: the
+pool switches to its dense graph) and the request is re-admitted once,
+re-primed from its prompt with its own seed, so it completes
+``FAILED_FALLBACK_OK`` with the tokens of a clean dense run; a second trip
+is terminal ``FAILED``.  A seeded fault plan (``ServeConfig.faults``)
+poisons admitted requests' caches (the paged pool privatizes a block first,
+so poison never reaches a shared one) and stalls admission or decode in
+interruptible waits; ``abort`` (the streaming front end's watchdog) ends a
+run at the next wait or sync: each in-flight request is re-queued once,
+then retired ``STALLED``.
 
 Paged KV pool (``ServeConfig.page_size > 0``): the slot pool is replaced by
 a shared block arena plus per-slot block tables (``models.cache``).  The run
@@ -80,8 +96,10 @@ from ..models.cache import (
     copy_block,
     paged_block_bytes,
     paged_host_mirror,
+    paged_poison_block,
     paged_pool_bytes,
     paged_reset_slot,
+    poison_slot,
     prefix_page_digests,
     prefix_tail_digests,
     write_prefill_pages,
@@ -101,7 +119,9 @@ class Status(str, enum.Enum):
     TIMEOUT = "TIMEOUT"  # deadline blown — queued (never primed) or in flight
     CANCELLED = "CANCELLED"
     REJECTED = "REJECTED"  # backpressure: refused at submit, or shed from the queue
-    FAILED = "FAILED"  # integrity guard tripped (the reference's dense retry is A10)
+    FAILED_FALLBACK_OK = "FAILED_FALLBACK_OK"  # guard tripped, the dense retry delivered
+    FAILED = "FAILED"  # guard tripped, and the bounded retry tripped too
+    STALLED = "STALLED"  # watchdog abort: a segment hung past the stall timeout
 
 
 @dataclasses.dataclass
@@ -148,6 +168,7 @@ class _PrefillJob:
     start: int  # next chunk's first sequence position
     write_from: int  # first row this request may write (rows below are shared)
     chunk: int  # chunk width
+    poisoned: bool = False  # fault plan: the poison fires when the prefill completes
 
 
 @dataclasses.dataclass
@@ -163,7 +184,7 @@ class _Slot:
     admit_s: float = 0.0
     deadline: float = float("inf")  # absolute run-relative deadline
     ttft_s: float = float("nan")
-    req: Optional[Request] = None  # kept for the preemption requeue
+    req: Optional[Request] = None  # kept for the preemption and retry requeues
     prefill: Optional[_PrefillJob] = None  # paged: chunked admission in flight
     last_emit_t: float = float("nan")  # last sync that emitted tokens (ITL)
 
@@ -191,10 +212,6 @@ class Scheduler:
     ):
         if not engine.sc.fused:
             raise ValueError("Scheduler requires a fused-decode engine (ServeConfig.fused)")
-        if engine.sc.speculative:
-            raise NotImplementedError(
-                "the scheduler's speculative segments are not ported yet (ROADMAP.md A9)"
-            )
         if slots < 1 or segment < 1:
             raise ValueError(f"need slots >= 1 and segment >= 1, got {slots}, {segment}")
         if admission not in ("batched", "sequential"):
@@ -222,13 +239,19 @@ class Scheduler:
         self._next_rid = 0
         self._slot: List[_Slot] = [_Slot() for _ in range(slots)]
         sc = engine.sc
+        # speculative decoding: each replay is one draft/verify round that
+        # writes up to draft_k + 1 rows per slot, so every worst-case KV
+        # growth bound uses span = segment * (draft_k + 1)
+        self.speculative = bool(sc.speculative)
+        self._draft_k = sc.draft_k if self.speculative else 0
+        self._span = segment * (self._draft_k + 1)
         self.paged = bool(sc.page_size) and engine.paged_supported
         self._prefix_on = self.paged and sc.prefix_cache
         self._chunk_cfg = sc.prefill_chunk if self.paged else 0
         if self.paged:
             self._layout = PagedLayout.build(slots, sc.max_len, sc.page_size, sc.arena_blocks)
             self._alloc = BlockAllocator(self._layout)
-            self._pool = engine.new_pool(slots, segment, self._layout)
+            self._pool = engine.new_pool(slots, segment, self._layout, spec=self.speculative)
             self._pstate = self._pool.cache
             self._block_bytes = paged_block_bytes(self._pstate)
             self._arena_bytes = paged_pool_bytes(self._pstate)
@@ -244,20 +267,31 @@ class Scheduler:
             self._batch_axes = None
             self._slot_bytes = self._arena_bytes // max(slots, 1)
         else:
-            self._pool = engine.new_pool(slots, segment)
+            self._pool = engine.new_pool(slots, segment, spec=self.speculative)
             self._batch_axes = self.model.cache_batch_axes(sc.max_len)
             self._slot_bytes = sum(t.numel() * t.element_size()
                                    for t in self._pool.cache.values()) // max(slots, 1)
-        self._span = segment  # worst-case KV rows one segment writes per slot
         self._cancel: set = set()  # in-flight rids to retire at the next sync
+        self._retried: set = set()  # rids that used their bounded dense retry
+        self._fallback_rids: set = set()  # rids now on the dense retry
+        self._fault_fired: set = set()  # rids whose one-shot cache fault ran
         self._counters: Dict[str, int] = dict(
             rejected=0, shed=0, timed_out=0, cancelled=0,
             fallback=0, failed=0, quarantined=0, preempted=0, stalled=0,
             spec_proposed=0, spec_accepted=0,
         )
-        # `_draining` stops admission: in-flight work finishes, the queue
-        # survives — for clean shutdown
+        # streaming and watchdog state.  `_abort_status` is the flag another
+        # thread (the streaming front end's watchdog) sets: the run loop
+        # reads it at every sync and inside every injected stall wait,
+        # re-queues or retires the in-flight work and returns.  `_draining`
+        # stops admission: in-flight work finishes, the queue survives (clean
+        # shutdown, hot pack swaps).  `_stall_fired` makes seeded decode
+        # stalls one-shot per rid; `_stall_retried` bounds the watchdog's
+        # re-queue as `_retried` bounds the dense retry.
+        self._abort_status: Optional[Status] = None
         self._draining = False
+        self._stall_fired: set = set()
+        self._stall_retried: set = set()
         self._itl: List[float] = []  # inter-token latency samples
         self._ran = False  # True after run(): the next mutation starts a new epoch
         self._run_now: Optional[Callable[[], float]] = None
@@ -286,6 +320,13 @@ class Scheduler:
         self._ran = False
         self._completions = {}
         self._cancel = set()
+        self._retried = set()
+        self._fallback_rids = set()
+        self._fault_fired = set()
+        # _stall_fired and _stall_retried survive the epoch: a watchdog abort
+        # ends the run, and the re-queue it leaves is consumed by the next
+        # run(); wiping them would re-fire one-shot stalls and unbound the
+        # retry (rids never repeat, so stale entries cannot collide)
         self._itl = []
         for k in self._counters:
             self._counters[k] = 0
@@ -311,7 +352,7 @@ class Scheduler:
         if req.max_new < 1:  # before the budget check: a negative max_new
             raise ValueError("max_new must be >= 1")  # could slip past it
         # worst-case KV rows this request can occupy: a slot decodes whole
-        # segments
+        # segments (of rounds, speculative)
         budget = prompt.shape[0] + req.max_new + self._span
         if budget > self.eng.sc.max_len:
             raise ValueError(
@@ -389,9 +430,12 @@ class Scheduler:
                 return True
         return False
 
+    # -- streaming control plane ----------------------------------------------
+
     def drain(self) -> None:
         """Stop admission: in-flight requests finish normally, queued ones
-        stay queued, and ``run()`` returns once no slot is active."""
+        stay queued, and ``run()`` returns once no slot is active.  Safe to
+        call from another thread (a flag read at sync points)."""
         self._draining = True
 
     def resume_admission(self) -> None:
@@ -401,6 +445,24 @@ class Scheduler:
     @property
     def draining(self) -> bool:
         return self._draining
+
+    def abort(self, status: Status = Status.STALLED) -> None:
+        """Fail fast (the watchdog's call when a segment stalls past its
+        timeout): the run loop notices at the next interruptible point
+        (syncs and every injected stall or idle wait), deals with the
+        in-flight work and returns.  Each in-flight request is re-queued
+        once (its re-execution under its own seed emits the same stream);
+        one caught in a second abort retires with ``status``.  Safe to call
+        from another thread."""
+        self._abort_status = status
+
+    def refresh_decode(self) -> None:
+        """Drop the pool's captured graphs after ``Engine.reload_packed`` (a
+        hot swap already drops every graph of the engine; this covers a
+        scheduler whose engine swapped by other means): the next ``run``
+        captures them afresh against the new pack.  Only between runs or
+        while drained."""
+        self.eng.release_pool(self._pool)
 
     @property
     def has_work(self) -> bool:
@@ -494,10 +556,10 @@ class Scheduler:
 
     def _groups(self, entries) -> Dict[int, list]:
         """Entries grouped by the prompt-length bucket of their request (the
-        last element of each entry), in order of first appearance."""
+        third element of each entry), in order of first appearance."""
         groups: Dict[int, list] = {}
         for e in entries:
-            groups.setdefault(self.eng.bucket_len(len(e[-1].prompt)), []).append(e)
+            groups.setdefault(self.eng.bucket_len(len(e[2].prompt)), []).append(e)
         return groups
 
     def _bucket_batch(self, blen: int, reqs: List[Request]):
@@ -561,6 +623,7 @@ class Scheduler:
         (matched references are returned before bailing)."""
         prompt, L = req.prompt, len(req.prompt)
         page = self._layout.page
+        poisoned = self._wants_poison(rid)
         full = prefix_page_digests(prompt, page) if self._prefix_on else []
         shared = self._alloc.match_pages(full) if self._prefix_on else []
         k = len(shared)
@@ -594,46 +657,62 @@ class Scheduler:
             start += rows_m
         self._bind_slot(i, rid, req, None, now)
         if start == 0 and (self._chunk_cfg == 0 or L <= self._chunk_cfg):
-            whole.append((i, rid, req))
+            whole.append((i, rid, req, poisoned))
             return True
         if start >= L:
             # fully matched prompt: no re-prefill; one 1-token re-peek chunk
             # recomputes the last position's logits against the shared
             # blocks (write_from = L: no arena writes)
             job = _PrefillJob(prompt, L, start=L - 1, write_from=L,
-                              chunk=self._chunk_cfg or self.eng.bucket_len(1))
+                              chunk=self._chunk_cfg or self.eng.bucket_len(1),
+                              poisoned=poisoned)
         else:
             cw = self._chunk_cfg or self.eng.bucket_len(max(L - start, 1))
-            job = _PrefillJob(prompt, L, start=start, write_from=start, chunk=cw)
+            job = _PrefillJob(prompt, L, start=start, write_from=start, chunk=cw,
+                              poisoned=poisoned)
         self._slot[i].prefill = job
         return True
 
     def _prime_whole_paged(self, whole) -> None:
-        """Bucketed whole-prompt prefill of this round's no-prefix-hit
-        requests, written into their arena pages and bound — the paged
-        mirror of ``_admit_batched``, in the same groups, so the two pools
-        prime identical batches."""
+        """Whole-prompt prefill of this round's no-prefix-hit requests,
+        written into their arena pages and bound: bucketed, the paged mirror
+        of ``_admit_batched`` in the same groups, so the two pools prime
+        identical batches; with ``admission="sequential"`` each request
+        alone at its exact length (``Engine.prime``), the one-shot path's
+        own prefill, as ``_admit`` does for the slot pool.  A poisoned
+        request's pages are never registered: no later prompt may match
+        into them."""
         n_pages = self._layout.n_pages
-        for blen, group in self._groups(whole).items():
-            reqs = [req for _, _, req in group]
-            tokens, lengths = self._bucket_batch(blen, reqs)
+        if self.admission == "sequential":
+            batches = [[e] for e in whole]
+        else:
+            batches = list(self._groups(whole).values())
+        for group in batches:
+            reqs = [req for _, _, req, _ in group]
             # the primed cache spans max_len rows; pages past the prompt
             # carry the sentinel and are dropped
             pt = np.full((len(group), n_pages), self._layout.oob, np.int64)
-            for j, (i, _, _) in enumerate(group):
+            for j, (i, _, _, _) in enumerate(group):
                 npp = self._slot_npages[i]
                 pt[j, :npp] = self._rows[i][:npp]
-            nxt, cache = self.eng.prime_many(tokens, lengths)
+            if self.admission == "sequential":
+                lengths = np.asarray([len(reqs[0].prompt)], np.int64)
+                nxt, cache = self.eng.prime(reqs[0].prompt[None])
+            else:
+                blen = self.eng.bucket_len(len(reqs[0].prompt))
+                tokens, lengths = self._bucket_batch(blen, reqs)
+                nxt, cache = self.eng.prime_many(tokens, lengths)
             write_prefill_pages(self._pstate["arena"], pt,
                                 {name: cache[name] for name in self._pstate["arena"]})
-            idx = [i for i, _, _ in group]
+            idx = [i for i, _, _, _ in group]
             bind_slot_pages(self._pstate["table"], self._pstate["pos"], idx,
                             self._rows[idx], lengths)
             self._seat(idx, nxt, reqs)
-            for j, (i, _, req) in enumerate(group):
+            for j, (i, _, req, poisoned) in enumerate(group):
                 self._slot[i].first = nxt[j : j + 1]
                 self._pos[i] = len(req.prompt)
-                self._register_prompt(i, req.prompt)
+                if not poisoned:
+                    self._register_prompt(i, req.prompt)
 
     def _register_prompt(self, i: int, prompt: np.ndarray) -> None:
         """Hash-register slot ``i``'s prompt pages for future prefix sharing
@@ -683,7 +762,11 @@ class Scheduler:
         self._pos[i] = job.L
         slot.first = first
         slot.prefill = None
-        self._register_prompt(i, job.prompt)
+        if job.poisoned:
+            self._fault_fired.add(slot.rid)
+            self._apply_paged_poison(i)
+        else:
+            self._register_prompt(i, job.prompt)
 
     def _extend_paged(self) -> None:
         """Lazy decode-page extension before each segment: every decoding
@@ -759,6 +842,125 @@ class Scheduler:
         self._pos[i] = 0
         paged_reset_slot(self._pstate, i, self._layout.scratch_block(i))
 
+    # -- fault injection -------------------------------------------------------
+
+    def _wants_poison(self, rid: int) -> bool:
+        """The fault plan poisons this admission of ``rid``: selected, and
+        not already fired when the fault is one-shot (``cache_nan_once``)."""
+        f = self.eng.sc.faults
+        return (f is not None and f.wants_cache_nan(rid)
+                and (not f.cache_nan_once or rid not in self._fault_fired))
+
+    def _apply_paged_poison(self, i: int) -> None:
+        """Cache poisoning on the paged layout: NaN the slot's first
+        *private* block.  A fully prefix-shared prompt owns none, so one is
+        privatized first (copy-on-write): poison never reaches a block
+        another request reads.  The block's hash registration is dropped,
+        so no later prompt can match into the poisoned bytes, and it dies
+        unhashed when the slot releases it, which zeroes it."""
+        if not self._slot_blocks[i]:
+            return
+        arena = self._pstate["arena"]
+        if self._slot_private[i]:
+            blk = self._slot_private[i][0]
+        else:
+            [blk] = self._alloc_or_preempt(1, protect=i)
+            old = int(self._rows[i][0])
+            copy_block(arena, old, blk)
+            self._rows[i][0] = blk
+            bl = self._slot_blocks[i]
+            bl[bl.index(old)] = blk
+            self._slot_private[i].insert(0, blk)
+            dead = self._alloc.free([old])
+            if dead:
+                zero_blocks(arena, dead)
+            self._rebind_row(i)
+        dead = self._alloc.forget(blk)
+        if dead:
+            zero_blocks(arena, dead)
+        paged_poison_block(arena, blk)
+
+    def _inject_admission_faults(self, free: List[int], picked) -> None:
+        """Apply the fault plan to this admission round: admission stalls
+        (a slow host) and cache poisoning of the selected requests.
+        ``cache_nan_once`` fires a rid's fault on its first admission only,
+        so its dense retry runs clean; ``False`` fires it again on the
+        retry, a persistent fault the bounded retry cannot outrun."""
+        f = self.eng.sc.faults
+        if f is None:
+            return
+        t0 = self._clock()
+        for i, (rid, req) in zip(free, picked):
+            if f.wants_stall(rid):
+                self._sleep(f.stall_s)
+            if self._wants_poison(rid):
+                if self.paged:
+                    if self._slot[i].prefill is not None:
+                        # chunked admission: the chunks would overwrite poison
+                        # written now; the job fires it at completion
+                        continue
+                    self._fault_fired.add(rid)
+                    self._apply_paged_poison(i)
+                else:
+                    self._fault_fired.add(rid)
+                    poison_slot(self._pool.cache, i, self._batch_axes)
+        self._admit_s += self._clock() - t0
+
+    def _stall_wait(self, secs: float) -> None:
+        """Sleep ``secs`` (inf: a hang) in short interruptible waits, bailing
+        out the moment :meth:`abort` fires, so an injected stall is
+        escapable: the watchdog's abort lands between waits."""
+        t0 = self._clock()
+        while self._abort_status is None:
+            left = secs - (self._clock() - t0)
+            if left <= 0:
+                return
+            self._sleep(min(left, 0.02) if math.isfinite(left) else 0.02)
+
+    def _inject_decode_stall(self, active_idx: List[int]) -> None:
+        """Seeded decode stall or hang right before a segment's dispatch,
+        when an active rid is selected: finite (``decode_stall_s``, a slow
+        device) or unbounded (``decode_hang_rids``, a wedged device only the
+        watchdog's abort ends).  One-shot per rid by default
+        (``decode_stall_once``), so the re-queue after an abort runs
+        clean."""
+        f = self.eng.sc.faults
+        if f is None or not f.stalls_decode():
+            return
+        for i in active_idx:
+            rid = self._slot[i].rid
+            if f.decode_stall_once and rid in self._stall_fired:
+                continue
+            hang = f.wants_decode_hang(rid)
+            if hang or f.wants_decode_stall(rid):
+                self._stall_fired.add(rid)
+                self._stall_wait(math.inf if hang else f.decode_stall_s)
+                if self._abort_status is not None:
+                    return
+
+    def _abort_epilogue(self, now: float) -> None:
+        """The fail-fast exit: every in-flight slot is re-queued (first abort
+        of its rid: the re-execution under its own seed emits the same
+        stream, the consumer sees the tail late) or retired with the abort's
+        status (second abort: the retry is bounded), then the flag clears so
+        the next ``run`` starts clean."""
+        status = self._abort_status or Status.STALLED
+        for i, slot in enumerate(self._slot):
+            if not slot.active:
+                continue
+            if slot.rid in self._stall_retried:
+                self._counters["stalled"] += 1
+                self._retire(i, now, status)
+            else:
+                self._stall_retried.add(slot.rid)
+                rid, req = slot.rid, slot.req
+                if self.paged:
+                    self._release_slot_pages(i)
+                self._slot[i] = _Slot()
+                self._counters["preempted"] += 1
+                bisect.insort(self._queue, (req.arrival_s, rid, req))
+        self._abort_status = None
+
     def _pop_arrived(self, k: int, now: float) -> list:
         """Take up to ``k`` queued requests whose arrival time has passed:
         highest priority first, earliest arrival breaking ties.  The queue is
@@ -793,6 +995,8 @@ class Scheduler:
 
     def _retire(self, i: int, now: float, status: Status = Status.OK) -> Completion:
         slot = self._slot[i]
+        if status is Status.OK and slot.rid in self._fallback_rids:
+            status = Status.FAILED_FALLBACK_OK
         done = Completion(
             rid=slot.rid, tokens=np.asarray(slot.tokens, np.int32), arrival_s=slot.arrival_s,
             admit_s=slot.admit_s, finish_s=now, status=status, ttft_s=slot.ttft_s,
@@ -803,6 +1007,31 @@ class Scheduler:
             self._release_slot_pages(i)
         self._slot[i] = _Slot()
         return done
+
+    def _fail_slot(self, i: int, now: float) -> None:
+        """Slot ``i`` tripped the non-finite guard.  Under packed weights the
+        pack is quarantined (the corrupt bytes may be anywhere in it) and
+        the whole pool continues dense.  The request gets one re-admission,
+        re-primed from its prompt with its own seed, so its tokens are those
+        of a clean dense run; a second trip is terminal ``FAILED``, never a
+        loop.  A retry starts from a clean cache: the slot pool's admission
+        rewrites the slot's whole ``max_len`` row, and the paged pool zeroes
+        the poisoned private block when it dies here."""
+        slot = self._slot[i]
+        rid, req = slot.rid, slot.req
+        if self.eng.packed_active and self.eng.quarantine_packed():
+            self._counters["quarantined"] += 1
+        if rid in self._retried:
+            self._counters["failed"] += 1
+            self._retire(i, now, Status.FAILED)
+            return
+        self._retried.add(rid)
+        self._fallback_rids.add(rid)
+        self._counters["fallback"] += 1
+        if self.paged:
+            self._release_slot_pages(i)
+        self._slot[i] = _Slot()
+        bisect.insort(self._queue, (req.arrival_s, rid, req))
 
     # -- run loop -------------------------------------------------------------
 
@@ -828,6 +1057,9 @@ class Scheduler:
         self._run_now = now
         try:
             while self._queue or any(s.active for s in self._slot):
+                if self._abort_status is not None:
+                    self._abort_epilogue(now())
+                    break
                 if self._draining and not any(s.active for s in self._slot):
                     break  # drained: queued requests survive for the next run
                 t = now()
@@ -836,12 +1068,17 @@ class Scheduler:
                     picked = self._pop_arrived(len(free), t)
                     if picked:
                         if self.paged:
-                            self._admit_paged(free[: len(picked)], picked, t)
-                        elif self.admission == "batched" and self.eng.batched_prefill:
-                            self._admit_batched(free[: len(picked)], picked, t)
+                            admitted = self._admit_paged(free[: len(picked)], picked, t)
+                            self._inject_admission_faults(
+                                [i for i, _, _ in admitted],
+                                [(rid, req) for _, rid, req in admitted])
                         else:
-                            for i, (rid, req) in zip(free, picked):
-                                self._admit(i, rid, req, t)
+                            if self.admission == "batched" and self.eng.batched_prefill:
+                                self._admit_batched(free[: len(picked)], picked, t)
+                            else:
+                                for i, (rid, req) in zip(free, picked):
+                                    self._admit(i, rid, req, t)
+                            self._inject_admission_faults(free, picked)
                 if self.paged:
                     # one prefill chunk per admitting slot, then make sure
                     # every decoding slot's table covers this segment's rows
@@ -852,12 +1089,18 @@ class Scheduler:
                     if not self._queue:
                         continue  # drained; the loop condition exits
                     # nothing in flight: sleep until the queue head arrives,
-                    # in short waits so drain() can interrupt
+                    # in short waits so drain() and abort() can interrupt
                     wait = self._queue[0][0] - now()
-                    while wait > 0 and not self._draining:
+                    while wait > 0 and self._abort_status is None and not self._draining:
                         self._sleep(min(wait, 0.02))
                         wait = self._queue[0][0] - now()
                     continue
+                # a seeded decode stall rides right before the dispatch; an
+                # abort fired during it exits here instead of dispatching
+                self._inject_decode_stall(active_idx)
+                if self._abort_status is not None:
+                    self._abort_epilogue(now())
+                    break
                 self._segment(active_idx, now)
                 if on_sync is not None:
                     on_sync(self)
@@ -866,19 +1109,33 @@ class Scheduler:
         self._ran = True
         return self._completions
 
-    def _segment(self, active_idx: List[int], now) -> None:
-        """Decode one segment and sync once: tokens and integrity flags come
-        back in the same fetch, then every active slot consumes its column
-        of the grid."""
-        t0 = self._clock()
+    def _fetch_segment(self):
+        """Decode one segment and fetch its grids in one transfer: tokens and
+        flags (segment, slots, S) and emitted counts (segment, slots), S =
+        ``draft_k`` + 1 rounds wide, or S = 1 (one token a step) for plain
+        decode, so one consumption loop serves both."""
         grid = self.eng.pool_segment(self._pool).cpu().numpy()  # the one fetch
-        toks_np, ok_np = grid[0].T, grid[1].T.astype(bool)  # (segment, slots) each
+        if self.speculative:
+            S = self._draft_k + 1
+            toks = grid[:, :, :S].transpose(1, 0, 2)
+            oks = grid[:, :, S : 2 * S].transpose(1, 0, 2).astype(bool)
+            return toks, oks, grid[:, :, 2 * S].T
+        toks, oks = grid[0].T[:, :, None], grid[1].T[:, :, None].astype(bool)
+        return toks, oks, np.ones(toks.shape[:2], np.int64)
+
+    def _segment(self, active_idx: List[int], now) -> None:
+        """Decode one segment and sync once: tokens, integrity flags and
+        (speculative) emitted counts come back in the same fetch, then every
+        active slot consumes its rounds of the grid, ``tokens[r, i,
+        :nem[r, i]]`` in order."""
+        t0 = self._clock()
+        toks_np, ok_np, nem_np = self._fetch_segment()
         self._decode_s += self._clock() - t0
         self._segments += 1
         self._seg_steps += self.segment
         self._active_slot_steps += len(active_idx) * self.segment
-        if self.paged:
-            self._pos = [p + self.segment for p in self._pos]
+        if self.paged:  # each slot advanced by its own emitted total
+            self._pos = [p + int(nem_np[:, i].sum()) for i, p in enumerate(self._pos)]
         self._kv_active_acc += len(active_idx)
         self._kv_used_acc += (self._alloc.live_blocks * self._block_bytes if self.paged
                               else len(active_idx) * self._slot_bytes)
@@ -911,28 +1168,35 @@ class Scheduler:
                     self._note_emission(slot, n_before, t)
                     self._retire(i, t)
                     continue
+            stop = False
             for step in range(self.segment):
-                if slot.remaining <= 0:
+                if stop or slot.remaining <= 0:
                     break
-                if not ok_np[step, i]:
-                    # non-finite logits: every token from this step on is
-                    # garbage — cut there and fail the request
-                    self._counters["failed"] += 1
-                    self._note_emission(slot, n_before, t)
-                    self._retire(i, t, Status.FAILED)
-                    break
-                tok = int(toks_np[step, i])
-                slot.tokens.append(tok)
-                slot.remaining -= 1
-                if (slot.eos_id is not None and tok == slot.eos_id) or slot.remaining == 0:
-                    self._note_emission(slot, n_before, t)
-                    self._retire(i, t)
-                    break
-            slot = self._slot[i]  # may have retired above
-            if not slot.active:
-                continue
+                used = 0
+                for j in range(int(nem_np[step, i])):
+                    if not ok_np[step, i, j]:
+                        # non-finite logits: every token from this position
+                        # on is garbage; cut there, retry dense or fail
+                        self._fail_slot(i, t)
+                        stop = True
+                        break
+                    tok = int(toks_np[step, i, j])
+                    slot.tokens.append(tok)
+                    slot.remaining -= 1
+                    used += 1
+                    if (slot.eos_id is not None and tok == slot.eos_id) or slot.remaining == 0:
+                        self._retire(i, t)
+                        stop = True
+                        break
+                if self.speculative and used:
+                    # per consumed round: draft_k proposals, used - 1 of them
+                    # accepted (the first emission is the round's pending
+                    # token, not a draft)
+                    self._counters["spec_proposed"] += self._draft_k
+                    self._counters["spec_accepted"] += used - 1
             self._note_emission(slot, n_before, t)
-            if t > slot.deadline:
+            slot = self._slot[i]  # may have retired or failed above
+            if slot.active and t > slot.deadline:
                 self._counters["timed_out"] += 1
                 self._retire(i, t, Status.TIMEOUT)
 

@@ -676,3 +676,186 @@ def test_pool_step_makes_no_host_sync_on_card(paged):
             eng._pool_step(sched._pool)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# the scheduler's speculative rounds and the failure model on the card
+# ---------------------------------------------------------------------------
+
+
+def _spec_reqs(cfg, n=5):
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(21)
+    return [Request(prompt=rng.integers(1, cfg.vocab, 4 + 3 * i).astype(np.int32),
+                    max_new=10 + i, seed=40 + i) for i in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("route", ["dense", "fp32", "int8"])
+def test_spec_scheduler_graph_equals_plain_on_card(route, paged, temperature):
+    """The pool's speculative round replayed as a CUDA graph: every
+    completion bitwise the plain scheduler's (slot pool: sequential
+    admission, 3 slots for 5 requests; paged: 5 slots, one admission
+    round); the graph's B1-B4 launches are rounds x (draft_k drafter steps
+    on the float route + one verify on the verifier's)."""
+    from repro_torch.serve import Scheduler
+
+    dev = _card()
+    cfg = _edge2()
+    params = _tiered(build_model(cfg).init(0, device=dev))
+    sc = ServeConfig(max_len=96, temperature=temperature, page_size=8 if paged else 0,
+                     **ROUTES[route])
+    reqs = _spec_reqs(cfg)
+    slots = 5 if paged else 3
+
+    def run(spec):
+        eng = Engine(cfg, params, dataclasses.replace(sc, speculative=spec), device=dev)
+        sched = Scheduler(eng, slots=slots, segment=3, admission="sequential")
+        return eng, sched, sched.run([dataclasses.replace(r) for r in reqs])
+
+    _, _, want = run(False)
+    eng, sched, got = run(True)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid].tokens, want[rid].tokens)
+    rounds = sched.stats()["segments"] * 3
+    per = {"vusa_packed_matmul": 4 * cfg.n_layers + 1, "vusa_fused_mlp_matmul": cfg.n_layers}
+    vd = {"dense": None, "fp32": "dense", "int8": "int8"}[route]
+    got_l = eng.graph_launches()
+    for name, n in per.items():
+        want_l = {"dense": rounds * 4 * n}
+        if vd is not None:
+            want_l[vd] = want_l.get(vd, 0) + rounds * n
+        assert {k: v for k, v in got_l[name].items() if v} == want_l, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("route", ["dense", "fp32", "int4"])
+def test_pool_spec_round_rows_equal_b1_rounds_on_card(route, paged):
+    """One pool round at 4 slots (a verify of 20 rows through B1-B4) on
+    caches at ragged positions: slot b's tokens, emitted count and K/V rows
+    bitwise a B = 1 ``_spec_round`` on its cache; no host sync."""
+    from repro_torch.models.cache import paged_read_slot, read_slot
+    from repro_torch.serve.engine import _SpecLoop
+
+    dev = _card()
+    cfg = _edge2()
+    params = _tiered(build_model(cfg).init(0, device=dev))
+    eng = Engine(cfg, params, ServeConfig(max_len=32, speculative=True, **ROUTES[route]),
+                 device=dev)
+    lens = [3, 9, 5, 12]
+    with torch.no_grad():
+        primed, pool = _pool_caches(eng, cfg, lens, paged)
+        st = eng.new_pool(4, 1, spec=True)
+        if paged:
+            st.paged = True
+            st.cache = {"arena": {k: pool[k] for k in ("k", "v")}, "table": pool["table"],
+                        "pos": pool["pos"]}
+        else:
+            st.cache = pool
+        st.token.copy_(torch.cat([t for t, _ in primed]))
+        eng._pool_spec_round(st)  # kernels built and loaded first
+        torch.cuda.synchronize()
+        for b, (tok, c) in enumerate(primed):
+            one = _SpecLoop(tok.clone(), {k: v.clone() for k, v in c.items()},
+                            torch.zeros((), dtype=torch.long, device=dev),
+                            torch.zeros((), dtype=torch.long, device=dev),
+                            torch.zeros((16,), dtype=torch.long, device=dev),
+                            torch.ones((16,), dtype=torch.bool, device=dev), None)
+            eng._spec_round(one)
+            nem = int(one.count)
+            assert nem == int(st.nems[b, 0])
+            assert torch.equal(one.buf[:nem], st.toks[b, 0, :nem])
+            row = (paged_read_slot(st.cache, b, 32) if paged
+                   else read_slot(st.cache, b, eng.model.cache_batch_axes(32)))
+            p = int(one.cache["pos"])
+            assert p == int(row["pos"]) == lens[b] + nem
+            for k in ("k", "v"):
+                assert torch.equal(one.cache[k][:, :, :p], row[k][:, :, :p]), (b, k)
+        st.col.zero_()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._pool_spec_round(st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [False, True])
+def test_mid_run_quarantine_switches_graphs_on_card(spec):
+    """A cache NaN under packed weights quarantines the pack at the first
+    sync; the pool replays its dense twin, captured at the run's start:
+    the poisoned request completes FAILED_FALLBACK_OK with its clean dense
+    tokens, and each other slot's tokens are bitwise a B = 1 run that
+    emits what it emitted by the first sync on the pack, then steps dense
+    (nothing was captured on the live pool)."""
+    from repro_torch.serve import FaultConfig, Scheduler, Status
+
+    dev = _card()
+    cfg = _edge2()
+    params = _tiered(build_model(cfg).init(0, device=dev))
+    sc = ServeConfig(max_len=96, packed_weights="all")
+    reqs = _spec_reqs(cfg, 3)
+    eng = Engine(cfg, params, dataclasses.replace(
+        sc, speculative=spec, faults=FaultConfig(cache_nan_rids=(1,))), device=dev)
+    sched = Scheduler(eng, slots=3, segment=3, admission="sequential")
+    first_sync = {}
+
+    def note(s):
+        if not first_sync:
+            first_sync.update({sl.rid: len(sl.tokens) for sl in s._slot if sl.active})
+
+    done = sched.run([dataclasses.replace(r) for r in reqs], on_sync=note)
+    assert eng.quarantined and sched.stats()["quarantined"] == 1
+    assert done[1].status is Status.FAILED_FALLBACK_OK
+    dense = Engine(cfg, params, ServeConfig(max_len=96, seed=reqs[1].seed), device=dev)
+    np.testing.assert_array_equal(
+        done[1].tokens, dense.generate(reqs[1].prompt[None], max_new=reqs[1].max_new)["tokens"][0])
+    for rid in (0, 2):
+        # tokens delivered by the first sync (all of them if it retired there)
+        n1 = first_sync.get(rid, len(done[rid].tokens))
+        oracle = Engine(cfg, params, sc, device=dev)
+        with torch.no_grad():
+            first, c = oracle.prime(reqs[rid].prompt[None])
+            a, _, last, c = oracle.decode_segment(first, c, n1 - 1)
+            assert oracle.quarantine_packed()
+            b, _, _, _ = oracle.decode_segment(last, c, reqs[rid].max_new - n1)
+        assert done[rid].status is Status.OK
+        np.testing.assert_array_equal(done[rid].tokens,
+                                      torch.cat([first, a, b], dim=1)[0].cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [False, True])
+def test_reload_packed_recaptures_graphs_on_card(spec):
+    """After a scheduler run captured its pool graphs, ``reload_packed``
+    with other params drops them; the same scheduler's next run captures
+    afresh on its used pool and its tokens are a fresh engine's on the new
+    params, not a stale replay of the old pack."""
+    from repro_torch.serve import Scheduler
+
+    dev = _card()
+    cfg = _edge2()
+    raw = build_model(cfg).init(0, device=dev)
+    p85, p90 = prune_tree(raw, 0.85), prune_tree(raw, 0.90)
+    sc = ServeConfig(max_len=96, temperature=1.0, packed_weights="all", speculative=spec)
+    reqs = _spec_reqs(cfg, 3)
+
+    def run(sched):
+        done = sched.run([dataclasses.replace(r) for r in reqs])
+        return [done[rid].tokens for rid in sorted(done)]
+
+    eng = Engine(cfg, p85, sc, device=dev)
+    sched = Scheduler(eng, slots=3, segment=4, admission="sequential")
+    old = run(sched)
+    assert eng.reload_packed(p90)
+    new = run(sched)
+    fresh = run(Scheduler(Engine(cfg, p90, sc, device=dev), slots=3, segment=4,
+                          admission="sequential"))
+    for a, b in zip(new, fresh):
+        np.testing.assert_array_equal(a, b)
+    assert any(not np.array_equal(a, b) for a, b in zip(old, fresh))

@@ -35,7 +35,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.launch.serve", "repro_torch.convert",
             "repro_torch.kernels.vusa_spmm", "repro_torch.kernels.dense_matmul",
             "repro_torch.core.vusa", "repro_torch.core.growth", "repro_torch.core.simulator",
-            "repro_torch.core.hwmodel", "repro_torch.core.workloads"} <= set(mods)
+            "repro_torch.core.hwmodel", "repro_torch.core.workloads",
+            "repro_torch.checkpoint.ckpt", "repro_torch.serve.faults",
+            "repro_torch.serve.journal", "repro_torch.serve.async_engine"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -224,34 +224,46 @@ def test_submit_validates_budget_and_engine(vusa):
         sched.submit(Request(prompt=np.ones(8, np.int32), max_new=0))
     with pytest.raises(ValueError, match="fused"):
         Scheduler(_engine(tparams, max_len=32, fused=False))
-    with pytest.raises(NotImplementedError, match="A9"):
-        Scheduler(_engine(tparams, max_len=32, packed_weights="all", speculative=True))
+    # a speculative engine is served (its rounds write up to draft_k + 1
+    # rows a step, so a segment spans segment x (draft_k + 1) rows)
+    spec = Scheduler(_engine(tparams, max_len=64, packed_weights="all", speculative=True),
+                     segment=4)
+    assert spec.speculative and spec._span == 4 * 5
+    with pytest.raises(ValueError, match="segment span"):
+        spec.submit(Request(prompt=np.ones(30, np.int32), max_new=20))
     with pytest.raises(ValueError, match="admission"):
         Scheduler(_engine(tparams, max_len=32), admission="eager")
 
 
 def test_integrity_guard_fails_the_slot(vusa):
-    """A slot whose logits go non-finite completes FAILED with its tokens cut
-    at the first bad step (the dense retry waits for A10); its neighbour's
-    tokens stay bitwise.  The cache is poisoned after the first sync, which
-    delivered the first token and one segment's 4."""
+    """A slot whose logits go non-finite is cut at the first bad step and
+    retried once from its prompt: it completes FAILED_FALLBACK_OK with the
+    tokens of a clean run; a second trip completes FAILED with the retry's
+    tokens cut there.  Its neighbour's tokens stay bitwise.  The cache is
+    poisoned after the first sync (which delivered the first token and one
+    segment's 4) and, in the second run, after the retry's first sync too."""
     _, _, tparams = vusa
     rng = np.random.default_rng(7)
     reqs = _reqs(rng, [(6, 20), (6, 20)])
-    sched = Scheduler(_engine(tparams, max_len=64), slots=2, segment=4, admission="sequential")
-    fired = []
-
-    def poison(s):
-        if not fired:
-            fired.append(True)
-            s._pool.cache["k"][:, 1].fill_(float("nan"))
-
-    done = sched.run(reqs, on_sync=poison)
-    assert done[1].status is Status.FAILED and len(done[1].tokens) == 5
-    assert sched.stats()["failed"] == 1
     oracle = _engine(tparams, max_len=64)
-    np.testing.assert_array_equal(done[1].tokens, _one_shot(oracle, reqs[1].prompt, 20, 1)[:5])
-    np.testing.assert_array_equal(done[0].tokens, _one_shot(oracle, reqs[0].prompt, 20, 0))
+    want = [_one_shot(oracle, r.prompt, 20, i) for i, r in enumerate(reqs)]
+    for trips, status in ((1, Status.FAILED_FALLBACK_OK), (2, Status.FAILED)):
+        sched = Scheduler(_engine(tparams, max_len=64), slots=2, segment=4,
+                          admission="sequential")
+        fired = []
+
+        def poison(s):
+            slot = s._slot[1]
+            if len(fired) < trips and slot.rid == 1 and len(slot.tokens) == 5:
+                fired.append(True)
+                s._pool.cache["k"][:, 1].fill_(float("nan"))
+
+        done = sched.run([dataclasses.replace(r) for r in reqs], on_sync=poison)
+        assert done[1].status is status
+        st = sched.stats()
+        assert (st["fallback"], st["failed"], st["quarantined"]) == (1, trips - 1, 0)
+        np.testing.assert_array_equal(done[1].tokens, want[1] if trips == 1 else want[1][:5])
+        np.testing.assert_array_equal(done[0].tokens, want[0])
 
 
 # ---------------------------------------------------------------------------
@@ -444,9 +456,14 @@ def test_launcher_serves_requests(capsys):
                               "--max-new", "6", "--packed", "all"])
     assert len(done) == 5 and all(c.status is Status.OK for c in done.values())
     assert "5 completions" in capsys.readouterr().out
+    done = launch_serve.main(["--arch", "vusa_edge", "--smoke", "--device", "cpu",
+                              "--requests", "2", "--speculative", "--packed", "all",
+                              "--prompt-len", "6", "--max-new", "6"])
+    assert all(c.status is Status.OK for c in done.values())
+    assert "speculative: acceptance" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         launch_serve.main(["--arch", "vusa_edge", "--smoke", "--device", "cpu",
-                           "--requests", "2", "--speculative"])
+                           "--batch", "2", "--speculative"])
 
 
 def test_pool_step_rows_equal_b1_steps(vusa):
