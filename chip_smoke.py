@@ -190,12 +190,34 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    flight at the swap, nothing dropped, wave 2 bitwise a fresh engine on
    the new pack, the two fingerprints journaled).  Reported: the phase's
    seconds;
-12. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+12. train: ``vusa_edge`` at full width and depth (12 layers, d 768, ff
+   3072, vocab 32000, bf16 activations, remat) trained through the port's
+   ``Trainer`` from the numpy-seeded init on the launcher's learnable
+   stream (tokens from [0, 256), global batch 8, seq 128), 200 steps at
+   lr 1e-3 (warmup 20, cosine), pruning ramped to 0.85 between steps 40
+   and 140, masks refreshed every 10 steps, a checkpoint at step 180 under
+   ``build/``.  Gates: the mean loss of the last 10 steps at least 1 nat
+   below that of the first 10; ``tree_sparsity`` within 0.02 of 0.85;
+   a second trainer restored from the step-180 checkpoint and run to the
+   end equal to the uninterrupted run bitwise (params, moments, step).
+   Reported: ms per step from CUDA events (the step alone, and the whole
+   loop iteration with and without the mask-refresh steps; median and
+   p90), tokens/s, the trainer's peak memory (above what the earlier
+   phases hold), losses, sparsity, checkpoint and restore seconds.  Then
+   the trained weights are served: packed with fp32 and int8 values, layer 0's packs and the head through B1-B4 against their
+   plain versions at phase 3's tolerance (B = 1, 4, 5, 40, fp32 and bf16
+   activations, rows bitwise B = 1); packed and dense greedy tokens equal
+   in fp32 on the 2-layer cut (both value routes); reported without a
+   gate beside the random-weight numbers of phases 4, 8 and 9: fp32
+   full-depth token agreement, B = 1 speculative acceptance with the 99 %
+   drafter (fp32 verifier; prompts from phase 8 and from the training
+   stream), and ``prime_many`` vs ``prime`` at 2 and 12 layers (C9);
+13. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, phase 10's speculative pool graph launches, CUDA launches per
    call as counted; B5/B6 per ResNet-18 image, MobileNetV1 under
    ``mobilenetv1``);
-13. the card line again and the result line.
+14. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -208,6 +230,7 @@ import asyncio
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -254,6 +277,7 @@ from repro_torch.models.cache import (  # noqa: E402
     write_prefill_pages,
     write_slots,
 )
+from repro_torch.optim.adamw import tree_items  # noqa: E402
 from repro_torch.serve import Engine, Request, Scheduler, ServeConfig  # noqa: E402
 from repro_torch.serve.packed import (  # noqa: E402
     _as_linear,
@@ -262,6 +286,7 @@ from repro_torch.serve.packed import (  # noqa: E402
     packed_byte_ratios,
     qdq_lm_params,
 )
+from repro_torch.train import TrainConfig, Trainer, TrainHParams  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
@@ -290,6 +315,18 @@ PRIME_TOL = 1e-3  # prime_many vs prime, fp32 logits, of the largest (2-layer cu
 POOL_VERIFY_ROWS = SCHED_SLOTS * VERIFY_ROWS  # the pool verify's rows through B1-B4
 SPEC_MAX_LEN = 272
 WATCHDOG_S = 3.0  # the failure phase's watchdog: well past a sync gap of phase 9's traffic
+# the train phase: the launcher's learnable stream, the pruning ramp, the resume point
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_TOKENS = 200, 8, 128, 256
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 20
+# no global-norm clip: the init's embedding (std 1/sqrt(32000)) gives the first
+# norm grads near 4e7, and a clip at 1.0 leaves every other leaf's grads far
+# below AdamW's eps (1e-8), so only the embedding would learn
+TRAIN_CLIP = float("inf")
+TRAIN_PRUNE = (40, 140, 10)  # begin, end, every: the ramp ends at cfg.sparsity
+TRAIN_RESUME_AT = 180  # the one checkpoint; a mask-refresh step, so resume is bitwise
+TRAIN_LOSS_DROP = 1.0  # nats: mean of the first 10 steps' losses minus the last 10's
+TRAIN_SPARSITY_TOL = 0.02
+TRAIN_DIR = ROOT / "build" / "train_ckpt"
 # paper workloads: (name, GEMMs, pruning rate); the seed of weights and x
 PAPER_MODELS = (("resnet18", resnet18_gemms, 0.85), ("mobilenetv1", mobilenetv1_gemms, 0.75))
 PAPER_SEED = 0
@@ -1796,6 +1833,244 @@ def failure_phase(cfg, params, raw) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 12: training on the card, then the trained weights served
+# --------------------------------------------------------------------------
+
+
+def train_config(ckpt_dir: Path) -> TrainConfig:
+    begin, end, every = TRAIN_PRUNE
+    return TrainConfig(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       prune_begin=begin, prune_end=end, prune_every=every,
+                       ckpt_dir=str(ckpt_dir), ckpt_every=TRAIN_RESUME_AT, log_every=50,
+                       token_range=TRAIN_TOKENS,
+                       hp=TrainHParams(lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                       total_steps=TRAIN_STEPS, max_grad_norm=TRAIN_CLIP))
+
+
+def stats_ms(xs) -> dict:
+    return ({"median": float(np.median(xs)), "p90": float(np.percentile(xs, 90)),
+             "n": len(xs)} if xs else {"n": 0})
+
+
+def timed_train(cfg, tc) -> tuple:
+    """Train with CUDA events around each call of the trainer's step: the
+    step alone (start to end) and the whole loop iteration (one start to
+    the next: mask refresh, checkpoint snapshot, data and host work
+    included).  Returns (the trainer's result, per-step losses, step ms,
+    iteration ms, wall seconds, peak device bytes above those held before)."""
+    tr = Trainer(cfg, tc, device=DEVICE)
+    inner, marks = tr.step_fn, []
+
+    def step(params, opt, batch):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = inner(params, opt, batch)
+        end.record()
+        marks.append((start, end, out[2]["loss"]))
+        return out
+
+    tr.step_fn = step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    out = tr.train()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    losses = [float(m[2]) for m in marks]
+    step_ms = [a.elapsed_time(b) for a, b, _ in marks]
+    iter_ms = [a[0].elapsed_time(b[0]) for a, b in zip(marks, marks[1:])]
+    return out, losses, step_ms, iter_ms, wall, torch.cuda.max_memory_allocated() - held
+
+
+def same_state(a: dict, b: dict) -> bool:
+    """Params, both moments and the step count equal bitwise."""
+    def leaves(o):
+        return [t for _, t in tree_items({"p": o["params"], "mu": o["opt"].mu,
+                                          "nu": o["opt"].nu})] + [o["opt"].step]
+
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def trained_kernel_checks(cfg, engines) -> list:
+    """Layer 0's trained packs and the head through B1-B4 against their
+    plain versions, phase 3's tolerance and row checks (untimed)."""
+    rng = np.random.default_rng(5)
+    d = cfg.d_model
+
+    def xs():
+        x4 = torch.from_numpy(rng.standard_normal((BATCH, d), dtype=np.float32)).to(DEVICE)
+        x40 = torch.from_numpy(rng.standard_normal((POOL_VERIFY_ROWS, d),
+                                                   dtype=np.float32)).to(DEVICE)
+        return [v for x in (x4[:1], torch.cat([x4, x4[:1]]), x40, x4)
+                for v in (x, x.to(torch.bfloat16))]
+
+    records = []
+    for route, e in engines.items():
+        packed = e.packed
+        for n in ("wq", "wk", "wv", "wo"):
+            records.append(check_packed_matmul(None, f"trained {n}[layer0] {route}",
+                                               _as_linear(packed["attn"][n], 0), xs(), False))
+        records.append(check_packed_matmul(None, f"trained lm_head {route}",
+                                           _as_linear(packed["head"]), xs(), False))
+        trio = [_as_linear(packed["mlp"][n], 0) for n in ("w_gate", "w_up", "w_down_t")]
+        records.append(check_fused_mlp(None, f"trained mlp[layer0] {route}", *trio, xs(), False))
+    return records
+
+
+def train_phase(cfg, rand) -> dict:
+    """Phase 12.  ``rand`` holds the random-weight numbers the trained ones
+    are reported beside (phases 4, 8 and 9)."""
+    t_phase = time.monotonic()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out, losses, step_ms, iter_ms, wall, peak = timed_train(cfg, train_config(TRAIN_DIR / "a"))
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"train: {len(losses)} steps run, finite losses {np.isfinite(losses).all()}")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if first - last < TRAIN_LOSS_DROP:
+        fail(f"train: the loss fell {first - last:.4f} nats ({first:.4f} -> {last:.4f}), "
+             f"less than {TRAIN_LOSS_DROP}")
+    if abs(out["sparsity"] - cfg.sparsity) > TRAIN_SPARSITY_TOL:
+        fail(f"train: sparsity {out['sparsity']:.4f}, target {cfg.sparsity}")
+    begin, _, every = TRAIN_PRUNE
+    refresh = {k for k in range(TRAIN_STEPS) if k >= begin and k % every == 0}
+    ckpt = {TRAIN_RESUME_AT - 1}
+    res = {"steps": TRAIN_STEPS, "loss_first10": first, "loss_last10": last,
+           "loss_first": losses[0], "loss_last": losses[-1], "sparsity": out["sparsity"],
+           "losses_every_10": losses[::10], "wall_s": wall, "peak_bytes": peak,
+           "ms_per_step": {
+               "step": stats_ms(step_ms),
+               "iteration": stats_ms([t for k, t in enumerate(iter_ms) if k not in ckpt]),
+               "iteration_no_refresh": stats_ms([t for k, t in enumerate(iter_ms)
+                                                 if k not in ckpt | refresh]),
+               "iteration_refresh": stats_ms([t for k, t in enumerate(iter_ms)
+                                              if k in refresh - ckpt]),
+               "iteration_checkpoint": stats_ms([iter_ms[k] for k in ckpt])}}
+    res["tok_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (
+        res["ms_per_step"]["iteration_no_refresh"]["median"] / 1e3)
+
+    # resume on the card: a second trainer restores the TRAIN_RESUME_AT checkpoint
+    # and runs to the end; it must equal the uninterrupted run bitwise
+    src = TRAIN_DIR / "a" / f"step_{TRAIN_RESUME_AT:08d}"
+    if not (src / "manifest.json").exists():
+        fail(f"train: no checkpoint at step {TRAIN_RESUME_AT}")
+    shutil.copytree(src, TRAIN_DIR / "b" / src.name)
+    t0 = time.monotonic()
+    resumed = Trainer(cfg, train_config(TRAIN_DIR / "b"), device=DEVICE).train()
+    res["resume_s"] = time.monotonic() - t0
+    if resumed["steps_run"] != TRAIN_STEPS - TRAIN_RESUME_AT:
+        fail(f"train resume: {resumed['steps_run']} steps run after the restore")
+    if not same_state(out, resumed):
+        fail("train resume: the resumed run's params / optimizer state differ from the "
+             "uninterrupted run's")
+    res["resume_bitwise"] = True
+    del resumed
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # serve the trained weights
+    params = out["params"]
+    del out
+    max_len = PROMPT + MAX_NEW + 8
+    t0 = time.monotonic()
+    engines = {route: Engine(cfg, params, ServeConfig(
+        max_len=max_len, packed_weights="all", fused=False,
+        packed_values="bf16" if route == "fp32" else route), device=DEVICE)
+        for route in ("fp32", "int8")}
+    res["pack_s"] = time.monotonic() - t0
+    res["kernel_checks"] = trained_kernel_checks(cfg, engines)
+    res["pack_bytes"] = {r: pack_bytes(e.packed) for r, e in engines.items()}
+    res["byte_ratio"] = {r: packed_byte_ratios(e.packed)["total"] for r, e in engines.items()}
+    del engines
+
+    prompts = prompts_for(cfg)
+    stream = np.random.default_rng(1).integers(0, TRAIN_TOKENS, (BATCH, PROMPT)).astype(np.int32)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cut_params = {**params, "layers": first_layers(params["layers"])}
+    res["tokens"] = {}
+    cut = dataclasses.replace(cfg32, n_layers=DEPTH_CUT)
+    for name, c, p in (("fp32_depth_cut", cut, cut_params), ("fp32", cfg32, params)):
+        dense = Engine(c, p, ServeConfig(max_len=max_len, fused=False), device=DEVICE)
+        pk = Engine(c, p, ServeConfig(max_len=max_len, packed_weights="all", fused=False),
+                    device=DEVICE)
+        agree = {}
+        for label, pr in (("phase4_prompts", prompts), ("stream_prompts", stream)):
+            a, b = pk.generate(pr, MAX_NEW), dense.generate(pr, MAX_NEW)
+            if not (a["finite"] and b["finite"]):
+                fail(f"train serve {name}: non-finite logits")
+            agree[label] = float((a["tokens"] == b["tokens"]).mean())
+        res["tokens"][name] = agree
+        del dense, pk
+    if min(res["tokens"]["fp32_depth_cut"].values()) != 1.0:
+        fail(f"train serve: {DEPTH_CUT}-layer fp32 packed and dense greedy tokens differ on "
+             f"the trained weights: {res['tokens']['fp32_depth_cut']}")
+    # int8 values against the dense path on the same quantize-dequantize
+    # weights, from one primed cache (phase 5's comparison)
+    res["tokens"]["int8_depth_cut"] = quantized_parity(cut, cut_params, "int8", max_len)
+    if res["tokens"]["int8_depth_cut"]["token_agreement"] != 1.0:
+        fail(f"train serve: {DEPTH_CUT}-layer int8 packed and qdq dense greedy tokens differ "
+             f"on the trained weights: {res['tokens']['int8_depth_cut']}")
+
+    spec = Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights="all",
+                                           speculative=True, draft_k=DRAFT_K,
+                                           draft_sparsity=DRAFT_SPARSITY), device=DEVICE)
+    res["speculative"] = {}
+    for label, pr in (("phase8_prompt", prompts[:1]), ("stream_prompt", stream[:1])):
+        r = spec.generate(pr, MAX_NEW)
+        plain = use(spec, speculative=False).generate(pr, MAX_NEW)
+        use(spec, speculative=True)
+        if not np.array_equal(r["tokens"], plain["tokens"]):
+            fail(f"train serve: speculative tokens differ from plain decode's ({label})")
+        res["speculative"][label] = {k: r[k] for k in ("spec_rounds", "spec_proposed",
+                                                       "spec_accepted", "acceptance_rate")}
+    del spec
+    reqs = sched_traffic(cfg, False)
+    res["prime_many_vs_prime"] = [prime_gap(cfg, params, reqs, n)
+                                  for n in (DEPTH_CUT, cfg.n_layers)]
+    res["random_weights"] = rand
+    res["seconds"] = time.monotonic() - t_phase
+    return res
+
+
+def print_train(cfg, train: dict, card: str) -> None:
+    """Phase 12's lines."""
+    rand = train["random_weights"]
+    ms = train["ms_per_step"]
+    print(f"train vusa_edge (12 layers, d 768, bf16, remat; batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, tokens from [0, {TRAIN_TOKENS}), {TRAIN_STEPS} steps, lr {TRAIN_LR}): "
+          f"loss {train['loss_first10']:.4f} (first 10 steps) -> {train['loss_last10']:.4f} "
+          f"(last 10), sparsity {train['sparsity']:.4f}; ms per step (CUDA events, median / "
+          f"p90): step {ms['step']['median']:.3f} / {ms['step']['p90']:.3f}, iteration "
+          f"{ms['iteration']['median']:.3f} / {ms['iteration']['p90']:.3f}, without the "
+          f"mask-refresh steps {ms['iteration_no_refresh']['median']:.3f} / "
+          f"{ms['iteration_no_refresh']['p90']:.3f}, refresh steps "
+          f"{ms['iteration_refresh']['median']:.3f} / {ms['iteration_refresh']['p90']:.3f}, the "
+          f"checkpoint step {ms['iteration_checkpoint']['median']:.3f}; "
+          f"{train['tok_per_s']:.1f} tokens/s; trainer peak memory {train['peak_bytes']} bytes; "
+          f"{train['wall_s']:.1f} s of training; resumed from step {TRAIN_RESUME_AT} bitwise "
+          f"the uninterrupted run ({train['resume_s']:.1f} s) ({card})", flush=True)
+    for r in train["kernel_checks"]:
+        print(f"train kernel check {r['name']}: ok, worst error "
+              f"{max(c['rel_err'] for c in r['cases']):.3g} of max |plain|", flush=True)
+    sp = train["speculative"]
+    pg = {g["layers"]: g for g in train["prime_many_vs_prime"]}
+    pr = {g["layers"]: g for g in rand["prime_many_vs_prime"]}
+    print(f"train serve (trained weights; random-weight numbers in brackets): packs "
+          f"{train['pack_bytes']} bytes, byte ratio {train['byte_ratio']}; fp32 packed vs dense "
+          f"token agreement {DEPTH_CUT} layers {train['tokens']['fp32_depth_cut']}, "
+          f"{cfg.n_layers} layers {train['tokens']['fp32']} [{rand['fp32_token_agreement']:.4f}]"
+          f"; int8 vs qdq dense {DEPTH_CUT} layers "
+          f"{train['tokens']['int8_depth_cut']['token_agreement']:.4f}; speculative B=1 greedy "
+          f"acceptance (99 % drafter, fp32 verifier) phase 8's prompt "
+          f"{sp['phase8_prompt']['acceptance_rate']:.4f}, a training-stream prompt "
+          f"{sp['stream_prompt']['acceptance_rate']:.4f} "
+          f"[{rand['spec_acceptance_fp32_greedy']:.4f}, tiered random weights]; prime_many vs "
+          f"prime fp32 gap {DEPTH_CUT} layers {pg[DEPTH_CUT]['gap_rel']:.3g} "
+          f"[{pr[DEPTH_CUT]['gap_rel']:.3g}], {cfg.n_layers} layers "
+          f"{pg[cfg.n_layers]['gap_rel']:.3g} [{pr[cfg.n_layers]['gap_rel']:.3g}] of the largest "
+          f"logit; phase {train['seconds']:.1f}s ({card})", flush=True)
+
+
 def run_async(what: str, coro_fn, timeout: float = 300.0):
     """``asyncio.run(coro_fn())`` on a daemon thread: a run with no result
     in ``timeout`` s fails the phase and ends the process at once (a hung
@@ -2047,6 +2322,13 @@ def main() -> None:
           f"speculative quarantine dense, journal recovery, watchdog re-queue and hot swap "
           f"bitwise ({card})", flush=True)
 
+    rand = {"fp32_token_agreement": res["fp32"]["token_agreement"],
+            "spec_acceptance_fp32_greedy": spec["fp32"]["greedy"]["acceptance_rate"],
+            "prime_many_vs_prime": [g for g in sched["prime_many_vs_prime"]
+                                    if g["layers"] in (DEPTH_CUT, cfg.n_layers)]}
+    train = train_phase(cfg, rand)
+    print_train(cfg, train, card)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -2109,6 +2391,7 @@ def main() -> None:
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
          "paper_workloads": paper, "graph_decode": graph, "speculative": spec,
          "scheduler": sched, "speculative_scheduler": sspec, "failure_model": fails,
+         "train": train,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,9 @@ The JAX package's parameter pytree, fetched as numpy arrays (for example
 ``jax.tree_util.tree_map(numpy.asarray, params)``), becomes the port's
 nested dict of tensors with the same keys and shapes, so both packages
 compute the same function on the same weights.  ``params_to_numpy`` is the
-inverse, for tests.  ``packed_linear_from_numpy`` carries a block-VUSA pack
+inverse, for tests.  ``adam_state_from_numpy`` / ``adam_state_to_numpy``
+carry an AdamW state (step, mu, nu) across the same way, so both packages
+can start training from one state.  ``packed_linear_from_numpy`` carries a block-VUSA pack
 (the reference's ``kernels.ops.PackedLinear``, fetched as numpy) across.
 """
 
@@ -16,8 +18,10 @@ import numpy as np
 import torch
 
 from .kernels.ops import PackedLinear
+from .optim import AdamState
 
-__all__ = ["params_from_numpy", "params_to_numpy", "packed_linear_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "adam_state_from_numpy",
+           "adam_state_to_numpy", "packed_linear_from_numpy"]
 
 
 def params_from_numpy(tree: dict, device="cuda", dtype: Optional[torch.dtype] = None) -> dict:
@@ -45,6 +49,22 @@ def params_to_numpy(params: dict) -> dict:
         return t.numpy()
 
     return {k: params_to_numpy(v) if isinstance(v, dict) else leaf(v) for k, v in params.items()}
+
+
+def adam_state_from_numpy(state, device="cuda") -> AdamState:
+    """An AdamW state as numpy (anything with ``step``, ``mu`` and ``nu``:
+    the reference's ``AdamState`` fetched with ``numpy.asarray`` leaf by
+    leaf) -> the port's :class:`AdamState` on ``device`` (an int32 step)."""
+    step = torch.from_numpy(np.array(state.step, dtype=np.int32).reshape(())).to(device)
+    return AdamState(step=step, mu=params_from_numpy(state.mu, device),
+                     nu=params_from_numpy(state.nu, device))
+
+
+def adam_state_to_numpy(state: AdamState) -> dict:
+    """The port's AdamW state -> ``{"step": int32 array, "mu": ..., "nu":
+    ...}`` of numpy arrays (the reference's ``AdamState(**d)``)."""
+    return {"step": np.asarray(state.step.cpu().numpy(), dtype=np.int32),
+            "mu": params_to_numpy(state.mu), "nu": params_to_numpy(state.nu)}
 
 
 def packed_linear_from_numpy(

@@ -13,7 +13,10 @@ from typing import Callable
 
 import torch
 
-__all__ = ["magnitude_mask", "prune", "prune_tree", "tree_sparsity"]
+__all__ = [
+    "magnitude_mask", "prune", "polynomial_sparsity", "prune_tree", "masks_tree",
+    "apply_masks", "tree_sparsity",
+]
 
 
 def magnitude_mask(w: torch.Tensor, sparsity: float) -> torch.Tensor:
@@ -25,13 +28,27 @@ def magnitude_mask(w: torch.Tensor, sparsity: float) -> torch.Tensor:
     n = w.numel()
     k = max(int(round((1.0 - sparsity) * n)), 1)
     mag = w.abs()
-    # k-th largest magnitude == (n - k + 1)-th smallest
-    thresh = torch.kthvalue(mag.reshape(-1), n - k + 1).values
+    # k-th largest magnitude == the (n - k)-th of the ascending sort.  A sort,
+    # not kthvalue: on the card kthvalue selects within one thread block,
+    # about a second for a stacked 28 M-entry leaf; the value is the same
+    thresh = torch.sort(mag.reshape(-1)).values[n - k]
     return mag >= thresh
 
 
 def prune(w: torch.Tensor, sparsity: float) -> torch.Tensor:
     return torch.where(magnitude_mask(w, sparsity), w, torch.zeros_like(w))
+
+
+def polynomial_sparsity(
+    step: int, begin: int, end: int, final_sparsity: float, initial_sparsity: float = 0.0
+) -> float:
+    """Zhu-Gupta cubic sparsity ramp s(t) (host-side schedule)."""
+    if step <= begin:
+        return initial_sparsity
+    if step >= end:
+        return final_sparsity
+    frac = (step - begin) / max(end - begin, 1)
+    return final_sparsity + (initial_sparsity - final_sparsity) * (1.0 - frac) ** 3
 
 
 def _prunable(path: tuple, leaf) -> bool:
@@ -62,6 +79,32 @@ def prune_tree(params: dict, sparsity: float, prunable: Callable = _prunable) ->
         }
 
     return f(params, ())
+
+
+def masks_tree(params: dict, sparsity: float, prunable: Callable = _prunable) -> dict:
+    """Keep-masks for every prunable leaf (non-prunable leaves -> None)."""
+
+    def f(tree, path):
+        return {
+            key: f(val, path + (key,)) if isinstance(val, dict)
+            else (magnitude_mask(val, sparsity) if prunable(path + (key,), val) else None)
+            for key, val in tree.items()
+        }
+
+    return f(params, ())
+
+
+@torch.no_grad()
+def apply_masks(params: dict, masks: dict) -> None:
+    """Re-apply persistent keep-masks in place (after each optimizer update,
+    so pruned weights stay exactly zero through training).  The optimizer's
+    moments are left alone, as in the reference."""
+    for key, val in params.items():
+        m = masks[key]
+        if isinstance(val, dict):
+            apply_masks(val, m)
+        elif m is not None:
+            val.masked_fill_(~m, 0.0)
 
 
 def tree_sparsity(params: dict) -> float:

@@ -1,0 +1,61 @@
+"""Training launcher of the port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch vusa_edge --steps 100 \
+        [--smoke] [--batch 8] [--seq 128] [--lr 3e-4] [--ckpt DIR] [--microbatches N] \
+        [--grad-compress] [--device cpu]
+
+Port of the JAX package's ``launch/train.py``: the ``Trainer`` on the
+learnable synthetic stream (tokens drawn from [0, 256)), pruning to the
+config's sparsity, on one device.  ``--data`` and ``--model`` above 1 (a
+sharded mesh) come with a later slice (ROADMAP.md A12).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ..configs import get_config, get_smoke_config
+from ..train import TrainConfig, Trainer, TrainHParams
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--data", type=int, default=1, help="data-parallel mesh axis")
+    ap.add_argument("--model", type=int, default=1, help="model-parallel mesh axis")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+    if args.data > 1 or args.model > 1:
+        raise NotImplementedError(
+            "a sharded mesh (--data/--model > 1) is not ported yet (ROADMAP.md A12)")
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    tc = TrainConfig(
+        steps=args.steps,
+        global_batch=args.batch,
+        seq_len=args.seq,
+        ckpt_dir=args.ckpt,
+        token_range=256,
+        hp=TrainHParams(
+            lr=args.lr,
+            warmup=max(args.steps // 10, 1),
+            total_steps=args.steps,
+            microbatches=args.microbatches,
+            grad_compress=args.grad_compress,
+        ),
+    )
+    out = Trainer(cfg, tc, device=args.device).train()
+    print(f"final loss {out['final_loss']:.4f}  sparsity {out['sparsity']:.2%}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

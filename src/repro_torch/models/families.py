@@ -11,6 +11,8 @@ reference loads as it is.  The reference scans the layer axis with
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as Fn
+from torch.utils.checkpoint import checkpoint
 
 from .common import ParamSpec, per_row, rms_norm
 from .layers import (
@@ -19,7 +21,7 @@ from .layers import (
 
 __all__ = [
     "lm_specs", "lm_forward", "lm_cache_specs", "lm_init_cache", "lm_decode_step",
-    "lm_prefill", "lm_prefill_chunk", "act_dtype", "layer_params", "layer_cache",
+    "lm_prefill", "lm_prefill_chunk", "lm_loss", "act_dtype", "layer_params", "layer_cache",
 ]
 
 
@@ -68,22 +70,64 @@ def lm_specs(cfg) -> dict:
 
 
 def _embed_tokens(params, tokens, cfg):
-    return params["embed"][tokens].to(act_dtype(cfg))
+    """The token rows of the embedding.  A gather, as indexing is, but its
+    backward sums each row's gradients in a fixed order on the card too
+    (indexing's backward, ``index_put_`` with accumulation, may not), so a
+    training step is deterministic and a resumed run bitwise the
+    uninterrupted one."""
+    return Fn.embedding(tokens, params["embed"]).to(act_dtype(cfg))
+
+
+def _unstack(tree: dict, n: int) -> list:
+    """The n per-layer trees of a layer-stacked tree, through ``unbind``:
+    its backward stacks the layers' gradients in one op, where indexing
+    each layer would add a full-size gradient per layer."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _lm_layer(lp, x, cfg, mask, positions):
+    x = x + attention(lp["attn"], rms_norm(x, lp["norm1"]), cfg, mask, positions)
+    return x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
 
 
 def lm_forward(params, batch, cfg):
-    """Teacher-forced logits (B, S, V) and the (zero) aux loss."""
+    """Teacher-forced logits (B, S, V) and the (zero) aux loss.  Under grad
+    with ``cfg.remat`` each layer is recomputed in the backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     mask = MaskSpec("causal")
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        x = x + attention(lp["attn"], rms_norm(x, lp["norm1"]), cfg, mask, positions)
-        x = x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_lm_layer, lp, x, cfg, mask, positions, use_reentrant=False)
+        else:
+            x = _lm_layer(lp, x, cfg, mask, positions)
     x = rms_norm(x, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
     return logits, 0.0
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean next-token cross-entropy in the reference's logsumexp form
+    (``xent_lse``): an fp32 logsumexp over the logits, minus the label's
+    logit picked in model dtype and then widened; ids >= vocab (padding)
+    are masked."""
+    mask = (labels >= 0) & (labels < vocab)
+    labels = labels.clamp(0, vocab - 1).long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    picked = logits.gather(-1, labels[..., None])[..., 0]
+    ll = picked.float() - lse
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+
+
+def lm_loss(params, batch, cfg):
+    """Next-token loss over the shifted tokens plus 0.01 x the aux loss
+    (0 for the dense family)."""
+    logits, aux = lm_forward(params, batch, cfg)
+    return _xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab) + 0.01 * aux
 
 
 # ---- decode ----------------------------------------------------------------

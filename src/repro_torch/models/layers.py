@@ -8,7 +8,9 @@ The numerics follow the reference's default performance flags
 (``models/opt_flags.py``): prefill attention carries the probabilities in
 bf16 into the AV product with fp32 accumulation (``attn_bf16_probs``), and
 decode attends directly in fp32 with ``p / max(l, 1e-30)``
-(``decode_direct``).  Masked scores are ``-1e30``, not ``-inf``.
+(``decode_direct``), and training attention takes the reference's
+hand-written backward (``flash_custom_vjp``) as an ``autograd.Function``
+with its bf16 rounding points.  Masked scores are ``-1e30``, not ``-inf``.
 """
 
 from __future__ import annotations
@@ -86,7 +88,13 @@ class MaskSpec:
 # --------------------------------------------------------------------------
 
 
-def _flash_attend(
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 and widened back: a product of two such tensors
+    in fp32 is the reference's bf16 einsum with fp32 accumulation."""
+    return x.to(torch.bfloat16).float()
+
+
+def _flash_chunks(
     q: torch.Tensor,  # (B, Sq, KVH, G, hd)
     k: torch.Tensor,  # (B, Sk, KVH, hd)
     v: torch.Tensor,  # (B, Sk, KVH, hd)
@@ -95,8 +103,9 @@ def _flash_attend(
     k_pos: torch.Tensor,  # (Sk,)
     kv_valid: Optional[torch.Tensor] = None,  # (Sk,) or (B, Sk) bool
     kv_chunk: int = 512,
-) -> torch.Tensor:
-    """Online-softmax attention over KV chunks.  Returns (B, Sq, KVH, G, hd).
+):
+    """Online-softmax attention over KV chunks.  Returns the fp32 output
+    (B, KVH, G, Sq, hd) and the softmax statistics m, l (B, KVH, G, Sq).
 
     Query rows are independent, so only the KV chunking (512, as the
     reference) shapes the numerics.  P and V enter the AV product rounded to
@@ -126,15 +135,91 @@ def _flash_attend(
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        av = torch.einsum(
-            "bhgqk,bkhd->bhgqd",
-            p.to(torch.bfloat16).float(),
-            vi.to(torch.bfloat16).float(),
-        )
+        av = torch.einsum("bhgqk,bkhd->bhgqd", _bf16(p), _bf16(vi))
         acc = acc * corr[..., None] + av
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return acc / torch.clamp_min(l, 1e-30)[..., None], m, l
+
+
+def _flash_attend(q, k, v, mask, q_pos, k_pos, kv_valid=None, kv_chunk: int = 512):
+    """:func:`_flash_chunks`' output as (B, Sq, KVH, G, hd) in ``q.dtype``:
+    the prefill attend (no backward)."""
+    out = _flash_chunks(q, k, v, mask, q_pos, k_pos, kv_valid, kv_chunk)[0]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Causal flash attention for training, with the reference's
+    hand-written VJP (``models/layers.py`` ``_make_flash_vjp``).
+
+    The forward saves only (q, k, v, out, m, l) and the positions and
+    validity; the backward recomputes the scores chunk by chunk, the
+    flash-attention-2 derivation.  P, dS, dO, Q and K enter the backward's
+    products rounded to bf16 with fp32 accumulation, at the reference's
+    rounding points: torch autograd through :func:`_flash_chunks` rounds
+    elsewhere, and its gradients then part from the reference's by 3e-3
+    of the largest or more.  q (B, S, KVH, G, hd), k and v (B, S, KVH, hd),
+    ``pos`` (S,) and ``valid`` (S,) bool, with S a multiple of ``chunk``
+    (query and KV chunks alike).  Returns the fp32 output (B, S, KVH, G, hd).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos, valid, chunk: int):
+        out, m, l = _flash_chunks(q, k, v, MaskSpec("causal"), pos, pos, valid, chunk)
+        out = out.permute(0, 3, 1, 2, 4)
+        ctx.save_for_backward(q, k, v, out, m, l, pos, valid)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l, pos, valid = ctx.saved_tensors
+        c, mask = ctx.chunk, MaskSpec("causal")
+        s_len, hd = q.shape[1], q.shape[-1]
+        scale = hd**-0.5
+        do = dout.float()
+        d_stat = torch.einsum("bqhgd,bqhgd->bhgq", do, out)  # D_i = rowsum(dO * O)
+        p_div = torch.clamp_min(l, 1e-30)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dks, dvs = [], []
+        for k0 in range(0, s_len, c):
+            kj, vj = k[:, k0 : k0 + c].float(), v[:, k0 : k0 + c].float()
+            kb = _bf16(kj)
+            allow_k = valid[None, k0 : k0 + c]
+            dkj = torch.zeros(kj.shape, dtype=torch.float32, device=q.device)
+            dvj = torch.zeros(vj.shape, dtype=torch.float32, device=q.device)
+            for q0 in range(0, s_len, c):
+                qi, doi = q[:, q0 : q0 + c].float(), do[:, q0 : q0 + c]
+                s = scale * torch.einsum("bqhgd,bkhd->bhgqk", qi, kj)
+                allow = mask(pos[q0 : q0 + c], pos[k0 : k0 + c]) & allow_k
+                s = s.masked_fill(~allow, _NEG_INF)
+                p = torch.exp(s - m[..., q0 : q0 + c, None]) / p_div[..., q0 : q0 + c, None]
+                dp = torch.einsum("bqhgd,bkhd->bhgqk", doi, vj)
+                dsv = p * (dp - d_stat[..., q0 : q0 + c, None]) * scale
+                pc, dc = _bf16(p), _bf16(dsv)
+                dvj = dvj + torch.einsum("bhgqk,bqhgd->bkhd", pc, _bf16(doi))
+                dkj = dkj + torch.einsum("bhgqk,bqhgd->bkhd", dc, _bf16(qi))
+                dq[:, q0 : q0 + c] += torch.einsum("bhgqk,bkhd->bqhgd", dc, kb)
+            dks.append(dkj)
+            dvs.append(dvj)
+        dk, dv = torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def flash_attention_train(q, k, v, positions):
+    """Causal training attention through :class:`_FlashAttention`: chunks
+    of ``min(512, s)``, s padded to a multiple of the chunk (padded keys are
+    invalid, padded rows are dropped), as the reference's custom-VJP path.
+    Returns (B, S, KVH, G, hd) in ``q.dtype``."""
+    s = q.shape[1]
+    chunk = min(512, s)
+    pad = (-s) % chunk
+    valid = torch.ones((s + pad,), dtype=torch.bool, device=q.device)
+    if pad:
+        q, k, v = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (q, k, v))
+        positions = F.pad(positions, (0, pad))
+        valid[s:] = False
+    return _FlashAttention.apply(q, k, v, positions, valid, chunk)[:, :s].to(q.dtype)
 
 
 def _direct_attend(
@@ -218,14 +303,21 @@ def attention(
 ):
     """Full-sequence self-attention (train / prefill).  With ``return_kv``
     also returns the projected K/V rows, which prefill writes to the cache
-    (the reference recomputes them; the values are the same)."""
+    (the reference recomputes them; the values are the same).  When q, k or
+    v require grad and there is no ``kv_valid``, it is the training path:
+    the reference's custom-VJP flash attention (:func:`flash_attention_train`)."""
     b, s, _ = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     q = q.reshape(b, s, kvh, nh // kvh, hd)
-    out = _flash_attend(q, k, v, mask, positions, positions, kv_valid=kv_valid)
+    if kv_valid is None and not return_kv and any(t.requires_grad for t in (q, k, v)):
+        if mask.kind != "causal":
+            raise NotImplementedError(f"training attention with mask {mask.kind!r}")
+        out = flash_attention_train(q, k, v, positions)
+    else:
+        out = _flash_attend(q, k, v, mask, positions, positions, kv_valid=kv_valid)
     out = out.reshape(b, s, nh, hd)
     y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
     return (y, k, v) if return_kv else y

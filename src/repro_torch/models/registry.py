@@ -36,6 +36,10 @@ class Model(nn.Module):
         return init_params(self.specs(), seed, torch.device(device))
 
     # ---- train / eval ----
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Scalar LM loss (dense family; the constructor refuses others)."""
+        return F.lm_loss(params, batch, self.cfg)
+
     def forward(self, params: dict, batch: dict):
         return F.lm_forward(params, batch, self.cfg)
 

@@ -1,0 +1,97 @@
+"""Training step: loss -> grads -> AdamW, with optional gradient-accumulation
+microbatching and int8 gradient compression (stochastic rounding keeps it
+unbiased).
+
+Port of the JAX package's ``train/step.py``.  The step is one function of
+``(params, opt, batch)`` that updates the parameters and the optimizer state
+in place (``optim.adamw``) and returns them with the step's metrics.  The
+compression noise comes from a ``torch.Generator`` seeded by ``(0, step)``;
+it cannot reproduce the reference's threefry draws (ROADMAP.md C3), so a
+compressed run trains alike but not bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..optim import AdamState, adamw_update
+from ..optim.adamw import tree_items
+from ..optim.schedule import cosine_schedule
+
+__all__ = ["TrainHParams", "make_train_step", "compress_grads"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    max_grad_norm: float = 1.0
+    microbatches: int = 1  # gradient accumulation over the leading batch dim
+    grad_compress: bool = False  # int8 + stochastic rounding before the update
+
+
+def compress_grads(grads: list, step: int) -> list:
+    """int8-quantize each tensor (symmetric, per-tensor scale ``max|g|/127``,
+    stochastic rounding with uniform noise in [-0.5, 0.5)), dequantize."""
+    seed = int(np.random.SeedSequence((0, step)).generate_state(1)[0])
+    gen = torch.Generator(device=grads[0].device).manual_seed(seed)
+    out = []
+    for g in grads:
+        g32 = g.float()
+        scale = torch.clamp_min(g32.abs().max(), 1e-12) / 127.0
+        noise = torch.rand(g.shape, generator=gen, device=g.device) - 0.5
+        xi = torch.clamp(torch.round(g32 / scale + noise), -127, 127).to(torch.int8)
+        out.append(xi.float() * scale)
+    return out
+
+
+def _value_and_grad(loss_fn: Callable, params: dict, batch: dict):
+    """(loss, fp32 grads of every leaf in ``tree_items`` order)."""
+    paths, leaves = zip(*tree_items(params))
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    tree: dict = {}
+    for path, t in zip(paths, live):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t
+    loss = loss_fn(tree, batch)
+    grads = torch.autograd.grad(loss, live)
+    return loss.detach(), [g.float() for g in grads]
+
+
+def make_train_step(loss_fn: Callable, hp: TrainHParams):
+    """``loss_fn(params, batch) -> scalar``.  Returns ``step(params, opt,
+    batch) -> (params, opt, {"loss", "gnorm", "lr"})``; params and opt are
+    updated in place and returned."""
+
+    def step(params: dict, opt: AdamState, batch: dict):
+        t = int(opt.step)  # the lr of this update: the count before it
+        lr = cosine_schedule(t, hp.warmup, hp.total_steps, hp.lr)
+        if hp.microbatches > 1:
+            n = hp.microbatches
+            gsum, losses = None, []
+            for i in range(n):
+                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                      for k, v in batch.items()}
+                loss, g = _value_and_grad(loss_fn, params, mb)
+                gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
+                losses.append(loss)
+            grads = [g / n for g in gsum]
+            loss = torch.stack(losses).mean()
+        else:
+            loss, grads = _value_and_grad(loss_fn, params, batch)
+        if hp.grad_compress:
+            grads = compress_grads(grads, t)
+        params, opt, gnorm = adamw_update(params, grads, opt, lr,
+                                          weight_decay=hp.weight_decay,
+                                          max_grad_norm=hp.max_grad_norm)
+        return params, opt, {"loss": loss, "gnorm": gnorm, "lr": lr}
+
+    return step

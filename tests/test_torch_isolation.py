@@ -37,7 +37,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.core.vusa", "repro_torch.core.growth", "repro_torch.core.simulator",
             "repro_torch.core.hwmodel", "repro_torch.core.workloads",
             "repro_torch.checkpoint.ckpt", "repro_torch.serve.faults",
-            "repro_torch.serve.journal", "repro_torch.serve.async_engine"} <= set(mods)
+            "repro_torch.serve.journal", "repro_torch.serve.async_engine",
+            "repro_torch.data.pipeline", "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.train.step", "repro_torch.train.trainer",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
