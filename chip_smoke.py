@@ -212,12 +212,45 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    full-depth token agreement, B = 1 speculative acceptance with the 99 %
    drafter (fp32 verifier; prompts from phase 8 and from the training
    stream), and ``prime_many`` vs ``prime`` at 2 and 12 layers (C9);
-13. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+13. families: the decoder-only families at their published widths, each
+   drawn on the card from a seed (std over the dims each weight contracts;
+   every QKV bias and norm scale drawn too, so a misplaced one shows) and
+   pruned to 85 %.  ``qwen2_0_5b`` whole (24 layers, d 896, 14 heads over
+   2 KV heads, ff 4864, QKV biases, a tied head of 151936) and
+   ``qwen3_8b`` (d 4096, ff 12288, qk norms, an untied head of 151936)
+   cut to 2 of its 36 layers: ``Engine(packed_weights="all").generate``,
+   B = 4, prompt 32, 32 new tokens, counted in the eager loop (launch
+   counts set to 0 just before and read just after: exactly
+   ``planned_launches`` x 31, B1 4 a layer plus the untied head, B2 one a
+   layer, on the value route, CUDA launches as planned), then the graph
+   loop, tokens bitwise the eager loop's and its launches replays x
+   captured; fp32 values (both) and int8 (qwen2); layer 0's projections,
+   MLP and the head through phase 3's checks and timings at these shapes
+   (fp32, int8 and int4 values, the int4 and qwen3's int8 from a repack of
+   layer 0), and ``internlm2_1_8b``'s untied head (2048 -> 92672) alone; in
+   fp32 the first step's packed and dense logits within 1e-2 of the
+   largest, and on a 2-layer cut packed and dense greedy tokens identical.
+   ``olmoe_1b_7b`` (d 2048, 64 experts, top-8, ff 1024, vocab 50304, the
+   published ``moe_cf`` 1.25) cut to 4 of 16 layers: dense ``generate``
+   eager and graph bitwise; stepwise decode against the teacher-forced
+   forward at B = 1 in fp32 with a dropless ``moe_cf`` (8.0) within 2e-3
+   of the largest logit (``tests/test_models.py``'s check); 8 of phase 9's
+   requests under sequential admission on the slot pool, every completion
+   bitwise one-shot ``generate`` at B = 1.  ``paligemma_3b`` (MQA, head
+   width 256, ff 16384, vocab 257216) cut to 2 of 18 layers, with 256
+   seeded patch embeddings: ``generate`` eager and graph bitwise; the
+   prefill's logits against the forward's last text logit in fp32 within
+   2e-3.  Reported: tok/s and ms per step (graph and eager), peak memory,
+   byte ratios, B1-B4 per decode step at these shapes beside the plain
+   version, the library call and the bound, the phase's seconds (at most
+   200);
+14. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, phase 10's speculative pool graph launches, CUDA launches per
-   call as counted; B5/B6 per ResNet-18 image, MobileNetV1 under
-   ``mobilenetv1``);
-14. the card line again and the result line.
+   call as counted, and under ``families`` the same per decode step of
+   phase 13's qwen2 and qwen3 with their counted launches; B5/B6 per
+   ResNet-18 image, MobileNetV1 under ``mobilenetv1``);
+15. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -227,8 +260,11 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
+import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -268,6 +304,7 @@ from repro_torch.kernels.vusa_spmm import (  # noqa: E402
     vusa_spmm,
 )
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.common import strict_fp32  # noqa: E402
 from repro_torch.models.cache import (  # noqa: E402
     PagedLayout,
@@ -281,6 +318,7 @@ from repro_torch.optim.adamw import tree_items  # noqa: E402
 from repro_torch.serve import Engine, Request, Scheduler, ServeConfig  # noqa: E402
 from repro_torch.serve.packed import (  # noqa: E402
     _as_linear,
+    _flat_attn,
     _flat_entries,
     lm_decode_step_packed,
     packed_byte_ratios,
@@ -332,6 +370,23 @@ PAPER_MODELS = (("resnet18", resnet18_gemms, 0.85), ("mobilenetv1", mobilenetv1_
 PAPER_SEED = 0
 EXACT_TOL = 1e-3  # kernels vs x @ w in fp32, of the largest |x @ w| (at least 1)
 VUSA_NMA = (3, 6, 3)  # the paper's VUSA 3x6: N rows, M SPEs, A MACs
+# the families phase: depth cuts (None: full depth), the seed of the weights,
+# the std of the drawn biases and norm scales, the fp32 decode / prefill vs
+# forward tolerance (of the largest logit, tests/test_models.py's check at
+# full width), the MoE scheduler's requests and the phase's time limit
+FAM_DEPTH = {"qwen2_0_5b": None, "qwen3_8b": 2, "olmoe_1b_7b": 4, "paligemma_3b": 2}
+FAM_CUT_WHY = {  # every cut is of depth, never of a width
+    "qwen3_8b": "2 of 36 layers: at 36 the fp32 weights are 33 GB and each stacked MLP leaf "
+                "holds 1.8 G entries to sort whole and pack on the host, in a 200 s phase",
+    "olmoe_1b_7b": "4 of 16 layers: at 16 the stacked expert leaf holds 2^31 entries, past "
+                   "the int32 index range of one pruning sort, and 4 fit the phase's 200 s",
+    "paligemma_3b": "2 of 18 layers: the phase's 200 s; its layers are all alike",
+}
+FAM_SEED = 0
+FAM_PERTURB_STD = 0.5
+FAM_TF_TOL = 2e-3
+FAM_SCHED_REQUESTS = 8
+FAM_PHASE_LIMIT_S = 200.0
 # ResNet-18's layer groups by GEMM name (the 1x1 downsample convs in their group)
 RESNET18_GROUPS = (("conv0", ("conv0",)),
                    ("layer1", tuple(f"conv{i}" for i in range(1, 5))),
@@ -553,6 +608,18 @@ def check_fused_mlp(timer, name, gate, up, down_t, xs, time_it):
     return rec
 
 
+def activations(rng, k):
+    """Phase 3's activations of width ``k``: B = 1, ``VERIFY_ROWS`` (the
+    batched speculative verify), ``POOL_VERIFY_ROWS`` (the pool verify) and
+    ``BATCH``, fp32 and bf16; the last is the main path's (B = 4, bf16)."""
+    x1, x4 = (torch.from_numpy(rng.standard_normal((b, k), dtype=np.float32)).to(DEVICE)
+              for b in (1, BATCH))
+    x5 = torch.cat([x4, x1])
+    x40 = torch.from_numpy(rng.standard_normal((POOL_VERIFY_ROWS, k),
+                                               dtype=np.float32)).to(DEVICE)
+    return [v for x in (x1, x5, x40, x4) for v in (x, x.to(torch.bfloat16))]
+
+
 def kernel_phase(cfg, packs, rng):
     """Phase 3 over ``packs`` (``{"dense": bf16-path pack, "int8": ...,
     "int4": ...}`` of the model).  Returns (records, per-decode-step totals
@@ -561,13 +628,7 @@ def kernel_phase(cfg, packs, rng):
     dev = torch.device(DEVICE)
 
     def xs_for(k):
-        x1, x4 = (torch.from_numpy(rng.standard_normal((b, k), dtype=np.float32)).to(dev)
-                  for b in (1, BATCH))
-        x5 = torch.cat([x4, x1])  # VERIFY_ROWS: the batched speculative verify's rows
-        x40 = torch.from_numpy(rng.standard_normal((POOL_VERIFY_ROWS, k),
-                                                   dtype=np.float32)).to(dev)
-        # the last one is the main path's: B = 4, bf16 activations
-        return [v for x in (x1, x5, x40, x4) for v in (x, x.to(torch.bfloat16))]
+        return activations(rng, k)
 
     def bf16_copy(lin):
         return dataclasses.replace(lin, values=lin.values.to(torch.bfloat16))
@@ -658,26 +719,35 @@ def prompts_for(cfg):
     return np.random.default_rng(1).integers(1, cfg.vocab, size=(BATCH, PROMPT)).astype(np.int32)
 
 
+def planned_launches(cfg) -> dict:
+    """Wrapper launches of one packed decode step of ``cfg`` (scope
+    "all"): four projections a layer plus an untied head (B1/B3), one
+    fused MLP a layer (B2/B4): 49 and 12 for ``vusa_edge``."""
+    return {"vusa_packed_matmul": 4 * cfg.n_layers + (0 if cfg.tie_embeddings else 1),
+            "vusa_fused_mlp_matmul": cfg.n_layers}
+
+
 def planned_cuda_launches(cfg, packed) -> dict:
     """CUDA launches one decode step at B = ``BATCH`` must issue, by entry
-    point: each projection and the head by its ``row_plan`` (K alone), and
-    each fused MLP by its ``mlp_plan`` (K and D)."""
+    point: each projection and an untied head by its ``row_plan`` (K
+    alone), and each fused MLP by its ``mlp_plan`` (K and D)."""
     def calls(lin):
         return row_plan.cuda_launches(row_plan.row_plan(lin.k), BATCH,
                                       lin.values.shape[0] * lin.m)
 
     attn = sum(calls(_as_linear(packed["attn"][n], 0)) for n in ("wq", "wk", "wv", "wo"))
+    head = 0 if packed["head"] is None else calls(_as_linear(packed["head"]))
     gate, down_t = (_as_linear(packed["mlp"][n], 0) for n in ("w_gate", "w_down_t"))
     mlp = mlp_plan.cuda_launches(mlp_plan.mlp_plan(gate.k, down_t.k), BATCH, down_t.k,
                                  gate.values.shape[0])
-    return {"vusa_packed_matmul": cfg.n_layers * attn + calls(_as_linear(packed["head"])),
+    return {"vusa_packed_matmul": cfg.n_layers * attn + head,
             "vusa_fused_mlp_matmul": cfg.n_layers * mlp}
 
 
 def counted_run(cfg, eng, route):
     """Warm up, set every launch count to 0, run the main path once and read
-    the counts: exactly 49 * 31 ``vusa_packed_matmul`` and 12 * 31
-    ``vusa_fused_mlp_matmul`` launches, all on ``route``, and the CUDA
+    the counts: exactly ``planned_launches(cfg)`` per decode step (49 and
+    12 for ``vusa_edge``) times 31, all on ``route``, and the CUDA
     launches that the kernel library counts for each entry point equal to
     the plan's (``planned_cuda_launches``).  Returns (generate's result,
     counts on ``route``, CUDA launches per call, peak device bytes)."""
@@ -695,8 +765,7 @@ def counted_run(cfg, eng, route):
     peak = torch.cuda.max_memory_allocated()
     steps = MAX_NEW - 1
     want = {name: {r: n * steps if r == route else 0 for r in counts[name]}
-            for name, n in (("vusa_packed_matmul", 4 * cfg.n_layers + 1),
-                            ("vusa_fused_mlp_matmul", cfg.n_layers))}
+            for name, n in planned_launches(cfg).items()}
     if counts != want:
         fail(f"{route} main path: launch counts {counts} != expected {want}")
     want_cuda = {name: n * steps for name, n in planned_cuda_launches(cfg, eng.packed).items()}
@@ -1163,8 +1232,7 @@ def graph_phase(cfg, engines):
                 got = {n: {k: v - g0.get(n, {}).get(k, 0) for k, v in c.items()}
                        for n, c in g1.items()}
                 want = {name: {k: n * steps if k == vd else 0 for k in got[name]}
-                        for name, n in (("vusa_packed_matmul", 4 * cfg.n_layers + 1),
-                                        ("vusa_fused_mlp_matmul", cfg.n_layers))}
+                        for name, n in planned_launches(cfg).items()}
                 if got != want:
                     fail(f"{tag}: graph launches {got} != expected {want}")
                 r["graph_launches"] = {n: c[vd] for n, c in got.items()}
@@ -1214,7 +1282,9 @@ def graph_structure(cfg, e) -> dict:
            "edges": path.read_text().count("->"),
            **{k: sum(k in ln for ln in ids) for k in LIBRARY_KERNELS}}
     planned = planned_cuda_launches(cfg, e.packed)
-    want = {"row_packed_kernel": 4 * cfg.n_layers + 1, "fused_mlp_kernel": cfg.n_layers}
+    per_step = planned_launches(cfg)
+    want = {"row_packed_kernel": per_step["vusa_packed_matmul"],
+            "fused_mlp_kernel": per_step["vusa_fused_mlp_matmul"]}
     want["sum_slices_kernel"] = sum(planned.values()) - sum(want.values())
     if {k: out[k] for k in LIBRARY_KERNELS} != want:
         fail(f"graph decode: the captured step holds library kernels "
@@ -1495,8 +1565,7 @@ def scheduler_phase(cfg, params, engines) -> dict:
                 vd = "dense" if route == "fp32" else route
                 steps = st["segments"] * SCHED_SEGMENT
                 want_l = {name: {k: n * steps if k == vd else 0 for k in launches[name]}
-                          for name, n in (("vusa_packed_matmul", 4 * cfg.n_layers + 1),
-                                          ("vusa_fused_mlp_matmul", cfg.n_layers))}
+                          for name, n in planned_launches(cfg).items()}
                 if launches != want_l:
                     fail(f"{tag}: pool graph launches {launches} != expected {want_l}")
                 st["graph_launches"] = {n: c[vd] for n, c in launches.items()}
@@ -1573,7 +1642,7 @@ def spec_sched_phase(cfg, raw) -> dict:
     t_phase = time.monotonic()
     params = tiered(raw)
     timed = sched_traffic(cfg, arrivals=True)
-    per = {"vusa_packed_matmul": 4 * cfg.n_layers + 1, "vusa_fused_mlp_matmul": cfg.n_layers}
+    per = planned_launches(cfg)
     res, drafter = {"runs": {}, "ms_per_round": {}, "graph_launches": {}}, None
     reset_launch_counts()
     for route in ("fp32", "int8", "dense"):
@@ -2071,6 +2140,410 @@ def print_train(cfg, train: dict, card: str) -> None:
           f"logit; phase {train['seconds']:.1f}s ({card})", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 13: the decoder-only families at their own widths
+# --------------------------------------------------------------------------
+
+
+def family_cfg(arch):
+    """``arch``'s published config at ``FAM_DEPTH[arch]`` layers (None: full
+    depth); every width as published."""
+    cfg = get_config(arch)
+    depth = FAM_DEPTH[arch]
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def fan_in(name: str, shape) -> int:
+    """The size of the dims a weight contracts over: d_model for wq/wk/wv
+    (d, heads, hd), heads x hd for wo (heads, hd, d), else ``shape[-2]``
+    (the leading layer axis aside)."""
+    if name in ("wq", "wk", "wv"):
+        return shape[-3]
+    if name == "wo":
+        return shape[-3] * shape[-2]
+    return shape[-2] if len(shape) >= 2 else shape[-1]
+
+
+def device_init(cfg) -> dict:
+    """Random parameters of ``cfg`` drawn on the card, from a generator
+    seeded by ``numpy.random.default_rng(FAM_SEED)`` (drawing billions of
+    entries with numpy on the host would take minutes), each weight with
+    std ``scale / sqrt(fan_in)`` over the dims it contracts (``fan_in``).
+    The port's init takes ``shape[-2]`` for every leaf, as the reference
+    does, which makes the 3-D attention weights 4-30x too large at these
+    widths; the random deep model then amplifies fp32 rounding until
+    packed and dense logits part (ROADMAP C6;
+    ``scripts/init_rule_gap.py``).  The leaves the init sets to zero, the
+    QKV biases and the norm scales, are drawn from normal(0,
+    ``FAM_PERTURB_STD``) instead, so a missing or misplaced bias or norm
+    changes the logits."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(int(np.random.default_rng(FAM_SEED).integers(2**62)))
+
+    def build(tree):
+        out = {}
+        for name, spec in tree.items():
+            if isinstance(spec, dict):
+                out[name] = build(spec)
+                continue
+            std = (FAM_PERTURB_STD if spec.init == "zeros"
+                   else spec.scale / math.sqrt(max(fan_in(name, spec.shape), 1)))
+            out[name] = torch.randn(spec.shape, generator=gen, device=DEVICE) * std
+        return out
+
+    return build(build_model(cfg).specs())
+
+
+def step_totals(recs: dict, n_layers: int, head) -> dict:
+    """One decode step's kernel times from the timed layer-0 records: the
+    four projections ``n_layers`` times plus the head record (or none), and
+    the MLP ``n_layers`` times; the worst error over the records' cases."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    proj = [recs[n] for n in ("wq", "wk", "wv", "wo")]
+    out = {"vusa_packed_matmul": {k: n_layers * sum(r["timing"][k] for r in proj)
+                                  + (head["timing"][k] if head else 0.0) for k in keys},
+           "vusa_fused_mlp_matmul": {k: n_layers * recs["mlp"]["timing"][k] for k in keys}}
+    out["vusa_packed_matmul"]["max_abs_err"] = max(
+        c["max_abs_err"] for r in proj + ([head] if head else []) for c in r["cases"])
+    out["vusa_fused_mlp_matmul"]["max_abs_err"] = max(c["max_abs_err"]
+                                                      for c in recs["mlp"]["cases"])
+    out["vusa_packed_matmul"]["bound_by"] = (head or recs["wq"])["timing"]["bound_by"]
+    out["vusa_fused_mlp_matmul"]["bound_by"] = recs["mlp"]["timing"]["bound_by"]
+    return out
+
+
+def layer0_records(timer, rng, arch, lins: dict, tag: str) -> dict:
+    """Phase 3's checks and timings of one value route's layer-0 packs
+    (``lins``: wq, wk, wv, wo and the fused MLP trio)."""
+    recs = {n: check_packed_matmul(timer, f"{arch} {n}[layer0]{tag}", lins[n],
+                                   activations(rng, lins[n].k), True)
+            for n in ("wq", "wk", "wv", "wo")}
+    gate, up, down_t = lins["mlp"]
+    recs["mlp"] = check_fused_mlp(timer, f"{arch} mlp[layer0]{tag}", gate, up, down_t,
+                                  activations(rng, gate.k), True)
+    return recs
+
+
+def layer0_packs(params, value_dtype: str) -> dict:
+    """Layer 0's projections and MLP trio of ``params`` packed with
+    ``value_dtype`` values (the engine's geometry: windows of 128, a = 16)."""
+    attn, ffn = params["layers"]["attn"], params["layers"]["ffn"]
+    names = ("wq", "wk", "wv", "wo")
+    mats = [_flat_attn(attn[n][:1], n)[0] for n in names]
+    mats += [ffn["w_gate"][0], ffn["w_up"][0], ffn["w_down"][0].T]
+    lins = ops.pack_linear_rows_many([m.detach().float().cpu().numpy() for m in mats],
+                                     dtype=torch.float32, device=DEVICE,
+                                     value_dtype=value_dtype, dense_itemsize=4)
+    return {**dict(zip(names, lins)), "mlp": tuple(lins[4:])}
+
+
+def engine_layer0(eng) -> dict:
+    """An engine's own layer-0 packs (the linears its decode step runs)."""
+    attn, mlp = eng.packed["attn"], eng.packed["mlp"]
+    return {**{n: _as_linear(attn[n], 0) for n in ("wq", "wk", "wv", "wo")},
+            "mlp": tuple(_as_linear(mlp[n], 0) for n in ("w_gate", "w_up", "w_down_t"))}
+
+
+def graph_vs_eager(tag, eng, eager, prompts, extras=None, counted=None) -> dict:
+    """The engine's CUDA-graph ``generate`` against its eager run
+    ``eager``: tokens bitwise; with ``counted`` (the wrapper launches of one
+    step on a route) the graph's launches, replays x captured, exactly 31
+    steps of them.  Returns the graph run's tok/s and ms per step."""
+    g0 = eng.graph_launches()
+    use(eng, fused=True)
+    out = eng.generate(prompts, max_new=MAX_NEW, extras=extras)
+    use(eng, fused=False)
+    if not np.array_equal(out["tokens"], eager["tokens"]) or not out["finite"]:
+        fail(f"{tag}: graph tokens differ from the eager loop's (finite={out['finite']})")
+    if counted is not None:
+        route, per = counted
+        g1 = eng.graph_launches()
+        got = {n: {k: v - g0.get(n, {}).get(k, 0) for k, v in c.items()} for n, c in g1.items()}
+        want = {n: {k: per[n] * (MAX_NEW - 1) if k == route else 0 for k in got[n]}
+                for n in got}
+        if got != want:
+            fail(f"{tag}: graph launches {got} != expected {want}")
+    return {"tok_per_s": out["tok_per_s"], "ms_per_step": 1e3 * out["decode_s"] / (MAX_NEW - 1)}
+
+
+def fp32_checks(tag, cfg, params, packed, prompts, max_len) -> dict:
+    """fp32 activations: the first decode step's packed (``packed``) and
+    dense logits from one prefill, within ``FP32_STEP_TOL`` of the largest
+    logit; and greedy tokens of packed and dense ``generate`` identical
+    when the model has ``DEPTH_CUT`` layers (the caller cuts it)."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    dense = Engine(cfg32, params, ServeConfig(max_len=max_len, fused=False), device=DEVICE)
+    with torch.no_grad():
+        nxt, cache = dense.prime(prompts)
+        lp = lm_decode_step_packed(dense.params, packed, nxt, copy_cache(cache), cfg32)[0]
+        ld = dense.model.decode_step(dense.params, nxt, copy_cache(cache))[0]
+    gap, rel = rel_err(lp, ld)
+    if rel > FP32_STEP_TOL:
+        fail(f"{tag} fp32 first-step logits: packed vs dense gap {gap} ({rel} of the largest)")
+    res = {"layers": cfg.n_layers, "first_step_logit_gap": gap, "first_step_logit_gap_rel": rel}
+    if cfg.n_layers == DEPTH_CUT:
+        pe = Engine(cfg32, params, ServeConfig(max_len=max_len, fused=False), device=DEVICE)
+        pe._packed = packed  # the same pack: it holds the fp32 params' values
+        a, b = (e.generate(prompts, max_new=MAX_NEW)["tokens"] for e in (pe, dense))
+        res["token_agreement"] = float((a == b).mean())
+        if res["token_agreement"] != 1.0:
+            fail(f"{tag} fp32 {DEPTH_CUT}-layer packed and dense greedy tokens differ: "
+                 f"{res['token_agreement']} agree")
+    return res
+
+
+def dense_family_run(timer, rng, arch, value_routes) -> dict:
+    """One dense-family config: init on the card, 85 % pruning, a pack per
+    value route; per route the counted eager ``generate`` (B = 4, prompt
+    32, 32 new tokens, launches exactly ``planned_launches`` x 31 on the
+    route, CUDA launches as planned) and the graph loop bitwise equal to it
+    (graph launches as planned); layer 0's packs through phase 3's kernel
+    checks and timings on every route (int4 from a repack of layer 0); the
+    fp32 first-step gap and, on ``DEPTH_CUT`` layers, fp32 token identity
+    (a cut of the model when it is deeper)."""
+    t0 = time.monotonic()
+    cfg = family_cfg(arch)
+    params = prune_tree(device_init(cfg), cfg.sparsity)
+    res = {"layers": cfg.n_layers, "routes": {}, "records": {}}
+    prompts = prompts_for(cfg)
+    max_len = PROMPT + MAX_NEW + 8
+    per = planned_launches(cfg)
+    engines = {}
+    for route in value_routes:
+        t1 = time.monotonic()
+        eng = Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights="all",
+                                              packed_values=route, fused=False), device=DEVICE)
+        vd = "dense" if route == "bf16" else route
+        out, counts, per_call, peak = counted_run(cfg, eng, vd)
+        r = {"launches": counts, "cuda_launches_per_call": per_call,
+             "eager": {"tok_per_s": out["tok_per_s"],
+                       "ms_per_step": 1e3 * out["decode_s"] / (MAX_NEW - 1)},
+             "peak_bytes": peak, "byte_ratio": packed_byte_ratios(eng.packed)["total"],
+             "pack_bytes_per_step": pack_bytes(eng.packed)}
+        r["graph"] = graph_vs_eager(f"{arch} {route}", eng, out, prompts, counted=(vd, per))
+        r["pack_s"] = time.monotonic() - t1
+        res["routes"][route] = r
+        engines[route] = eng
+    head = None
+    main = engines[value_routes[0]]
+    if main.packed["head"] is not None:
+        head = check_packed_matmul(timer, f"{arch} lm_head", _as_linear(main.packed["head"]),
+                                   activations(rng, cfg.d_model), True)
+        res["records"]["lm_head"] = head
+    timed = {}
+    for route in ("bf16", "int8", "int4"):
+        lins = engine_layer0(engines[route]) if route in engines else layer0_packs(params, route)
+        recs = layer0_records(timer, rng, arch, lins, "" if route == "bf16" else f" {route}")
+        res["records"].update({f"{n} {route}": v for n, v in recs.items()})
+        timed[route] = step_totals(recs, cfg.n_layers, head if route == "bf16" else None)
+    res["step"] = timed
+    res["fp32"] = fp32_checks(arch, cfg, params, main.packed, prompts, max_len)
+    if cfg.n_layers != DEPTH_CUT:
+        cut = dataclasses.replace(cfg, n_layers=DEPTH_CUT)
+        cparams = {**params, "layers": first_layers(params["layers"])}
+        ce = Engine(cut, cparams, ServeConfig(max_len=max_len, packed_weights="all",
+                                              fused=False), device=DEVICE)
+        res["fp32_depth_cut"] = fp32_checks(arch, cut, cparams, ce.packed, prompts, max_len)
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def head_run(timer, rng, arch) -> dict:
+    """An untied head of ``arch`` alone (K = d_model, C = the padded
+    vocabulary), drawn on the card, pruned to 85 %, packed and held as phase
+    3 holds a kernel."""
+    cfg = get_config(arch)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(int(np.random.default_rng(FAM_SEED).integers(2**62)))
+    w = torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen, device=DEVICE)
+    w = prune_tree({"lm_head": w / math.sqrt(cfg.d_model)}, cfg.sparsity)["lm_head"]
+    (lin,) = ops.pack_linear_rows_many([w.cpu().numpy()], dtype=torch.float32, device=DEVICE,
+                                       dense_itemsize=4)
+    return check_packed_matmul(timer, f"{arch} lm_head", lin, activations(rng, cfg.d_model),
+                               True)
+
+
+@contextlib.contextmanager
+def fp32_probs():
+    """The flash attention's probabilities in fp32 (``layers.FLAGS``), as
+    the reference's model tests pin them, inside the block."""
+    prev = model_layers.FLAGS["attn_bf16_probs"]
+    model_layers.FLAGS["attn_bf16_probs"] = False
+    try:
+        yield
+    finally:
+        model_layers.FLAGS["attn_bf16_probs"] = prev
+
+
+def moe_run() -> dict:
+    """``olmoe_1b_7b`` at full width, ``FAM_DEPTH`` layers, the published
+    ``moe_cf``: dense ``generate`` eager and graph bitwise; stepwise decode
+    against the teacher-forced forward at B = 1 in fp32 with a dropless
+    ``moe_cf`` (``n_experts / top_k``), within ``FAM_TF_TOL``; a
+    sequential-admission scheduler run on the slot pool, every completion
+    bitwise one-shot ``generate`` at B = 1 (the pool step routes each slot
+    alone)."""
+    t0 = time.monotonic()
+    arch = "olmoe_1b_7b"
+    cfg = family_cfg(arch)
+    params = prune_tree(device_init(cfg), cfg.sparsity)
+    prompts = prompts_for(cfg)
+    eng = Engine(cfg, params, ServeConfig(max_len=SCHED_MAX_LEN, fused=False), device=DEVICE)
+    eng.generate(prompts, max_new=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager = eng.generate(prompts, max_new=MAX_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    res = {"layers": cfg.n_layers, "moe_cf": cfg.moe_cf, "peak_bytes": peak,
+           "eager": {"tok_per_s": eager["tok_per_s"],
+                     "ms_per_step": 1e3 * eager["decode_s"] / (MAX_NEW - 1)}}
+    res["graph"] = graph_vs_eager(arch, eng, eager, prompts)
+
+    tf_cfg = dataclasses.replace(cfg, dtype="float32", moe_cf=cfg.n_experts / cfg.top_k)
+    model = build_model(tf_cfg)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(1, cfg.vocab, (1, 12))).to(DEVICE)
+    with torch.no_grad(), fp32_probs():
+        tf, _ = model(params, {"tokens": toks})
+        cache = model.init_cache(1, 16, device=DEVICE)
+        dec = torch.cat([model.decode_step(params, toks[:, t : t + 1], cache)[0]
+                         for t in range(toks.shape[1])], dim=1)
+    gap, rel = rel_err(dec, tf)
+    if rel > FAM_TF_TOL:
+        fail(f"{arch} decode vs teacher forcing (fp32, dropless): gap {gap} ({rel} of the largest)")
+    res["decode_vs_teacher_forcing"] = {"moe_cf": tf_cfg.moe_cf, "gap": gap, "gap_rel": rel}
+
+    reqs = sched_traffic(cfg, arrivals=False)[:FAM_SCHED_REQUESTS]
+    use(eng, fused=True)
+    sched, done, _ = sched_run(eng, reqs, admission="sequential")
+    if any(c.status.value != "OK" for c in done.values()):
+        fail(f"{arch} scheduler: {[c.status.value for c in done.values()]}")
+    want = oracle_tokens(eng, reqs)
+    for rid, w in enumerate(want):
+        if not np.array_equal(done[rid].tokens, w):
+            fail(f"{arch} scheduler: request {rid}'s tokens differ from one-shot generate")
+    res["scheduler"] = sched_stats(sched)
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def vlm_run() -> dict:
+    """``paligemma_3b`` at full width, ``FAM_DEPTH`` layers: ``generate``
+    with 256 seeded patch embeddings (normal, std 0.02, as the training
+    pipeline makes them), eager and graph bitwise; the prefill's logits
+    against the forward's last text logit in fp32, within ``FAM_TF_TOL``."""
+    t0 = time.monotonic()
+    arch = "paligemma_3b"
+    cfg = family_cfg(arch)
+    params = prune_tree(device_init(cfg), cfg.sparsity)
+    prompts = prompts_for(cfg)
+    patches = np.random.default_rng(3).normal(0, 0.02, (BATCH, cfg.patch_tokens, cfg.d_model))
+    extras = {"patches": patches.astype(np.float32)}
+    max_len = cfg.patch_tokens + PROMPT + MAX_NEW + 8
+    eng = Engine(cfg, params, ServeConfig(max_len=max_len, fused=False), device=DEVICE)
+    eng.generate(prompts, max_new=4, extras=extras)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager = eng.generate(prompts, max_new=MAX_NEW, extras=extras)
+    res = {"layers": cfg.n_layers, "patch_tokens": cfg.patch_tokens,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "eager": {"tok_per_s": eager["tok_per_s"],
+                     "ms_per_step": 1e3 * eager["decode_s"] / (MAX_NEW - 1)}}
+    res["graph"] = graph_vs_eager(arch, eng, eager, prompts, extras)
+
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    batch = {"tokens": torch.from_numpy(prompts[:1]).long().to(DEVICE),
+             "patches": torch.from_numpy(extras["patches"][:1]).to(DEVICE)}
+    with torch.no_grad(), fp32_probs():
+        pf, _ = model.prefill(params, batch, max_len)
+        tf, _ = model(params, batch)
+    gap, rel = rel_err(pf, tf[:, -1])
+    if rel > FAM_TF_TOL:
+        fail(f"{arch} prefill vs forward (fp32): gap {gap} ({rel} of the largest)")
+    res["prefill_vs_forward"] = {"gap": gap, "gap_rel": rel}
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def release() -> None:
+    """Give the card's memory back between the phase's models."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def families_phase() -> dict:
+    """Phase 13 (module docstring).  Fails past ``FAM_PHASE_LIMIT_S``."""
+    t0 = time.monotonic()
+    print("families: depth cuts: " + "; ".join(f"{a} {w}" for a, w in FAM_CUT_WHY.items())
+          + "; qwen2_0_5b whole (24 layers)", flush=True)
+    timer, rng = Timer(), np.random.default_rng(13)
+    res = {"qwen2_0_5b": dense_family_run(timer, rng, "qwen2_0_5b", ("bf16", "int8"))}
+    release()
+    res["qwen3_8b"] = dense_family_run(timer, rng, "qwen3_8b", ("bf16",))
+    release()
+    res["internlm2_1_8b"] = {"lm_head": head_run(timer, rng, "internlm2_1_8b")}
+    release()
+    res["olmoe_1b_7b"] = moe_run()
+    release()
+    res["paligemma_3b"] = vlm_run()
+    release()
+    res["seconds"] = time.monotonic() - t0
+    if res["seconds"] > FAM_PHASE_LIMIT_S:
+        fail(f"families phase took {res['seconds']:.1f}s, over its {FAM_PHASE_LIMIT_S:.0f}s")
+    return res
+
+
+def print_families(fam: dict, card: str) -> None:
+    for arch in ("qwen2_0_5b", "qwen3_8b"):
+        r = fam[arch]
+        for route, x in r["routes"].items():
+            print(f"families {arch} ({r['layers']} layers) {route} values: launches "
+                  f"{x['launches']} over {MAX_NEW - 1} steps (as planned), CUDA launches per "
+                  f"call {x['cuda_launches_per_call']}; graph tokens equal eager; graph "
+                  f"{x['graph']['tok_per_s']:.1f} tok/s ({x['graph']['ms_per_step']:.4f} ms a "
+                  f"step), eager {x['eager']['tok_per_s']:.1f} tok/s "
+                  f"({x['eager']['ms_per_step']:.4f}); peak memory {x['peak_bytes']} bytes; "
+                  f"byte ratio {x['byte_ratio']:.4f}; built and run in {x['pack_s']:.1f}s",
+                  flush=True)
+        for what in ("fp32", "fp32_depth_cut"):
+            if what in r:
+                print(f"families {arch} {what}: {r[what]}", flush=True)
+        for route, st in r["step"].items():
+            print(f"families {arch} one decode step, {route} values, B={BATCH} bf16: " + "; ".join(
+                f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library {v['library_ms']:.4f}, "
+                f"bound {v['bound_ms']:.4f} by {v['bound_by']})" for k, v in st.items()),
+                flush=True)
+    for arch in ("qwen2_0_5b", "qwen3_8b", "internlm2_1_8b"):
+        recs = fam[arch]["records"] if "records" in fam[arch] else fam[arch]
+        for r in recs.values():
+            worst = max(c["rel_err"] for c in r["cases"])
+            t = r["timing"]
+            print(f"families kernel check {r['name']} {r['shape'] if 'shape' in r else r['d']}: "
+                  f"ok, worst error {worst:.3g}; B={t['B']} {t['x']}: {t['ms']:.4f} ms (plain "
+                  f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
+                  f"by {t['bound_by']})", flush=True)
+    m = fam["olmoe_1b_7b"]
+    st, tf = m["scheduler"], m["decode_vs_teacher_forcing"]
+    print(f"families olmoe_1b_7b ({m['layers']} layers, moe_cf {m['moe_cf']}): graph tokens "
+          f"equal eager; graph {m['graph']['tok_per_s']:.1f} tok/s "
+          f"({m['graph']['ms_per_step']:.4f} ms a step), eager {m['eager']['tok_per_s']:.1f}; "
+          f"peak memory {m['peak_bytes']} bytes; decode vs teacher forcing (fp32, moe_cf "
+          f"{tf['moe_cf']}) {tf['gap_rel']:.3g}"
+          f" of the largest logit; scheduler ({FAM_SCHED_REQUESTS} requests, sequential, slot "
+          f"pool) every completion equals one-shot generate, {st['sustained_tok_per_s']:.1f} "
+          f"sustained tok/s, TTFT p50 {st['ttft_p50_s'] * 1e3:.1f} ms, ITL p50 "
+          f"{st['itl_p50_s'] * 1e3:.1f} ms; {m['seconds']:.1f}s", flush=True)
+    v = fam["paligemma_3b"]
+    g = v["graph"]
+    print(f"families paligemma_3b ({v['layers']} layers, {v['patch_tokens']} patches): graph "
+          f"tokens equal eager; graph {g['tok_per_s']:.1f} tok/s ({g['ms_per_step']:.4f} ms "
+          f"a step), eager {v['eager']['tok_per_s']:.1f}; peak memory {v['peak_bytes']} bytes; "
+          f"prefill vs forward (fp32) {v['prefill_vs_forward']['gap_rel']:.3g} of the largest "
+          f"logit; {v['seconds']:.1f}s", flush=True)
+    print(f"families phase {fam['seconds']:.1f}s (limit {FAM_PHASE_LIMIT_S:.0f}s; depth cuts "
+          f"{ {a: d for a, d in FAM_DEPTH.items() if d} } layers, every width as published) "
+          f"({card})", flush=True)
+
+
 def run_async(what: str, coro_fn, timeout: float = 300.0):
     """``asyncio.run(coro_fn())`` on a daemon thread: a run with no result
     in ``timeout`` s fails the phase and ends the process at once (a hung
@@ -2329,6 +2802,9 @@ def main() -> None:
     train = train_phase(cfg, rand)
     print_train(cfg, train, card)
 
+    fam = families_phase()
+    print_families(fam, card)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -2353,12 +2829,29 @@ def main() -> None:
                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
                 "library_ms": st["library_ms"]}
 
+    def families(name, route):
+        """The record's kernel per decode step of phase 13's dense configs
+        on ``route`` (``bf16`` = fp32 values), with the counted launches
+        where the phase served that route."""
+        wrapper = name.removesuffix("_quantized")
+        out = {}
+        for arch in ("qwen2_0_5b", "qwen3_8b"):
+            r = fam[arch]
+            out[arch] = {"layers": r["layers"], **r["step"][route][wrapper]}
+            if route in r["routes"]:
+                out[arch]["launches"] = r["routes"][route]["launches"][wrapper]
+        return out
+
     kernels = [entry("vusa_packed_matmul", "dense"), entry("vusa_fused_mlp_matmul", "dense")]
+    for k in kernels:
+        k["families"] = families(k["name"], "bf16")
     for name in ("vusa_packed_matmul_quantized", "vusa_fused_mlp_matmul_quantized"):
         k = entry(name, "int8")
         k["value_dtype"] = "int8"
+        k["families"] = families(name, "int8")
         k["int4"] = {key: v for key, v in entry(name, "int4").items()
                      if key not in ("name", "route", "source", "replaces")}
+        k["int4"]["families"] = families(name, "int4")
         kernels.append(k)
     keys = ("launches", "cuda_launches_per_call", "max_abs_err", "max_abs_err_bf16", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2387,11 +2880,13 @@ def main() -> None:
          "28 under 'mobilenetv1'), their cuda_launches_per_call the mean over those GEMMs of the "
          "CUDA launches each library counted in the counted run (2 where the plan splits the "
          "reduction), their bound_ms with TF32 tensor-core operations over 495 TFLOP/s, three "
-         "per logical fp32 product (3xTF32)",
+         "per logical fp32 product (3xTF32); B1-B4's 'families' per decode step of phase 13's "
+         "qwen2_0_5b (24 layers) and qwen3_8b (2 layers) from layer 0's timed packs x layers "
+         "(+ qwen3's head on the fp32 route), launches from the phase's counted runs",
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
          "paper_workloads": paper, "graph_decode": graph, "speculative": spec,
          "scheduler": sched, "speculative_scheduler": sspec, "failure_model": fails,
-         "train": train,
+         "train": train, "families": fam,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """Config registry: ``get_config("<arch-id>")`` -> ArchConfig.
 
-Only the architectures the port serves are listed; the JAX package's other
-families (moe, ssm, hybrid, encdec, vlm) are still to be ported (ROADMAP.md
-queue A) and raise a clear error here.
+Only the architectures the port serves are listed: the decoder-only
+families (dense, moe, vlm).  The JAX package's other families (hybrid, ssm,
+encdec) are still to be ported (ROADMAP.md A13) and raise a clear error
+here.
 """
 
 from __future__ import annotations
@@ -13,6 +14,12 @@ from .base import SHAPES, ArchConfig, ShapeConfig  # noqa: F401
 
 ARCH_IDS = [
     "llama3_2_1b",
+    "qwen2_0_5b",
+    "internlm2_1_8b",
+    "qwen3_8b",
+    "olmoe_1b_7b",
+    "moonshot_v1_16b_a3b",
+    "paligemma_3b",
     "vusa_edge",  # the paper's own Edge-AI scale config
 ]
 

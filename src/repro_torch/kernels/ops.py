@@ -17,6 +17,8 @@ the CUDA kernels have no such knob, so neither exists here.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -27,7 +29,6 @@ from ..core.packing import (
     RowPacked,
     pack_blocks,
     pack_rows,
-    pack_rows_t,
     quantize_rows,
 )
 from .dense_matmul import dense_matmul
@@ -37,7 +38,8 @@ from .vusa_spmm import vusa_spmm
 
 __all__ = [
     "PackedLinear", "pack_linear", "apply_packed", "apply_packed_ref", "matmul",
-    "RowPackedLinear", "pack_linear_rows", "pack_linear_rows_t", "linear_from_pack",
+    "RowPackedLinear", "pack_linear_rows", "pack_linear_rows_t", "pack_linear_rows_many",
+    "linear_from_pack",
     "dequantize_linear_values", "apply_row_packed", "apply_row_packed_ref", "apply_fused_mlp",
     "apply_fused_mlp_ref",
 ]
@@ -203,24 +205,73 @@ def _host(w):
     return host, None, None, host.dtype.itemsize
 
 
+JOB_ENTRIES = 1 << 24  # matrix entries one host packing job takes, about
+
+
+def _window_slices(k: int, c: int, m: int) -> list:
+    """Column slices of whole m-lane windows, about JOB_ENTRIES entries
+    each, covering a (K, C) matrix."""
+    per = max(1, JOB_ENTRIES // max(k * m, 1)) * m
+    return [slice(j, j + per) for j in range(0, max(c, 1), per)]
+
+
+def _merge_windows(parts: list, c: int) -> RowPacked:
+    """One pack from the packs of consecutive window slices: slots padded
+    to the largest (idle: value 0, position -1), windows concatenated.
+    ``pack_rows`` sizes the slots by the largest row count of any window,
+    so this is its pack of the whole matrix, byte for byte."""
+    s = max(p.values.shape[2] for p in parts)
+
+    def pad(x, fill):
+        return np.pad(x, ((0, 0), (0, 0), (0, s - x.shape[2])), constant_values=fill)
+
+    return RowPacked(k=parts[0].k, c=c, m=parts[0].m, a=parts[0].a,
+                     values=np.concatenate([pad(p.values, 0) for p in parts]),
+                     row_positions=np.concatenate([pad(p.row_positions, -1) for p in parts]))
+
+
+def pack_linear_rows_many(
+    mats: list, m: int = 128, a: int = 16, dtype=None, device="cuda",
+    value_dtype: str = "dense", dense_itemsize: int | None = None,
+) -> list:
+    """``pack_rows`` of each (K, C) host matrix in ``mats``, placed on
+    ``device`` by ``linear_from_pack`` (``dtype``, ``value_dtype``,
+    ``dense_itemsize`` as there).  The window slices of every matrix
+    (``_window_slices``) pack in host threads at once, and the
+    quantization and the copies to the device run one matrix a thread:
+    numpy leaves the interpreter lock while it works, so a vocabulary-wide
+    head or a deep stack packs on every core.  The packs are the
+    single-threaded ``pack_rows``'s, byte for byte (``_merge_windows``)."""
+    jobs = [(i, sl) for i, h in enumerate(mats) for sl in _window_slices(*h.shape, m)]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        parts = list(pool.map(
+            lambda job: pack_rows(np.ascontiguousarray(mats[job[0]][:, job[1]]), m=m, a=a),
+            jobs))
+        merged = [_merge_windows([p for (i, _), p in zip(jobs, parts) if i == n], h.shape[1])
+                  for n, h in enumerate(mats)]
+        return list(pool.map(
+            lambda rp: linear_from_pack(rp, dtype, device, value_dtype, dense_itemsize), merged))
+
+
 def pack_linear_rows(
     w, m: int = 128, a: int = 16, device=None, value_dtype: str = "dense"
 ) -> RowPackedLinear:
     """Row-pack a (K, C) weight.  The pack lands on ``device``, by default
     the tensor's own device (``cuda`` for a numpy array)."""
     host, dtype, dev, size = _host(w)
-    return linear_from_pack(pack_rows(host, m=m, a=a), dtype, device or dev or "cuda",
-                            value_dtype, size)
+    return pack_linear_rows_many([host], m, a, dtype, device or dev or "cuda", value_dtype,
+                                 size)[0]
 
 
 def pack_linear_rows_t(
     w, m: int = 128, a: int = 16, device=None, value_dtype: str = "dense"
 ) -> RowPackedLinear:
     """Row-pack ``w`` *transposed* — windows cover ``w``'s leading (reduction)
-    dim, the operand layout ``vusa_fused_mlp_matmul`` wants for ``w_down``."""
+    dim, the operand layout ``vusa_fused_mlp_matmul`` wants for ``w_down``
+    (``pack_rows_t``)."""
     host, dtype, dev, size = _host(w)
-    return linear_from_pack(pack_rows_t(host, m=m, a=a), dtype, device or dev or "cuda",
-                            value_dtype, size)
+    return pack_linear_rows_many([host.T], m, a, dtype, device or dev or "cuda", value_dtype,
+                                 size)[0]
 
 
 def dequantize_linear_values(p: RowPackedLinear) -> torch.Tensor:

@@ -15,6 +15,9 @@ optional VUSA packing, one batched ``generate``.
         --requests 8 --slots 4 --fault-rate 0.2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --device cpu \
         --requests 8 --slots 4 --stream --journal /tmp/j --watchdog-s 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b --packed all
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma_3b --smoke --device cpu
 
 Port of the JAX package's ``launch/serve.py``: one batched ``generate``,
 with its speculative options, or with ``--requests N`` N synthetic
@@ -32,7 +35,11 @@ watchdog.  SIGINT / SIGTERM drain instead of dying mid-segment: admission
 stops, in-flight requests finish (bounded by ``--drain-timeout-s``), the
 stats print and the journal closes clean.  The mesh options come with a
 later slice (ROADMAP.md A12).  ``--no-fused`` decodes in the eager host
-loop instead of the CUDA graph.
+loop instead of the CUDA graph.  ``--arch`` takes every id the port serves
+(``configs.ARCH_IDS``: the dense, moe and vlm families); a vlm model's
+one-shot ``generate`` gets seeded stand-in patch embeddings (normal, std
+0.02, as the training pipeline makes them), and the scheduler refuses it
+(its requests carry no patches).
 """
 
 from __future__ import annotations
@@ -176,7 +183,8 @@ def main(argv=None):
         # a round writes up to draft_k rows past the budget; the scheduler
         # budgets a whole segment of rounds, 8 * (draft_k + 1) rows
         headroom = 8 * args.draft_k if args.requests > 0 else args.draft_k
-    max_len = args.prompt_len + args.max_new + headroom + 8
+    prefix = cfg.patch_tokens if cfg.family == "vlm" else 0
+    max_len = prefix + args.prompt_len + args.max_new + headroom + 8
     if args.page_size > 0:  # the page size must divide max_len
         max_len = -(-max_len // args.page_size) * args.page_size
     sc = ServeConfig(max_len=max_len, packed_weights=args.packed,
@@ -191,7 +199,11 @@ def main(argv=None):
     if args.requests > 0:
         return _serve_requests(args, cfg, eng)
     prompts = np.ones((batch, args.prompt_len), np.int32)
-    out = eng.generate(prompts, max_new=args.max_new)
+    extras = None
+    if cfg.family == "vlm":
+        patches = np.random.default_rng(0).normal(0, 0.02, (batch, prefix, cfg.d_model))
+        extras = {"patches": patches.astype(np.float32)}
+    out = eng.generate(prompts, max_new=args.max_new, extras=extras)
     line = (f"prefill {out['prefill_s']*1e3:.1f}ms  decode {out['decode_s']*1e3:.1f}ms  "
             f"{out['tok_per_s']:.0f} tok/s  finite={out['finite']}")
     if args.speculative:

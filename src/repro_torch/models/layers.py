@@ -1,16 +1,21 @@
-"""Transformer layer substrate for the dense LM: GQA attention (chunked
-online softmax for train/prefill, direct attend for decode) and the SwiGLU
-MLP.
+"""Transformer layer substrate of the decoder-only LM families: GQA
+attention (chunked online softmax for train/prefill, direct attend for
+decode) under a causal or prefix mask, the SwiGLU MLP and the top-k MoE.
 
-Port of the JAX package's ``models/layers.py`` (dense family only).  None
-of these is a Pallas kernel in the reference, so they are plain torch ops.
-The numerics follow the reference's default performance flags
-(``models/opt_flags.py``): prefill attention carries the probabilities in
-bf16 into the AV product with fp32 accumulation (``attn_bf16_probs``), and
-decode attends directly in fp32 with ``p / max(l, 1e-30)``
-(``decode_direct``), and training attention takes the reference's
-hand-written backward (``flash_custom_vjp``) as an ``autograd.Function``
-with its bf16 rounding points.  Masked scores are ``-1e30``, not ``-inf``.
+Port of the JAX package's ``models/layers.py`` (dense, moe and vlm
+families).  None of these is a Pallas kernel in the reference, so they are
+plain torch ops.  The numerics follow the reference's default performance
+flags (``models/opt_flags.py``): decode attends directly in fp32 with
+``p / max(l, 1e-30)`` (``decode_direct``), training attention takes the
+reference's hand-written backward (``flash_custom_vjp``) as an
+``autograd.Function`` with its rounding points, and the MoE finds each
+assignment's place in its expert by a stable sort (``moe_sort_positions``)
+with one dump slot (``moe_shard_capacity`` off).  One flag stays
+switchable, as in the reference, in :data:`FLAGS`: ``attn_bf16_probs``
+(default on) carries the flash attention's probabilities, and V, in bf16
+into the AV product with fp32 accumulation; off, both stay fp32 (the
+reference's model tests pin it off to compare prefill with decode).
+Masked scores are ``-1e30``, not ``-inf``.
 """
 
 from __future__ import annotations
@@ -25,11 +30,14 @@ from .cache import paged_gather, paged_scatter_rows
 from .common import ParamSpec, apply_rope, per_row, rms_norm, rope
 
 __all__ = [
-    "attention_specs", "mlp_specs", "MaskSpec", "attention", "attention_decode",
-    "attention_chunk", "mlp",
+    "attention_specs", "mlp_specs", "moe_specs", "MaskSpec", "attention", "attention_decode",
+    "attention_chunk", "mlp", "moe", "FLAGS",
 ]
 
 _NEG_INF = -1e30
+
+# the reference's ``opt_flags.FLAGS`` entry the port keeps switchable
+FLAGS = {"attn_bf16_probs": True}
 
 # --------------------------------------------------------------------------
 # Specs
@@ -63,6 +71,16 @@ def mlp_specs(cfg) -> dict:
     }
 
 
+def moe_specs(cfg) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": ParamSpec((d, e)),
+        "w_gate": ParamSpec((e, d, f)),
+        "w_up": ParamSpec((e, d, f)),
+        "w_down": ParamSpec((e, f, d)),
+    }
+
+
 # --------------------------------------------------------------------------
 # Masks
 # --------------------------------------------------------------------------
@@ -70,17 +88,22 @@ def mlp_specs(cfg) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class MaskSpec:
-    """Declarative attention mask.  The dense LM uses ``causal`` only; the
-    reference's local/prefix/full kinds come with the families that need
-    them (ROADMAP.md A13)."""
+    """Declarative attention mask: ``causal``, or ``prefix`` (causal, and
+    the first ``prefix_len`` positions visible to every query: the VLM's
+    patch prefix).  The reference's local and full kinds come with the
+    families that need them (ROADMAP.md A13)."""
 
     kind: str = "causal"
+    prefix_len: int = 0
 
     def __call__(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
         """(..., Q) x (K,) int positions -> (..., Q, K) bool allow-mask."""
-        if self.kind != "causal":
-            raise NotImplementedError(f"mask kind {self.kind!r} is not ported yet")
-        return k_pos[None, :] <= q_pos[..., :, None]
+        if self.kind not in ("causal", "prefix"):
+            raise NotImplementedError(f"mask kind {self.kind!r} is not ported yet (A13)")
+        allow = k_pos[None, :] <= q_pos[..., :, None]
+        if self.kind == "prefix":
+            allow = allow | (k_pos < self.prefix_len)
+        return allow
 
 
 # --------------------------------------------------------------------------
@@ -92,6 +115,12 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     """``x`` rounded to bf16 and widened back: a product of two such tensors
     in fp32 is the reference's bf16 einsum with fp32 accumulation."""
     return x.to(torch.bfloat16).float()
+
+
+def _probs_operand(x: torch.Tensor) -> torch.Tensor:
+    """An operand of the flash attention's probability products: rounded to
+    bf16 under ``attn_bf16_probs``, else fp32."""
+    return _bf16(x) if FLAGS["attn_bf16_probs"] else x.float()
 
 
 def _flash_chunks(
@@ -109,7 +138,7 @@ def _flash_chunks(
 
     Query rows are independent, so only the KV chunking (512, as the
     reference) shapes the numerics.  P and V enter the AV product rounded to
-    bf16, accumulation stays fp32 — the reference's ``attn_bf16_probs``."""
+    bf16 under ``attn_bf16_probs`` (accumulation stays fp32), else in fp32."""
     b, sq, kvh, g, hd = q.shape
     sk = k.shape[1]
     kv_chunk = min(kv_chunk, sk)
@@ -135,7 +164,7 @@ def _flash_chunks(
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        av = torch.einsum("bhgqk,bkhd->bhgqd", _bf16(p), _bf16(vi))
+        av = torch.einsum("bhgqk,bkhd->bhgqd", _probs_operand(p), _probs_operand(vi))
         acc = acc * corr[..., None] + av
         m = m_new
     return acc / torch.clamp_min(l, 1e-30)[..., None], m, l
@@ -149,32 +178,34 @@ def _flash_attend(q, k, v, mask, q_pos, k_pos, kv_valid=None, kv_chunk: int = 51
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Causal flash attention for training, with the reference's
-    hand-written VJP (``models/layers.py`` ``_make_flash_vjp``).
+    """Flash attention for training under ``mask`` (causal, or the VLM's
+    prefix), with the reference's hand-written VJP (``models/layers.py``
+    ``_make_flash_vjp(mask, ...)``).
 
     The forward saves only (q, k, v, out, m, l) and the positions and
     validity; the backward recomputes the scores chunk by chunk, the
     flash-attention-2 derivation.  P, dS, dO, Q and K enter the backward's
-    products rounded to bf16 with fp32 accumulation, at the reference's
-    rounding points: torch autograd through :func:`_flash_chunks` rounds
-    elsewhere, and its gradients then part from the reference's by 3e-3
-    of the largest or more.  q (B, S, KVH, G, hd), k and v (B, S, KVH, hd),
-    ``pos`` (S,) and ``valid`` (S,) bool, with S a multiple of ``chunk``
-    (query and KV chunks alike).  Returns the fp32 output (B, S, KVH, G, hd).
+    products rounded to bf16 with fp32 accumulation under
+    ``attn_bf16_probs`` (else fp32), at the reference's rounding points:
+    torch autograd through :func:`_flash_chunks` rounds elsewhere, and its
+    gradients then part from the reference's by 3e-3 of the largest or
+    more.  q (B, S, KVH, G, hd), k and v (B, S, KVH, hd), ``pos`` (S,) and
+    ``valid`` (S,) bool, with S a multiple of ``chunk`` (query and KV chunks
+    alike).  Returns the fp32 output (B, S, KVH, G, hd).
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, pos, valid, chunk: int):
-        out, m, l = _flash_chunks(q, k, v, MaskSpec("causal"), pos, pos, valid, chunk)
+    def forward(ctx, q, k, v, pos, valid, chunk: int, mask: MaskSpec):
+        out, m, l = _flash_chunks(q, k, v, mask, pos, pos, valid, chunk)
         out = out.permute(0, 3, 1, 2, 4)
         ctx.save_for_backward(q, k, v, out, m, l, pos, valid)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.mask = chunk, mask
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l, pos, valid = ctx.saved_tensors
-        c, mask = ctx.chunk, MaskSpec("causal")
+        c, mask = ctx.chunk, ctx.mask
         s_len, hd = q.shape[1], q.shape[-1]
         scale = hd**-0.5
         do = dout.float()
@@ -184,7 +215,7 @@ class _FlashAttention(torch.autograd.Function):
         dks, dvs = [], []
         for k0 in range(0, s_len, c):
             kj, vj = k[:, k0 : k0 + c].float(), v[:, k0 : k0 + c].float()
-            kb = _bf16(kj)
+            kb = _probs_operand(kj)
             allow_k = valid[None, k0 : k0 + c]
             dkj = torch.zeros(kj.shape, dtype=torch.float32, device=q.device)
             dvj = torch.zeros(vj.shape, dtype=torch.float32, device=q.device)
@@ -196,19 +227,19 @@ class _FlashAttention(torch.autograd.Function):
                 p = torch.exp(s - m[..., q0 : q0 + c, None]) / p_div[..., q0 : q0 + c, None]
                 dp = torch.einsum("bqhgd,bkhd->bhgqk", doi, vj)
                 dsv = p * (dp - d_stat[..., q0 : q0 + c, None]) * scale
-                pc, dc = _bf16(p), _bf16(dsv)
-                dvj = dvj + torch.einsum("bhgqk,bqhgd->bkhd", pc, _bf16(doi))
-                dkj = dkj + torch.einsum("bhgqk,bqhgd->bkhd", dc, _bf16(qi))
+                pc, dc = _probs_operand(p), _probs_operand(dsv)
+                dvj = dvj + torch.einsum("bhgqk,bqhgd->bkhd", pc, _probs_operand(doi))
+                dkj = dkj + torch.einsum("bhgqk,bqhgd->bkhd", dc, _probs_operand(qi))
                 dq[:, q0 : q0 + c] += torch.einsum("bhgqk,bkhd->bqhgd", dc, kb)
             dks.append(dkj)
             dvs.append(dvj)
         dk, dv = torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
-def flash_attention_train(q, k, v, positions):
-    """Causal training attention through :class:`_FlashAttention`: chunks
-    of ``min(512, s)``, s padded to a multiple of the chunk (padded keys are
+def flash_attention_train(q, k, v, positions, mask: MaskSpec = MaskSpec("causal")):
+    """Training attention through :class:`_FlashAttention`: chunks of
+    ``min(512, s)``, s padded to a multiple of the chunk (padded keys are
     invalid, padded rows are dropped), as the reference's custom-VJP path.
     Returns (B, S, KVH, G, hd) in ``q.dtype``."""
     s = q.shape[1]
@@ -219,7 +250,7 @@ def flash_attention_train(q, k, v, positions):
         q, k, v = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (q, k, v))
         positions = F.pad(positions, (0, pad))
         valid[s:] = False
-    return _FlashAttention.apply(q, k, v, positions, valid, chunk)[:, :s].to(q.dtype)
+    return _FlashAttention.apply(q, k, v, positions, valid, chunk, mask)[:, :s].to(q.dtype)
 
 
 def _direct_attend(
@@ -313,9 +344,7 @@ def attention(
     q, k, v = _project_qkv(p, x, cfg, positions)
     q = q.reshape(b, s, kvh, nh // kvh, hd)
     if kv_valid is None and not return_kv and any(t.requires_grad for t in (q, k, v)):
-        if mask.kind != "causal":
-            raise NotImplementedError(f"training attention with mask {mask.kind!r}")
-        out = flash_attention_train(q, k, v, positions)
+        out = flash_attention_train(q, k, v, positions, mask)
     else:
         out = _flash_attend(q, k, v, mask, positions, positions, kv_valid=kv_valid)
     out = out.reshape(b, s, nh, hd)
@@ -433,14 +462,15 @@ def attention_chunk(
     table: torch.Tensor,  # (n_pages,) long — the request's block table
     start: int,  # absolute position of the chunk's first token
     true_len: int,  # real (non-padding) tokens in the chunk
+    mask: MaskSpec = MaskSpec("causal"),
 ):
     """Chunked-prefill attention (Sarathi-style): one chunk of a long prompt
-    attends causally over everything already resident in the request's
-    block table plus itself.  The chunk's K/V are written into the gathered
-    table view by row index (rows past ``max_len`` dropped, as
-    ``_write_rows`` does).  Returns ``(y, k_chunk, v_chunk)``; the caller
-    writes the chunk rows into the arena (masking padding and
-    prefix-shared rows)."""
+    attends under ``mask`` (causal, as the paged pool serves it) over
+    everything already resident in the request's block table plus itself.
+    The chunk's K/V are written into the gathered table view by row index
+    (rows past ``max_len`` dropped, as ``_write_rows`` does). Returns ``(y,
+    k_chunk, v_chunk)``; the caller writes the chunk rows into the arena
+    (masking padding and prefix-shared rows)."""
     b, c, d = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     positions = start + torch.arange(c, device=x.device)
@@ -450,14 +480,14 @@ def attention_chunk(
     _write_rows((k_all, v_all), positions[None], (k_new, v_new))
     rows = torch.arange(k_all.shape[1], device=x.device)
     q = q.reshape(b, c, kvh, nh // kvh, hd)
-    out = _flash_attend(q, k_all, v_all, MaskSpec("causal"), positions, rows,
+    out = _flash_attend(q, k_all, v_all, mask, positions, rows,
                         kv_valid=rows < start + true_len)
     out = out.reshape(b, c, nh, hd)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype)), k_new, v_new
 
 
 # --------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # --------------------------------------------------------------------------
 
 
@@ -465,3 +495,62 @@ def mlp(p: dict, x: torch.Tensor, rowwise: bool = False) -> torch.Tensor:
     """SwiGLU MLP; ``rowwise`` as in ``_project_qkv`` (weights cast once)."""
     wg, wu, wd = (p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down"))
     return per_row(lambda r: (F.silu(r @ wg) * (r @ wu)) @ wd, x, rowwise)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """The k largest of each row and their indices, the lower index first
+    among equal values, as ``jax.lax.top_k`` orders them (``torch.topk``
+    does not promise an order for ties): a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe(p: dict, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None):
+    """Top-k MoE with capacity-bounded dispatch (token-dropping), the
+    reference's default route.  x (B, S, d); returns (y (B, S, d), the
+    Switch load-balance aux loss).
+
+    The router's softmax picks ``top_k`` experts per token (:func:`_top_k`)
+    and renormalises their gates.  Over the call's ``t = B * S`` tokens each
+    expert takes ``cap = int(cf * t * k / e) + 1`` assignments, in token
+    order: an assignment's place in its expert comes from a stable sort of
+    the expert ids and ``searchsorted`` of each run's start.  Kept places
+    are unique, so the dispatch buffer (e, cap + 1, d) is written by an
+    index copy, no float atomics.  A dropped assignment (place >= cap) gets
+    gate 0; the reference piles its token into the dump slot (place cap),
+    here the dump slot stays zero, so its expert output is exactly 0 and no
+    dropped token's values can reach a kept output.  Capacity couples the
+    rows of one call unless ``cf >= e / k`` (dropless)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)  # (T, E)
+    gate_w, eids = _top_k(probs, k)  # (T, k)
+    gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
+
+    flat_e = eids.reshape(-1)  # (T * k,)
+    counts = torch.zeros((e,), dtype=torch.float32, device=x.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    aux = e * torch.sum(probs.mean(0) * (counts / (t * k)))
+
+    cf = cfg.moe_cf if capacity_factor is None else capacity_factor
+    cap = int(cf * t * k / e) + 1
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    run_start = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos = torch.empty_like(flat_e).index_copy_(
+        0, order, torch.arange(t * k, device=x.device) - run_start)
+    dropped = pos >= cap
+    pos = torch.where(dropped, cap, pos)  # every dropped assignment aims at the dump slot
+
+    xk = torch.where(dropped[:, None], 0, xf.repeat_interleave(k, dim=0))  # (T * k, d)
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device).index_put(
+        (flat_e, pos), xk)  # the dump slot's writes are all zeros
+    wg, wu, wd = (p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down"))
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum("ecd,edf->ecf", buf, wu)
+    out = torch.einsum("ecf,efd->ecd", h, wd)  # (e, cap + 1, d)
+
+    w = torch.where(dropped, 0.0, gate_w.reshape(-1)).to(x.dtype)
+    y = (out[flat_e, pos] * w[:, None]).reshape(t, k, d).sum(dim=1)
+    return y.reshape(b, s, d), aux

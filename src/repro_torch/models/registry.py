@@ -1,8 +1,10 @@
 """Model facade: one object per architecture with a uniform API, backed by
 the family implementations in :mod:`repro_torch.models.families`.
 
-Port of the JAX package's ``models/registry.py`` for the dense family.  The
-facade holds the config, not the weights: parameters stay a nested dict of
+Port of the JAX package's ``models/registry.py`` for the decoder-only
+families (dense, moe, vlm, all on ``families.lm_*``); hybrid, ssm and
+encdec are refused (ROADMAP.md A13).  The facade holds the config, not the
+weights: parameters stay a nested dict of
 tensors with the reference's layout and are passed to every call, so a
 tree exported from the reference and one made by :meth:`Model.init` are
 used the same way.
@@ -21,10 +23,7 @@ from .common import init_params
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md A13); the port serves 'dense'"
-            )
+        F.check_family(cfg)
         self.cfg = cfg
 
     # ---- params ----
@@ -37,7 +36,7 @@ class Model(nn.Module):
 
     # ---- train / eval ----
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
-        """Scalar LM loss (dense family; the constructor refuses others)."""
+        """Scalar LM loss, plus 0.01 x the MoE aux loss for the moe family."""
         return F.lm_loss(params, batch, self.cfg)
 
     def forward(self, params: dict, batch: dict):
@@ -91,9 +90,12 @@ class Model(nn.Module):
     # ---- paged pool ----
     def paged_seq_len(self, max_len: int):
         """``max_len`` if this family's cache is KV-shaped and can be paged,
-        else None."""
+        else None (the vlm family: its patch-prefix rows would complicate
+        block addressing, as in the reference)."""
         from .cache import paged_seq_len
 
+        if self.cfg.family == "vlm":
+            return None
         return paged_seq_len(self.cache_specs(1, max_len))
 
     def init_paged_pool(self, layout, max_len: int, device="cuda") -> dict:
@@ -103,7 +105,10 @@ class Model(nn.Module):
 
     def prefill_chunk(self, params, tokens, arena, table_row, start: int, true_len: int,
                       write_from: int):
-        """One chunk of a paged chunked prefill (``families.lm_prefill_chunk``)."""
+        """One chunk of a paged chunked prefill (``families.lm_prefill_chunk``;
+        the dense and moe families, whose pools can be paged)."""
+        if self.cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(f"chunked prefill for family {self.cfg.family}")
         return F.lm_prefill_chunk(params, tokens, self.cfg, arena, table_row, start, true_len,
                                   write_from)
 

@@ -253,6 +253,11 @@ class Engine:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._clock = clock or time.monotonic
         self._make_buckets(self.sc)  # refuses a bucket outside [1, max_len] now
+        if self.sc.speculative and cfg.family != "dense":
+            raise ValueError(
+                "speculative decoding requires the dense family "
+                "(the drafter is a VUSA pack of the same weights)"
+            )
         self.model = build_model(cfg)
         self.params = _to(params, self.device)
         self._quarantined = False
@@ -733,16 +738,20 @@ class Engine:
         return -torch.log(-torch.log(u))
 
     @torch.no_grad()
-    def prime(self, prompts):
+    def prime(self, prompts, extras: Optional[Dict] = None):
         """Prefill ``prompts`` (B, S) and bulk-fill the KV cache.  Returns
         ``(first_token (B, 1), cache)``; the first token is the prefill
-        logits' argmax, as in the reference."""
+        logits' argmax, as in the reference.  ``extras`` are further batch
+        inputs (the vlm family's ``patches`` (B, P, d)), moved to the
+        engine's device."""
         prompts = np.asarray(prompts)
         if prompts.shape[1] > self.sc.max_len:
             raise ValueError(f"prompt length {prompts.shape[1]} exceeds max_len {self.sc.max_len}")
         self._validate_tokens(prompts)
-        tokens = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, self.sc.max_len)
+        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=self.device)}
+        for name, val in (extras or {}).items():
+            batch[name] = torch.as_tensor(np.asarray(val), device=self.device)
+        logits, cache = self.model.prefill(self.params, batch, self.sc.max_len)
         return torch.argmax(logits.float(), dim=-1)[:, None], cache
 
     @torch.no_grad()
@@ -753,7 +762,12 @@ class Engine:
         cache's ``pos`` holds the padded bucket length (``write_slots`` sets
         each slot's true one).  Each row is ``prime`` of its unpadded prompt
         to within rounding, not bitwise: a GEMM over N * Sb rows sums in
-        another order than one over the prompt's own rows (ROADMAP C9)."""
+        another order than one over the prompt's own rows (ROADMAP C9).
+        Families without batched prefill (``batched_prefill``) raise."""
+        if not self.batched_prefill:
+            raise NotImplementedError(
+                f"batched masked prefill unsupported for family {self.cfg.family!r} "
+                f"(moe: only when dropless, moe_cf >= n_experts / top_k)")
         prompts = np.asarray(prompts, np.int32)
         if prompts.shape[1] > self.sc.max_len:
             raise ValueError(
@@ -802,14 +816,19 @@ class Engine:
 
     @property
     def batched_prefill(self) -> bool:
-        """True when the family supports one-dispatch bucketed admission
-        (the dense family, the only one the port serves)."""
-        return self.cfg.family == "dense"
+        """True when the family supports one-dispatch bucketed admission:
+        the dense family, and the moe family when dropless (``moe_cf >=
+        n_experts / top_k``), since capacity-bounded dispatch couples
+        co-batched rows, padding included, as in the reference.  Other
+        families admit one request at a time."""
+        cfg = self.cfg
+        return cfg.family == "dense" or (
+            cfg.family == "moe" and cfg.moe_cf >= cfg.n_experts / cfg.top_k)
 
     @property
     def paged_supported(self) -> bool:
         """True when the family can serve from a paged KV pool: a KV-shaped
-        cache and batched prefill."""
+        cache and batched prefill (never the vlm family)."""
         return self.batched_prefill and self.model.paged_seq_len(self.sc.max_len) is not None
 
     def bucket_len(self, n: int) -> int:
@@ -886,10 +905,12 @@ class Engine:
         return st.buf[:budget], st.okb[:budget], int(st.count), int(st.rounds)
 
     # -- public API -----------------------------------------------------------
-    def generate(self, prompts, max_new: int = 32) -> Dict:
-        """prompts: (B, S) int.  Returns ``{"tokens" (B, max_new) int32,
-        "finite", "prefill_s", "decode_s", "tok_per_s"}``; ``tok_per_s`` is
-        the accepted tokens beyond the first over decode wall time.  With
+    def generate(self, prompts, max_new: int = 32, extras: Optional[Dict] = None) -> Dict:
+        """prompts: (B, S) int; ``extras`` further batch inputs for the
+        prefill (the vlm family's ``patches``).  Returns ``{"tokens" (B,
+        max_new) int32, "finite", "prefill_s", "decode_s", "tok_per_s"}``;
+        ``tok_per_s`` is the accepted tokens beyond the first over decode
+        wall time.  With
         ``ServeConfig.speculative`` (B = 1 only) the result also holds
         ``spec_rounds``, ``spec_proposed``, ``spec_accepted`` and
         ``acceptance_rate``.  The noise table and, at first use, the CUDA
@@ -898,12 +919,15 @@ class Engine:
         b = prompts.shape[0]
         spec = self.sc.speculative
         headroom = self.sc.draft_k if spec else 0
-        if prompts.shape[1] + max_new + headroom > self.sc.max_len:
+        patches = self.cfg.patch_tokens if self.cfg.family == "vlm" else 0
+        rows = patches + prompts.shape[1] + max_new + headroom
+        if rows > self.sc.max_len:
             # decode past max_len would run past the KV cache; a speculative
-            # round writes up to draft_k rows past the budget
+            # round writes up to draft_k rows past the budget; a vlm prompt
+            # also caches its patch prefix
             raise ValueError(
-                f"prompt({prompts.shape[1]}) + max_new({max_new}) + spec headroom({headroom}) "
-                f"= {prompts.shape[1] + max_new + headroom} exceeds max_len {self.sc.max_len}"
+                f"patch rows({patches}) + prompt({prompts.shape[1]}) + max_new({max_new}) + "
+                f"spec headroom({headroom}) = {rows} exceeds max_len {self.sc.max_len}"
             )
         if spec and b != 1:
             raise ValueError(
@@ -919,7 +943,7 @@ class Engine:
                 else:
                     self._step_graph(b)
         t0 = self._clock()
-        nxt, cache = self.prime(prompts)
+        nxt, cache = self.prime(prompts, extras)
         self._sync()
         t_prefill = self._clock() - t0
 

@@ -25,7 +25,9 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.packing import dequantize_rows, pack_rows, pack_rows_t, quantize_rows, unpack_rows
-from ..kernels.ops import RowPackedLinear, apply_fused_mlp, apply_row_packed, linear_from_pack
+from ..kernels.ops import (
+    RowPackedLinear, apply_fused_mlp, apply_row_packed, pack_linear_rows_many,
+)
 from ..models.families import _embed_tokens, layer_cache, layer_params
 from ..models.common import per_row, rms_norm
 from ..models.layers import attention_decode
@@ -67,24 +69,15 @@ def _stack_packs(packs) -> Dict:
     return _entry(packs[0], torch.stack(vs), torch.stack(qs), scales)
 
 
-def _pack_weight(w: torch.Tensor, host: np.ndarray, m: int, a: int, transposed: bool,
-                 value_dtype: str) -> RowPackedLinear:
-    """Pack ``host`` (fp32 numpy of one (K, C) matrix of ``w``) onto ``w``'s
-    device: float values in ``w``'s dtype, or quantized values whose byte
-    ratio counts ``w``'s own element size."""
-    rp = (pack_rows_t if transposed else pack_rows)(host, m=m, a=a)
-    return linear_from_pack(rp, w.dtype, w.device, value_dtype, w.element_size())
-
-
 def _stack_layers(ws: torch.Tensor, m: int, a: int, transposed: bool = False,
                   value_dtype: str = "dense") -> Dict:
     """Pack every layer of a stacked (L, K, C) weight (packing (L, C, K)'s
-    transposes with ``transposed``) and stack the packs on its device."""
+    transposes with ``transposed``, as ``pack_rows_t``) and stack the packs
+    on its device."""
     host = ws.detach().to("cpu", torch.float32).numpy()  # one copy for all layers
-    return _stack_packs([
-        _pack_weight(ws, host[layer], m, a, transposed, value_dtype)
-        for layer in range(host.shape[0])
-    ])
+    mats = [h.T if transposed else h for h in host]
+    return _stack_packs(pack_linear_rows_many(mats, m, a, ws.dtype, ws.device, value_dtype,
+                                              ws.element_size()))
 
 
 def _as_linear(entry: Dict, layer: Optional[int] = None) -> RowPackedLinear:
@@ -150,8 +143,8 @@ def pack_lm_weights(
         }
         if not cfg.tie_embeddings:
             w = params["lm_head"]
-            host = w.detach().to("cpu", torch.float32).numpy()
-            p = _pack_weight(w, host, m, a, False, value_dtype)
+            (p,) = pack_linear_rows_many([w.detach().to("cpu", torch.float32).numpy()], m, a,
+                                         w.dtype, w.device, value_dtype, w.element_size())
             out["head"] = _entry(p, p.values, p.positions, p.scales)
     validate_packed(out)  # pack-time guard: never hand out a malformed pack
     return out

@@ -212,6 +212,12 @@ class Scheduler:
     ):
         if not engine.sc.fused:
             raise ValueError("Scheduler requires a fused-decode engine (ServeConfig.fused)")
+        if engine.cfg.family == "vlm":
+            raise ValueError(
+                "the scheduler serves token prompts only: a Request carries no patch "
+                "embeddings (as in the reference), so a vlm model serves through "
+                "Engine.generate(prompts, extras={'patches': ...})"
+            )
         if slots < 1 or segment < 1:
             raise ValueError(f"need slots >= 1 and segment >= 1, got {slots}, {segment}")
         if admission not in ("batched", "sequential"):

@@ -47,6 +47,14 @@ equal the eager pool step's and, under sequential admission, one-shot
 ``generate``'s at B = 1, greedy and sampled; one pool step makes no host
 sync.
 
+The decoder-only families at their own widths: B1 at qwen3_8b's and
+qwen2_0_5b's projections and at the untied heads of internlm2_1_8b and
+qwen3_8b (one 8-row tile a launch there), B2 at their MLPs, each within
+1e-4 of its plain version with rows bitwise B = 1; qwen2 (qkv bias, tied
+head, fp32 and int8 values), internlm2, olmoe (dense) and paligemma
+(patch embeddings) at full width cut to 2 layers, the graph loop's tokens
+equal to the eager loop's.
+
 Training on the card: full-width ``vusa_edge`` (bf16 activations, remat)
 cut to 2 layers trains a few steps with pruning through the ``Trainer``;
 a run restored from its step-4 checkpoint (a mask-refresh step) ends
@@ -924,3 +932,105 @@ def test_flash_backward_on_card_matches_cpu():
         grads[dev] = [t.grad.cpu() for t in ts]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         _close(a, b, tol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the decoder-only families at their own widths
+# ---------------------------------------------------------------------------
+
+
+def _card_sparse(k, c, seed, dev):
+    """A (K, C) weight drawn on the card and pruned to 85 % by magnitude."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((k, c), generator=gen, device=dev) / k**0.5
+    return prune_tree({"w": w}, 0.85)["w"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,c", [(4096, 4096), (4096, 1024), (896, 896), (896, 128),
+                                 (2048, 92672), (4096, 152064)])
+def test_family_projections_and_heads_match_plain_on_card(k, c):
+    """B1 at the projections of qwen3_8b (4096 -> 4096, 4096 -> 1024) and
+    qwen2_0_5b (896 -> 896, 896 -> 128) and the untied heads of
+    internlm2_1_8b and qwen3_8b (whose row plan takes one 8-row tile a
+    launch): within 1e-4 of the plain version, rows 0 and B - 1 bitwise
+    B = 1, the CUDA launches as ``row_plan`` counts them."""
+    dev = _card()
+    lin = pack_linear_rows(_card_sparse(k, c, k + c, dev))
+    x = torch.from_numpy(np.random.default_rng(k).normal(size=(40, k)).astype(np.float32)).to(dev)
+    plan = row_plan.row_plan(k)
+    args = (lin.values, lin.positions)
+    for xx in (x, x.to(torch.bfloat16)):
+        one = [vusa_packed_matmul(xx[i : i + 1], *args) for i in range(40)]
+        for b in (1, 4, 5, 40):
+            c0 = packed_mod.cuda_launches("vusa_packed_matmul")
+            got = vusa_packed_matmul(xx[:b], *args)
+            torch.cuda.synchronize()
+            assert (packed_mod.cuda_launches("vusa_packed_matmul") - c0
+                    == row_plan.cuda_launches(plan, b, got.shape[1]))
+            _close(got, ref.vusa_packed_ref(xx[:b], *args))
+            assert torch.equal(got[0], one[0][0]) and torch.equal(got[b - 1], one[b - 1][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,ff", [(4096, 12288), (896, 4864)])
+def test_family_fused_mlps_match_plain_on_card(d, ff):
+    """B2 at qwen3_8b's and qwen2_0_5b's MLPs (512- and 128-row slices):
+    within 1e-4 of the plain version, rows bitwise B = 1."""
+    dev = _card()
+    gate, up = (pack_linear_rows(_card_sparse(d, ff, s, dev)) for s in (1, 2))
+    down_t = pack_linear_rows_t(_card_sparse(ff, d, 3, dev))
+    args = (gate.values, gate.positions, up.values, up.positions, down_t.values,
+            down_t.positions)
+    x = torch.from_numpy(np.random.default_rng(d).normal(size=(40, d)).astype(np.float32)).to(dev)
+    for xx in (x, x.to(torch.bfloat16)):
+        for b in (1, 5, 40):
+            got = packed_mod.vusa_fused_mlp_matmul(xx[:b], *args)
+            _close(got, ref.vusa_fused_mlp_ref(xx[:b], *args))
+            last = packed_mod.vusa_fused_mlp_matmul(xx[b - 1 : b], *args)
+            assert torch.equal(got[b - 1], last[0])
+
+
+def _card_init(cfg, dev):
+    """``cfg``'s parameters drawn on the card with the port's std rule."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def build(tree):
+        return {k: build(v) if isinstance(v, dict) else
+                torch.randn(v.shape, generator=gen, device=dev)
+                * (0.5 if v.init == "zeros" else v.scale / max(
+                    v.shape[-2] if len(v.shape) >= 2 else v.shape[-1], 1) ** 0.5)
+                for k, v in tree.items()}
+
+    return build(build_model(cfg).specs())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,route", [("qwen2_0_5b", "fp32"), ("qwen2_0_5b", "int8"),
+                                        ("internlm2_1_8b", "fp32"), ("olmoe_1b_7b", "dense"),
+                                        ("paligemma_3b", "dense")])
+def test_family_graph_loop_equals_eager_on_card(arch, route):
+    """Full width cut to 2 layers, biases and norm scales drawn: the
+    CUDA-graph loop's greedy tokens equal the eager loop's, with the
+    graph's B1/B2 launches replays x captured on the packed routes."""
+    dev = _card()
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    params = prune_tree(_card_init(cfg, dev), 0.85)
+    extras = None
+    if cfg.family == "vlm":
+        extras = {"patches": np.random.default_rng(2).normal(
+            0, 0.02, (4, cfg.patch_tokens, cfg.d_model)).astype(np.float32)}
+    max_len = cfg.patch_tokens + 8 + 12 + 4
+    eng = Engine(cfg, params, ServeConfig(max_len=max_len, **ROUTES[route]), device=dev)
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab, (4, 8)).astype(np.int32)
+    graph = eng.generate(prompts, max_new=12, extras=extras)
+    eng.sc = dataclasses.replace(eng.sc, fused=False)
+    eager = eng.generate(prompts, max_new=12, extras=extras)
+    np.testing.assert_array_equal(graph["tokens"], eager["tokens"])
+    assert graph["finite"] and eager["finite"]
+    if route != "dense":
+        vd = "dense" if route == "fp32" else route
+        got = eng.graph_launches()
+        head = 0 if cfg.tie_embeddings else 1
+        assert got["vusa_packed_matmul"][vd] == 11 * (4 * cfg.n_layers + head)
+        assert got["vusa_fused_mlp_matmul"][vd] == 11 * cfg.n_layers
