@@ -244,13 +244,37 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    byte ratios, B1-B4 per decode step at these shapes beside the plain
    version, the library call and the bound, the phase's seconds (at most
    200);
-14. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+14. recurrent and enc-dec families, every width as published, drawn on the
+   card from a seed (the zeros leaves from normal(0, 0.5), the ones leaves
+   ``A_log``, ``D``, ``lam`` from normal(1, 0.5)), dense (the reference
+   packs only the dense family, so no B1-B6 kernel lies on this path):
+   ``recurrentgemma_9b`` (d 4096, 16 heads over 1 KV head of 256, ff
+   12288, RG-LRU width 4096, vocab 256000, window 2048) cut to 5 of 38
+   layers, one scanned group (rglru, rglru, attn) and the two-layer rglru
+   tail; ``mamba2_2_7b`` whole (64 layers, d 2560, inner 5120, 80 heads,
+   state 128, chunks of 256, vocab 50280); ``whisper_tiny`` whole (4 + 4
+   layers, d 384, 6 heads, ff 1536, vocab 51865, 1500 seeded frames).
+   Gates: ``generate`` (B = 4, prompt 32, 32 new tokens, bf16) through the
+   CUDA graph bitwise the eager loop, greedy and sampled, tokens finite
+   and in range; in fp32 the stepwise decode (a captured step replayed
+   with the next token) against the teacher-forced forward within 2e-3 of
+   the largest logit over 2,100 positions (recurrentgemma: the 2048-row
+   ring wraps and the local mask bites), 600 (mamba2: three SSD chunks of
+   256, the last padded) and 32 (whisper, over 1500 frames); for the two
+   recurrent families the pool step's rows at 4 slots bitwise B = 1 steps
+   and 8 of phase 9's ragged requests through ``Scheduler.run`` on 4
+   slots, every completion bitwise one-shot ``generate`` at B = 1.
+   Reported: graph and eager tok/s and ms per step in turns, priming
+   seconds, peak memory, the scheduler's stats and the pool's ms per
+   step, the B1-B6 launch counts of the phase (0), the phase's seconds
+   (at most 200);
+15. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, phase 10's speculative pool graph launches, CUDA launches per
    call as counted, and under ``families`` the same per decode step of
    phase 13's qwen2 and qwen3 with their counted launches; B5/B6 per
    ResNet-18 image, MobileNetV1 under ``mobilenetv1``);
-15. the card line again and the result line.
+16. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -387,6 +411,21 @@ FAM_PERTURB_STD = 0.5
 FAM_TF_TOL = 2e-3
 FAM_SCHED_REQUESTS = 8
 FAM_PHASE_LIMIT_S = 200.0
+# the recurrent and enc-dec families phase (14): depth cuts (None: whole), the
+# teacher-forced positions of the fp32 decode-vs-forward gate (the ring past
+# its 2048 rows; three SSD chunks of 256, the last padded), the scheduler's
+# slots and the phase's time limit
+REC_ARCHS = ("recurrentgemma_9b", "mamba2_2_7b", "whisper_tiny")
+REC_DEPTH = {"recurrentgemma_9b": 5, "mamba2_2_7b": None, "whisper_tiny": None}
+REC_CUT_WHY = {  # every cut is of depth, never of a width
+    "recurrentgemma_9b": "5 of 38 layers: one scanned group (rglru, rglru, attn) and the "
+                         "two-layer rglru tail, so both code paths and every layer kind run; "
+                         "at 38 the fp32 weights are about 42 GB and the 2,100-position "
+                         "decode would not fit the phase's 200 s",
+}
+REC_TF_POSITIONS = {"recurrentgemma_9b": 2100, "mamba2_2_7b": 600, "whisper_tiny": MAX_NEW}
+REC_SCHED_SLOTS = 4
+REC_PHASE_LIMIT_S = 200.0
 # ResNet-18's layer groups by GEMM name (the 1x1 downsample convs in their group)
 RESNET18_GROUPS = (("conv0", ("conv0",)),
                    ("layer1", tuple(f"conv{i}" for i in range(1, 5))),
@@ -1504,12 +1543,12 @@ def prime_gap(cfg, params, reqs, layers: int) -> dict:
             "witness_b2_gap_rel": witness / max(top, 1.0)}
 
 
-def pool_ms_per_step(e, segments: int = 3) -> float:
+def pool_ms_per_step(e, segments: int = 3, slots: int = SCHED_SLOTS) -> float:
     """Device-clock ms of one pool step (a speculative round on a
-    speculative engine) at ``SCHED_SLOTS`` slots, every slot free (a step
-    does the same work at any position): ``segments`` segments of replays
-    of the captured step, between CUDA events."""
-    sched = Scheduler(e, slots=SCHED_SLOTS, segment=SCHED_SEGMENT)
+    speculative engine) at ``slots`` slots, every slot free (a step does
+    the same work at any position): ``segments`` segments of replays of the
+    captured step, between CUDA events."""
+    sched = Scheduler(e, slots=slots, segment=SCHED_SEGMENT)
     e.prepare_pool(sched._pool)
     e.pool_segment(sched._pool)  # warm
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2176,7 +2215,9 @@ def device_init(cfg) -> dict:
     ``scripts/init_rule_gap.py``).  The leaves the init sets to zero, the
     QKV biases and the norm scales, are drawn from normal(0,
     ``FAM_PERTURB_STD``) instead, so a missing or misplaced bias or norm
-    changes the logits."""
+    changes the logits.  The leaves the init sets to one (the SSM's
+    ``A_log`` and ``D``, the RG-LRU's ``lam``) are drawn from normal(1,
+    ``FAM_PERTURB_STD``): a weight's std would put them near 0."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(int(np.random.default_rng(FAM_SEED).integers(2**62)))
 
@@ -2186,9 +2227,11 @@ def device_init(cfg) -> dict:
             if isinstance(spec, dict):
                 out[name] = build(spec)
                 continue
-            std = (FAM_PERTURB_STD if spec.init == "zeros"
+            std = (FAM_PERTURB_STD if spec.init in ("zeros", "ones")
                    else spec.scale / math.sqrt(max(fan_in(name, spec.shape), 1)))
             out[name] = torch.randn(spec.shape, generator=gen, device=DEVICE) * std
+            if spec.init == "ones":
+                out[name] += 1.0
         return out
 
     return build(build_model(cfg).specs())
@@ -2544,6 +2587,225 @@ def print_families(fam: dict, card: str) -> None:
           f"({card})", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 14: the recurrent and encoder-decoder families
+# --------------------------------------------------------------------------
+
+
+def rec_cfg(arch):
+    """``arch``'s published config at ``REC_DEPTH[arch]`` layers (None:
+    whole); every width as published."""
+    cfg = get_config(arch)
+    depth = REC_DEPTH[arch]
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def rec_frames(cfg, b: int):
+    """The encdec family's seeded stand-in frames (B, enc_frames, d), normal
+    with std 0.02 as the training pipeline makes them; None for others."""
+    if cfg.family != "encdec":
+        return None
+    rng = np.random.default_rng(3)
+    return {"frames": rng.normal(0, 0.02, (b, cfg.enc_frames, cfg.d_model)).astype(np.float32)}
+
+
+def rec_generate_gates(arch, cfg, eng, prompts, extras) -> dict:
+    """Gate 1: ``generate`` (B = 4, prompt 32, 32 new tokens) through the
+    CUDA graph equals the eager loop bitwise, greedy and sampled, every
+    token finite and in range; then graph and eager tok/s in turns (greedy,
+    two turns each) and the eager run's peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for temp in (0.0, 1.0):
+        use(eng, temperature=temp, fused=False)
+        eager = eng.generate(prompts, max_new=MAX_NEW, extras=extras)
+        use(eng, fused=True)
+        graph = eng.generate(prompts, max_new=MAX_NEW, extras=extras)
+        toks = graph["tokens"]
+        if not (graph["finite"] and eager["finite"]) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            fail(f"{arch} generate (T={temp}): non-finite logits or tokens out of range")
+        if not np.array_equal(toks, eager["tokens"]):
+            fail(f"{arch} generate (T={temp}): graph tokens differ from the eager loop's")
+    res = {"peak_bytes": torch.cuda.max_memory_allocated(),
+           "tok_per_s": {"eager": [], "graph": []}, "ms_per_step": {"eager": [], "graph": []},
+           "prefill_s": {"eager": [], "graph": []}}
+    use(eng, temperature=0.0)
+    for _ in range(2):
+        for mode in ("eager", "graph"):
+            use(eng, fused=mode == "graph")
+            out = eng.generate(prompts, max_new=MAX_NEW, extras=extras)
+            res["tok_per_s"][mode].append(out["tok_per_s"])
+            res["ms_per_step"][mode].append(1e3 * out["decode_s"] / (MAX_NEW - 1))
+            res["prefill_s"][mode].append(out["prefill_s"])
+    return res
+
+
+def capture(body):
+    """``body`` run once on a side stream (the warm-up), then captured in a
+    CUDA graph; returns the graph's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    return graph.replay
+
+
+def rec_teacher_forcing(arch, cfg, params) -> dict:
+    """Gate 2, fp32 (flash probabilities in fp32, as the reference's model
+    tests pin them): B = 1 stepwise decode of ``REC_TF_POSITIONS[arch]``
+    seeded tokens, each step replayed from a captured decode step fed the
+    next token, against the teacher-forced forward's logits at the same
+    position, within ``FAM_TF_TOL`` of the largest logit.  The hybrid's ring
+    is ``min(window, max_len)`` = 2048 rows, so 2,100 positions wrap it;
+    mamba2's 600 cross three SSD chunks of 256; whisper decodes from its
+    prefill over 1,500 frames."""
+    n = REC_TF_POSITIONS[arch]
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(1, cfg.vocab, (1, n))).to(DEVICE)
+    batch = {"tokens": toks}
+    extras = rec_frames(cfg, 1)
+    if extras:
+        batch["frames"] = torch.from_numpy(extras["frames"]).to(DEVICE)
+    with torch.no_grad(), fp32_probs():
+        tf = model(params, batch)[0][0]  # (n, V)
+        if extras:
+            cache = model.prefill(params, batch, n)[1]
+        else:
+            cache = model.init_cache(1, n, device=DEVICE)
+        start = copy_cache(cache)
+        tok = torch.zeros((1, 1), dtype=torch.long, device=DEVICE)
+        out = torch.zeros((1, 1, tf.shape[-1]), dtype=torch.float32, device=DEVICE)
+
+        def body():
+            out.copy_(model.decode_step(params, tok, cache)[0])
+
+        replay = capture(body)
+        for name, leaf in cache.items():  # the warm-up stepped the cache
+            leaf.copy_(start[name])
+        gaps = torch.zeros(n, device=DEVICE)
+        for t in range(n):
+            tok.copy_(toks[:, t : t + 1])
+            replay()
+            gaps[t] = (out[0, 0] - tf[t]).abs().max()
+        top = float(tf.abs().max())
+    del replay
+    gap = float(gaps.max())
+    rel = gap / max(top, 1.0)
+    if rel > FAM_TF_TOL:
+        fail(f"{arch} decode vs teacher-forced forward (fp32, {n} positions): gap {gap} "
+             f"({rel} of the largest logit), worst at position {int(gaps.argmax())}")
+    return {"positions": n, "gap": gap, "gap_rel": rel, "max_abs_logit": top}
+
+
+def rec_scheduler(arch, cfg, params) -> dict:
+    """Gate 3: the pool step's rows at ``REC_SCHED_SLOTS`` slots bitwise B =
+    1 steps on caches primed at ragged lengths; then 8 of phase 9's ragged
+    requests through ``Scheduler.run`` on ``REC_SCHED_SLOTS`` slots (bf16
+    activations, greedy, the graph loop), every completion bitwise one-shot
+    ``generate`` at B = 1.  Reported: the run's stats and the pool's ms per
+    step."""
+    eng = Engine(cfg, params, ServeConfig(max_len=SCHED_MAX_LEN), device=DEVICE)
+    rng = np.random.default_rng(SCHED_SEED + 2)
+    lens = [int(x) for x in rng.integers(SCHED_PROMPTS[0], SCHED_PROMPTS[1] + 1,
+                                         REC_SCHED_SLOTS)]
+    axes = eng.model.cache_batch_axes(SCHED_MAX_LEN)
+    with torch.no_grad():
+        primed = [eng.prime(rng.integers(1, cfg.vocab, (1, k)).astype(np.int32)) for k in lens]
+        token = torch.cat([t for t, _ in primed])
+        ones = [eng._logits(token[i : i + 1], copy_cache(c), None) for i, (_, c) in
+                enumerate(primed)]
+        pool = eng.model.init_slot_cache(REC_SCHED_SLOTS, SCHED_MAX_LEN, device=DEVICE)
+        for i, (_, c) in enumerate(primed):
+            write_slots(pool, [i], c, axes, [lens[i]])
+        many = eng._logits(token, pool, None, rowwise=True)
+    for i, one in enumerate(ones):
+        if not torch.equal(many[i : i + 1], one):
+            fail(f"{arch} pool step: row {i} at {REC_SCHED_SLOTS} rows differs from a B = 1 step")
+    reqs = sched_traffic(cfg, arrivals=False)[:FAM_SCHED_REQUESTS]
+    sched = Scheduler(eng, slots=REC_SCHED_SLOTS, segment=SCHED_SEGMENT, admission="sequential")
+    done = sched.run([dataclasses.replace(r) for r in reqs])
+    if any(c.status.value != "OK" for c in done.values()):
+        fail(f"{arch} scheduler: {[c.status.value for c in done.values()]}")
+    for rid, w in enumerate(oracle_tokens(eng, reqs)):
+        if not np.array_equal(done[rid].tokens, w):
+            fail(f"{arch} scheduler: request {rid}'s tokens differ from one-shot generate")
+    use(eng, seed=0)
+    return {**sched_stats(sched), "pool_ms_per_step": pool_ms_per_step(
+        eng, slots=REC_SCHED_SLOTS)}
+
+
+def rec_run(arch) -> dict:
+    """One family of phase 14 (module docstring): weights drawn on the card,
+    the three gates (the scheduler's for the recurrent families only)."""
+    t0 = time.monotonic()
+    cfg = rec_cfg(arch)
+    params = device_init(cfg)
+    n_params = sum(v.numel() for _, v in tree_items(params))
+    prompts = prompts_for(cfg)
+    extras = rec_frames(cfg, BATCH)
+    eng = Engine(cfg, params, ServeConfig(max_len=PROMPT + MAX_NEW + 8), device=DEVICE)
+    res = {"layers": cfg.n_layers, "params": n_params,
+           "generate": rec_generate_gates(arch, cfg, eng, prompts, extras)}
+    del eng
+    release()
+    res["decode_vs_forward"] = rec_teacher_forcing(arch, cfg, params)
+    release()
+    if cfg.family != "encdec":
+        res["scheduler"] = rec_scheduler(arch, cfg, params)
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def recurrent_phase() -> dict:
+    """Phase 14 (module docstring).  Fails past ``REC_PHASE_LIMIT_S``."""
+    t0 = time.monotonic()
+    print("recurrent families: depth cuts: " + "; ".join(
+        f"{a} {w}" for a, w in REC_CUT_WHY.items()) + "; mamba2_2_7b and whisper_tiny whole",
+        flush=True)
+    reset_all_launch_counts()
+    res = {}
+    for arch in REC_ARCHS:
+        res[arch] = rec_run(arch)
+        release()
+    res["kernel_launches"] = all_launch_counts()  # the reference packs only the dense family
+    res["seconds"] = time.monotonic() - t0
+    if res["seconds"] > REC_PHASE_LIMIT_S:
+        fail(f"recurrent families phase took {res['seconds']:.1f}s, over its "
+             f"{REC_PHASE_LIMIT_S:.0f}s")
+    return res
+
+
+def print_recurrent(rec: dict, card: str) -> None:
+    for arch in REC_ARCHS:
+        r = rec[arch]
+        g, tf = r["generate"], r["decode_vs_forward"]
+        line = (f"recurrent families {arch} ({r['layers']} layers, {r['params']} params): "
+                f"graph tokens equal eager (greedy and sampled, B={BATCH}, prompt {PROMPT}, "
+                f"{MAX_NEW} new, bf16); tok/s in turns graph {g['tok_per_s']['graph']}, eager "
+                f"{g['tok_per_s']['eager']}; ms per step graph {g['ms_per_step']['graph']}, "
+                f"eager {g['ms_per_step']['eager']}; prefill s graph {g['prefill_s']['graph']}, "
+                f"eager {g['prefill_s']['eager']}; peak memory {g['peak_bytes']} bytes; decode "
+                f"vs forward (fp32, {tf['positions']} positions) {tf['gap_rel']:.3g} of the "
+                f"largest logit")
+        if "scheduler" in r:
+            st = r["scheduler"]
+            line += (f"; scheduler ({FAM_SCHED_REQUESTS} requests, {REC_SCHED_SLOTS} slots, "
+                     f"sequential) every completion equals one-shot generate, pool rows "
+                     f"bitwise B = 1, {st['sustained_tok_per_s']:.1f} sustained tok/s, TTFT "
+                     f"p50 {st['ttft_p50_s'] * 1e3:.1f} ms, ITL p50 "
+                     f"{st['itl_p50_s'] * 1e3:.1f} ms, admission {st['admit_s']:.3f} s, "
+                     f"decode {st['decode_s']:.3f} s, pool step "
+                     f"{st['pool_ms_per_step']:.4f} ms")
+        print(line + f"; {r['seconds']:.1f}s", flush=True)
+    print(f"recurrent families phase {rec['seconds']:.1f}s (limit {REC_PHASE_LIMIT_S:.0f}s); "
+          f"B1-B6 launches in the phase {rec['kernel_launches']} (none lies on these "
+          f"families' path) ({card})", flush=True)
+
+
 def run_async(what: str, coro_fn, timeout: float = 300.0):
     """``asyncio.run(coro_fn())`` on a daemon thread: a run with no result
     in ``timeout`` s fails the phase and ends the process at once (a hung
@@ -2805,6 +3067,9 @@ def main() -> None:
     fam = families_phase()
     print_families(fam, card)
 
+    rec = recurrent_phase()
+    print_recurrent(rec, card)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -2886,7 +3151,7 @@ def main() -> None:
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
          "paper_workloads": paper, "graph_decode": graph, "speculative": spec,
          "scheduler": sched, "speculative_scheduler": sspec, "failure_model": fails,
-         "train": train, "families": fam,
+         "train": train, "families": fam, "recurrent_families": rec,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,8 @@
 """Config registry: ``get_config("<arch-id>")`` -> ArchConfig.
 
-Only the architectures the port serves are listed: the decoder-only
-families (dense, moe, vlm).  The JAX package's other families (hybrid, ssm,
-encdec) are still to be ported (ROADMAP.md A13) and raise a clear error
-here.
+Every architecture of the JAX package's registry is listed: the
+decoder-only families (dense, moe, vlm), the hybrid (RG-LRU + local
+attention), the ssm (Mamba-2) and the encoder-decoder (whisper).
 """
 
 from __future__ import annotations
@@ -20,6 +19,9 @@ ARCH_IDS = [
     "olmoe_1b_7b",
     "moonshot_v1_16b_a3b",
     "paligemma_3b",
+    "recurrentgemma_9b",
+    "mamba2_2_7b",
+    "whisper_tiny",
     "vusa_edge",  # the paper's own Edge-AI scale config
 ]
 

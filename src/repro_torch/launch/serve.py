@@ -18,6 +18,9 @@ optional VUSA packing, one batched ``generate``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b --packed all
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma_3b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b --smoke --device cpu \
+        --requests 8 --slots 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_tiny --smoke --device cpu
 
 Port of the JAX package's ``launch/serve.py``: one batched ``generate``,
 with its speculative options, or with ``--requests N`` N synthetic
@@ -35,11 +38,12 @@ watchdog.  SIGINT / SIGTERM drain instead of dying mid-segment: admission
 stops, in-flight requests finish (bounded by ``--drain-timeout-s``), the
 stats print and the journal closes clean.  The mesh options come with a
 later slice (ROADMAP.md A12).  ``--no-fused`` decodes in the eager host
-loop instead of the CUDA graph.  ``--arch`` takes every id the port serves
-(``configs.ARCH_IDS``: the dense, moe and vlm families); a vlm model's
-one-shot ``generate`` gets seeded stand-in patch embeddings (normal, std
-0.02, as the training pipeline makes them), and the scheduler refuses it
-(its requests carry no patches).
+loop instead of the CUDA graph.  ``--arch`` takes every id of
+``configs.ARCH_IDS`` (the dense, moe, vlm, hybrid, ssm and encdec
+families); a vlm model's one-shot ``generate`` gets seeded stand-in patch
+embeddings and an encdec model's ``min(prompt, enc_frames)`` stand-in
+frames (normal, std 0.02, as the training pipeline makes them), and the
+scheduler refuses both (its requests carry neither).
 """
 
 from __future__ import annotations
@@ -203,6 +207,10 @@ def main(argv=None):
     if cfg.family == "vlm":
         patches = np.random.default_rng(0).normal(0, 0.02, (batch, prefix, cfg.d_model))
         extras = {"patches": patches.astype(np.float32)}
+    elif cfg.family == "encdec":
+        frames = np.random.default_rng(0).normal(
+            0, 0.02, (batch, min(args.prompt_len, cfg.enc_frames), cfg.d_model))
+        extras = {"frames": frames.astype(np.float32)}
     out = eng.generate(prompts, max_new=args.max_new, extras=extras)
     line = (f"prefill {out['prefill_s']*1e3:.1f}ms  decode {out['decode_s']*1e3:.1f}ms  "
             f"{out['tok_per_s']:.0f} tok/s  finite={out['finite']}")

@@ -10,6 +10,14 @@ neighbours.  The helpers act in place on that batch axis (a CUDA graph that
 replays the pool step keeps reading the same tensors) and take its
 position per leaf from :func:`batch_axes`, as the reference's do.
 
+A decode cache is a *flat* ``{name: tensor}`` dict for every family.  The
+reference's hybrid cache is nested (``groups/<p_i_kind>/{k,v | conv,h}``,
+``tail/<t_i_kind>/...``, ``pos``); the port flattens it under the
+``/``-joined path of each reference leaf, one to one, so every helper here
+walks one level, each leaf at the batch axis :func:`batch_axes` finds.
+An admission writes every leaf of the slot, so a recurrent state (``h``,
+``state``, ``conv``), which no ``pos`` mask hides, is replaced whole.
+
 The second half is the **paged pool**: fixed ``page``-row KV blocks in a
 shared arena, per-slot block tables, and the host-side
 :class:`BlockAllocator` with prefix-hash sharing (refcounts, a cached-free
@@ -46,6 +54,7 @@ import torch
 
 __all__ = [
     "init_slot_cache",
+    "slot_view",
     "read_slot",
     "write_slots",
     "batch_axes",
@@ -117,9 +126,15 @@ def batch_axes(specs_b1: Specs, specs_b2: Specs) -> Dict[str, int]:
     return out
 
 
+def slot_view(slot_cache: dict, i: int, axes: Dict[str, int]) -> dict:
+    """Slot ``i`` as a B = 1 cache of views: in-place writes through it
+    reach the pool (the per-slot steps of ``families._rows``)."""
+    return {name: leaf.narrow(axes[name], i, 1) for name, leaf in slot_cache.items()}
+
+
 def read_slot(slot_cache: dict, i: int, axes: Dict[str, int]) -> dict:
     """Slot ``i`` as a standalone B = 1 cache (a copy)."""
-    return {name: leaf.narrow(axes[name], i, 1).clone() for name, leaf in slot_cache.items()}
+    return {name: leaf.clone() for name, leaf in slot_view(slot_cache, i, axes).items()}
 
 
 def write_slots(slot_cache: dict, idx, batched_cache: dict, axes: Dict[str, int], pos) -> None:

@@ -17,8 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "init_params", "rms_norm", "rope", "apply_rope", "strict_fp32",
-           "per_row"]
+__all__ = ["ParamSpec", "init_params", "rms_norm", "layer_norm", "rope", "apply_rope",
+           "strict_fp32", "per_row"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,13 +27,15 @@ class ParamSpec:
     the reference: only activations take the config's dtype)."""
 
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | zeros
+    init: str = "normal"  # normal | zeros | ones
     scale: float = 1.0
 
 
 def _init_leaf(spec: ParamSpec, rng: np.random.Generator) -> np.ndarray:
     if spec.init == "zeros":
         return np.zeros(spec.shape, np.float32)
+    if spec.init == "ones":
+        return np.ones(spec.shape, np.float32)
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     std = np.float32(spec.scale / math.sqrt(max(fan_in, 1)))
     return rng.standard_normal(spec.shape, dtype=np.float32) * std
@@ -90,6 +92,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     x = x.float()
     var = per_row(lambda r: r.mean(dim=-1, keepdim=True), x.square(), rowwise)
     return (x * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 (biased variance), as the reference's: no family
+    of either package calls it; the encdec family normalises with
+    :func:`rms_norm` throughout."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 def rope(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):

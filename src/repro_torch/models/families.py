@@ -1,17 +1,28 @@
-"""Decoder-only LM families (dense, moe, vlm): specs, forward, loss,
-prefill and decode (one token, or s tokens for the speculative verify).
+"""The model families: specs, forward, loss, prefill and decode.
 
-Port of the decoder-LM part of the JAX package's ``models/families.py``.
-The moe family swaps each layer's MLP for the routed experts
-(``layers.moe``) and adds their load-balance loss; the vlm family prefixes
-the text with projected patch embeddings (``batch["patches"]``, a stub
-vision frontend) under a prefix mask, scales the token embeddings by
-sqrt(d_model) and returns logits of the text positions only.  The
-parameter layout is the reference's: every layer parameter carries a
-leading ``(L, ...)`` layer axis, so a parameter tree exported from the
-reference loads as it is.  The reference scans the layer axis with
-``lax.scan``; here a Python loop indexes it.  The hybrid, ssm and encdec
-families are not ported yet (ROADMAP.md A13).
+Port of the JAX package's ``models/families.py``.  The decoder-only LM
+families (dense, moe, vlm) share the ``lm_*`` functions: one token, or s
+tokens for the speculative verify.  The moe family swaps each layer's MLP
+for the routed experts (``layers.moe``) and adds their load-balance loss;
+the vlm family prefixes the text with projected patch embeddings
+(``batch["patches"]``, a stub vision frontend) under a prefix mask, scales
+the token embeddings by sqrt(d_model) and returns logits of the text
+positions only.  The hybrid family (recurrentgemma) interleaves RG-LRU
+blocks and local attention on a ring cache (``hybrid_*``), the ssm family
+is Mamba-2 (``ssm_*``), and the encdec family (whisper) runs an encoder
+over precomputed frame embeddings whose cross-attention keys and values
+are computed once a request (``encdec_*``).
+
+The parameter layout is the reference's: every layer parameter carries a
+leading ``(L, ...)`` layer axis (the hybrid's a ``groups`` axis, its
+``tail`` layers none), so a parameter tree exported from the reference
+loads as it is.  The reference scans the layer axis with ``lax.scan``;
+here a Python loop indexes it.  Decode caches are flat ``{name: tensor}``
+dicts (``models/cache.py``); the hybrid's nested cache is flattened under
+``/``-joined path names (``groups/p0_rglru/conv``, ``tail/t0_rglru/h``),
+one per reference leaf.  Every decode step updates its cache in place and
+advances the (B,) ``pos`` with ``add_``, makes no host sync, and with
+``rowwise`` computes row b as a B = 1 step on its own cache row.
 """
 
 from __future__ import annotations
@@ -20,15 +31,22 @@ import torch
 import torch.nn.functional as Fn
 from torch.utils.checkpoint import checkpoint
 
+from .cache import batch_axes, slot_view
 from .common import ParamSpec, per_row, rms_norm
 from .layers import (
-    MaskSpec, attention, attention_chunk, attention_decode, attention_specs, mlp, mlp_specs, moe,
-    moe_specs,
+    MaskSpec, attention, attention_chunk, attention_decode, attention_specs, cross_attention,
+    encode_cross_kv, mlp, mlp_specs, moe, moe_specs,
 )
+from .ssm import mamba2_block, mamba2_decode, mamba2_specs, rglru_block, rglru_decode, rglru_specs
 
 __all__ = [
-    "lm_specs", "lm_forward", "lm_cache_specs", "lm_init_cache", "lm_decode_step",
+    "FAMILIES", "LM_FAMILIES", "RECURRENT_FAMILIES", "check_family",
+    "lm_specs", "lm_forward", "lm_cache_specs", "init_cache", "lm_decode_step",
     "lm_prefill", "lm_prefill_chunk", "lm_loss", "act_dtype", "layer_params", "layer_cache",
+    "hybrid_specs", "hybrid_forward", "hybrid_loss", "hybrid_cache_specs",
+    "hybrid_decode_step", "ssm_specs", "ssm_forward", "ssm_loss", "ssm_cache_specs",
+    "ssm_decode_step", "encdec_specs", "encdec_encode", "encdec_forward", "encdec_loss",
+    "encdec_cache_specs", "encdec_decode_step", "encdec_prefill",
 ]
 
 
@@ -55,19 +73,20 @@ def _head(params, cfg) -> torch.Tensor:
 
 
 LM_FAMILIES = ("dense", "moe", "vlm")
+RECURRENT_FAMILIES = ("hybrid", "ssm")  # prompts primed through decode steps, no prefill
+FAMILIES = LM_FAMILIES + RECURRENT_FAMILIES + ("encdec",)
 
 
 def check_family(cfg) -> None:
-    """Refuse a family the port does not serve yet."""
-    if cfg.family not in LM_FAMILIES:
+    """Refuse a family that is none of the reference's."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md A13); the port serves "
-            f"{LM_FAMILIES}"
+            f"family {cfg.family!r} is none of the port's families {FAMILIES} "
+            "(ROADMAP.md A13 lists them)"
         )
 
 
 def lm_specs(cfg) -> dict:
-    check_family(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
     layer = {
         "norm1": ParamSpec((d,), init="zeros"),
@@ -194,11 +213,11 @@ def lm_cache_specs(cfg, batch: int, max_len: int) -> dict:
     return {"k": kv, "v": kv, "pos": ((batch,), torch.long)}
 
 
-def lm_init_cache(cfg, batch: int, max_len: int, device) -> dict:
-    return {
-        name: torch.zeros(shape, dtype=dtype, device=device)
-        for name, (shape, dtype) in lm_cache_specs(cfg, batch, max_len).items()
-    }
+def init_cache(specs: dict, device) -> dict:
+    """A zero decode cache from ``{name: (shape, dtype)}`` (any family's
+    ``*_cache_specs``)."""
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in specs.items()}
 
 
 def layer_cache(cache: dict, i: int) -> dict:
@@ -263,7 +282,7 @@ def lm_prefill(params, batch, cfg, max_len: int, lengths=None):
     s = x.shape[1]
     if s > max_len:
         raise ValueError(f"prompt length {s} (patch prefix included) exceeds max_len {max_len}")
-    cache = lm_init_cache(cfg, b, max_len, tokens.device)
+    cache = init_cache(lm_cache_specs(cfg, b, max_len), tokens.device)
     patch_off = cfg.patch_tokens if cfg.family == "vlm" else 0
     kv_valid = None
     if lengths is not None:
@@ -328,3 +347,341 @@ def lm_prefill_chunk(params, tokens, cfg, arena, table_row, start: int, true_len
     last = xf[:, min(max(true_len, 1), c) - 1]  # (1, d)
     logits = torch.einsum("bd,dv->bv", last, _head(params, cfg).to(xf.dtype))
     return logits, arena
+
+
+# ---- shared by the hybrid, ssm and encdec families -------------------------
+
+
+# Leaves a decode step reads in fp32 (``.float()``, fp32 adds) or gathers
+# before its cast: ``_rows`` leaves them as they are.
+_FP32_LEAVES = ("A_log", "D", "dt_bias", "lam", "embed")
+
+
+def _act_weights(tree: dict, dtype: torch.dtype) -> dict:
+    """``tree`` with every leaf a step casts to the activation dtype cast
+    once; the norms' scales and ``_FP32_LEAVES`` kept."""
+    return {k: _act_weights(v, dtype) if isinstance(v, dict)
+            else v if k in _FP32_LEAVES or "norm" in k else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def _rows(step, cache_specs, params, token, cache, cfg):
+    """``step`` run on each batch row alone against its own cache row, a
+    ``slot_view`` at the batch axes of ``cache_specs``: row b is bitwise the
+    B = 1 step (the scheduler's pool step).  The weights are cast to the
+    activation dtype once for all rows; a step's own cast of them is then
+    a no-op, and the cast is elementwise, so the bits are the B = 1 step's."""
+    axes = batch_axes(cache_specs(cfg, 1, 1), cache_specs(cfg, 2, 1))
+    params = _act_weights(params, act_dtype(cfg))
+    logits = [step(params, token[b : b + 1], slot_view(cache, b, axes), cfg)[0]
+              for b in range(token.shape[0])]
+    return torch.cat(logits), cache
+
+
+def _layers(params: dict, tree_key: str, n: int, remat: bool, fn, x, *args):
+    """``x`` through the ``n`` stacked layers ``params[tree_key]``, each
+    ``fn(lp, x, *args)``, recomputed in the backward under ``remat``."""
+    for lp in _unstack(params[tree_key], n):
+        x = checkpoint(fn, lp, x, *args, use_reentrant=False) if remat else fn(lp, x, *args)
+    return x
+
+
+def _logits(params, x, head):
+    x = rms_norm(x, params["final_norm"])
+    return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+
+
+# ---- hybrid (Griffin / recurrentgemma) --------------------------------------
+
+
+def _hybrid_layer_specs(cfg, kind: str) -> dict:
+    d = cfg.d_model
+    return {
+        "norm1": ParamSpec((d,), init="zeros"),
+        "mixer": rglru_specs(cfg) if kind == "rglru" else attention_specs(cfg),
+        "norm2": ParamSpec((d,), init="zeros"),
+        "ffn": mlp_specs(cfg),
+    }
+
+
+def _hybrid_layout(cfg):
+    """(groups, tail kinds): ``n_layers // len(pattern)`` scanned groups of
+    the pattern, then the unstacked tail of the pattern's first kinds."""
+    pat = cfg.block_pattern
+    n_groups = cfg.n_layers // len(pat)
+    reps = -(-cfg.n_layers // len(pat))
+    return n_groups, (pat * reps)[n_groups * len(pat) : cfg.n_layers]
+
+
+def hybrid_specs(cfg) -> dict:
+    d, v = cfg.d_model, cfg.padded_vocab
+    n_groups, tail = _hybrid_layout(cfg)
+    return {
+        "embed": ParamSpec((v, d), scale=1.0),
+        "groups": {f"p{i}_{kind}": _stack_specs(_hybrid_layer_specs(cfg, kind), n_groups)
+                   for i, kind in enumerate(cfg.block_pattern)},
+        "tail": {f"t{i}_{kind}": _hybrid_layer_specs(cfg, kind) for i, kind in enumerate(tail)},
+        "final_norm": ParamSpec((d,), init="zeros"),
+        "lm_head": ParamSpec((d, v)),
+    }
+
+
+def _hybrid_layer(lp, x, kind: str, cfg, positions):
+    h = rms_norm(x, lp["norm1"])
+    if kind == "rglru":
+        y = rglru_block(lp["mixer"], h, cfg)
+    else:
+        y = attention(lp["mixer"], h, cfg, MaskSpec("local", window=cfg.local_window), positions)
+    x = x + y
+    return x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
+
+
+def hybrid_forward(params, batch, cfg):
+    """Teacher-forced logits (B, S, V) and aux 0.  Under grad with
+    ``cfg.remat`` each group's layers are recomputed in the backward (the
+    tail's are not, as in the reference).  An empty ``tail`` may be missing
+    from the tree (a walk over leaves drops it)."""
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    n_groups, _ = _hybrid_layout(cfg)
+    groups = {key: _unstack(tree, n_groups) for key, tree in params["groups"].items()}
+    for g in range(n_groups):
+        for i, kind in enumerate(cfg.block_pattern):
+            lp = groups[f"p{i}_{kind}"][g]
+            if remat:
+                x = checkpoint(_hybrid_layer, lp, x, kind, cfg, positions, use_reentrant=False)
+            else:
+                x = _hybrid_layer(lp, x, kind, cfg, positions)
+    for name, lp in params.get("tail", {}).items():
+        x = _hybrid_layer(lp, x, name.split("_", 1)[1], cfg, positions)
+    return _logits(params, x, params["lm_head"]), 0.0
+
+
+def hybrid_loss(params, batch, cfg):
+    logits, _ = hybrid_forward(params, batch, cfg)
+    return _xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
+
+
+def _mixer_cache(cfg, kind: str, lead: tuple, batch: int, ring: int) -> dict:
+    if kind == "rglru":  # the conv window of the RG-LRU is 3 rows (4 taps), as the reference
+        return {"conv": (lead + (batch, 3, cfg.rglru_dim), act_dtype(cfg)),
+                "h": (lead + (batch, cfg.rglru_dim), torch.float32)}
+    kv = (lead + (batch, ring, cfg.kv_heads, cfg.hd), act_dtype(cfg))
+    return {"k": kv, "v": kv}
+
+
+def hybrid_cache_specs(cfg, batch: int, max_len: int) -> dict:
+    """Per pattern position a cache stacked over the groups, then the tail's;
+    the attention layers keep a ring of ``min(local_window, max_len)`` rows,
+    so decode is O(window), not O(sequence).  Flat ``/``-joined names."""
+    ring = min(cfg.local_window, max_len)
+    n_groups, tail = _hybrid_layout(cfg)
+    out = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        for leaf, spec in _mixer_cache(cfg, kind, (n_groups,), batch, ring).items():
+            out[f"groups/p{i}_{kind}/{leaf}"] = spec
+    for i, kind in enumerate(tail):
+        for leaf, spec in _mixer_cache(cfg, kind, (), batch, ring).items():
+            out[f"tail/t{i}_{kind}/{leaf}"] = spec
+    out["pos"] = ((batch,), torch.long)
+    return out
+
+
+def _hybrid_decode_layer(lp, x, c: dict, kind: str, cfg, pos):
+    h = rms_norm(x, lp["norm1"])
+    if kind == "rglru":
+        y = rglru_decode(lp["mixer"], h, cfg, c)
+    else:
+        y = attention_decode(lp["mixer"], h, cfg, {**c, "pos": pos}, window=cfg.local_window)
+    x = x + y
+    return x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
+
+
+def hybrid_decode_step(params, token, cache, cfg, rowwise: bool = False):
+    """token (B, 1).  Returns (logits (B, 1, V), cache with ``pos + 1``)."""
+    if rowwise and token.shape[0] > 1:
+        return _rows(hybrid_decode_step, hybrid_cache_specs, params, token, cache, cfg)
+    x = _embed_tokens(params, token, cfg)
+    pos = cache["pos"]
+    n_groups, _ = _hybrid_layout(cfg)
+
+    def leaves(prefix, g=None):
+        return {name[len(prefix):]: t if g is None else t[g]
+                for name, t in cache.items() if name.startswith(prefix)}
+
+    for g in range(n_groups):
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"p{i}_{kind}"
+            x = _hybrid_decode_layer(layer_params(params["groups"][key], g), x,
+                                     leaves(f"groups/{key}/", g), kind, cfg, pos)
+    for name, lp in params.get("tail", {}).items():
+        x = _hybrid_decode_layer(lp, x, leaves(f"tail/{name}/"), name.split("_", 1)[1], cfg, pos)
+    logits = _logits(params, x, params["lm_head"])
+    pos.add_(1)
+    return logits, cache
+
+
+# ---- ssm (Mamba-2) ----------------------------------------------------------
+
+
+def ssm_specs(cfg) -> dict:
+    d, v = cfg.d_model, cfg.padded_vocab
+    layer = {"norm": ParamSpec((d,), init="zeros"), "mixer": mamba2_specs(cfg)}
+    return {
+        "embed": ParamSpec((v, d), scale=1.0),
+        "layers": _stack_specs(layer, cfg.n_layers),
+        "final_norm": ParamSpec((d,), init="zeros"),
+        "lm_head": ParamSpec((d, v)),
+    }
+
+
+def _ssm_layer(lp, x, cfg):
+    return x + mamba2_block(lp["mixer"], rms_norm(x, lp["norm"]), cfg)
+
+
+def ssm_forward(params, batch, cfg):
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = _layers(params, "layers", cfg.n_layers, remat, _ssm_layer, x, cfg)
+    return _logits(params, x, params["lm_head"]), 0.0
+
+
+def ssm_loss(params, batch, cfg):
+    logits, _ = ssm_forward(params, batch, cfg)
+    return _xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
+
+
+def ssm_cache_specs(cfg, batch: int, max_len: int) -> dict:
+    din = cfg.expand * cfg.d_model
+    n, h = cfg.ssm_state, cfg.ssm_heads
+    return {
+        "conv": ((cfg.n_layers, batch, cfg.d_conv - 1, din + 2 * n), act_dtype(cfg)),
+        "state": ((cfg.n_layers, batch, h, din // h, n), torch.float32),
+        "pos": ((batch,), torch.long),
+    }
+
+
+def ssm_decode_step(params, token, cache, cfg, rowwise: bool = False):
+    """token (B, 1).  Returns (logits (B, 1, V), cache with ``pos + 1``)."""
+    if rowwise and token.shape[0] > 1:
+        return _rows(ssm_decode_step, ssm_cache_specs, params, token, cache, cfg)
+    x = _embed_tokens(params, token, cfg)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        x = x + mamba2_decode(lp["mixer"], rms_norm(x, lp["norm"]), cfg,
+                              {"conv": cache["conv"][i], "state": cache["state"][i]})
+    logits = _logits(params, x, params["lm_head"])
+    cache["pos"].add_(1)
+    return logits, cache
+
+
+# ---- encdec (whisper) -------------------------------------------------------
+
+
+def encdec_specs(cfg) -> dict:
+    """The head is tied to ``embed`` (whisper's convention)."""
+    d, v = cfg.d_model, cfg.padded_vocab
+    enc_layer = {
+        "norm1": ParamSpec((d,), init="zeros"),
+        "attn": attention_specs(cfg),
+        "norm2": ParamSpec((d,), init="zeros"),
+        "ffn": mlp_specs(cfg),
+    }
+    dec_layer = {
+        "norm1": ParamSpec((d,), init="zeros"),
+        "self_attn": attention_specs(cfg),
+        "norm_x": ParamSpec((d,), init="zeros"),
+        "cross_attn": attention_specs(cfg),
+        "norm2": ParamSpec((d,), init="zeros"),
+        "ffn": mlp_specs(cfg),
+    }
+    return {
+        "embed": ParamSpec((v, d), scale=1.0),
+        "enc_pos": ParamSpec((cfg.enc_frames, d), scale=0.02),
+        "enc_layers": _stack_specs(enc_layer, cfg.enc_layers),
+        "enc_norm": ParamSpec((d,), init="zeros"),
+        "dec_layers": _stack_specs(dec_layer, cfg.n_layers),
+        "final_norm": ParamSpec((d,), init="zeros"),
+    }
+
+
+def _enc_layer(lp, x, cfg, positions):
+    x = x + attention(lp["attn"], rms_norm(x, lp["norm1"]), cfg, MaskSpec("full"), positions)
+    return x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
+
+
+def encdec_encode(params, frames, cfg):
+    """frames (B, F, d), F <= enc_frames: stub frame embeddings -> the
+    encoder's states under full self-attention."""
+    adt = act_dtype(cfg)
+    x = frames.to(adt) + params["enc_pos"][None, : frames.shape[1]].to(adt)
+    positions = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = _layers(params, "enc_layers", cfg.enc_layers, remat, _enc_layer, x, cfg, positions)
+    return rms_norm(x, params["enc_norm"])
+
+
+def _dec_layer(lp, x, cfg, positions, enc):
+    x = x + attention(lp["self_attn"], rms_norm(x, lp["norm1"]), cfg, MaskSpec("causal"),
+                      positions)
+    kv = encode_cross_kv(lp["cross_attn"], enc, cfg)
+    x = x + cross_attention(lp["cross_attn"], rms_norm(x, lp["norm_x"]), kv, cfg)
+    return x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
+
+
+def encdec_forward(params, batch, cfg):
+    """batch {"frames": (B, F, d), "tokens": (B, S)} -> logits (B, S, V), 0."""
+    enc = encdec_encode(params, batch["frames"], cfg)
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = _layers(params, "dec_layers", cfg.n_layers, remat, _dec_layer, x, cfg, positions, enc)
+    return _logits(params, x, params["embed"].T), 0.0
+
+
+def encdec_loss(params, batch, cfg):
+    logits, _ = encdec_forward(params, batch, cfg)
+    return _xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
+
+
+def encdec_cache_specs(cfg, batch: int, max_len: int, frames: int = 0) -> dict:
+    """Self-attention K/V, and the cross-attention K/V over the encoder's
+    ``frames`` rows (0: ``enc_frames``; the prefill fills them)."""
+    kv = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
+    xkv = (cfg.n_layers, batch, frames or cfg.enc_frames, cfg.kv_heads, cfg.hd)
+    adt = act_dtype(cfg)
+    return {"k": (kv, adt), "v": (kv, adt), "xk": (xkv, adt), "xv": (xkv, adt),
+            "pos": ((batch,), torch.long)}
+
+
+def encdec_decode_step(params, token, cache, cfg, rowwise: bool = False):
+    """Decode one token; the cross K/V come from ``encdec_prefill``."""
+    if rowwise and token.shape[0] > 1:
+        return _rows(encdec_decode_step, encdec_cache_specs, params, token, cache, cfg)
+    x = _embed_tokens(params, token, cfg)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["dec_layers"], i)
+        x = x + attention_decode(lp["self_attn"], rms_norm(x, lp["norm1"]), cfg,
+                                 layer_cache(cache, i))
+        x = x + cross_attention(lp["cross_attn"], rms_norm(x, lp["norm_x"]),
+                                (cache["xk"][i], cache["xv"][i]), cfg)
+        x = x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
+    logits = _logits(params, x, params["embed"].T)
+    cache["pos"].add_(1)
+    return logits, cache
+
+
+def encdec_prefill(params, batch, cfg, max_len: int):
+    """Encode ``batch["frames"]`` (B, F, d) and fill the cross K/V (F rows);
+    the prompt tokens are not run, as in the reference: the logits are
+    zeros (so the first token is 0) and decode starts at ``pos`` 0
+    (ROADMAP C12)."""
+    enc = encdec_encode(params, batch["frames"], cfg)
+    b, f = enc.shape[:2]
+    cache = init_cache(encdec_cache_specs(cfg, b, max_len, f), enc.device)
+    for i in range(cfg.n_layers):
+        xk, xv = encode_cross_kv(layer_params(params["dec_layers"], i)["cross_attn"], enc, cfg)
+        cache["xk"][i] = xk.to(cache["xk"].dtype)
+        cache["xv"][i] = xv.to(cache["xv"].dtype)
+    return torch.zeros((b, cfg.padded_vocab), dtype=act_dtype(cfg), device=enc.device), cache

@@ -1,11 +1,12 @@
-"""Transformer layer substrate of the decoder-only LM families: GQA
-attention (chunked online softmax for train/prefill, direct attend for
-decode) under a causal or prefix mask, the SwiGLU MLP and the top-k MoE.
+"""Transformer layer substrate of the model families: GQA attention
+(chunked online softmax for train/prefill, direct attend for decode, a ring
+cache under a sliding window) and cross-attention over encoder keys, under
+a causal, local, prefix or full mask; the SwiGLU MLP and the top-k MoE.
 
-Port of the JAX package's ``models/layers.py`` (dense, moe and vlm
-families).  None of these is a Pallas kernel in the reference, so they are
-plain torch ops.  The numerics follow the reference's default performance
-flags (``models/opt_flags.py``): decode attends directly in fp32 with
+Port of the JAX package's ``models/layers.py``.  None of these is a
+Pallas kernel in the reference, so they are plain torch ops.  The
+numerics follow the reference's default performance flags
+(``models/opt_flags.py``): decode attends directly in fp32 with
 ``p / max(l, 1e-30)`` (``decode_direct``), training attention takes the
 reference's hand-written backward (``flash_custom_vjp``) as an
 ``autograd.Function`` with its rounding points, and the MoE finds each
@@ -31,7 +32,7 @@ from .common import ParamSpec, apply_rope, per_row, rms_norm, rope
 
 __all__ = [
     "attention_specs", "mlp_specs", "moe_specs", "MaskSpec", "attention", "attention_decode",
-    "attention_chunk", "mlp", "moe", "FLAGS",
+    "attention_chunk", "cross_attention", "encode_cross_kv", "mlp", "moe", "FLAGS",
 ]
 
 _NEG_INF = -1e30
@@ -88,22 +89,34 @@ def moe_specs(cfg) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class MaskSpec:
-    """Declarative attention mask: ``causal``, or ``prefix`` (causal, and
-    the first ``prefix_len`` positions visible to every query: the VLM's
-    patch prefix).  The reference's local and full kinds come with the
-    families that need them (ROADMAP.md A13)."""
+    """Declarative attention mask, the reference's four kinds: ``causal``;
+    ``local`` (causal, and only keys within ``window`` of the query:
+    ``k > q - window``, the hybrid family's sliding window); ``prefix``
+    (causal, and the first ``prefix_len`` positions visible to every query:
+    the VLM's patch prefix); ``full`` (every key: the encoder and the
+    cross-attention)."""
 
     kind: str = "causal"
+    window: int = 0
     prefix_len: int = 0
 
     def __call__(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-        """(..., Q) x (K,) int positions -> (..., Q, K) bool allow-mask."""
-        if self.kind not in ("causal", "prefix"):
-            raise NotImplementedError(f"mask kind {self.kind!r} is not ported yet (A13)")
-        allow = k_pos[None, :] <= q_pos[..., :, None]
+        """(..., Q) x (..., K) int positions -> (..., Q, K) bool allow-mask.
+        ``k_pos`` may carry leading batch dims (the ring cache's per-row
+        slot positions) that broadcast against ``q_pos``'s."""
+        q = q_pos[..., :, None]
+        k = k_pos[..., None, :]
+        if self.kind == "full":
+            return torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
+                              device=q_pos.device)
+        causal = k <= q
+        if self.kind == "causal":
+            return causal
+        if self.kind == "local":
+            return causal & (k > q - self.window)
         if self.kind == "prefix":
-            allow = allow | (k_pos < self.prefix_len)
-        return allow
+            return causal | (k < self.prefix_len)
+        raise ValueError(f"unknown mask kind {self.kind!r}")
 
 
 # --------------------------------------------------------------------------
@@ -392,6 +405,7 @@ def attention_decode(
     cache: dict,  # {"k": (B, S_max, kvh, hd), "v": ..., "pos": (B,) long}, or paged
     wmm=None,  # optional weight-matmul override (see _project_qkv)
     rowwise: bool = False,
+    window: int = 0,  # > 0: a ring cache under a local mask of this window
 ) -> torch.Tensor:
     """Decode ``s`` tokens against a KV cache; returns y (B, s, d).
 
@@ -424,11 +438,31 @@ def attention_decode(
     in general is not, so the dense path chains single-token steps).
     ``rowwise`` runs the dense products and the attend's products and sum
     one batch row at a time, so row b is bitwise a B = 1 step on its cache
-    row (the scheduler's pool step)."""
+    row (the scheduler's pool step).
+
+    With ``window`` > 0 (the hybrid family's local attention, s = 1, a
+    contiguous cache) the cache is a ring of ``S_max`` rows, as in the
+    reference: row b writes slot ``pos % S_max``, slot i holds absolute
+    position ``pos - ((pos - i) % S_max)``, valid when >= 0, and the
+    ``local`` mask hides keys ``window`` or more behind the query.  All of
+    it is per row.  A ring shorter than the window (``max_len < window``)
+    evicts keys the window would still allow: the reference's semantics."""
     b, s, d = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     positions = cache["pos"][:, None] + torch.arange(s, device=x.device)  # (B, s)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions, wmm=wmm, rowwise=rowwise)
+    if window > 0:
+        if s != 1 or "table" in cache:
+            raise NotImplementedError("a ring cache decodes one token at a time, unpaged")
+        k_cache, v_cache = cache["k"], cache["v"]
+        ring = k_cache.shape[1]
+        _write_rows((k_cache, v_cache), positions % ring, (k_new, v_new))
+        slots = torch.arange(ring, device=x.device)
+        k_pos = positions - (positions - slots) % ring  # (B, ring)
+        out = _direct_attend(q.reshape(b, 1, kvh, nh // kvh, hd), k_cache, v_cache,
+                             MaskSpec("local", window=window), positions, k_pos, k_pos >= 0,
+                             rowwise)
+        return _attn_out(p, out.reshape(b, 1, nh, hd), x, wmm, rowwise)
     if "table" in cache:
         table = cache["table"]
         paged_scatter_rows(cache["k"], table, cache["pos"], k_new)
@@ -446,11 +480,16 @@ def attention_decode(
         for i in range(s)  # s = draft_k + 1 at most: small
     ]
     out = rows[0] if s == 1 else torch.cat(rows, dim=1)
-    out = out.reshape(b, s, nh, hd)
+    return _attn_out(p, out.reshape(b, s, nh, hd), x, wmm, rowwise)
+
+
+def _attn_out(p, out, x, wmm=None, rowwise=False):
+    """The output projection of the attend's (B, s, nh, hd) heads."""
     if wmm is None:
         wo = p["wo"].to(x.dtype)
         return per_row(lambda r: torch.einsum("bsnh,nhd->bsd", r, wo), out, rowwise)
-    return wmm("wo", out.reshape(b, s, nh * hd)).to(x.dtype)
+    b, s = out.shape[:2]
+    return wmm("wo", out.reshape(b, s, -1)).to(x.dtype)
 
 
 def attention_chunk(
@@ -484,6 +523,31 @@ def attention_chunk(
                         kv_valid=rows < start + true_len)
     out = out.reshape(b, c, nh, hd)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype)), k_new, v_new
+
+
+def cross_attention(
+    p: dict,
+    x: torch.Tensor,  # (B, Sq, d) decoder states
+    enc_kv,  # precomputed (k, v): (B, Sk, kvh, hd) each
+    cfg,
+) -> torch.Tensor:
+    """Attention of decoder states over the encoder's precomputed keys and
+    values under the ``full`` mask, through the flash path, as the
+    reference computes it at every decode step too: no rope, no bias."""
+    b, s, _ = x.shape
+    nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    k, v = enc_kv
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(x.dtype)).reshape(b, s, kvh, nh // kvh, hd)
+    out = _flash_attend(q, k, v, MaskSpec("full"), torch.arange(s, device=x.device),
+                        torch.arange(k.shape[1], device=x.device))
+    return torch.einsum("bsnh,nhd->bsd", out.reshape(b, s, nh, hd), p["wo"].to(x.dtype))
+
+
+def encode_cross_kv(p: dict, enc_out: torch.Tensor, cfg):
+    """Cross-attention K/V of the encoder's output, computed once a request."""
+    k = torch.einsum("bsd,dnh->bsnh", enc_out, p["wk"].to(enc_out.dtype))
+    v = torch.einsum("bsd,dnh->bsnh", enc_out, p["wv"].to(enc_out.dtype))
+    return k, v
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Model facade: one object per architecture with a uniform API, backed by
 the family implementations in :mod:`repro_torch.models.families`.
 
-Port of the JAX package's ``models/registry.py`` for the decoder-only
-families (dense, moe, vlm, all on ``families.lm_*``); hybrid, ssm and
-encdec are refused (ROADMAP.md A13).  The facade holds the config, not the
-weights: parameters stay a nested dict of
+Port of the JAX package's ``models/registry.py``: the decoder-only
+families (dense, moe, vlm) on ``families.lm_*``, the hybrid on
+``hybrid_*``, the ssm on ``ssm_*`` and the encdec on ``encdec_*``.  The
+facade holds the config, not the weights: parameters stay a nested dict of
 tensors with the reference's layout and are passed to every call, so a
 tree exported from the reference and one made by :meth:`Model.init` are
 used the same way.
@@ -19,16 +19,29 @@ from ..configs.base import ArchConfig
 from . import families as F
 from .common import init_params
 
+# family -> (specs, forward, loss, cache_specs, decode_step)
+_FAMILY_FNS = {
+    **{fam: (F.lm_specs, F.lm_forward, F.lm_loss, F.lm_cache_specs, F.lm_decode_step)
+       for fam in F.LM_FAMILIES},
+    "hybrid": (F.hybrid_specs, F.hybrid_forward, F.hybrid_loss, F.hybrid_cache_specs,
+               F.hybrid_decode_step),
+    "ssm": (F.ssm_specs, F.ssm_forward, F.ssm_loss, F.ssm_cache_specs, F.ssm_decode_step),
+    "encdec": (F.encdec_specs, F.encdec_forward, F.encdec_loss, F.encdec_cache_specs,
+               F.encdec_decode_step),
+}
+
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         F.check_family(cfg)
         self.cfg = cfg
+        (self._specs, self._forward, self._loss, self._cache_specs,
+         self._decode_step) = _FAMILY_FNS[cfg.family]
 
     # ---- params ----
     def specs(self) -> dict:
-        return F.lm_specs(self.cfg)
+        return self._specs(self.cfg)
 
     def init(self, seed: int = 0, device="cuda") -> dict:
         """Random parameters drawn from ``numpy.random.default_rng(seed)``."""
@@ -37,22 +50,39 @@ class Model(nn.Module):
     # ---- train / eval ----
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """Scalar LM loss, plus 0.01 x the MoE aux loss for the moe family."""
-        return F.lm_loss(params, batch, self.cfg)
+        return self._loss(params, batch, self.cfg)
 
     def forward(self, params: dict, batch: dict):
-        return F.lm_forward(params, batch, self.cfg)
+        return self._forward(params, batch, self.cfg)
 
     # ---- serve ----
-    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
-        return F.lm_init_cache(self.cfg, batch, max_len, torch.device(device))
+    def init_cache(self, batch: int, max_len: int, device="cuda", frames: int = 0) -> dict:
+        """A zero decode cache; ``frames`` sizes the encdec family's cross
+        K/V (0: ``enc_frames``)."""
+        return F.init_cache(self.cache_specs(batch, max_len, frames), torch.device(device))
 
-    def cache_specs(self, batch: int, max_len: int) -> dict:
-        return F.lm_cache_specs(self.cfg, batch, max_len)
+    def cache_specs(self, batch: int, max_len: int, frames: int = 0) -> dict:
+        if self.cfg.family == "encdec":
+            return F.encdec_cache_specs(self.cfg, batch, max_len, frames)
+        return self._cache_specs(self.cfg, batch, max_len)
 
     def decode_step(self, params: dict, token, cache: dict, rowwise: bool = False):
-        return F.lm_decode_step(params, token, cache, self.cfg, rowwise=rowwise)
+        return self._decode_step(params, token, cache, self.cfg, rowwise=rowwise)
 
     def prefill(self, params: dict, batch: dict, max_len: int, lengths=None):
+        """Bulk prefill: the LM families (masked with ``lengths``), or the
+        encdec family's encoder pass (``batch["frames"]``; no ``lengths``).
+        The recurrent families have none: the engine primes them through
+        decode steps, as the reference does."""
+        fam = self.cfg.family
+        if fam in F.RECURRENT_FAMILIES:
+            raise NotImplementedError(
+                f"family {fam!r} has no prefill: its prompt runs through decode steps "
+                "(Engine.prime)")
+        if fam == "encdec":
+            if lengths is not None:
+                raise NotImplementedError("masked prefill is for the LM families")
+            return F.encdec_prefill(params, batch, self.cfg, max_len)
         return F.lm_prefill(params, batch, self.cfg, max_len, lengths=lengths)
 
     # ---- slot pool (continuous batching; see serve/scheduler.py) ----
@@ -90,11 +120,12 @@ class Model(nn.Module):
     # ---- paged pool ----
     def paged_seq_len(self, max_len: int):
         """``max_len`` if this family's cache is KV-shaped and can be paged,
-        else None (the vlm family: its patch-prefix rows would complicate
-        block addressing, as in the reference)."""
+        else None: the vlm family (its patch-prefix rows would complicate
+        block addressing), the recurrent families (their state is no
+        sequence) and the encdec family, as in the reference."""
         from .cache import paged_seq_len
 
-        if self.cfg.family == "vlm":
+        if self.cfg.family not in ("dense", "moe"):
             return None
         return paged_seq_len(self.cache_specs(1, max_len))
 

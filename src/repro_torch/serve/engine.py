@@ -56,6 +56,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..models import build_model
 from ..models.common import strict_fp32
+from ..models.families import RECURRENT_FAMILIES
 from .faults import FaultConfig
 from .metrics import acceptance_rate, tok_per_s
 
@@ -563,20 +564,45 @@ class Engine:
         return torch.zeros((n, b, self.cfg.padded_vocab), dtype=torch.float32,
                            device=self.device)
 
-    def _step_graph(self, b: int) -> _Graph:
-        """The captured decode step at batch ``b`` (built at first use)."""
-        key = ("step", b, self.sc.temperature > 0, self.sc.max_len, self._quarantined)
+    def _step_graph(self, b: int, frames: int = 0) -> _Graph:
+        """The captured decode step at batch ``b`` (built at first use), its
+        outputs ``max_len`` tokens long; ``frames`` sizes the encdec
+        family's cross K/V, so each frame count has its own graph."""
+        key = ("step", b, self.sc.temperature > 0, self.sc.max_len, frames, self._quarantined)
         if key not in self._graphs:
             n, dev = self.sc.max_len, self.device
             st = _Loop(
                 token=torch.zeros((b, 1), dtype=torch.long, device=dev),
-                cache=self.model.init_cache(b, n, device=dev),
+                cache=self.model.init_cache(b, self.sc.max_len, device=dev, frames=frames),
                 count=torch.zeros((), dtype=torch.long, device=dev),
                 toks=torch.zeros((b, n), dtype=torch.long, device=dev),
                 oks=torch.ones((b, n), dtype=torch.bool, device=dev),
                 noise=self._noise_rows(n, b),
             )
             self._graphs[key] = self._capture(self._step, st)
+        return self._graphs[key]
+
+    def _prime_step(self, st: _Loop) -> None:
+        """One priming step of a recurrent family: the prompt token in
+        ``st.token`` through a dense decode step, its greedy choice written
+        to the (B, 1) output."""
+        logits = self.model.decode_step(self.params, st.token, st.cache)[0][:, -1].float()
+        st.toks.copy_(torch.argmax(logits, dim=-1)[:, None])
+
+    def _prime_graph(self, b: int) -> _Graph:
+        """The captured priming step at batch ``b`` (built at first use)."""
+        key = ("prime", b, self.sc.max_len)
+        if key not in self._graphs:
+            dev = self.device
+            st = _Loop(
+                token=torch.zeros((b, 1), dtype=torch.long, device=dev),
+                cache=self.model.init_cache(b, self.sc.max_len, device=dev),
+                count=torch.zeros((), dtype=torch.long, device=dev),
+                toks=torch.zeros((b, 1), dtype=torch.long, device=dev),
+                oks=torch.ones((b, 1), dtype=torch.bool, device=dev),
+                noise=None,
+            )
+            self._graphs[key] = self._capture(self._prime_step, st)
         return self._graphs[key]
 
     def _spec_graph(self) -> _Graph:
@@ -714,9 +740,9 @@ class Engine:
     def _load(st, token, cache, noise) -> None:
         """Copy a segment's inputs into a graph's static state."""
         st.token.copy_(token)
-        for name in ("k", "v", "pos"):
-            if st.cache[name] is not cache[name]:
-                st.cache[name].copy_(cache[name])
+        for name, leaf in st.cache.items():
+            if leaf is not cache[name]:
+                leaf.copy_(cache[name])
         st.count.zero_()
         if noise is not None:
             st.noise[: noise.shape[0]].copy_(noise)
@@ -742,9 +768,17 @@ class Engine:
         """Prefill ``prompts`` (B, S) and bulk-fill the KV cache.  Returns
         ``(first_token (B, 1), cache)``; the first token is the prefill
         logits' argmax, as in the reference.  ``extras`` are further batch
-        inputs (the vlm family's ``patches`` (B, P, d)), moved to the
-        engine's device."""
+        inputs (the vlm family's ``patches`` (B, P, d), the encdec family's
+        ``frames`` (B, F, d)), moved to the engine's device.
+
+        The encdec family's prefill encodes the frames and fills the cross
+        K/V; it drops the prompt, as the reference does: zero logits, so
+        the first token is 0, and decode starts at ``pos`` 0 (ROADMAP C12).
+        The recurrent families (hybrid, ssm) have no prefill: the prompt
+        runs through decode steps (:meth:`_prime_recurrent`)."""
         prompts = np.asarray(prompts)
+        if self.cfg.family in RECURRENT_FAMILIES:
+            return self._prime_recurrent(prompts)
         if prompts.shape[1] > self.sc.max_len:
             raise ValueError(f"prompt length {prompts.shape[1]} exceeds max_len {self.sc.max_len}")
         self._validate_tokens(prompts)
@@ -753,6 +787,37 @@ class Engine:
             batch[name] = torch.as_tensor(np.asarray(val), device=self.device)
         logits, cache = self.model.prefill(self.params, batch, self.sc.max_len)
         return torch.argmax(logits.float(), dim=-1)[:, None], cache
+
+    def _prime_recurrent(self, prompts: np.ndarray):
+        """Prime a recurrent family's state by running the prompt through
+        dense decode steps from a zero cache, as the reference does; with
+        ``fused`` on a CUDA device the step is a captured graph replayed
+        once per prompt token.  The first token is the greedy choice of the
+        last prompt step's logits, with a temperature too: the rule of the
+        prefill families, whose first token is the prefill's argmax, so a
+        request primed alone in the scheduler draws what one-shot
+        ``generate`` at B = 1 draws.  (The reference samples that token
+        with its key; sampled tokens cannot match across frameworks, C3.)
+        A ring cache wraps, so the prompt may be longer than ``max_len``."""
+        if prompts.ndim != 2 or prompts.shape[1] < 1:
+            raise ValueError(f"prompts must be (B, S) with S >= 1, got {prompts.shape}")
+        self._validate_tokens(prompts)
+        toks = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
+        b, s = toks.shape
+        if self._graphed():
+            g = self._prime_graph(b)
+            st = g.state
+            for leaf in st.cache.values():
+                leaf.zero_()
+            for t in range(s):
+                st.token.copy_(toks[:, t : t + 1])
+                g.graph.replay()
+            g.replays += s
+            return st.toks.clone(), {name: leaf.clone() for name, leaf in st.cache.items()}
+        cache = self.model.init_cache(b, self.sc.max_len, device=self.device)
+        for t in range(s):
+            logits = self.model.decode_step(self.params, toks[:, t : t + 1], cache)[0]
+        return torch.argmax(logits[:, -1].float(), dim=-1)[:, None], cache
 
     @torch.no_grad()
     def prime_many(self, prompts, lengths):
@@ -847,25 +912,42 @@ class Engine:
         from the seed when sampling and not given).  Returns ``(tokens (B,
         steps), ok (B, steps), last_token, cache)``, all on the device; on
         the graph path the cache is the graph's static cache, valid until
-        the next call."""
+        the next call.  The graph's outputs hold ``max_len`` tokens; a
+        recurrent family, which may decode past ``max_len``, replays the
+        one graph in chunks of at most that many steps."""
         b = token.shape[0]
         if noise is None:
             noise = self.gumbel_noise(steps, b)
         if self._graphed():
-            g = self._step_graph(b)
+            g = self._step_graph(b, self._frames(cache))
             st = g.state
-            self._load(st, token, cache, noise)
-            for _ in range(steps):
-                g.graph.replay()
+            n = st.toks.shape[1]
+            self._load(st, token, cache, None if noise is None else noise[:n])
+            toks, oks = [st.toks[:, :0]], [st.oks[:, :0]]
+            for c0 in range(0, steps, n):
+                c = min(n, steps - c0)
+                if c0:  # the token and state carry over in the graph's own buffers
+                    st.count.zero_()
+                    if noise is not None:
+                        st.noise[:c].copy_(noise[c0 : c0 + c])
+                for _ in range(c):
+                    g.graph.replay()
+                toks.append(st.toks[:, :c].clone())
+                oks.append(st.oks[:, :c].clone())
             g.replays += steps
-            return (st.toks[:, :steps].clone(), st.oks[:, :steps].clone(), st.token.clone(),
-                    st.cache)
+            return torch.cat(toks, dim=1), torch.cat(oks, dim=1), st.token.clone(), st.cache
         st = _Loop(token.clone(), cache, torch.zeros((), dtype=torch.long, device=token.device),
                    torch.zeros((b, steps), dtype=torch.long, device=token.device),
                    torch.ones((b, steps), dtype=torch.bool, device=token.device), noise)
         for _ in range(steps):
             self._step(st)
         return st.toks, st.oks, st.token, st.cache
+
+    @staticmethod
+    def _frames(cache: dict) -> int:
+        """The encdec family's cross K/V rows in ``cache`` (0 for the
+        others)."""
+        return cache["xk"].shape[2] if "xk" in cache else 0
 
     @torch.no_grad()
     def _spec_decode(self, token, cache, budget: int, noise):
@@ -907,24 +989,29 @@ class Engine:
     # -- public API -----------------------------------------------------------
     def generate(self, prompts, max_new: int = 32, extras: Optional[Dict] = None) -> Dict:
         """prompts: (B, S) int; ``extras`` further batch inputs for the
-        prefill (the vlm family's ``patches``).  Returns ``{"tokens" (B,
+        prefill (the vlm family's ``patches``, the encdec family's
+        ``frames``).  Returns ``{"tokens" (B,
         max_new) int32, "finite", "prefill_s", "decode_s", "tok_per_s"}``;
         ``tok_per_s`` is the accepted tokens beyond the first over decode
         wall time.  With
         ``ServeConfig.speculative`` (B = 1 only) the result also holds
         ``spec_rounds``, ``spec_proposed``, ``spec_accepted`` and
         ``acceptance_rate``.  The noise table and, at first use, the CUDA
-        graph are made before the decode clock starts."""
+        graph are made before the decode clock starts.  The recurrent
+        families' priming counts in ``prefill_s``, and their ``max_new``
+        is not bounded by ``max_len``."""
         prompts = np.asarray(prompts)
         b = prompts.shape[0]
         spec = self.sc.speculative
         headroom = self.sc.draft_k if spec else 0
         patches = self.cfg.patch_tokens if self.cfg.family == "vlm" else 0
         rows = patches + prompts.shape[1] + max_new + headroom
-        if rows > self.sc.max_len:
+        recurrent = self.cfg.family in RECURRENT_FAMILIES
+        if rows > self.sc.max_len and not recurrent:
             # decode past max_len would run past the KV cache; a speculative
             # round writes up to draft_k rows past the budget; a vlm prompt
-            # also caches its patch prefix
+            # also caches its patch prefix.  A recurrent family has no such
+            # bound: its state is O(1) and the hybrid's ring wraps.
             raise ValueError(
                 f"patch rows({patches}) + prompt({prompts.shape[1]}) + max_new({max_new}) + "
                 f"spec headroom({headroom}) = {rows} exceeds max_len {self.sc.max_len}"
@@ -941,7 +1028,10 @@ class Engine:
                 if spec:
                     self._spec_graph()
                 else:
-                    self._step_graph(b)
+                    frames = np.shape((extras or {}).get("frames", ()))
+                    self._step_graph(b, frames[1] if len(frames) == 3 else 0)
+                if recurrent:
+                    self._prime_graph(b)
         t0 = self._clock()
         nxt, cache = self.prime(prompts, extras)
         self._sync()

@@ -43,7 +43,13 @@ B = 1 with ``ServeConfig.seed`` = the request's seed: the scheduler changes
 *when* work runs, never *what* it computes.  Batched admission primes a
 prompt at another row count, which is not bitwise (ROADMAP C9).  Free
 slots decode along with the pool; their output is discarded and their
-state is replaced at the next admission.
+state is replaced at the next admission.  The recurrent families (hybrid,
+ssm) have no masked prefill: ``admission="batched"`` primes each request
+alone, as ``"sequential"`` does, and a page size is ignored (their state
+is no sequence), as in the reference; an admission rewrites the slot's
+whole state (``h``, ``state``, ``conv`` and the ring), so nothing of the
+slot's previous request leaks into the next.  The vlm and encdec families
+are refused: a request carries no patches or frames.
 
 Hardening rides the same sync points: deadlines (shed at admission when the
 queue wait already blew them, retired TIMEOUT at a sync otherwise),
@@ -212,11 +218,13 @@ class Scheduler:
     ):
         if not engine.sc.fused:
             raise ValueError("Scheduler requires a fused-decode engine (ServeConfig.fused)")
-        if engine.cfg.family == "vlm":
+        if engine.cfg.family in ("vlm", "encdec"):
+            what = "patch embeddings" if engine.cfg.family == "vlm" else "audio frames"
+            extra = "patches" if engine.cfg.family == "vlm" else "frames"
             raise ValueError(
-                "the scheduler serves token prompts only: a Request carries no patch "
-                "embeddings (as in the reference), so a vlm model serves through "
-                "Engine.generate(prompts, extras={'patches': ...})"
+                f"the scheduler serves token prompts only: a Request carries no {what} "
+                f"(as in the reference), so a {engine.cfg.family} model serves through "
+                f"Engine.generate(prompts, extras={{'{extra}': ...}})"
             )
         if slots < 1 or segment < 1:
             raise ValueError(f"need slots >= 1 and segment >= 1, got {slots}, {segment}")

@@ -55,6 +55,12 @@ head, fp32 and int8 values), internlm2, olmoe (dense) and paligemma
 (patch embeddings) at full width cut to 2 layers, the graph loop's tokens
 equal to the eager loop's.
 
+The hybrid, ssm and encdec families (smoke widths, bf16 activations, the
+hybrid at 5 layers): the graph loop's tokens equal the eager loop's,
+greedy and sampled, the recurrent families past ``max_len``; one decode
+step (and the pool step's per-row form) makes no host sync; the
+scheduler's completions equal one-shot ``generate`` at B = 1.
+
 Training on the card: full-width ``vusa_edge`` (bf16 activations, remat)
 cut to 2 layers trains a few steps with pruning through the ``Trainer``;
 a run restored from its step-4 checkpoint (a mask-refresh step) ends
@@ -1034,3 +1040,91 @@ def test_family_graph_loop_equals_eager_on_card(arch, route):
         head = 0 if cfg.tie_embeddings else 1
         assert got["vusa_packed_matmul"][vd] == 11 * (4 * cfg.n_layers + head)
         assert got["vusa_fused_mlp_matmul"][vd] == 11 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the recurrent and encoder-decoder families on the card
+# ---------------------------------------------------------------------------
+
+
+def _family_engine(arch, dev, **kw):
+    """``arch``'s smoke config (the hybrid at 5 layers: a group and its
+    tail) with bf16 activations, parameters from the port's init with the
+    biases, gates and norm scales drawn, on the card; and the extras its
+    ``generate`` takes (4 x 12 stand-in frames for whisper)."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=5)
+    params = _card_init(cfg, dev)
+    extras = None
+    if cfg.family == "encdec":
+        extras = {"frames": np.random.default_rng(2).normal(
+            0, 0.02, (4, 12, cfg.d_model)).astype(np.float32)}
+    return Engine(cfg, params, ServeConfig(max_len=24, **kw), device=dev), extras
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_2_7b", "whisper_tiny"])
+def test_new_family_graph_loop_equals_eager_on_card(arch, temperature):
+    """The CUDA-graph loop (the recurrent families' priming a graph too)
+    gives the eager loop's tokens bitwise, greedy and sampled; the
+    recurrent families decode past ``max_len``, two lengths of it through
+    one step graph replayed in chunks."""
+    dev = _card()
+    eng, extras = _family_engine(arch, dev, temperature=temperature)
+    prompts = np.random.default_rng(1).integers(1, eng.cfg.vocab, (4, 8)).astype(np.int32)
+    lengths = (12,) if arch == "whisper_tiny" else (30, 53)
+    graphs = [eng.generate(prompts, max_new=n, extras=extras) for n in lengths]
+    assert [key[0] for key in eng._graphs].count("step") == 1
+    eng.sc = dataclasses.replace(eng.sc, fused=False)
+    for n, graph in zip(lengths, graphs):
+        eager = eng.generate(prompts, max_new=n, extras=extras)
+        np.testing.assert_array_equal(graph["tokens"], eager["tokens"])
+        assert graph["finite"] and eager["finite"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_2_7b", "whisper_tiny"])
+def test_new_family_decode_step_makes_no_host_sync_on_card(arch):
+    dev = _card()
+    eng, extras = _family_engine(arch, dev, fused=False, temperature=1.0)
+    prompts = np.array([[1, 2, 3, 4]] * (4 if extras else 1), np.int32)
+    tok, cache = eng.prime(prompts, extras)
+    noise = eng.gumbel_noise(1, prompts.shape[0])
+    eng.decode_segment(tok, cache, 1, noise)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            eng.decode_segment(tok, cache, 1, noise)
+            if arch != "whisper_tiny":  # the pool step's per-row form
+                pool = eng.model.init_slot_cache(3, 24, device=dev)
+                eng.model.decode_step(eng.params, torch.ones((3, 1), dtype=torch.long,
+                                                             device=dev), pool, rowwise=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_2_7b"])
+def test_recurrent_scheduler_equals_one_shot_on_card(arch, temperature):
+    """The scheduler's graph pool step: every completion bitwise one-shot
+    ``generate`` at B = 1 with the request's seed."""
+    from repro_torch.serve import Request, Scheduler
+
+    dev = _card()
+    eng, _ = _family_engine(arch, dev, temperature=temperature)
+    eng.sc = dataclasses.replace(eng.sc, max_len=48)
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(1, eng.cfg.vocab, int(rng.integers(3, 12))).astype(
+        np.int32), max_new=int(rng.integers(4, 12)), seed=r) for r in range(5)]
+    done = Scheduler(eng, slots=3, segment=4).run(reqs)
+    for rid, r in enumerate(reqs):
+        eng.sc = dataclasses.replace(eng.sc, seed=r.seed)
+        want = eng.generate(r.prompt[None], max_new=r.max_new)["tokens"][0]
+        np.testing.assert_array_equal(done[rid].tokens, want)

@@ -237,10 +237,15 @@ def test_window_sliced_packing_is_pack_rows(monkeypatch, value_dtype):
 
 @pytest.mark.parametrize("family", ["hybrid", "ssm", "encdec"])
 def test_unported_families_are_refused_naming_a13(family):
+    """The three families A13 ported last build now and are named in the
+    refusal of a family that is none of the reference's."""
     import dataclasses
 
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config("qwen2_0_5b"), family=family)
-    with pytest.raises(NotImplementedError, match="A13"):
+    arch = {"hybrid": "recurrentgemma_9b", "ssm": "mamba2_2_7b", "encdec": "whisper_tiny"}
+    assert build_model(get_config(arch[family])).cfg.family == family
+    cfg = dataclasses.replace(get_config("qwen2_0_5b"), family=f"{family}_v2")
+    with pytest.raises(NotImplementedError, match="A13") as err:
         build_model(cfg)
+    assert f"'{family}'" in str(err.value)

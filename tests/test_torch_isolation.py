@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.launch.train", "repro_torch.configs.qwen2_0_5b",
             "repro_torch.configs.qwen3_8b", "repro_torch.configs.internlm2_1_8b",
             "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.moonshot_v1_16b_a3b",
-            "repro_torch.configs.paligemma_3b"} <= set(mods)
+            "repro_torch.configs.paligemma_3b", "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.configs.mamba2_2_7b", "repro_torch.configs.whisper_tiny",
+            "repro_torch.models.ssm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

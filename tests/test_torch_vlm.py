@@ -69,8 +69,8 @@ def test_prefix_mask_matches_reference():
     assert rows.shape == (2, 1, 14)
     assert rows[0, 0, :5].all() and not rows[0, 0, 5:].any()
     assert rows[1, 0, :10].all() and not rows[1, 0, 10:].any()
-    with pytest.raises(NotImplementedError, match="A13"):
-        layers.MaskSpec("local")(torch.arange(2), torch.arange(2))
+    with pytest.raises(ValueError, match="sliding"):  # an unknown kind, as the reference
+        layers.MaskSpec("sliding")(torch.arange(2), torch.arange(2))
 
 
 def test_forward_gives_text_logits_and_matches(pair):
