@@ -268,13 +268,52 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    seconds, peak memory, the scheduler's stats and the pool's ms per
    step, the B1-B6 launch counts of the phase (0), the phase's seconds
    (at most 200);
-15. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+15. the (data, model) mesh: four ranks (``launch/mesh.spawn``), processes
+   that share this card over the gloo backend, built kernels loaded, not
+   rebuilt; a 2x2 mesh, its ``model`` sub-mesh (1x2), its ``data``
+   sub-mesh (2x1) and a 1x4 mesh over the same ranks, each held against
+   the single-device port in this process.  Gates: at 1x2 and 1x4,
+   full-width ``vusa_edge`` (12 layers, phase 4's weights, fp32 and int8
+   values at 1x2, fp32 at 1x4, B = 4, prompt 32, 32 new tokens, greedy
+   and T = 0.8, eager: gloo collectives cannot be captured) gives every
+   step's logits and every token bitwise one device's, the 250-window
+   head padding to 252 at 1x4, and layer 0's wq, fused MLP and head (fp32
+   and int8 values, each rank's windows cut once), each sharded B1/B3
+   call and each gathered-partial B2/B4 call, bitwise its single-device
+   call; the
+   sharded run launched B1/B3, the window-partial kernel and the ordered
+   sum, and never the unsplit fused MLP; at 2x1 (a captured step per rank,
+   the logits gathered after each replay) and 2x2, ``vusa_edge`` drawn
+   with the contracted fan-in (C6) and fp32 values gives tokens equal to
+   one device's on the 2-layer cut, greedy and sampled, and at 12 layers
+   a first-step logit gap within 1e-3 of the largest (each data rank
+   prefills its own rows, C9); the scheduler on 2x2 (the 2-layer cut,
+   phase 9's 24 requests on 8 slots, sequential admission) completes
+   every request bitwise as one device's on the slot pool and on the
+   paged pool without the prefix cache (with it: reported);
+   ``qwen2_0_5b`` at its published widths on 1x4 takes the
+   sequence-sharded prefill attention (14 heads over 2 KV heads do not
+   divide 4) and pads its 38 ff windows to 40, with a first-step logit
+   gap within 1e-3 at 24 layers and tokens equal on the 2-layer cut;
+   training full-width ``vusa_edge`` 20 steps (batch 8 x 128, pruning
+   refreshed on the way) is bitwise one device's on 1x2 (loss, params
+   and their zeros, moments); on 2x1, each step taken from one device's
+   state (lockstep, beside the 1x2 run on the other two ranks), the loss
+   is within 1e-4 relative of one device's step, and the global norm of
+   the gradients summed over ``data`` and each rank's updated shards
+   (params and both moments) are bitwise one device's step over the same
+   batch in two microbatches, the ranks' rows; a checkpoint written on
+   2x2 restores bitwise on one device.  Reported, beside the card's name and power limit: ms a step,
+   tok/s, collectives and bytes a step a rank, peak memory a rank, the
+   phase's seconds (at most 150);
+16. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, phase 10's speculative pool graph launches, CUDA launches per
    call as counted, and under ``families`` the same per decode step of
-   phase 13's qwen2 and qwen3 with their counted launches; B5/B6 per
-   ResNet-18 image, MobileNetV1 under ``mobilenetv1``);
-16. the card line again and the result line.
+   phase 13's qwen2 and qwen3 with their counted launches, and under
+   ``mesh_launches_per_step_per_rank`` phase 15's launches a rank; B5/B6
+   per ResNet-18 image, MobileNetV1 under ``mobilenetv1``);
+17. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -286,7 +325,10 @@ import argparse
 import asyncio
 import contextlib
 import dataclasses
+import functools
 import gc
+import hashlib
+import io
 import json
 import math
 import os
@@ -320,8 +362,17 @@ from repro_torch.kernels.vusa_packed import (  # noqa: E402
     empty_kernel,
     reset_launch_counts,
     vusa_fused_mlp_matmul,
+    vusa_fused_mlp_partials,
     vusa_packed_matmul,
+    vusa_window_sum,
 )
+from repro_torch.checkpoint.ckpt import restore  # noqa: E402
+from repro_torch.data.pipeline import SyntheticDataset  # noqa: E402
+from repro_torch.dist import comm  # noqa: E402
+from repro_torch.dist.sharding import shard_tree  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh, spawn  # noqa: E402
+from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
+from repro_torch.optim import AdamState, adamw_init  # noqa: E402
 from repro_torch.kernels.vusa_spmm import (  # noqa: E402
     cuda_launches as spmm_cuda_launches,
     reset_launch_counts as reset_spmm_counts,
@@ -426,6 +477,25 @@ REC_CUT_WHY = {  # every cut is of depth, never of a width
 REC_TF_POSITIONS = {"recurrentgemma_9b": 2100, "mamba2_2_7b": 600, "whisper_tiny": MAX_NEW}
 REC_SCHED_SLOTS = 4
 REC_PHASE_LIMIT_S = 200.0
+# the mesh phase (15): its meshes, value routes and temperatures, the logit
+# tolerance where prefill or attention runs over other row counts (C9), the
+# training runs and the phase's time limit
+MESH_DIR = ROOT / "build" / "mesh"
+MESH_TP, MESH_DP = ("1x2", "1x4"), ("2x1", "2x2")
+MESH_ROUTES = ("bf16", "int8")  # packed_values: bf16 keeps the fp32 params' own values
+# 1x4 serves fp32 values alone (the phase's time); its int8 calls are held in call_checks
+MESH_ROUTES_1X4 = ("bf16",)
+ROUTE_KIND = {"bf16": "dense", "int8": "int8"}  # the wrappers' route of each
+MESH_TEMPS = (0.0, 0.8)
+MESH_LOGIT_TOL = 1e-3  # first-step logits, of the largest: data split and qwen2
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 20, 8, 128
+MESH_TRAIN_LAYERS = DEPTH_CUT  # full width; each step gathers every parameter through gloo
+MESH_TRAIN_PRUNE = (4, 16, 4)  # begin, end, every: masks refreshed within the 20 steps
+MESH_TRAIN_TOL = 1e-4  # 2x1 loss each step from one device's state, relative
+MESH_CKPT_STEPS = 1
+# every collective crosses host memory and the ranks share the host's cores
+# with this process (PERF.md §5, the mesh)
+MESH_PHASE_LIMIT_S = 150.0
 # ResNet-18's layer groups by GEMM name (the 1x1 downsample convs in their group)
 RESNET18_GROUPS = (("conv0", ("conv0",)),
                    ("layer1", tuple(f"conv{i}" for i in range(1, 5))),
@@ -2806,6 +2876,564 @@ def print_recurrent(rec: dict, card: str) -> None:
           f"families' path) ({card})", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 15: the (data, model) mesh
+# --------------------------------------------------------------------------
+
+
+def mesh_cfg(arch: str, layers=None, dtype: str = "float32"):
+    """``arch``'s published config, cut to ``layers`` (None: whole), in
+    ``dtype`` activations: fp32 where the data split and the
+    sequence-sharded attention are held against one device within a
+    tolerance, as phase 13 holds its fp32 gates (in bf16 a prefill over
+    another row count rounds every product anew)."""
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def mesh_log(what: str, t0: float) -> None:
+    print(f"mesh phase: {what} at {time.monotonic() - t0:.1f}s", flush=True)
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def tree_digest(tree) -> str:
+    return digest(*(t for _, t in tree_items(tree) if t is not None))
+
+
+def mesh_engine(cfg, params, mesh, route: str = "bf16", max_len: int = PROMPT + MAX_NEW + 8,
+                **kw):
+    return Engine(cfg, params, ServeConfig(max_len=max_len, packed_weights="all",
+                                           packed_values=route, **kw), device=DEVICE, mesh=mesh)
+
+
+def mesh_counts() -> dict:
+    return {"vusa_packed_matmul": dict(vusa_packed_matmul.launches),
+            "vusa_fused_mlp_matmul": dict(vusa_fused_mlp_matmul.launches),
+            "vusa_fused_mlp_partials": dict(vusa_fused_mlp_partials.launches),
+            "vusa_window_sum": dict(vusa_window_sum.launches)}
+
+
+def recorded_generate(eng, prompts, temperature: float) -> dict:
+    """``generate`` (B = 4, ``MAX_NEW`` new tokens) on ``eng`` with each
+    eager decode step's fp32 logits (this rank's rows) recorded where the
+    step chooses its tokens (``Engine._emit``): the tokens, a digest of
+    each step's logits, the wrapper launches, collectives and bytes of the
+    call on this rank, its decode time and peak memory.  (A step captured
+    whole in a CUDA graph records nothing per replay: there the tokens
+    are the check.)"""
+    use(eng, temperature=temperature)
+    steps = []
+    eng._emit = lambda st, lg: (steps.append(lg.clone()), Engine._emit(eng, st, lg))
+    reset_all_launch_counts()
+    comm.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = eng.generate(prompts, max_new=MAX_NEW)
+    del eng._emit
+    n = MAX_NEW - 1
+    return {"tokens": out["tokens"], "digests": [digest(s) for s in steps],
+            "launches": mesh_counts(),
+            "collectives_per_step": comm.STATS["collectives"] / n,
+            "bytes_per_step": comm.STATS["bytes"] / n, "ms_per_step": 1e3 * out["decode_s"] / n,
+            "tok_per_s": out["tok_per_s"], "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def first_step_logits(eng, prompts) -> torch.Tensor:
+    """The whole fp32 logits of the first decode step after the prefill, on
+    a data axis from each rank's rows gathered (the step ``generate``
+    takes)."""
+    rows = eng._rows(len(prompts))
+    with torch.no_grad():
+        nxt, cache = eng.prime(prompts if rows is None else prompts[rows])
+        lg = eng._logits(nxt, cache, eng._route_pack())[:, -1].float()
+    return eng._whole(lg, rows).cpu()
+
+
+def whole_packs(params, rng) -> dict:
+    """Layer 0's wq, fused MLP trio and the LM head of ``params``, whole
+    packs on this rank, fp32 and int8 values, with a B = 4 input each."""
+    lp = {k: v[0] for k, v in params["layers"]["ffn"].items()}
+    wq = params["layers"]["attn"]["wq"][0]
+    wq = wq.reshape(wq.shape[0], -1)
+    out = {}
+    for route in ("dense", "int8"):
+        x = torch.from_numpy(rng.standard_normal((BATCH, wq.shape[0])).astype(np.float32))
+        out[route] = {"x": x.to(DEVICE), "wq": ops.pack_linear_rows(wq, value_dtype=route),
+                      "head": ops.pack_linear_rows(params["lm_head"], value_dtype=route),
+                      "mlp": [ops.pack_linear_rows(lp[n], value_dtype=route)
+                              for n in ("w_gate", "w_up")]
+                      + [ops.pack_linear_rows_t(lp["w_down"], value_dtype=route)]}
+    return out
+
+
+def call_checks(packs: dict, mesh) -> dict:
+    """Each sharded B1/B3 call (column windows gathered) and each
+    gathered-partial B2/B4 call on this rank's windows of ``whole_packs``'
+    packs bitwise the single-device call on the whole pack."""
+    out = {}
+    for route, pk in packs.items():
+        x = pk["x"]
+        local = {name: ops.local_windows(pk[name], mesh) for name in ("wq", "head")}
+        mlp = [ops.local_windows(q, mesh) for q in pk["mlp"]]
+        out[route] = {
+            name: torch.equal(ops.apply_row_packed_sharded(x, q, mesh),
+                              ops.apply_row_packed(x, pk[name])) for name, q in local.items()}
+        out[route]["mlp"] = torch.equal(ops.apply_fused_mlp_sharded(x, *mlp, mesh),
+                                        ops.apply_fused_mlp(x, *pk["mlp"]))
+        out[route]["head_windows"] = local["head"].values.shape[0]
+    return out
+
+
+def mesh_sched_runs(e) -> dict:
+    """Phase 9's traffic (all arrivals at 0) under sequential admission on
+    ``e``: the slot pool, the paged pool without and with the prefix cache
+    (pages of ``SCHED_PAGE``).  Tokens by request and the runs' stats."""
+    reqs = sched_traffic(e.cfg, arrivals=False)
+    out = {}
+    for what, kw in (("slot", {}), ("paged", {"page_size": SCHED_PAGE, "prefix_cache": False}),
+                     ("paged_prefix", {"page_size": SCHED_PAGE})):
+        sched_use(e, **kw)
+        comm.reset_stats()
+        t0 = time.monotonic()
+        sched = Scheduler(e, slots=SCHED_SLOTS, segment=SCHED_SEGMENT, admission="sequential")
+        done = sched.run([dataclasses.replace(r) for r in reqs])
+        st = sched_stats(sched)
+        out[what] = {"tokens": [done[i].tokens.tolist() for i in sorted(done)],
+                     "ok": all(c.status.value == "OK" for c in done.values()),
+                     "seconds": time.monotonic() - t0, "collectives": comm.STATS["collectives"],
+                     "bytes": comm.STATS["bytes"], **{k: st[k] for k in (
+                         "sustained_tok_per_s", "decoded_tokens", "prefix_hit_rate")}}
+    return out
+
+
+def mesh_train_config(steps: int, ckpt_dir=None) -> TrainConfig:
+    begin, end, every = MESH_TRAIN_PRUNE
+    return TrainConfig(steps=steps, global_batch=MESH_TRAIN_BATCH, seq_len=MESH_TRAIN_SEQ,
+                       prune_begin=begin, prune_end=end, prune_every=every,
+                       ckpt_dir=None if ckpt_dir is None else str(ckpt_dir), ckpt_every=steps,
+                       log_every=1, token_range=TRAIN_TOKENS,
+                       hp=TrainHParams(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=steps,
+                                       max_grad_norm=TRAIN_CLIP))
+
+
+def mesh_train(cfg, mesh, steps: int, ckpt_dir=None) -> dict:
+    """``steps`` of the trainer on ``mesh`` (None: one device): per-step
+    losses, digests of the final params (their zeros are the pruning
+    masks) and moments, per-step time, collectives and bytes a step on this
+    rank, peak memory."""
+    comm.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, mesh_train_config(steps, ckpt_dir), device=DEVICE, mesh=mesh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.monotonic()
+        out = tr.train()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    return {"losses": [r["loss"] for r in tr.metrics_log], "params": tree_digest(out["params"]),
+            "moments": tree_digest({"mu": out["opt"].mu, "nu": out["opt"].nu}),
+            "sparsity": out["sparsity"], "ms_per_step": 1e3 * wall / steps,
+            "collectives_per_step": comm.STATS["collectives"] / steps,
+            "bytes_per_step": comm.STATS["bytes"] / steps,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def mesh_lockstep(cfg, mesh, steps: int) -> dict:
+    """The data-parallel step held against one device's in lockstep, for
+    ``steps`` steps of the phase's stream (no pruning): each step the mesh
+    step starts from this rank's shards of the single-device state and
+    its rows of the batch, and the single-device step then advances that
+    state, so the two steps are compared, not two trajectories (a
+    free-running data-parallel run parts at its first update, where
+    Adam's first step is the sign of every gradient: PERF.md §6).  Beside
+    them, one device takes the same step with the batch in two
+    microbatches (``TrainHParams.microbatches``), each data rank's rows:
+    the mesh's arithmetic (each half's gradients, their sum, halved), on
+    one device, with no collective.  Returns the losses of the mesh step
+    and of one device's whole-batch step, whether the mesh step's global
+    gradient norm and this rank's updated shards (params and both moments)
+    equal the microbatched step's bitwise, the global-norm gap between
+    the microbatched and the whole-batch step (the card's own split-batch
+    rounding, ``scripts/grad_split.py``), and the mesh step's ms,
+    collectives and bytes a step."""
+    tc = dataclasses.replace(mesh_train_config(steps), prune_begin=steps + 1)
+    one = Trainer(cfg, tc, device=DEVICE)
+    dp = Trainer(cfg, tc, device=DEVICE, mesh=mesh)
+    halves = Trainer(cfg, dataclasses.replace(tc, hp=dataclasses.replace(tc.hp, microbatches=2)),
+                     device=DEVICE)
+    params, opt = one.init_state()
+    data = iter(SyntheticDataset(cfg, tc.global_batch, tc.seq_len, seed=tc.seed,
+                                 token_range=tc.token_range))
+    shard = functools.partial(shard_tree, placements=dp.p_shard, mesh=mesh)
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else None if v is None else v.clone()
+                for k, v in tree.items()}
+
+    def equal(a, b) -> bool:
+        return all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
+
+    out = {k: [] for k in ("losses", "dp_losses", "bitwise", "split_gnorm_gaps")}
+    ms = []
+    comm.reset_stats()
+    for _ in range(steps):
+        host = next(data)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+        rows = {k: torch.from_numpy(v[dp.rows]).to(DEVICE) for k, v in host.items()}
+        state = AdamState(opt.step.clone(), shard(opt.mu), shard(opt.nu))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        new, new_state, m_dp = dp.step_fn(shard(params), state, rows)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.monotonic() - t0))
+        acc, acc_opt, m_acc = halves.step_fn(
+            clone(params), AdamState(opt.step.clone(), clone(opt.mu), clone(opt.nu)), batch)
+        params, opt, m_one = one.step_fn(params, opt, batch)
+        out["bitwise"].append(bool(torch.equal(m_dp["gnorm"], m_acc["gnorm"])) and equal(
+            new, shard(acc)) and equal(new_state.mu, shard(acc_opt.mu)) and equal(
+            new_state.nu, shard(acc_opt.nu)))
+        out["split_gnorm_gaps"].append(abs(float(m_acc["gnorm"]) / float(m_one["gnorm"]) - 1))
+        out["losses"].append(float(m_one["loss"]))
+        out["dp_losses"].append(float(m_dp["loss"]))
+        del new, new_state, acc, acc_opt
+    return {**out, "ms_per_step": float(np.median(ms)),
+            "collectives_per_step": comm.STATS["collectives"] / steps,
+            "bytes_per_step": comm.STATS["bytes"] / steps}
+
+
+def mesh_rank(mesh, device, prompts) -> dict:
+    """One rank of phase 15's 2x2 world: every case on this rank.  The 1x2
+    runs take the mesh's ``model`` sub-mesh, the 2x1 runs its ``data``
+    sub-mesh, and a 1x4 mesh over the same four ranks the tensor-parallel
+    runs at four.  Of the two 1x2 meshes (one a data coordinate), each
+    serves one value route and the first alone runs the rest; of the two
+    2x1 meshes, the first alone runs: the second would repeat its work.
+    Training runs the 1x2 trainer on ranks 0 and 1 while ranks 2 and 3 run
+    the 2x1 lockstep, on the ``data`` sub-mesh of the transposed 2x2 mesh
+    (ranks [[0, 2], [1, 3]]), the two at once."""
+    t_rank = time.monotonic()
+    log = (lambda what: mesh_log(f"rank 0 {what}", t_rank)) if not any(
+        mesh.get_coordinate()) else (lambda what: None)
+    transposed = DeviceMesh(device.type, torch.arange(4).reshape(2, 2).T,
+                            mesh_dim_names=mesh.mesh_dim_names)
+    meshes = {"1x2": mesh["model"], "1x4": make_local_mesh(1, 4), "2x1": mesh["data"],
+              "2x2": mesh}
+    cfg = get_config("vusa_edge")
+    out = {"tp": {}, "calls": {}, "dp": {}, "sched": None, "build_s": {}}
+    # tensor parallelism at full depth: phase 4's weights, bitwise
+    params = prune_tree(build_model(cfg).init(0, device=DEVICE), cfg.sparsity)
+    packs = whole_packs(params, np.random.default_rng(7))
+    log("params")
+    group = comm.axis_index(mesh, "data")  # this rank's 1x2 mesh
+    lead_2x1 = comm.axis_index(mesh, "model") == 0  # this rank's 2x1 mesh is the first
+    for name in MESH_TP:
+        if name == "1x4" or group == 0:
+            out["calls"][name] = call_checks(packs, meshes[name])
+        log(f"{name} kernel calls")
+        # the two 1x2 meshes (one a data coordinate) take a value route each
+        for route in MESH_ROUTES[group::2] if name == "1x2" else MESH_ROUTES_1X4:
+            t0 = time.monotonic()
+            eng = mesh_engine(cfg, params, meshes[name], route, fused=False)
+            out["build_s"][f"{name} {route}"] = time.monotonic() - t0  # its packs, mostly
+            log(f"{name} {route} engine")
+            for temp in MESH_TEMPS:
+                out["tp"][(name, route, temp)] = recorded_generate(eng, prompts, temp)
+            log(f"{name} {route} runs")
+            del eng
+            release()
+    del params, packs
+    release()
+    # data parallelism: the contracted fan-in (C6), 2 layers and 12
+    for layers in (DEPTH_CUT, None):
+        dcfg = mesh_cfg("vusa_edge", layers)
+        p = prune_tree(device_init(dcfg), dcfg.sparsity)
+        for name in MESH_DP if lead_2x1 else ("2x2",):
+            eng = mesh_engine(dcfg, p, meshes[name], fused=True)
+            rec = {"first": first_step_logits(eng, prompts)}
+            for temp in (MESH_TEMPS if layers == DEPTH_CUT else (0.0,)):
+                rec[temp] = recorded_generate(eng, prompts, temp)
+            out["dp"][(name, dcfg.n_layers)] = rec
+            log(f"{name} {dcfg.n_layers} layers")
+            del eng
+            release()
+        if layers == DEPTH_CUT:  # the scheduler on 2x2 over the 2-layer cut
+            out["sched"] = mesh_sched_runs(mesh_engine(dcfg, p, mesh, max_len=SCHED_MAX_LEN))
+            log("scheduler")
+        del p
+        release()
+    # qwen2 at its published widths on 1x4: sequence-sharded prefill attention
+    out["qwen2"] = {}
+    for layers in (None, DEPTH_CUT):
+        qcfg = mesh_cfg("qwen2_0_5b", layers)
+        p = prune_tree(device_init(qcfg), qcfg.sparsity)
+        eng = mesh_engine(qcfg, p, meshes["1x4"])
+        calls = model_layers._maybe_seq_sharded_attention.calls
+        rec = {"first": first_step_logits(eng, prompts),
+               "seq_shard_calls": model_layers._maybe_seq_sharded_attention.calls - calls,
+               "ff_windows": eng.packed["mlp"]["w_gate"]["values"].shape[1]}
+        if layers == DEPTH_CUT:
+            rec["tokens"] = recorded_generate(eng, prompts, 0.0)["tokens"]
+        out["qwen2"][qcfg.n_layers] = rec
+        log(f"qwen2 {qcfg.n_layers} layers")
+        del eng, p
+        release()
+    # training at full width cut to MESH_TRAIN_LAYERS: 1x2 free-running
+    # (ranks 0, 1) beside 2x1 in lockstep (ranks 2, 3), a checkpoint
+    # written on 2x2
+    tcfg = mesh_cfg("vusa_edge", MESH_TRAIN_LAYERS, get_config("vusa_edge").dtype)
+    out["train"] = {}
+    if group == 0:
+        out["train"]["1x2"] = mesh_train(tcfg, meshes["1x2"], MESH_TRAIN_STEPS)
+    else:
+        out["train"]["2x1"] = mesh_lockstep(tcfg, transposed["data"], MESH_TRAIN_STEPS)
+    log("train 1x2 (and 2x1 lockstep on ranks 2, 3)")
+    out["train"]["2x2"] = mesh_train(tcfg, mesh, MESH_CKPT_STEPS, MESH_DIR / "ckpt")
+    log("train 2x2")
+    out["seconds"] = time.monotonic() - t_rank
+    return out
+
+
+def mesh_references(prompts) -> dict:
+    """The single-device port's results of every case of ``mesh_rank``,
+    on this process's card."""
+    cfg = get_config("vusa_edge")
+    ref = {"tp": {}, "dp": {}, "qwen2": {}, "build_s": {}}
+    params = prune_tree(build_model(cfg).init(0, device=DEVICE), cfg.sparsity)
+    for route in MESH_ROUTES:
+        t0 = time.monotonic()
+        eng = mesh_engine(cfg, params, None, route, fused=False)
+        ref["build_s"][f"1x1 {route}"] = time.monotonic() - t0
+        for temp in MESH_TEMPS:
+            ref["tp"][(route, temp)] = recorded_generate(eng, prompts, temp)
+        del eng
+        release()
+    del params
+    release()
+    for layers in (DEPTH_CUT, None):
+        dcfg = mesh_cfg("vusa_edge", layers)
+        p = prune_tree(device_init(dcfg), dcfg.sparsity)
+        eng = mesh_engine(dcfg, p, None, fused=True)
+        rec = {"first": first_step_logits(eng, prompts)}
+        for temp in (MESH_TEMPS if layers == DEPTH_CUT else (0.0,)):
+            rec[temp] = recorded_generate(eng, prompts, temp)
+        ref["dp"][dcfg.n_layers] = rec
+        del eng
+        if layers == DEPTH_CUT:
+            ref["sched"] = mesh_sched_runs(mesh_engine(dcfg, p, None, max_len=SCHED_MAX_LEN))
+        del p
+        release()
+    for layers in (None, DEPTH_CUT):
+        qcfg = mesh_cfg("qwen2_0_5b", layers)
+        p = prune_tree(device_init(qcfg), qcfg.sparsity)
+        eng = mesh_engine(qcfg, p, None)
+        rec = {"first": first_step_logits(eng, prompts),
+               "ff_windows": eng.packed["mlp"]["w_gate"]["values"].shape[1]}
+        if layers == DEPTH_CUT:
+            rec["tokens"] = recorded_generate(eng, prompts, 0.0)["tokens"]
+        ref["qwen2"][qcfg.n_layers] = rec
+        del eng, p
+        release()
+    tcfg = mesh_cfg("vusa_edge", MESH_TRAIN_LAYERS, cfg.dtype)
+    ref["train"] = mesh_train(tcfg, None, MESH_TRAIN_STEPS)
+    return ref
+
+
+def gap_rel(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def mesh_phase() -> dict:
+    """Phase 15 (module docstring).  Fails past ``MESH_PHASE_LIMIT_S``."""
+    t_phase = time.monotonic()
+    release()
+    cfg = get_config("vusa_edge")
+    prompts = prompts_for(cfg)
+    if MESH_DIR.exists():
+        shutil.rmtree(MESH_DIR)
+    MESH_DIR.mkdir(parents=True)
+    # the ranks run while this process computes the single-device references
+    box: dict = {}
+
+    def run_ranks():
+        t0 = time.monotonic()
+        try:
+            box["ranks"] = spawn(mesh_rank, 2, 2, "gloo", DEVICE, str(MESH_DIR / "rendezvous"),
+                                 args=(prompts,))
+        except BaseException as e:  # re-raised below, in the phase's thread
+            box["error"] = e
+        box["seconds"] = time.monotonic() - t0
+
+    worker = threading.Thread(target=run_ranks)
+    worker.start()
+    t0 = time.monotonic()
+    ref = mesh_references(prompts)
+    t_ref = time.monotonic() - t0
+    mesh_log("single-device references", t_phase)
+    worker.join()
+    if "error" in box:
+        raise box["error"]
+    ranks, t_ranks = box["ranks"], box["seconds"]
+    res = {"tp": {}, "dp": {}, "calls": ranks[0]["calls"], "sched": {}, "qwen2": {},
+           "train": {}, "reference_s": t_ref, "ranks_s": t_ranks,
+           "engine_build_s": {**ref["build_s"], **ranks[0]["build_s"]},
+           "rank_seconds": [r["seconds"] for r in ranks]}
+    for i, r in enumerate(ranks):  # every sharded call bitwise its single-device call
+        for name, routes in r["calls"].items():
+            for route, c in routes.items():
+                if not (c["wq"] and c["head"] and c["mlp"]):
+                    fail(f"mesh {name} rank {i} {route}: a sharded kernel call is not bitwise "
+                         f"its single-device call: {c}")
+    # tensor parallelism: bitwise logits and tokens at full depth
+    keys = sorted({key for r in ranks for key in r["tp"]})
+    for key in keys:
+        name, route, temp = key
+        want = ref["tp"][(route, temp)]
+        holders = [(i, r) for i, r in enumerate(ranks) if key in r["tp"]]
+        for i, r in holders:
+            got = r["tp"][key]
+            if got["digests"] != want["digests"] or not np.array_equal(got["tokens"],
+                                                                       want["tokens"]):
+                fail(f"mesh {name} {route} T={temp} rank {i}: logits or tokens differ from the "
+                     "single-device engine's")
+            c = got["launches"]
+            if min(c["vusa_packed_matmul"][ROUTE_KIND[route]],
+                   c["vusa_fused_mlp_partials"][ROUTE_KIND[route]],
+                   c["vusa_window_sum"]["dense"]) == 0 or sum(
+                       c["vusa_fused_mlp_matmul"].values()):
+                fail(f"mesh {name} {route}: the sharded path did not go through its kernels: {c}")
+        g = holders[0][1]["tp"][key]
+        res["tp"][f"{name} {route} T={temp}"] = {
+            k: g[k] for k in ("collectives_per_step", "bytes_per_step", "ms_per_step",
+                              "tok_per_s", "peak_bytes", "launches")}
+    # data parallelism: tokens on the depth cut, the first-step gap at full depth
+    for (name, layers), got in ranks[0]["dp"].items():
+        want = ref["dp"][layers]
+        gap = gap_rel(got["first"], want["first"])
+        rec = {"first_step_gap_rel": gap}
+        for temp in (MESH_TEMPS if layers == DEPTH_CUT else (0.0,)):
+            agree = float(np.mean(got[temp]["tokens"] == want[temp]["tokens"]))
+            rec[f"token_agreement T={temp}"] = agree
+            if layers == DEPTH_CUT and agree != 1.0:
+                fail(f"mesh {name} {layers} layers T={temp}: tokens differ from one device's")
+            rec.update({f"{k} T={temp}": got[temp][k] for k in (
+                "collectives_per_step", "bytes_per_step", "ms_per_step", "tok_per_s",
+                "peak_bytes")})
+        if gap > MESH_LOGIT_TOL:
+            fail(f"mesh {name} {layers} layers: first-step logit gap {gap:.3g} of the largest "
+                 f"> {MESH_LOGIT_TOL}")
+        res["dp"][f"{name} {layers} layers"] = rec
+    # the scheduler on 2x2, sequential admission: bitwise slot and paged
+    for what, got in ranks[0]["sched"].items():
+        want = ref["sched"][what]
+        same = got["tokens"] == want["tokens"]
+        if what != "paged_prefix" and not (same and got["ok"]):
+            fail(f"mesh 2x2 scheduler {what}: completions differ from the single-device "
+                 "scheduler's")
+        res["sched"][what] = {**{k: v for k, v in got.items() if k != "tokens"},
+                              "tokens_equal": same,
+                              "single_sustained_tok_per_s": want["sustained_tok_per_s"]}
+    # qwen2 on 1x4: sequence-sharded prefill, padded ff windows, logits and tokens
+    for layers, got in ranks[0]["qwen2"].items():
+        want = ref["qwen2"][layers]
+        gap = gap_rel(got["first"], want["first"])
+        if got["seq_shard_calls"] == 0:
+            fail("qwen2 on 1x4: the sequence-sharded attention did not run")
+        if got["ff_windows"] * 4 != -(-want["ff_windows"] // 4) * 4:
+            fail(f"qwen2 on 1x4: {got['ff_windows']} ff windows a rank for {want['ff_windows']}")
+        if gap > MESH_LOGIT_TOL:
+            fail(f"qwen2 on 1x4, {layers} layers: first-step logit gap {gap:.3g} > "
+                 f"{MESH_LOGIT_TOL}")
+        rec = {"first_step_gap_rel": gap, "seq_shard_calls": got["seq_shard_calls"],
+               "ff_windows": f"{want['ff_windows']} -> {got['ff_windows'] * 4}"}
+        if "tokens" in got:
+            if not np.array_equal(got["tokens"], want["tokens"]):
+                fail(f"qwen2 on 1x4, {layers} layers: tokens differ from one device's")
+            rec["tokens_equal"] = True
+        res["qwen2"][layers] = rec
+    # training
+    tr, want = {k: v for k, v in ranks[0]["train"].items() if k != "2x1"}, ref["train"]
+    one = tr["1x2"]
+    if one["losses"] != want["losses"] or one["params"] != want["params"] or \
+            one["moments"] != want["moments"]:
+        fail("mesh 1x2 training is not bitwise the single-device trainer")
+    lock = [r["train"]["2x1"] for r in ranks if "2x1" in r["train"]]
+    if len(lock) != 2:
+        fail(f"mesh 2x1 training ran on {len(lock)} ranks, not 2")
+
+    def rel_gap(key):
+        want = np.asarray(lock[0][key])
+        return max(float(np.max(np.abs(np.asarray(r["dp_" + key]) - want) / np.abs(want)))
+                   for r in lock)
+
+    rel = rel_gap("losses")
+    if rel > MESH_TRAIN_TOL:
+        fail(f"mesh 2x1 training: a step's loss {rel:.3g} relative from one device's step from "
+             f"the same state > {MESH_TRAIN_TOL}")
+    if not all(all(r["bitwise"]) for r in lock):
+        fail("mesh 2x1 training: the global gradient norm or a rank's updated shards differ "
+             "from one device's step over the same two halves of the batch: "
+             f"{[r['bitwise'] for r in lock]}")
+    split_gap = max(lock[0]["split_gnorm_gaps"])
+    like = build_model(mesh_cfg("vusa_edge", MESH_TRAIN_LAYERS)).init(0, device=DEVICE)
+    got = restore(MESH_DIR / "ckpt", MESH_CKPT_STEPS, {"params": like, "opt": adamw_init(like)})
+    if tree_digest(got["params"]) != tr["2x2"]["params"] or tree_digest(
+            {"mu": got["opt"].mu, "nu": got["opt"].nu}) != tr["2x2"]["moments"]:
+        fail("the checkpoint written on 2x2 does not restore bitwise on one device")
+    res["train"] = {name: {k: v for k, v in r.items() if k not in ("params", "moments")}
+                    for name, r in tr.items()}
+    res["train"]["2x1"] = {k: v for k, v in lock[0].items() if k not in (
+        "losses", "dp_losses", "bitwise", "split_gnorm_gaps")}
+    res["train"]["1x1"] = {k: v for k, v in want.items() if k not in ("params", "moments")}
+    res["train"]["2x1_lockstep"] = {
+        "loss_gap_rel": rel, "gnorm_and_shards_bitwise_microbatched": True,
+        "microbatched_vs_whole_gnorm_gap_rel": split_gap}
+    del got, like
+    release()
+    res["seconds"] = time.monotonic() - t_phase
+    if res["seconds"] > MESH_PHASE_LIMIT_S:
+        fail(f"mesh phase took {res['seconds']:.1f}s, over its {MESH_PHASE_LIMIT_S:.0f}s")
+    return res
+
+
+def print_mesh(m: dict, card: str) -> None:
+    print(f"mesh: the ranks of every mesh are processes sharing this one card over gloo, their "
+          f"collectives staged through host memory: the times below are not multi-GPU speeds "
+          f"({card})", flush=True)
+    print(f"mesh engine builds (vusa_edge, 12 layers; the packs, whole on one device, a rank's "
+          f"windows on a mesh; every rank and this process at once): "
+          f"{ {k: round(v, 2) for k, v in m['engine_build_s'].items()} } s ({card})", flush=True)
+    for name, routes in m["calls"].items():
+        windows = routes["dense"]["head_windows"]
+        print(f"mesh {name}: layer 0's wq, fused MLP and the LM head ({windows} head windows a "
+              "rank), each sharded call bitwise its single-device call, fp32 and int8 values",
+              flush=True)
+    for key, r in m["tp"].items():
+        print(f"mesh {key} (vusa_edge, 12 layers, B={BATCH}, eager): every step's logits and "
+              f"every token bitwise one device's; {r['ms_per_step']:.2f} ms a step, "
+              f"{r['tok_per_s']:.1f} tok/s, {r['collectives_per_step']:.1f} collectives and "
+              f"{r['bytes_per_step']:.0f} bytes a step a rank, peak memory {r['peak_bytes']} "
+              f"bytes a rank; launches a rank {r['launches']} ({card})", flush=True)
+    for key, r in m["dp"].items():
+        print(f"mesh {key} (vusa_edge, contracted fan-in, fp32 values): {r} ({card})",
+              flush=True)
+    for what, r in m["sched"].items():
+        print(f"mesh 2x2 scheduler {what} ({DEPTH_CUT} layers, {SCHED_REQUESTS} requests, "
+              f"{SCHED_SLOTS} slots, sequential admission): {r} ({card})", flush=True)
+    for layers, r in m["qwen2"].items():
+        print(f"mesh 1x4 qwen2_0_5b {layers} layers (published widths): {r}", flush=True)
+    for name, r in m["train"].items():
+        print(f"mesh train {name}: {r} ({card})", flush=True)
+    print(f"mesh phase {m['seconds']:.1f}s (limit {MESH_PHASE_LIMIT_S:.0f}s; single-device "
+          f"references {m['reference_s']:.1f}s, ranks {m['ranks_s']:.1f}s)", flush=True)
+
+
 def run_async(what: str, coro_fn, timeout: float = 300.0):
     """``asyncio.run(coro_fn())`` on a daemon thread: a run with no result
     in ``timeout`` s fails the phase and ends the process at once (a hung
@@ -3070,6 +3698,9 @@ def main() -> None:
     rec = recurrent_phase()
     print_recurrent(rec, card)
 
+    mesh = mesh_phase()
+    print_mesh(mesh, card)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -3118,6 +3749,23 @@ def main() -> None:
                      if key not in ("name", "route", "source", "replaces")}
         k["int4"]["families"] = families(name, "int4")
         kernels.append(k)
+    def mesh_launches(name, route):
+        """Phase 15's launches a decode step on each rank of the
+        tensor-parallel meshes (greedy run): B1/B3 per sharded call, B2/B4
+        as the window-partial kernel and the ordered sum."""
+        kind, out = ROUTE_KIND[route], {}
+        for m in MESH_TP:
+            if f"{m} {route} T=0.0" not in mesh["tp"]:  # 1x4 serves fp32 values alone
+                continue
+            c = mesh["tp"][f"{m} {route} T=0.0"]["launches"]
+            wrappers = (("vusa_packed_matmul",) if name.startswith("vusa_packed_matmul")
+                        else ("vusa_fused_mlp_partials", "vusa_window_sum"))
+            out[m] = {w: c[w]["dense" if w == "vusa_window_sum" else kind] / (MAX_NEW - 1)
+                      for w in wrappers}
+        return out
+
+    for k, route in zip(kernels, ("bf16", "bf16", "int8", "int8")):
+        k["mesh_launches_per_step_per_rank"] = mesh_launches(k["name"], route)
     keys = ("launches", "cuda_launches_per_call", "max_abs_err", "max_abs_err_bf16", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaced in (("vusa_spmm", "src/repro/kernels/vusa_spmm.py:34"),
@@ -3147,11 +3795,14 @@ def main() -> None:
          "reduction), their bound_ms with TF32 tensor-core operations over 495 TFLOP/s, three "
          "per logical fp32 product (3xTF32); B1-B4's 'families' per decode step of phase 13's "
          "qwen2_0_5b (24 layers) and qwen3_8b (2 layers) from layer 0's timed packs x layers "
-         "(+ qwen3's head on the fp32 route), launches from the phase's counted runs",
+         "(+ qwen3's head on the fp32 route), launches from the phase's counted runs; "
+         "B1-B4's mesh_launches_per_step_per_rank the launches a decode step on each rank of "
+         "phase 15's 1x2 and 1x4 meshes (B2/B4 as the window-partial kernel and the ordered "
+         "sum of the gathered partials)",
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
          "paper_workloads": paper, "graph_decode": graph, "speculative": spec,
          "scheduler": sched, "speculative_scheduler": sspec, "failure_model": fails,
-         "train": train, "families": fam, "recurrent_families": rec,
+         "train": train, "families": fam, "recurrent_families": rec, "mesh": mesh,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

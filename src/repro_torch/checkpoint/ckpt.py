@@ -184,18 +184,32 @@ def _load_leaf(d: Path, key: str, entry: dict) -> np.ndarray:
     return arr
 
 
-def restore(path: str | Path, step: int, like: Any) -> Any:
+def restore(path: str | Path, step: int, like: Any, shardings: Any = None,
+            mesh=None) -> Any:
     """Restore step ``step`` into the structure of ``like``.  Each leaf
     lands on the device of ``like``'s leaf (a tensor), or stays a numpy
-    array where ``like``'s leaf is not a tensor."""
+    array where ``like``'s leaf is not a tensor.  A checkpoint holds the
+    logical (whole) tree, so any mesh restores it: with ``shardings`` (a
+    tree of ``dist.sharding`` placements in ``like``'s structure, None
+    where a leaf is whole) and ``mesh``, each placed leaf lands as this
+    rank's shard."""
+    from ..dist.sharding import local_shard
+
     d = Path(path) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())["leaves"]
+    flat_shard = _flatten(shardings) if shardings is not None else {}
     out = {}
     for key, ref in _flatten(like).items():
         if key not in manifest:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         arr = _load_leaf(d, key, manifest[key])
-        out[key] = torch.from_numpy(arr).to(ref.device) if isinstance(ref, torch.Tensor) else arr
+        if not isinstance(ref, torch.Tensor):
+            out[key] = arr
+            continue
+        leaf = torch.from_numpy(arr).to(ref.device)
+        if flat_shard.get(key) is not None:
+            leaf = local_shard(leaf, flat_shard[key], mesh)
+        out[key] = leaf
     return _unflatten(like, out)
 
 
@@ -237,8 +251,9 @@ class Checkpointer:
             self._thread.join()
             self._thread = None
 
-    def restore_latest(self, like: Any) -> Tuple[Optional[int], Any]:
+    def restore_latest(self, like: Any, shardings: Any = None,
+                       mesh=None) -> Tuple[Optional[int], Any]:
         step = latest_step(self.path)
         if step is None:
             return None, like
-        return step, restore(self.path, step, like)
+        return step, restore(self.path, step, like, shardings, mesh)

@@ -31,7 +31,8 @@ from .vusa import Job, mac_assignment, schedule_matrix
 
 __all__ = [
     "ExactPacked", "pack_exact", "unpack_exact", "BlockPacked", "pack_blocks", "unpack_blocks",
-    "RowPacked", "pack_rows", "pack_rows_t", "unpack_rows", "validate_rows",
+    "RowPacked", "pack_rows", "pack_rows_t", "shard_windows", "unpack_rows",
+    "validate_rows",
     "QUANT_DTYPES", "QMAX", "QuantizedRowPacked", "pack_nibbles", "unpack_nibbles",
     "quantize_rows", "dequantize_rows",
 ]
@@ -249,6 +250,32 @@ def pack_rows_t(w: np.ndarray, m: int = 128, a: int = 16) -> RowPacked:
     so ``pack_rows_t(w_down)`` packs the (d, ff) transpose; ``unpack_rows``
     of the result returns ``w.T``."""
     return pack_rows(np.ascontiguousarray(np.asarray(w).T), m=m, a=a)
+
+
+def shard_windows(p: RowPacked, n_shards: int) -> RowPacked:
+    """Pad the window axis so ``n_shards`` ranks of the mesh's ``model``
+    axis can each hold a contiguous block of windows (sharded serving).
+
+    Pad windows are exact no-op jobs, value 0 and position -1, so
+    ``unpack_rows`` of the result is unchanged: window ``t`` still covers
+    columns ``[t*m, (t+1)*m)`` and the pad windows reconstruct all-zero
+    tiles past the real column range.  Shard ``s`` owns windows
+    ``[s*T/n, (s+1)*T/n)``, a contiguous column slice of the output, so the
+    shards' outputs reassemble by concatenation.  An ``n_shards`` that
+    already divides the window count returns the pack unchanged."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    t = p.values.shape[0]
+    pad = (-t) % n_shards
+    if pad == 0:
+        return p
+    values = np.concatenate(
+        [p.values, np.zeros((pad,) + p.values.shape[1:], p.values.dtype)]
+    )
+    positions = np.concatenate(
+        [p.row_positions, np.full((pad,) + p.row_positions.shape[1:], -1, np.int8)]
+    )
+    return RowPacked(k=p.k, c=p.c, m=p.m, a=p.a, values=values, row_positions=positions)
 
 
 def validate_rows(p: RowPacked) -> None:

@@ -1,0 +1,99 @@
+"""Collectives over one axis of a (data, model) mesh, with counters.
+
+Every collective of the port's sharded paths goes through here, on the
+process group of one mesh axis (``DeviceMesh.get_group``), so a run can
+report how many it made and how many bytes each rank received.  The
+backend is the process group's: gloo takes CUDA tensors for all-gather
+and broadcast (the ranks that share one card use it), nccl needs one GPU
+per rank.  A collective that fails raises; nothing here retries or falls
+back to a local result.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["STATS", "reset_stats", "axis_size", "axis_index", "mesh_shape", "all_gather",
+           "sum_in_rank_order", "broadcast"]
+
+# collectives made and bytes this rank received, since the last reset
+STATS = {"collectives": 0, "bytes": 0}
+
+
+def reset_stats() -> None:
+    STATS.update(collectives=0, bytes=0)
+
+
+def mesh_shape(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh, of a plain {name: size} mapping
+    (the rules accept one, for meshes no process group backs), or {} for
+    no mesh."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_size(mesh, name: str) -> int:
+    """Size of a mesh axis; 1 for no mesh or an absent axis."""
+    return mesh_shape(mesh).get(name, 1)
+
+
+def axis_index(mesh, name: str) -> int:
+    """This rank's coordinate on a mesh axis; 0 for no mesh or an absent
+    axis."""
+    if axis_size(mesh, name) == 1:
+        return 0
+    return mesh.get_local_rank(name)
+
+
+def all_gather(t: torch.Tensor, mesh, name: str, dim: int = 0) -> torch.Tensor:
+    """The shards of ``t`` of every rank of axis ``name`` concatenated along
+    ``dim`` in axis order (every shard the same shape)."""
+    n = axis_size(mesh, name)
+    if n == 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=mesh.get_group(name))
+    STATS["collectives"] += 1
+    STATS["bytes"] += (n - 1) * t.numel() * t.element_size()
+    return torch.cat(parts, dim=dim)
+
+
+def sum_in_rank_order(t: torch.Tensor, mesh, name: str) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of axis ``name``, added in rank order
+    (rank 0 first) on every rank: the same bits everywhere, and the same
+    order whatever the backend's reduction would choose.  Two ranks
+    all-reduce (a sum of two addends is the same bits in either order, and
+    it moves half the bytes of a gather); more gather every rank's ``t``
+    and add them in order."""
+    n = axis_size(mesh, name)
+    if n == 1:
+        return t
+    if n == 2:
+        out = t.clone()
+        dist.all_reduce(out, group=mesh.get_group(name))
+        STATS["collectives"] += 1
+        STATS["bytes"] += t.numel() * t.element_size()
+        return out
+    parts = all_gather(t[None], mesh, name, dim=0)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def broadcast(t: torch.Tensor, mesh, name: str, src: int = 0) -> torch.Tensor:
+    """``t`` of the rank at coordinate ``src`` on axis ``name``, in place on
+    every rank of that axis."""
+    n = axis_size(mesh, name)
+    if n == 1:
+        return t
+    group = mesh.get_group(name)
+    dist.broadcast(t, group=group, group_src=src)
+    STATS["collectives"] += 1
+    STATS["bytes"] += t.numel() * t.element_size() if axis_index(mesh, name) != src else 0
+    return t

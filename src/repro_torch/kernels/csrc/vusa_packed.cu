@@ -131,7 +131,14 @@ namespace cg = cooperative_groups;
 namespace {
 
 // Kernel launches accepted by the runtime, by entry point.
-enum Entry { kPackedEntry = 0, kFusedEntry = 1, kEmptyEntry = 2, kEntries = 3 };
+enum Entry {
+  kPackedEntry = 0,
+  kFusedEntry = 1,
+  kEmptyEntry = 2,
+  kPartialsEntry = 3,
+  kSumEntry = 4,
+  kEntries = 5
+};
 static std::atomic<unsigned long long> cuda_launches[kEntries];
 
 constexpr int BT = 8;                 // batch rows per block
@@ -446,23 +453,25 @@ __global__ void sum_slices_kernel(const float* __restrict__ part, float* __restr
   }
 }
 
-// Launch sum_slices_kernel over n outputs as a programmatic dependent of
-// the kernel last launched on `stream`; counted for `entry`.
+// Launch sum_slices_kernel over n outputs, as a programmatic dependent of
+// the kernel last launched on `stream` when `dependent` (else as a plain
+// launch: the partials came from elsewhere, e.g. a collective); counted
+// for `entry`.
 cudaError_t launch_ordered_sum(const float* part, float* out, size_t n, int slices,
-                               cudaStream_t stream, Entry entry) {
+                               cudaStream_t stream, Entry entry, bool dependent = true) {
   const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(out) |
                                   reinterpret_cast<uintptr_t>(part)) % 16 == 0;
   const size_t n4 = vec ? n / 4 : n;
   const size_t want = (n4 + 255) / 256;
-  cudaLaunchAttribute dependent[1];
-  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  dependent[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(want < 4096 ? want : 4096));
   cfg.blockDim = dim3(256);
   cfg.stream = stream;
-  cfg.attrs = dependent;
-  cfg.numAttrs = 1;
+  cfg.attrs = dependent ? attrs : nullptr;
+  cfg.numAttrs = dependent ? 1 : 0;
   const cudaError_t e =
       cudaLaunchKernelEx(&cfg, vec ? sum_slices_kernel<4> : sum_slices_kernel<1>, part, out, n4,
                          slices);
@@ -871,7 +880,7 @@ __global__ void __launch_bounds__(RNT, 2)
 template <typename XT, int VK>
 cudaError_t launch(const void* x, const void* const (&vals)[3], const void* const (&scales)[3],
                    const void* const (&pos)[3], const int (&S)[3], void* out, Problem pb, int T,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, bool sum) {
   size_t stage = 0;
   for (int p = 0; p < 3; ++p) {
     pb.pk[p] = rowpk::make_stream<VK>(vals[p], scales[p], pos[p], S[p], p == kDown ? pb.D : pb.K,
@@ -900,7 +909,8 @@ cudaError_t launch(const void* x, const void* const (&vals)[3], const void* cons
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, static_cast<const XT*>(x), pb);
   if (e != cudaSuccess) return e;
-  ++cuda_launches[kFusedEntry];
+  ++cuda_launches[sum ? kFusedEntry : kPartialsEntry];
+  if (!sum) return cudaSuccess;  // the caller sums the window partials
   return rowpk::launch_ordered_sum(pb.part, static_cast<float*>(out), (size_t)pb.B * pb.D, T,
                                    stream, kFusedEntry);
 }
@@ -908,12 +918,12 @@ cudaError_t launch(const void* x, const void* const (&vals)[3], const void* cons
 template <typename XT>
 cudaError_t for_x(const void* x, int kind, const void* const (&vals)[3],
                   const void* const (&scales)[3], const void* const (&pos)[3], const int (&S)[3],
-                  void* out, const Problem& pb, int T, cudaStream_t st) {
+                  void* out, const Problem& pb, int T, cudaStream_t st, bool sum) {
   switch (kind) {
-    case kF32: return launch<XT, kF32>(x, vals, scales, pos, S, out, pb, T, st);
-    case kBF16: return launch<XT, kBF16>(x, vals, scales, pos, S, out, pb, T, st);
-    case kInt8: return launch<XT, kInt8>(x, vals, scales, pos, S, out, pb, T, st);
-    case kInt4: return launch<XT, kInt4>(x, vals, scales, pos, S, out, pb, T, st);
+    case kF32: return launch<XT, kF32>(x, vals, scales, pos, S, out, pb, T, st, sum);
+    case kBF16: return launch<XT, kBF16>(x, vals, scales, pos, S, out, pb, T, st, sum);
+    case kInt8: return launch<XT, kInt8>(x, vals, scales, pos, S, out, pb, T, st, sum);
+    case kInt4: return launch<XT, kInt4>(x, vals, scales, pos, S, out, pb, T, st, sum);
   }
   return cudaErrorInvalidValue;
 }
@@ -927,6 +937,36 @@ bool bad_values(int kind, const void* scales, int S) {
   if (kind < kF32 || kind > kInt4) return true;
   if (kind >= kInt8 && scales == nullptr) return true;
   return kind == kInt4 && S % 2 != 0;
+}
+
+// vusa_fused_mlp_matmul with or without its second launch (`sum`): see the
+// entry points below.
+int fused_mlp(const void* x, int x_bf16, int value_kind, const void* gv, const void* gs,
+              const void* gp, int Sg, const void* uv, const void* us, const void* up, int Su,
+              const void* dv, const void* ds, const void* dp, int Sd, void* partial, void* out,
+              int B, int K, int D, int T, int m, int cluster, int rows, int down_rows,
+              void* stream, bool sum) {
+  if (m < 1 || m > MMAX || B < 0 || K < 0 || D < 0 || T < 0 || Sg < 0 || Su < 0 || Sd < 0)
+    return cudaErrorInvalidValue;
+  if (bad_values(value_kind, gs, Sg) || bad_values(value_kind, us, Su) ||
+      bad_values(value_kind, ds, Sd))
+    return cudaErrorInvalidValue;
+  if (cluster != mlp::G || rows != mlp::slice_rows(K) || down_rows != mlp::slice_rows(D) ||
+      (B + BT - 1) / BT > 65535 || (size_t)mlp::G * T > 0x7fffffffu)
+    return cudaErrorInvalidValue;
+  if (B == 0 || D == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T == 0) return cudaMemsetAsync(out, 0, (size_t)B * D * sizeof(float), st);
+  if (partial == nullptr) return cudaErrorInvalidValue;
+  const void* const vals[3] = {gv, uv, dv};
+  const void* const scales[3] = {gs, us, ds};
+  const void* const pos[3] = {gp, up, dp};
+  const int S[3] = {Sg, Su, Sd};
+  const mlp::Problem pb{B, K, D, m, rows, down_rows, 0, {}, static_cast<float*>(partial)};
+  if (x_bf16)
+    return mlp::for_x<__nv_bfloat16>(x, value_kind, vals, scales, pos, S, out, pb, T, st,
+                                     sum);
+  return mlp::for_x<float>(x, value_kind, vals, scales, pos, S, out, pb, T, st, sum);
 }
 
 }  // namespace
@@ -968,26 +1008,38 @@ int vusa_fused_mlp_matmul(const void* x, int x_bf16, int value_kind, const void*
                           const void* up, int Su, const void* dv, const void* ds, const void* dp,
                           int Sd, void* partial, void* out, int B, int K, int D, int T, int m,
                           int cluster, int rows, int down_rows, void* stream) {
-  if (m < 1 || m > MMAX || B < 0 || K < 0 || D < 0 || T < 0 || Sg < 0 || Su < 0 || Sd < 0)
-    return cudaErrorInvalidValue;
-  if (bad_values(value_kind, gs, Sg) || bad_values(value_kind, us, Su) ||
-      bad_values(value_kind, ds, Sd))
-    return cudaErrorInvalidValue;
-  if (cluster != mlp::G || rows != mlp::slice_rows(K) || down_rows != mlp::slice_rows(D) ||
-      (B + BT - 1) / BT > 65535 || (size_t)mlp::G * T > 0x7fffffffu)
-    return cudaErrorInvalidValue;
-  if (B == 0 || D == 0) return cudaSuccess;
+  return fused_mlp(x, x_bf16, value_kind, gv, gs, gp, Sg, uv, us, up, Su, dv, ds, dp, Sd, partial,
+                   out, B, K, D, T, m, cluster, rows, down_rows, stream, true);
+}
+
+// The first launch of vusa_fused_mlp_matmul alone: the cluster kernel,
+// writing the T window partials (T, B, D) fp32 to `partial` and nothing
+// else.  A tensor-parallel rank runs it on its own windows; the partials
+// of every rank, gathered in window order, go to vusa_window_sum, which
+// adds them as vusa_fused_mlp_matmul's second launch does.  Arguments as
+// vusa_fused_mlp_matmul's, less `out`.
+int vusa_fused_mlp_partials(const void* x, int x_bf16, int value_kind, const void* gv,
+                            const void* gs, const void* gp, int Sg, const void* uv,
+                            const void* us, const void* up, int Su, const void* dv,
+                            const void* ds, const void* dp, int Sd, void* partial, int B, int K,
+                            int D, int T, int m, int cluster, int rows, int down_rows,
+                            void* stream) {
+  if (T == 0) return cudaSuccess;  // no window, no partial
+  return fused_mlp(x, x_bf16, value_kind, gv, gs, gp, Sg, uv, us, up, Su, dv, ds, dp, Sd, partial,
+                   nullptr, B, K, D, T, m, cluster, rows, down_rows, stream, false);
+}
+
+// out[i] = part[0][i] + part[1][i] + ... + part[slices-1][i] over n
+// outputs, in that order: the second launch of vusa_fused_mlp_matmul on
+// partials (slices, n) fp32 that came from elsewhere (a plain launch, not
+// a programmatic dependent).  Returns a cudaError_t.
+int vusa_window_sum(const void* part, void* out, long long n, int slices, void* stream) {
+  if (n < 0 || slices < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T == 0) return cudaMemsetAsync(out, 0, (size_t)B * D * sizeof(float), st);
-  if (partial == nullptr) return cudaErrorInvalidValue;
-  const void* const vals[3] = {gv, uv, dv};
-  const void* const scales[3] = {gs, us, ds};
-  const void* const pos[3] = {gp, up, dp};
-  const int S[3] = {Sg, Su, Sd};
-  const mlp::Problem pb{B, K, D, m, rows, down_rows, 0, {}, static_cast<float*>(partial)};
-  if (x_bf16)
-    return mlp::for_x<__nv_bfloat16>(x, value_kind, vals, scales, pos, S, out, pb, T, st);
-  return mlp::for_x<float>(x, value_kind, vals, scales, pos, S, out, pb, T, st);
+  if (n == 0) return cudaSuccess;
+  if (slices == 0) return cudaMemsetAsync(out, 0, (size_t)n * sizeof(float), st);
+  return rowpk::launch_ordered_sum(static_cast<const float*>(part), static_cast<float*>(out),
+                                   (size_t)n, slices, st, kSumEntry, false);
 }
 
 // One launch of an empty kernel: the floor of a launch under a timer.
@@ -999,7 +1051,8 @@ int vusa_packed_empty(void* stream) {
 }
 
 // CUDA launches the entry point `entry` (0 vusa_packed_matmul, 1
-// vusa_fused_mlp_matmul, 2 vusa_packed_empty) has issued since the library
+// vusa_fused_mlp_matmul, 2 vusa_packed_empty, 3 vusa_fused_mlp_partials, 4
+// vusa_window_sum) has issued since the library
 // was loaded; 0 for any other entry.
 unsigned long long vusa_packed_cuda_launches(int entry) {
   return entry >= 0 && entry < kEntries ? cuda_launches[entry].load() : 0;

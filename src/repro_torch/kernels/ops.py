@@ -8,7 +8,14 @@ Port of the JAX package's ``kernels/ops.py``:
 * the row format: ``RowPackedLinear`` (float values, or int8/int4 values
   with per-(window, row) scales), the packers, ``dequantize_linear_values``
   and the appliers that reshape, slice ``[:c]`` and cast the fp32 kernel
-  output back to the activation dtype.
+  output back to the activation dtype;
+* the tensor-parallel appliers: ``shard_linear_windows`` pads a pack's
+  window axis for a ``model`` mesh axis, ``local_windows`` cuts a rank's
+  windows, and ``apply_row_packed_sharded`` / ``apply_fused_mlp_sharded``
+  run the unmodified single-device kernel on a rank's windows, then
+  gather: the column slices (B1/B3), or the fused MLP's window partials,
+  summed in window order by the kernel's own second launch (B2/B4).
+  Both are bitwise the single-device call at any mesh size.
 
 The reference's ``k_blk`` heuristic and autotune cache budgeted TPU VMEM;
 the CUDA kernels have no such knob, so neither exists here.
@@ -31,9 +38,12 @@ from ..core.packing import (
     pack_rows,
     quantize_rows,
 )
+from ..dist.comm import all_gather, axis_index, axis_size
 from .dense_matmul import dense_matmul
 from .ref import dequantize_values, vusa_fused_mlp_ref, vusa_packed_ref, vusa_spmm_ref
-from .vusa_packed import vusa_fused_mlp_matmul, vusa_packed_matmul
+from .vusa_packed import (
+    vusa_fused_mlp_matmul, vusa_fused_mlp_partials, vusa_packed_matmul, vusa_window_sum,
+)
 from .vusa_spmm import vusa_spmm
 
 __all__ = [
@@ -41,7 +51,8 @@ __all__ = [
     "RowPackedLinear", "pack_linear_rows", "pack_linear_rows_t", "pack_linear_rows_many",
     "linear_from_pack",
     "dequantize_linear_values", "apply_row_packed", "apply_row_packed_ref", "apply_fused_mlp",
-    "apply_fused_mlp_ref",
+    "apply_fused_mlp_ref", "mesh_axis_size", "shard_linear_windows", "local_windows",
+    "apply_row_packed_sharded", "apply_row_packed_sharded_many", "apply_fused_mlp_sharded",
 ]
 
 
@@ -147,6 +158,10 @@ class RowPackedLinear:
     scales: torch.Tensor | None = None  # (T, K) fp32, quantized packs only
     value_dtype: str = "dense"
     dense_itemsize: int | None = None
+    # > 1: these are one rank's contiguous windows of a pack padded to
+    # ``shards`` times as many, split over a ``model`` mesh axis of that
+    # size (``local_windows``); ``c`` stays the whole pack's
+    shards: int = 1
 
     @property
     def slots(self) -> int:
@@ -333,4 +348,130 @@ def apply_fused_mlp_ref(
     _check_fused_packs(x.shape[-1], gate, up, down_t)
     y = vusa_fused_mlp_ref(_flat(x), *_fused_operands(gate, up, down_t), m=gate.m,
                            value_dtype=gate.value_dtype)
+    return y.reshape(*x.shape[:-1], down_t.k).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Tensor-parallel appliers: the window axis over the mesh's ``model`` axis
+# --------------------------------------------------------------------------
+
+
+def mesh_axis_size(mesh, axis_name: str = "model") -> int:
+    """Size of a mesh axis; 1 for no mesh or an absent axis (the degenerate
+    case)."""
+    return axis_size(mesh, axis_name)
+
+
+def shard_linear_windows(p: RowPackedLinear, n_shards: int) -> RowPackedLinear:
+    """Pad the window axis to a multiple of ``n_shards`` with no-op windows
+    (value 0, position -1): the device twin of ``core.packing.shard_windows``.
+    ``k``/``c`` are unchanged: pad windows reconstruct zero tiles past the
+    real column range.  Quantized packs pad their scales with 1.0, so the
+    no-op windows dequantize to exact zeros and stay finite."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if p.shards != 1:
+        raise ValueError("the pack is already one rank's windows")
+    pad = (-p.values.shape[0]) % n_shards
+    if pad == 0:
+        return p
+    scales = None if p.scales is None else F.pad(p.scales, (0, 0, 0, pad), value=1.0)
+    return dataclasses.replace(
+        p, values=F.pad(p.values, (0, 0, 0, 0, 0, pad)),
+        positions=F.pad(p.positions, (0, 0, 0, 0, 0, pad), value=-1), scales=scales)
+
+
+def local_windows(p: RowPackedLinear, mesh, axis_name: str = "model") -> RowPackedLinear:
+    """This rank's contiguous windows of ``p`` (padded by
+    ``shard_linear_windows``), copied to fresh memory, with ``shards`` set
+    to the axis size; ``p`` itself when the axis has size 1."""
+    n = mesh_axis_size(mesh, axis_name)
+    if n == 1:
+        return p
+    p = shard_linear_windows(p, n)
+    t = p.values.shape[0] // n
+    r = axis_index(mesh, axis_name)
+
+    def cut(a):
+        return None if a is None else a[r * t:(r + 1) * t].contiguous()
+
+    return dataclasses.replace(p, values=cut(p.values), positions=cut(p.positions),
+                               scales=cut(p.scales), shards=n)
+
+
+def _check_rank_pack(p: RowPackedLinear, axis_name: str, tp: int) -> None:
+    """Refuse a pack that is not one rank's windows of a ``tp``-way split:
+    the appliers never cut a whole pack per call."""
+    if p.shards != tp:
+        raise ValueError(
+            f"the pack holds the windows of {p.shards} rank(s) but mesh axis {axis_name!r} "
+            f"has {tp}: pass one rank's windows (ops.local_windows, serve.packed.shard_packed "
+            f"or pack_lm_weights(shards={tp}, rank=...))")
+
+
+def apply_row_packed_sharded(x: torch.Tensor, p: RowPackedLinear, mesh=None,
+                             axis_name: str = "model") -> torch.Tensor:
+    """``apply_row_packed`` with the window axis split over ``axis_name``.
+
+    Windows tile the *output* columns, so each rank's kernel emits a
+    contiguous (B, T_loc*m) column slice; an all-gather over the axis
+    reassembles the whole width on every rank, then it is cut to ``c``.
+    The kernel's plan comes from K alone (``row_plan``), so every column is
+    bitwise the single-device call's.  ``p`` is this rank's windows
+    (``local_windows``); a size-1 axis runs the plain applier."""
+    tp = mesh_axis_size(mesh, axis_name)
+    _check_rank_pack(p, axis_name, tp)
+    if tp == 1:
+        return apply_row_packed(x, p)
+    y = vusa_packed_matmul(_flat(x), p.values, p.positions, p.scales, m=p.m,
+                           value_dtype=p.value_dtype)
+    y = all_gather(y, mesh, axis_name, dim=1)
+    return y[:, : p.c].reshape(*x.shape[:-1], p.c).to(x.dtype)
+
+
+def apply_row_packed_sharded_many(x: torch.Tensor, packs: list, mesh=None,
+                                  axis_name: str = "model") -> list:
+    """``apply_row_packed_sharded`` of each pack of ``packs`` on the same
+    ``x`` with one all-gather for all: each rank's column slices are
+    concatenated, gathered once and cut apart again, the same bits as one
+    gather a pack (a step's q, k and v projections)."""
+    tp = mesh_axis_size(mesh, axis_name)
+    if tp == 1:
+        return [apply_row_packed_sharded(x, p, mesh, axis_name) for p in packs]
+    for p in packs:
+        _check_rank_pack(p, axis_name, tp)
+    xf = _flat(x)
+    ys = [vusa_packed_matmul(xf, p.values, p.positions, p.scales, m=p.m,
+                             value_dtype=p.value_dtype) for p in packs]
+    widths = [y.shape[1] for y in ys]
+    whole = all_gather(torch.cat(ys, dim=1), mesh, axis_name, dim=1)  # rank-major
+    by_rank = whole.reshape(xf.shape[0], tp, sum(widths)).split(widths, dim=2)
+    return [y.reshape(xf.shape[0], -1)[:, : p.c].reshape(*x.shape[:-1], p.c).to(x.dtype)
+            for y, p in zip(by_rank, packs)]
+
+
+def apply_fused_mlp_sharded(
+    x: torch.Tensor, gate: RowPackedLinear, up: RowPackedLinear, down_t: RowPackedLinear,
+    mesh=None, axis_name: str = "model",
+) -> torch.Tensor:
+    """``apply_fused_mlp`` with the ff-window axis split over ``axis_name``.
+
+    All three packs window the same ff dim, so a rank owns a slab of ff.
+    It runs the fused kernel's first launch on its windows
+    (``vusa_fused_mlp_partials``): the (T_loc, B, D) window partials.  The
+    partials of every rank are all-gathered in window order, and the
+    kernel's own ordered sum (``vusa_window_sum``) adds all T, the pad
+    windows last as exact zeros.  No partial (B, D) output is all-reduced,
+    which would add in another order: the result is the single-device
+    kernel's, bitwise.  The packs are this rank's windows (``local_windows``);
+    a size-1 axis runs the plain fused applier."""
+    tp = mesh_axis_size(mesh, axis_name)
+    for q in (gate, up, down_t):
+        _check_rank_pack(q, axis_name, tp)
+    if tp == 1:
+        return apply_fused_mlp(x, gate, up, down_t)
+    _check_fused_packs(x.shape[-1], gate, up, down_t)
+    parts = vusa_fused_mlp_partials(_flat(x), *_fused_operands(gate, up, down_t), m=gate.m,
+                                    value_dtype=gate.value_dtype)
+    y = vusa_window_sum(all_gather(parts, mesh, axis_name, dim=0))
     return y.reshape(*x.shape[:-1], down_t.k).to(x.dtype)

@@ -12,9 +12,13 @@ the tests, and ``vusa_packed_sliced_ref`` and ``vusa_fused_mlp_sliced_ref``
 the orders of operations of the row-packed kernel and of the fused MLP
 kernel in ``csrc/vusa_packed.cu``; no kernel wrapper uses them.
 The wrappers in :mod:`repro_torch.kernels` run these for tensors on the
-CPU (the two decode products one row at a time, so that row b does not
-depend on B there either, the kernels' contract); ``chip_smoke.py`` holds
-the CUDA kernels against them on the card.
+CPU (the two decode products one row and one window at a time, so that
+row b does not depend on B there either, the kernels' contract, and a
+window's columns not on the other windows, which a tensor-parallel rank
+does not hold); ``chip_smoke.py`` holds the CUDA kernels against them on
+the card.  The fused MLP is split as its kernel is: the window partials
+(``vusa_fused_mlp_partials_ref``) and their sum in window order
+(``window_sum_ref``).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from .row_plan import CHUNK, PARTS, ROWS
 __all__ = [
     "dense_matmul_ref", "vusa_spmm_ref", "vusa_packed_ref", "vusa_fused_mlp_ref", "unpack_dense",
     "dequantize_values", "tf32_truncate", "tf32_split", "matmul_3xtf32", "vusa_packed_sliced_ref",
-    "vusa_fused_mlp_sliced_ref",
+    "vusa_fused_mlp_sliced_ref", "vusa_fused_mlp_partials_ref", "window_sum_ref",
 ]
 
 VALUE_DTYPES = ("dense", "int8", "int4")
@@ -136,14 +140,26 @@ def vusa_packed_ref(
     scales (T, K) for quantized values.  Returns (B, T*m) fp32.  Computed
     one row of x at a time (``_by_row``), so that row b does not depend on
     B, bitwise, as the CUDA kernel's does: the batched speculative verify
-    relies on it."""
-    w = _dense(values, positions, scales, m, value_dtype)
-    return _by_row(x, lambda row: row @ w)
+    relies on it.  Each window's (1, m) product is its own call on its own
+    copy of the window's columns (``_windows``), so a column does not
+    depend on which other windows the call holds either: a rank of a
+    tensor-parallel mesh that holds some of the windows computes its
+    columns bitwise as one device holding all of them."""
+    ws = _windows(_dense(values, positions, scales, m, value_dtype), m)
+    if not ws:
+        return torch.zeros((x.shape[0], 0), dtype=torch.float32, device=x.device)
+    return _by_row(x, lambda row: torch.cat([row @ w for w in ws], dim=1))
 
 
 def _dense(values, positions, scales, m, value_dtype) -> torch.Tensor:
     """The dense fp32 (K, T*m) weight of a pack of any value kind."""
     return unpack_dense(dequantize_values(values, scales, value_dtype), positions, m)
+
+
+def _windows(w: torch.Tensor, m: int) -> list:
+    """The (K, m) column windows of a dense (K, T*m) weight, each copied to
+    fresh memory."""
+    return [c.contiguous() for c in w.split(m, dim=1)]
 
 
 def _by_row(x: torch.Tensor, fn) -> torch.Tensor:
@@ -155,6 +171,53 @@ def _by_row(x: torch.Tensor, fn) -> torch.Tensor:
     if xf.shape[0] == 0:
         return fn(xf)
     return torch.cat([fn(row.clone()) for row in xf.split(1)])
+
+
+def vusa_fused_mlp_partials_ref(
+    x: torch.Tensor,
+    gate_values: torch.Tensor,
+    gate_positions: torch.Tensor,
+    up_values: torch.Tensor,
+    up_positions: torch.Tensor,
+    down_values: torch.Tensor,
+    down_positions: torch.Tensor,
+    gate_scales: torch.Tensor | None = None,
+    up_scales: torch.Tensor | None = None,
+    down_scales: torch.Tensor | None = None,
+    m: int = 128,
+    value_dtype: str = "dense",
+) -> torch.Tensor:
+    """The (T, B, D) fp32 window partials of the SwiGLU MLP over
+    row-packed operands: partial t is ``silu(x @ Wg_t) * (x @ Wu_t) @
+    Wd_t`` over window t's m ff lanes alone.  ``gate``/``up`` pack (K, ff);
+    ``down`` packs ``w_down`` *transposed* (D, ff), so the ff reduction dim
+    is the windowed one.  Quantized packs carry scales (T, K) for gate/up
+    and (T, D) for down.  One row of x and one window at a time, each
+    product its own call on its own copy of the window: row b of window t
+    depends on neither B nor the other windows, bitwise."""
+    wg = _windows(_dense(gate_values, gate_positions, gate_scales, m, value_dtype), m)
+    wu = _windows(_dense(up_values, up_positions, up_scales, m, value_dtype), m)
+    wd = [w.T.contiguous() for w in _windows(
+        _dense(down_values, down_positions, down_scales, m, value_dtype), m)]  # (m, D) each
+    t, d = down_positions.shape[:2]
+    if x.shape[0] == 0 or t == 0:
+        return torch.zeros((t, x.shape[0], d), dtype=torch.float32, device=x.device)
+    rows = [row.clone() for row in x.float().split(1)]
+    return torch.stack([torch.cat([(F.silu(r @ g) * (r @ u)) @ dn for r in rows])
+                        for g, u, dn in zip(wg, wu, wd)])
+
+
+def window_sum_ref(parts: torch.Tensor) -> torch.Tensor:
+    """``parts[0] + parts[1] + ... + parts[T-1]`` over the leading axis, in
+    that order, in fp32: the fused MLP's second launch.  Zero partials
+    (the pad windows of a sharded pack) change no bit.  (0, ...) sums to
+    zeros."""
+    if parts.shape[0] == 0:
+        return torch.zeros(parts.shape[1:], dtype=torch.float32, device=parts.device)
+    out = parts[0].float()
+    for p in parts[1:]:
+        out = out + p
+    return out
 
 
 def vusa_fused_mlp_ref(
@@ -171,16 +234,13 @@ def vusa_fused_mlp_ref(
     m: int = 128,
     value_dtype: str = "dense",
 ) -> torch.Tensor:
-    """``silu(x @ Wg) * (x @ Wu) @ Wd`` over row-packed operands.
-
-    ``gate``/``up`` pack (K, ff); ``down`` packs ``w_down`` *transposed*
-    (D, ff), so the ff reduction dim is the windowed one.  Quantized packs
-    carry scales (T, K) for gate/up and (T, D) for down.  Returns (B, D)
-    fp32, one row of x at a time (row b does not depend on B, bitwise)."""
-    wg = _dense(gate_values, gate_positions, gate_scales, m, value_dtype)  # (K, T*m)
-    wu = _dense(up_values, up_positions, up_scales, m, value_dtype)
-    wdt = _dense(down_values, down_positions, down_scales, m, value_dtype)  # w_down.T padded
-    return _by_row(x, lambda row: (F.silu(row @ wg) * (row @ wu)) @ wdt.T)
+    """``silu(x @ Wg) * (x @ Wu) @ Wd`` over row-packed operands: the
+    window partials (``vusa_fused_mlp_partials_ref``) added in window order
+    (``window_sum_ref``), the kernel's two launches.  Returns (B, D) fp32;
+    row b does not depend on B, bitwise."""
+    return window_sum_ref(vusa_fused_mlp_partials_ref(
+        x, gate_values, gate_positions, up_values, up_positions, down_values, down_positions,
+        gate_scales, up_scales, down_scales, m, value_dtype))
 
 
 def _slice_sums(x: torch.Tensor, w: torch.Tensor, rows: int, slices: int) -> list[torch.Tensor]:

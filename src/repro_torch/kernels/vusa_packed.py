@@ -28,6 +28,12 @@ of the packs: the plans spread each call over enough blocks to fill the
 card, and each block keeps several chunks of packed rows in flight.
 ``empty_kernel()`` launches an empty kernel of the same library: the floor
 of a launch under a timer.
+
+On a tensor-parallel mesh the fused MLP's two launches run apart:
+``vusa_fused_mlp_partials`` (the cluster kernel alone) on a rank's own
+windows, then ``vusa_window_sum`` (the ordered sum alone) on the partials
+of every rank gathered in window order, so the sharded MLP is the
+single-device kernel bitwise (``kernels/ops.py apply_fused_mlp_sharded``).
 """
 
 from __future__ import annotations
@@ -39,12 +45,15 @@ import torch
 
 from .build import library
 from .mlp_plan import mlp_plan
-from .ref import VALUE_DTYPES, vusa_fused_mlp_ref, vusa_packed_ref
+from .ref import (
+    VALUE_DTYPES, vusa_fused_mlp_partials_ref, vusa_fused_mlp_ref, vusa_packed_ref,
+    window_sum_ref,
+)
 from .row_plan import row_chunks, row_plan, workspace_bytes
 
 __all__ = [
-    "vusa_packed_matmul", "vusa_fused_mlp_matmul", "reset_launch_counts", "cuda_launches",
-    "empty_kernel",
+    "vusa_packed_matmul", "vusa_fused_mlp_matmul", "vusa_fused_mlp_partials", "vusa_window_sum",
+    "reset_launch_counts", "cuda_launches", "empty_kernel",
 ]
 
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -61,6 +70,12 @@ def _lib():
         _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, *[_I] * 8, _P,
     ]
     lib.vusa_fused_mlp_matmul.restype = _I
+    lib.vusa_fused_mlp_partials.argtypes = [
+        _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, *[_I] * 8, _P,
+    ]
+    lib.vusa_fused_mlp_partials.restype = _I
+    lib.vusa_window_sum.argtypes = [_P, _P, ctypes.c_longlong, _I, _P]
+    lib.vusa_window_sum.restype = _I
     lib.vusa_packed_empty.argtypes = [_P]
     lib.vusa_packed_empty.restype = _I
     lib.vusa_packed_cuda_launches.argtypes = [_I]
@@ -211,6 +226,48 @@ def vusa_packed_matmul(
     return out
 
 
+def _check_mlp(x, packs, scales, m, value_dtype) -> int:
+    """Check a fused MLP's operands; returns the window count T."""
+    gate_values, gate_positions, up_values, up_positions, down_values, down_positions = packs
+    gate_scales, up_scales, down_scales = scales
+    _check_x(x, m)
+    k = x.shape[1]
+    _check_pack("gate", gate_values, gate_positions, k, gate_scales, value_dtype)
+    _check_pack("up", up_values, up_positions, k, up_scales, value_dtype)
+    _check_pack("down", down_values, down_positions, down_positions.shape[1], down_scales,
+                value_dtype)
+    t = gate_positions.shape[0]
+    if up_positions.shape[0] != t or down_positions.shape[0] != t:
+        raise ValueError(
+            f"window counts differ: gate {t}, up {up_positions.shape[0]}, "
+            f"down {down_positions.shape[0]}"
+        )
+    if not gate_values.dtype == up_values.dtype == down_values.dtype:
+        raise TypeError("gate/up/down values must share one dtype")
+    return t
+
+
+def _mlp_on_cpu(x, packs, scales) -> bool:
+    """True when the operands lie on the CPU; else checks them for the
+    kernel."""
+    if _on_cpu(x, *packs, *(s for s in scales if s is not None)):
+        return True
+    names = ("gate_values", "gate_positions", "up_values", "up_positions", "down_values",
+             "down_positions", "gate_scales", "up_scales", "down_scales")
+    _require_contiguous(x=x, **dict(zip(names, (*packs, *scales))))
+    return False
+
+
+def _mlp_args(x, packs, scales, value_dtype) -> tuple:
+    """The C entry points' operands from x to the down pack's slot count."""
+    gv, gp, uv, up, dv, dp = packs
+    gs, us, ds = scales
+    return (x.data_ptr(), int(x.dtype == torch.bfloat16), _value_kind(gv, value_dtype),
+            gv.data_ptr(), _ptr(gs), gp.data_ptr(), gp.shape[2],
+            uv.data_ptr(), _ptr(us), up.data_ptr(), up.shape[2],
+            dv.data_ptr(), _ptr(ds), dp.data_ptr(), dp.shape[2])
+
+
 def vusa_fused_mlp_matmul(
     x: torch.Tensor,
     gate_values: torch.Tensor,
@@ -235,60 +292,95 @@ def vusa_fused_mlp_matmul(
     second launch.  Row b of the result does not depend on B (bitwise): the
     launch plan (``mlp_plan``: ordered slices of the K and the D rows over
     a cluster's blocks) depends on K and D alone."""
-    _check_x(x, m)
-    k = x.shape[1]
-    _check_pack("gate", gate_values, gate_positions, k, gate_scales, value_dtype)
-    _check_pack("up", up_values, up_positions, k, up_scales, value_dtype)
-    _check_pack("down", down_values, down_positions, down_positions.shape[1], down_scales,
-                value_dtype)
-    t = gate_positions.shape[0]
-    if up_positions.shape[0] != t or down_positions.shape[0] != t:
-        raise ValueError(
-            f"window counts differ: gate {t}, up {up_positions.shape[0]}, "
-            f"down {down_positions.shape[0]}"
-        )
-    if not gate_values.dtype == up_values.dtype == down_values.dtype:
-        raise TypeError("gate/up/down values must share one dtype")
     packs = (gate_values, gate_positions, up_values, up_positions, down_values, down_positions)
     scales = (gate_scales, up_scales, down_scales)
-    if _on_cpu(x, *packs, *(s for s in scales if s is not None)):
+    t = _check_mlp(x, packs, scales, m, value_dtype)
+    if _mlp_on_cpu(x, packs, scales):
         return vusa_fused_mlp_ref(x, *packs, *scales, m, value_dtype)
-    _require_contiguous(
-        x=x, gate_values=gate_values, gate_positions=gate_positions, up_values=up_values,
-        up_positions=up_positions, down_values=down_values, down_positions=down_positions,
-        gate_scales=gate_scales, up_scales=up_scales, down_scales=down_scales,
-    )
-    b = x.shape[0]
+    b, k = x.shape
     d = down_positions.shape[1]
     partial = torch.empty((t, b, d), dtype=torch.float32, device=x.device)
     out = torch.empty((b, d), dtype=torch.float32, device=x.device)
     err = _lib().vusa_fused_mlp_matmul(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), _value_kind(gate_values, value_dtype),
-        gate_values.data_ptr(), _ptr(gate_scales), gate_positions.data_ptr(),
-        gate_positions.shape[2],
-        up_values.data_ptr(), _ptr(up_scales), up_positions.data_ptr(), up_positions.shape[2],
-        down_values.data_ptr(), _ptr(down_scales), down_positions.data_ptr(),
-        down_positions.shape[2],
-        partial.data_ptr(), out.data_ptr(), b, k, d, t, m, *mlp_plan(k, d), _stream(x.device),
+        *_mlp_args(x, packs, scales, value_dtype), partial.data_ptr(), out.data_ptr(), b, k, d,
+        t, m, *mlp_plan(k, d), _stream(x.device),
     )
     _raise_on(err, "vusa_fused_mlp_matmul")
     vusa_fused_mlp_matmul.launches[value_dtype] += 1
     return out
 
 
+def vusa_fused_mlp_partials(
+    x: torch.Tensor,
+    gate_values: torch.Tensor,
+    gate_positions: torch.Tensor,
+    up_values: torch.Tensor,
+    up_positions: torch.Tensor,
+    down_values: torch.Tensor,
+    down_positions: torch.Tensor,
+    gate_scales: torch.Tensor | None = None,
+    up_scales: torch.Tensor | None = None,
+    down_scales: torch.Tensor | None = None,
+    m: int = 128,
+    value_dtype: str = "dense",
+) -> torch.Tensor:
+    """The first launch of ``vusa_fused_mlp_matmul`` alone: the (T, B, D)
+    fp32 window partials, window t's ``silu(x @ Wg_t) * (x @ Wu_t) @
+    Wd_t``, operands as there.  A tensor-parallel rank runs it on its own
+    windows; ``vusa_window_sum`` of every rank's partials, gathered in
+    window order, is ``vusa_fused_mlp_matmul`` bitwise: the same kernel,
+    plan and order of sums."""
+    packs = (gate_values, gate_positions, up_values, up_positions, down_values, down_positions)
+    scales = (gate_scales, up_scales, down_scales)
+    t = _check_mlp(x, packs, scales, m, value_dtype)
+    if _mlp_on_cpu(x, packs, scales):
+        return vusa_fused_mlp_partials_ref(x, *packs, *scales, m, value_dtype)
+    b, k = x.shape
+    d = down_positions.shape[1]
+    partial = torch.empty((t, b, d), dtype=torch.float32, device=x.device)
+    if partial.numel() == 0:
+        return partial
+    err = _lib().vusa_fused_mlp_partials(
+        *_mlp_args(x, packs, scales, value_dtype), partial.data_ptr(), b, k, d, t, m,
+        *mlp_plan(k, d), _stream(x.device),
+    )
+    _raise_on(err, "vusa_fused_mlp_partials")
+    vusa_fused_mlp_partials.launches[value_dtype] += 1
+    return partial
+
+
+def vusa_window_sum(parts: torch.Tensor) -> torch.Tensor:
+    """``parts[0] + parts[1] + ... + parts[T-1]`` over the leading axis of
+    (T, ...) fp32 partials, in that order: the second launch of
+    ``vusa_fused_mlp_matmul``, here on partials gathered from the ranks of
+    a tensor-parallel mesh.  Returns ``parts.shape[1:]`` fp32."""
+    if parts.dtype != torch.float32 or parts.ndim < 1:
+        raise TypeError(f"parts must be fp32 (T, ...), got {parts.dtype} {tuple(parts.shape)}")
+    if _on_cpu(parts):
+        return window_sum_ref(parts)
+    _require_contiguous(parts=parts)
+    out = torch.empty(parts.shape[1:], dtype=torch.float32, device=parts.device)
+    err = _lib().vusa_window_sum(parts.data_ptr(), out.data_ptr(), out.numel(), parts.shape[0],
+                                 _stream(parts.device))
+    _raise_on(err, "vusa_window_sum")
+    vusa_window_sum.launches["dense"] += 1
+    return out
+
+
 def reset_launch_counts() -> None:
-    """Set every launch count of both wrappers to 0."""
-    vusa_packed_matmul.launches = dict.fromkeys(VALUE_DTYPES, 0)
-    vusa_fused_mlp_matmul.launches = dict.fromkeys(VALUE_DTYPES, 0)
+    """Set every launch count of the wrappers to 0."""
+    for fn in (vusa_packed_matmul, vusa_fused_mlp_matmul, vusa_fused_mlp_partials,
+               vusa_window_sum):
+        fn.launches = dict.fromkeys(VALUE_DTYPES, 0)
 
 
-_ENTRIES = ("vusa_packed_matmul", "vusa_fused_mlp_matmul", "empty_kernel")
+_ENTRIES = ("vusa_packed_matmul", "vusa_fused_mlp_matmul", "empty_kernel",
+            "vusa_fused_mlp_partials", "vusa_window_sum")
 
 
 def cuda_launches(entry: str) -> int:
     """CUDA launches the kernel library has issued since it was loaded, by
-    the entry point ``entry`` (``"vusa_packed_matmul"``,
-    ``"vusa_fused_mlp_matmul"`` or ``"empty_kernel"``).  The library counts
+    the entry point ``entry`` (one of ``_ENTRIES``).  The library counts
     each launch the runtime accepts; reading builds it on first use."""
     return int(_lib().vusa_packed_cuda_launches(_ENTRIES.index(entry)))
 

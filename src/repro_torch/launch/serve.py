@@ -21,6 +21,8 @@ optional VUSA packing, one batched ``generate``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b --smoke --device cpu \
         --requests 8 --slots 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_tiny --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --packed all \
+        --mesh 2,2 --dist-backend gloo --device cpu
 
 Port of the JAX package's ``launch/serve.py``: one batched ``generate``,
 with its speculative options, or with ``--requests N`` N synthetic
@@ -36,8 +38,12 @@ a crashed journal first (proven completions come back as they are, the
 rest re-execute with the same tokens) and ``--watchdog-s`` arms the stall
 watchdog.  SIGINT / SIGTERM drain instead of dying mid-segment: admission
 stops, in-flight requests finish (bounded by ``--drain-timeout-s``), the
-stats print and the journal closes clean.  The mesh options come with a
-later slice (ROADMAP.md A12).  ``--no-fused`` decodes in the eager host
+stats print and the journal closes clean.  ``--mesh DP,TP`` serves on a
+(data, model) mesh of DP x TP ranks that ``launch/mesh.spawn`` starts on
+this machine, with the collective backend ``--dist-backend``: ``nccl``
+for one GPU per rank, ``gloo`` for ranks that share a GPU or run on the
+CPU (gloo collectives cannot be captured in a CUDA graph, so with TP > 1
+the steps run eagerly); rank 0 prints.  ``--no-fused`` decodes in the eager host
 loop instead of the CUDA graph.  ``--arch`` takes every id of
 ``configs.ARCH_IDS`` (the dense, moe, vlm, hybrid, ssm and encdec
 families); a vlm model's one-shot ``generate`` gets seeded stand-in patch
@@ -57,6 +63,7 @@ import numpy as np
 
 from ..configs import get_config, get_smoke_config
 from ..core.pruning import prune_tree
+from .mesh import parse_mesh, rank0_prints, spawn
 from ..models import build_model
 from ..serve import AsyncEngine, Engine, FaultConfig, Journal, Request, Scheduler, ServeConfig
 
@@ -165,6 +172,16 @@ def main(argv=None):
         help="on SIGINT/SIGTERM, give in-flight requests this long to finish before "
         "aborting them (CANCELLED)",
     )
+    ap.add_argument(
+        "--mesh", default=None, metavar="DP,TP",
+        help="serve on a data-parallel DP x tensor-parallel TP mesh of ranks spawned on "
+        "this machine (1,1 = one device)",
+    )
+    ap.add_argument(
+        "--dist-backend", default=None, choices=("nccl", "gloo"),
+        help="collective backend of --mesh: nccl needs one GPU per rank, gloo serves "
+        "ranks that share a GPU or run on the CPU",
+    )
     args = ap.parse_args(argv)
     if args.recover and not args.journal:
         ap.error("--recover requires --journal")
@@ -175,9 +192,27 @@ def main(argv=None):
     if args.speculative and args.requests == 0 and args.batch not in (None, 1):
         ap.error("--speculative one-shot generate serves --batch 1 "
                  "(use --requests N for batched speculative serving)")
+    dp, tp = parse_mesh(args.mesh) if args.mesh else (1, 1)
+    if dp * tp > 1:
+        if args.dist_backend is None:
+            ap.error("--mesh needs --dist-backend nccl (one GPU per rank) or gloo")
+        if args.stream:
+            ap.error("--stream/--journal serve from one process, not on a --mesh")
+        return spawn(_mesh_rank, dp, tp, args.dist_backend, args.device, args=(args,))[0]
+    return _run(args)
 
+
+def _mesh_rank(mesh, device, args):
+    """One rank of the mesh: the run on this rank's device; rank 0 prints."""
+    return rank0_prints(_run, args, mesh, device)
+
+
+def _run(args, mesh=None, device=None):
+    """Build, prune, pack and serve as the flags say, on ``device`` (default
+    ``--device``) and ``mesh``."""
+    device = device or args.device
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    params = build_model(cfg).init(0, device=args.device)
+    params = build_model(cfg).init(0, device=device)
     sp = cfg.sparsity if args.sparsity is None else args.sparsity
     if sp > 0:
         params = prune_tree(params, sp)
@@ -199,7 +234,7 @@ def main(argv=None):
                      prefill_chunk=args.prefill_chunk,
                      faults=FaultConfig(cache_nan_rate=args.fault_rate)
                      if args.fault_rate > 0 else None)
-    eng = Engine(cfg, params, sc, device=args.device)
+    eng = Engine(cfg, params, sc, device=device, mesh=mesh)
     if args.requests > 0:
         return _serve_requests(args, cfg, eng)
     prompts = np.ones((batch, args.prompt_len), np.int32)

@@ -2,12 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vusa_edge --steps 100 \
         [--smoke] [--batch 8] [--seq 128] [--lr 3e-4] [--ckpt DIR] [--microbatches N] \
-        [--grad-compress] [--device cpu]
+        [--grad-compress] [--device cpu] [--data 2 --model 2 --dist-backend gloo]
 
 Port of the JAX package's ``launch/train.py``: the ``Trainer`` on the
 learnable synthetic stream (tokens drawn from [0, 256)), pruning to the
-config's sparsity, on one device.  ``--data`` and ``--model`` above 1 (a
-sharded mesh) come with a later slice (ROADMAP.md A12).
+config's sparsity.  ``--data D --model M`` train on a (data, model) mesh of
+D x M ranks that ``launch/mesh.spawn`` starts on this machine, with the
+collective backend ``--dist-backend`` (``nccl``: one GPU per rank;
+``gloo``: ranks that share a GPU or run on the CPU); rank 0 prints and
+writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import argparse
 
 from ..configs import get_config, get_smoke_config
 from ..train import TrainConfig, Trainer, TrainHParams
+from .mesh import rank0_prints, spawn
 
 
 def main(argv=None):
@@ -32,11 +36,26 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="collective backend of a --data/--model mesh: nccl needs one GPU "
+                    "per rank, gloo serves ranks that share a GPU or run on the CPU")
     args = ap.parse_args(argv)
-    if args.data > 1 or args.model > 1:
-        raise NotImplementedError(
-            "a sharded mesh (--data/--model > 1) is not ported yet (ROADMAP.md A12)")
+    if args.data < 1 or args.model < 1:
+        ap.error(f"mesh axes must be >= 1, got data={args.data}, model={args.model}")
+    if args.data * args.model > 1:
+        if args.dist_backend is None:
+            ap.error("--data/--model need --dist-backend nccl (one GPU per rank) or gloo")
+        return spawn(_mesh_rank, args.data, args.model, args.dist_backend, args.device,
+                     args=(args,))[0]
+    return _run(args)
 
+
+def _mesh_rank(mesh, device, args):
+    """One rank of the mesh: the run on this rank's device; rank 0 prints."""
+    return rank0_prints(_run, args, mesh, device)
+
+
+def _run(args, mesh=None, device=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tc = TrainConfig(
         steps=args.steps,
@@ -52,7 +71,7 @@ def main(argv=None):
             grad_compress=args.grad_compress,
         ),
     )
-    out = Trainer(cfg, tc, device=args.device).train()
+    out = Trainer(cfg, tc, device=device or args.device, mesh=mesh).train()
     print(f"final loss {out['final_loss']:.4f}  sparsity {out['sparsity']:.2%}")
     return out
 

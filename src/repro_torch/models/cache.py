@@ -184,44 +184,95 @@ def poison_slot(slot_cache: dict, i: int, axes: Dict[str, int], value=float("nan
 
 @dataclass(frozen=True)
 class PagedLayout:
-    """Static geometry of a paged pool."""
+    """Static geometry of a paged pool.
+
+    With ``shards`` > 1 the pool is split over the ranks of a data mesh
+    axis: rank r owns slots ``[r*S/shards, (r+1)*S/shards)`` and the
+    contiguous block range ``[r*R, (r+1)*R)`` (R = ``rank_blocks``), laid
+    out as a one-shard pool of its own (its null block, its slots' scratch
+    blocks, then its user blocks).  Block ids stay global on the host; a
+    rank's arena holds its range, indexed ``id - r*R`` (``to_local``)."""
 
     slots: int
     page: int
     n_pages: int  # block-table width = max_len // page
     n_blocks: int  # total arena blocks, incl. null + scratch
+    shards: int = 1
 
     @classmethod
-    def build(cls, slots: int, max_len: int, page: int, blocks: int = 0):
+    def build(cls, slots: int, max_len: int, page: int, blocks: int = 0, shards: int = 1):
+        """``blocks`` user blocks in all (default: worst case, every slot's
+        max_len), cut evenly over ``shards`` ranks (rounded up)."""
         if page <= 0 or max_len % page:
             raise ValueError(
                 f"page_size {page} must be positive and divide max_len {max_len} "
                 "(the gathered block view must equal the slot-pool cache shape "
                 "for bit-parity)"
             )
+        if shards < 1 or slots % shards:
+            raise ValueError(f"{slots} slots do not split over {shards} ranks")
         n_pages = max_len // page
         user = blocks if blocks > 0 else slots * n_pages
-        return cls(slots=slots, page=page, n_pages=n_pages, n_blocks=1 + slots + user)
+        per = 1 + slots // shards + -(-user // shards)
+        return cls(slots=slots, page=page, n_pages=n_pages, n_blocks=shards * per,
+                   shards=shards)
 
     @property
     def null_block(self) -> int:
         return 0
 
+    @property
+    def rank_slots(self) -> int:
+        return self.slots // self.shards
+
+    @property
+    def rank_blocks(self) -> int:
+        return self.n_blocks // self.shards
+
+    def slot_rank(self, slot: int) -> int:
+        return slot // self.rank_slots
+
+    def block_rank(self, blk: int) -> int:
+        return blk // self.rank_blocks
+
     def scratch_block(self, slot: int) -> int:
-        return 1 + slot
+        r = self.slot_rank(slot)
+        return r * self.rank_blocks + 1 + slot - r * self.rank_slots
 
     @property
     def reserved(self) -> int:
-        return 1 + self.slots
+        """Blocks of one rank that are not user blocks (its null and its
+        slots' scratch blocks)."""
+        return 1 + self.rank_slots
 
     @property
     def user_blocks(self) -> int:
-        return self.n_blocks - self.reserved
+        return self.n_blocks - self.shards * self.reserved
+
+    @property
+    def rank_user_blocks(self) -> int:
+        """User blocks of one rank: the most one request may hold."""
+        return self.rank_blocks - self.reserved
 
     @property
     def oob(self) -> int:
         # out-of-range sentinel for dropped writes / unmapped table entries
         return self.n_blocks
+
+    def local(self) -> "PagedLayout":
+        """One rank's layout, as a pool of its own."""
+        if self.shards == 1:
+            return self
+        return PagedLayout(slots=self.rank_slots, page=self.page, n_pages=self.n_pages,
+                           n_blocks=self.rank_blocks)
+
+    def to_local(self, ids, rank: int) -> np.ndarray:
+        """Global block ids as rank ``rank``'s arena indices; ids of other
+        ranks (and sentinels) become its out-of-range sentinel, which the
+        arena writes drop."""
+        ids = np.asarray(ids, np.int64)
+        loc = ids - rank * self.rank_blocks
+        return np.where((loc >= 0) & (loc < self.rank_blocks), loc, self.rank_blocks)
 
 
 def paged_seq_len(cache_specs: Specs):
@@ -429,6 +480,11 @@ class BlockAllocator:
     bytes are worth keeping for future prefix hits), and the COW registry
     for partial tail pages.
 
+    On a layout split over ranks (``PagedLayout.shards``) each rank's user
+    blocks have their own free list, and ``alloc``, ``match_pages`` and
+    ``match_tail`` take the rank of the slot that asks: a slot only ever
+    holds blocks of its own rank's arena.
+
     Invariants:
       * every block is in exactly one of {free, cached, live};
       * refcounts are >= 1 for live blocks and never go negative;
@@ -439,8 +495,10 @@ class BlockAllocator:
 
     def __init__(self, layout: PagedLayout):
         self.layout = layout
-        # pop() from the tail → ascending allocation order
-        self._free = list(range(layout.n_blocks - 1, layout.reserved - 1, -1))
+        # one free list per rank; pop() from the tail → ascending allocation order
+        rb = layout.rank_blocks
+        self._free = [list(range((r + 1) * rb - 1, r * rb + layout.reserved - 1, -1))
+                      for r in range(layout.shards)]
         self._ref: dict = {}
         self._key_of: dict = {}  # blk -> registry key
         self._blk_of: dict = {}  # registry key -> blk
@@ -454,7 +512,7 @@ class BlockAllocator:
     # -- accounting ---------------------------------------------------------
     @property
     def free_blocks(self) -> int:
-        return len(self._free)
+        return sum(map(len, self._free))
 
     @property
     def cached_blocks(self) -> int:
@@ -466,25 +524,42 @@ class BlockAllocator:
 
     @property
     def available(self) -> int:
-        return len(self._free) + len(self._cached)
+        return self.free_blocks + len(self._cached)
+
+    def available_in(self, rank: int) -> int:
+        """Blocks rank ``rank`` can still hand out (free or cached)."""
+        if self.layout.shards == 1:
+            return self.available
+        return len(self._free[rank]) + sum(
+            self.layout.block_rank(b) == rank for b in self._cached.values())
+
+    def _evictable(self, rank: int):
+        """The least recently used cached entry of rank ``rank``."""
+        for key, b in self._cached.items():
+            if self.layout.block_rank(b) == rank:
+                return key, b
+        raise RuntimeError("no cached block to evict")
 
     def refcount(self, blk: int) -> int:
         return self._ref.get(blk, 0)
 
     # -- alloc / free -------------------------------------------------------
-    def alloc(self, n: int):
-        """Take ``n`` fresh blocks (refcount 1).  Prefers the zeroed free
-        list, then evicts cached prefix blocks LRU-first.  Returns
-        ``(ids, scrub)`` where ``scrub`` lists evicted blocks the caller
-        must zero before use, or ``None`` if the pool cannot cover ``n``."""
-        if n > self.available:
+    def alloc(self, n: int, rank: int = 0):
+        """Take ``n`` fresh blocks (refcount 1) of rank ``rank``.  Prefers
+        the zeroed free list, then evicts cached prefix blocks LRU-first.
+        Returns ``(ids, scrub)`` where ``scrub`` lists evicted blocks the
+        caller must zero before use, or ``None`` if the pool cannot cover
+        ``n``."""
+        if n > self.available_in(rank):
             return None
         ids, scrub = [], []
+        free = self._free[rank]
         for _ in range(n):
-            if self._free:
-                b = self._free.pop()
+            if free:
+                b = free.pop()
             else:
-                key, b = self._cached.popitem(last=False)
+                key, b = self._evictable(rank)
+                del self._cached[key]
                 self._unregister(b, key)
                 self.evictions += 1
                 scrub.append(b)
@@ -507,7 +582,7 @@ class BlockAllocator:
                 if key is not None:
                     self._cached[key] = b
                 else:
-                    self._free.append(b)
+                    self._free[self.layout.block_rank(b)].append(b)
                     dead.append(b)
             else:
                 self._ref[b] = r
@@ -543,23 +618,25 @@ class BlockAllocator:
         self._tail_rows[key] = rows
         return True
 
-    def match_pages(self, digests) -> list:
-        """Longest run of registered full-page digests; matched blocks gain
-        a reference (resurrecting cached blocks as needed)."""
+    def match_pages(self, digests, rank: int = 0) -> list:
+        """Longest run of registered full-page digests in rank ``rank``'s
+        blocks; matched blocks gain a reference (resurrecting cached blocks
+        as needed)."""
         ids = []
         for d in digests:
             self.lookups += 1
             b = self._blk_of.get(("F", d))
-            if b is None:
+            if b is None or self.layout.block_rank(b) != rank:
                 break
             self.hits += 1
             self._retain(b, ("F", d))
             ids.append(b)
         return ids
 
-    def match_tail(self, digests):
+    def match_tail(self, digests, rank: int = 0):
         """Longest registered partial-tail match among token-chain ``digests``
-        (index i = digest over the first i+1 tail tokens).  Returns
+        (index i = digest over the first i+1 tail tokens) in rank
+        ``rank``'s blocks.  Returns
         ``(blk, rows)`` for the COW source or None.  The source block is NOT
         ref-bumped: the caller copies its bytes into a fresh block and the
         two diverge immediately."""
@@ -567,7 +644,8 @@ class BlockAllocator:
         for i, d in enumerate(digests):
             key = ("P", d)
             b = self._blk_of.get(key)
-            if b is not None and self._tail_rows.get(key) == i + 1:
+            if (b is not None and self._tail_rows.get(key) == i + 1
+                    and self.layout.block_rank(b) == rank):
                 best = (b, i + 1)
         self.lookups += 1
         if best is not None:
@@ -592,7 +670,7 @@ class BlockAllocator:
         self._unregister(blk, key)
         if blk not in self._ref:
             # was parked in the cached pool: demote to plain free
-            self._free.append(blk)
+            self._free[self.layout.block_rank(blk)].append(blk)
             return [blk]
         return []
 
@@ -611,3 +689,40 @@ def prefix_tail_digests(seed: bytes, tail_tokens) -> list:
         h = _chain(h, np.asarray([t], np.int32))
         out.append(h)
     return out
+
+
+# ==========================================================================
+# Placements on a mesh
+# ==========================================================================
+
+
+def slot_shardings(slot_cache: dict, mesh, axes: Dict[str, int]) -> dict:
+    """The placements of a slot pool's leaves on ``mesh``: each leaf's slot
+    axis (``axes``, from :func:`batch_axes`) over the data-parallel mesh
+    axes, the rest whole, replicated when the DP degree does not divide the
+    slot count (the reference's ``slot_shardings``)."""
+    from ..dist.sharding import batch_sharding
+
+    n = slot_cache["pos"].shape[axes["pos"]]
+    out = {}
+    for name, leaf in slot_cache.items():
+        spec = batch_sharding(mesh, n, 1)[0]
+        parts = [None] * leaf.ndim
+        parts[axes[name]] = spec
+        out[name] = tuple(parts)
+    return out
+
+
+def paged_shardings(pstate: dict, mesh) -> dict:
+    """The placements of a paged pool on ``mesh``: the arena's block axis
+    (axis 1) over the data-parallel mesh axes, block tables and positions
+    over slots (the reference's ``paged_shardings``)."""
+    from ..dist.sharding import batch_sharding, block_sharding
+
+    slots = pstate["pos"].shape[0]
+    return {
+        "arena": {name: block_sharding(mesh, a.shape[1], a.ndim, axis=1)
+                  for name, a in pstate["arena"].items()},
+        "table": batch_sharding(mesh, slots, pstate["table"].ndim),
+        "pos": batch_sharding(mesh, slots, 1),
+    }

@@ -10,15 +10,17 @@ the reference load through :func:`repro_torch.convert.params_from_numpy`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Tuple
+import threading
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["ParamSpec", "init_params", "rms_norm", "layer_norm", "rope", "apply_rope",
-           "strict_fp32", "per_row"]
+           "strict_fp32", "per_row", "mesh_context", "current_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +31,15 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str = "normal"  # normal | zeros | ones
     scale: float = 1.0
+    # logical axis names, one per dim (None: never sharded), read by the
+    # mesh rules of ``dist/sharding.py``; empty means all None
+    axes: Tuple[Optional[str], ...] = ()
+
+    def __post_init__(self):
+        if not self.axes:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not match shape {self.shape}")
 
 
 def _init_leaf(spec: ParamSpec, rng: np.random.Generator) -> np.ndarray:
@@ -64,6 +75,34 @@ def strict_fp32() -> None:
     (``Engine``, the serve launcher and ``chip_smoke.py``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# --------------------------------------------------------------------------
+# Mesh context
+# --------------------------------------------------------------------------
+
+_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """Install ``mesh`` for the code inside: the layers that act on a mesh
+    (``layers._maybe_seq_sharded_attention``) read it through
+    :func:`current_mesh`.  The reference's context also carries activation
+    rules for its sharding constraints; in the port each rank computes on
+    tensors it holds whole or as its shard, placed where they are made
+    (``dist/sharding.py``), so there is nothing to constrain."""
+    prev = getattr(_ctx, "mesh", None)
+    _ctx.mesh = mesh
+    try:
+        yield
+    finally:
+        _ctx.mesh = prev
+
+
+def current_mesh():
+    """The mesh of the innermost ``mesh_context``, or None."""
+    return getattr(_ctx, "mesh", None)
 
 
 # --------------------------------------------------------------------------

@@ -58,7 +58,7 @@ def _stack_specs(tree: dict, n: int) -> dict:
     """Add a leading `layers` axis of size n to every ParamSpec leaf."""
     return {
         k: _stack_specs(v, n) if isinstance(v, dict)
-        else ParamSpec((n,) + v.shape, v.init, v.scale)
+        else ParamSpec((n,) + v.shape, v.init, v.scale, (None,) + v.axes)
         for k, v in tree.items()
     }
 
@@ -89,20 +89,20 @@ def check_family(cfg) -> None:
 def lm_specs(cfg) -> dict:
     d, v = cfg.d_model, cfg.padded_vocab
     layer = {
-        "norm1": ParamSpec((d,), init="zeros"),
+        "norm1": ParamSpec((d,), init="zeros", axes=("embed",)),
         "attn": attention_specs(cfg),
-        "norm2": ParamSpec((d,), init="zeros"),
+        "norm2": ParamSpec((d,), init="zeros", axes=("embed",)),
         "ffn": moe_specs(cfg) if cfg.family == "moe" else mlp_specs(cfg),
     }
     specs = {
-        "embed": ParamSpec((v, d), scale=1.0),
+        "embed": ParamSpec((v, d), scale=1.0, axes=("vocab", "embed")),
         "layers": _stack_specs(layer, cfg.n_layers),
-        "final_norm": ParamSpec((d,), init="zeros"),
+        "final_norm": ParamSpec((d,), init="zeros", axes=("embed",)),
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((d, v))
+        specs["lm_head"] = ParamSpec((d, v), axes=("embed", "vocab"))
     if cfg.family == "vlm":
-        specs["patch_proj"] = ParamSpec((d, d))
+        specs["patch_proj"] = ParamSpec((d, d), axes=("embed", "embed2"))
     return specs
 
 
@@ -397,9 +397,9 @@ def _logits(params, x, head):
 def _hybrid_layer_specs(cfg, kind: str) -> dict:
     d = cfg.d_model
     return {
-        "norm1": ParamSpec((d,), init="zeros"),
+        "norm1": ParamSpec((d,), init="zeros", axes=("embed",)),
         "mixer": rglru_specs(cfg) if kind == "rglru" else attention_specs(cfg),
-        "norm2": ParamSpec((d,), init="zeros"),
+        "norm2": ParamSpec((d,), init="zeros", axes=("embed",)),
         "ffn": mlp_specs(cfg),
     }
 
@@ -417,12 +417,12 @@ def hybrid_specs(cfg) -> dict:
     d, v = cfg.d_model, cfg.padded_vocab
     n_groups, tail = _hybrid_layout(cfg)
     return {
-        "embed": ParamSpec((v, d), scale=1.0),
+        "embed": ParamSpec((v, d), scale=1.0, axes=("vocab", "embed")),
         "groups": {f"p{i}_{kind}": _stack_specs(_hybrid_layer_specs(cfg, kind), n_groups)
                    for i, kind in enumerate(cfg.block_pattern)},
         "tail": {f"t{i}_{kind}": _hybrid_layer_specs(cfg, kind) for i, kind in enumerate(tail)},
-        "final_norm": ParamSpec((d,), init="zeros"),
-        "lm_head": ParamSpec((d, v)),
+        "final_norm": ParamSpec((d,), init="zeros", axes=("embed",)),
+        "lm_head": ParamSpec((d, v), axes=("embed", "vocab")),
     }
 
 
@@ -527,12 +527,12 @@ def hybrid_decode_step(params, token, cache, cfg, rowwise: bool = False):
 
 def ssm_specs(cfg) -> dict:
     d, v = cfg.d_model, cfg.padded_vocab
-    layer = {"norm": ParamSpec((d,), init="zeros"), "mixer": mamba2_specs(cfg)}
+    layer = {"norm": ParamSpec((d,), init="zeros", axes=("embed",)), "mixer": mamba2_specs(cfg)}
     return {
-        "embed": ParamSpec((v, d), scale=1.0),
+        "embed": ParamSpec((v, d), scale=1.0, axes=("vocab", "embed")),
         "layers": _stack_specs(layer, cfg.n_layers),
-        "final_norm": ParamSpec((d,), init="zeros"),
-        "lm_head": ParamSpec((d, v)),
+        "final_norm": ParamSpec((d,), init="zeros", axes=("embed",)),
+        "lm_head": ParamSpec((d, v), axes=("embed", "vocab")),
     }
 
 
@@ -583,26 +583,26 @@ def encdec_specs(cfg) -> dict:
     """The head is tied to ``embed`` (whisper's convention)."""
     d, v = cfg.d_model, cfg.padded_vocab
     enc_layer = {
-        "norm1": ParamSpec((d,), init="zeros"),
+        "norm1": ParamSpec((d,), init="zeros", axes=("embed",)),
         "attn": attention_specs(cfg),
-        "norm2": ParamSpec((d,), init="zeros"),
+        "norm2": ParamSpec((d,), init="zeros", axes=("embed",)),
         "ffn": mlp_specs(cfg),
     }
     dec_layer = {
-        "norm1": ParamSpec((d,), init="zeros"),
+        "norm1": ParamSpec((d,), init="zeros", axes=("embed",)),
         "self_attn": attention_specs(cfg),
-        "norm_x": ParamSpec((d,), init="zeros"),
+        "norm_x": ParamSpec((d,), init="zeros", axes=("embed",)),
         "cross_attn": attention_specs(cfg),
-        "norm2": ParamSpec((d,), init="zeros"),
+        "norm2": ParamSpec((d,), init="zeros", axes=("embed",)),
         "ffn": mlp_specs(cfg),
     }
     return {
-        "embed": ParamSpec((v, d), scale=1.0),
-        "enc_pos": ParamSpec((cfg.enc_frames, d), scale=0.02),
+        "embed": ParamSpec((v, d), scale=1.0, axes=("vocab", "embed")),
+        "enc_pos": ParamSpec((cfg.enc_frames, d), scale=0.02, axes=(None, "embed")),
         "enc_layers": _stack_specs(enc_layer, cfg.enc_layers),
-        "enc_norm": ParamSpec((d,), init="zeros"),
+        "enc_norm": ParamSpec((d,), init="zeros", axes=("embed",)),
         "dec_layers": _stack_specs(dec_layer, cfg.n_layers),
-        "final_norm": ParamSpec((d,), init="zeros"),
+        "final_norm": ParamSpec((d,), init="zeros", axes=("embed",)),
     }
 
 

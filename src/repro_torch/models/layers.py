@@ -48,15 +48,15 @@ FLAGS = {"attn_bf16_probs": True}
 def attention_specs(cfg) -> dict:
     d, nh, kvh, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd
     specs = {
-        "wq": ParamSpec((d, nh, hd)),
-        "wk": ParamSpec((d, kvh, hd)),
-        "wv": ParamSpec((d, kvh, hd)),
-        "wo": ParamSpec((nh, hd, d)),
+        "wq": ParamSpec((d, nh, hd), axes=("embed", "heads", None)),
+        "wk": ParamSpec((d, kvh, hd), axes=("embed", "kv_heads", None)),
+        "wv": ParamSpec((d, kvh, hd), axes=("embed", "kv_heads", None)),
+        "wo": ParamSpec((nh, hd, d), axes=("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((nh, hd), init="zeros")
-        specs["bk"] = ParamSpec((kvh, hd), init="zeros")
-        specs["bv"] = ParamSpec((kvh, hd), init="zeros")
+        specs["bq"] = ParamSpec((nh, hd), init="zeros", axes=("heads", None))
+        specs["bk"] = ParamSpec((kvh, hd), init="zeros", axes=("kv_heads", None))
+        specs["bv"] = ParamSpec((kvh, hd), init="zeros", axes=("kv_heads", None))
     if cfg.qk_norm:
         specs["q_norm"] = ParamSpec((hd,), init="zeros")
         specs["k_norm"] = ParamSpec((hd,), init="zeros")
@@ -66,19 +66,19 @@ def attention_specs(cfg) -> dict:
 def mlp_specs(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "w_gate": ParamSpec((d, f)),
-        "w_up": ParamSpec((d, f)),
-        "w_down": ParamSpec((f, d)),
+        "w_gate": ParamSpec((d, f), axes=("embed", "ff")),
+        "w_up": ParamSpec((d, f), axes=("embed", "ff")),
+        "w_down": ParamSpec((f, d), axes=("ff", "embed")),
     }
 
 
 def moe_specs(cfg) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": ParamSpec((d, e)),
-        "w_gate": ParamSpec((e, d, f)),
-        "w_up": ParamSpec((e, d, f)),
-        "w_down": ParamSpec((e, f, d)),
+        "router": ParamSpec((d, e), axes=("embed", None)),
+        "w_gate": ParamSpec((e, d, f), axes=("experts", "embed", "ff")),
+        "w_up": ParamSpec((e, d, f), axes=("experts", "embed", "ff")),
+        "w_down": ParamSpec((e, f, d), axes=("experts", "ff", "embed")),
     }
 
 
@@ -359,10 +359,42 @@ def attention(
     if kv_valid is None and not return_kv and any(t.requires_grad for t in (q, k, v)):
         out = flash_attention_train(q, k, v, positions, mask)
     else:
-        out = _flash_attend(q, k, v, mask, positions, positions, kv_valid=kv_valid)
+        out = None if kv_valid is not None else _maybe_seq_sharded_attention(
+            q, k, v, mask, positions)
+        if out is None:
+            out = _flash_attend(q, k, v, mask, positions, positions, kv_valid=kv_valid)
     out = out.reshape(b, s, nh, hd)
     y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
     return (y, k, v) if return_kv else y
+
+
+def _maybe_seq_sharded_attention(q, k, v, mask: MaskSpec, positions):
+    """Sequence-parallel prefill attention, the reference's
+    ``_maybe_seq_sharded_attention``.  When the q-heads and the
+    kv-heads do not both divide the mesh's ``model`` axis, head tensor
+    parallelism would split heads across ranks.  Instead each model rank
+    attends its contiguous slice of the queries against the whole K/V,
+    and the slices are all-gathered along the sequence.  Returns None when
+    it does not apply: no mesh, a size-1 ``model`` axis, heads that both
+    divide, or a sequence the axis does not divide.  Inference only: the
+    training forward stays the single-device program."""
+    from ..dist.comm import all_gather, axis_index, axis_size
+    from .common import current_mesh
+
+    mesh = current_mesh()
+    b, s, kvh, g, hd = q.shape
+    tp = axis_size(mesh, "model")
+    if tp == 1 or (kvh * g % tp == 0 and kvh % tp == 0) or s % tp != 0:
+        return None
+    s_loc = s // tp
+    r = axis_index(mesh, "model")
+    q_loc = q[:, r * s_loc:(r + 1) * s_loc]
+    out = _flash_attend(q_loc, k, v, mask, positions[r * s_loc:(r + 1) * s_loc], positions)
+    _maybe_seq_sharded_attention.calls += 1
+    return all_gather(out, mesh, "model", dim=1)
+
+
+_maybe_seq_sharded_attention.calls = 0  # times it applied, for tests and the chip phase
 
 
 def _write_rows(caches, positions: torch.Tensor, rows) -> None:

@@ -79,14 +79,14 @@ def mamba2_specs(cfg) -> dict:
     conv_dim = din + 2 * n
     return {
         # order: z (din) | x (din) | B (n) | C (n) | dt (h)
-        "in_proj": ParamSpec((d, 2 * din + 2 * n + h)),
-        "conv_w": ParamSpec((cfg.d_conv, conv_dim), scale=0.5),
-        "conv_b": ParamSpec((conv_dim,), init="zeros"),
+        "in_proj": ParamSpec((d, 2 * din + 2 * n + h), axes=("embed", "ssm_inner")),
+        "conv_w": ParamSpec((cfg.d_conv, conv_dim), scale=0.5, axes=(None, "ssm_inner")),
+        "conv_b": ParamSpec((conv_dim,), init="zeros", axes=("ssm_inner",)),
         "A_log": ParamSpec((h,), init="ones"),
         "D": ParamSpec((h,), init="ones"),
         "dt_bias": ParamSpec((h,), init="zeros"),
-        "norm": ParamSpec((din,), init="zeros"),
-        "out_proj": ParamSpec((din, d)),
+        "norm": ParamSpec((din,), init="zeros", axes=("ssm_inner",)),
+        "out_proj": ParamSpec((din, d), axes=("ssm_inner", "embed")),
     }
 
 
@@ -207,16 +207,16 @@ _RGLRU_C = 8.0
 def rglru_specs(cfg) -> dict:
     d, r = cfg.d_model, cfg.rglru_dim
     return {
-        "w_x": ParamSpec((d, r)),
-        "w_gate_branch": ParamSpec((d, r)),
-        "conv_w": ParamSpec((4, r), scale=0.5),
-        "conv_b": ParamSpec((r,), init="zeros"),
-        "w_a": ParamSpec((r, r), scale=0.5),
-        "b_a": ParamSpec((r,), init="zeros"),
-        "w_i": ParamSpec((r, r), scale=0.5),
-        "b_i": ParamSpec((r,), init="zeros"),
+        "w_x": ParamSpec((d, r), axes=("embed", "rglru")),
+        "w_gate_branch": ParamSpec((d, r), axes=("embed", "rglru")),
+        "conv_w": ParamSpec((4, r), scale=0.5, axes=(None, "rglru")),
+        "conv_b": ParamSpec((r,), init="zeros", axes=("rglru",)),
+        "w_a": ParamSpec((r, r), scale=0.5, axes=("rglru", "rglru_out")),
+        "b_a": ParamSpec((r,), init="zeros", axes=("rglru",)),
+        "w_i": ParamSpec((r, r), scale=0.5, axes=("rglru", "rglru_out")),
+        "b_i": ParamSpec((r,), init="zeros", axes=("rglru",)),
         "lam": ParamSpec((r,), init="ones"),
-        "w_out": ParamSpec((r, d)),
+        "w_out": ParamSpec((r, d), axes=("rglru", "embed")),
     }
 
 

@@ -42,20 +42,40 @@ of token t depends on (seed, t) alone, so the graph and the eager loop,
 and speculative and plain decode, draw the same tokens; the reference gets
 the same property by splitting its key once per emitted token.  No random
 state lives in a graph.
+
+On a mesh (``Engine(..., mesh=)``, a (data, model) DeviceMesh of ranks
+that all run the same code; ``launch/mesh.py``) every rank holds the
+dense parameters whole, so the dense compute is the single-device
+program (tensor-parallel dense compute is later work, ROADMAP.md A12);
+each rank packs only its windows of every pack (``pack_lm_weights(shards=tp,
+rank=...)``, what ``serve/packed.shard_packed`` leaves of a whole pack), run
+through the tensor-parallel appliers.
+The batch rows (or the scheduler's slots) are split over ``data`` when
+its size divides them, and kept whole on every rank when it does not.
+The logits of every step are gathered whole before a token is chosen, and
+every rank draws from the same noise, so every rank chooses every row's
+token, and the tokens are the single-device engine's.  Gloo collectives
+cannot be captured in a CUDA graph: with a ``model`` axis above 1 the
+steps run eagerly; with ``model`` 1 (pure data parallelism) each rank's
+step up to its logits is captured, and the gather and the choice run
+after each replay.  A 1x1 mesh is no mesh: the same program, graphs
+included.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..dist.comm import all_gather, axis_index, axis_size, mesh_shape
 from ..models import build_model
-from ..models.common import strict_fp32
+from ..models.common import mesh_context, strict_fp32
 from ..models.families import RECURRENT_FAMILIES
 from .faults import FaultConfig
 from .metrics import acceptance_rate, tok_per_s
@@ -167,6 +187,11 @@ class _Loop:
     toks: torch.Tensor
     oks: torch.Tensor
     noise: Optional[torch.Tensor]
+    # on a data axis: this rank's rows of the whole batch (token, toks, oks
+    # and noise are whole, the cache holds the rows), and the static (rows,
+    # V) logits a captured step writes for the gather after its replay
+    rows: Optional[slice] = None
+    logits: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -211,18 +236,22 @@ class _Pool:
     noise: Optional[torch.Tensor] = None
     spec: bool = False
     nems: Optional[torch.Tensor] = None
+    rows: Optional[slice] = None  # as ``_Loop.rows``: this rank's slots
+    logits: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
 class _Graph:
     """A captured CUDA graph, the static state it replays against, the
-    wrapper launches captured in one replay (by wrapper and route) and the
-    replays so far."""
+    wrapper launches captured in one replay (by wrapper and route), the
+    replays so far, and what runs eagerly after each replay (``emit``: the
+    gather of the logits and the choice, on a data axis)."""
 
     graph: torch.cuda.CUDAGraph
     state: object
     launches: Dict[str, Dict[str, int]]
     replays: int = 0
+    emit: Optional[Callable] = None
 
 
 def _wrapper_counts() -> Dict[str, Dict[str, int]]:
@@ -235,7 +264,7 @@ def _wrapper_counts() -> Dict[str, Dict[str, int]]:
 class Engine:
     def __init__(
         self, cfg: ArchConfig, params: dict, sc: Optional[ServeConfig] = None,
-        device="cuda", clock=None,
+        device="cuda", clock=None, mesh=None,
     ):
         """``params``: the reference-layout parameter dict (moved to
         ``device``).  Switches TF32 off process-wide (``strict_fp32``): the
@@ -244,7 +273,9 @@ class Engine:
         built here; ``fused``, ``temperature``, ``seed`` and ``max_len`` are
         read at each call.  ``clock`` injects the timing source (default
         ``time.monotonic``); the scheduler inherits it, so engine and
-        scheduler timings share one timeline."""
+        scheduler timings share one timeline.  ``mesh``: a (data, model)
+        DeviceMesh this rank belongs to (see the module docstring); a
+        mesh of one rank is no mesh."""
         strict_fp32()
         self.cfg = cfg
         self.sc = ServeConfig() if sc is None else sc
@@ -259,6 +290,10 @@ class Engine:
                 "speculative decoding requires the dense family "
                 "(the drafter is a VUSA pack of the same weights)"
             )
+        self.mesh = mesh if math.prod(mesh_shape(mesh).values()) > 1 else None
+        self.dp, self.tp = axis_size(self.mesh, "data"), axis_size(self.mesh, "model")
+        # a rank packs only its own windows of each pack
+        self._model_rank = axis_index(self.mesh, "model") if self.tp > 1 else None
         self.model = build_model(cfg)
         self.params = _to(params, self.device)
         self._quarantined = False
@@ -269,6 +304,24 @@ class Engine:
         # replays x captured launches of graphs dropped by a pack swap, so
         # ``graph_launches`` stays the engine's lifetime count
         self._dropped_launches: Dict[str, Dict[str, int]] = {}
+
+    def _rows(self, n: int) -> Optional[slice]:
+        """This rank's rows of a batch (or pool) of ``n`` rows where the
+        batch rule (``dist.sharding.batch_sharding``, the reference's cache
+        and batch placements) splits them over ``data``: its size divides
+        ``n``; None when every rank holds all ``n``."""
+        if self.mesh is None:
+            return None
+        from ..dist.sharding import batch_sharding
+
+        if batch_sharding(self.mesh, n, 1)[0] is None:
+            return None
+        r, k = axis_index(self.mesh, "data"), n // self.dp
+        return slice(r * k, (r + 1) * k)
+
+    def _whole(self, t: torch.Tensor, rows: Optional[slice]) -> torch.Tensor:
+        """A tensor of this rank's rows gathered whole over ``data``."""
+        return t if rows is None else all_gather(t, self.mesh, "data", dim=0)
 
     def _build_pack(self, params, faults: Optional[FaultConfig] = None) -> Dict:
         """The verifier's pack of ``params`` per the ServeConfig, with the
@@ -282,6 +335,7 @@ class Engine:
             self.cfg, params, self.sc.vusa_m, self.sc.vusa_a, scope=self.sc.packed_weights,
             fused_mlp=self.sc.fused_mlp,
             value_dtype="dense" if self.sc.packed_values == "bf16" else self.sc.packed_values,
+            shards=self.tp, rank=self._model_rank,
         )
         f = faults
         if f is not None and (f.pack_position_flips or f.pack_value_nans):
@@ -305,6 +359,7 @@ class Engine:
         return pack_lm_weights(
             self.cfg, prune_tree(self.params, self.sc.draft_sparsity), self.sc.vusa_m,
             self.sc.vusa_a, scope="all", fused_mlp=self.sc.fused_mlp, value_dtype="dense",
+            shards=self.tp, rank=self._model_rank,
         )
 
     @property
@@ -374,7 +429,9 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     def _graphed(self) -> bool:
-        return self.sc.fused and self.device.type == "cuda"
+        """CUDA graphs: ``fused`` on a card, and no ``model`` axis (its
+        collectives run inside a step, and gloo's cannot be captured)."""
+        return self.sc.fused and self.device.type == "cuda" and self.tp == 1
 
     def _validate_tokens(self, tokens) -> None:
         """Reject out-of-range token ids before the embedding gather, naming
@@ -397,7 +454,7 @@ class Engine:
             from .packed import lm_decode_step_packed
 
             return lm_decode_step_packed(self.params, packed, token, cache, self.cfg,
-                                         rowwise=rowwise)[0]
+                                         rowwise=rowwise, mesh=self.mesh)[0]
         return self.model.decode_step(self.params, token, cache, rowwise=rowwise)[0]
 
     def _choose(self, logits, noise, at) -> torch.Tensor:
@@ -409,11 +466,28 @@ class Engine:
             return torch.argmax(logits / self.sc.temperature + g, dim=-1)
         return torch.argmax(logits, dim=-1)
 
+    @staticmethod
+    def _feed(st) -> torch.Tensor:
+        """The input tokens of this rank's rows."""
+        return st.token if st.rows is None else st.token[st.rows]
+
     def _step(self, st: _Loop) -> None:
         """One decode step on ``st``: the token at ``st.count`` and its
         integrity flag (``isfinite`` over the fp32 logits) written to the
         outputs, the token fed back, the count and ``pos`` advanced."""
-        logits = self._logits(st.token, st.cache, self._route_pack())[:, -1].float()
+        self._emit(st, self._logits(self._feed(st), st.cache, self._route_pack())[:, -1].float())
+
+    def _step_logits(self, st: _Loop) -> None:
+        """The captured part of a step on a data axis: this rank's logits
+        into the static ``st.logits``."""
+        st.logits.copy_(self._logits(self._feed(st), st.cache, self._route_pack())[:, -1].float())
+
+    def _emit(self, st: _Loop, logits: torch.Tensor) -> None:
+        """The rest of a step from this rank's (rows, V) fp32 logits: the
+        logits gathered whole over ``data``, every row's token chosen,
+        token and flag written at ``st.count``, the token fed back and the
+        count advanced."""
+        logits = self._whole(logits, st.rows)
         at = st.count.view(1)
         nxt = self._choose(logits, st.noise, at)[:, None]
         st.toks.index_copy_(1, at, nxt)
@@ -470,11 +544,21 @@ class Engine:
         (dropped) or in their scratch blocks, and their count is clamped to
         the noise table, all without a host sync.  ``dense`` as in
         ``_route_pack``."""
+        self._pool_emit(st, self._pool_logits(st, dense))
+
+    def _pool_logits(self, st: _Pool, dense: Optional[bool]) -> torch.Tensor:
+        """The (rows, V) fp32 logits of a pool step on this rank's slots."""
         from ..models.cache import paged_view
 
         cache = paged_view(st.cache) if st.paged else st.cache
-        logits = self._logits(st.token, cache, self._route_pack(dense),
-                              rowwise=True)[:, -1].float()
+        return self._logits(self._feed(st), cache, self._route_pack(dense),
+                            rowwise=True)[:, -1].float()
+
+    def _pool_emit(self, st: _Pool, logits: torch.Tensor) -> None:
+        """The rest of a pool step from this rank's logits, as ``_emit``:
+        gathered whole over ``data``, every slot's token chosen from its own
+        noise row, written at ``st.col``, fed back, counts advanced."""
+        logits = self._whole(logits, st.rows)
         if self.sc.temperature > 0:
             rows = torch.arange(logits.shape[0], device=logits.device)
             g = st.noise[rows, st.count.clamp(max=st.noise.shape[1] - 1)]
@@ -510,14 +594,16 @@ class Engine:
         cache = paged_view(st.cache) if st.paged else st.cache
         pos = st.cache["pos"]
         pos0 = pos.clone()
-        tok, drafts = st.token, []
+        tok0 = self._feed(st)
+        tok, drafts = tok0, []
         for _ in range(k):
             lg = self._logits(tok, cache, self._draft_packed, rowwise=True)
             tok = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
             drafts.append(tok)
-        seq = torch.cat([st.token, *drafts], dim=1)  # (slots, k + 1)
+        seq = torch.cat([tok0, *drafts], dim=1)  # (slots, k + 1)
         pos.copy_(pos0)  # the verify rewrites rows pos0 .. pos0 + k of every slot
         logits = self._logits(seq, cache, self._route_pack(dense), rowwise=True).float()
+        logits, seq = self._whole(logits, st.rows), self._whole(seq, st.rows)
         at = st.count[:, None] + torch.arange(k + 1, device=logits.device)  # (slots, k + 1)
         if self.sc.temperature > 0:
             rows = torch.arange(logits.shape[0], device=logits.device)[:, None]
@@ -532,16 +618,17 @@ class Engine:
         st.toks.index_copy_(1, col, torch.where(accept, v, 0)[:, None])
         st.oks.index_copy_(1, col, torch.isfinite(logits).all(dim=-1)[:, None])
         st.nems.index_copy_(1, col, nem[:, None])
-        pos.copy_(pos0 + nem)
+        pos.copy_(pos0 + (nem if st.rows is None else nem[st.rows]))
         st.token.copy_(v.gather(1, nem[:, None] - 1))
         st.count.add_(nem)
         st.col.add_(1)
 
     # -- CUDA graphs ----------------------------------------------------------
-    def _capture(self, body, state) -> _Graph:
+    def _capture(self, body, state, emit: Optional[Callable] = None) -> _Graph:
         """Run ``body(state)`` once on a side stream (the warm-up: cuBLAS
         handles, the kernels' shared-memory opt-in, the allocator), then
-        capture it in a CUDA graph.  A failure raises."""
+        capture it in a CUDA graph, with ``emit(state)`` to run eagerly after
+        each replay (``_replay``).  A failure raises."""
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -555,7 +642,16 @@ class Engine:
         after = _wrapper_counts()
         launches = {name: {r: n - before[name][r] for r, n in routes.items()}
                     for name, routes in after.items()}
-        return _Graph(graph, state, launches)
+        return _Graph(graph, state, launches, emit=emit)
+
+    @staticmethod
+    def _replay(g: _Graph, n: int = 1) -> None:
+        """``n`` replays of ``g``, each followed by its ``emit``."""
+        for _ in range(n):
+            g.graph.replay()
+            if g.emit is not None:
+                g.emit(g.state)
+        g.replays += n
 
     def _noise_rows(self, n: int, b: int) -> Optional[torch.Tensor]:
         """A graph's static (n, b, V) noise table; None when greedy."""
@@ -564,22 +660,35 @@ class Engine:
         return torch.zeros((n, b, self.cfg.padded_vocab), dtype=torch.float32,
                            device=self.device)
 
-    def _step_graph(self, b: int, frames: int = 0) -> _Graph:
+    def _step_graph(self, b: int, frames: int = 0, rows: Optional[slice] = None) -> _Graph:
         """The captured decode step at batch ``b`` (built at first use), its
         outputs ``max_len`` tokens long; ``frames`` sizes the encdec
-        family's cross K/V, so each frame count has its own graph."""
-        key = ("step", b, self.sc.temperature > 0, self.sc.max_len, frames, self._quarantined)
+        family's cross K/V, so each frame count has its own graph.  With
+        ``rows`` (this rank's rows of ``b`` on a data axis) the graph holds
+        the step up to the logits, and the gather and the choice run after
+        each replay."""
+        span = None if rows is None else (rows.start, rows.stop)
+        key = ("step", b, self.sc.temperature > 0, self.sc.max_len, frames, self._quarantined,
+               span)
         if key not in self._graphs:
             n, dev = self.sc.max_len, self.device
+            local = b if rows is None else rows.stop - rows.start
             st = _Loop(
                 token=torch.zeros((b, 1), dtype=torch.long, device=dev),
-                cache=self.model.init_cache(b, self.sc.max_len, device=dev, frames=frames),
+                cache=self.model.init_cache(local, self.sc.max_len, device=dev, frames=frames),
                 count=torch.zeros((), dtype=torch.long, device=dev),
                 toks=torch.zeros((b, n), dtype=torch.long, device=dev),
                 oks=torch.ones((b, n), dtype=torch.bool, device=dev),
                 noise=self._noise_rows(n, b),
+                rows=rows,
             )
-            self._graphs[key] = self._capture(self._step, st)
+            if rows is None:
+                self._graphs[key] = self._capture(self._step, st)
+            else:
+                st.logits = torch.zeros((local, self.cfg.padded_vocab), dtype=torch.float32,
+                                        device=dev)
+                self._graphs[key] = self._capture(self._step_logits, st,
+                                                  lambda s: self._emit(s, s.logits))
         return self._graphs[key]
 
     def _prime_step(self, st: _Loop) -> None:
@@ -625,13 +734,24 @@ class Engine:
     def new_pool(self, slots: int, segment: int, layout=None, spec: bool = False) -> _Pool:
         """A scheduler's pool state: the slot pool, or with ``layout``
         (``models.cache.PagedLayout``) the paged pool, every slot free;
-        ``spec`` sizes the outputs for speculative rounds."""
+        ``spec`` sizes the outputs for speculative rounds.  On a data axis
+        that divides ``slots`` the cache holds this rank's slots (the paged
+        layout's ``shards`` must then be the axis size, and the arena holds
+        this rank's blocks), and the tokens, counts and outputs stay whole."""
         dev, n = self.device, self.sc.max_len
+        rows = self._rows(slots)
+        local = slots if rows is None else rows.stop - rows.start
         if layout is None:
-            cache = self.model.init_slot_cache(slots, n, device=dev)
+            cache = self.model.init_slot_cache(local, n, device=dev)
         else:
-            cache = self.model.init_paged_pool(layout, n, device=dev)
+            if layout.shards != (1 if rows is None else self.dp):
+                raise ValueError(f"paged layout split over {layout.shards} ranks, the pool's "
+                                 f"slots over {1 if rows is None else self.dp}")
+            cache = self.model.init_paged_pool(layout.local(), n, device=dev)
         grid = (slots, segment, self.sc.draft_k + 1) if spec else (slots, segment)
+        logits = None
+        if rows is not None and not spec:
+            logits = torch.zeros((local, self.cfg.padded_vocab), dtype=torch.float32, device=dev)
         return _Pool(
             token=torch.zeros((slots, 1), dtype=torch.long, device=dev), cache=cache,
             paged=layout is not None,
@@ -641,6 +761,7 @@ class Engine:
             oks=torch.ones(grid, dtype=torch.bool, device=dev),
             spec=spec,
             nems=torch.zeros((slots, segment), dtype=torch.long, device=dev) if spec else None,
+            rows=rows, logits=logits,
         )
 
     def _pool_body(self, st: _Pool, dense: bool):
@@ -650,6 +771,18 @@ class Engine:
 
     def _pool_key(self, st: _Pool, dense: bool) -> tuple:
         return ("pool", id(st), self.sc.temperature, dense)
+
+    def _pool_graphed(self, st: _Pool) -> bool:
+        """Whether the pool replays a graph: as ``_graphed``, but a
+        speculative pool on a data axis runs eagerly (its gather sits
+        between the drafter and the accept scan)."""
+        return self._graphed() and not (st.spec and st.rows is not None)
+
+    def _capture_pool(self, st: _Pool, dense: bool) -> _Graph:
+        if st.rows is None:
+            return self._capture(self._pool_body(st, dense), st)
+        return self._capture(lambda s: s.logits.copy_(self._pool_logits(s, dense)), st,
+                             lambda s: self._pool_emit(s, s.logits))
 
     def prepare_pool(self, st: _Pool) -> None:
         """Make the pool ready for this temperature: the noise table when
@@ -662,7 +795,7 @@ class Engine:
         if self.sc.temperature > 0 and st.noise is None:
             st.noise = torch.zeros((st.token.shape[0], self.sc.max_len, self.cfg.padded_vocab),
                                    dtype=torch.float32, device=self.device)
-        if not self._graphed():
+        if not self._pool_graphed(st):
             return
         routes = (True,) if self._packed is None or self._quarantined else (False, True)
         # the warm-up writes the outputs at ``col``: after a run it stands at
@@ -672,7 +805,7 @@ class Engine:
             for dense in routes:
                 key = self._pool_key(st, dense)
                 if key not in self._graphs:
-                    self._graphs[key] = self._capture(self._pool_body(st, dense), st)
+                    self._graphs[key] = self._capture_pool(st, dense)
 
     def release_pool(self, st: _Pool) -> None:
         """Drop the pool's captured graphs (the next ``prepare_pool``
@@ -692,14 +825,12 @@ class Engine:
         st.col.zero_()
         segment = st.toks.shape[1]
         dense = self._packed is None or self._quarantined
-        if self._graphed():
+        if self._pool_graphed(st):
             g = self._graphs.get(self._pool_key(st, dense))
             if g is None:
                 raise RuntimeError("the pool's graph was not captured: call prepare_pool while "
                                    "every slot is free")
-            for _ in range(segment):
-                g.graph.replay()
-            g.replays += segment
+            self._replay(g, segment)
         else:
             body = self._pool_body(st, dense)
             for _ in range(segment):
@@ -785,7 +916,8 @@ class Engine:
         batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=self.device)}
         for name, val in (extras or {}).items():
             batch[name] = torch.as_tensor(np.asarray(val), device=self.device)
-        logits, cache = self.model.prefill(self.params, batch, self.sc.max_len)
+        with mesh_context(self.mesh):
+            logits, cache = self.model.prefill(self.params, batch, self.sc.max_len)
         return torch.argmax(logits.float(), dim=-1)[:, None], cache
 
     def _prime_recurrent(self, prompts: np.ndarray):
@@ -905,7 +1037,7 @@ class Engine:
         return n
 
     @torch.no_grad()
-    def decode_segment(self, token, cache, steps: int, noise=None):
+    def decode_segment(self, token, cache, steps: int, noise=None, rows=None):
         """``steps`` decode steps with no host sync: replays of the captured
         step with ``fused`` on a CUDA device, else the eager loop.  ``noise``
         (steps, B, V) is the Gumbel noise of the segment's tokens (drawn
@@ -914,12 +1046,14 @@ class Engine:
         the graph path the cache is the graph's static cache, valid until
         the next call.  The graph's outputs hold ``max_len`` tokens; a
         recurrent family, which may decode past ``max_len``, replays the
-        one graph in chunks of at most that many steps."""
+        one graph in chunks of at most that many steps.  ``rows``: this
+        rank's rows of the batch on a data axis; ``token``, ``noise`` and the
+        outputs are then whole and ``cache`` holds the rows."""
         b = token.shape[0]
         if noise is None:
             noise = self.gumbel_noise(steps, b)
         if self._graphed():
-            g = self._step_graph(b, self._frames(cache))
+            g = self._step_graph(b, self._frames(cache), rows)
             st = g.state
             n = st.toks.shape[1]
             self._load(st, token, cache, None if noise is None else noise[:n])
@@ -930,15 +1064,13 @@ class Engine:
                     st.count.zero_()
                     if noise is not None:
                         st.noise[:c].copy_(noise[c0 : c0 + c])
-                for _ in range(c):
-                    g.graph.replay()
+                self._replay(g, c)
                 toks.append(st.toks[:, :c].clone())
                 oks.append(st.oks[:, :c].clone())
-            g.replays += steps
             return torch.cat(toks, dim=1), torch.cat(oks, dim=1), st.token.clone(), st.cache
         st = _Loop(token.clone(), cache, torch.zeros((), dtype=torch.long, device=token.device),
                    torch.zeros((b, steps), dtype=torch.long, device=token.device),
-                   torch.ones((b, steps), dtype=torch.bool, device=token.device), noise)
+                   torch.ones((b, steps), dtype=torch.bool, device=token.device), noise, rows)
         for _ in range(steps):
             self._step(st)
         return st.toks, st.oks, st.token, st.cache
@@ -993,7 +1125,8 @@ class Engine:
         ``frames``).  Returns ``{"tokens" (B,
         max_new) int32, "finite", "prefill_s", "decode_s", "tok_per_s"}``;
         ``tok_per_s`` is the accepted tokens beyond the first over decode
-        wall time.  With
+        wall time.  On a data axis that divides B each rank prefills and
+        decodes its rows, and every rank returns every row's tokens.  With
         ``ServeConfig.speculative`` (B = 1 only) the result also holds
         ``spec_rounds``, ``spec_proposed``, ``spec_accepted`` and
         ``acceptance_rate``.  The noise table and, at first use, the CUDA
@@ -1023,17 +1156,22 @@ class Engine:
             )
         budget = max_new - 1
         noise = self.gumbel_noise(budget + (self.sc.draft_k + 1 if spec else 0), b)
+        rows = self._rows(b)
         if self._graphed():  # capture at first use, outside the clocks
             with torch.no_grad():
                 if spec:
                     self._spec_graph()
                 else:
                     frames = np.shape((extras or {}).get("frames", ()))
-                    self._step_graph(b, frames[1] if len(frames) == 3 else 0)
+                    self._step_graph(b, frames[1] if len(frames) == 3 else 0, rows)
                 if recurrent:
-                    self._prime_graph(b)
+                    self._prime_graph(b if rows is None else rows.stop - rows.start)
+        if rows is not None:
+            prompts = prompts[rows]
+            extras = {k: np.asarray(v)[rows] for k, v in (extras or {}).items()}
         t0 = self._clock()
         nxt, cache = self.prime(prompts, extras)
+        nxt = self._whole(nxt, rows)
         self._sync()
         t_prefill = self._clock() - t0
 
@@ -1042,7 +1180,7 @@ class Engine:
             buf, okb, count, rounds = self._spec_decode(nxt, cache, budget, noise)
             toks, okg = buf[None], okb
         else:
-            toks, okg, _, _ = self.decode_segment(nxt, cache, budget, noise)
+            toks, okg, _, _ = self.decode_segment(nxt, cache, budget, noise, rows)
         tokens = torch.cat([nxt, toks], dim=1).cpu().numpy().astype(np.int32)  # the one fetch
         finite = bool(okg.all())
         t_decode = self._clock() - t0

@@ -1,6 +1,6 @@
 """VUSA-packed decode path for the dense LM family.
 
-Port of the JAX package's ``serve/packed.py`` (one device).
+Port of the JAX package's ``serve/packed.py``.
 ``pack_lm_weights`` packs the decode-step weights into the row-wise VUSA
 format: per-layer MLP matrices (``w_gate``/``w_up`` plain, ``w_down``
 *transposed* so the fused kernel can window its reduction dim) and, with
@@ -13,10 +13,20 @@ the same window geometry).  ``lm_decode_step_packed`` is the twin of
 kernels: the MLP through ``vusa_fused_mlp_matmul`` (or, with
 ``fused_mlp=False``, three ``vusa_packed_matmul`` calls), the projections
 and the vocab-wide head through ``vusa_packed_matmul``.
+
+On a mesh, ``pack_lm_weights(shards=tp)`` pads every pack's window axis
+to a multiple of the ``model`` axis size, ``shard_packed`` keeps a rank's
+contiguous windows of each (values, positions and scales alike;
+``pack_lm_weights(shards=tp, rank=r)`` packs those windows alone, for a
+quarter of the host work at ``tp = 4``: the engine's way), and
+``lm_decode_step_packed(mesh=...)`` routes every packed product through
+the tensor-parallel appliers of ``kernels/ops.py``, bitwise the
+single-device step.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -25,8 +35,11 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.packing import dequantize_rows, pack_rows, pack_rows_t, quantize_rows, unpack_rows
+from ..dist.sharding import local_shard, window_sharding
 from ..kernels.ops import (
-    RowPackedLinear, apply_fused_mlp, apply_row_packed, pack_linear_rows_many,
+    RowPackedLinear, apply_fused_mlp, apply_fused_mlp_sharded, apply_row_packed,
+    apply_row_packed_sharded, apply_row_packed_sharded_many, mesh_axis_size,
+    pack_linear_rows_many, shard_linear_windows,
 )
 from ..models.families import _embed_tokens, layer_cache, layer_params
 from ..models.common import per_row, rms_norm
@@ -34,10 +47,11 @@ from ..models.layers import attention_decode
 
 __all__ = [
     "pack_lm_weights", "lm_decode_step_packed", "packed_byte_ratios", "validate_packed",
-    "qdq_lm_params", "pack_fingerprint",
+    "qdq_lm_params", "pack_fingerprint", "shard_packed",
 ]
 
 ATTN_NAMES = ("wq", "wk", "wv", "wo")
+QKV = ATTN_NAMES[:3]
 
 
 # --------------------------------------------------------------------------
@@ -47,6 +61,8 @@ ATTN_NAMES = ("wq", "wk", "wv", "wo")
 
 def _entry(p: RowPackedLinear, values, positions, scales=None) -> Dict:
     out = {"values": values, "positions": positions, "k": p.k, "c": p.c, "m": p.m, "a": p.a}
+    if p.shards > 1:
+        out["shards"] = p.shards
     if p.value_dtype != "dense":
         out.update(scales=scales, value_dtype=p.value_dtype, dense_itemsize=p.dense_itemsize)
     return out
@@ -69,15 +85,42 @@ def _stack_packs(packs) -> Dict:
     return _entry(packs[0], torch.stack(vs), torch.stack(qs), scales)
 
 
+def _rank_columns(h: np.ndarray, m: int, shards: int, rank: int) -> np.ndarray:
+    """The columns of rank ``rank``'s windows of a (K, C) matrix whose
+    window axis pads to a multiple of ``shards``: T/shards windows of m
+    columns, zero past C (the pad windows)."""
+    t = -(-h.shape[1] // m)
+    per = -(-t // shards) * m
+    cols = h[:, rank * per:(rank + 1) * per]
+    return np.pad(cols, ((0, 0), (0, per - cols.shape[1])))
+
+
+def _pack_mats(mats: list, m: int, a: int, w: torch.Tensor, value_dtype: str,
+               shards: int = 1, rank: Optional[int] = None) -> list:
+    """Row packs of the host matrices ``mats`` (``w`` gives the dtype, device
+    and element size), each window axis padded to a multiple of
+    ``shards``.  With ``rank``, only that rank's windows are packed, ``c``
+    kept whole: the windows ``ops.local_windows`` would cut from the whole
+    pack, with the same values and positions slot for slot (a window's
+    rows pack from its own columns alone), only fewer idle slots at the
+    end of a row, which no kernel reads."""
+    args = (m, a, w.dtype, w.device, value_dtype, w.element_size())
+    if rank is None or shards == 1:
+        return [shard_linear_windows(q, shards) for q in pack_linear_rows_many(mats, *args)]
+    packs = pack_linear_rows_many([_rank_columns(h, m, shards, rank) for h in mats], *args)
+    return [dataclasses.replace(q, c=h.shape[1], shards=shards) for q, h in zip(packs, mats)]
+
+
 def _stack_layers(ws: torch.Tensor, m: int, a: int, transposed: bool = False,
-                  value_dtype: str = "dense") -> Dict:
+                  value_dtype: str = "dense", shards: int = 1,
+                  rank: Optional[int] = None) -> Dict:
     """Pack every layer of a stacked (L, K, C) weight (packing (L, C, K)'s
-    transposes with ``transposed``, as ``pack_rows_t``) and stack the packs
-    on its device."""
+    transposes with ``transposed``, as ``pack_rows_t``), each pack's window
+    axis padded to a multiple of ``shards`` (only ``rank``'s windows when
+    given, ``_pack_mats``), and stack the packs on its device."""
     host = ws.detach().to("cpu", torch.float32).numpy()  # one copy for all layers
     mats = [h.T if transposed else h for h in host]
-    return _stack_packs(pack_linear_rows_many(mats, m, a, ws.dtype, ws.device, value_dtype,
-                                              ws.element_size()))
+    return _stack_packs(_pack_mats(mats, m, a, ws, value_dtype, shards, rank))
 
 
 def _as_linear(entry: Dict, layer: Optional[int] = None) -> RowPackedLinear:
@@ -89,7 +132,8 @@ def _as_linear(entry: Dict, layer: Optional[int] = None) -> RowPackedLinear:
     return RowPackedLinear(values=values, positions=positions,
                            k=entry["k"], c=entry["c"], a=entry["a"], m=entry["m"],
                            scales=scales, value_dtype=entry.get("value_dtype", "dense"),
-                           dense_itemsize=entry.get("dense_itemsize"))
+                           dense_itemsize=entry.get("dense_itemsize"),
+                           shards=entry.get("shards", 1))
 
 
 def _flat_attn(w: torch.Tensor, name: str) -> torch.Tensor:
@@ -108,6 +152,8 @@ def pack_lm_weights(
     scope: str = "all",
     fused_mlp: bool = True,
     value_dtype: str = "dense",
+    shards: int = 1,
+    rank: Optional[int] = None,
 ) -> Dict:
     """Pack the dense-family decode-step weights; returns a structured dict
     ``{"mlp", "attn", "head", "scope", "fused_mlp"}`` laid out as the
@@ -120,33 +166,76 @@ def pack_lm_weights(
     kernel's layout (``w_down`` packed transposed) over the three-call
     layout (``w_down`` packed plain).  ``value_dtype="dense"`` keeps the
     parameters' float dtype; ``"int8"``/``"int4"`` quantize every pack's
-    value slots with per-(window, row) fp32 scales."""
+    value slots with per-(window, row) fp32 scales.  ``shards`` pads each
+    pack's window axis to a multiple (no-op windows) so it splits evenly
+    over a ``model`` mesh axis of that size: place the packs with
+    ``shard_packed``, or pack only the windows of model rank ``rank``
+    (the packs ``shard_packed`` would leave, for 1 / ``shards`` of the
+    host work)."""
     if cfg.family != "dense":
         raise ValueError("the packed decode path targets the dense family")
     if scope not in ("mlp", "all"):
         raise ValueError(f"scope must be 'mlp' or 'all', got {scope!r}")
     ffn = params["layers"]["ffn"]
     mlp: Dict = {
-        name: _stack_layers(ffn[name], m, a, value_dtype=value_dtype)
+        name: _stack_layers(ffn[name], m, a, value_dtype=value_dtype, shards=shards, rank=rank)
         for name in ("w_gate", "w_up")
     }
     if fused_mlp:
-        mlp["w_down_t"] = _stack_layers(ffn["w_down"], m, a, True, value_dtype)
+        mlp["w_down_t"] = _stack_layers(ffn["w_down"], m, a, True, value_dtype, shards, rank)
     else:
-        mlp["w_down"] = _stack_layers(ffn["w_down"], m, a, value_dtype=value_dtype)
+        mlp["w_down"] = _stack_layers(ffn["w_down"], m, a, value_dtype=value_dtype,
+                                      shards=shards, rank=rank)
     out: Dict = {"mlp": mlp, "attn": None, "head": None, "scope": scope, "fused_mlp": fused_mlp}
     if scope == "all":
         attn_p = params["layers"]["attn"]
         out["attn"] = {
-            name: _stack_layers(_flat_attn(attn_p[name], name), m, a, value_dtype=value_dtype)
+            name: _stack_layers(_flat_attn(attn_p[name], name), m, a, value_dtype=value_dtype,
+                                shards=shards, rank=rank)
             for name in ATTN_NAMES
         }
         if not cfg.tie_embeddings:
             w = params["lm_head"]
-            (p,) = pack_linear_rows_many([w.detach().to("cpu", torch.float32).numpy()], m, a,
-                                         w.dtype, w.device, value_dtype, w.element_size())
+            (p,) = _pack_mats([w.detach().to("cpu", torch.float32).numpy()], m, a, w,
+                              value_dtype, shards, rank)
             out["head"] = _entry(p, p.values, p.positions, p.scales)
     validate_packed(out)  # pack-time guard: never hand out a malformed pack
+    return out
+
+
+def shard_packed(packed: Dict, mesh) -> Dict:
+    """A rank's share of a ``pack_lm_weights(shards=tp)`` dict on a mesh:
+    each entry's window axis (axis 1 of a layer stack, 0 of the head) cut
+    to this rank's contiguous windows under
+    ``dist.sharding.window_sharding``, values, positions and scales alike
+    (metadata is never placed apart from the values it indexes), and
+    ``shards`` recorded: the windows ``pack_lm_weights(shards=tp, rank=r)``
+    packs alone, slot for slot (its rows may end in fewer idle slots,
+    which no kernel reads).  A size-1 ``model`` axis returns the
+    pack unchanged; an entry already split, or whose window count the
+    axis does not divide (packed without ``shards=tp``), raises."""
+    tp = mesh_axis_size(mesh, "model")
+    if tp == 1:
+        return packed
+
+    def place(entry):
+        q = entry["positions"]
+        axis = q.ndim - 3
+        if entry.get("shards", 1) != 1 or q.shape[axis] % tp:
+            raise ValueError(f"shard_packed needs whole packs of pack_lm_weights(shards={tp}): "
+                             f"{q.shape[axis]} windows, shards={entry.get('shards', 1)}")
+        spec = window_sharding(mesh, q.shape[axis], q.ndim, axis=axis)
+        out = dict(entry, shards=tp)
+        for leaf in ("values", "positions", "scales"):
+            if entry.get(leaf) is not None:
+                out[leaf] = local_shard(entry[leaf], spec[: entry[leaf].ndim], mesh)
+        return out
+
+    out = dict(packed, mlp={k: place(e) for k, e in packed["mlp"].items()})
+    if packed.get("attn"):
+        out["attn"] = {k: place(e) for k, e in packed["attn"].items()}
+    if packed.get("head") is not None:
+        out["head"] = place(packed["head"])
     return out
 
 
@@ -251,10 +340,10 @@ def validate_packed(packed: Dict) -> None:
         # packs keep the check (as the reference does)
         if vdt != "int4" and v.shape[-1] % a:
             raise ValueError(f"{name}: slot count {v.shape[-1]} not a multiple of a={a}")
-        if q.shape[-3] * m < c:
+        windows = q.shape[-3] * e.get("shards", 1)  # a rank holds 1 / shards of them
+        if windows * m < c:
             raise ValueError(
-                f"{name}: {q.shape[-3]} windows of {m} lanes cover {q.shape[-3] * m} "
-                f"< c={c} columns"
+                f"{name}: {windows} windows of {m} lanes cover {windows * m} < c={c} columns"
             )
         # widen before comparing: m=128 does not fit int8
         qw = q.to(torch.int32)
@@ -362,7 +451,8 @@ def _full_pack(packed) -> bool:
     return packed.get("attn") is not None and packed.get("head") is not None
 
 
-def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = False):
+def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = False,
+                          mesh=None):
     """Decode step with VUSA-packed weights (dense family).  token: (B, 1),
     or (B, s) for the speculative verify.  Returns (logits (B, s, V), cache
     with ``pos + s``); the cache tensors and the device scalar ``pos`` are
@@ -380,25 +470,48 @@ def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = Fal
     and any dense product one batch row at a time, so row b is bitwise a
     B = 1 step on its own cache row; the packed kernels run on all rows at
     once (their row b does not depend on B).  The cache may then be
-    paged."""
+    paged.
+
+    ``mesh`` routes every packed product through the tensor-parallel
+    appliers (``apply_row_packed_sharded``, ``apply_fused_mlp_sharded``):
+    each rank runs the kernels on its windows of the pack (``shard_packed``)
+    and the products are gathered whole, bitwise the single-device step.
+    A ``model`` axis of size 1 is the plain single-device step."""
     if cfg.family != "dense":
         raise ValueError("the packed decode path targets the dense family")
     if token.shape[1] > 1 and not _full_pack(packed):
         logits = []
         for i in range(token.shape[1]):
             lg, cache = lm_decode_step_packed(params, packed, token[:, i : i + 1], cache, cfg,
-                                              rowwise)
+                                              rowwise, mesh)
             logits.append(lg)
         return torch.cat(logits, dim=1), cache
     mlp, attn = packed["mlp"], packed["attn"]
     fused = packed.get("fused_mlp", "w_down_t" in mlp)
+    sharded = mesh_axis_size(mesh, "model") > 1
+    if not sharded:
+        row, fused_mlp = apply_row_packed, apply_fused_mlp
+    else:
+        def row(x2, lin):
+            return apply_row_packed_sharded(x2, lin, mesh)
+
+        def fused_mlp(x2, g, u, d):
+            return apply_fused_mlp_sharded(x2, g, u, d, mesh)
+
     x = _embed_tokens(params, token, cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         wmm = None
         if attn is not None:
-            def wmm(name, x2, i=i):
-                return apply_row_packed(x2, _as_linear(attn[name], i))
+            qkv: Dict[str, torch.Tensor] = {}
+
+            def wmm(name, x2, i=i, qkv=qkv):
+                if sharded and name in QKV:  # q, k and v of one x: one gather for the three
+                    if not qkv:
+                        lins = [_as_linear(attn[n], i) for n in QKV]
+                        qkv.update(zip(QKV, apply_row_packed_sharded_many(x2, lins, mesh)))
+                    return qkv.pop(name)
+                return row(x2, _as_linear(attn[name], i))
 
         x = x + attention_decode(lp["attn"], rms_norm(x, lp["norm1"], rowwise=rowwise), cfg,
                                  layer_cache(cache, i), wmm=wmm, rowwise=rowwise)
@@ -406,19 +519,17 @@ def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = Fal
         b, s, d = h.shape
         hf = h.reshape(b * s, d)
         if fused:
-            y2 = apply_fused_mlp(
-                hf, _as_linear(mlp["w_gate"], i), _as_linear(mlp["w_up"], i),
-                _as_linear(mlp["w_down_t"], i),
-            )
+            y2 = fused_mlp(hf, _as_linear(mlp["w_gate"], i), _as_linear(mlp["w_up"], i),
+                           _as_linear(mlp["w_down_t"], i))
         else:  # three calls: gate/up/down round-trip the (B, ff) hidden state
-            gate = F.silu(apply_row_packed(hf, _as_linear(mlp["w_gate"], i)))
-            up = apply_row_packed(hf, _as_linear(mlp["w_up"], i))
-            y2 = apply_row_packed((gate * up).to(hf.dtype), _as_linear(mlp["w_down"], i))
+            gate = F.silu(row(hf, _as_linear(mlp["w_gate"], i)))
+            up = row(hf, _as_linear(mlp["w_up"], i))
+            y2 = row((gate * up).to(hf.dtype), _as_linear(mlp["w_down"], i))
         x = x + y2.reshape(b, s, d).to(x.dtype)
     x = rms_norm(x, params["final_norm"], rowwise=rowwise)
     if packed.get("head") is not None:
         b, s, d = x.shape
-        logits = apply_row_packed(x.reshape(b * s, d), _as_linear(packed["head"])).reshape(b, s, -1)
+        logits = row(x.reshape(b * s, d), _as_linear(packed["head"])).reshape(b, s, -1)
     else:
         head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(x.dtype)
         logits = per_row(lambda r: torch.einsum("bsd,dv->bsv", r, head), x, rowwise)

@@ -112,10 +112,83 @@ from ..models.cache import (
     write_slots,
     zero_blocks,
 )
+from ..dist.comm import axis_index, broadcast
 from .engine import Engine
 from .metrics import acceptance_rate, tok_per_s
 
 __all__ = ["Request", "Completion", "Scheduler", "Status"]
+
+
+class _PoolWrites:
+    """The scheduler's device writes to its pool, in global slot and block
+    ids.  Every rank of a data mesh axis runs the same host loop; on a pool
+    split over that axis (``Engine.new_pool``) each rank applies the writes
+    of its own slots and blocks, translated to its local indices, and drops
+    the rest.  On an unsplit pool they pass through."""
+
+    def __init__(self, engine: Engine, pool, layout: Optional[PagedLayout], axes):
+        self.cache, self.layout, self.axes = pool.cache, layout, axes
+        self.split = pool.rows is not None
+        self.mesh = engine.mesh
+        self.rank = axis_index(engine.mesh, "data") if self.split else 0
+        self.lo = pool.rows.start if self.split else 0
+        self.n = pool.rows.stop - pool.rows.start if self.split else len(pool.count)
+
+    def owns(self, i: int) -> bool:
+        return self.lo <= i < self.lo + self.n
+
+    def slots(self, idx) -> np.ndarray:
+        """Global slots as this rank's pool rows; others out of range."""
+        idx = np.asarray(idx, np.int64)
+        loc = idx - self.lo
+        return np.where((loc >= 0) & (loc < self.n), loc, self.n)
+
+    def blocks(self, ids) -> np.ndarray:
+        """Global block ids as this rank's arena indices; others out of
+        range."""
+        return self.layout.to_local(ids, self.rank) if self.split else np.asarray(ids, np.int64)
+
+    # slot pool
+    def write_slots(self, idx, cache: dict, lengths) -> None:
+        write_slots(self.cache, self.slots(idx), cache, self.axes, lengths)
+
+    def poison_slot(self, i: int) -> None:
+        if self.owns(i):
+            poison_slot(self.cache, i - self.lo, self.axes)
+
+    # paged pool
+    def zero_blocks(self, ids) -> None:
+        zero_blocks(self.cache["arena"], self.blocks(ids))
+
+    def copy_block(self, src: int, dst: int) -> None:
+        """Copy-on-write within one rank (a slot's blocks are its rank's)."""
+        if not self.split or self.layout.block_rank(dst) == self.rank:
+            copy_block(self.cache["arena"], int(self.blocks(src)), int(self.blocks(dst)))
+
+    def write_prefill_pages(self, page_tables, primed: dict) -> None:
+        write_prefill_pages(self.cache["arena"], self.blocks(page_tables), primed)
+
+    def bind(self, idx, rows, lengths) -> None:
+        bind_slot_pages(self.cache["table"], self.cache["pos"], self.slots(idx),
+                        self.blocks(rows), lengths)
+
+    def reset_slot(self, i: int) -> None:
+        if self.owns(i):
+            paged_reset_slot(self.cache, i - self.lo,
+                             int(self.blocks(self.layout.scratch_block(i))))
+
+    def poison_block(self, blk: int) -> None:
+        if not self.split or self.layout.block_rank(blk) == self.rank:
+            paged_poison_block(self.cache["arena"], int(self.blocks(blk)))
+
+    def from_owner(self, t: Optional[torch.Tensor], i: int, like: torch.Tensor) -> torch.Tensor:
+        """``t``, computed by the rank that owns slot ``i`` (None on the
+        others), broadcast to every rank of the data axis."""
+        if not self.split:
+            return t
+        if t is None:
+            t = torch.empty_like(like)
+        return broadcast(t.contiguous(), self.mesh, "data", src=self.layout.slot_rank(i))
 
 
 class Status(str, enum.Enum):
@@ -263,7 +336,11 @@ class Scheduler:
         self._prefix_on = self.paged and sc.prefix_cache
         self._chunk_cfg = sc.prefill_chunk if self.paged else 0
         if self.paged:
-            self._layout = PagedLayout.build(slots, sc.max_len, sc.page_size, sc.arena_blocks)
+            # on a data axis that divides the slots, each rank owns a
+            # contiguous slot range and block range (``PagedLayout``)
+            self._layout = PagedLayout.build(
+                slots, sc.max_len, sc.page_size, sc.arena_blocks,
+                shards=engine.dp if engine._rows(slots) is not None else 1)
             self._alloc = BlockAllocator(self._layout)
             self._pool = engine.new_pool(slots, segment, self._layout, spec=self.speculative)
             self._pstate = self._pool.cache
@@ -280,11 +357,17 @@ class Scheduler:
             self._slot_npages = [0] * slots
             self._batch_axes = None
             self._slot_bytes = self._arena_bytes // max(slots, 1)
+            # the shape of a chunk's (1, V) logits, for the ranks that
+            # receive them (``_step_prefills``)
+            self._chunk_logits = torch.empty((1, self.eng.cfg.padded_vocab),
+                                             dtype=torch.float32, device=engine.device)
         else:
             self._pool = engine.new_pool(slots, segment, spec=self.speculative)
             self._batch_axes = self.model.cache_batch_axes(sc.max_len)
             self._slot_bytes = sum(t.numel() * t.element_size()
                                    for t in self._pool.cache.values()) // max(slots, 1)
+        self._dev = _PoolWrites(engine, self._pool, self._layout if self.paged else None,
+                                self._batch_axes)
         self._cancel: set = set()  # in-flight rids to retire at the next sync
         self._retried: set = set()  # rids that used their bounded dense retry
         self._fallback_rids: set = set()  # rids now on the dense retry
@@ -376,10 +459,10 @@ class Scheduler:
             )
         if self.paged:
             worst = -(-budget // self._layout.page)
-            if worst > self._layout.user_blocks:
+            if worst > self._layout.rank_user_blocks:
                 raise ValueError(
                     f"worst-case pages {worst} for this request exceed the "
-                    f"arena's {self._layout.user_blocks} user blocks "
+                    f"arena's {self._layout.rank_user_blocks} user blocks "
                     f"(page_size={self._layout.page}, "
                     f"arena_blocks={self.eng.sc.arena_blocks}) — even an "
                     "empty pool could never hold it"
@@ -508,12 +591,14 @@ class Scheduler:
             return True
         table, pos = paged_host_mirror(self._pstate)
         for i, s in enumerate(self._slot):
-            if not (s.active and s.prefill is None):
+            if not (s.active and s.prefill is None) or not self._dev.owns(i):
                 continue  # free and admitting slots legitimately drift
-            if not np.array_equal(table[i], self._rows[i]) or int(pos[i]) != self._pos[i]:
+            j = i - self._dev.lo
+            if (not np.array_equal(table[j], self._dev.blocks(self._rows[i]))
+                    or int(pos[j]) != self._pos[i]):
                 raise AssertionError(
                     f"paged host mirror diverged for slot {i}: "
-                    f"host pos {self._pos[i]} vs device {int(pos[i])}"
+                    f"host pos {self._pos[i]} vs device {int(pos[j])}"
                 )
         return True
 
@@ -563,7 +648,7 @@ class Scheduler:
         ``i``.  First-token EOS/budget checks wait for the segment sync."""
         t0 = self._clock()
         nxt, cache = self.eng.prime(req.prompt[None])
-        write_slots(self._pool.cache, [i], cache, self._batch_axes, [len(req.prompt)])
+        self._dev.write_slots([i], cache, [len(req.prompt)])
         self._seat([i], nxt, [req])
         self._bind_slot(i, rid, req, nxt, now)
         self._admit_s += self._clock() - t0
@@ -599,7 +684,7 @@ class Scheduler:
             tokens, lengths = self._bucket_batch(blen, reqs)
             nxt, cache = self.eng.prime_many(tokens, lengths)
             idx = [i for i, _, _ in group]
-            write_slots(self._pool.cache, idx, cache, self._batch_axes, lengths)
+            self._dev.write_slots(idx, cache, lengths)
             self._seat(idx, nxt, reqs)
             for j, (i, rid, req) in enumerate(group):
                 self._bind_slot(i, rid, req, nxt[j : j + 1], now)
@@ -638,23 +723,24 @@ class Scheduler:
         prompt, L = req.prompt, len(req.prompt)
         page = self._layout.page
         poisoned = self._wants_poison(rid)
+        rank = self._layout.slot_rank(i)
         full = prefix_page_digests(prompt, page) if self._prefix_on else []
-        shared = self._alloc.match_pages(full) if self._prefix_on else []
+        shared = self._alloc.match_pages(full, rank) if self._prefix_on else []
         k = len(shared)
         cow = None
         if self._prefix_on and L % page and k == L // page:
             # every full page matched: probe the partial tail for a COW source
             seed = full[-1] if full else b""
-            cow = self._alloc.match_tail(prefix_tail_digests(seed, prompt[k * page:]))
+            cow = self._alloc.match_tail(prefix_tail_digests(seed, prompt[k * page:]), rank)
         n_prompt_pages = -(-L // page)
-        got = self._alloc.alloc(n_prompt_pages - k)
+        got = self._alloc.alloc(n_prompt_pages - k, rank)
         if got is None:
             if shared:
                 self._alloc.free(shared)  # hashed: parked back in the cached pool
             return False
         priv, scrub = got
         if scrub:
-            zero_blocks(self._pstate["arena"], scrub)
+            self._dev.zero_blocks(scrub)
         row = self._rows[i]
         row[:] = self._layout.scratch_block(i)
         row[:k] = shared
@@ -667,7 +753,7 @@ class Scheduler:
             src, rows_m = cow
             # copy the matched tail rows into our private tail page; the
             # sharer keeps reading the original
-            copy_block(self._pstate["arena"], src, priv[0])
+            self._dev.copy_block(src, priv[0])
             start += rows_m
         self._bind_slot(i, rid, req, None, now)
         if start == 0 and (self._chunk_cfg == 0 or L <= self._chunk_cfg):
@@ -716,11 +802,10 @@ class Scheduler:
                 blen = self.eng.bucket_len(len(reqs[0].prompt))
                 tokens, lengths = self._bucket_batch(blen, reqs)
                 nxt, cache = self.eng.prime_many(tokens, lengths)
-            write_prefill_pages(self._pstate["arena"], pt,
-                                {name: cache[name] for name in self._pstate["arena"]})
+            self._dev.write_prefill_pages(
+                pt, {name: cache[name] for name in self._pstate["arena"]})
             idx = [i for i, _, _, _ in group]
-            bind_slot_pages(self._pstate["table"], self._pstate["pos"], idx,
-                            self._rows[idx], lengths)
+            self._dev.bind(idx, self._rows[idx], lengths)
             self._seat(idx, nxt, reqs)
             for j, (i, _, req, poisoned) in enumerate(group):
                 self._slot[i].first = nxt[j : j + 1]
@@ -760,8 +845,15 @@ class Scheduler:
             n = min(job.chunk, job.L - s)
             toks = np.zeros((1, job.chunk), np.int32)
             toks[0, :n] = job.prompt[s : s + n]
-            logits, _ = self.eng.prefill_chunk(toks, self._pstate["arena"], self._rows[i],
-                                               s, n, job.write_from)
+            # the rank that owns the slot holds its blocks: it runs the
+            # chunk and hands the logits to the others
+            logits = None
+            if self._dev.owns(i):
+                logits, _ = self.eng.prefill_chunk(toks, self._pstate["arena"],
+                                                   self._dev.blocks(self._rows[i]), s, n,
+                                                   job.write_from)
+                logits = logits.float()
+            logits = self._dev.from_owner(logits, i, self._chunk_logits)
             job.start = s + n
             self._chunks += 1
             if job.start >= job.L:
@@ -770,8 +862,7 @@ class Scheduler:
 
     def _complete_prefill(self, i: int, job: _PrefillJob, first) -> None:
         slot = self._slot[i]
-        bind_slot_pages(self._pstate["table"], self._pstate["pos"], [i], self._rows[i][None],
-                        [job.L])
+        self._dev.bind([i], self._rows[i][None], [job.L])
         self._seat([i], first, [slot.req])
         self._pos[i] = job.L
         slot.first = first
@@ -809,9 +900,12 @@ class Scheduler:
         self._admit_s += self._clock() - t0
 
     def _alloc_or_preempt(self, n: int, protect: int) -> list:
-        got = self._alloc.alloc(n)
+        rank = self._layout.slot_rank(protect)
+        got = self._alloc.alloc(n, rank)
         while got is None:
-            cands = [j for j, s in enumerate(self._slot) if s.active and j != protect]
+            # only a slot of the same rank frees blocks this one can take
+            cands = [j for j, s in enumerate(self._slot) if s.active and j != protect
+                     and self._layout.slot_rank(j) == rank]
             if not cands:
                 raise RuntimeError(
                     "paged arena exhausted with nothing left to preempt "
@@ -819,10 +913,10 @@ class Scheduler:
                 )
             victim = max(cands, key=lambda j: (self._slot[j].admit_s, j))
             self._preempt(victim)
-            got = self._alloc.alloc(n)
+            got = self._alloc.alloc(n, rank)
         ids, scrub = got
         if scrub:
-            zero_blocks(self._pstate["arena"], scrub)
+            self._dev.zero_blocks(scrub)
         return ids
 
     def _preempt(self, j: int) -> None:
@@ -837,8 +931,7 @@ class Scheduler:
         bisect.insort(self._queue, (req.arrival_s, rid, req))
 
     def _rebind_row(self, i: int) -> None:
-        bind_slot_pages(self._pstate["table"], self._pstate["pos"], [i], self._rows[i][None],
-                        [self._pos[i]])
+        self._dev.bind([i], self._rows[i][None], [self._pos[i]])
 
     def _release_slot_pages(self, i: int) -> None:
         """Return slot ``i``'s blocks to the allocator (hashed blocks park in
@@ -848,13 +941,13 @@ class Scheduler:
         if blocks:
             dead = self._alloc.free(blocks)
             if dead:
-                zero_blocks(self._pstate["arena"], dead)
+                self._dev.zero_blocks(dead)
         self._slot_blocks[i] = []
         self._slot_private[i] = []
         self._slot_npages[i] = 0
         self._rows[i][:] = self._layout.scratch_block(i)
         self._pos[i] = 0
-        paged_reset_slot(self._pstate, i, self._layout.scratch_block(i))
+        self._dev.reset_slot(i)
 
     # -- fault injection -------------------------------------------------------
 
@@ -874,25 +967,24 @@ class Scheduler:
         unhashed when the slot releases it, which zeroes it."""
         if not self._slot_blocks[i]:
             return
-        arena = self._pstate["arena"]
         if self._slot_private[i]:
             blk = self._slot_private[i][0]
         else:
             [blk] = self._alloc_or_preempt(1, protect=i)
             old = int(self._rows[i][0])
-            copy_block(arena, old, blk)
+            self._dev.copy_block(old, blk)
             self._rows[i][0] = blk
             bl = self._slot_blocks[i]
             bl[bl.index(old)] = blk
             self._slot_private[i].insert(0, blk)
             dead = self._alloc.free([old])
             if dead:
-                zero_blocks(arena, dead)
+                self._dev.zero_blocks(dead)
             self._rebind_row(i)
         dead = self._alloc.forget(blk)
         if dead:
-            zero_blocks(arena, dead)
-        paged_poison_block(arena, blk)
+            self._dev.zero_blocks(dead)
+        self._dev.poison_block(blk)
 
     def _inject_admission_faults(self, free: List[int], picked) -> None:
         """Apply the fault plan to this admission round: admission stalls
@@ -917,7 +1009,7 @@ class Scheduler:
                     self._apply_paged_poison(i)
                 else:
                     self._fault_fired.add(rid)
-                    poison_slot(self._pool.cache, i, self._batch_axes)
+                    self._dev.poison_slot(i)
         self._admit_s += self._clock() - t0
 
     def _stall_wait(self, secs: float) -> None:

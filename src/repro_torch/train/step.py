@@ -8,6 +8,17 @@ in place (``optim.adamw``) and returns them with the step's metrics.  The
 compression noise comes from a ``torch.Generator`` seeded by ``(0, step)``;
 it cannot reproduce the reference's threefry draws (ROADMAP.md C3), so a
 compressed run trains alike but not bit for bit.
+
+On a mesh (``make_train_step(..., mesh=, placements=)``) the parameters
+and both AdamW moments are each rank's shards under ``placements``
+(ZeRO-style: the moments follow the parameters).  A step gathers the
+parameters whole for the forward, so it is the single-device program on
+this rank's rows of the batch; with ``split`` (the batch rows split over
+``data``) the gradients and the loss are summed over the data ranks in
+rank order and divided by their count.  The global-norm clip runs on the
+whole gradients in the single-device order, and each rank then updates
+only its shard.  On a ``model`` axis alone the step is the single-device
+step bitwise.
 """
 
 from __future__ import annotations
@@ -19,7 +30,7 @@ import numpy as np
 import torch
 
 from ..optim import AdamState, adamw_update
-from ..optim.adamw import tree_items
+from ..optim.adamw import clip_by_global_norm, tree_items
 from ..optim.schedule import cosine_schedule
 
 __all__ = ["TrainHParams", "make_train_step", "compress_grads"]
@@ -66,14 +77,22 @@ def _value_and_grad(loss_fn: Callable, params: dict, batch: dict):
     return loss.detach(), [g.float() for g in grads]
 
 
-def make_train_step(loss_fn: Callable, hp: TrainHParams):
+def make_train_step(loss_fn: Callable, hp: TrainHParams, mesh=None, placements=None,
+                    split: bool = False):
     """``loss_fn(params, batch) -> scalar``.  Returns ``step(params, opt,
     batch) -> (params, opt, {"loss", "gnorm", "lr"})``; params and opt are
-    updated in place and returned."""
+    updated in place and returned.  With ``mesh``, ``params`` and ``opt``
+    are this rank's shards under ``placements`` and ``batch`` is its rows
+    (``split``) or the whole batch (see the module docstring)."""
 
     def step(params: dict, opt: AdamState, batch: dict):
         t = int(opt.step)  # the lr of this update: the count before it
         lr = cosine_schedule(t, hp.warmup, hp.total_steps, hp.lr)
+        shards = None
+        if mesh is not None:
+            from ..dist.sharding import gather_tree
+
+            shards, params = params, gather_tree(params, placements, mesh)
         if hp.microbatches > 1:
             n = hp.microbatches
             gsum, losses = None, []
@@ -87,11 +106,35 @@ def make_train_step(loss_fn: Callable, hp: TrainHParams):
             loss = torch.stack(losses).mean()
         else:
             loss, grads = _value_and_grad(loss_fn, params, batch)
+        if shards is not None:
+            return _sharded_update(shards, params, grads, loss, opt, lr, t)
         if hp.grad_compress:
             grads = compress_grads(grads, t)
         params, opt, gnorm = adamw_update(params, grads, opt, lr,
                                           weight_decay=hp.weight_decay,
                                           max_grad_norm=hp.max_grad_norm)
         return params, opt, {"loss": loss, "gnorm": gnorm, "lr": lr}
+
+    def _sharded_update(shards, whole, grads, loss, opt, lr, t):
+        """The update of a rank's ``shards`` from the gradients of the
+        ``whole`` parameters: summed over the data ranks in rank order when
+        the batch rows split, clipped whole, then cut to the rank's shards
+        (the clip already applied, ``adamw_update`` scales them by 1)."""
+        from ..dist.comm import sum_in_rank_order
+        from ..dist.sharding import local_shard
+
+        if split:
+            n = mesh.get_group("data").size()
+            grads = [sum_in_rank_order(g, mesh, "data") / n for g in grads]
+            loss = sum_in_rank_order(loss, mesh, "data") / n
+        if hp.grad_compress:
+            grads = compress_grads(grads, t)
+        grads, gnorm = clip_by_global_norm(grads, hp.max_grad_norm)
+        spec = dict(tree_items(placements))
+        local = [local_shard(g, spec[path], mesh)
+                 for (path, _), g in zip(tree_items(whole), grads)]
+        shards, opt, _ = adamw_update(shards, local, opt, lr, weight_decay=hp.weight_decay,
+                                      max_grad_norm=float("inf"))
+        return shards, opt, {"loss": loss, "gnorm": gnorm, "lr": lr}
 
     return step

@@ -2,8 +2,15 @@
 paper's sparsity source) as a first-class schedule, checkpoint/restart with
 exact data resume, preemption handling and a straggler watchdog.
 
-Port of the JAX package's ``train/trainer.py`` on one device (no mesh:
-sharding comes with ROADMAP.md A12).  Fault-tolerance model:
+Port of the JAX package's ``train/trainer.py``, on one device or, with
+``mesh``, on the ranks of a (data, model) DeviceMesh that all run the same
+code (``launch/mesh.py``): the parameters and both AdamW moments are
+stored as each rank's shards under ``dist.sharding.params_shardings``,
+the batch rows split over ``data`` (when its size divides them), and the
+step is ``train/step.py``'s sharded step; the pruning masks are computed
+on the whole tree, in the single-device order.  A checkpoint stays the
+logical tree with the reference's files and leaf keys: every rank gathers
+it, rank 0 writes it, and any mesh restores it.  Fault-tolerance model:
   * the data pipeline is a pure function of the step, so a restart resumes
     the exact stream (``SyntheticDataset.skip_to``);
   * SIGTERM/SIGINT set a flag that makes the loop checkpoint and stop after
@@ -20,6 +27,7 @@ in the reference).
 from __future__ import annotations
 
 import dataclasses
+import math
 import signal
 import threading
 import time
@@ -30,10 +38,11 @@ import torch
 
 from ..checkpoint.ckpt import Checkpointer
 from ..configs.base import ArchConfig
+from ..dist.comm import axis_index, mesh_shape
 from ..core.pruning import apply_masks, masks_tree, polynomial_sparsity, tree_sparsity
 from ..data.pipeline import SyntheticDataset
 from ..models import build_model
-from ..optim import adamw_init
+from ..optim import AdamState, adamw_init
 from .step import TrainHParams, make_train_step
 
 __all__ = ["TrainConfig", "Trainer"]
@@ -58,14 +67,27 @@ class TrainConfig:
 
 
 class Trainer:
-    def __init__(self, cfg: ArchConfig, tc: TrainConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, tc: TrainConfig, device="cuda", mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; pass device='cpu' "
                                "to train on the CPU")
         self.cfg, self.tc = cfg, tc
         self.model = build_model(cfg)
-        self.step_fn = make_train_step(self.model.loss, tc.hp)
+        self.mesh = mesh if math.prod(mesh_shape(mesh).values()) > 1 else None
+        self.rows = None  # this rank's rows of each batch, on a data axis that divides it
+        self.p_shard = None
+        if self.mesh is not None:
+            from ..dist.sharding import params_shardings
+
+            self.p_shard = params_shardings(self.model.specs(), self.mesh)
+            dp = mesh_shape(self.mesh).get("data", 1)
+            if dp > 1 and tc.global_batch % dp == 0:
+                k = tc.global_batch // dp
+                r = axis_index(self.mesh, "data")
+                self.rows = slice(r * k, (r + 1) * k)
+        self.step_fn = make_train_step(self.model.loss, tc.hp, self.mesh, self.p_shard,
+                                       split=self.rows is not None)
         self.ckpt = Checkpointer(tc.ckpt_dir) if tc.ckpt_dir else None
         self._preempted = False
         self.metrics_log: List[Dict] = []
@@ -88,8 +110,35 @@ class Trainer:
 
     # -- setup ----------------------------------------------------------------
     def init_state(self):
+        """The initial parameters and AdamW state: on a mesh, this rank's
+        shards of the whole init (every rank draws the same tree)."""
         params = self.model.init(self.tc.seed, device=self.device)
+        if self.mesh is not None:
+            from ..dist.sharding import shard_tree
+
+            params = shard_tree(params, self.p_shard, self.mesh)
         return params, adamw_init(params)
+
+    def _whole(self, params: dict, opt=None):
+        """The whole parameters (and AdamW state), gathered from every
+        rank's shards on a mesh; as they are on one device."""
+        if self.mesh is None:
+            return params, opt
+        from ..dist.sharding import gather_tree
+
+        params = gather_tree(params, self.p_shard, self.mesh)
+        if opt is not None:
+            opt = AdamState(step=opt.step, mu=gather_tree(opt.mu, self.p_shard, self.mesh),
+                            nu=gather_tree(opt.nu, self.p_shard, self.mesh))
+        return params, opt
+
+    def _save(self, step: int, params: dict, opt) -> tuple:
+        """Checkpoint the logical tree: gathered on every rank, written by
+        the mesh's rank 0 alone.  Returns the gathered (params, opt)."""
+        params, opt = self._whole(params, opt)
+        if self.mesh is None or not any(self.mesh.get_coordinate()):
+            self.ckpt.save(step, {"params": params, "opt": opt})
+        return params, opt
 
     def train(self) -> Dict:
         previous = self._install_signal_handlers()
@@ -104,7 +153,12 @@ class Trainer:
         params, opt = self.init_state()
         start_step = 0
         if self.ckpt:
-            got, restored = self.ckpt.restore_latest({"params": params, "opt": opt})
+            shardings = None
+            if self.mesh is not None:
+                shardings = {"params": self.p_shard,
+                             "opt": AdamState(step=None, mu=self.p_shard, nu=self.p_shard)}
+            got, restored = self.ckpt.restore_latest({"params": params, "opt": opt}, shardings,
+                                                     self.mesh)
             if got is not None:
                 params, opt = restored["params"], restored["opt"]
                 start_step = got
@@ -115,10 +169,12 @@ class Trainer:
         times: List[float] = []
         it = iter(data)
         final_loss = float("nan")
+        saved = (None, None, None)  # (step, whole params, whole opt) of the last checkpoint
         masks = None  # persistent keep-masks once pruning starts
         step = start_step - 1
         for step in range(start_step, tc.steps):
-            batch = {k: torch.from_numpy(v).to(self.device) for k, v in next(it).items()}
+            batch = {k: torch.from_numpy(v if self.rows is None else v[self.rows]).to(self.device)
+                     for k, v in next(it).items()}
             t0 = time.perf_counter()
             params, opt, metrics = self.step_fn(params, opt, batch)
             self._sync()
@@ -135,7 +191,11 @@ class Trainer:
             # optimizer cannot resurrect pruned weights
             if cfg.sparsity > 0 and step >= tc.prune_begin and step % tc.prune_every == 0:
                 target = polynomial_sparsity(step, tc.prune_begin, tc.prune_end, cfg.sparsity)
-                masks = masks_tree(params, target)
+                masks = masks_tree(self._whole(params)[0], target)  # on the whole tree
+                if self.mesh is not None:
+                    from ..dist.sharding import shard_tree
+
+                    masks = shard_tree(masks, self.p_shard, self.mesh)
             if masks is not None:
                 apply_masks(params, masks)
 
@@ -147,13 +207,15 @@ class Trainer:
                 print(f"step {step:5d} loss {final_loss:.4f} dt {dt*1e3:.0f}ms", flush=True)
 
             if self.ckpt and ((step + 1) % tc.ckpt_every == 0 or self._preempted):
-                self.ckpt.save(step + 1, {"params": params, "opt": opt})
+                saved = (step + 1, *self._save(step + 1, params, opt))
             if self._preempted:
                 print(f"[preempt] checkpointed at step {step + 1}, exiting", flush=True)
                 break
 
         if self.ckpt:
             self.ckpt.wait()
+        # the whole tree: the last checkpoint's when it holds the last step
+        params, opt = saved[1:] if saved[0] == step + 1 else self._whole(params, opt)
         return {
             "params": params,
             "opt": opt,

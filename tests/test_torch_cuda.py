@@ -61,6 +61,11 @@ greedy and sampled, the recurrent families past ``max_len``; one decode
 step (and the pool step's per-row form) makes no host sync; the
 scheduler's completions equal one-shot ``generate`` at B = 1.
 
+The mesh: two gloo ranks sharing the card hold the sharded B1 (column
+windows all-gathered) and the gathered-partial B2 (window partials
+all-gathered, summed by the kernel's ordered sum) bitwise against the
+single-device kernels at ``vusa_edge``'s widths, a pad window included.
+
 Training on the card: full-width ``vusa_edge`` (bf16 activations, remat)
 cut to 2 layers trains a few steps with pruning through the ``Trainer``;
 a run restored from its step-4 checkpoint (a mask-refresh step) ends
@@ -1128,3 +1133,53 @@ def test_recurrent_scheduler_equals_one_shot_on_card(arch, temperature):
         eng.sc = dataclasses.replace(eng.sc, seed=r.seed)
         want = eng.generate(r.prompt[None], max_new=r.max_new)["tokens"][0]
         np.testing.assert_array_equal(done[rid].tokens, want)
+
+
+def _mesh_kernel_ranks(mesh, device, cases):
+    """Each case's sharded B1 (column windows all-gathered) and B2 (window
+    partials all-gathered, summed by the kernel's ordered sum) on this
+    rank's windows, beside the single-device kernels on the whole packs."""
+    from repro_torch.kernels.ops import (apply_fused_mlp_sharded, apply_row_packed_sharded,
+                                         local_windows)
+
+    out = {}
+    for name, (x, w, wg, wu, wd, vd) in cases.items():
+        x = x.to(device)
+        p = pack_linear_rows(w, device=device, value_dtype=vd)
+        g, u = (pack_linear_rows(m, device=device, value_dtype=vd) for m in (wg, wu))
+        d = pack_linear_rows_t(wd, device=device, value_dtype=vd)
+        local = [local_windows(q, mesh) for q in (p, g, u, d)]
+        packed_mod.reset_launch_counts()
+        row = apply_row_packed_sharded(x, local[0], mesh)
+        mlp = apply_fused_mlp_sharded(x, *local[1:], mesh)
+        counts = (packed_mod.vusa_packed_matmul.launches[vd],
+                  packed_mod.vusa_fused_mlp_partials.launches[vd],
+                  packed_mod.vusa_window_sum.launches["dense"])
+        out[name] = (bool(torch.equal(row, apply_row_packed(x, p))),
+                     bool(torch.equal(mlp, apply_fused_mlp(x, g, u, d))), counts)
+    return out
+
+
+@pytest.mark.gpu
+def test_sharded_kernels_bitwise_on_card(tmp_path):
+    """Two gloo ranks sharing the card: sharded B1 and gathered-partial B2
+    bitwise the single-device kernels at vusa_edge's d_model and ff (768,
+    3072: 24 ff windows) and a 251-window matrix, which pads to 252 over
+    the two ranks; fp32 and int8 values, B = 1 and 4; each wrapper
+    launched once a call."""
+    _card()
+    from repro_torch.kernels.build import build
+    from repro_torch.launch.mesh import spawn
+
+    build()  # the ranks only load the libraries
+    rng = np.random.default_rng(11)
+    cases = {}
+    for vd in ("dense", "int8"):
+        for b in (1, 4):
+            cases[(vd, b)] = (torch.from_numpy(rng.standard_normal((b, 768)).astype(np.float32)),
+                              _sparse(rng, 768, 128 * 251, 0.85), _sparse(rng, 768, 3072, 0.85),
+                              _sparse(rng, 768, 3072, 0.85), _sparse(rng, 3072, 768, 0.85), vd)
+    for rank in spawn(_mesh_kernel_ranks, 1, 2, "gloo", "cuda", str(tmp_path), args=(cases,)):
+        for name, (row_ok, mlp_ok, counts) in rank.items():
+            assert row_ok and mlp_ok, name
+            assert counts == (1, 1, 1), name

@@ -1,0 +1,197 @@
+"""Port: the sharded trainer on a (data, model) mesh of gloo ranks on the CPU.
+
+One 2x2 world (``launch/mesh.spawn``, a rendezvous file under
+``tmp_path``) trains the ``vusa_edge`` smoke config on its ``model``
+sub-mesh (1x2), its ``data`` sub-mesh (2x1) and the whole mesh, with the
+pruning masks refreshed on the way:
+
+- 1x2 is the single-device trainer bitwise: loss every step, params,
+  both AdamW moments and the pruned zeros (each rank updates its shard of
+  the same gradients, clipped whole in the single-device order);
+- 2x1 (each data rank takes half the batch, the gradients summed over the
+  data ranks in rank order) stays within 1e-5 relative of the
+  single-device loss at each of its 4 steps; the gap grows with steps, as
+  Adam moves a weight whose tiny gradient changed sign;
+- 2x1 in lockstep (each step from one device's state): the loss within
+  1e-5 relative of the single-device step's, and the global norm of the
+  summed gradients and each rank's updated shards bitwise one device's
+  step over the same batch in two microbatches, so a wrong gradient sum
+  or a wrong sharded update fails;
+- a checkpoint written on 2x2 holds the logical tree, and 1x1 restores it
+  bitwise equal to the 2x2 run's gathered state;
+- the placements store each leaf as its shard: a rank holds half of
+  ``embed`` on ``data`` and half of the vocabulary on ``model``;
+- ``launch/train.py --data 2 --dist-backend gloo --device cpu`` runs.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint.ckpt import restore
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.pipeline import SyntheticDataset
+from repro_torch.dist.sharding import shard_tree
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import spawn
+from repro_torch.models import build_model
+from repro_torch.optim import AdamState, adamw_init
+from repro_torch.optim.adamw import tree_items
+from repro_torch.train import TrainConfig, Trainer, TrainHParams
+
+STEPS = 4
+
+
+def _tc(ckpt=None):
+    return TrainConfig(steps=STEPS, global_batch=4, seq_len=16, ckpt_dir=ckpt,
+                       ckpt_every=STEPS, token_range=64, prune_begin=1, prune_end=3,
+                       prune_every=2, log_every=1,
+                       hp=TrainHParams(lr=1e-3, warmup=1, total_steps=STEPS))
+
+
+def _flat(tree, prefix=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        elif v is not None:
+            yield prefix + k, v.detach().cpu()
+
+
+def _train(mesh, ckpt=None):
+    tr = Trainer(get_smoke_config("vusa_edge"), _tc(ckpt), device="cpu", mesh=mesh)
+    out = tr.train()
+    return {"losses": [r["loss"] for r in tr.metrics_log],
+            "params": dict(_flat(out["params"])), "mu": dict(_flat(out["opt"].mu)),
+            "nu": dict(_flat(out["opt"].nu)), "sparsity": out["sparsity"]}
+
+
+def _equal(a, b) -> bool:
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _lockstep(mesh):
+    """Each step of the data-parallel trainer on ``mesh`` taken from this
+    rank's shards of the single-device state and its rows of the batch,
+    beside one device's whole-batch step and its step over the same batch
+    in two microbatches (the ranks' rows): per step, the loss gap to the
+    whole-batch step (relative), and whether the global gradient norm and
+    this rank's updated shards (params, both moments) equal the
+    microbatched step's bitwise."""
+    cfg = get_smoke_config("vusa_edge")
+    tc = _tc()
+    one, dp = Trainer(cfg, tc, device="cpu"), Trainer(cfg, tc, device="cpu", mesh=mesh)
+    halves = Trainer(cfg, dataclasses.replace(tc, hp=dataclasses.replace(tc.hp, microbatches=2)),
+                     device="cpu")
+    params, opt = one.init_state()
+    data = iter(SyntheticDataset(cfg, tc.global_batch, tc.seq_len, seed=tc.seed,
+                                 token_range=tc.token_range))
+    shard = functools.partial(shard_tree, placements=dp.p_shard, mesh=mesh)
+    out = []
+    for _ in range(STEPS):
+        host = next(data)
+        batch = {k: torch.from_numpy(v) for k, v in host.items()}
+        rows = {k: torch.from_numpy(v[dp.rows]) for k, v in host.items()}
+        new, state, got = dp.step_fn(shard(params), AdamState(opt.step.clone(), shard(opt.mu),
+                                                              shard(opt.nu)), rows)
+        acc, acc_opt, split = halves.step_fn(
+            _clone(params), AdamState(opt.step.clone(), _clone(opt.mu), _clone(opt.nu)), batch)
+        params, opt, want = one.step_fn(params, opt, batch)
+        out.append((abs(float(got["loss"]) / float(want["loss"]) - 1),
+                    bool(torch.equal(got["gnorm"], split["gnorm"])) and _equal(new, shard(acc))
+                    and _equal(state.mu, shard(acc_opt.mu)) and _equal(state.nu,
+                                                                       shard(acc_opt.nu))))
+    return out
+
+
+def _ranks(mesh, device, ckpt):
+    trainer = Trainer(get_smoke_config("vusa_edge"), _tc(), device="cpu", mesh=mesh)
+    params, _ = trainer.init_state()
+    shapes = {k: tuple(v.shape) for k, v in _flat(params)}
+    return {"1x2": _train(mesh["model"]), "2x1": _train(mesh["data"]),
+            "2x1 lockstep": _lockstep(mesh["data"]), "2x2": _train(mesh, ckpt),
+            "shapes": shapes}
+
+
+@pytest.fixture(scope="module")
+def single():
+    return _train(None)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    ckpt = str(tmp_path_factory.mktemp("ckpt"))
+    return spawn(_ranks, 2, 2, "gloo", "cpu", str(tmp_path_factory.mktemp("mesh")),
+                 args=(ckpt,)), ckpt
+
+
+def test_model_axis_training_is_bitwise(world, single):
+    for rank in world[0]:
+        got = rank["1x2"]
+        assert got["losses"] == single["losses"]
+        for leaf in ("params", "mu", "nu"):
+            for k, v in single[leaf].items():
+                assert torch.equal(got[leaf][k], v), (leaf, k)
+        assert got["sparsity"] == single["sparsity"] > 0
+
+
+def test_data_axis_training_within_tolerance(world, single):
+    for rank in world[0]:
+        got = rank["2x1"]["losses"]
+        assert len(got) == STEPS
+        rel = np.abs(np.asarray(got) - single["losses"]) / np.abs(single["losses"])
+        assert rel.max() <= 1e-5, rel
+
+
+def test_data_axis_step_matches_the_single_device_step(world):
+    for rank in world[0]:
+        gaps, bitwise = zip(*rank["2x1 lockstep"])
+        assert len(gaps) == STEPS and max(gaps) <= 1e-5, gaps
+        assert all(bitwise), bitwise
+
+
+def test_ranks_agree(world):
+    ranks = world[0]
+    for mesh in ("1x2", "2x1", "2x2"):
+        for k, v in ranks[0][mesh]["params"].items():
+            assert all(torch.equal(r[mesh]["params"][k], v) for r in ranks[1:]), (mesh, k)
+
+
+def test_checkpoint_from_2x2_restores_on_1x1(world):
+    ranks, ckpt = world
+    model = build_model(get_smoke_config("vusa_edge"))
+    like = model.init(0, device="cpu")
+    got = restore(ckpt, STEPS, {"params": like, "opt": adamw_init(like)})
+    want = ranks[0]["2x2"]
+    for k, v in _flat(got["params"]):
+        assert torch.equal(v, want["params"][k]), k
+    for leaf in ("mu", "nu"):
+        for k, v in _flat(getattr(got["opt"], leaf)):
+            assert torch.equal(v, want[leaf][k]), (leaf, k)
+    assert int(got["opt"].step) == STEPS
+
+
+def test_rank_holds_its_shards(world):
+    cfg = get_smoke_config("vusa_edge")
+    whole = {k: tuple(v.shape) for k, v in _flat(build_model(cfg).init(0, device="cpu"))}
+    shapes = world[0][0]["shapes"]
+    assert shapes["embed"] == (whole["embed"][0] // 2, whole["embed"][1] // 2)
+    assert shapes["layers/ffn/w_up"] == (cfg.n_layers, cfg.d_model // 2, cfg.d_ff // 2)
+    assert shapes["final_norm"] == (cfg.d_model // 2,)
+
+
+def test_launcher_trains_on_a_data_axis(capfd):
+    out = launch_train.main(["--arch", "vusa_edge", "--smoke", "--device", "cpu", "--data",
+                             "2", "--dist-backend", "gloo", "--steps", "2", "--batch", "4",
+                             "--seq", "16"])
+    assert np.isfinite(out["final_loss"])
+    assert "final loss" in capfd.readouterr().out
+    with pytest.raises(SystemExit):
+        launch_train.main(["--arch", "vusa_edge", "--smoke", "--device", "cpu", "--data", "2"])

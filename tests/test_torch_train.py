@@ -452,7 +452,7 @@ def test_launcher_trains_on_cpu(tmp_path, capsys):
                                "--grad-compress", "--ckpt", str(tmp_path)])
     assert np.isfinite(out["final_loss"]) and out["steps_run"] == 4
     assert "final loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(SystemExit):  # a mesh names its collective backend (--dist-backend)
         train_launcher.main(["--arch", "vusa_edge", "--smoke", "--device", "cpu", "--data", "2"])
 
 
