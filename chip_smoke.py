@@ -306,14 +306,38 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    2x2 restores bitwise on one device.  Reported, beside the card's name and power limit: ms a step,
    tok/s, collectives and bytes a step a rank, peak memory a rank, the
    phase's seconds (at most 150);
-16. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+16. leftovers and cost tools (at most 60 s): (a) 2:4 packs
+   (``ops.pack_linear_rows_nm``: n 2, block 4, a 16; the slot axis held
+   to its bound, 64) of layer 0's wq (768 -> 768) and the head (768 ->
+   32000), drawn dense, with fp32, int8 and int4 values, through B1 / B3
+   at phase 3's B and activations: kernel vs plain within 1e-4 of the
+   largest, the fp32 packs against ``x @ masked`` at rtol / atol 1e-4,
+   CUDA launches as ``row_plan`` plans, rows bitwise B = 1; byte ratio,
+   jobs and phase 3's timings (the library call on the masked dense
+   weight).  (b) the legacy MLP-only pack (``pack_lm_mlps``, m 128, a 16)
+   of phase 4's weights in fp32 through ``lm_decode_step_packed``: one
+   step counted, B1 exactly 3 launches a layer (36 at 12 layers), B2
+   none, CUDA launches as planned; its first-step logits against the
+   fused MLP pack (``pack_lm_weights(scope="mlp")``) from one prefill
+   within 1e-4 of the largest on the 2-layer cut and 1e-2 at 12 (C6), and
+   on the cut greedy tokens identical over 31 steps.  (c) the dry run
+   (``launch/dryrun.py``) of ``vusa_edge``'s decode step (B = 4, max_len
+   64), prefill (B = 4, 32 tokens) and phase 12's train step (8 x 128)
+   on a 1x1 mesh against the same calls on the card: the traced argument
+   bytes equal to the tensors' bytes and to the allocator's requested
+   bytes for them, the traced ``dot_flops`` equal to ``FlopCounterMode``'s
+   count of the real call, the real call's peak above its arguments
+   (``max_memory_allocated``) within 0.8-1.25 of the traced
+   ``temp_size_in_bytes``; the real call's ms (CUDA events, 5 calls)
+   beside ``roofline.analyze_record``'s bound (H100 data-sheet peaks);
+17. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, phase 10's speculative pool graph launches, CUDA launches per
    call as counted, and under ``families`` the same per decode step of
    phase 13's qwen2 and qwen3 with their counted launches, and under
    ``mesh_launches_per_step_per_rank`` phase 15's launches a rank; B5/B6
    per ResNet-18 image, MobileNetV1 under ``mobilenetv1``);
-17. the card line again and the result line.
+18. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -496,6 +520,16 @@ MESH_CKPT_STEPS = 1
 # every collective crosses host memory and the ranks share the host's cores
 # with this process (PERF.md §5, the mesh)
 MESH_PHASE_LIMIT_S = 150.0
+# the leftovers phase (16): the 2:4 arm's structure and job width, the legacy
+# MLP pack's first-step tolerance (of the largest logit) on the 2-layer cut
+# and at full depth (C6), the dry run's cells (kind, batch, tokens) and the
+# band of the card's peak above the arguments over the trace's temp bytes
+NM_SHAPE, NM_A = (2, 4), 16
+LEGACY_TOL_CUT, LEGACY_TOL_FULL = 1e-4, 1e-2
+COST_CELLS = (("decode", BATCH, 64), ("prefill", BATCH, PROMPT), ("train", TRAIN_BATCH, TRAIN_SEQ))
+COST_BAND = (0.8, 1.25)
+COST_ITERS = 5
+LEFT_PHASE_LIMIT_S = 60.0
 # ResNet-18's layer groups by GEMM name (the 1x1 downsample convs in their group)
 RESNET18_GROUPS = (("conv0", ("conv0",)),
                    ("layer1", tuple(f"conv{i}" for i in range(1, 5))),
@@ -3458,6 +3492,244 @@ def run_async(what: str, coro_fn, timeout: float = 300.0):
     return box["out"]
 
 
+# --------------------------------------------------------------------------
+# phase 16: the leftovers and cost tools
+# --------------------------------------------------------------------------
+
+
+def nm_phase(raw, rng) -> list:
+    """Phase 16a: 2:4 packs (``ops.pack_linear_rows_nm``) of layer 0's wq
+    and the head, drawn dense, with fp32, int8 and int4 values, through B1
+    and B3 with phase 3's checks (kernel vs plain, CUDA launches as
+    ``row_plan`` plans, rows bitwise B = 1) and timings; the fp32 packs
+    also against ``x @ masked`` at rtol / atol 1e-4 (``benchmarks/run.py``'s
+    check)."""
+    from repro_torch.core.packing import nm_mask
+
+    timer = Timer()
+    n, block = NM_SHAPE
+    mats = {"wq": raw["layers"]["attn"]["wq"][0].flatten(1),
+            "head": raw["lm_head"]}
+    records = []
+    for name, w in mats.items():
+        host = w.detach().float().cpu().numpy()
+        masked = torch.from_numpy(np.where(nm_mask(host, n, block), host, 0)).to(DEVICE)
+        xs = activations(rng, w.shape[0])
+        for vdt in ("dense",) + QDTYPES:
+            lin = ops.pack_linear_rows_nm(w, n=n, block=block, a=NM_A, value_dtype=vdt)
+            if lin.slots != ops.nm_slot_bound(n, block, lin.m, NM_A):
+                fail(f"2:4 {name} {vdt}: {lin.slots} slots, not the bound")
+            rec = check_packed_matmul(timer, f"2:4 {name} {vdt}", lin, xs, time_it=True)
+            if vdt == "dense":
+                for x in xs:
+                    got = vusa_packed_matmul(x, lin.values, lin.positions, m=lin.m)[:, : lin.c]
+                    want = x.float() @ masked
+                    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+                        fail(f"2:4 {name} x={x.dtype} B={x.shape[0]}: kernel vs x @ masked "
+                             f"{float((got - want).abs().max())}")
+            rec.update(byte_ratio=lin.byte_ratio, jobs=lin.slots // lin.a,
+                       nnz_per_row_window=int((lin.positions >= 0).sum(-1).max()))
+            records.append(rec)
+    return records
+
+
+def greedy_packed(cfg, params, packed, tok, cache, steps: int) -> torch.Tensor:
+    """``steps`` greedy tokens through ``lm_decode_step_packed`` from a
+    primed ``(tok, cache)``."""
+    out = [tok]
+    for _ in range(steps):
+        logits, cache = lm_decode_step_packed(params, packed, out[-1], cache, cfg)
+        out.append(torch.argmax(logits[:, -1].float(), dim=-1)[:, None])
+    return torch.cat(out, 1)
+
+
+def legacy_phase(cfg, params) -> dict:
+    """Phase 16b: the legacy MLP-only pack (``pack_lm_mlps``) in fp32 against
+    the fused MLP pack (``pack_lm_weights(scope="mlp")``) of the same
+    weights, both from one dense prefill: one decode step counted (B1
+    exactly 3 a layer and as ``row_plan`` plans, B2 none), the first
+    step's logits within ``LEGACY_TOL_FULL`` of the largest at full depth
+    and ``LEGACY_TOL_CUT`` on the 2-layer cut, and greedy tokens identical
+    on the cut."""
+    from repro_torch.serve.packed import pack_lm_mlps, pack_lm_weights
+
+    out = {}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tokens = torch.from_numpy(prompts_for(cfg)).long().to(DEVICE)
+    for layers in (cfg.n_layers, DEPTH_CUT):
+        c = dataclasses.replace(cfg32, n_layers=layers)
+        p = params if layers == cfg.n_layers else {**params,
+                                                  "layers": first_layers(params["layers"])}
+        t0 = time.monotonic()
+        flat = pack_lm_mlps(c, p, m=128, a=16)
+        fused = pack_lm_weights(c, p, scope="mlp")
+        pack_s = time.monotonic() - t0
+        with torch.no_grad():
+            logits, cache = build_model(c).prefill(p, {"tokens": tokens}, PROMPT + MAX_NEW)
+            tok = torch.argmax(logits.float(), dim=-1)[:, None]
+            cuda0 = packed_cuda_launches("vusa_packed_matmul")
+            reset_launch_counts()
+            lf = lm_decode_step_packed(p, flat, tok, copy_cache(cache), c)[0]
+            counts = {"vusa_packed_matmul": dict(vusa_packed_matmul.launches),
+                      "vusa_fused_mlp_matmul": dict(vusa_fused_mlp_matmul.launches)}
+            cuda = packed_cuda_launches("vusa_packed_matmul") - cuda0
+            want = {name: {r: (3 * layers if name == "vusa_packed_matmul" and r == "dense" else 0)
+                           for r in counts[name]} for name in counts}
+            if counts != want:
+                fail(f"legacy MLP pack, {layers} layers: launches {counts} != {want}")
+            plan = layers * sum(row_plan.cuda_launches(
+                row_plan.row_plan(flat[n]["k"]), BATCH, flat[n]["values"].shape[1] * 128)
+                for n in ("w_gate", "w_up", "w_down"))
+            if cuda != plan:
+                fail(f"legacy MLP pack, {layers} layers: {cuda} CUDA launches, the plan {plan}")
+            lu = lm_decode_step_packed(p, fused, tok, copy_cache(cache), c)[0]
+            gap, rel = rel_err(lf, lu)
+            if rel > (LEGACY_TOL_FULL if layers == cfg.n_layers else LEGACY_TOL_CUT):
+                fail(f"legacy vs fused MLP pack, {layers} layers, fp32: first-step gap {gap} "
+                     f"({rel} of the largest logit)")
+            rec = {"layers": layers, "launches": counts, "cuda_launches": cuda,
+                   "first_step_logit_gap": gap, "first_step_logit_gap_rel": rel,
+                   "pack_s": pack_s, "byte_ratio": packed_byte_ratios(flat)["total"],
+                   "fused_byte_ratio": packed_byte_ratios(fused)["total"]}
+            if layers == DEPTH_CUT:
+                runs = {}
+                for what, pk in (("legacy", flat), ("fused", fused)):
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    runs[what] = greedy_packed(c, p, pk, tok, copy_cache(cache), MAX_NEW - 1)
+                    torch.cuda.synchronize()
+                    rec[f"{what}_ms_per_step"] = 1e3 * (time.monotonic() - t0) / (MAX_NEW - 1)
+                if not torch.equal(runs["legacy"], runs["fused"]):
+                    fail(f"legacy vs fused MLP pack, {DEPTH_CUT} layers: greedy tokens differ, "
+                         f"{float((runs['legacy'] == runs['fused']).float().mean())} agree")
+                rec["greedy_tokens_equal"] = True
+        out[layers] = rec
+        release()
+    return out
+
+
+def requested_bytes(key: str = "current") -> int:
+    stats = torch.cuda.memory_stats()
+    name = f"requested_bytes.all.{key}"
+    if name not in stats:
+        fail(f"torch.cuda.memory_stats() has no {name!r}")
+    return stats[name]
+
+
+def cost_phase(cfg) -> dict:
+    """Phase 16c: ``launch/dryrun.py``'s trace of ``vusa_edge``'s decode
+    step, prefill and train step on a 1x1 mesh (``COST_CELLS``) against the
+    same step run for real on the card: argument bytes equal to the bytes
+    the card holds for them (the allocator's requested bytes) and the
+    traced ``dot_flops`` equal to ``FlopCounterMode``'s count of the real
+    call, exactly; the real call's peak above its arguments over the
+    trace's ``temp_size_in_bytes`` inside ``COST_BAND``; the real call's
+    time (CUDA events, the mean of ``COST_ITERS`` calls after a warm-up)
+    beside ``roofline.analyze_record``'s bound (H100 data-sheet peaks)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+
+    out = {}
+    for kind, b, s in COST_CELLS:
+        t0 = time.monotonic()
+        with dryrun.fake_world(1):
+            mesh = make_local_mesh(1, 1)
+            rec = dryrun.trace_step(cfg, kind, b, s, mesh)
+        trace_s = time.monotonic() - t0
+        release()
+        torch.cuda.synchronize()
+        r0 = requested_bytes()
+        run, args = dryrun.build_step(cfg, kind, b, s, None, device=DEVICE, seed=0)
+        torch.cuda.synchronize()
+        held, real = requested_bytes() - r0, dryrun.tree_bytes(args)
+        traced = rec["memory"]["argument_size_in_bytes"]
+        if not traced == real == held:
+            fail(f"cost {kind}: argument bytes traced {traced}, tensors {real}, allocated {held}")
+        run()  # warm-up: cuBLAS workspaces, the allocator's pools
+        torch.cuda.synchronize()
+        with FlopCounterMode(display=False) as fc:
+            run()
+        if fc.get_total_flops() != rec["weighted"]["dot_flops"]:
+            fail(f"cost {kind}: traced dot_flops {rec['weighted']['dot_flops']}, "
+                 f"FlopCounterMode of the real call {fc.get_total_flops()}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base, base_req = torch.cuda.memory_allocated(), requested_bytes()
+        res = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        peak_req = requested_bytes("peak") - base_req
+        del res
+        temp = rec["memory"]["temp_size_in_bytes"]
+        if not COST_BAND[0] <= peak / temp <= COST_BAND[1]:
+            fail(f"cost {kind}: peak above the arguments {peak} bytes, the trace's temp {temp}: "
+                 f"ratio {peak / temp} outside {COST_BAND}")
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(COST_ITERS)]
+        for start, end in events:
+            start.record()
+            run()
+            end.record()
+        torch.cuda.synchronize()
+        ms = sum(st.elapsed_time(en) for st, en in events) / COST_ITERS
+        row = roofline.analyze_record({**rec, "arch": "vusa_edge", "shape": kind, "n_devices": 1},
+                                      shape=ShapeConfig(kind, s, b, kind))
+        out[kind] = {"batch": b, "seq": s, "trace_s": trace_s, "argument_bytes": real,
+                     "dot_flops": rec["weighted"]["dot_flops"], "bytes": rec["weighted"]["bytes"],
+                     "transcendentals": rec["weighted"]["transcendentals"],
+                     "temp_bytes": temp, "peak_bytes": peak, "peak_requested_bytes": peak_req,
+                     "peak_over_temp": peak / temp, "ms": ms, "bound_ms": 1e3 * row["bound_s"],
+                     "bound_by": row["dominant"], "roofline_frac": 1e3 * row["bound_s"] / ms,
+                     "model_flops": row["model_flops_dev"]}
+        del run, args
+        release()
+    return out
+
+
+def leftovers_phase(raw, params, cfg) -> dict:
+    """Phase 16 (module docstring).  Fails past ``LEFT_PHASE_LIMIT_S``."""
+    t0 = time.monotonic()
+    res = {"nm": nm_phase(raw, np.random.default_rng(16)), "legacy_mlp": legacy_phase(cfg, params),
+           "cost": cost_phase(cfg)}
+    res["seconds"] = time.monotonic() - t0
+    if res["seconds"] > LEFT_PHASE_LIMIT_S:
+        fail(f"leftovers phase took {res['seconds']:.1f}s, over its {LEFT_PHASE_LIMIT_S:.0f}s")
+    return res
+
+
+def print_leftovers(lo: dict, card: str) -> None:
+    for r in lo["nm"]:
+        t = r["timing"]
+        worst = max(c["rel_err"] for c in r["cases"])
+        print(f"2:4 pack {r['name']} ({r['shape'][0]} -> {r['shape'][1]}): ok, worst error "
+              f"{worst:.3g} of max |plain|, byte ratio {r['byte_ratio']:.4f}, {r['jobs']} jobs; "
+              f"B={t['B']} {t['x']}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library on "
+              f"the masked weight {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
+              f"{t['bound_by']}) ({card})", flush=True)
+    for layers, r in lo["legacy_mlp"].items():
+        line = (f"legacy MLP pack, {layers} layers, fp32: {r['launches']['vusa_packed_matmul']} "
+                f"B1 launches a step (3 a layer), B2 "
+                f"{r['launches']['vusa_fused_mlp_matmul']}, CUDA launches {r['cuda_launches']}; "
+                f"first-step logits vs the fused MLP pack {r['first_step_logit_gap']:.4g} "
+                f"({r['first_step_logit_gap_rel']:.3g} of the largest); byte ratio "
+                f"{r['byte_ratio']:.4f} (fused {r['fused_byte_ratio']:.4f})")
+        if "greedy_tokens_equal" in r:
+            line += (f"; greedy tokens identical; ms a step legacy {r['legacy_ms_per_step']:.3f}"
+                     f", fused {r['fused_ms_per_step']:.3f}")
+        print(line + f" ({card})", flush=True)
+    for kind, r in lo["cost"].items():
+        print(f"dry run vs card, vusa_edge {kind} B={r['batch']} S={r['seq']}: argument bytes "
+              f"{r['argument_bytes']} and dot_flops {r['dot_flops']} equal; peak above the "
+              f"arguments {r['peak_bytes']} vs traced temp {r['temp_bytes']} "
+              f"({r['peak_over_temp']:.4f}); {r['ms']:.4f} ms against the roofline bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} (H100 data-sheet peaks): fraction "
+              f"{r['roofline_frac']:.4f}; traced in {r['trace_s']:.1f}s ({card})", flush=True)
+    print(f"leftovers phase {lo['seconds']:.1f}s (limit {LEFT_PHASE_LIMIT_S:.0f}s) ({card})",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run only on the card")
@@ -3701,6 +3973,9 @@ def main() -> None:
     mesh = mesh_phase()
     print_mesh(mesh, card)
 
+    left = leftovers_phase(raw, params, cfg)
+    print_leftovers(left, card)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -3803,6 +4078,7 @@ def main() -> None:
          "paper_workloads": paper, "graph_decode": graph, "speculative": spec,
          "scheduler": sched, "speculative_scheduler": sspec, "failure_model": fails,
          "train": train, "families": fam, "recurrent_families": rec, "mesh": mesh,
+         "leftovers": left,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,8 @@ A copy of the JAX package's ``core/packing.py``, in its three formats:
 * ``pack_rows`` — the row-wise format of the decode path (``RowPacked``,
   ``pack_rows_t``, ``validate_rows``, ``unpack_rows``), with its quantized
   variant (``QuantizedRowPacked``, ``quantize_rows``, ``dequantize_rows``,
-  the int4 nibble codec).
+  the int4 nibble codec) and the N:M structured pack (``nm_mask``,
+  ``pack_rows_nm``), the paper's structured-sparsity comparison arm.
 
 One change: ``pack_rows`` is vectorised.  The reference loops in Python over
 every (window, row) pair, about 1.1 M iterations for the whole ``vusa_edge``
@@ -34,7 +35,7 @@ __all__ = [
     "RowPacked", "pack_rows", "pack_rows_t", "shard_windows", "unpack_rows",
     "validate_rows",
     "QUANT_DTYPES", "QMAX", "QuantizedRowPacked", "pack_nibbles", "unpack_nibbles",
-    "quantize_rows", "dequantize_rows",
+    "quantize_rows", "dequantize_rows", "nm_mask", "pack_rows_nm",
 ]
 
 
@@ -216,6 +217,12 @@ class RowPacked:
     def n_jobs(self) -> int:
         return self.values.shape[2] // self.a
 
+    def byte_ratio(self, value_bytes: int = 2) -> float:
+        """Packed / dense device-memory bytes (int8 positions)."""
+        dense = self.k * self.c * value_bytes
+        packed = self.values.shape[0] * self.k * self.values.shape[2] * (value_bytes + 1)
+        return packed / dense
+
 
 def pack_rows(w: np.ndarray, m: int = 128, a: int = 16) -> RowPacked:
     """Pack (K, C) into the row-wise VUSA format (C padded to m)."""
@@ -354,6 +361,14 @@ class QuantizedRowPacked:
     scales: np.ndarray
     dense_itemsize: int
 
+    @property
+    def slots(self) -> int:
+        return self.row_positions.shape[2]
+
+    @property
+    def n_jobs(self) -> int:
+        return self.slots // self.a
+
 
 def pack_nibbles(q: np.ndarray) -> np.ndarray:
     """Pack int4-range int8 values (..., S) into (..., S//2) bytes, S even.
@@ -416,3 +431,39 @@ def dequantize_rows(q: QuantizedRowPacked) -> RowPacked:
         k=q.k, c=q.c, m=q.m, a=q.a,
         values=vals, row_positions=np.asarray(q.row_positions),
     )
+
+
+# --------------------------------------------------------------------------
+# N:M structured pack (S2TA's density-bound blocks): the comparison arm
+# --------------------------------------------------------------------------
+
+
+def nm_mask(w: np.ndarray, n: int, block: int) -> np.ndarray:
+    """Boolean keep-mask enforcing N:M structure along each row: in every
+    block of ``block`` consecutive columns keep the ``n`` largest-magnitude
+    entries (S2TA's density-bound block).  Columns past the last full block
+    are kept as they are."""
+    if not 1 <= n <= block:
+        raise ValueError(f"need 1 <= n <= block, got n={n} block={block}")
+    k, c = w.shape
+    c_full = (c // block) * block
+    mask = np.ones_like(w, dtype=bool)
+    if c_full:
+        blk = np.abs(w[:, :c_full]).reshape(k, c_full // block, block)
+        # drop the block - n smallest magnitudes per block (argpartition, O(block))
+        kth = np.argpartition(blk, block - n, axis=2)[:, :, : block - n]
+        bm = np.ones_like(blk, dtype=bool)
+        np.put_along_axis(bm, kth, False, axis=2)
+        mask[:, :c_full] = bm.reshape(k, c_full)
+    return mask
+
+
+def pack_rows_nm(
+    w: np.ndarray, n: int = 2, block: int = 4, m: int = 128, a: int = 16
+) -> RowPacked:
+    """Prune ``w`` to N:M structure, then row-pack it.  The result is an
+    ordinary :class:`RowPacked` (the same kernels take it) whose rows hold
+    at most ``n * ceil(m / block)`` values a window: its job count does not
+    depend on the data, the property structured sparsity buys."""
+    w = np.asarray(w)
+    return pack_rows(np.where(nm_mask(w, n, block), w, 0), m=m, a=a)

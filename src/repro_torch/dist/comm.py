@@ -17,12 +17,22 @@ import torch.distributed as dist
 __all__ = ["STATS", "reset_stats", "axis_size", "axis_index", "mesh_shape", "all_gather",
            "sum_in_rank_order", "broadcast"]
 
-# collectives made and bytes this rank received, since the last reset
-STATS = {"collectives": 0, "bytes": 0}
+# collectives made and bytes this rank received, since the last reset, in
+# all and per type ("by_type": {"all-gather" | "all-reduce" | "broadcast":
+# {"count", "bytes"}}, what ``launch/op_cost.py`` reports)
+STATS = {"collectives": 0, "bytes": 0, "by_type": {}}
 
 
 def reset_stats() -> None:
-    STATS.update(collectives=0, bytes=0)
+    STATS.update(collectives=0, bytes=0, by_type={})
+
+
+def _count(kind: str, nbytes: int) -> None:
+    STATS["collectives"] += 1
+    STATS["bytes"] += nbytes
+    e = STATS["by_type"].setdefault(kind, {"count": 0, "bytes": 0})
+    e["count"] += 1
+    e["bytes"] += nbytes
 
 
 def mesh_shape(mesh) -> dict:
@@ -58,8 +68,7 @@ def all_gather(t: torch.Tensor, mesh, name: str, dim: int = 0) -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=mesh.get_group(name))
-    STATS["collectives"] += 1
-    STATS["bytes"] += (n - 1) * t.numel() * t.element_size()
+    _count("all-gather", (n - 1) * t.numel() * t.element_size())
     return torch.cat(parts, dim=dim)
 
 
@@ -76,8 +85,7 @@ def sum_in_rank_order(t: torch.Tensor, mesh, name: str) -> torch.Tensor:
     if n == 2:
         out = t.clone()
         dist.all_reduce(out, group=mesh.get_group(name))
-        STATS["collectives"] += 1
-        STATS["bytes"] += t.numel() * t.element_size()
+        _count("all-reduce", t.numel() * t.element_size())
         return out
     parts = all_gather(t[None], mesh, name, dim=0)
     out = parts[0]
@@ -94,6 +102,5 @@ def broadcast(t: torch.Tensor, mesh, name: str, src: int = 0) -> torch.Tensor:
         return t
     group = mesh.get_group(name)
     dist.broadcast(t, group=group, group_src=src)
-    STATS["collectives"] += 1
-    STATS["bytes"] += t.numel() * t.element_size() if axis_index(mesh, name) != src else 0
+    _count("broadcast", t.numel() * t.element_size() if axis_index(mesh, name) != src else 0)
     return t

@@ -6,9 +6,10 @@ Port of the JAX package's ``kernels/ops.py``:
   ``PackedLinear``, ``pack_linear``, ``apply_packed`` (kernel ``vusa_spmm``)
   and ``matmul`` (kernel ``dense_matmul``);
 * the row format: ``RowPackedLinear`` (float values, or int8/int4 values
-  with per-(window, row) scales), the packers, ``dequantize_linear_values``
-  and the appliers that reshape, slice ``[:c]`` and cast the fp32 kernel
-  output back to the activation dtype;
+  with per-(window, row) scales), the packers (``pack_linear_rows_nm`` for
+  the N:M structured comparison arm), ``dequantize_linear_values`` and the
+  appliers that reshape, slice ``[:c]`` and cast the fp32 kernel output
+  back to the activation dtype;
 * the tensor-parallel appliers: ``shard_linear_windows`` pads a pack's
   window axis for a ``model`` mesh axis, ``local_windows`` cuts a rank's
   windows, and ``apply_row_packed_sharded`` / ``apply_fused_mlp_sharded``
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from ..core.packing import (
     QUANT_DTYPES,
     RowPacked,
+    nm_mask,
     pack_blocks,
     pack_rows,
     quantize_rows,
@@ -48,7 +50,8 @@ from .vusa_spmm import vusa_spmm
 
 __all__ = [
     "PackedLinear", "pack_linear", "apply_packed", "apply_packed_ref", "matmul",
-    "RowPackedLinear", "pack_linear_rows", "pack_linear_rows_t", "pack_linear_rows_many",
+    "RowPackedLinear", "pack_linear_rows", "pack_linear_rows_t", "pack_linear_rows_nm",
+    "nm_slot_bound", "pack_linear_rows_many",
     "linear_from_pack",
     "dequantize_linear_values", "apply_row_packed", "apply_row_packed_ref", "apply_fused_mlp",
     "apply_fused_mlp_ref", "mesh_axis_size", "shard_linear_windows", "local_windows",
@@ -287,6 +290,46 @@ def pack_linear_rows_t(
     host, dtype, dev, size = _host(w)
     return pack_linear_rows_many([host.T], m, a, dtype, device or dev or "cuda", value_dtype,
                                  size)[0]
+
+
+def nm_slot_bound(n: int, block: int, m: int, a: int) -> int:
+    """The slot axis of an N:M pack: ``n * ceil(m / block)`` values a row and
+    window at most, rounded up to whole jobs of ``a`` slots."""
+    bound = n * -(-m // block)
+    return -(-bound // a) * a
+
+
+def pack_linear_rows_nm(
+    w, n: int = 2, block: int = 4, m: int = 128, a: int = 16, device=None,
+    value_dtype: str = "dense",
+) -> RowPackedLinear:
+    """Prune a (K, C) weight to N:M structure (``core.packing.nm_mask``), then
+    row-pack it: an ordinary :class:`RowPackedLinear`, so float values run
+    through B1 and int8/int4 values through B3 with the same ``row_plan``.
+
+    The slot axis is held to the structure's bound (``nm_slot_bound``):
+    idle slots pad a sparser pack up to it, so the job count depends on
+    (n, block, m, a) alone and never on the data.  A row that needs more
+    raises: that happens only where the blocks do not tile the windows
+    (``m`` not a multiple of ``block``, or the last C % block columns,
+    which ``nm_mask`` keeps whole, in a window of full blocks)."""
+    host, dtype, dev, size = _host(w)
+    masked = np.where(nm_mask(host, n, block), host, 0)
+    p = pack_linear_rows_many([masked], m, a, dtype, device or dev or "cuda", value_dtype,
+                              size)[0]
+    bound = nm_slot_bound(n, block, m, a)
+    bound += bound % 2 if value_dtype == "int4" else 0  # two int4 slots a byte
+    if p.slots > bound:
+        raise ValueError(
+            f"an {n}:{block} pack needs {p.slots} slots a row, above its bound {bound}: "
+            f"the blocks do not tile the {m}-lane windows (m % block or the last "
+            f"{host.shape[1] % block} columns)")
+    pad = bound - p.slots
+    if pad == 0:
+        return p
+    vpad = pad // 2 if value_dtype == "int4" else pad
+    return dataclasses.replace(p, values=F.pad(p.values, (0, vpad)),
+                               positions=F.pad(p.positions, (0, pad), value=-1))
 
 
 def dequantize_linear_values(p: RowPackedLinear) -> torch.Tensor:

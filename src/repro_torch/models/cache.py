@@ -54,8 +54,10 @@ import torch
 
 __all__ = [
     "init_slot_cache",
+    "slot_count",
     "slot_view",
     "read_slot",
+    "write_slot",
     "write_slots",
     "batch_axes",
     "reset_slot",
@@ -109,6 +111,12 @@ def init_slot_cache(cache_specs: Specs, device) -> dict:
             for name, (shape, dtype) in cache_specs.items()}
 
 
+def slot_count(slot_cache: dict) -> int:
+    """Number of slots in a slot-pool cache: the length of its (slots,)
+    ``pos``."""
+    return slot_cache["pos"].shape[0]
+
+
 def batch_axes(specs_b1: Specs, specs_b2: Specs) -> Dict[str, int]:
     """Each cache leaf's batch axis, family-agnostically: diff the specs for
     two batch sizes and record, per leaf, the one axis whose extent changed.
@@ -135,6 +143,14 @@ def slot_view(slot_cache: dict, i: int, axes: Dict[str, int]) -> dict:
 def read_slot(slot_cache: dict, i: int, axes: Dict[str, int]) -> dict:
     """Slot ``i`` as a standalone B = 1 cache (a copy)."""
     return {name: leaf.clone() for name, leaf in slot_view(slot_cache, i, axes).items()}
+
+
+def write_slot(slot_cache: dict, i: int, sub_cache: dict, axes: Dict[str, int]) -> None:
+    """Replace slot ``i`` with the B = 1 cache ``sub_cache`` (e.g. fresh out
+    of prefill), in place, every leaf cast to the pool's dtype; the other
+    slots are not touched."""
+    for name, leaf in slot_cache.items():
+        leaf.narrow(axes[name], i, 1).copy_(sub_cache[name])
 
 
 def write_slots(slot_cache: dict, idx, batched_cache: dict, axes: Dict[str, int], pos) -> None:

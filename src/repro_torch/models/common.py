@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "init_params", "rms_norm", "layer_norm", "rope", "apply_rope",
+__all__ = ["ParamSpec", "init_params", "abstract_params", "rms_norm", "layer_norm", "rope", "apply_rope",
            "strict_fp32", "per_row", "mesh_context", "current_mesh"]
 
 
@@ -65,6 +65,15 @@ def init_params(spec_tree: dict, seed: int, device) -> dict:
         }
 
     return build(spec_tree)
+
+
+def abstract_params(spec_tree: dict) -> dict:
+    """The parameter tree of ``spec_tree`` as ``meta`` tensors: shapes and
+    dtypes with no storage, for tracing a step without allocating it
+    (``launch/dryrun.py``; the reference's ``ShapeDtypeStruct`` tree)."""
+    return {k: abstract_params(v) if isinstance(v, dict)
+            else torch.empty(v.shape, dtype=torch.float32, device="meta")
+            for k, v in spec_tree.items()}
 
 
 def strict_fp32() -> None:

@@ -37,6 +37,7 @@ from .layers import (
     MaskSpec, attention, attention_chunk, attention_decode, attention_specs, cross_attention,
     encode_cross_kv, mlp, mlp_specs, moe, moe_specs,
 )
+from .opt_flags import FLAGS
 from .ssm import mamba2_block, mamba2_decode, mamba2_specs, rglru_block, rglru_decode, rglru_specs
 
 __all__ = [
@@ -184,15 +185,20 @@ def lm_forward(params, batch, cfg):
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Mean next-token cross-entropy in the reference's logsumexp form
-    (``xent_lse``): an fp32 logsumexp over the logits, minus the label's
-    logit picked in model dtype and then widened; ids >= vocab (padding)
-    are masked."""
+    """Mean next-token cross-entropy; ids >= vocab (padding) are masked.
+    Under ``xent_lse`` (``opt_flags``) in the logsumexp form: an fp32
+    logsumexp over the logits, minus the label's logit picked in model
+    dtype and then widened; off, the label's entry of an fp32
+    ``log_softmax`` over the vocabulary."""
     mask = (labels >= 0) & (labels < vocab)
     labels = labels.clamp(0, vocab - 1).long()
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    picked = logits.gather(-1, labels[..., None])[..., 0]
-    ll = picked.float() - lse
+    if FLAGS["xent_lse"]:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        picked = logits.gather(-1, labels[..., None])[..., 0]
+        ll = picked.float() - lse
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, labels[..., None])[..., 0]
     return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1)
 
 

@@ -4,19 +4,22 @@ cache under a sliding window) and cross-attention over encoder keys, under
 a causal, local, prefix or full mask; the SwiGLU MLP and the top-k MoE.
 
 Port of the JAX package's ``models/layers.py``.  None of these is a
-Pallas kernel in the reference, so they are plain torch ops.  The
-numerics follow the reference's default performance flags
-(``models/opt_flags.py``): decode attends directly in fp32 with
-``p / max(l, 1e-30)`` (``decode_direct``), training attention takes the
-reference's hand-written backward (``flash_custom_vjp``) as an
-``autograd.Function`` with its rounding points, and the MoE finds each
-assignment's place in its expert by a stable sort (``moe_sort_positions``)
-with one dump slot (``moe_shard_capacity`` off).  One flag stays
-switchable, as in the reference, in :data:`FLAGS`: ``attn_bf16_probs``
-(default on) carries the flash attention's probabilities, and V, in bf16
-into the AV product with fp32 accumulation; off, both stay fp32 (the
-reference's model tests pin it off to compare prefill with decode).
-Masked scores are ``-1e30``, not ``-inf``.
+Pallas kernel in the reference, so they are plain torch ops.  The routes
+follow the performance flags of ``models/opt_flags.py`` (:data:`FLAGS`,
+read at call time), each with the reference's baseline beside it:
+decode attends directly in fp32 with ``p / max(l, 1e-30)``, or through
+the flash chunks (``decode_direct``); training attention takes the
+reference's hand-written backward as an ``autograd.Function`` with its
+rounding points, or autograd through the chunked forward
+(``flash_custom_vjp``); ``attn_bf16_probs`` (default on) carries the flash
+attention's probabilities, and V, in bf16 into the AV product with fp32
+accumulation, else fp32 (the reference's model tests pin it off to
+compare prefill with decode); the MoE finds each assignment's place in
+its expert by a stable sort or a one-hot count (``moe_sort_positions``),
+with one dump slot or, under ``moe_shard_capacity``, the reference's
+capacity rounded up to 256; prefill attention splits its queries over a
+mesh's ``model`` axis under ``attn_seq_shard``.  Masked scores are
+``-1e30``, not ``-inf``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 
 from .cache import paged_gather, paged_scatter_rows
 from .common import ParamSpec, apply_rope, per_row, rms_norm, rope
+from .opt_flags import FLAGS
 
 __all__ = [
     "attention_specs", "mlp_specs", "moe_specs", "MaskSpec", "attention", "attention_decode",
@@ -36,9 +40,6 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30
-
-# the reference's ``opt_flags.FLAGS`` entry the port keeps switchable
-FLAGS = {"attn_bf16_probs": True}
 
 # --------------------------------------------------------------------------
 # Specs
@@ -141,8 +142,8 @@ def _flash_chunks(
     k: torch.Tensor,  # (B, Sk, KVH, hd)
     v: torch.Tensor,  # (B, Sk, KVH, hd)
     mask: MaskSpec,
-    q_pos: torch.Tensor,  # (Sq,)
-    k_pos: torch.Tensor,  # (Sk,)
+    q_pos: torch.Tensor,  # (Sq,), or (B, Sq) per row
+    k_pos: torch.Tensor,  # (Sk,), or (B, Sk) per row
     kv_valid: Optional[torch.Tensor] = None,  # (Sk,) or (B, Sk) bool
     kv_chunk: int = 512,
 ):
@@ -151,14 +152,15 @@ def _flash_chunks(
 
     Query rows are independent, so only the KV chunking (512, as the
     reference) shapes the numerics.  P and V enter the AV product rounded to
-    bf16 under ``attn_bf16_probs`` (accumulation stays fp32), else in fp32."""
+    bf16 under ``attn_bf16_probs`` (accumulation stays fp32), else in fp32.
+    Positions and validity may be per batch row (the decode attend's, under
+    ``decode_direct`` off)."""
     b, sq, kvh, g, hd = q.shape
     sk = k.shape[1]
     kv_chunk = min(kv_chunk, sk)
     scale = hd**-0.5
     if kv_valid is None:
         kv_valid = torch.ones((sk,), dtype=torch.bool, device=q.device)
-    row_valid = kv_valid.ndim == 2
     qf = q.float()
     m = torch.full((b, kvh, g, sq), _NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
@@ -167,12 +169,10 @@ def _flash_chunks(
         ki = k[:, k0 : k0 + kv_chunk].float()
         vi = v[:, k0 : k0 + kv_chunk]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, ki) * scale
-        allow = mask(q_pos, k_pos[k0 : k0 + kv_chunk])  # (Q, K)
-        if row_valid:
-            allow = (allow[None] & kv_valid[:, None, k0 : k0 + kv_chunk])[:, None, None]
-        else:
-            allow = allow & kv_valid[None, k0 : k0 + kv_chunk]
-        s = s.masked_fill(~allow, _NEG_INF)
+        # (Q, K), or (B, Q, K) when anything is per row
+        allow = mask(q_pos, k_pos[..., k0 : k0 + kv_chunk])
+        allow = allow & kv_valid[..., None, k0 : k0 + kv_chunk]
+        s = s.masked_fill(~(allow[:, None, None] if allow.ndim == 3 else allow), _NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -303,6 +303,27 @@ def _direct_attend(
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B, 1, KVH, G, hd)
 
 
+def _decode_attend(q, k, v, mask, q_pos, k_pos, kv_valid, rowwise: bool = False):
+    """The decode attend of one query row a batch row, (B, 1, KVH, G, hd):
+    :func:`_direct_attend` under ``decode_direct``, else the reference's
+    baseline, the flash chunks over KV chunks of ``min(512, Sk)``, with
+    ``rowwise`` one batch row at a time (each row then makes exactly the
+    B = 1 call)."""
+    if FLAGS["decode_direct"]:
+        return _direct_attend(q, k, v, mask, q_pos, k_pos, kv_valid, rowwise)
+
+    def flash(j):
+        rows = slice(None) if j is None else slice(j, j + 1)
+        kp = k_pos[rows] if k_pos.ndim == 2 else k_pos
+        out = _flash_chunks(q[rows], k[rows], v[rows], mask, q_pos[rows], kp, kv_valid[rows],
+                            min(512, k.shape[1]))[0]
+        return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+    if rowwise and q.shape[0] > 1:
+        return torch.cat([flash(j) for j in range(q.shape[0])])
+    return flash(None)
+
+
 # --------------------------------------------------------------------------
 # Attention apply (train/prefill + decode-with-cache)
 # --------------------------------------------------------------------------
@@ -349,7 +370,8 @@ def attention(
     also returns the projected K/V rows, which prefill writes to the cache
     (the reference recomputes them; the values are the same).  When q, k or
     v require grad and there is no ``kv_valid``, it is the training path:
-    the reference's custom-VJP flash attention (:func:`flash_attention_train`)."""
+    the reference's custom-VJP flash attention (:func:`flash_attention_train`),
+    or with ``flash_custom_vjp`` off autograd through :func:`_flash_attend`."""
     b, s, _ = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     if positions is None:
@@ -357,7 +379,10 @@ def attention(
     q, k, v = _project_qkv(p, x, cfg, positions)
     q = q.reshape(b, s, kvh, nh // kvh, hd)
     if kv_valid is None and not return_kv and any(t.requires_grad for t in (q, k, v)):
-        out = flash_attention_train(q, k, v, positions, mask)
+        if FLAGS["flash_custom_vjp"]:
+            out = flash_attention_train(q, k, v, positions, mask)
+        else:  # the baseline: autograd keeps every chunk's scores for the backward
+            out = _flash_attend(q, k, v, mask, positions, positions)
     else:
         out = None if kv_valid is not None else _maybe_seq_sharded_attention(
             q, k, v, mask, positions)
@@ -376,15 +401,17 @@ def _maybe_seq_sharded_attention(q, k, v, mask: MaskSpec, positions):
     attends its contiguous slice of the queries against the whole K/V,
     and the slices are all-gathered along the sequence.  Returns None when
     it does not apply: no mesh, a size-1 ``model`` axis, heads that both
-    divide, or a sequence the axis does not divide.  Inference only: the
-    training forward stays the single-device program."""
+    divide, a sequence the axis does not divide, or the ``attn_seq_shard``
+    flag off.  Inference only: the training forward stays the single-device
+    program."""
     from ..dist.comm import all_gather, axis_index, axis_size
     from .common import current_mesh
 
     mesh = current_mesh()
     b, s, kvh, g, hd = q.shape
     tp = axis_size(mesh, "model")
-    if tp == 1 or (kvh * g % tp == 0 and kvh % tp == 0) or s % tp != 0:
+    if (not FLAGS["attn_seq_shard"] or tp == 1 or (kvh * g % tp == 0 and kvh % tp == 0)
+            or s % tp != 0):
         return None
     s_loc = s // tp
     r = axis_index(mesh, "model")
@@ -491,7 +518,7 @@ def attention_decode(
         _write_rows((k_cache, v_cache), positions % ring, (k_new, v_new))
         slots = torch.arange(ring, device=x.device)
         k_pos = positions - (positions - slots) % ring  # (B, ring)
-        out = _direct_attend(q.reshape(b, 1, kvh, nh // kvh, hd), k_cache, v_cache,
+        out = _decode_attend(q.reshape(b, 1, kvh, nh // kvh, hd), k_cache, v_cache,
                              MaskSpec("local", window=window), positions, k_pos, k_pos >= 0,
                              rowwise)
         return _attn_out(p, out.reshape(b, 1, nh, hd), x, wmm, rowwise)
@@ -506,7 +533,7 @@ def attention_decode(
     slots = torch.arange(k_cache.shape[1], device=x.device)
     q = q.reshape(b, s, kvh, nh // kvh, hd)
     rows = [
-        _direct_attend(q[:, i : i + 1].contiguous(), k_cache, v_cache, MaskSpec("causal"),
+        _decode_attend(q[:, i : i + 1].contiguous(), k_cache, v_cache, MaskSpec("causal"),
                        positions[:, i : i + 1], slots, slots[None, :] <= positions[:, i : i + 1],
                        rowwise)
         for i in range(s)  # s = draft_k + 1 at most: small
@@ -612,7 +639,10 @@ def moe(p: dict, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None):
     order: an assignment's place in its expert comes from a stable sort of
     the expert ids and ``searchsorted`` of each run's start.  Kept places
     are unique, so the dispatch buffer (e, cap + 1, d) is written by an
-    index copy, no float atomics.  A dropped assignment (place >= cap) gets
+    index copy, no float atomics (``moe_sort_positions`` off: the places
+    from a one-hot running count, the same integers; ``moe_shard_capacity``
+    on: ``cap`` rounded up to a multiple of 256, 256 dump slots, as the
+    reference's sharded buffer).  A dropped assignment (place >= cap) gets
     gate 0; the reference piles its token into the dump slot (place cap),
     here the dump slot stays zero, so its expert output is exactly 0 and no
     dropped token's values can reach a kept output.  Capacity couples the
@@ -632,16 +662,24 @@ def moe(p: dict, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None):
 
     cf = cfg.moe_cf if capacity_factor is None else capacity_factor
     cap = int(cf * t * k / e) + 1
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    run_start = torch.searchsorted(sorted_e, sorted_e, side="left")
-    pos = torch.empty_like(flat_e).index_copy_(
-        0, order, torch.arange(t * k, device=x.device) - run_start)
+    if FLAGS["moe_sort_positions"]:
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        run_start = torch.searchsorted(sorted_e, sorted_e, side="left")
+        pos = torch.empty_like(flat_e).index_copy_(
+            0, order, torch.arange(t * k, device=x.device) - run_start)
+    else:  # the baseline: each expert's running count over a (T * k, E) one-hot
+        counts_run = torch.cumsum(F.one_hot(flat_e, e), dim=0) - 1
+        pos = counts_run.gather(1, flat_e[:, None])[:, 0]
+    n_slots = cap + 1
+    if FLAGS["moe_shard_capacity"]:  # the reference's capacity for a sharded buffer
+        cap = -(-cap // 256) * 256
+        n_slots = cap + 256
     dropped = pos >= cap
     pos = torch.where(dropped, cap, pos)  # every dropped assignment aims at the dump slot
 
     xk = torch.where(dropped[:, None], 0, xf.repeat_interleave(k, dim=0))  # (T * k, d)
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device).index_put(
+    buf = torch.zeros((e, n_slots, d), dtype=x.dtype, device=x.device).index_put(
         (flat_e, pos), xk)  # the dump slot's writes are all zeros
     wg, wu, wd = (p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down"))
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum("ecd,edf->ecf", buf, wu)

@@ -17,7 +17,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from . import families as F
-from .common import init_params
+from .common import abstract_params, init_params
 
 # family -> (specs, forward, loss, cache_specs, decode_step)
 _FAMILY_FNS = {
@@ -46,6 +46,10 @@ class Model(nn.Module):
     def init(self, seed: int = 0, device="cuda") -> dict:
         """Random parameters drawn from ``numpy.random.default_rng(seed)``."""
         return init_params(self.specs(), seed, torch.device(device))
+
+    def abstract_params(self) -> dict:
+        """The parameter tree as ``meta`` tensors (no allocation)."""
+        return abstract_params(self.specs())
 
     # ---- train / eval ----
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
@@ -107,6 +111,12 @@ class Model(nn.Module):
 
         write_slots(slot_cache, idx, batched_cache, axes, pos)
 
+    def write_slot(self, slot_cache, i: int, sub_cache, max_len: int) -> None:
+        """Replace slot ``i`` with the B = 1 cache ``sub_cache``, in place."""
+        from .cache import write_slot
+
+        write_slot(slot_cache, i, sub_cache, self.cache_batch_axes(max_len))
+
     def reset_slot(self, slot_cache, i: int, max_len: int) -> None:
         from .cache import reset_slot
 
@@ -142,6 +152,31 @@ class Model(nn.Module):
             raise NotImplementedError(f"chunked prefill for family {self.cfg.family}")
         return F.lm_prefill_chunk(params, tokens, self.cfg, arena, table_row, start, true_len,
                                   write_from)
+
+    # ---- input stand-ins (for tracing a step; no allocation) ----
+    def input_specs(self, batch: int, seq: int, kind: str = "train") -> dict:
+        """``meta`` tensors of every model input, the reference's shapes and
+        dtypes: int32 ``tokens`` (B, S) for train and prefill (the vlm
+        family's S less its patch prefix, plus fp32 ``patches`` (B, P, d);
+        the encdec family's fp32 ``frames`` (B, min(S, enc_frames), d)),
+        and an int32 ``token`` (B, 1) for decode."""
+        cfg = self.cfg
+
+        def meta(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if kind in ("train", "prefill"):
+            if cfg.family == "vlm":
+                return {"tokens": meta((batch, seq - cfg.patch_tokens)),
+                        "patches": meta((batch, cfg.patch_tokens, cfg.d_model), torch.float32)}
+            spec = {"tokens": meta((batch, seq))}
+            if cfg.family == "encdec":
+                spec["frames"] = meta((batch, min(seq, cfg.enc_frames), cfg.d_model),
+                                      torch.float32)
+            return spec
+        if kind == "decode":
+            return {"token": meta((batch, 1))}
+        raise ValueError(kind)
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import ParamSpec, rms_norm
+from .opt_flags import FLAGS
 
 __all__ = ["mamba2_specs", "mamba2_block", "mamba2_decode", "rglru_specs", "rglru_block",
            "rglru_decode"]
@@ -166,7 +167,8 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     dt = _softplus(dt.float() + p["dt_bias"])
     a = -torch.exp(p["A_log"].float())
     xr = xin.reshape(bsz, s, h, hp).float()
-    y, _ = _ssd_chunked(xr, dt, a, b_mat.float(), c_mat.float(), cfg.ssm_chunk)
+    chunk = min(64, cfg.ssm_chunk) if FLAGS["ssd_small_chunk"] else cfg.ssm_chunk
+    y, _ = _ssd_chunked(xr, dt, a, b_mat.float(), c_mat.float(), chunk)
     y = y + p["D"].float()[:, None] * xr
     y = y.reshape(bsz, s, din).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])

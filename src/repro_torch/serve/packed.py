@@ -12,7 +12,10 @@ the same window geometry).  ``lm_decode_step_packed`` is the twin of
 ``families.lm_decode_step`` whose matmuls run through the hand-written CUDA
 kernels: the MLP through ``vusa_fused_mlp_matmul`` (or, with
 ``fused_mlp=False``, three ``vusa_packed_matmul`` calls), the projections
-and the vocab-wide head through ``vusa_packed_matmul``.
+and the vocab-wide head through ``vusa_packed_matmul``.  The legacy
+MLP-only pack, ``pack_lm_mlps`` (a flat ``{w_gate, w_up, w_down}`` dict,
+``w_down`` in its dense orientation), runs the same step with three
+``vusa_packed_matmul`` calls a layer and no fused kernel.
 
 On a mesh, ``pack_lm_weights(shards=tp)`` pads every pack's window axis
 to a multiple of the ``model`` axis size, ``shard_packed`` keeps a rank's
@@ -46,7 +49,7 @@ from ..models.common import per_row, rms_norm
 from ..models.layers import attention_decode
 
 __all__ = [
-    "pack_lm_weights", "lm_decode_step_packed", "packed_byte_ratios", "validate_packed",
+    "pack_lm_weights", "pack_lm_mlps", "lm_decode_step_packed", "packed_byte_ratios", "validate_packed",
     "qdq_lm_params", "pack_fingerprint", "shard_packed",
 ]
 
@@ -142,6 +145,15 @@ def _flat_attn(w: torch.Tensor, name: str) -> torch.Tensor:
     if name == "wo":
         return w.reshape(w.shape[0], -1, w.shape[-1])
     return w.reshape(w.shape[0], w.shape[1], -1)
+
+
+def pack_lm_mlps(cfg: ArchConfig, params, m: int = 128, a: int = 16) -> Dict:
+    """Legacy MLP-only pack: a flat ``{"w_gate", "w_up", "w_down"}`` dict,
+    ``w_down`` packed in its dense orientation, the operands of the
+    three-call baseline (``lm_decode_step_packed`` runs every MLP through
+    ``vusa_packed_matmul`` three times and no fused kernel)."""
+    ffn = params["layers"]["ffn"]
+    return {name: _stack_layers(ffn[name], m, a) for name in ("w_gate", "w_up", "w_down")}
 
 
 def pack_lm_weights(
@@ -240,6 +252,10 @@ def shard_packed(packed: Dict, mesh) -> Dict:
 
 
 def _flat_entries(packed: Dict) -> Dict[str, Dict]:
+    """``{name: entry}`` of a structured ``pack_lm_weights`` dict or of the
+    legacy flat ``pack_lm_mlps`` one."""
+    if "mlp" not in packed:
+        return dict(packed)
     flat: Dict[str, Dict] = dict(packed["mlp"])
     if packed.get("attn"):
         flat.update(packed["attn"])
@@ -476,9 +492,15 @@ def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = Fal
     appliers (``apply_row_packed_sharded``, ``apply_fused_mlp_sharded``):
     each rank runs the kernels on its windows of the pack (``shard_packed``)
     and the products are gathered whole, bitwise the single-device step.
-    A ``model`` axis of size 1 is the plain single-device step."""
+    A ``model`` axis of size 1 is the plain single-device step.
+
+    ``packed`` may also be the legacy flat ``pack_lm_mlps`` dict: the MLP
+    packed, everything else dense, every MLP three ``vusa_packed_matmul``
+    calls."""
     if cfg.family != "dense":
         raise ValueError("the packed decode path targets the dense family")
+    if "mlp" not in packed:  # the legacy flat layout
+        packed = {"mlp": packed, "attn": None, "head": None, "fused_mlp": False}
     if token.shape[1] > 1 and not _full_pack(packed):
         logits = []
         for i in range(token.shape[1]):

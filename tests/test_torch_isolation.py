@@ -1,9 +1,10 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import neither
-``jax`` nor the JAX package ``repro``.
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+``examples/*_torch.py`` scripts import neither ``jax`` nor the JAX package
+``repro``.
 
 Every module of ``repro_torch`` is imported in a fresh interpreter, which
 then reports every loaded module; an AST scan covers ``chip_smoke.py``,
-which needs a card to run.
+which needs a card to run, and the examples.
 """
 
 import ast
@@ -45,7 +46,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.moonshot_v1_16b_a3b",
             "repro_torch.configs.paligemma_3b", "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.configs.mamba2_2_7b", "repro_torch.configs.whisper_tiny",
-            "repro_torch.models.ssm"} <= set(mods)
+            "repro_torch.models.ssm", "repro_torch.models.opt_flags",
+            "repro_torch.launch.op_cost", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -69,7 +72,11 @@ def _imports(path: Path):
 
 
 def test_chip_smoke_and_port_sources_import_no_jax():
-    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [f.name for f in examples] == ["quickstart_torch.py", "serve_sparse_torch.py",
+                                          "train_sparse_lm_torch.py", "vusa_explorer_torch.py"]
+    files = [ROOT / "chip_smoke.py", *examples,
+             *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     assert len(files) > 10
     for f in files:
         bad = [m for m in _imports(f) if _forbidden(m)]
