@@ -272,30 +272,33 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    that share this card over the gloo backend, built kernels loaded, not
    rebuilt; a 2x2 mesh, its ``model`` sub-mesh (1x2), its ``data``
    sub-mesh (2x1) and a 1x4 mesh over the same ranks, each held against
-   the single-device port in this process.  Gates: at 1x2 and 1x4,
-   full-width ``vusa_edge`` (12 layers, phase 4's weights, fp32 and int8
-   values at 1x2, fp32 at 1x4, B = 4, prompt 32, 32 new tokens, greedy
-   and T = 0.8, eager: gloo collectives cannot be captured) gives every
-   step's logits and every token bitwise one device's, the 250-window
-   head padding to 252 at 1x4, and layer 0's wq, fused MLP and head (fp32
-   and int8 values, each rank's windows cut once), each sharded B1/B3
-   call and each gathered-partial B2/B4 call, bitwise its single-device
-   call; the
-   sharded run launched B1/B3, the window-partial kernel and the ordered
-   sum, and never the unsplit fused MLP; at 2x1 (a captured step per rank,
-   the logits gathered after each replay) and 2x2, ``vusa_edge`` drawn
+   the single-device port in this process.  Gates: at 1x2 and 1x4, layer
+   0's wq, fused MLP and head of full-width ``vusa_edge`` (phase 4's
+   weights, fp32 and int8 values, each rank's windows cut once, the
+   250-window head padding to 252 at 1x4), each sharded B1/B3 call and
+   each gathered-partial B2/B4 call bitwise its single-device call (the
+   tensor-parallel ``generate`` runs are phase 17's: with the dense
+   products tensor-parallel, prefill and the ordered sums round apart from
+   one device); at 2x1 (a captured step per rank from its embedding rows,
+   the embedding's gathers made before and the logits gathered after each
+   replay) and 2x2 (its 12-layer run is phase 17's), ``vusa_edge`` drawn
    with the contracted fan-in (C6) and fp32 values gives tokens equal to
-   one device's on the 2-layer cut, greedy and sampled, and at 12 layers
-   a first-step logit gap within 1e-3 of the largest (each data rank
+   one device's on the 2-layer cut, greedy and sampled, and at 6 layers
+   (2x1, ``MESH_DP_LAYERS``) a first-step logit gap within 1e-3 of the largest (each data rank
    prefills its own rows, C9); the scheduler on 2x2 (the 2-layer cut,
-   phase 9's 24 requests on 8 slots, sequential admission) completes
-   every request bitwise as one device's on the slot pool and on the
-   paged pool without the prefix cache (with it: reported);
+   phase 9's 24 requests on 8 slots, sequential admission) completes every
+   request bitwise as one device's on the slot pool and on the paged pool
+   without the prefix cache, at their staggered arrivals with every rank on
+   rank 0's clock, and on the paged pool with the prefix cache (every
+   arrival at 0), with prefix hits on the mesh (the rank-aware
+   ``BlockAllocator`` matching);
    ``qwen2_0_5b`` at its published widths on 1x4 takes the
    sequence-sharded prefill attention (14 heads over 2 KV heads do not
    divide 4) and pads its 38 ff windows to 40, with a first-step logit
-   gap within 1e-3 at 24 layers and tokens equal on the 2-layer cut;
-   training full-width ``vusa_edge`` 20 steps (batch 8 x 128, pruning
+   gap within 1e-3 at 6 of its 24 layers (``MESH_QWEN2_LAYERS``; this cut
+   and ``MESH_DP_LAYERS`` keep the phase within its 150 s on a slow host)
+   and tokens equal on the 2-layer cut; training full-width ``vusa_edge``
+   20 steps (batch 8 x 128, pruning
    refreshed on the way) is bitwise one device's on 1x2 (loss, params
    and their zeros, moments); on 2x1, each step taken from one device's
    state (lockstep, beside the 1x2 run on the other two ranks), the loss
@@ -330,14 +333,42 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    (``max_memory_allocated``) within 0.8-1.25 of the traced
    ``temp_size_in_bytes``; the real call's ms (CUDA events, 5 calls)
    beside ``roofline.analyze_record``'s bound (H100 data-sheet peaks);
-17. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
+17. tensor-parallel dense compute on sharded dense storage (at most 150
+   s): four ranks sharing this card over gloo, as phase 15's.  (a)
+   ``qwen3_8b`` at its full 36 layers and widths, fp32 (the flash
+   attention's probabilities too, as phase 13's fp32 gates), dense route,
+   drawn with the contracted fan-in (C6) leaf by leaf in chunks
+   (``sharded_init``: each rank keeps its shard under the serving
+   engine's placement, one device in this process keeps every chunk
+   first, then frees it), on a 1x4 mesh, ``generate`` B = 4, prompt 32, 8
+   new tokens; gates: first-step logits within 1e-3 of the largest of one
+   device's, the first greedy token equal, each rank's peak memory at most
+   0.3x one device's (each above what its process held before).  (b)
+   ``vusa_edge`` drawn the same way, pruned, at 2 and 12 layers on 1x2
+   (the 2x2 mesh's ``model`` sub-mesh), 1x4 and 2x2, dense route and
+   packed with fp32 and int8 values (B1-B4: q, k, v and ``wo`` from each
+   rank's heads, the MLP and head through the sharded appliers), 8 new
+   tokens greedy with fp32 probabilities; at 12 layers also the dense
+   route sampled (T = 0.8) on 1x2 and with the engine's default bf16
+   probabilities on 1x2 and 1x4; gates: tokens equal one device's at both
+   depths, greedy and sampled, first-step logits within 1e-3 of the
+   largest (bf16 probabilities: within ``TP_BF16_TOL``, set from the
+   readings), the packed runs through B1/B3, the window-partial kernel and
+   the ordered sum.  Every run: every rank's tokens and first-step logits
+   bitwise rank 0's, each rank's dense bytes the placement arithmetic
+   (``dist.tp.placement_bytes``), and its collectives a decode step the
+   prediction (``tp_predicted``: on ``model`` 2 a layer plus 2 on either
+   route).  Reported: ms a step and tok/s of each mesh and route beside
+   one device's, collectives and bytes a step, peak memory, the phase's
+   seconds;
+18. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, phase 10's speculative pool graph launches, CUDA launches per
    call as counted, and under ``families`` the same per decode step of
    phase 13's qwen2 and qwen3 with their counted launches, and under
-   ``mesh_launches_per_step_per_rank`` phase 15's launches a rank; B5/B6
+   ``mesh_launches_per_step_per_rank`` phase 17's launches a rank; B5/B6
    per ResNet-18 image, MobileNetV1 under ``mobilenetv1``);
-18. the card line again and the result line.
+19. the card line again and the result line.
 
 TF32 is switched off explicitly: every dense fp32 product here is true fp32.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -393,7 +424,8 @@ from repro_torch.kernels.vusa_packed import (  # noqa: E402
 from repro_torch.checkpoint.ckpt import restore  # noqa: E402
 from repro_torch.data.pipeline import SyntheticDataset  # noqa: E402
 from repro_torch.dist import comm  # noqa: E402
-from repro_torch.dist.sharding import shard_tree  # noqa: E402
+from repro_torch.dist.sharding import shard_ranges, shard_tree  # noqa: E402
+from repro_torch.dist.tp import placement_bytes, storage_placements  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh, spawn  # noqa: E402
 from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
 from repro_torch.optim import AdamState, adamw_init  # noqa: E402
@@ -506,12 +538,15 @@ REC_PHASE_LIMIT_S = 200.0
 # training runs and the phase's time limit
 MESH_DIR = ROOT / "build" / "mesh"
 MESH_TP, MESH_DP = ("1x2", "1x4"), ("2x1", "2x2")
-MESH_ROUTES = ("bf16", "int8")  # packed_values: bf16 keeps the fp32 params' own values
-# 1x4 serves fp32 values alone (the phase's time); its int8 calls are held in call_checks
-MESH_ROUTES_1X4 = ("bf16",)
-ROUTE_KIND = {"bf16": "dense", "int8": "int8"}  # the wrappers' route of each
+# the wrappers' route of each packed value route (bf16 keeps the fp32 params'
+# own values)
+ROUTE_KIND = {"bf16": "dense", "int8": "int8"}
 MESH_TEMPS = (0.0, 0.8)
 MESH_LOGIT_TOL = 1e-3  # first-step logits, of the largest: data split and qwen2
+# phase 15's depth cuts (every width whole), for the phase's 150 s on a
+# slow host: qwen2 (of 24), the 2x1 run beside the 2-layer cut (of 12)
+MESH_QWEN2_LAYERS = 6
+MESH_DP_LAYERS = 6
 MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 20, 8, 128
 MESH_TRAIN_LAYERS = DEPTH_CUT  # full width; each step gathers every parameter through gloo
 MESH_TRAIN_PRUNE = (4, 16, 4)  # begin, end, every: masks refreshed within the 20 steps
@@ -520,6 +555,25 @@ MESH_CKPT_STEPS = 1
 # every collective crosses host memory and the ranks share the host's cores
 # with this process (PERF.md §5, the mesh)
 MESH_PHASE_LIMIT_S = 150.0
+# the tensor-parallel phase (17): (a)'s arch and new tokens, (b)'s routes
+# (dense, packed fp32 and int8 values) and depths, its full-depth runs
+# beyond the greedy fp32-probability grid (mesh, temperature, the flash
+# attention's probabilities in bf16, the engine's default) and their
+# tolerance, the memory ratio a rank against one device, the entries of a
+# drawn chunk and the phase's time limit
+TP_DIR = ROOT / "build" / "tp"
+TP_ARCH = "qwen3_8b"
+TP_NEW = 8
+TP_ROUTES = ("dense", "bf16", "int8")
+TP_DEPTHS = (DEPTH_CUT, None)
+TP_EXTRA = (("1x2", 0.8, False), ("1x2", 0.0, True), ("1x4", 0.0, True))
+# first-step logits of the bf16-probability runs, of the largest: about 3x
+# the larger of their first readings on the card, 1.15e-4 (1x2) and
+# 1.74e-4 (1x4); fp32 probabilities part 4.6e-7 (PERF.md §6)
+TP_BF16_TOL = 5e-4
+TP_MEM_RATIO = 0.3
+TP_DRAW_ENTRIES = 1 << 25
+TP_PHASE_LIMIT_S = 150.0
 # the leftovers phase (16): the 2:4 arm's structure and job width, the legacy
 # MLP pack's first-step tolerance (of the largest logit) on the 2-layer cut
 # and at full depth (C6), the dry run's cells (kind, batch, tokens) and the
@@ -3026,13 +3080,17 @@ def call_checks(packs: dict, mesh) -> dict:
 
 
 def mesh_sched_runs(e) -> dict:
-    """Phase 9's traffic (all arrivals at 0) under sequential admission on
-    ``e``: the slot pool, the paged pool without and with the prefix cache
-    (pages of ``SCHED_PAGE``).  Tokens by request and the runs' stats."""
-    reqs = sched_traffic(e.cfg, arrivals=False)
+    """Phase 9's traffic under sequential admission on ``e``: the slot pool
+    and the paged pool without the prefix cache (pages of ``SCHED_PAGE``)
+    at its staggered arrivals (every rank reads rank 0's clock, C15), and
+    the paged pool with the prefix cache with every arrival at 0, so which
+    prompts hit the cache is the queue's order alone.  Tokens by request
+    and the runs' stats."""
     out = {}
-    for what, kw in (("slot", {}), ("paged", {"page_size": SCHED_PAGE, "prefix_cache": False}),
-                     ("paged_prefix", {"page_size": SCHED_PAGE})):
+    for what, kw, arrivals in (
+            ("slot", {}, True), ("paged", {"page_size": SCHED_PAGE, "prefix_cache": False}, True),
+            ("paged_prefix", {"page_size": SCHED_PAGE}, False)):
+        reqs = sched_traffic(e.cfg, arrivals=arrivals)
         sched_use(e, **kw)
         comm.reset_stats()
         t0 = time.monotonic()
@@ -3043,7 +3101,8 @@ def mesh_sched_runs(e) -> dict:
                      "ok": all(c.status.value == "OK" for c in done.values()),
                      "seconds": time.monotonic() - t0, "collectives": comm.STATS["collectives"],
                      "bytes": comm.STATS["bytes"], **{k: st[k] for k in (
-                         "sustained_tok_per_s", "decoded_tokens", "prefix_hit_rate")}}
+                         "sustained_tok_per_s", "decoded_tokens", "prefix_hits",
+                         "prefix_hit_rate")}}
     return out
 
 
@@ -3160,8 +3219,9 @@ def mesh_rank(mesh, device, prompts) -> dict:
     meshes = {"1x2": mesh["model"], "1x4": make_local_mesh(1, 4), "2x1": mesh["data"],
               "2x2": mesh}
     cfg = get_config("vusa_edge")
-    out = {"tp": {}, "calls": {}, "dp": {}, "sched": None, "build_s": {}}
-    # tensor parallelism at full depth: phase 4's weights, bitwise
+    out = {"calls": {}, "dp": {}, "sched": None}
+    # the sharded kernel calls on phase 4's weights, bitwise (the
+    # tensor-parallel runs are phase 17's)
     params = prune_tree(build_model(cfg).init(0, device=DEVICE), cfg.sparsity)
     packs = whole_packs(params, np.random.default_rng(7))
     log("params")
@@ -3171,24 +3231,16 @@ def mesh_rank(mesh, device, prompts) -> dict:
         if name == "1x4" or group == 0:
             out["calls"][name] = call_checks(packs, meshes[name])
         log(f"{name} kernel calls")
-        # the two 1x2 meshes (one a data coordinate) take a value route each
-        for route in MESH_ROUTES[group::2] if name == "1x2" else MESH_ROUTES_1X4:
-            t0 = time.monotonic()
-            eng = mesh_engine(cfg, params, meshes[name], route, fused=False)
-            out["build_s"][f"{name} {route}"] = time.monotonic() - t0  # its packs, mostly
-            log(f"{name} {route} engine")
-            for temp in MESH_TEMPS:
-                out["tp"][(name, route, temp)] = recorded_generate(eng, prompts, temp)
-            log(f"{name} {route} runs")
-            del eng
-            release()
     del params, packs
     release()
-    # data parallelism: the contracted fan-in (C6), 2 layers and 12
-    for layers in (DEPTH_CUT, None):
+    # data parallelism: the contracted fan-in (C6), 2 layers and
+    # MESH_DP_LAYERS (2x2 at 12 is phase 17's: the same engine, packed fp32,
+    # and the same gate)
+    for layers in (DEPTH_CUT, MESH_DP_LAYERS):
         dcfg = mesh_cfg("vusa_edge", layers)
         p = prune_tree(device_init(dcfg), dcfg.sparsity)
-        for name in MESH_DP if lead_2x1 else ("2x2",):
+        names = MESH_DP if layers == DEPTH_CUT else ("2x1",)
+        for name in [n for n in names if lead_2x1 or n == "2x2"]:
             eng = mesh_engine(dcfg, p, meshes[name], fused=True)
             rec = {"first": first_step_logits(eng, prompts)}
             for temp in (MESH_TEMPS if layers == DEPTH_CUT else (0.0,)):
@@ -3204,7 +3256,7 @@ def mesh_rank(mesh, device, prompts) -> dict:
         release()
     # qwen2 at its published widths on 1x4: sequence-sharded prefill attention
     out["qwen2"] = {}
-    for layers in (None, DEPTH_CUT):
+    for layers in (MESH_QWEN2_LAYERS, DEPTH_CUT):
         qcfg = mesh_cfg("qwen2_0_5b", layers)
         p = prune_tree(device_init(qcfg), qcfg.sparsity)
         eng = mesh_engine(qcfg, p, meshes["1x4"])
@@ -3238,19 +3290,8 @@ def mesh_references(prompts) -> dict:
     """The single-device port's results of every case of ``mesh_rank``,
     on this process's card."""
     cfg = get_config("vusa_edge")
-    ref = {"tp": {}, "dp": {}, "qwen2": {}, "build_s": {}}
-    params = prune_tree(build_model(cfg).init(0, device=DEVICE), cfg.sparsity)
-    for route in MESH_ROUTES:
-        t0 = time.monotonic()
-        eng = mesh_engine(cfg, params, None, route, fused=False)
-        ref["build_s"][f"1x1 {route}"] = time.monotonic() - t0
-        for temp in MESH_TEMPS:
-            ref["tp"][(route, temp)] = recorded_generate(eng, prompts, temp)
-        del eng
-        release()
-    del params
-    release()
-    for layers in (DEPTH_CUT, None):
+    ref = {"dp": {}, "qwen2": {}}
+    for layers in (DEPTH_CUT, MESH_DP_LAYERS):
         dcfg = mesh_cfg("vusa_edge", layers)
         p = prune_tree(device_init(dcfg), dcfg.sparsity)
         eng = mesh_engine(dcfg, p, None, fused=True)
@@ -3263,7 +3304,7 @@ def mesh_references(prompts) -> dict:
             ref["sched"] = mesh_sched_runs(mesh_engine(dcfg, p, None, max_len=SCHED_MAX_LEN))
         del p
         release()
-    for layers in (None, DEPTH_CUT):
+    for layers in (MESH_QWEN2_LAYERS, DEPTH_CUT):
         qcfg = mesh_cfg("qwen2_0_5b", layers)
         p = prune_tree(device_init(qcfg), qcfg.sparsity)
         eng = mesh_engine(qcfg, p, None)
@@ -3314,9 +3355,8 @@ def mesh_phase() -> dict:
     if "error" in box:
         raise box["error"]
     ranks, t_ranks = box["ranks"], box["seconds"]
-    res = {"tp": {}, "dp": {}, "calls": ranks[0]["calls"], "sched": {}, "qwen2": {},
+    res = {"dp": {}, "calls": ranks[0]["calls"], "sched": {}, "qwen2": {},
            "train": {}, "reference_s": t_ref, "ranks_s": t_ranks,
-           "engine_build_s": {**ref["build_s"], **ranks[0]["build_s"]},
            "rank_seconds": [r["seconds"] for r in ranks]}
     for i, r in enumerate(ranks):  # every sharded call bitwise its single-device call
         for name, routes in r["calls"].items():
@@ -3324,28 +3364,6 @@ def mesh_phase() -> dict:
                 if not (c["wq"] and c["head"] and c["mlp"]):
                     fail(f"mesh {name} rank {i} {route}: a sharded kernel call is not bitwise "
                          f"its single-device call: {c}")
-    # tensor parallelism: bitwise logits and tokens at full depth
-    keys = sorted({key for r in ranks for key in r["tp"]})
-    for key in keys:
-        name, route, temp = key
-        want = ref["tp"][(route, temp)]
-        holders = [(i, r) for i, r in enumerate(ranks) if key in r["tp"]]
-        for i, r in holders:
-            got = r["tp"][key]
-            if got["digests"] != want["digests"] or not np.array_equal(got["tokens"],
-                                                                       want["tokens"]):
-                fail(f"mesh {name} {route} T={temp} rank {i}: logits or tokens differ from the "
-                     "single-device engine's")
-            c = got["launches"]
-            if min(c["vusa_packed_matmul"][ROUTE_KIND[route]],
-                   c["vusa_fused_mlp_partials"][ROUTE_KIND[route]],
-                   c["vusa_window_sum"]["dense"]) == 0 or sum(
-                       c["vusa_fused_mlp_matmul"].values()):
-                fail(f"mesh {name} {route}: the sharded path did not go through its kernels: {c}")
-        g = holders[0][1]["tp"][key]
-        res["tp"][f"{name} {route} T={temp}"] = {
-            k: g[k] for k in ("collectives_per_step", "bytes_per_step", "ms_per_step",
-                              "tok_per_s", "peak_bytes", "launches")}
     # data parallelism: tokens on the depth cut, the first-step gap at full depth
     for (name, layers), got in ranks[0]["dp"].items():
         want = ref["dp"][layers]
@@ -3367,9 +3385,11 @@ def mesh_phase() -> dict:
     for what, got in ranks[0]["sched"].items():
         want = ref["sched"][what]
         same = got["tokens"] == want["tokens"]
-        if what != "paged_prefix" and not (same and got["ok"]):
+        if not (same and got["ok"]):
             fail(f"mesh 2x2 scheduler {what}: completions differ from the single-device "
                  "scheduler's")
+        if what == "paged_prefix" and not got["prefix_hits"]:
+            fail("mesh 2x2 scheduler paged_prefix: no prompt hit the prefix cache")
         res["sched"][what] = {**{k: v for k, v in got.items() if k != "tokens"},
                               "tokens_equal": same,
                               "single_sustained_tok_per_s": want["sustained_tok_per_s"]}
@@ -3440,30 +3460,24 @@ def print_mesh(m: dict, card: str) -> None:
     print(f"mesh: the ranks of every mesh are processes sharing this one card over gloo, their "
           f"collectives staged through host memory: the times below are not multi-GPU speeds "
           f"({card})", flush=True)
-    print(f"mesh engine builds (vusa_edge, 12 layers; the packs, whole on one device, a rank's "
-          f"windows on a mesh; every rank and this process at once): "
-          f"{ {k: round(v, 2) for k, v in m['engine_build_s'].items()} } s ({card})", flush=True)
     for name, routes in m["calls"].items():
         windows = routes["dense"]["head_windows"]
         print(f"mesh {name}: layer 0's wq, fused MLP and the LM head ({windows} head windows a "
               "rank), each sharded call bitwise its single-device call, fp32 and int8 values",
               flush=True)
-    for key, r in m["tp"].items():
-        print(f"mesh {key} (vusa_edge, 12 layers, B={BATCH}, eager): every step's logits and "
-              f"every token bitwise one device's; {r['ms_per_step']:.2f} ms a step, "
-              f"{r['tok_per_s']:.1f} tok/s, {r['collectives_per_step']:.1f} collectives and "
-              f"{r['bytes_per_step']:.0f} bytes a step a rank, peak memory {r['peak_bytes']} "
-              f"bytes a rank; launches a rank {r['launches']} ({card})", flush=True)
     for key, r in m["dp"].items():
         print(f"mesh {key} (vusa_edge, contracted fan-in, fp32 values): {r} ({card})",
               flush=True)
     for what, r in m["sched"].items():
-        print(f"mesh 2x2 scheduler {what} ({DEPTH_CUT} layers, {SCHED_REQUESTS} requests, "
-              f"{SCHED_SLOTS} slots, sequential admission): {r} ({card})", flush=True)
+        when = ("every arrival at 0" if what == "paged_prefix"
+                else "staggered arrivals on rank 0's clock")
+        print(f"mesh 2x2 scheduler {what} ({DEPTH_CUT} layers, {SCHED_REQUESTS} requests at "
+              f"{when}, {SCHED_SLOTS} slots, sequential admission): {r} ({card})", flush=True)
     for layers, r in m["qwen2"].items():
         print(f"mesh 1x4 qwen2_0_5b {layers} layers (published widths): {r}", flush=True)
     for name, r in m["train"].items():
-        print(f"mesh train {name}: {r} ({card})", flush=True)
+        print(f"mesh train {name} (vusa_edge, {MESH_TRAIN_LAYERS} layers, full width): {r} "
+              f"({card})", flush=True)
     print(f"mesh phase {m['seconds']:.1f}s (limit {MESH_PHASE_LIMIT_S:.0f}s; single-device "
           f"references {m['reference_s']:.1f}s, ranks {m['ranks_s']:.1f}s)", flush=True)
 
@@ -3490,6 +3504,333 @@ def run_async(what: str, coro_fn, timeout: float = 300.0):
     if "err" in box:
         fail(f"{what}: {box['err']!r}")
     return box["out"]
+
+
+# --------------------------------------------------------------------------
+# phase 17: tensor-parallel dense compute on sharded dense storage
+# --------------------------------------------------------------------------
+
+
+def sharded_init(cfg, mesh=None) -> dict:
+    """``device_init``'s draw (the contracted fan-in, the zeros and ones
+    leaves perturbed), leaf by leaf in tree order, each leaf in chunks of
+    dim 0 (a layer of a stacked leaf, ``TP_DRAW_ENTRIES`` entries of a
+    matrix), every rank drawing every chunk from the same generator and
+    keeping its shard under the serving engine's placement
+    (``dist.tp.storage_placements``); with no mesh, every chunk.  So a rank
+    never holds a leaf whole, and the ranks' shards cut one device's tree."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(int(np.random.default_rng(FAM_SEED).integers(2**62)))
+    specs = build_model(cfg).specs()
+    placements = storage_placements(specs, mesh) if mesh is not None else None
+
+    def build(tree, pls):
+        out = {}
+        for name, spec in tree.items():
+            if isinstance(spec, dict):
+                out[name] = build(spec, None if pls is None else pls[name])
+                continue
+            shape = spec.shape
+            std = (FAM_PERTURB_STD if spec.init in ("zeros", "ones")
+                   else spec.scale / math.sqrt(max(fan_in(name, shape), 1)))
+            ranges = shard_ranges(shape, () if pls is None else pls[name], mesh)
+            leaf = torch.empty([n for _, n in ranges], device=DEVICE)
+            inner = math.prod(shape[1:])
+            step = 1 if len(shape) >= 3 else max(1, TP_DRAW_ENTRIES // max(inner, 1))
+            lo, n = ranges[0]
+            for r0 in range(0, shape[0], step):
+                r1 = min(r0 + step, shape[0])
+                chunk = torch.randn((r1 - r0,) + tuple(shape[1:]), generator=gen,
+                                    device=DEVICE) * std
+                if spec.init == "ones":
+                    chunk += 1.0
+                a, b = max(r0, lo), min(r1, lo + n)
+                if a < b:
+                    part = chunk[a - r0:b - r0]
+                    for dim, (s, k) in enumerate(ranges[1:], 1):
+                        part = part.narrow(dim, s, k)
+                    leaf[a - lo:b - lo] = part
+                del chunk
+            out[name] = leaf
+        return out
+
+    return build(specs, placements)
+
+
+def tp_predicted(route: str, dp: int, tp: int, layers: int, rows_split: bool) -> int:
+    """Collectives a decode step makes on a rank: on ``model`` two ordered
+    sums a layer on either route (``wo`` on the rank's heads, dense or
+    packed from its heads' rows; ``w_down`` or the packed MLP's window
+    partials), plus the embedding's sum and the head's gather; on ``data``
+    the embedding's two gathers (every rank's tokens, the looked-up
+    columns), the logits' rows gather when the rows split, and on the dense
+    route each layer's leaves (one gather) and the LM head's."""
+    n = 0
+    if tp > 1:
+        n += 2 * layers + 2
+    if dp > 1:
+        n += 2 + int(rows_split) + ((layers + 1) if route == "dense" else 0)
+    return n
+
+
+def tp_engine(cfg, params, mesh, route: str, new: int):
+    kw = {} if route == "dense" else {"packed_weights": "all", "packed_values": route}
+    return Engine(cfg, params, ServeConfig(max_len=PROMPT + new + 8, fused=False, **kw),
+                  device=DEVICE, mesh=mesh)
+
+
+def tp_run(eng, prompts, new: int, temp: float = 0.0) -> dict:
+    """``generate`` of ``new`` tokens at ``temp`` on ``eng`` beside the first
+    decode step's whole logits (``first_step_logits``): the tokens and
+    their digest, the logits' digest, and of the decode steps alone
+    (``decode_segment``) the collectives and bytes a step on this rank, the
+    B1-B4 launches, ms a step and tok/s; the dense bytes this rank stores
+    and their placement arithmetic."""
+    use(eng, temperature=temp)
+    first = first_step_logits(eng, prompts)
+    box, inner = {}, eng.decode_segment
+
+    def counted(*args, **kw):
+        comm.reset_stats()
+        reset_all_launch_counts()
+        out = inner(*args, **kw)
+        box.update(collectives=comm.STATS["collectives"], bytes=comm.STATS["bytes"],
+                   launches=mesh_counts())
+        return out
+
+    eng.decode_segment = counted
+    out = eng.generate(prompts, max_new=new)
+    del eng.decode_segment
+    steps = new - 1
+    specs = build_model(eng.cfg).specs()
+    placements = (storage_placements(specs, None) if eng.plan is None
+                  else eng.plan.placements)
+    return {"tokens": out["tokens"], "first": first, "digest": digest(
+                first, torch.from_numpy(out["tokens"])),
+            "collectives_per_step": box["collectives"] / steps,
+            "bytes_per_step": box["bytes"] / steps, "launches": box["launches"],
+            "ms_per_step": 1e3 * out["decode_s"] / steps, "tok_per_s": out["tok_per_s"],
+            "dense_bytes": eng.dense_param_bytes,
+            "dense_bytes_want": placement_bytes(specs, placements, eng.mesh)}
+
+
+def tp_runs(meshes: dict, layers) -> list:
+    """(b)'s runs at depth ``layers`` on ``meshes`` (``{"1x1": None}``: one
+    device), each (mesh, route, temperature, bf16 probabilities): greedy
+    with fp32 probabilities on every route, and at full depth the dense
+    route's ``TP_EXTRA`` (one device once a setting)."""
+    out = [(name, route, 0.0, False) for name in meshes for route in TP_ROUTES]
+    if layers is None:
+        out += (sorted({("1x1", "dense", t, b) for _, t, b in TP_EXTRA}) if "1x1" in meshes
+                else [(n, "dense", t, b) for n, t, b in TP_EXTRA if n in meshes])
+    return out
+
+
+def tp_label(key: tuple) -> str:
+    name, layers, route, temp, bf16 = key
+    return (f"{name} {layers} layers {route}" + (f" T={temp}" if temp else "")
+            + (" bf16 probabilities" if bf16 else ""))
+
+
+def tp_cases(meshes: dict, prompts, lead: bool) -> dict:
+    """(b): ``vusa_edge`` drawn with the contracted fan-in, pruned, on every
+    mesh of ``meshes`` (``{"1x1": None}``: one device) at each depth, each
+    run of ``tp_runs``, the flash attention's probabilities in fp32 but
+    where a run asks for bf16.  ``lead``: this rank keeps every run's
+    first-step logits (the others their digests)."""
+    out = {}
+    for layers in TP_DEPTHS:
+        cfg = mesh_cfg("vusa_edge", layers)
+        params = prune_tree(device_init(cfg), cfg.sparsity)
+        for name, route, temp, bf16 in tp_runs(meshes, layers):
+            with contextlib.nullcontext() if bf16 else fp32_probs():
+                t0 = time.monotonic()
+                eng = tp_engine(cfg, params, meshes[name], route, TP_NEW)
+                build_s = time.monotonic() - t0
+                rec = tp_run(eng, prompts, TP_NEW, temp)
+            rec["build_s"] = build_s
+            if not lead:
+                del rec["first"]
+            out[(name, cfg.n_layers, route, temp, bf16)] = rec
+            del eng
+            release()
+        del params
+        release()
+    return out
+
+
+def tp_qwen3(mesh, prompts) -> dict:
+    """(a): ``qwen3_8b`` at 36 layers, fp32, dense route, on ``mesh`` (None:
+    one device): the draw (``sharded_init``), the engine, the run and the
+    peak memory of all of it, above what the process held before (this
+    process keeps earlier phases' tensors); the whole logits only with no
+    mesh or on the lead rank."""
+    cfg = mesh_cfg(TP_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    params = sharded_init(cfg, mesh)
+    draw_s = time.monotonic() - t0
+    eng = tp_engine(cfg, params, mesh, "dense", TP_NEW)
+    del params
+    rec = tp_run(eng, prompts, TP_NEW)
+    torch.cuda.synchronize()
+    rec.update(peak_bytes=torch.cuda.max_memory_allocated() - held, draw_s=draw_s)
+    del eng
+    release()
+    return rec
+
+
+def tp_rank(mesh, device, qprompts, prompts) -> dict:
+    """One rank of phase 17's 2x2 world: (a) on a 1x4 mesh over the four
+    ranks, then (b) on the 2x2 mesh's ``model`` sub-mesh (1x2; the two data
+    coordinates run the same case), a 1x4 mesh and the 2x2 mesh."""
+    t0 = time.monotonic()
+    lead = not any(mesh.get_coordinate())
+    one_by_four = make_local_mesh(1, 4)
+    with fp32_probs():
+        out = {"qwen3": tp_qwen3(one_by_four, qprompts)}
+    if not lead:
+        del out["qwen3"]["first"]
+    out["edge"] = tp_cases({"1x2": mesh["model"], "1x4": one_by_four, "2x2": mesh}, prompts,
+                           lead)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def tp_phase() -> dict:
+    """Phase 17 (module docstring).  Fails past ``TP_PHASE_LIMIT_S``."""
+    t_phase = time.monotonic()
+    release()
+    prompts = prompts_for(get_config("vusa_edge"))
+    qprompts = prompts_for(mesh_cfg(TP_ARCH))
+    if TP_DIR.exists():
+        shutil.rmtree(TP_DIR)
+    TP_DIR.mkdir(parents=True)
+    # (a)'s oracle holds the whole model: it runs, and frees it, before the ranks
+    with fp32_probs():
+        oracle = tp_qwen3(None, qprompts)
+    release()
+    box: dict = {}
+
+    def run_ranks():
+        t0 = time.monotonic()
+        try:
+            box["ranks"] = spawn(tp_rank, 2, 2, "gloo", DEVICE, str(TP_DIR / "rendezvous"),
+                                 args=(qprompts, prompts), timeout_s=TP_PHASE_LIMIT_S)
+        except BaseException as e:  # re-raised below, in the phase's thread
+            box["error"] = e
+        box["seconds"] = time.monotonic() - t0
+
+    worker = threading.Thread(target=run_ranks)
+    worker.start()
+    t0 = time.monotonic()
+    ref = tp_cases({"1x1": None}, prompts, True)
+    t_ref = time.monotonic() - t0
+    worker.join()
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    res = {"qwen3": {}, "edge": {}, "oracle_s": None, "reference_s": t_ref,
+           "ranks_s": box["seconds"], "rank_seconds": [r["seconds"] for r in ranks]}
+    # (a) qwen3_8b at 36 layers on 1x4 against one device
+    got = ranks[0]["qwen3"]
+    gap = gap_rel(got["first"], oracle["first"])
+    print(f"tp qwen3_8b on 1x4: first-step gap {gap:.4g}, first tokens "
+          f"{got['tokens'][:, 0].tolist()} / {oracle['tokens'][:, 0].tolist()}, peak bytes "
+          f"{[r['qwen3']['peak_bytes'] for r in ranks]} / {oracle['peak_bytes']}", flush=True)
+    if gap > MESH_LOGIT_TOL:
+        fail(f"qwen3_8b on 1x4: first-step logit gap {gap:.3g} of the largest > {MESH_LOGIT_TOL}")
+    if not np.array_equal(got["tokens"][:, 0], oracle["tokens"][:, 0]):
+        fail("qwen3_8b on 1x4: the first greedy token differs from one device's")
+    ratios = [r["qwen3"]["peak_bytes"] / oracle["peak_bytes"] for r in ranks]
+    if max(ratios) > TP_MEM_RATIO:
+        fail(f"qwen3_8b on 1x4: a rank's peak memory is {max(ratios):.3f}x one device's "
+             f"> {TP_MEM_RATIO}")
+    res["qwen3"] = {
+        "first_step_gap_rel": gap, "token_agreement": float(np.mean(
+            got["tokens"] == oracle["tokens"])), "peak_ratio_per_rank": ratios,
+        "oracle": {k: oracle[k] for k in ("ms_per_step", "tok_per_s", "peak_bytes",
+                                          "dense_bytes", "draw_s")},
+        **{k: got[k] for k in ("ms_per_step", "tok_per_s", "collectives_per_step",
+                               "bytes_per_step", "peak_bytes", "dense_bytes", "draw_s")},
+        "layers": mesh_cfg(TP_ARCH).n_layers,
+        "collectives_predicted": tp_predicted("dense", 1, 4, mesh_cfg(TP_ARCH).n_layers, False)}
+    # (b) vusa_edge on 1x2, 1x4 and 2x2 against one device
+    dims = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
+    for key in sorted(ranks[0]["edge"]):
+        name, layers, route, temp, bf16 = key
+        want, got = ref[("1x1",) + key[1:]], ranks[0]["edge"][key]
+        gap, what = gap_rel(got["first"], want["first"]), f"vusa_edge on {tp_label(key)}"
+        if not bf16 and not np.array_equal(got["tokens"], want["tokens"]):
+            fail(f"{what}: tokens differ from one device's")
+        tol = TP_BF16_TOL if bf16 else MESH_LOGIT_TOL
+        if gap > tol:
+            fail(f"{what}: first-step logit gap {gap:.3g} of the largest > {tol}")
+        dp, tp = dims[name]
+        predicted = tp_predicted(route, dp, tp, layers, BATCH % dp == 0 and dp > 1)
+        res["edge"][tp_label(key)] = {
+            "first_step_gap_rel": gap,
+            "token_agreement": float(np.mean(got["tokens"] == want["tokens"])),
+            "collectives_predicted": predicted, "single_ms_per_step": want["ms_per_step"],
+            **{k: got[k] for k in ("ms_per_step", "tok_per_s", "collectives_per_step",
+                                   "bytes_per_step", "dense_bytes", "launches", "build_s")}}
+        if route != "dense":
+            c, kind = got["launches"], ROUTE_KIND[route]
+            if min(c["vusa_packed_matmul"][kind], c["vusa_fused_mlp_partials"][kind],
+                   c["vusa_window_sum"]["dense"]) == 0 or sum(
+                       c["vusa_fused_mlp_matmul"].values()):
+                fail(f"{what}: the sharded path did not go through its kernels: {c}")
+    # every rank: the same bits, its storage, its collectives
+    for i, r in enumerate(ranks):
+        runs = [("qwen3_8b 1x4", r["qwen3"], ranks[0]["qwen3"],
+                 res["qwen3"]["collectives_predicted"])]
+        runs += [(f"vusa_edge {tp_label(k)}", v, ranks[0]["edge"][k],
+                  res["edge"][tp_label(k)]["collectives_predicted"])
+                 for k, v in r["edge"].items()]
+        for what, rec, lead, predicted in runs:
+            if rec["digest"] != lead["digest"]:
+                fail(f"{what}: rank {i}'s tokens or logits differ from rank 0's")
+            if rec["dense_bytes"] != rec["dense_bytes_want"]:
+                fail(f"{what}: rank {i} stores {rec['dense_bytes']} dense bytes, the placement "
+                     f"says {rec['dense_bytes_want']}")
+            if rec["collectives_per_step"] != predicted:
+                fail(f"{what}: rank {i} made {rec['collectives_per_step']} collectives a "
+                     f"decode step, predicted {predicted}")
+    res["seconds"] = time.monotonic() - t_phase
+    if res["seconds"] > TP_PHASE_LIMIT_S:
+        fail(f"tensor-parallel phase took {res['seconds']:.1f}s, over its "
+             f"{TP_PHASE_LIMIT_S:.0f}s")
+    return res
+
+
+def print_tp(t: dict, card: str) -> None:
+    q = t["qwen3"]
+    print(f"tp: the ranks are processes sharing this one card over gloo, their collectives "
+          f"staged through host memory: the times below are not multi-GPU speeds ({card})",
+          flush=True)
+    print(f"tp qwen3_8b ({q['layers']} layers, fp32, dense route, B={BATCH}, prompt {PROMPT}, "
+          f"{TP_NEW} new) "
+          f"on 1x4: first-step logit gap {q['first_step_gap_rel']:.3g} of the largest, token "
+          f"agreement {q['token_agreement']:.3f}, peak memory a rank {q['peak_bytes']} bytes "
+          f"({max(q['peak_ratio_per_rank']):.3f}x one device's {q['oracle']['peak_bytes']}), "
+          f"dense bytes a rank {q['dense_bytes']} (one device {q['oracle']['dense_bytes']}), "
+          f"{q['collectives_per_step']:.0f} collectives a step (predicted "
+          f"{q['collectives_predicted']}), {q['ms_per_step']:.2f} ms a step, "
+          f"{q['tok_per_s']:.1f} tok/s; one device {q['oracle']['ms_per_step']:.2f} ms a step, "
+          f"{q['oracle']['tok_per_s']:.1f} tok/s ({card})", flush=True)
+    for key, r in t["edge"].items():
+        print(f"tp vusa_edge {key} (B={BATCH}, eager): gap {r['first_step_gap_rel']:.3g}, "
+              f"token agreement {r['token_agreement']:.3f}, {r['collectives_per_step']:.0f} "
+              f"collectives a step (predicted {r['collectives_predicted']}), "
+              f"{r['bytes_per_step']:.0f} bytes a step, {r['ms_per_step']:.2f} ms a step "
+              f"(one device {r['single_ms_per_step']:.2f}), {r['tok_per_s']:.1f} tok/s, "
+              f"dense bytes a rank {r['dense_bytes']}, engine build {r['build_s']:.2f}s "
+              f"({card})", flush=True)
+    print(f"tensor-parallel phase {t['seconds']:.1f}s (limit {TP_PHASE_LIMIT_S:.0f}s; "
+          f"single-device references {t['reference_s']:.1f}s, ranks {t['ranks_s']:.1f}s)",
+          flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -3976,6 +4317,9 @@ def main() -> None:
     left = leftovers_phase(raw, params, cfg)
     print_leftovers(left, card)
 
+    tpp = tp_phase()
+    print_tp(tpp, card)
+
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",
                 "vusa_fused_mlp_matmul": "src/repro/kernels/vusa_packed.py:256",
                 "vusa_packed_matmul_quantized": "src/repro/kernels/vusa_packed.py:142",
@@ -4025,17 +4369,15 @@ def main() -> None:
         k["int4"]["families"] = families(name, "int4")
         kernels.append(k)
     def mesh_launches(name, route):
-        """Phase 15's launches a decode step on each rank of the
-        tensor-parallel meshes (greedy run): B1/B3 per sharded call, B2/B4
-        as the window-partial kernel and the ordered sum."""
+        """Phase 17's launches a decode step on each rank of the
+        tensor-parallel meshes (full depth, greedy): B1/B3 per sharded call,
+        B2/B4 as the window-partial kernel and the ordered sum."""
         kind, out = ROUTE_KIND[route], {}
-        for m in MESH_TP:
-            if f"{m} {route} T=0.0" not in mesh["tp"]:  # 1x4 serves fp32 values alone
-                continue
-            c = mesh["tp"][f"{m} {route} T=0.0"]["launches"]
+        for m in ("1x2", "1x4", "2x2"):
+            c = tpp["edge"][f"{m} {cfg.n_layers} layers {route}"]["launches"]
             wrappers = (("vusa_packed_matmul",) if name.startswith("vusa_packed_matmul")
                         else ("vusa_fused_mlp_partials", "vusa_window_sum"))
-            out[m] = {w: c[w]["dense" if w == "vusa_window_sum" else kind] / (MAX_NEW - 1)
+            out[m] = {w: c[w]["dense" if w == "vusa_window_sum" else kind] / (TP_NEW - 1)
                       for w in wrappers}
         return out
 
@@ -4072,13 +4414,13 @@ def main() -> None:
          "qwen2_0_5b (24 layers) and qwen3_8b (2 layers) from layer 0's timed packs x layers "
          "(+ qwen3's head on the fp32 route), launches from the phase's counted runs; "
          "B1-B4's mesh_launches_per_step_per_rank the launches a decode step on each rank of "
-         "phase 15's 1x2 and 1x4 meshes (B2/B4 as the window-partial kernel and the ordered "
-         "sum of the gathered partials)",
+         "phase 17's 1x2, 1x4 and 2x2 meshes at 12 layers (B2/B4 as the window-partial kernel "
+         "and the ordered sum of the gathered partials)",
          "records": records, "model": res, "quantized": quant, "tok_per_s_in_turns": turns,
          "paper_workloads": paper, "graph_decode": graph, "speculative": spec,
          "scheduler": sched, "speculative_scheduler": sspec, "failure_model": fails,
          "train": train, "families": fam, "recurrent_families": rec, "mesh": mesh,
-         "leftovers": left,
+         "tensor_parallel": tpp, "leftovers": left,
          "pack_bytes_per_step": sizes, "byte_ratios": ratios,
          "seconds": time.monotonic() - t_start}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

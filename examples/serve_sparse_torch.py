@@ -12,7 +12,6 @@ Run:  PYTHONPATH=src python examples/serve_sparse_torch.py --sparsity 0.85 [--de
 """
 
 import argparse
-import dataclasses
 
 import numpy as np
 
@@ -99,8 +98,6 @@ def run(args, mesh=None, device=None):
                 arrival_s=float(rng.exponential(0.002)))
         for i in range(2 * args.batch)
     ]
-    if mesh is not None:  # every rank runs the host loop on its own clock: arrive at once
-        reqs = [dataclasses.replace(r, arrival_s=0.0) for r in reqs]
     done = sched.run(reqs)
     s = sched.stats()
     print(f"scheduler  : {len(done)} requests  {s['sustained_tok_per_s']:6.0f} tok/s  "

@@ -1,21 +1,24 @@
-"""Collectives over one axis of a (data, model) mesh, with counters.
+"""Collectives over the axes of a (pod, data, model) mesh, with counters.
 
 Every collective of the port's sharded paths goes through here, on the
-process group of one mesh axis (``DeviceMesh.get_group``), so a run can
-report how many it made and how many bytes each rank received.  The
-backend is the process group's: gloo takes CUDA tensors for all-gather
-and broadcast (the ranks that share one card use it), nccl needs one GPU
-per rank.  A collective that fails raises; nothing here retries or falls
+process group of one mesh axis (``DeviceMesh.get_group``) or, for a sum
+over several axes or a broadcast over the whole mesh, on each axis in
+turn, so a run can report how many it made and how many bytes each rank
+received.  The backend is the process group's: gloo takes CUDA tensors
+for all-gather and broadcast (the ranks that share one card use it), nccl
+needs one GPU per rank.  A collective that fails raises; nothing here retries or falls
 back to a local result.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 
 __all__ = ["STATS", "reset_stats", "axis_size", "axis_index", "mesh_shape", "all_gather",
-           "sum_in_rank_order", "broadcast"]
+           "sum_in_rank_order", "broadcast", "broadcast_mesh", "gather_leaves"]
 
 # collectives made and bytes this rank received, since the last reset, in
 # all and per type ("by_type": {"all-gather" | "all-reduce" | "broadcast":
@@ -72,25 +75,54 @@ def all_gather(t: torch.Tensor, mesh, name: str, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def sum_in_rank_order(t: torch.Tensor, mesh, name: str) -> torch.Tensor:
-    """The sum of ``t`` over the ranks of axis ``name``, added in rank order
-    (rank 0 first) on every rank: the same bits everywhere, and the same
-    order whatever the backend's reduction would choose.  Two ranks
-    all-reduce (a sum of two addends is the same bits in either order, and
-    it moves half the bytes of a gather); more gather every rank's ``t``
-    and add them in order."""
-    n = axis_size(mesh, name)
-    if n == 1:
+def _live_axes(mesh, names) -> tuple:
+    """The axes of ``names`` (one name or a tuple) of size > 1, outermost
+    first."""
+    names = (names,) if isinstance(names, str) else tuple(names)
+    return tuple(a for a in names if axis_size(mesh, a) > 1)
+
+
+def sum_in_rank_order(t: torch.Tensor, mesh, name) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of axis ``name`` (or of a tuple of
+    axes, flattened row-major: the outer axis's coordinate first, the rank
+    order of ``dist.sharding.local_shard``), added in rank order (rank 0
+    first) on every rank: the same bits everywhere, and the same order
+    whatever the backend's reduction would choose.  Two ranks all-reduce
+    (a sum of two addends is the same bits in either order, and it moves
+    half the bytes of a gather); more gather every rank's ``t`` (over
+    several axes, the innermost first) and add them in order."""
+    axes = _live_axes(mesh, name)
+    if not axes:
         return t
-    if n == 2:
+    if len(axes) == 1 and axis_size(mesh, axes[0]) == 2:
         out = t.clone()
-        dist.all_reduce(out, group=mesh.get_group(name))
+        dist.all_reduce(out, group=mesh.get_group(axes[0]))
         _count("all-reduce", t.numel() * t.element_size())
         return out
-    parts = all_gather(t[None], mesh, name, dim=0)
+    parts = t[None]
+    for a in reversed(axes):
+        parts = all_gather(parts, mesh, a, dim=0)
     out = parts[0]
     for p in parts[1:]:
         out = out + p
+    return out
+
+
+def gather_leaves(tensors: list, dims: list, mesh, name: str) -> list:
+    """``all_gather`` of each of ``tensors`` along its ``dims`` entry over
+    axis ``name``, in one collective: the shards are flattened into one
+    buffer, gathered, and cut apart again (the same bits as a gather a
+    tensor).  Every tensor shares one dtype."""
+    n = axis_size(mesh, name)
+    if n == 1 or not tensors:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    whole = all_gather(flat[None], mesh, name, dim=0)  # (n, total), rank order
+    out, off = [], 0
+    for t, dim in zip(tensors, dims):
+        part = whole[:, off:off + t.numel()].reshape(n, *t.shape)
+        out.append(torch.cat(part.unbind(0), dim=dim))
+        off += t.numel()
     return out
 
 
@@ -103,4 +135,21 @@ def broadcast(t: torch.Tensor, mesh, name: str, src: int = 0) -> torch.Tensor:
     group = mesh.get_group(name)
     dist.broadcast(t, group=group, group_src=src)
     _count("broadcast", t.numel() * t.element_size() if axis_index(mesh, name) != src else 0)
+    return t
+
+
+def broadcast_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` of the mesh's first rank (every coordinate 0), in place on every
+    rank of the mesh: one broadcast when the mesh spans the process group,
+    else one an axis in turn (after the broadcast over an axis, every rank
+    at coordinate 0 of the later axes holds the first rank's ``t``)."""
+    if math.prod(mesh_shape(mesh).values()) <= 1:
+        return t
+    if math.prod(mesh_shape(mesh).values()) == dist.get_world_size():
+        src = int(mesh.mesh.flatten()[0])
+        dist.broadcast(t, src=src)
+        _count("broadcast", t.numel() * t.element_size() if dist.get_rank() != src else 0)
+        return t
+    for a in mesh.mesh_dim_names:
+        broadcast(t, mesh, a, src=0)
     return t

@@ -34,7 +34,7 @@ from .comm import all_gather, axis_index, mesh_shape
 __all__ = [
     "PARAM_RULES", "act_rules", "param_sharding", "params_shardings", "batch_sharding",
     "batch_shardings", "serve_shardings", "window_sharding", "block_sharding",
-    "local_shard", "gather_whole", "shard_tree", "gather_tree",
+    "shard_ranges", "local_shard", "gather_whole", "shard_tree", "gather_tree",
 ]
 
 
@@ -189,21 +189,26 @@ def _names(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def shard_ranges(shape, placement, mesh) -> list:
+    """(start, size) of this rank's shard on each dim of a ``shape`` tensor
+    under ``placement``: for each sharded dim, the chunk at the rank's
+    coordinate (row-major over a tuple of axes); the whole dim where
+    nothing shards it (and with no mesh)."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for dim, d in enumerate(shape):
+        index, n = 0, 1
+        for a in _names(placement[dim] if dim < len(placement) else None):
+            index, n = index * sizes[a] + axis_index(mesh, a), n * sizes[a]
+        out.append((index * (d // n), d // n))
+    return out
+
+
 def local_shard(t: torch.Tensor, placement: tuple, mesh) -> torch.Tensor:
-    """This rank's shard of the whole tensor ``t`` under ``placement``: for
-    each sharded dim, the chunk at the rank's coordinate (row-major over a
-    tuple of axes), copied to fresh memory."""
-    shape = mesh_shape(mesh)
-    for dim, entry in enumerate(placement):
-        names = _names(entry)
-        if not names:
-            continue
-        index = 0
-        for a in names:
-            index = index * shape[a] + axis_index(mesh, a)
-        n = math.prod(shape[a] for a in names)
-        size = t.shape[dim] // n
-        t = t.narrow(dim, index * size, size)
+    """This rank's shard of the whole tensor ``t`` under ``placement``
+    (``shard_ranges``), copied to fresh memory."""
+    for dim, (start, size) in enumerate(shard_ranges(t.shape, placement, mesh)):
+        t = t.narrow(dim, start, size)
     return t.clone(memory_format=torch.contiguous_format)  # never a view of ``t``
 
 

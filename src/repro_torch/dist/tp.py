@@ -1,0 +1,291 @@
+"""Tensor-parallel dense compute on sharded dense storage: the dense
+family's serving path on a (data, model) mesh (ROADMAP A12.1).
+
+The reference's ``Engine`` places its dense parameters under
+``params_shardings`` (heads, kv heads, ff and vocab over ``model``, the
+embed dim over ``data``) and GSPMD runs the products tensor-parallel.  The
+port does it in PyTorch's idiom: each rank stores its shard of every dense
+leaf under the same rules (``dist/sharding.py``), and the layers compute on
+those shards with explicit collectives (``dist/comm.py``), Megatron's
+layout:
+
+* attention is column-parallel on the local heads and kv heads (wq, wk,
+  wv and their biases), so the attend and the KV cache hold local heads
+  only, and ``wo`` is row-parallel: each rank's partial output is summed
+  over ``model`` in rank order (``comm.sum_in_rank_order``);
+* the MLP is column-parallel on ff (``w_gate``, ``w_up``) and row-parallel
+  in ``w_down``, with the same ordered sum;
+* the embedding looks up the local vocab range (rows outside it zero) and
+  sums over ``model``; the head is vocab-parallel, its logits all-gathered
+  over ``model``, so every rank holds the whole logits, the same bits;
+* a leaf whose embed dim sits on ``data`` (FSDP) is gathered over ``data``
+  just before its layer runs, the layer's leaves in one collective, and
+  dropped after it (the reference's GSPMD does the same); the embedding's
+  rows come from every data rank's tokens looked up in that rank's
+  columns, then gathered, never the whole table.  The norm scales are
+  ``(d,)`` leaves on ``embed`` too: the engine holds them whole for its
+  life (``storage_placements``), a few KB a layer.
+
+Where the heads or the kv heads do not divide ``model`` (qwen2's 14 heads
+and 2 kv heads on four ranks) the rules replicate them, and attention stays
+whole on every rank as on one device (the sequence-sharded prefill
+attention applies there); a heads leaf the rules split while its kv leaf
+stays whole is gathered over ``model`` before use.  The ff and vocab splits
+hold either way.  Column products are the single-device columns; an
+ordered sum adds the ranks' partials in another order than one device's
+reduction, so logits agree within rounding, and every rank ends a step with
+the same bits.
+
+``TPPlan`` is the engine's record of one mesh's splits; the layers read it
+through ``models.common.mesh_context``.  ``WholeView`` gathers one leaf at
+a time for the pack builders, so a rank never holds the whole tree.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Mapping
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..models.common import per_row
+from .comm import all_gather, axis_index, axis_size, gather_leaves, mesh_shape, sum_in_rank_order
+from .sharding import _names, gather_whole, local_shard, params_shardings
+
+__all__ = ["TPPlan", "serving_plan", "local_config", "storage_placements", "shard_shape",
+           "place_params", "placement_bytes", "tree_bytes", "WholeView"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """The splits of one mesh for the dense family's serving path.
+    ``placements`` is the storage placement tree (``storage_placements``);
+    ``heads``, ``ff`` and ``vocab`` say whether the compute runs on local
+    heads, a local ff slab and a local vocab range; ``rank`` is this rank's
+    ``model`` coordinate."""
+
+    mesh: object
+    placements: dict
+    tp: int
+    rank: int
+    heads: bool
+    ff: bool
+    vocab: bool
+
+    # -- parameters at their point of use ------------------------------------
+    def _want(self, group: str, placement: tuple) -> tuple:
+        """The placement the compute reads a layer leaf at: every ``data``
+        dim whole, the heads dims whole where attention is not split."""
+        out = []
+        for axis in placement:
+            if axis == "data" or (axis == "model" and group == "attn" and not self.heads):
+                out.append(None)
+            else:
+                out.append(axis)
+        return tuple(out)
+
+    def layer(self, layers: dict, i: int, names: dict) -> dict:
+        """Layer ``i`` of the stacked tree ``layers``, its leaves ``names``
+        (``{group: (leaf, ...)}``) gathered where they sit on an axis the
+        compute wants whole: one collective an axis for all of them.  The
+        gathered leaves live as long as the returned dict."""
+        lp = {k: ({n: t[i] for n, t in v.items()} if isinstance(v, dict) else v[i])
+              for k, v in layers.items()}
+        todo = {}  # (group, leaf) -> (tensor, placement now, placement wanted)
+        for group, leaves in names.items():
+            for name in leaves:
+                if name not in lp[group]:
+                    continue
+                have = self.placements["layers"][group][name][1:]
+                want = self._want(group, have)
+                if have != want:
+                    todo[(group, name)] = (lp[group][name], have, want)
+        for axis in ("data", "model"):
+            keys = [k for k, (_, have, want) in todo.items()
+                    if any(h == axis and w != axis for h, w in zip(have, want))]
+            if not keys:
+                continue
+            dims = [todo[k][1].index(axis) for k in keys]
+            for dtype in sorted({todo[k][0].dtype for k in keys}, key=str):
+                ks = [(k, d) for k, d in zip(keys, dims) if todo[k][0].dtype == dtype]
+                whole = gather_leaves([todo[k][0] for k, _ in ks], [d for _, d in ks],
+                                      self.mesh, axis)
+                for (k, _), t in zip(ks, whole):
+                    todo[k] = (t,) + todo[k][1:]
+        for (group, name), (t, _, _) in todo.items():
+            lp[group] = dict(lp[group], **{name: t})
+        return lp
+
+    def head_matrix(self, params: dict, tied: bool) -> torch.Tensor:
+        """The (d, V_loc) head: the untied ``lm_head``'s local vocab columns
+        or the tied embedding's local rows transposed, gathered over
+        ``data``."""
+        name = "embed" if tied else "lm_head"
+        w = params[name]
+        if "data" in self.placements[name]:
+            w = all_gather(w, self.mesh, "data", dim=self.placements[name].index("data"))
+        return w.T if tied else w
+
+    # -- collectives of the compute ------------------------------------------
+    def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """The fp32 embedding rows of ``tokens`` (B, s): the local vocab
+        range looked up, rows outside it zero, summed over ``model`` (one
+        addend a row is nonzero, so the sum is exact); on ``data`` every data
+        rank's tokens are looked up in this rank's columns and the columns
+        gathered, and this rank keeps its own rows."""
+        e = params["embed"]
+        on_data = self.placements["embed"][1] == "data"
+        toks = all_gather(tokens, self.mesh, "data", dim=0) if on_data else tokens
+        if self.vocab:
+            idx = toks - self.rank * e.shape[0]
+            inside = (idx >= 0) & (idx < e.shape[0])
+            rows = F.embedding(idx.clamp(0, e.shape[0] - 1), e)
+            rows = sum_in_rank_order(torch.where(inside[..., None], rows, 0.0), self.mesh,
+                                     "model")
+        else:
+            rows = F.embedding(toks, e)
+        if on_data:
+            rows = all_gather(rows, self.mesh, "data", dim=-1)
+            b, r = tokens.shape[0], axis_index(self.mesh, "data")
+            rows = rows[r * b:(r + 1) * b]
+        return rows
+
+    def logits(self, x: torch.Tensor, head: torch.Tensor, rowwise: bool = False) -> torch.Tensor:
+        """``x @ head`` on the local vocab columns, gathered whole over
+        ``model`` (``rowwise``: one batch row at a time)."""
+        y = per_row(lambda r: r @ head, x, rowwise)
+        return all_gather(y, self.mesh, "model", dim=-1) if self.vocab else y
+
+    def heads_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The row-parallel ``wo`` partials summed over ``model``."""
+        return sum_in_rank_order(y, self.mesh, "model") if self.heads else y
+
+    def ff_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The row-parallel ``w_down`` partials summed over ``model``."""
+        return sum_in_rank_order(y, self.mesh, "model") if self.ff else y
+
+
+def serving_plan(cfg, mesh) -> Optional[TPPlan]:
+    """The plan of the dense family's serving path on ``mesh``; None for no
+    mesh or another family (their engines hold whole parameters)."""
+    if cfg.family != "dense" or math.prod(mesh_shape(mesh).values()) <= 1:
+        return None
+    from ..models import build_model
+
+    specs = build_model(cfg).specs()
+    pl = storage_placements(specs, mesh)
+    attn = pl["layers"]["attn"]
+    return TPPlan(
+        mesh=mesh, placements=pl, tp=axis_size(mesh, "model"), rank=axis_index(mesh, "model"),
+        heads=attn["wq"][2] == "model" and attn["wk"][2] == "model",
+        ff=pl["layers"]["ffn"]["w_gate"][2] == "model",
+        vocab=pl["embed"][0] == "model")
+
+
+def local_config(cfg, plan: Optional[TPPlan]):
+    """``cfg`` with this rank's head counts (the head width pinned), the
+    config the attend and the KV cache are built from; ``cfg`` itself when
+    the heads do not split."""
+    if plan is None or not plan.heads:
+        return cfg
+    return dataclasses.replace(cfg, head_dim=cfg.hd, n_heads=cfg.n_heads // plan.tp,
+                               kv_heads=cfg.kv_heads // plan.tp)
+
+
+def storage_placements(specs: dict, mesh) -> dict:
+    """``params_shardings`` of ``specs``, with every norm scale whole: the
+    placement the serving engine stores (the trainer's, but for the
+    ``(d,)`` scales it holds gathered)."""
+    def walk(tree, pl):
+        return {k: walk(v, pl[k]) if isinstance(v, dict)
+                else (None,) * len(v.shape) if "norm" in k else pl[k]
+                for k, v in tree.items()}
+
+    return walk(specs, params_shardings(specs, mesh))
+
+
+def shard_shape(shape: tuple, placement: tuple, mesh) -> tuple:
+    """The shape of one rank's shard of a ``shape`` leaf under
+    ``placement``."""
+    sizes = mesh_shape(mesh)
+    return tuple(d // math.prod(sizes[a] for a in _names(p)) for d, p in zip(shape, placement))
+
+
+def place_params(params: dict, specs: dict, placements: dict, mesh, device) -> dict:
+    """This rank's storage of ``params`` on ``device``: each leaf given
+    whole (its spec's shape) is cut to its shard under ``placements``; a
+    leaf given as this rank's shard under the trainer's placement
+    (``params_shardings``, its shape ``shard_shape``) is kept, the norm
+    scales gathered whole.  A leaf of any other shape raises: nothing
+    silently stores whole weights or a wrong shard."""
+    trainer = params_shardings(specs, mesh)
+
+    def walk(tree, spec, want, have, path):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, spec[k], want[k], have[k], path + (k,))
+                continue
+            shape = tuple(v.shape)
+            if shape == tuple(spec[k].shape):
+                out[k] = local_shard(v, want[k], mesh).to(device)
+            elif shape == shard_shape(spec[k].shape, have[k], mesh):
+                v = v.to(device)
+                out[k] = gather_whole(v, have[k], mesh) if want[k] != have[k] else v
+            else:
+                raise ValueError(
+                    f"parameter {'/'.join(path + (k,))} has shape {shape}: neither whole "
+                    f"{tuple(spec[k].shape)} nor this rank's shard "
+                    f"{shard_shape(spec[k].shape, have[k], mesh)}")
+        return out
+
+    return walk(params, specs, placements, trainer, ())
+
+
+def tree_bytes(tree: dict) -> int:
+    """Bytes of every tensor leaf of a nested dict."""
+    return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
+def placement_bytes(specs: dict, placements: dict, mesh, itemsize: int = 4) -> int:
+    """The bytes one rank stores under ``placements``: each leaf's shard
+    shape, ``itemsize`` bytes an entry (the engine's dense storage
+    arithmetic)."""
+    total = 0
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            total += placement_bytes(v, placements[k], mesh, itemsize)
+        else:
+            total += math.prod(shard_shape(v.shape, placements[k], mesh)) * itemsize
+    return total
+
+
+class WholeView(Mapping):
+    """A read-only view of a rank's sharded parameter tree whose leaves are
+    gathered whole on access (and ``transform(path, leaf)`` applied), one
+    leaf at a time, never cached: the pack builders read a leaf, pack this
+    rank's windows of it and drop it, so the peak is one leaf whole.  Every
+    rank must read the same leaves in the same order (each read is a
+    collective)."""
+
+    def __init__(self, tree: dict, placements: dict, mesh,
+                 transform: Optional[Callable] = None, path: tuple = ()):
+        self._tree, self._pl, self._mesh = tree, placements, mesh
+        self._transform, self._path = transform, path
+
+    def __getitem__(self, k):
+        v = self._tree[k]
+        if isinstance(v, dict):
+            return WholeView(v, self._pl[k], self._mesh, self._transform, self._path + (k,))
+        v = gather_whole(v, self._pl[k], self._mesh)
+        return v if self._transform is None else self._transform(self._path + (k,), v)
+
+    def __iter__(self):
+        return iter(self._tree)
+
+    def __len__(self):
+        return len(self._tree)

@@ -13,21 +13,23 @@ no storage) under ``launch/op_cost.py``'s counter:
 * ``train`` — the port's train step (``train/step.py make_train_step``
   with ``Trainer``'s mesh arguments): parameters and both AdamW moments as
   rank 0's shards under ``dist/sharding.py params_shardings``, the batch
-  rows split over ``data``, the whole parameters gathered for the forward
-  and the gradients summed over ``data`` in rank order;
+  rows split over ``pod`` x ``data``, the whole parameters gathered for the
+  forward and the gradients summed over those axes in rank order;
 * ``prefill`` — ``Model.prefill`` (``Model.forward`` for the recurrent
-  families, as the reference chooses) on rank 0's rows of the batch, the
-  parameters whole (the serving engine holds its dense parameters whole on
-  every rank, ROADMAP.md A12), under ``models.common.mesh_context`` so the
-  sequence-sharded attention applies where the heads do not divide
-  ``model``;
+  families, as the reference chooses) on rank 0's rows of the batch, under
+  ``models.common.mesh_context`` so the sequence-sharded attention applies
+  where the heads do not divide ``model``; the dense family as the serving
+  engine runs it, on rank 0's shards of the parameters with
+  tensor-parallel products (``dist/tp.py``), the other families on whole
+  parameters (ROADMAP.md A12);
 * ``decode`` — ``Model.decode_step`` of one token on rank 0's rows of the
-  cache (``serve_shardings``), the parameters whole.
+  cache (``serve_shardings``; the dense family's holds rank 0's heads),
+  the parameters as for prefill.
 
-So a record shows what the port's rank 0 would do on that mesh, the
-whole-weight dense compute included.  The AdamW step counter is a CPU
-scalar (the step reads it on the host).  ``long_500k`` is skipped for the
-full-attention architectures exactly as the reference skips it.
+So a record shows what the port's rank 0 would do on that mesh.  The
+AdamW step counter is a CPU scalar (the step reads it on the host).
+``long_500k`` is skipped for the full-attention architectures exactly as
+the reference skips it.
 
 Usage::
 
@@ -62,8 +64,9 @@ import torch
 from ..configs import ARCH_IDS, SHAPES, get_config
 from ..dist import comm
 from ..dist.sharding import (
-    batch_sharding, local_shard, params_shardings, serve_shardings, shard_tree,
+    _batch_axes, batch_sharding, local_shard, params_shardings, serve_shardings, shard_tree,
 )
+from ..dist.tp import local_config, serving_plan
 from ..models import build_model
 from ..models import opt_flags
 from ..models.common import mesh_context
@@ -167,8 +170,9 @@ def build_step(cfg, kind: str, batch: int, seq: int, mesh=None, device="meta",
         else:
             opt = adamw_init(params)
         inputs = inputs_of("train")
-        dp = comm.axis_size(mesh, "data")
-        rows = batch // dp if dp > 1 and batch % dp == 0 else None  # the Trainer's split
+        # the Trainer's split: rows over every pure data axis, pod x data
+        dp = math.prod(comm.axis_size(mesh, a) for a in _batch_axes(mesh))
+        rows = batch // dp if dp > 1 and batch % dp == 0 else None
         if rows is not None:
             inputs = {k: v[:rows] for k, v in inputs.items()}
         step = make_train_step(model.loss, TrainHParams(microbatches=1), mesh, p_shard,
@@ -178,6 +182,12 @@ def build_step(cfg, kind: str, batch: int, seq: int, mesh=None, device="meta",
             return step(params, opt, inputs)
 
         return run, {"params": params, "opt": opt, "batch": inputs}
+    # the serving engine's storage and model: the dense family's shards and
+    # local heads under its tensor-parallel plan, else whole
+    plan = serving_plan(cfg, mesh)
+    if plan is not None:
+        model = build_model(local_config(cfg, plan))
+        whole = shard_tree(whole, plan.placements, mesh)
     if kind == "prefill":
         rows = _rows(batch, mesh) or batch
         inputs = {k: v[:rows] for k, v in inputs_of("prefill").items()}
@@ -187,7 +197,7 @@ def build_step(cfg, kind: str, batch: int, seq: int, mesh=None, device="meta",
                     return model.forward(whole, inputs)
         else:
             def run():
-                with torch.no_grad(), mesh_context(mesh):
+                with torch.no_grad(), mesh_context(mesh, plan):
                     return model.prefill(whole, inputs, seq)
         return run, {"params": whole, "batch": inputs}
     if kind == "decode":
@@ -203,7 +213,7 @@ def build_step(cfg, kind: str, batch: int, seq: int, mesh=None, device="meta",
         token = inputs_of("decode")["token"][:rows]
 
         def run():
-            with torch.no_grad(), mesh_context(mesh):
+            with torch.no_grad(), mesh_context(mesh, plan):
                 return model.decode_step(whole, token, cache)
 
         return run, {"params": whole, "cache": cache, "batch": {"token": token}}

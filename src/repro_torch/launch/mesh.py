@@ -4,8 +4,9 @@ Port of the JAX package's ``launch/mesh.py``.  JAX places one program over
 a mesh of devices; here, in PyTorch's idiom, each mesh position is a
 process (a rank) running the same code, and the mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with the dims ``("data",
-"model")`` over the ranks of the default process group.  ``spawn`` starts
-those ranks on one machine.
+"model")``, or ``("pod", "data", "model")`` with a pod axis above 1, over
+the ranks of the default process group.  ``spawn`` starts those ranks on
+one machine.
 
 The collective backend is always the caller's choice: ``nccl`` for one GPU
 per rank, ``gloo`` for ranks that share a GPU or run on the CPU (gloo
@@ -18,6 +19,7 @@ process group.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import math
 import os
@@ -67,8 +69,12 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _mesh(shape, names)
 
 
-def make_local_mesh(data: int = 1, model: int = 1):
-    """A (data, model) mesh over the ranks of the process group."""
+def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1):
+    """A (data, model) mesh over the ranks of the process group, or with
+    ``pod`` above 1 a (pod, data, model) one (``pod`` pure data
+    parallelism, the reference's names)."""
+    if pod > 1:
+        return _mesh((pod, data, model), ("pod",) + AXES)
     return _mesh((data, model), AXES)
 
 
@@ -141,18 +147,20 @@ def rank0_prints(fn, *args):
 
 
 def _rank_main(rank: int, fn, data: int, model: int, backend: str, device: str,
-               init_dir: str, threads: int, args: tuple) -> None:
-    world = data * model
+               init_dir: str, threads: int, args: tuple, pod: int = 1,
+               timeout_s: float | None = None) -> None:
+    world = pod * data * model
     dev = rank_device(backend, device, rank)
     os.environ["REPRO_MESH_DEVICE_TYPE"] = dev.type
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     else:  # the ranks share the machine's cores
         torch.set_num_threads(max(1, threads // world))
+    kw = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
     dist.init_process_group(backend, init_method=f"file://{init_dir}/rendezvous",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank, **kw)
     try:
-        mesh = make_local_mesh(data, model)
+        mesh = make_local_mesh(data, model, pod)
         out = fn(mesh, dev, *args)
         with open(Path(init_dir) / f"result-{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
@@ -162,17 +170,21 @@ def _rank_main(rank: int, fn, data: int, model: int, backend: str, device: str,
 
 
 def spawn(fn, data: int, model: int, backend: str, device: str = "cpu",
-          init_dir: str | None = None, args: tuple = ()) -> list:
-    """Run ``fn(mesh, device, *args)`` on ``data * model`` ranks of a
-    (data, model) mesh, one process each, and return each rank's result
-    (they must pickle).  The ranks meet through a file under ``init_dir``
+          init_dir: str | None = None, args: tuple = (), pod: int = 1,
+          timeout_s: float | None = None) -> list:
+    """Run ``fn(mesh, device, *args)`` on ``pod * data * model`` ranks of a
+    (data, model) mesh (``make_local_mesh``; a (pod, data, model) one with
+    ``pod`` above 1), one process each, and return each rank's result
+    (they must pickle).  ``timeout_s`` bounds every collective (the process
+    group's timeout): a rank left waiting for a partner raises instead of
+    hanging.  The ranks meet through a file under ``init_dir``
     (a fresh temporary directory by default), never a fixed TCP port, so
     concurrent runs never collide.  ``backend`` and ``device`` are checked
     first (``check_backend``); a rank that fails fails the call.  Build the
     CUDA kernels before spawning: the ranks only load them."""
     import torch.multiprocessing as mp
 
-    world = data * model
+    world = pod * data * model
     check_backend(backend, device, world)
     own = init_dir is None
     root = tempfile.mkdtemp(prefix="mesh-") if own else init_dir
@@ -183,7 +195,8 @@ def spawn(fn, data: int, model: int, backend: str, device: str = "cpu",
     if rdzv.exists():
         rdzv.unlink()
     mp.spawn(_rank_main,
-             args=(fn, data, model, backend, device, str(root), torch.get_num_threads(), args),
+             args=(fn, data, model, backend, device, str(root), torch.get_num_threads(), args,
+                   pod, timeout_s),
              nprocs=world, join=True)
     out = []
     for rank in range(world):

@@ -43,7 +43,10 @@ stats print and the journal closes clean.  ``--mesh DP,TP`` serves on a
 this machine, with the collective backend ``--dist-backend``: ``nccl``
 for one GPU per rank, ``gloo`` for ranks that share a GPU or run on the
 CPU (gloo collectives cannot be captured in a CUDA graph, so with TP > 1
-the steps run eagerly); rank 0 prints.  ``--no-fused`` decodes in the eager host
+the steps run eagerly); rank 0 prints.  A dense-family model serves
+tensor-parallel on sharded storage (``dist/tp.py``): each rank draws each
+leaf, prunes it whole and keeps its shard, so no rank holds the whole
+model.  ``--no-fused`` decodes in the eager host
 loop instead of the CUDA graph.  ``--arch`` takes every id of
 ``configs.ARCH_IDS`` (the dense, moe, vlm, hybrid, ssm and encdec
 families); a vlm model's one-shot ``generate`` gets seeded stand-in patch
@@ -62,7 +65,9 @@ import signal
 import numpy as np
 
 from ..configs import get_config, get_smoke_config
-from ..core.pruning import prune_tree
+from ..core.pruning import _prunable, prune, prune_tree
+from ..dist.sharding import local_shard
+from ..dist.tp import serving_plan
 from .mesh import parse_mesh, rank0_prints, spawn
 from ..models import build_model
 from ..serve import AsyncEngine, Engine, FaultConfig, Journal, Request, Scheduler, ServeConfig
@@ -212,10 +217,23 @@ def _run(args, mesh=None, device=None):
     ``--device``) and ``mesh``."""
     device = device or args.device
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    params = build_model(cfg).init(0, device=device)
     sp = cfg.sparsity if args.sparsity is None else args.sparsity
-    if sp > 0:
-        params = prune_tree(params, sp)
+    plan = serving_plan(cfg, mesh)
+    if plan is None:
+        params = build_model(cfg).init(0, device=device)
+        if sp > 0:
+            params = prune_tree(params, sp)
+    else:  # each leaf drawn, pruned whole on the device and cut to this rank's shard
+        def leaf(path, w):
+            w = w.to(device)
+            if sp > 0 and _prunable(path, w):
+                w = prune(w, sp)
+            pl = plan.placements
+            for k in path:
+                pl = pl[k]
+            return local_shard(w, pl, mesh)
+
+        params = build_model(cfg).init(0, device=device, leaf=leaf)
     batch = args.batch if args.batch is not None else (1 if args.speculative else 4)
     headroom = 0
     if args.speculative:

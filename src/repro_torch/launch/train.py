@@ -2,12 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vusa_edge --steps 100 \
         [--smoke] [--batch 8] [--seq 128] [--lr 3e-4] [--ckpt DIR] [--microbatches N] \
-        [--grad-compress] [--device cpu] [--data 2 --model 2 --dist-backend gloo]
+        [--grad-compress] [--device cpu] [--pod 2 --data 2 --model 2 --dist-backend gloo]
 
 Port of the JAX package's ``launch/train.py``: the ``Trainer`` on the
 learnable synthetic stream (tokens drawn from [0, 256)), pruning to the
 config's sparsity.  ``--data D --model M`` train on a (data, model) mesh of
-D x M ranks that ``launch/mesh.spawn`` starts on this machine, with the
+D x M ranks (``--pod P``: a (pod, data, model) mesh of P x D x M, the
+batch split over pod x data) that ``launch/mesh.spawn`` starts on this
+machine, with the
 collective backend ``--dist-backend`` (``nccl``: one GPU per rank;
 ``gloo``: ranks that share a GPU or run on the CPU); rank 0 prints and
 writes the checkpoints.
@@ -31,6 +33,7 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--pod", type=int, default=1, help="pod mesh axis (pure data parallelism)")
     ap.add_argument("--data", type=int, default=1, help="data-parallel mesh axis")
     ap.add_argument("--model", type=int, default=1, help="model-parallel mesh axis")
     ap.add_argument("--microbatches", type=int, default=1)
@@ -40,13 +43,14 @@ def main(argv=None):
                     help="collective backend of a --data/--model mesh: nccl needs one GPU "
                     "per rank, gloo serves ranks that share a GPU or run on the CPU")
     args = ap.parse_args(argv)
-    if args.data < 1 or args.model < 1:
-        ap.error(f"mesh axes must be >= 1, got data={args.data}, model={args.model}")
-    if args.data * args.model > 1:
+    if min(args.pod, args.data, args.model) < 1:
+        ap.error(f"mesh axes must be >= 1, got pod={args.pod}, data={args.data}, "
+                 f"model={args.model}")
+    if args.pod * args.data * args.model > 1:
         if args.dist_backend is None:
-            ap.error("--data/--model need --dist-backend nccl (one GPU per rank) or gloo")
+            ap.error("--pod/--data/--model need --dist-backend nccl (one GPU per rank) or gloo")
         return spawn(_mesh_rank, args.data, args.model, args.dist_backend, args.device,
-                     args=(args,))[0]
+                     args=(args,), pod=args.pod)[0]
     return _run(args)
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 __all__ = ["ParamSpec", "init_params", "abstract_params", "rms_norm", "layer_norm", "rope", "apply_rope",
-           "strict_fp32", "per_row", "mesh_context", "current_mesh"]
+           "strict_fp32", "per_row", "mesh_context", "current_mesh", "current_tp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,19 +52,24 @@ def _init_leaf(spec: ParamSpec, rng: np.random.Generator) -> np.ndarray:
     return rng.standard_normal(spec.shape, dtype=np.float32) * std
 
 
-def init_params(spec_tree: dict, seed: int, device) -> dict:
+def init_params(spec_tree: dict, seed: int, device, leaf=None) -> dict:
     """Random parameters from a ParamSpec tree, drawn from
-    ``numpy.random.default_rng(seed)`` leaf by leaf in the tree's key order."""
+    ``numpy.random.default_rng(seed)`` leaf by leaf in the tree's key order;
+    ``leaf(path, tensor)``, when given, maps each whole leaf (on the host)
+    before it moves to ``device``."""
     rng = np.random.default_rng(seed)
 
-    def build(tree):
-        return {
-            k: build(v) if isinstance(v, dict)
-            else torch.from_numpy(_init_leaf(v, rng)).to(device)
-            for k, v in tree.items()
-        }
+    def build(tree, path):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = build(v, path + (k,))
+                continue
+            t = torch.from_numpy(_init_leaf(v, rng))
+            out[k] = (t if leaf is None else leaf(path + (k,), t)).to(device)
+        return out
 
-    return build(spec_tree)
+    return build(spec_tree, ())
 
 
 def abstract_params(spec_tree: dict) -> dict:
@@ -94,24 +99,33 @@ _ctx = threading.local()
 
 
 @contextlib.contextmanager
-def mesh_context(mesh):
+def mesh_context(mesh, tp=None):
     """Install ``mesh`` for the code inside: the layers that act on a mesh
     (``layers._maybe_seq_sharded_attention``) read it through
-    :func:`current_mesh`.  The reference's context also carries activation
-    rules for its sharding constraints; in the port each rank computes on
-    tensors it holds whole or as its shard, placed where they are made
-    (``dist/sharding.py``), so there is nothing to constrain."""
-    prev = getattr(_ctx, "mesh", None)
-    _ctx.mesh = mesh
+    :func:`current_mesh`, and the dense family's tensor-parallel layers read
+    ``tp``, the serving engine's ``dist.tp.TPPlan`` (its splits and storage
+    placements), through :func:`current_tp`.  The reference's context also
+    carries activation rules for its sharding constraints; in the port each
+    rank computes on tensors it holds whole or as its shard, placed where
+    they are made (``dist/sharding.py``), so there is nothing to
+    constrain."""
+    prev = getattr(_ctx, "mesh", None), getattr(_ctx, "tp", None)
+    _ctx.mesh, _ctx.tp = mesh, tp
     try:
         yield
     finally:
-        _ctx.mesh = prev
+        _ctx.mesh, _ctx.tp = prev
 
 
 def current_mesh():
     """The mesh of the innermost ``mesh_context``, or None."""
     return getattr(_ctx, "mesh", None)
+
+
+def current_tp():
+    """The tensor-parallel plan of the innermost ``mesh_context``, or None
+    (one device, the trainer, any family but dense)."""
+    return getattr(_ctx, "tp", None)
 
 
 # --------------------------------------------------------------------------

@@ -23,6 +23,14 @@ dicts (``models/cache.py``); the hybrid's nested cache is flattened under
 one per reference leaf.  Every decode step updates its cache in place and
 advances the (B,) ``pos`` with ``add_``, makes no host sync, and with
 ``rowwise`` computes row b as a B = 1 step on its own cache row.
+
+The dense family's serving functions (``lm_decode_step``, ``lm_prefill``,
+``lm_prefill_chunk``) also run tensor-parallel under the serving engine's
+plan (``dist/tp.py``, installed by ``common.mesh_context``): the parameters
+are this rank's shards, each layer's leaves gathered over ``data`` at use
+(``_dense_layer``), the embedding and the head vocab-parallel
+(``_embed_tokens``, ``_head_logits``).  With no plan they are the
+single-device program.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch.nn.functional as Fn
 from torch.utils.checkpoint import checkpoint
 
 from .cache import batch_axes, slot_view
-from .common import ParamSpec, per_row, rms_norm
+from .common import ParamSpec, current_tp, per_row, rms_norm
 from .layers import (
     MaskSpec, attention, attention_chunk, attention_decode, attention_specs, cross_attention,
     encode_cross_kv, mlp, mlp_specs, moe, moe_specs,
@@ -114,7 +122,11 @@ def _embed_tokens(params, tokens, cfg):
     backward sums each row's gradients in a fixed order on the card too
     (indexing's backward, ``index_put_`` with accumulation, may not), so a
     training step is deterministic and a resumed run bitwise the
-    uninterrupted one."""
+    uninterrupted one.  Under a tensor-parallel plan the rows come from the
+    vocab-parallel lookup (``dist.tp.TPPlan.embed``)."""
+    plan = current_tp()
+    if plan is not None:
+        return plan.embed(params, tokens).to(act_dtype(cfg))
     x = Fn.embedding(tokens, params["embed"]).to(act_dtype(cfg))
     if cfg.family == "vlm":
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype).item()
@@ -236,7 +248,7 @@ def layer_cache(cache: dict, i: int) -> dict:
     return out
 
 
-def lm_decode_step(params, token, cache, cfg, rowwise: bool = False):
+def lm_decode_step(params, token, cache, cfg, rowwise: bool = False, x=None):
     """token: (B, s) int (s = 1 normal decode; s > 1 the speculative
     verify).  Returns (logits (B, s, V), cache with ``pos + s``).
 
@@ -251,24 +263,53 @@ def lm_decode_step(params, token, cache, cfg, rowwise: bool = False):
     batch row at a time, so row b is bitwise a B = 1 step on its own cache
     row (the scheduler's pool step); the cache may then also be paged.  A
     moe layer then routes each row alone (``_ffn``): its expert capacity is
-    the B = 1 step's, as in the reference's pool step."""
+    the B = 1 step's, as in the reference's pool step.  ``x``: the token's
+    embedding rows (B, 1, d) made by the caller (a captured step whose
+    embedding makes a collective runs it outside the graph)."""
     if token.shape[1] > 1:
         logits = []
         for i in range(token.shape[1]):
             lg, cache = lm_decode_step(params, token[:, i : i + 1], cache, cfg, rowwise)
             logits.append(lg)
         return torch.cat(logits, dim=1), cache
-    x = _embed_tokens(params, token, cfg)
+    if x is None:
+        x = _embed_tokens(params, token, cfg)
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _dense_layer(params, i)
         x = x + attention_decode(lp["attn"], rms_norm(x, lp["norm1"], rowwise=rowwise), cfg,
                                  layer_cache(cache, i), rowwise=rowwise)
         x = x + _ffn(lp["ffn"], rms_norm(x, lp["norm2"], rowwise=rowwise), cfg, rowwise)[0]
+        del lp  # under a plan: its gathered leaves
     x = rms_norm(x, params["final_norm"], rowwise=rowwise)
-    head = _head(params, cfg).to(x.dtype)
-    logits = per_row(lambda r: torch.einsum("bsd,dv->bsv", r, head), x, rowwise)
+    logits = _head_logits(params, x, cfg, rowwise)
     cache["pos"].add_(1)
     return logits, cache
+
+
+DENSE_LEAVES = {"attn": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
+                "ffn": ("w_gate", "w_up", "w_down")}
+
+
+def _dense_layer(params, i: int, names=None) -> dict:
+    """Layer ``i``'s parameters; under a tensor-parallel plan with the leaves
+    ``names`` (default: every dense product's) gathered where the compute
+    wants them whole (``dist.tp.TPPlan.layer``)."""
+    plan = current_tp()
+    if plan is None:
+        return layer_params(params["layers"], i)
+    return plan.layer(params["layers"], i, DENSE_LEAVES if names is None else names)
+
+
+def _head_logits(params, x, cfg, rowwise: bool = False) -> torch.Tensor:
+    """The logits ``x @ head`` (the untied LM head or the tied embedding):
+    under a tensor-parallel plan on the local vocab columns, gathered whole
+    over ``model`` (``dist.tp.TPPlan.logits``)."""
+    plan = current_tp()
+    if plan is None:
+        head = _head(params, cfg).to(x.dtype)
+        eq = "bsd,dv->bsv" if x.ndim == 3 else "bd,dv->bv"
+        return per_row(lambda r: torch.einsum(eq, r, head), x, rowwise)
+    return plan.logits(x, plan.head_matrix(params, cfg.tie_embeddings).to(x.dtype), rowwise)
 
 
 def lm_prefill(params, batch, cfg, max_len: int, lengths=None):
@@ -294,7 +335,7 @@ def lm_prefill(params, batch, cfg, max_len: int, lengths=None):
     if lengths is not None:
         kv_valid = positions[None, :] < (lengths[:, None] + patch_off)
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _dense_layer(params, i)
         y, k, v = attention(
             lp["attn"], rms_norm(x, lp["norm1"]), cfg, mask, positions, kv_valid, return_kv=True
         )
@@ -302,14 +343,14 @@ def lm_prefill(params, batch, cfg, max_len: int, lengths=None):
         cache["v"][i, :, :s] = v.to(cache["v"].dtype)
         x = x + y
         x = x + _ffn(lp["ffn"], rms_norm(x, lp["norm2"]), cfg)[0]
+        del lp  # under a plan: its gathered leaves
     xf = rms_norm(x, params["final_norm"])
     cache["pos"].fill_(s)
     if lengths is None:
         last = xf[:, -1]
     else:  # each row's last real token (bucket padding sits after it)
         last = xf[torch.arange(b, device=xf.device), lengths - 1 + patch_off]
-    logits = torch.einsum("bd,dv->bv", last, _head(params, cfg).to(xf.dtype))
-    return logits, cache
+    return _head_logits(params, last, cfg), cache
 
 
 def lm_prefill_chunk(params, tokens, cfg, arena, table_row, start: int, true_len: int,
@@ -333,13 +374,14 @@ def lm_prefill_chunk(params, tokens, cfg, arena, table_row, start: int, true_len
     c = x.shape[1]
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _dense_layer(params, i)
         y, k_c, v_c = attention_chunk(lp["attn"], rms_norm(x, lp["norm1"]), cfg,
                                       arena["k"][i], arena["v"][i], table_row, start, true_len)
         x = x + y
         x = x + _ffn(lp["ffn"], rms_norm(x, lp["norm2"]), cfg)[0]
         ks.append(k_c[0])
         vs.append(v_c[0])
+        del lp  # under a plan: its gathered leaves
     page, n_pages = arena["k"].shape[2], table_row.shape[0]
     keep = [j for j in range(min(c, true_len))
             if start + j >= write_from and start + j < n_pages * page]
@@ -351,8 +393,7 @@ def lm_prefill_chunk(params, tokens, cfg, arena, table_row, start: int, true_len
             a.flatten(1, 2).index_copy_(1, dst, torch.stack(new)[:, rows].to(a.dtype))
     xf = rms_norm(x, params["final_norm"])
     last = xf[:, min(max(true_len, 1), c) - 1]  # (1, d)
-    logits = torch.einsum("bd,dv->bv", last, _head(params, cfg).to(xf.dtype))
-    return logits, arena
+    return _head_logits(params, last, cfg), arena
 
 
 # ---- shared by the hybrid, ssm and encdec families -------------------------

@@ -20,6 +20,13 @@ with one dump slot or, under ``moe_shard_capacity``, the reference's
 capacity rounded up to 256; prefill attention splits its queries over a
 mesh's ``model`` axis under ``attn_seq_shard``.  Masked scores are
 ``-1e30``, not ``-inf``.
+
+Under the serving engine's tensor-parallel plan (``dist/tp.py``, read
+through ``common.current_tp``) the dense family's attention runs on this
+rank's heads (the config's head counts are the local ones) with its
+``wo`` partials summed over ``model``, and the MLP on its ff slab with its
+``w_down`` partials summed; packed projections are then the rank's own
+(``serve/packed.py``, ``split_heads``).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .cache import paged_gather, paged_scatter_rows
-from .common import ParamSpec, apply_rope, per_row, rms_norm, rope
+from .common import ParamSpec, apply_rope, current_tp, per_row, rms_norm, rope
 from .opt_flags import FLAGS
 
 __all__ = [
@@ -389,8 +396,15 @@ def attention(
         if out is None:
             out = _flash_attend(q, k, v, mask, positions, positions, kv_valid=kv_valid)
     out = out.reshape(b, s, nh, hd)
-    y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
+    y = _heads_out(torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype)))
     return (y, k, v) if return_kv else y
+
+
+def _heads_out(y: torch.Tensor) -> torch.Tensor:
+    """The ``wo`` product of the local heads summed over ``model`` under a
+    tensor-parallel plan; ``y`` itself on one device."""
+    plan = current_tp()
+    return y if plan is None else plan.heads_out(y)
 
 
 def _maybe_seq_sharded_attention(q, k, v, mask: MaskSpec, positions):
@@ -402,16 +416,18 @@ def _maybe_seq_sharded_attention(q, k, v, mask: MaskSpec, positions):
     and the slices are all-gathered along the sequence.  Returns None when
     it does not apply: no mesh, a size-1 ``model`` axis, heads that both
     divide, a sequence the axis does not divide, or the ``attn_seq_shard``
-    flag off.  Inference only: the training forward stays the single-device
-    program."""
+    flag off, or heads already split over ``model`` by the engine's
+    tensor-parallel plan.  Inference only: the training forward stays the
+    single-device program."""
     from ..dist.comm import all_gather, axis_index, axis_size
     from .common import current_mesh
 
     mesh = current_mesh()
     b, s, kvh, g, hd = q.shape
     tp = axis_size(mesh, "model")
+    plan = current_tp()
     if (not FLAGS["attn_seq_shard"] or tp == 1 or (kvh * g % tp == 0 and kvh % tp == 0)
-            or s % tp != 0):
+            or s % tp != 0 or (plan is not None and plan.heads)):
         return None
     s_loc = s // tp
     r = axis_index(mesh, "model")
@@ -543,12 +559,15 @@ def attention_decode(
 
 
 def _attn_out(p, out, x, wmm=None, rowwise=False):
-    """The output projection of the attend's (B, s, nh, hd) heads."""
+    """The output projection of the attend's (B, s, nh, hd) heads (this
+    rank's under a tensor-parallel plan: ``wo``, dense or packed from its
+    heads' rows, row-parallel)."""
     if wmm is None:
         wo = p["wo"].to(x.dtype)
-        return per_row(lambda r: torch.einsum("bsnh,nhd->bsd", r, wo), out, rowwise)
+        return _heads_out(per_row(lambda r: torch.einsum("bsnh,nhd->bsd", r, wo), out,
+                                  rowwise))
     b, s = out.shape[:2]
-    return wmm("wo", out.reshape(b, s, -1)).to(x.dtype)
+    return _heads_out(wmm("wo", out.reshape(b, s, -1))).to(x.dtype)
 
 
 def attention_chunk(
@@ -581,7 +600,7 @@ def attention_chunk(
     out = _flash_attend(q, k_all, v_all, mask, positions, rows,
                         kv_valid=rows < start + true_len)
     out = out.reshape(b, c, nh, hd)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype)), k_new, v_new
+    return _heads_out(torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))), k_new, v_new
 
 
 def cross_attention(
@@ -615,9 +634,13 @@ def encode_cross_kv(p: dict, enc_out: torch.Tensor, cfg):
 
 
 def mlp(p: dict, x: torch.Tensor, rowwise: bool = False) -> torch.Tensor:
-    """SwiGLU MLP; ``rowwise`` as in ``_project_qkv`` (weights cast once)."""
+    """SwiGLU MLP; ``rowwise`` as in ``_project_qkv`` (weights cast once).
+    Under a tensor-parallel plan the weights are this rank's ff slab and the
+    ``w_down`` partials are summed over ``model``."""
     wg, wu, wd = (p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down"))
-    return per_row(lambda r: (F.silu(r @ wg) * (r @ wu)) @ wd, x, rowwise)
+    y = per_row(lambda r: (F.silu(r @ wg) * (r @ wu)) @ wd, x, rowwise)
+    plan = current_tp()
+    return y if plan is None else plan.ff_out(y)
 
 
 def _top_k(probs: torch.Tensor, k: int):

@@ -43,9 +43,11 @@ class Model(nn.Module):
     def specs(self) -> dict:
         return self._specs(self.cfg)
 
-    def init(self, seed: int = 0, device="cuda") -> dict:
-        """Random parameters drawn from ``numpy.random.default_rng(seed)``."""
-        return init_params(self.specs(), seed, torch.device(device))
+    def init(self, seed: int = 0, device="cuda", leaf=None) -> dict:
+        """Random parameters drawn from ``numpy.random.default_rng(seed)``;
+        ``leaf(path, tensor)`` maps each whole leaf on the host before it
+        moves (a rank's pruned shard: the whole tree never exists)."""
+        return init_params(self.specs(), seed, torch.device(device), leaf)
 
     def abstract_params(self) -> dict:
         """The parameter tree as ``meta`` tensors (no allocation)."""
@@ -70,7 +72,11 @@ class Model(nn.Module):
             return F.encdec_cache_specs(self.cfg, batch, max_len, frames)
         return self._cache_specs(self.cfg, batch, max_len)
 
-    def decode_step(self, params: dict, token, cache: dict, rowwise: bool = False):
+    def decode_step(self, params: dict, token, cache: dict, rowwise: bool = False, x=None):
+        """One decode step; ``x``, the LM families' embedding rows of
+        ``token`` made by the caller (``families.lm_decode_step``)."""
+        if x is not None:
+            return self._decode_step(params, token, cache, self.cfg, rowwise=rowwise, x=x)
         return self._decode_step(params, token, cache, self.cfg, rowwise=rowwise)
 
     def prefill(self, params: dict, batch: dict, max_len: int, lengths=None):

@@ -44,22 +44,35 @@ the same property by splitting its key once per emitted token.  No random
 state lives in a graph.
 
 On a mesh (``Engine(..., mesh=)``, a (data, model) DeviceMesh of ranks
-that all run the same code; ``launch/mesh.py``) every rank holds the
-dense parameters whole, so the dense compute is the single-device
-program (tensor-parallel dense compute is later work, ROADMAP.md A12);
-each rank packs only its windows of every pack (``pack_lm_weights(shards=tp,
-rank=...)``, what ``serve/packed.shard_packed`` leaves of a whole pack), run
-through the tensor-parallel appliers.
+that all run the same code; ``launch/mesh.py``) the dense family's engine
+stores each dense leaf as this rank's shard under the reference's
+placements (``dist/tp.py storage_placements``: heads, kv heads, ff and
+vocab over ``model``, the embed dim over ``data``; the norm scales held
+whole), given whole or as shards (leaf shapes tell them apart), and its
+dense products run tensor-parallel on those shards with ordered sums and
+gathers (``dist/tp.py``): the attend and the KV cache hold the local
+heads, and every rank ends each step with the same logits bits, within
+rounding of one device's.  Each rank packs only its windows of every pack
+(``pack_lm_weights(shards=tp, rank=...)``, what
+``serve/packed.shard_packed`` leaves of a whole pack), from one leaf
+gathered whole at a time (``dist.tp.WholeView``), run through the
+tensor-parallel appliers; where attention splits by heads, a rank packs
+its attention from its own heads (``pack_lm_weights(split_heads=True)``),
+so the KV cache the packed route and its dense twin share holds the
+local heads.  The dense twin of a pack is the tensor-parallel dense
+route.  The other families hold their parameters whole on every
+rank and run the single-device program.
 The batch rows (or the scheduler's slots) are split over ``data`` when
 its size divides them, and kept whole on every rank when it does not.
 The logits of every step are gathered whole before a token is chosen, and
 every rank draws from the same noise, so every rank chooses every row's
-token, and the tokens are the single-device engine's.  Gloo collectives
-cannot be captured in a CUDA graph: with a ``model`` axis above 1 the
-steps run eagerly; with ``model`` 1 (pure data parallelism) each rank's
-step up to its logits is captured, and the gather and the choice run
-after each replay.  A 1x1 mesh is no mesh: the same program, graphs
-included.
+token.  Gloo collectives cannot be captured in a CUDA graph: a step that
+makes one inside its layers runs eagerly (a ``model`` axis above 1, or on
+a data axis a step that reads a dense leaf stored on ``data``); the fully
+packed step on a data axis is captured from its embedding rows to its
+logits, and the embedding (its collective), the gather of the logits and
+the choice run around each replay.  A 1x1 mesh is no mesh: the same
+program, graphs included.
 """
 
 from __future__ import annotations
@@ -74,9 +87,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..dist.comm import all_gather, axis_index, axis_size, mesh_shape
+from ..dist.tp import WholeView, local_config, place_params, serving_plan, tree_bytes
 from ..models import build_model
 from ..models.common import mesh_context, strict_fp32
-from ..models.families import RECURRENT_FAMILIES
+from ..models.families import RECURRENT_FAMILIES, _embed_tokens, act_dtype
 from .faults import FaultConfig
 from .metrics import acceptance_rate, tok_per_s
 
@@ -174,6 +188,7 @@ def _to(tree: dict, device: torch.device) -> dict:
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
 
 
+
 @dataclasses.dataclass
 class _Loop:
     """Device state of a plain decode segment: the input token (B, 1), the
@@ -189,9 +204,11 @@ class _Loop:
     noise: Optional[torch.Tensor]
     # on a data axis: this rank's rows of the whole batch (token, toks, oks
     # and noise are whole, the cache holds the rows), and the static (rows,
-    # V) logits a captured step writes for the gather after its replay
+    # V) logits a captured step writes for the gather after its replay;
+    # ``x`` the static (rows, 1, d) embedding rows made before each replay
     rows: Optional[slice] = None
     logits: Optional[torch.Tensor] = None
+    x: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -238,20 +255,23 @@ class _Pool:
     nems: Optional[torch.Tensor] = None
     rows: Optional[slice] = None  # as ``_Loop.rows``: this rank's slots
     logits: Optional[torch.Tensor] = None
+    x: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
 class _Graph:
     """A captured CUDA graph, the static state it replays against, the
     wrapper launches captured in one replay (by wrapper and route), the
-    replays so far, and what runs eagerly after each replay (``emit``: the
-    gather of the logits and the choice, on a data axis)."""
+    replays so far, and what runs eagerly around each replay (``pre``
+    before: the embedding rows, whose lookup makes a collective on a mesh;
+    ``emit`` after: the gather of the logits and the choice)."""
 
     graph: torch.cuda.CUDAGraph
     state: object
     launches: Dict[str, Dict[str, int]]
     replays: int = 0
     emit: Optional[Callable] = None
+    pre: Optional[Callable] = None
 
 
 def _wrapper_counts() -> Dict[str, Dict[str, int]]:
@@ -275,7 +295,11 @@ class Engine:
         ``time.monotonic``); the scheduler inherits it, so engine and
         scheduler timings share one timeline.  ``mesh``: a (data, model)
         DeviceMesh this rank belongs to (see the module docstring); a
-        mesh of one rank is no mesh."""
+        mesh of one rank is no mesh.  On a mesh the dense family's
+        ``params`` may hold any leaf whole or as this rank's shard under
+        ``dist.sharding.params_shardings`` (what the trainer stores), so a
+        caller that cannot hold the model whole hands over shards; a leaf
+        of another shape raises."""
         strict_fp32()
         self.cfg = cfg
         self.sc = ServeConfig() if sc is None else sc
@@ -294,10 +318,15 @@ class Engine:
         self.dp, self.tp = axis_size(self.mesh, "data"), axis_size(self.mesh, "model")
         # a rank packs only its own windows of each pack
         self._model_rank = axis_index(self.mesh, "model") if self.tp > 1 else None
-        self.model = build_model(cfg)
-        self.params = _to(params, self.device)
+        # the dense family's tensor-parallel plan; the model is built with
+        # this rank's head counts, so the attend and its caches hold them
+        self.plan = serving_plan(cfg, self.mesh)
+        self.model = build_model(local_config(cfg, self.plan))
+        # attention split by heads: each rank packs its heads' projections
+        self._split_heads = self.plan is not None and self.plan.heads and self.tp > 1
+        self.params = self._place(params)
         self._quarantined = False
-        self._packed = (self._build_pack(self.params, self.sc.faults)
+        self._packed = (self._build_pack(self.sc.faults)
                         if self.sc.packed_weights else None)
         self._draft_packed = self._build_draft_pack() if self.sc.speculative else None
         self._graphs: Dict[tuple, _Graph] = {}
@@ -319,23 +348,53 @@ class Engine:
         r, k = axis_index(self.mesh, "data"), n // self.dp
         return slice(r * k, (r + 1) * k)
 
+    def _place(self, params: dict) -> dict:
+        """``params`` stored on the engine's device: whole, or under a plan
+        this rank's shards (``dist.tp.place_params``)."""
+        if self.plan is None:
+            return _to(params, self.device)
+        return place_params(params, build_model(self.cfg).specs(), self.plan.placements,
+                            self.mesh, self.device)
+
+    def _whole_params(self, transform: Optional[Callable] = None):
+        """The parameters as the pack builders read them under a plan: a
+        view that gathers each leaf whole on access (``transform(path,
+        leaf)`` applied), one leaf at a time; the tree itself without."""
+        if self.plan is None:
+            return self.params
+        return WholeView(self.params, self.plan.placements, self.mesh, transform)
+
+    @property
+    def steps_span_data(self) -> bool:
+        """Whether every step is a collective over ``data`` (a plan on a
+        data axis gathers leaves there): every data rank must run each
+        step, a prefill chunk too, even one whose slot it does not own."""
+        return self.plan is not None and self.dp > 1
+
+    @property
+    def dense_param_bytes(self) -> int:
+        """Bytes of the dense parameters this rank stores."""
+        return tree_bytes(self.params)
+
     def _whole(self, t: torch.Tensor, rows: Optional[slice]) -> torch.Tensor:
         """A tensor of this rank's rows gathered whole over ``data``."""
         return t if rows is None else all_gather(t, self.mesh, "data", dim=0)
 
-    def _build_pack(self, params, faults: Optional[FaultConfig] = None) -> Dict:
-        """The verifier's pack of ``params`` per the ServeConfig, with the
-        fault plan's corruption: position flips land *before* validation,
-        so a corrupt metadata byte makes the Engine refuse the pack here;
-        value NaNs land *after* it, the post-load corruption only the
-        run-time guard can catch.  Used at init and by ``reload_packed``."""
+    def _build_pack(self, faults: Optional[FaultConfig] = None) -> Dict:
+        """The verifier's pack of the engine's parameters per the
+        ServeConfig, with the fault plan's corruption: position flips land
+        *before* validation, so a corrupt metadata byte makes the Engine
+        refuse the pack here; value NaNs land *after* it, the post-load
+        corruption only the run-time guard can catch.  Used at init and by
+        ``reload_packed``."""
         from .packed import pack_lm_weights, validate_packed
 
         packed = pack_lm_weights(
-            self.cfg, params, self.sc.vusa_m, self.sc.vusa_a, scope=self.sc.packed_weights,
+            self.cfg, self._whole_params(), self.sc.vusa_m, self.sc.vusa_a,
+            scope=self.sc.packed_weights,
             fused_mlp=self.sc.fused_mlp,
             value_dtype="dense" if self.sc.packed_values == "bf16" else self.sc.packed_values,
-            shards=self.tp, rank=self._model_rank,
+            shards=self.tp, rank=self._model_rank, split_heads=self._split_heads,
         )
         f = faults
         if f is not None and (f.pack_position_flips or f.pack_value_nans):
@@ -353,13 +412,18 @@ class Engine:
         moves only the acceptance rate, never a token, since every emitted
         token comes out of the verifier.  ``pack_lm_weights`` validates the
         pack; a drafter that cannot be built raises."""
-        from ..core.pruning import prune_tree
+        from ..core.pruning import _prunable, prune, prune_tree
         from .packed import pack_lm_weights
 
+        s = self.sc.draft_sparsity
+        if self.plan is None:
+            pruned = prune_tree(self.params, s)
+        else:  # each leaf pruned whole as it is gathered
+            pruned = self._whole_params(lambda path, w: prune(w, s) if _prunable(path, w) else w)
         return pack_lm_weights(
-            self.cfg, prune_tree(self.params, self.sc.draft_sparsity), self.sc.vusa_m,
+            self.cfg, pruned, self.sc.vusa_m,
             self.sc.vusa_a, scope="all", fused_mlp=self.sc.fused_mlp, value_dtype="dense",
-            shards=self.tp, rank=self._model_rank,
+            shards=self.tp, rank=self._model_rank, split_heads=self._split_heads,
         )
 
     @property
@@ -407,8 +471,8 @@ class Engine:
         from .packed import validate_packed
 
         if params is not None:
-            self.params = _to(params, self.device)
-        packed = self._build_pack(self.params)
+            self.params = self._place(params)
+        packed = self._build_pack()
         validate_packed(packed)
         self._packed = packed
         self._quarantined = False
@@ -428,10 +492,38 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _graphed(self) -> bool:
-        """CUDA graphs: ``fused`` on a card, and no ``model`` axis (its
-        collectives run inside a step, and gloo's cannot be captured)."""
-        return self.sc.fused and self.device.type == "cuda" and self.tp == 1
+    def _layer_collectives(self, dense: bool) -> bool:
+        """Whether a decode step on the dense route (``dense``) or the pack
+        makes a collective between its embedding and its logits: on a
+        ``model`` axis always; on a data axis under a plan when it reads a
+        dense leaf stored on ``data`` (the dense route, a partial pack, or
+        a dense head), never for a full pack."""
+        if self.tp > 1:
+            return True
+        if self.plan is None:
+            return False
+        from .packed import _full_pack
+
+        return dense or self._packed is None or not _full_pack(self._packed)
+
+    def _graphed(self, dense: Optional[bool] = None) -> bool:
+        """CUDA graphs: ``fused`` on a card, and no collective inside the
+        step's layers on its route (``dense``; default the route the engine
+        is on): gloo's cannot be captured."""
+        if dense is None:
+            dense = self._route_pack() is None
+        return (self.sc.fused and self.device.type == "cuda"
+                and not self._layer_collectives(dense))
+
+    def _spec_graphed(self) -> bool:
+        """A captured speculative round: as ``_graphed``, and no plan (under
+        one each drafter step's embedding makes a collective)."""
+        return self._graphed() and self.plan is None
+
+    def _embed(self, token: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``token`` (a captured step's ``pre``)."""
+        with mesh_context(self.mesh, self.plan):
+            return _embed_tokens(self.params, token, self.model.cfg)
 
     def _validate_tokens(self, tokens) -> None:
         """Reject out-of-range token ids before the embedding gather, naming
@@ -446,16 +538,18 @@ class Engine:
             )
 
     # -- one step -------------------------------------------------------------
-    def _logits(self, token, cache, packed, rowwise: bool = False) -> torch.Tensor:
+    def _logits(self, token, cache, packed, rowwise: bool = False, x=None) -> torch.Tensor:
         """(B, s, V) logits of ``token`` (B, s) through ``packed`` (dense
         when None); advances the cache in place.  ``rowwise``: row b bitwise
-        a B = 1 step (``families.lm_decode_step``)."""
-        if packed is not None:
-            from .packed import lm_decode_step_packed
+        a B = 1 step (``families.lm_decode_step``); ``x``: the embedding
+        rows, made before a replay."""
+        with mesh_context(self.mesh, self.plan):
+            if packed is not None:
+                from .packed import lm_decode_step_packed
 
-            return lm_decode_step_packed(self.params, packed, token, cache, self.cfg,
-                                         rowwise=rowwise, mesh=self.mesh)[0]
-        return self.model.decode_step(self.params, token, cache, rowwise=rowwise)[0]
+                return lm_decode_step_packed(self.params, packed, token, cache, self.model.cfg,
+                                             rowwise=rowwise, mesh=self.mesh, x=x)[0]
+            return self.model.decode_step(self.params, token, cache, rowwise=rowwise, x=x)[0]
 
     def _choose(self, logits, noise, at) -> torch.Tensor:
         """Token ids (R,) from fp32 ``logits`` (R, V): argmax, or with a
@@ -478,9 +572,11 @@ class Engine:
         self._emit(st, self._logits(self._feed(st), st.cache, self._route_pack())[:, -1].float())
 
     def _step_logits(self, st: _Loop) -> None:
-        """The captured part of a step on a data axis: this rank's logits
-        into the static ``st.logits``."""
-        st.logits.copy_(self._logits(self._feed(st), st.cache, self._route_pack())[:, -1].float())
+        """The captured part of a step on a mesh: this rank's logits, from
+        the static embedding rows ``st.x`` when the engine has a plan, into
+        the static ``st.logits``."""
+        st.logits.copy_(self._logits(self._feed(st), st.cache, self._route_pack(),
+                                     x=st.x)[:, -1].float())
 
     def _emit(self, st: _Loop, logits: torch.Tensor) -> None:
         """The rest of a step from this rank's (rows, V) fp32 logits: the
@@ -546,13 +642,14 @@ class Engine:
         ``_route_pack``."""
         self._pool_emit(st, self._pool_logits(st, dense))
 
-    def _pool_logits(self, st: _Pool, dense: Optional[bool]) -> torch.Tensor:
-        """The (rows, V) fp32 logits of a pool step on this rank's slots."""
+    def _pool_logits(self, st: _Pool, dense: Optional[bool], x=None) -> torch.Tensor:
+        """The (rows, V) fp32 logits of a pool step on this rank's slots
+        (``x``: the embedding rows made before a replay)."""
         from ..models.cache import paged_view
 
         cache = paged_view(st.cache) if st.paged else st.cache
-        return self._logits(self._feed(st), cache, self._route_pack(dense),
-                            rowwise=True)[:, -1].float()
+        return self._logits(self._feed(st), cache, self._route_pack(dense), rowwise=True,
+                            x=x)[:, -1].float()
 
     def _pool_emit(self, st: _Pool, logits: torch.Tensor) -> None:
         """The rest of a pool step from this rank's logits, as ``_emit``:
@@ -624,11 +721,13 @@ class Engine:
         st.col.add_(1)
 
     # -- CUDA graphs ----------------------------------------------------------
-    def _capture(self, body, state, emit: Optional[Callable] = None) -> _Graph:
+    def _capture(self, body, state, emit: Optional[Callable] = None,
+                 pre: Optional[Callable] = None) -> _Graph:
         """Run ``body(state)`` once on a side stream (the warm-up: cuBLAS
         handles, the kernels' shared-memory opt-in, the allocator), then
-        capture it in a CUDA graph, with ``emit(state)`` to run eagerly after
-        each replay (``_replay``).  A failure raises."""
+        capture it in a CUDA graph, with ``pre(state)`` and ``emit(state)``
+        to run eagerly before and after each replay (``_replay``).  A
+        failure raises."""
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -642,12 +741,15 @@ class Engine:
         after = _wrapper_counts()
         launches = {name: {r: n - before[name][r] for r, n in routes.items()}
                     for name, routes in after.items()}
-        return _Graph(graph, state, launches, emit=emit)
+        return _Graph(graph, state, launches, emit=emit, pre=pre)
 
     @staticmethod
     def _replay(g: _Graph, n: int = 1) -> None:
-        """``n`` replays of ``g``, each followed by its ``emit``."""
+        """``n`` replays of ``g``, each between its ``pre`` and its
+        ``emit``."""
         for _ in range(n):
+            if g.pre is not None:
+                g.pre(g.state)
             g.graph.replay()
             if g.emit is not None:
                 g.emit(g.state)
@@ -666,7 +768,8 @@ class Engine:
         family's cross K/V, so each frame count has its own graph.  With
         ``rows`` (this rank's rows of ``b`` on a data axis) the graph holds
         the step up to the logits, and the gather and the choice run after
-        each replay."""
+        each replay; with a plan (a data axis) the embedding rows are made
+        before each replay, since their lookup makes a collective."""
         span = None if rows is None else (rows.start, rows.stop)
         key = ("step", b, self.sc.temperature > 0, self.sc.max_len, frames, self._quarantined,
                span)
@@ -682,14 +785,25 @@ class Engine:
                 noise=self._noise_rows(n, b),
                 rows=rows,
             )
-            if rows is None:
+            if rows is None and self.plan is None:
                 self._graphs[key] = self._capture(self._step, st)
             else:
                 st.logits = torch.zeros((local, self.cfg.padded_vocab), dtype=torch.float32,
                                         device=dev)
+                pre = self._embed_pre(st, local)
                 self._graphs[key] = self._capture(self._step_logits, st,
-                                                  lambda s: self._emit(s, s.logits))
+                                                  lambda s: self._emit(s, s.logits), pre)
         return self._graphs[key]
+
+    def _embed_pre(self, st, rows: int) -> Optional[Callable]:
+        """With a plan: ``st.x``, the static (rows, 1, d) embedding rows, and
+        the ``pre`` that fills it from the step's input tokens; else None."""
+        if self.plan is None:
+            return None
+        if st.x is None:  # one buffer for every graph of the state (a pool's two routes)
+            st.x = torch.zeros((rows, 1, self.cfg.d_model), dtype=act_dtype(self.cfg),
+                               device=self.device)
+        return lambda s: s.x.copy_(self._embed(self._feed(s)))
 
     def _prime_step(self, st: _Loop) -> None:
         """One priming step of a recurrent family: the prompt token in
@@ -750,7 +864,7 @@ class Engine:
             cache = self.model.init_paged_pool(layout.local(), n, device=dev)
         grid = (slots, segment, self.sc.draft_k + 1) if spec else (slots, segment)
         logits = None
-        if rows is not None and not spec:
+        if (rows is not None or self.plan is not None) and not spec:
             logits = torch.zeros((local, self.cfg.padded_vocab), dtype=torch.float32, device=dev)
         return _Pool(
             token=torch.zeros((slots, 1), dtype=torch.long, device=dev), cache=cache,
@@ -772,17 +886,20 @@ class Engine:
     def _pool_key(self, st: _Pool, dense: bool) -> tuple:
         return ("pool", id(st), self.sc.temperature, dense)
 
-    def _pool_graphed(self, st: _Pool) -> bool:
-        """Whether the pool replays a graph: as ``_graphed``, but a
-        speculative pool on a data axis runs eagerly (its gather sits
-        between the drafter and the accept scan)."""
-        return self._graphed() and not (st.spec and st.rows is not None)
+    def _pool_graphed(self, st: _Pool, dense: bool) -> bool:
+        """Whether the pool replays a graph on the route ``dense``: as
+        ``_graphed``, but a speculative pool on a data axis runs eagerly
+        (its gather sits between the drafter and the accept scan, and under
+        a plan each drafter step's embedding makes a collective)."""
+        return self._graphed(dense) and not (
+            st.spec and (st.rows is not None or self.plan is not None))
 
     def _capture_pool(self, st: _Pool, dense: bool) -> _Graph:
-        if st.rows is None:
+        if st.rows is None and self.plan is None:
             return self._capture(self._pool_body(st, dense), st)
-        return self._capture(lambda s: s.logits.copy_(self._pool_logits(s, dense)), st,
-                             lambda s: self._pool_emit(s, s.logits))
+        pre = self._embed_pre(st, st.logits.shape[0])
+        return self._capture(lambda s: s.logits.copy_(self._pool_logits(s, dense, s.x)), st,
+                             lambda s: self._pool_emit(s, s.logits), pre)
 
     def prepare_pool(self, st: _Pool) -> None:
         """Make the pool ready for this temperature: the noise table when
@@ -795,9 +912,10 @@ class Engine:
         if self.sc.temperature > 0 and st.noise is None:
             st.noise = torch.zeros((st.token.shape[0], self.sc.max_len, self.cfg.padded_vocab),
                                    dtype=torch.float32, device=self.device)
-        if not self._pool_graphed(st):
-            return
         routes = (True,) if self._packed is None or self._quarantined else (False, True)
+        routes = [dense for dense in routes if self._pool_graphed(st, dense)]
+        if not routes:
+            return
         # the warm-up writes the outputs at ``col``: after a run it stands at
         # ``segment``, one past the grid (a recapture after a pack swap)
         st.col.zero_()
@@ -825,7 +943,7 @@ class Engine:
         st.col.zero_()
         segment = st.toks.shape[1]
         dense = self._packed is None or self._quarantined
-        if self._pool_graphed(st):
+        if self._pool_graphed(st, dense):
             g = self._graphs.get(self._pool_key(st, dense))
             if g is None:
                 raise RuntimeError("the pool's graph was not captured: call prepare_pool while "
@@ -916,7 +1034,7 @@ class Engine:
         batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=self.device)}
         for name, val in (extras or {}).items():
             batch[name] = torch.as_tensor(np.asarray(val), device=self.device)
-        with mesh_context(self.mesh):
+        with mesh_context(self.mesh, self.plan):
             logits, cache = self.model.prefill(self.params, batch, self.sc.max_len)
         return torch.argmax(logits.float(), dim=-1)[:, None], cache
 
@@ -973,8 +1091,9 @@ class Engine:
         self._validate_tokens(prompts)
         tokens = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
         lens = torch.as_tensor(np.asarray(lengths, np.int64), device=self.device)
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, self.sc.max_len,
-                                           lengths=lens)
+        with mesh_context(self.mesh, self.plan):
+            logits, cache = self.model.prefill(self.params, {"tokens": tokens}, self.sc.max_len,
+                                               lengths=lens)
         return torch.argmax(logits.float(), dim=-1)[:, None], cache
 
     @torch.no_grad()
@@ -986,8 +1105,9 @@ class Engine:
         self._validate_tokens(tokens)
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
         table = torch.as_tensor(np.asarray(table_row, np.int64), device=self.device)
-        return self.model.prefill_chunk(self.params, toks, arena, table, int(start),
-                                        int(true_len), int(write_from))
+        with mesh_context(self.mesh, self.plan):
+            return self.model.prefill_chunk(self.params, toks, arena, table, int(start),
+                                            int(true_len), int(write_from))
 
     # -- prompt-length buckets -------------------------------------------------
     @staticmethod
@@ -1091,7 +1211,7 @@ class Engine:
         so no round runs that plain decode would not need.  Returns (emitted
         tokens (budget,), flags (budget,), count, rounds)."""
         s = self.sc.draft_k + 1
-        if self._graphed():
+        if self._spec_graphed():
             g = self._spec_graph()
             st = g.state
             self._load(st, token, cache, noise)
@@ -1157,7 +1277,8 @@ class Engine:
         budget = max_new - 1
         noise = self.gumbel_noise(budget + (self.sc.draft_k + 1 if spec else 0), b)
         rows = self._rows(b)
-        if self._graphed():  # capture at first use, outside the clocks
+        graphed = self._spec_graphed() if spec else self._graphed()
+        if graphed:  # capture at first use, outside the clocks
             with torch.no_grad():
                 if spec:
                     self._spec_graph()

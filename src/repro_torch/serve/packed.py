@@ -24,7 +24,13 @@ contiguous windows of each (values, positions and scales alike;
 quarter of the host work at ``tp = 4``: the engine's way), and
 ``lm_decode_step_packed(mesh=...)`` routes every packed product through
 the tensor-parallel appliers of ``kernels/ops.py``, bitwise the
-single-device step.
+single-device step.  Where the serving engine splits attention by heads
+(``dist/tp.py``), ``pack_lm_weights(split_heads=True)`` packs a rank's
+attention from its own heads instead: q, k and v from the windows that
+cover its heads' columns (the same windows as the whole pack's, cut to
+the heads after the kernel), ``wo`` from its heads' rows, whose partial
+product the plan sums over ``model``; no collective runs inside the
+attention.
 """
 
 from __future__ import annotations
@@ -44,8 +50,10 @@ from ..kernels.ops import (
     apply_row_packed_sharded, apply_row_packed_sharded_many, mesh_axis_size,
     pack_linear_rows_many, shard_linear_windows,
 )
-from ..models.families import _embed_tokens, layer_cache, layer_params
-from ..models.common import per_row, rms_norm
+from ..models.families import (
+    DENSE_LEAVES, _dense_layer, _embed_tokens, _head_logits, layer_cache,
+)
+from ..models.common import rms_norm
 from ..models.layers import attention_decode
 
 __all__ = [
@@ -139,6 +147,33 @@ def _as_linear(entry: Dict, layer: Optional[int] = None) -> RowPackedLinear:
                            shards=entry.get("shards", 1))
 
 
+def _head_columns(c: int, m: int, tp: int, rank: int) -> tuple:
+    """(lo, hi, off): the columns ``[lo, hi)`` of the windows of m lanes
+    that cover rank ``rank``'s ``c / tp`` head columns of a (K, c)
+    projection (``lo`` a multiple of m, so they are the whole pack's
+    windows), and the offset of its first head column in them."""
+    w = c // tp
+    lo = rank * w // m * m
+    return lo, min(-(-(rank + 1) * w // m) * m, c), rank * w - lo
+
+
+def _stack_head_split(ws: torch.Tensor, name: str, m: int, a: int, value_dtype: str,
+                      tp: int, rank: int) -> Dict:
+    """Rank ``rank``'s pack of the stacked attention projection ``name``
+    when attention splits by heads over ``tp`` ranks: q/k/v the columns of
+    ``_head_columns`` (entry ``cols``: the offset and width of the heads in
+    the kernel's output), ``wo`` its heads' rows (entry ``partial``: its
+    product is this rank's addend of the whole)."""
+    w = _flat_attn(ws, name)
+    if name == "wo":
+        k = w.shape[1] // tp
+        return dict(_stack_layers(w[:, rank * k:(rank + 1) * k], m, a, value_dtype=value_dtype),
+                    partial=True)
+    lo, hi, off = _head_columns(w.shape[2], m, tp, rank)
+    entry = _stack_layers(w[:, :, lo:hi], m, a, value_dtype=value_dtype)
+    return dict(entry, cols=(off, w.shape[2] // tp))
+
+
 def _flat_attn(w: torch.Tensor, name: str) -> torch.Tensor:
     """An attention projection's stacked weight as (L, K, C): q/k/v
     (L, d, nh, hd) -> (L, d, nh*hd), wo (L, nh, hd, d) -> (L, nh*hd, d)."""
@@ -166,6 +201,7 @@ def pack_lm_weights(
     value_dtype: str = "dense",
     shards: int = 1,
     rank: Optional[int] = None,
+    split_heads: bool = False,
 ) -> Dict:
     """Pack the dense-family decode-step weights; returns a structured dict
     ``{"mlp", "attn", "head", "scope", "fused_mlp"}`` laid out as the
@@ -183,7 +219,9 @@ def pack_lm_weights(
     over a ``model`` mesh axis of that size: place the packs with
     ``shard_packed``, or pack only the windows of model rank ``rank``
     (the packs ``shard_packed`` would leave, for 1 / ``shards`` of the
-    host work)."""
+    host work).  ``split_heads`` (with ``rank``): the attention projections
+    are rank ``rank``'s of attention split by heads over ``shards`` ranks
+    (``_stack_head_split``), no window padding."""
     if cfg.family != "dense":
         raise ValueError("the packed decode path targets the dense family")
     if scope not in ("mlp", "all"):
@@ -201,11 +239,17 @@ def pack_lm_weights(
     out: Dict = {"mlp": mlp, "attn": None, "head": None, "scope": scope, "fused_mlp": fused_mlp}
     if scope == "all":
         attn_p = params["layers"]["attn"]
-        out["attn"] = {
-            name: _stack_layers(_flat_attn(attn_p[name], name), m, a, value_dtype=value_dtype,
-                                shards=shards, rank=rank)
-            for name in ATTN_NAMES
-        }
+        if split_heads:
+            if rank is None:
+                raise ValueError("split_heads packs one rank's heads: give its rank")
+            out["attn"] = {name: _stack_head_split(attn_p[name], name, m, a, value_dtype,
+                                                   shards, rank) for name in ATTN_NAMES}
+        else:
+            out["attn"] = {
+                name: _stack_layers(_flat_attn(attn_p[name], name), m, a,
+                                    value_dtype=value_dtype, shards=shards, rank=rank)
+                for name in ATTN_NAMES
+            }
         if not cfg.tie_embeddings:
             w = params["lm_head"]
             (p,) = _pack_mats([w.detach().to("cpu", torch.float32).numpy()], m, a, w,
@@ -468,7 +512,7 @@ def _full_pack(packed) -> bool:
 
 
 def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = False,
-                          mesh=None):
+                          mesh=None, x=None):
     """Decode step with VUSA-packed weights (dense family).  token: (B, 1),
     or (B, s) for the speculative verify.  Returns (logits (B, s, V), cache
     with ``pos + s``); the cache tensors and the device scalar ``pos`` are
@@ -493,6 +537,13 @@ def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = Fal
     each rank runs the kernels on its windows of the pack (``shard_packed``)
     and the products are gathered whole, bitwise the single-device step.
     A ``model`` axis of size 1 is the plain single-device step.
+
+    Under the serving engine's tensor-parallel plan (``dist/tp.py``) the
+    dense leaves are this rank's shards: a pack of ``split_heads`` runs the
+    attend on the local heads (q, k and v from the windows over them, the
+    ``wo`` partial summed by the plan), a dense attention or head is the
+    plan's, and ``x``, the embedding rows, may come from the caller
+    (``families.lm_decode_step``).
 
     ``packed`` may also be the legacy flat ``pack_lm_mlps`` dict: the MLP
     packed, everything else dense, every MLP three ``vusa_packed_matmul``
@@ -520,14 +571,23 @@ def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = Fal
         def fused_mlp(x2, g, u, d):
             return apply_fused_mlp_sharded(x2, g, u, d, mesh)
 
-    x = _embed_tokens(params, token, cfg)
+    if x is None:
+        x = _embed_tokens(params, token, cfg)
+    # the dense leaves a layer reads: the attention's when it is not packed
+    dense = {"attn": DENSE_LEAVES["attn"] if attn is None else ("bq", "bk", "bv")}
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _dense_layer(params, i, dense)
         wmm = None
         if attn is not None:
             qkv: Dict[str, torch.Tensor] = {}
 
             def wmm(name, x2, i=i, qkv=qkv):
+                e = attn[name]
+                if "cols" in e:  # this rank's heads, from windows of its own: no collective
+                    off, w = e["cols"]
+                    return apply_row_packed(x2, _as_linear(e, i))[..., off:off + w]
+                if e.get("partial"):  # wo on its heads' rows: summed by the plan
+                    return apply_row_packed(x2, _as_linear(e, i))
                 if sharded and name in QKV:  # q, k and v of one x: one gather for the three
                     if not qkv:
                         lins = [_as_linear(attn[n], i) for n in QKV]
@@ -548,12 +608,12 @@ def lm_decode_step_packed(params, packed, token, cache, cfg, rowwise: bool = Fal
             up = row(hf, _as_linear(mlp["w_up"], i))
             y2 = row((gate * up).to(hf.dtype), _as_linear(mlp["w_down"], i))
         x = x + y2.reshape(b, s, d).to(x.dtype)
+        del lp  # under a plan: its gathered leaves
     x = rms_norm(x, params["final_norm"], rowwise=rowwise)
     if packed.get("head") is not None:
         b, s, d = x.shape
         logits = row(x.reshape(b * s, d), _as_linear(packed["head"])).reshape(b, s, -1)
     else:
-        head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(x.dtype)
-        logits = per_row(lambda r: torch.einsum("bsd,dv->bsv", r, head), x, rowwise)
+        logits = _head_logits(params, x, cfg, rowwise)
     cache["pos"].add_(token.shape[1])
     return logits, cache

@@ -81,6 +81,12 @@ chunk per round per admitting slot.  The block tables and positions the
 captured step reads are device tensors updated in place at host-driven
 events (bind, rebind, extend, preempt); the host mirrors (``_rows``,
 ``_pos``) stay exact, so no event reads the device back.
+
+On a mesh every rank runs this loop.  Each round reads one time, rank 0's
+run-relative clock broadcast over the whole mesh, and every admission,
+shed and timeout decision is a function of the queue and that time, so
+the ranks decide alike whatever their own clocks say and their
+collectives stay paired.
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.cache import (
     BlockAllocator,
@@ -112,7 +119,7 @@ from ..models.cache import (
     write_slots,
     zero_blocks,
 )
-from ..dist.comm import axis_index, broadcast
+from ..dist.comm import axis_index, broadcast, broadcast_mesh
 from .engine import Engine
 from .metrics import acceptance_rate, tok_per_s
 
@@ -853,6 +860,11 @@ class Scheduler:
                                                    self._dev.blocks(self._rows[i]), s, n,
                                                    job.write_from)
                 logits = logits.float()
+            elif self.eng.steps_span_data:
+                # the chunk's layers gather over data: the other ranks run it
+                # too, on a table of block 0, writing nothing
+                self.eng.prefill_chunk(toks, self._pstate["arena"],
+                                       np.zeros(self._layout.n_pages, np.int64), s, n, s + n)
             logits = self._dev.from_owner(logits, i, self._chunk_logits)
             job.start = s + n
             self._chunks += 1
@@ -1160,6 +1172,18 @@ class Scheduler:
         def now() -> float:
             return self._clock() - t_start
 
+        def shared_now() -> float:
+            """The run-relative time every decision of this round reads: on
+            a mesh, rank 0's, broadcast to every rank (one fp64 scalar), so
+            every rank admits, sheds and times out in the same round and
+            their collectives pair; rank-local clocks only time waits."""
+            t = now()
+            if self.eng.mesh is None:
+                return t
+            dev = "cpu" if dist.get_backend() == "gloo" else self.eng.device
+            buf = torch.tensor([t], dtype=torch.float64, device=dev)
+            return float(broadcast_mesh(buf, self.eng.mesh)[0])
+
         self._run_now = now
         try:
             while self._queue or any(s.active for s in self._slot):
@@ -1168,7 +1192,7 @@ class Scheduler:
                     break
                 if self._draining and not any(s.active for s in self._slot):
                     break  # drained: queued requests survive for the next run
-                t = now()
+                t = shared_now()
                 free = [i for i, s in enumerate(self._slot) if not s.active]
                 if free and self._queue and not self._draining:
                     picked = self._pop_arrived(len(free), t)
@@ -1207,7 +1231,7 @@ class Scheduler:
                 if self._abort_status is not None:
                     self._abort_epilogue(now())
                     break
-                self._segment(active_idx, now)
+                self._segment(active_idx, shared_now)
                 if on_sync is not None:
                     on_sync(self)
         finally:

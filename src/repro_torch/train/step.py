@@ -14,8 +14,9 @@ and both AdamW moments are each rank's shards under ``placements``
 (ZeRO-style: the moments follow the parameters).  A step gathers the
 parameters whole for the forward, so it is the single-device program on
 this rank's rows of the batch; with ``split`` (the batch rows split over
-``data``) the gradients and the loss are summed over the data ranks in
-rank order and divided by their count.  The global-norm clip runs on the
+the pure data axes, ``("pod", "data")``) the gradients and the loss are
+summed over those ranks in their flattened rank order, pod-major, and
+divided by their count.  The global-norm clip runs on the
 whole gradients in the single-device order, and each rank then updates
 only its shard.  On a ``model`` axis alone the step is the single-device
 step bitwise.
@@ -24,6 +25,7 @@ step bitwise.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -120,13 +122,14 @@ def make_train_step(loss_fn: Callable, hp: TrainHParams, mesh=None, placements=N
         ``whole`` parameters: summed over the data ranks in rank order when
         the batch rows split, clipped whole, then cut to the rank's shards
         (the clip already applied, ``adamw_update`` scales them by 1)."""
-        from ..dist.comm import sum_in_rank_order
-        from ..dist.sharding import local_shard
+        from ..dist.comm import axis_size, sum_in_rank_order
+        from ..dist.sharding import _batch_axes, local_shard
 
         if split:
-            n = mesh.get_group("data").size()
-            grads = [sum_in_rank_order(g, mesh, "data") / n for g in grads]
-            loss = sum_in_rank_order(loss, mesh, "data") / n
+            axes = _batch_axes(mesh)
+            n = math.prod(axis_size(mesh, a) for a in axes)
+            grads = [sum_in_rank_order(g, mesh, axes) / n for g in grads]
+            loss = sum_in_rank_order(loss, mesh, axes) / n
         if hp.grad_compress:
             grads = compress_grads(grads, t)
         grads, gnorm = clip_by_global_norm(grads, hp.max_grad_norm)

@@ -6,7 +6,9 @@ Port of the JAX package's ``train/trainer.py``, on one device or, with
 ``mesh``, on the ranks of a (data, model) DeviceMesh that all run the same
 code (``launch/mesh.py``): the parameters and both AdamW moments are
 stored as each rank's shards under ``dist.sharding.params_shardings``,
-the batch rows split over ``data`` (when its size divides them), and the
+the batch rows split over every pure data axis, ``("pod", "data")``
+flattened pod-major as the reference's batch placement (when their
+product divides them), and the
 step is ``train/step.py``'s sharded step; the pruning masks are computed
 on the whole tree, in the single-device order.  A checkpoint stays the
 logical tree with the reference's files and leaf keys: every rank gathers
@@ -39,6 +41,7 @@ import torch
 from ..checkpoint.ckpt import Checkpointer
 from ..configs.base import ArchConfig
 from ..dist.comm import axis_index, mesh_shape
+from ..dist.sharding import _batch_axes
 from ..core.pruning import apply_masks, masks_tree, polynomial_sparsity, tree_sparsity
 from ..data.pipeline import SyntheticDataset
 from ..models import build_model
@@ -81,10 +84,15 @@ class Trainer:
             from ..dist.sharding import params_shardings
 
             self.p_shard = params_shardings(self.model.specs(), self.mesh)
-            dp = mesh_shape(self.mesh).get("data", 1)
+            # the batch rule's axes, ("pod", "data"), flattened pod-major
+            axes = _batch_axes(self.mesh)
+            shape = mesh_shape(self.mesh)
+            dp = math.prod(shape[a] for a in axes)
             if dp > 1 and tc.global_batch % dp == 0:
                 k = tc.global_batch // dp
-                r = axis_index(self.mesh, "data")
+                r = 0
+                for a in axes:
+                    r = r * shape[a] + axis_index(self.mesh, a)
                 self.rows = slice(r * k, (r + 1) * k)
         self.step_fn = make_train_step(self.model.loss, tc.hp, self.mesh, self.p_shard,
                                        split=self.rows is not None)

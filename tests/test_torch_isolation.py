@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.mamba2_2_7b", "repro_torch.configs.whisper_tiny",
             "repro_torch.models.ssm", "repro_torch.models.opt_flags",
             "repro_torch.launch.op_cost", "repro_torch.launch.dryrun",
-            "repro_torch.launch.roofline"} <= set(mods)
+            "repro_torch.launch.roofline", "repro_torch.dist.tp",
+            "repro_torch.dist.comm", "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
