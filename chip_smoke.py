@@ -270,7 +270,9 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    (at most 200);
 15. the (data, model) mesh: four ranks (``launch/mesh.spawn``), processes
    that share this card over the gloo backend, built kernels loaded, not
-   rebuilt; a 2x2 mesh, its ``model`` sub-mesh (1x2), its ``data``
+   rebuilt, the world phase 17 runs on next (``world_phases``: one spawn,
+   after phase 16; each phase's seconds are its slowest rank's part and
+   its gates, phase 17's with its oracles); a 2x2 mesh, its ``model`` sub-mesh (1x2), its ``data``
    sub-mesh (2x1) and a 1x4 mesh over the same ranks, each held against
    the single-device port in this process.  Gates: at 1x2 and 1x4, layer
    0's wq, fused MLP and head of full-width ``vusa_edge`` (phase 4's
@@ -298,10 +300,9 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    gap within 1e-3 at 6 of its 24 layers (``MESH_QWEN2_LAYERS``; this cut
    and ``MESH_DP_LAYERS`` keep the phase within its 150 s on a slow host)
    and tokens equal on the 2-layer cut; training full-width ``vusa_edge``
-   20 steps (batch 8 x 128, pruning
-   refreshed on the way) is bitwise one device's on 1x2 (loss, params
-   and their zeros, moments); on 2x1, each step taken from one device's
-   state (lockstep, beside the 1x2 run on the other two ranks), the loss
+   (batch 8 x 128; its 1x2 run is phase 17's, tensor-parallel):
+   on 2x1, each step taken from one device's
+   state (lockstep, on two of the ranks), the loss
    is within 1e-4 relative of one device's step, and the global norm of
    the gradients summed over ``data`` and each rank's updated shards
    (params and both moments) are bitwise one device's step over the same
@@ -333,8 +334,9 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    (``max_memory_allocated``) within 0.8-1.25 of the traced
    ``temp_size_in_bytes``; the real call's ms (CUDA events, 5 calls)
    beside ``roofline.analyze_record``'s bound (H100 data-sheet peaks);
-17. tensor-parallel dense compute on sharded dense storage (at most 150
-   s): four ranks sharing this card over gloo, as phase 15's.  (a)
+17. tensor-parallel dense compute on sharded dense storage and
+   tensor-parallel training (at most ``TP_PHASE_LIMIT_S``): phase 15's
+   four ranks, on after its part.  (a)
    ``qwen3_8b`` at its full 36 layers and widths, fp32 (the flash
    attention's probabilities too, as phase 13's fp32 gates), dense route,
    drawn with the contracted fan-in (C6) leaf by leaf in chunks
@@ -360,7 +362,40 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    prediction (``tp_predicted``: on ``model`` 2 a layer plus 2 on either
    route).  Reported: ms a step and tok/s of each mesh and route beside
    one device's, collectives and bytes a step, peak memory, the phase's
-   seconds;
+   seconds.  (c) tensor-parallel training (``dist.tp.training_plan``),
+   fp32 with fp32 attention probabilities, the contracted fan-in, one
+   device's oracle beside it: (c1) ``vusa_edge`` at its 12 layers, batch
+   8 x 128, remat, on 1x2, 1x4 and 2x2, 5 steps each taken from one
+   device's state (as phase 15's 2x1 lockstep; each rank computes one
+   device's step beside its own, the state is 2.6 GB): the loss within
+   1e-4 relative of one device's step, the global norm within 2e-3, each
+   rank's gradient shard within 2e-3 of the largest |g| of one device's
+   matching slice, every rank's loss and norm and its data coordinate's
+   replicated-leaf gradients bitwise, the collectives a step the plan's
+   prediction (``TPPlan.train_collectives``, remat's recompute included),
+   the masks refreshed leaf by leaf at step 2 bitwise one device's; then
+   20 free-running steps on 1x2 with pruning refreshed at steps 8 and 16
+   (each rank drawing only its shards, ``sharded_init`` at the trainer's
+   placement): the sparsity at its target, the final loss within 2 % of
+   one device's 20-step run (in this process, beside the ranks), and the
+   pruned shards served as they are by ``Engine(mesh=1x2,
+   packed_weights="all")`` with fp32 values (B = 4, prompt 32, 8 new
+   tokens): first-step logits within 1e-3 of the largest of one device's
+   engine on the gathered tree, B1/B2 launches as planned (49 B1 calls, 12
+   window-partial and 12 ordered-sum calls a step), token agreement
+   reported.  (c2) ``qwen3_8b`` at its widths, 4 of its 36 layers
+   (``TPT_CUT_WHY``), batch 4 x 128, on 1x4, one step, each rank drawing
+   only its shards: the loss and norm as in (c1) against one device's
+   step (in this process, before the ranks, then freed), each rank's peak
+   (above what its process held before) at most its placement's
+   parameters, gradients and both moments plus a quarter of one device's
+   peak above its own.  (c3) ``qwen2_0_5b`` at 6 of its 24 layers on 1x4,
+   one lockstep step gated as (c1): its 14 heads over 2 kv heads do not
+   divide 4, so training takes the sequence-sharded attention under grad.
+   Phase 15's 1x2 training moved here: with the products tensor-parallel
+   it is one device's within rounding, not bitwise.  Reported beside the
+   card: ms a step against one device's, collectives and bytes a step a
+   rank, peak memory a rank, each part's seconds;
 18. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, phase 10's speculative pool graph launches, CUDA launches per
@@ -402,7 +437,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.pruning import prune_tree  # noqa: E402
+from repro_torch.core.pruning import masks_tree, prune_tree  # noqa: E402
 from repro_torch.core.simulator import gemm_cycles_standard, ws_cycles  # noqa: E402
 from repro_torch.core.vusa import schedule_widths_fast  # noqa: E402
 from repro_torch.core.workloads import mobilenetv1_gemms, resnet18_gemms  # noqa: E402
@@ -424,7 +459,12 @@ from repro_torch.kernels.vusa_packed import (  # noqa: E402
 from repro_torch.checkpoint.ckpt import restore  # noqa: E402
 from repro_torch.data.pipeline import SyntheticDataset  # noqa: E402
 from repro_torch.dist import comm  # noqa: E402
-from repro_torch.dist.sharding import shard_ranges, shard_tree  # noqa: E402
+from repro_torch.dist.sharding import (  # noqa: E402
+    local_shard,
+    params_shardings,
+    shard_ranges,
+    shard_tree,
+)
 from repro_torch.dist.tp import placement_bytes, storage_placements  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh, spawn  # noqa: E402
 from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
@@ -573,7 +613,27 @@ TP_EXTRA = (("1x2", 0.8, False), ("1x2", 0.0, True), ("1x4", 0.0, True))
 TP_BF16_TOL = 5e-4
 TP_MEM_RATIO = 0.3
 TP_DRAW_ENTRIES = 1 << 25
-TP_PHASE_LIMIT_S = 150.0
+# its part (c), tensor-parallel training: (c1) vusa_edge at 12 layers, batch
+# 8 x 128, remat, lockstep steps on 1x2 / 1x4 / 2x2 and the lockstep step
+# whose masks are refreshed, the free-running 1x2 run (pruning refreshed at
+# steps 8 and 16, the ramp's end), its serving run; (c2) qwen3_8b's depth
+# and batch; (c3) qwen2_0_5b's depth.  The gates, written before the first
+# timed run: the loss of a step from one device's state within 1e-4
+# relative of one device's step, the global norm within 2e-3 (C13 measured
+# 1.25e-3 of the global norm from row splits alone), each rank's gradient
+# shard within 2e-3 of the largest |g| of one device's matching slice, the
+# free run's final loss within 2 % of one device's, the served first-step
+# logits within MESH_LOGIT_TOL of the largest
+TPT_LOCKSTEP, TPT_REFRESH_AT, TPT_FREE_STEPS = 5, 2, 20
+TPT_PRUNE = (4, 16, 8)
+TPT_LOSS_TOL, TPT_NORM_TOL, TPT_GRAD_TOL, TPT_FREE_TOL = 1e-4, 2e-3, 2e-3, 0.02
+TPT_QWEN3_LAYERS, TPT_QWEN3_BATCH = 4, 4
+TPT_QWEN2_LAYERS = 6
+TPT_CUT_WHY = {  # every cut is of depth, never of a width
+    "qwen3_8b": "4 of 36 layers: one device's Adam state at 36 layers is about 131 GB of fp32, "
+                "over the 80 GB card the four ranks share too",
+    "qwen2_0_5b": "6 of 24 layers: the phase's time on a slow host, as phase 15's qwen2 run"}
+TP_PHASE_LIMIT_S = 240.0
 # the leftovers phase (16): the 2:4 arm's structure and job width, the legacy
 # MLP pack's first-step tolerance (of the largest logit) on the 2-layer cut
 # and at full depth (C6), the dry run's cells (kind, batch, tokens) and the
@@ -3208,9 +3268,9 @@ def mesh_rank(mesh, device, prompts) -> dict:
     runs at four.  Of the two 1x2 meshes (one a data coordinate), each
     serves one value route and the first alone runs the rest; of the two
     2x1 meshes, the first alone runs: the second would repeat its work.
-    Training runs the 1x2 trainer on ranks 0 and 1 while ranks 2 and 3 run
-    the 2x1 lockstep, on the ``data`` sub-mesh of the transposed 2x2 mesh
-    (ranks [[0, 2], [1, 3]]), the two at once."""
+    Training runs the 2x1 lockstep on ranks 2 and 3, the ``data`` sub-mesh
+    of the transposed 2x2 mesh (ranks [[0, 2], [1, 3]]; the 1x2 trainer is
+    phase 17's), then one step on 2x2 to a checkpoint."""
     t_rank = time.monotonic()
     log = (lambda what: mesh_log(f"rank 0 {what}", t_rank)) if not any(
         mesh.get_coordinate()) else (lambda what: None)
@@ -3270,16 +3330,14 @@ def mesh_rank(mesh, device, prompts) -> dict:
         log(f"qwen2 {qcfg.n_layers} layers")
         del eng, p
         release()
-    # training at full width cut to MESH_TRAIN_LAYERS: 1x2 free-running
-    # (ranks 0, 1) beside 2x1 in lockstep (ranks 2, 3), a checkpoint
-    # written on 2x2
+    # training at full width cut to MESH_TRAIN_LAYERS: 2x1 in lockstep
+    # (ranks 2, 3; the 1x2 trainer is tensor-parallel, phase 17's), a
+    # checkpoint written on 2x2
     tcfg = mesh_cfg("vusa_edge", MESH_TRAIN_LAYERS, get_config("vusa_edge").dtype)
     out["train"] = {}
-    if group == 0:
-        out["train"]["1x2"] = mesh_train(tcfg, meshes["1x2"], MESH_TRAIN_STEPS)
-    else:
+    if group != 0:
         out["train"]["2x1"] = mesh_lockstep(tcfg, transposed["data"], MESH_TRAIN_STEPS)
-    log("train 1x2 (and 2x1 lockstep on ranks 2, 3)")
+    log("train 2x1 lockstep (ranks 2, 3)")
     out["train"]["2x2"] = mesh_train(tcfg, mesh, MESH_CKPT_STEPS, MESH_DIR / "ckpt")
     log("train 2x2")
     out["seconds"] = time.monotonic() - t_rank
@@ -3289,7 +3347,6 @@ def mesh_rank(mesh, device, prompts) -> dict:
 def mesh_references(prompts) -> dict:
     """The single-device port's results of every case of ``mesh_rank``,
     on this process's card."""
-    cfg = get_config("vusa_edge")
     ref = {"dp": {}, "qwen2": {}}
     for layers in (DEPTH_CUT, MESH_DP_LAYERS):
         dcfg = mesh_cfg("vusa_edge", layers)
@@ -3315,8 +3372,6 @@ def mesh_references(prompts) -> dict:
         ref["qwen2"][qcfg.n_layers] = rec
         del eng, p
         release()
-    tcfg = mesh_cfg("vusa_edge", MESH_TRAIN_LAYERS, cfg.dtype)
-    ref["train"] = mesh_train(tcfg, None, MESH_TRAIN_STEPS)
     return ref
 
 
@@ -3324,39 +3379,14 @@ def gap_rel(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-def mesh_phase() -> dict:
-    """Phase 15 (module docstring).  Fails past ``MESH_PHASE_LIMIT_S``."""
+def mesh_gates(ranks: list, ref: dict, t_ref: float) -> dict:
+    """Phase 15's gates (module docstring) over every rank's ``mesh_rank``
+    record beside this process's references (``mesh_references``, which
+    took ``t_ref`` s); the phase's seconds are its slowest rank's part
+    and the gates'.  Fails past ``MESH_PHASE_LIMIT_S``."""
     t_phase = time.monotonic()
-    release()
-    cfg = get_config("vusa_edge")
-    prompts = prompts_for(cfg)
-    if MESH_DIR.exists():
-        shutil.rmtree(MESH_DIR)
-    MESH_DIR.mkdir(parents=True)
-    # the ranks run while this process computes the single-device references
-    box: dict = {}
-
-    def run_ranks():
-        t0 = time.monotonic()
-        try:
-            box["ranks"] = spawn(mesh_rank, 2, 2, "gloo", DEVICE, str(MESH_DIR / "rendezvous"),
-                                 args=(prompts,))
-        except BaseException as e:  # re-raised below, in the phase's thread
-            box["error"] = e
-        box["seconds"] = time.monotonic() - t0
-
-    worker = threading.Thread(target=run_ranks)
-    worker.start()
-    t0 = time.monotonic()
-    ref = mesh_references(prompts)
-    t_ref = time.monotonic() - t0
-    mesh_log("single-device references", t_phase)
-    worker.join()
-    if "error" in box:
-        raise box["error"]
-    ranks, t_ranks = box["ranks"], box["seconds"]
     res = {"dp": {}, "calls": ranks[0]["calls"], "sched": {}, "qwen2": {},
-           "train": {}, "reference_s": t_ref, "ranks_s": t_ranks,
+           "train": {}, "reference_s": t_ref, "ranks_s": max(r["seconds"] for r in ranks),
            "rank_seconds": [r["seconds"] for r in ranks]}
     for i, r in enumerate(ranks):  # every sharded call bitwise its single-device call
         for name, routes in r["calls"].items():
@@ -3411,12 +3441,8 @@ def mesh_phase() -> dict:
                 fail(f"qwen2 on 1x4, {layers} layers: tokens differ from one device's")
             rec["tokens_equal"] = True
         res["qwen2"][layers] = rec
-    # training
-    tr, want = {k: v for k, v in ranks[0]["train"].items() if k != "2x1"}, ref["train"]
-    one = tr["1x2"]
-    if one["losses"] != want["losses"] or one["params"] != want["params"] or \
-            one["moments"] != want["moments"]:
-        fail("mesh 1x2 training is not bitwise the single-device trainer")
+    # training (1x2 is tensor-parallel: phase 17 holds it against one device)
+    tr = {k: v for k, v in ranks[0]["train"].items() if k != "2x1"}
     lock = [r["train"]["2x1"] for r in ranks if "2x1" in r["train"]]
     if len(lock) != 2:
         fail(f"mesh 2x1 training ran on {len(lock)} ranks, not 2")
@@ -3444,13 +3470,12 @@ def mesh_phase() -> dict:
                     for name, r in tr.items()}
     res["train"]["2x1"] = {k: v for k, v in lock[0].items() if k not in (
         "losses", "dp_losses", "bitwise", "split_gnorm_gaps")}
-    res["train"]["1x1"] = {k: v for k, v in want.items() if k not in ("params", "moments")}
     res["train"]["2x1_lockstep"] = {
         "loss_gap_rel": rel, "gnorm_and_shards_bitwise_microbatched": True,
         "microbatched_vs_whole_gnorm_gap_rel": split_gap}
     del got, like
     release()
-    res["seconds"] = time.monotonic() - t_phase
+    res["seconds"] = res["ranks_s"] + time.monotonic() - t_phase
     if res["seconds"] > MESH_PHASE_LIMIT_S:
         fail(f"mesh phase took {res['seconds']:.1f}s, over its {MESH_PHASE_LIMIT_S:.0f}s")
     return res
@@ -3478,8 +3503,9 @@ def print_mesh(m: dict, card: str) -> None:
     for name, r in m["train"].items():
         print(f"mesh train {name} (vusa_edge, {MESH_TRAIN_LAYERS} layers, full width): {r} "
               f"({card})", flush=True)
-    print(f"mesh phase {m['seconds']:.1f}s (limit {MESH_PHASE_LIMIT_S:.0f}s; single-device "
-          f"references {m['reference_s']:.1f}s, ranks {m['ranks_s']:.1f}s)", flush=True)
+    print(f"mesh phase {m['seconds']:.1f}s (limit {MESH_PHASE_LIMIT_S:.0f}s; the slowest "
+          f"rank's part of the shared world {m['ranks_s']:.1f}s, single-device references "
+          f"{m['reference_s']:.1f}s beside it)", flush=True)
 
 
 def run_async(what: str, coro_fn, timeout: float = 300.0):
@@ -3511,18 +3537,21 @@ def run_async(what: str, coro_fn, timeout: float = 300.0):
 # --------------------------------------------------------------------------
 
 
-def sharded_init(cfg, mesh=None) -> dict:
+def sharded_init(cfg, mesh=None, placements=None) -> dict:
     """``device_init``'s draw (the contracted fan-in, the zeros and ones
     leaves perturbed), leaf by leaf in tree order, each leaf in chunks of
     dim 0 (a layer of a stacked leaf, ``TP_DRAW_ENTRIES`` entries of a
     matrix), every rank drawing every chunk from the same generator and
-    keeping its shard under the serving engine's placement
-    (``dist.tp.storage_placements``); with no mesh, every chunk.  So a rank
+    keeping its shard under ``placements`` (default: the serving engine's,
+    ``dist.tp.storage_placements``); with no mesh, every chunk.  So a rank
     never holds a leaf whole, and the ranks' shards cut one device's tree."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(int(np.random.default_rng(FAM_SEED).integers(2**62)))
     specs = build_model(cfg).specs()
-    placements = storage_placements(specs, mesh) if mesh is not None else None
+    if mesh is None:
+        placements = None
+    elif placements is None:
+        placements = storage_placements(specs, mesh)
 
     def build(tree, pls):
         out = {}
@@ -3682,10 +3711,209 @@ def tp_qwen3(mesh, prompts) -> dict:
     return rec
 
 
+def tpt_config(steps: int, batch: int = TRAIN_BATCH, prune=None) -> TrainConfig:
+    """(c)'s training run: phase 12's stream, lr and warmup over the free
+    run's ``TPT_FREE_STEPS`` (so a lockstep step takes the free run's lr),
+    no clip (C10), pruning on ``prune`` (begin, end, every) or none."""
+    begin, end, every = prune or (steps + 1, steps + 1, 1)
+    return TrainConfig(steps=steps, global_batch=batch, seq_len=TRAIN_SEQ, prune_begin=begin,
+                       prune_end=end, prune_every=every, log_every=1, token_range=TRAIN_TOKENS,
+                       hp=TrainHParams(lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                       total_steps=TPT_FREE_STEPS, max_grad_norm=TRAIN_CLIP))
+
+
+def tpt_batches(cfg, tc, rows=None):
+    """(c)'s batches on the card, whole and this rank's rows (``rows``)."""
+    for host in SyntheticDataset(cfg, tc.global_batch, tc.seq_len, seed=tc.seed,
+                                 token_range=tc.token_range):
+        whole = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+        yield whole, whole if rows is None else {k: v[rows] for k, v in whole.items()}
+
+
+def tpt_lockstep(cfg, mesh, steps: int, refresh_at: int) -> dict:
+    """(c1)/(c3): ``steps`` tensor-parallel steps on ``mesh``, each from this
+    rank's shards of one device's state (``device_init``'s weights, as
+    phase 15's 2x1 lockstep takes each step from it), beside one device's
+    step, which then advances the state: per step the loss's and the norm's
+    gaps (relative), the largest gap of a gradient shard (of the largest
+    |g| of one device's matching slice), digests of the loss and norm and
+    of the replicated leaves' gradients (every rank, and every rank of one
+    data coordinate, must match), the collectives against the plan's
+    prediction, ms of both steps; at step ``refresh_at`` whether the masks
+    refreshed leaf by leaf from the shards are one device's, bitwise."""
+    tc = tpt_config(steps)
+    one = Trainer(cfg, tc, device=DEVICE)
+    tp = Trainer(cfg, tc, device=DEVICE, mesh=mesh)
+    params = device_init(cfg)
+    opt = adamw_init(params)
+    shard = functools.partial(shard_tree, placements=tp.p_shard, mesh=mesh)
+    spec = [pl for _, pl in tree_items(tp.p_shard)]
+    rec = {k: [] for k in ("loss_gaps", "norm_gaps", "grad_gaps", "ms", "one_ms",
+                           "collectives", "bytes", "same", "replicated")}
+    for k, (batch, rows) in zip(range(steps), tpt_batches(cfg, tc, tp.rows)):
+        sh = shard(params)
+        if k == refresh_at:
+            got = tp.refresh_masks(sh, cfg.sparsity)
+            want = shard(masks_tree(params, cfg.sparsity))
+            rec["masks_equal"] = all((a is None and b is None) or torch.equal(a, b) for (
+                _, a), (_, b) in zip(tree_items(got), tree_items(want)))
+            del got, want
+        state = AdamState(opt.step.clone(), shard(opt.mu), shard(opt.nu))
+        comm.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _, _, got = tp.step_fn(sh, state, rows, return_grads=True)
+        torch.cuda.synchronize()
+        rec["ms"].append(1e3 * (time.monotonic() - t0))
+        rec["collectives"].append(comm.STATS["collectives"])
+        rec["bytes"].append(comm.STATS["bytes"])
+        t0 = time.monotonic()
+        params, opt, want = one.step_fn(params, opt, batch, return_grads=True)
+        torch.cuda.synchronize()
+        rec["one_ms"].append(1e3 * (time.monotonic() - t0))
+        rec["loss_gaps"].append(abs(float(got["loss"]) / float(want["loss"]) - 1))
+        rec["norm_gaps"].append(abs(float(got["gnorm"]) / float(want["gnorm"]) - 1))
+        rec["grad_gaps"].append(max(
+            gap_rel(g, local_shard(w, pl, mesh)) for g, w, pl in zip(got["grads"],
+                                                                     want["grads"], spec)))
+        rec["same"].append(digest(torch.stack([got["loss"].float(), got["gnorm"].float()])))
+        rec["replicated"].append(digest(*(g for g, pl in zip(got["grads"], spec)
+                                          if "model" not in pl)))
+        del sh, state, got, want
+    rec.update(predicted=tp.plan.train_collectives(cfg, tc.seq_len, split=tp.rows is not None),
+               data_rank=comm.axis_index(mesh, "data"))
+    del params, opt
+    release()
+    return rec
+
+
+def tpt_free(cfg, mesh) -> dict:
+    """(c1)'s free run: ``TPT_FREE_STEPS`` steps of the trainer on ``mesh``
+    (None: one device), pruning refreshed twice (``TPT_PRUNE``), from
+    ``sharded_init``'s weights at the trainer's placement (a rank draws
+    only its shards): losses, sparsity, ms a step, collectives and
+    bytes a step on this rank, peak memory above what the process held
+    before, and the trainer's output (this rank's ``shards`` and the
+    gathered tree)."""
+    tr = Trainer(cfg, tpt_config(TPT_FREE_STEPS, prune=TPT_PRUNE), device=DEVICE, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = sharded_init(cfg, mesh, tr.p_shard)
+    tr.init_state = lambda: (params, adamw_init(params))
+    comm.reset_stats()
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.monotonic()
+        out = tr.train()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    del params, tr.init_state
+    return {"losses": [r["loss"] for r in tr.metrics_log], "final_loss": out["final_loss"],
+            "sparsity": out["sparsity"], "ms_per_step": 1e3 * wall / TPT_FREE_STEPS,
+            "collectives_per_step": comm.STATS["collectives"] / TPT_FREE_STEPS,
+            "bytes_per_step": comm.STATS["bytes"] / TPT_FREE_STEPS,
+            "peak_bytes": torch.cuda.max_memory_allocated() - held, "out": out}
+
+
+def tpt_serve(cfg, mesh, out: dict, prompts, lead: bool) -> dict:
+    """(c1)'s serving run: the free run's pruned shards straight into
+    ``Engine(mesh=)``, packed with fp32 values (B1/B2: attention packed from
+    each rank's heads, MLP and head through the sharded appliers), and on
+    the lead rank one device's engine on the gathered tree beside it
+    (``tp_run`` each: B = 4, prompt 32, ``TP_NEW`` new tokens)."""
+    eng = tp_engine(cfg, out["shards"], mesh, "bf16", TP_NEW)
+    rec = {"tp": tp_run(eng, prompts, TP_NEW)}
+    del eng
+    release()
+    if lead:
+        one = tp_engine(cfg, out["params"], None, "bf16", TP_NEW)
+        rec["one"] = tp_run(one, prompts, TP_NEW)
+        del one
+        release()
+    return rec
+
+
+def tpt_qwen3(mesh) -> dict:
+    """(c2): one step of ``qwen3_8b`` at its widths, ``TPT_QWEN3_LAYERS``
+    layers, fp32, batch ``TPT_QWEN3_BATCH`` x 128, on ``mesh`` (None: one
+    device), each rank drawing only its shards leaf by leaf: the loss, the
+    norm, ms, collectives and bytes, the bytes of params, grads and both
+    moments the placement holds, and the peak memory of draw and step
+    above what the process held before."""
+    cfg = mesh_cfg("qwen3_8b", TPT_QWEN3_LAYERS)
+    tr = Trainer(cfg, tpt_config(1, batch=TPT_QWEN3_BATCH), device=DEVICE, mesh=mesh)
+    specs = build_model(cfg).specs()
+    _, rows = next(tpt_batches(cfg, tr.tc, tr.rows))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    params = sharded_init(cfg, mesh, tr.p_shard)
+    draw_s = time.monotonic() - t0
+    opt = adamw_init(params)
+    comm.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, _, m = tr.step_fn(params, opt, rows)
+    torch.cuda.synchronize()
+    rec = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+           "ms": 1e3 * (time.monotonic() - t0), "draw_s": draw_s,
+           "collectives": comm.STATS["collectives"], "bytes": comm.STATS["bytes"],
+           "peak_bytes": torch.cuda.max_memory_allocated() - held,
+           "state_bytes": 4 * placement_bytes(specs, params_shardings(specs, mesh), mesh),
+           "same": digest(torch.stack([m["loss"].float(), m["gnorm"].float()]))}
+    if tr.plan is not None:
+        rec["predicted"] = tr.plan.train_collectives(cfg, TRAIN_SEQ)
+    del params, opt, m
+    release()
+    return rec
+
+
+def tpt_rank(mesh, one_by_four, prompts) -> dict:
+    """Part (c) on one rank of phase 17's 2x2 world, fp32 attention
+    probabilities.  The 2x2 mesh's two ``model`` sub-meshes (1x2) take
+    (c1)'s two 1x2 runs at once: the first data coordinate (ranks 0, 1)
+    the lockstep, the second (ranks 2, 3) the free run and its serving.
+    Then every rank: (c1)'s lockstep on 1x4 and 2x2, (c2) ``qwen3_8b`` on
+    1x4, (c3) ``qwen2_0_5b`` on 1x4."""
+    t0 = time.monotonic()
+    group = comm.axis_index(mesh, "data")
+    cfg = mesh_cfg("vusa_edge")
+    out = {"lockstep": {}, "seconds": {}}
+
+    def part(name, fn, *args):
+        t = time.monotonic()
+        got = fn(*args)
+        out["seconds"][name] = time.monotonic() - t
+        return got
+
+    if group == 0:
+        out["lockstep"]["1x2"] = part("lockstep 1x2", tpt_lockstep, cfg, mesh["model"],
+                                      TPT_LOCKSTEP, TPT_REFRESH_AT)
+    else:
+        free = part("free", tpt_free, cfg, mesh["model"])
+        trained = free.pop("out")
+        out["free"] = free
+        out["serve"] = part("serve", tpt_serve, cfg, mesh["model"], trained, prompts,
+                            comm.axis_index(mesh, "model") == 0)
+        del trained
+    for name, m in (("1x4", one_by_four), ("2x2", mesh)):
+        out["lockstep"][name] = part(f"lockstep {name}", tpt_lockstep, cfg, m, TPT_LOCKSTEP,
+                                     TPT_REFRESH_AT)
+    out["qwen3"] = part("qwen3", tpt_qwen3, one_by_four)
+    calls = model_layers._maybe_seq_sharded_attention.calls
+    out["qwen2"] = part("qwen2", tpt_lockstep, mesh_cfg("qwen2_0_5b", TPT_QWEN2_LAYERS),
+                        one_by_four, 1, 0)
+    out["qwen2"]["seq_shard_calls"] = model_layers._maybe_seq_sharded_attention.calls - calls
+    out["seconds"]["all"] = time.monotonic() - t0
+    return out
+
+
 def tp_rank(mesh, device, qprompts, prompts) -> dict:
     """One rank of phase 17's 2x2 world: (a) on a 1x4 mesh over the four
     ranks, then (b) on the 2x2 mesh's ``model`` sub-mesh (1x2; the two data
-    coordinates run the same case), a 1x4 mesh and the 2x2 mesh."""
+    coordinates run the same case), a 1x4 mesh and the 2x2 mesh, then (c)
+    (``tpt_rank``)."""
     t0 = time.monotonic()
     lead = not any(mesh.get_coordinate())
     one_by_four = make_local_mesh(1, 4)
@@ -3695,30 +3923,67 @@ def tp_rank(mesh, device, qprompts, prompts) -> dict:
         del out["qwen3"]["first"]
     out["edge"] = tp_cases({"1x2": mesh["model"], "1x4": one_by_four, "2x2": mesh}, prompts,
                            lead)
+    t1 = time.monotonic()
+    with fp32_probs():
+        out["train"] = tpt_rank(mesh, one_by_four, prompts)
+    out["ab_seconds"] = t1 - t0
     out["seconds"] = time.monotonic() - t0
     return out
 
 
-def tp_phase() -> dict:
-    """Phase 17 (module docstring).  Fails past ``TP_PHASE_LIMIT_S``."""
-    t_phase = time.monotonic()
+def tp_oracles(qprompts) -> dict:
+    """Phase 17's oracles that hold a whole model, (a)'s and (c2)'s: they
+    run, and free it, before the ranks use the card."""
+    t0 = time.monotonic()
+    with fp32_probs():
+        out = {"a": tp_qwen3(None, qprompts)}
+        release()
+        out["c2"] = tpt_qwen3(None)
+    release()
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def tp_references(prompts) -> dict:
+    """Phase 17's single-device references beside the ranks: (b)'s runs
+    and (c1)'s free run."""
+    t0 = time.monotonic()
+    out = {"b": tp_cases({"1x1": None}, prompts, True)}
+    with fp32_probs():
+        out["free"] = tpt_free(mesh_cfg("vusa_edge"), None)
+    del out["free"]["out"]
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def world_rank(mesh, device, prompts, qprompts) -> dict:
+    """One rank of the world phases 15 and 17 share: ``mesh_rank``, then
+    ``tp_rank``."""
+    return {"mesh": mesh_rank(mesh, device, prompts),
+            "tp": tp_rank(mesh, device, qprompts, prompts)}
+
+
+def world_phases() -> tuple:
+    """Phases 15 and 17 on one spawned world of four ranks sharing the card
+    (one spawn, not two: the script's time).  Phase 17's whole-model
+    oracles run first; then the ranks run phase 15's part and phase 17's
+    while this process computes both phases' single-device references;
+    then each phase's gates.  Returns (phase 15's report, phase 17's)."""
     release()
     prompts = prompts_for(get_config("vusa_edge"))
     qprompts = prompts_for(mesh_cfg(TP_ARCH))
-    if TP_DIR.exists():
-        shutil.rmtree(TP_DIR)
-    TP_DIR.mkdir(parents=True)
-    # (a)'s oracle holds the whole model: it runs, and frees it, before the ranks
-    with fp32_probs():
-        oracle = tp_qwen3(None, qprompts)
-    release()
+    for d in (MESH_DIR, TP_DIR):
+        if d.exists():
+            shutil.rmtree(d)
+        d.mkdir(parents=True)
+    oracles = tp_oracles(qprompts)
     box: dict = {}
 
     def run_ranks():
         t0 = time.monotonic()
         try:
-            box["ranks"] = spawn(tp_rank, 2, 2, "gloo", DEVICE, str(TP_DIR / "rendezvous"),
-                                 args=(qprompts, prompts), timeout_s=TP_PHASE_LIMIT_S)
+            box["ranks"] = spawn(world_rank, 2, 2, "gloo", DEVICE, str(TP_DIR / "rendezvous"),
+                                 args=(prompts, qprompts), timeout_s=TP_PHASE_LIMIT_S)
         except BaseException as e:  # re-raised below, in the phase's thread
             box["error"] = e
         box["seconds"] = time.monotonic() - t0
@@ -3726,14 +3991,31 @@ def tp_phase() -> dict:
     worker = threading.Thread(target=run_ranks)
     worker.start()
     t0 = time.monotonic()
-    ref = tp_cases({"1x1": None}, prompts, True)
-    t_ref = time.monotonic() - t0
+    mesh_ref = mesh_references(prompts)
+    t_mesh_ref = time.monotonic() - t0
+    tp_ref = tp_references(prompts)
     worker.join()
     if "error" in box:
         raise box["error"]
     ranks = box["ranks"]
-    res = {"qwen3": {}, "edge": {}, "oracle_s": None, "reference_s": t_ref,
-           "ranks_s": box["seconds"], "rank_seconds": [r["seconds"] for r in ranks]}
+    mesh = mesh_gates([r["mesh"] for r in ranks], mesh_ref, t_mesh_ref)
+    tp = tp_gates([r["tp"] for r in ranks], oracles, tp_ref)
+    tp["world_s"] = box["seconds"]
+    return mesh, tp
+
+
+def tp_gates(ranks: list, oracles: dict, refs: dict) -> dict:
+    """Phase 17's gates (module docstring) over every rank's ``tp_rank``
+    record beside the oracles (``tp_oracles``) and references
+    (``tp_references``) of this process; the phase's seconds are the
+    oracles', the slowest rank's part and the gates'.  Fails past
+    ``TP_PHASE_LIMIT_S``."""
+    t_phase = time.monotonic()
+    oracle, ref = oracles["a"], refs["b"]
+    res = {"qwen3": {}, "edge": {}, "oracle_s": oracles["seconds"],
+           "reference_s": refs["seconds"], "ranks_s": max(r["seconds"] for r in ranks),
+           "rank_seconds": [r["seconds"] for r in ranks],
+           "rank_ab_seconds": [r["ab_seconds"] for r in ranks]}
     # (a) qwen3_8b at 36 layers on 1x4 against one device
     got = ranks[0]["qwen3"]
     gap = gap_rel(got["first"], oracle["first"])
@@ -3798,11 +4080,135 @@ def tp_phase() -> dict:
             if rec["collectives_per_step"] != predicted:
                 fail(f"{what}: rank {i} made {rec['collectives_per_step']} collectives a "
                      f"decode step, predicted {predicted}")
-    res["seconds"] = time.monotonic() - t_phase
+    res["train"] = tpt_gates([r["train"] for r in ranks], oracles["c2"], refs["free"])
+    res["seconds"] = oracles["seconds"] + res["ranks_s"] + time.monotonic() - t_phase
     if res["seconds"] > TP_PHASE_LIMIT_S:
         fail(f"tensor-parallel phase took {res['seconds']:.1f}s, over its "
              f"{TP_PHASE_LIMIT_S:.0f}s")
     return res
+
+
+def tpt_gates(ranks: list, q_oracle: dict, free_ref: dict) -> dict:
+    """Part (c)'s gates over every rank's ``tpt_rank`` record, beside one
+    device's (c2) step and (c1) free run from this process; returns the
+    part's report."""
+    res = {"lockstep": {}, "seconds": [r["seconds"] for r in ranks]}
+
+    def lockstep(what, recs):
+        """(c1)/(c3)'s gates over the ranks' lockstep records ``recs``."""
+        for i, r in enumerate(recs):
+            worst = {k: max(r[k]) for k in ("loss_gaps", "norm_gaps", "grad_gaps")}
+            for key, tol in (("loss_gaps", TPT_LOSS_TOL), ("norm_gaps", TPT_NORM_TOL),
+                             ("grad_gaps", TPT_GRAD_TOL)):
+                if worst[key] > tol:
+                    fail(f"tp train {what}: rank {i}'s {key[:-5]} gap {worst[key]:.3g} from "
+                         f"one device's step > {tol}")
+            if any(c != r["predicted"] for c in r["collectives"]):
+                fail(f"tp train {what}: rank {i} made {r['collectives']} collectives a step, "
+                     f"predicted {r['predicted']}")
+            if not r.get("masks_equal"):
+                fail(f"tp train {what}: rank {i}'s masks refreshed leaf by leaf differ from "
+                     "one device's")
+            if r["same"] != recs[0]["same"]:
+                fail(f"tp train {what}: rank {i}'s loss or norm differs from rank 0's")
+            lead = next(x for x in recs if x["data_rank"] == r["data_rank"])
+            if r["replicated"] != lead["replicated"]:
+                fail(f"tp train {what}: rank {i}'s replicated gradients differ from its data "
+                     "coordinate's first rank's")
+        r = recs[0]
+        return {"loss_gap_max": max(max(x["loss_gaps"]) for x in recs),
+                "norm_gap_max": max(max(x["norm_gaps"]) for x in recs),
+                "grad_gap_max": max(max(x["grad_gaps"]) for x in recs),
+                "collectives_per_step": r["collectives"][0], "predicted": r["predicted"],
+                "bytes_per_step": float(np.mean(r["bytes"])),
+                "ms_per_step": float(np.median(r["ms"])),
+                "one_device_ms_per_step": float(np.median(r["one_ms"])), "ranks": len(recs)}
+
+    for name in ("1x2", "1x4", "2x2"):
+        res["lockstep"][name] = lockstep(f"vusa_edge {name}", [
+            r["lockstep"][name] for r in ranks if name in r["lockstep"]])
+    # (c3) qwen2 on 1x4: sequence-sharded attention under grad
+    res["qwen2"] = lockstep("qwen2_0_5b 1x4", [r["qwen2"] for r in ranks])
+    if min(r["qwen2"]["seq_shard_calls"] for r in ranks) == 0:
+        fail("tp train qwen2_0_5b 1x4: the sequence-sharded attention did not run")
+    res["qwen2"]["seq_shard_calls"] = ranks[0]["qwen2"]["seq_shard_calls"]
+    # (c2) qwen3 on 1x4 against one device's step; each rank's peak within
+    # its placement's params, grads and moments plus a quarter of one
+    # device's activations (its peak less its own params, grads, moments)
+    act = q_oracle["peak_bytes"] - q_oracle["state_bytes"]
+    for i, r in enumerate(x["qwen3"] for x in ranks):
+        loss_gap = abs(r["loss"] / q_oracle["loss"] - 1)
+        norm_gap = abs(r["gnorm"] / q_oracle["gnorm"] - 1)
+        bound = r["state_bytes"] + act / 4
+        if loss_gap > TPT_LOSS_TOL or norm_gap > TPT_NORM_TOL:
+            fail(f"tp train qwen3_8b 1x4: rank {i}'s loss gap {loss_gap:.3g} or norm gap "
+                 f"{norm_gap:.3g} from one device's step over {TPT_LOSS_TOL} / {TPT_NORM_TOL}")
+        if r["peak_bytes"] > bound:
+            fail(f"tp train qwen3_8b 1x4: rank {i} peaked at {r['peak_bytes']} bytes, over "
+                 f"the bound {bound:.0f} ({r['state_bytes']} of state + {act / 4:.0f})")
+        if r["collectives"] != r["predicted"] or r["same"] != ranks[0]["qwen3"]["same"]:
+            fail(f"tp train qwen3_8b 1x4: rank {i} made {r['collectives']} collectives "
+                 f"(predicted {r['predicted']}) or its loss and norm differ from rank 0's")
+    q = ranks[0]["qwen3"]
+    res["qwen3"] = {
+        "layers": TPT_QWEN3_LAYERS, "cut": TPT_CUT_WHY["qwen3_8b"],
+        "loss_gap": abs(q["loss"] / q_oracle["loss"] - 1),
+        "norm_gap": abs(q["gnorm"] / q_oracle["gnorm"] - 1),
+        "peak_bytes_per_rank": [x["qwen3"]["peak_bytes"] for x in ranks],
+        "bound_bytes": q["state_bytes"] + act / 4, "state_bytes_per_rank": q["state_bytes"],
+        "one_device": {k: q_oracle[k] for k in ("peak_bytes", "state_bytes", "ms", "draw_s")},
+        "peak_ratio": max(x["qwen3"]["peak_bytes"] for x in ranks) / q_oracle["peak_bytes"],
+        **{k: q[k] for k in ("ms", "collectives", "predicted", "bytes", "draw_s")}}
+    # (c1) the free run on 1x2 and its shards served on the same mesh
+    free = [r["free"] for r in ranks if "free" in r]
+    cfg = mesh_cfg("vusa_edge")
+    for i, r in enumerate(free):
+        if abs(r["sparsity"] - cfg.sparsity) > TRAIN_SPARSITY_TOL:
+            fail(f"tp train 1x2 free run: rank {i}'s sparsity {r['sparsity']:.4f}, target "
+                 f"{cfg.sparsity}")
+        gap = abs(r["final_loss"] / free_ref["final_loss"] - 1)
+        if gap > TPT_FREE_TOL:
+            fail(f"tp train 1x2 free run: final loss {r['final_loss']:.5f} is {gap:.3g} from "
+                 f"one device's {free_ref['final_loss']:.5f} > {TPT_FREE_TOL}")
+    serve = [r["serve"] for r in ranks if "serve" in r]
+    one = serve[0]["one"]
+    n, layers = TP_NEW - 1, cfg.n_layers
+    planned = {"vusa_packed_matmul": (4 * layers + 1) * n, "vusa_fused_mlp_partials": layers * n,
+               "vusa_window_sum": layers * n, "vusa_fused_mlp_matmul": 0}
+    for i, r in enumerate(x["tp"] for x in serve):
+        got = {w: sum(c.values()) for w, c in r["launches"].items()}
+        if got != planned:
+            fail(f"tp train 1x2 serving: its rank {i}'s B1/B2 launches {got}, planned "
+                 f"{planned}")
+        if r["digest"] != serve[0]["tp"]["digest"]:
+            fail(f"tp train 1x2 serving: its rank {i}'s tokens or logits differ from its rank "
+                 "0's")
+        if r["collectives_per_step"] != tp_predicted("bf16", 1, 2, layers, False):
+            fail(f"tp train 1x2 serving: its rank {i} made {r['collectives_per_step']} "
+                 "collectives a decode step")
+    tp0 = serve[0]["tp"]
+    gap = gap_rel(tp0["first"], one["first"])
+    if gap > MESH_LOGIT_TOL:
+        fail(f"tp train 1x2 serving: first-step logit gap {gap:.3g} of the largest > "
+             f"{MESH_LOGIT_TOL}")
+    res["free"] = {"final_loss": free[0]["final_loss"], "one_device_final_loss":
+                   free_ref["final_loss"], "sparsity": free[0]["sparsity"],
+                   "final_loss_gap": abs(free[0]["final_loss"] / free_ref["final_loss"] - 1),
+                   **{k: free[0][k] for k in ("ms_per_step", "collectives_per_step",
+                                              "bytes_per_step", "peak_bytes")},
+                   "one_device": {k: free_ref[k] for k in ("ms_per_step", "peak_bytes")}}
+    res["serve"] = {"first_step_gap_rel": gap, "token_agreement": float(np.mean(
+        tp0["tokens"] == one["tokens"])), "launches": tp0["launches"], "planned": planned,
+        **{k: tp0[k] for k in ("collectives_per_step", "bytes_per_step", "ms_per_step",
+                               "tok_per_s")},
+        "one_device_ms_per_step": one["ms_per_step"]}
+    return res
+
+
+def tpt_part_seconds(c: dict) -> dict:
+    """Part (c)'s seconds by part, the slowest rank's of each."""
+    names = sorted({k for r in c["seconds"] for k in r})
+    return {k: round(max(r.get(k, 0.0) for r in c["seconds"]), 1) for k in names}
 
 
 def print_tp(t: dict, card: str) -> None:
@@ -3828,9 +4234,48 @@ def print_tp(t: dict, card: str) -> None:
               f"(one device {r['single_ms_per_step']:.2f}), {r['tok_per_s']:.1f} tok/s, "
               f"dense bytes a rank {r['dense_bytes']}, engine build {r['build_s']:.2f}s "
               f"({card})", flush=True)
-    print(f"tensor-parallel phase {t['seconds']:.1f}s (limit {TP_PHASE_LIMIT_S:.0f}s; "
-          f"single-device references {t['reference_s']:.1f}s, ranks {t['ranks_s']:.1f}s)",
+    c = t["train"]
+    for name, r in c["lockstep"].items():
+        print(f"tp train vusa_edge {name} ({mesh_cfg('vusa_edge').n_layers} layers, fp32, "
+              f"remat, batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, {TPT_LOCKSTEP} steps from one device's state): gaps loss "
+              f"{r['loss_gap_max']:.3g} norm {r['norm_gap_max']:.3g} grad shard "
+              f"{r['grad_gap_max']:.3g}, {r['collectives_per_step']} collectives a step "
+              f"(predicted {r['predicted']}), {r['bytes_per_step']:.0f} bytes a step a rank, "
+              f"{r['ms_per_step']:.1f} ms a step (one device beside it "
+              f"{r['one_device_ms_per_step']:.1f}) ({card})", flush=True)
+    q = c["qwen3"]
+    print(f"tp train qwen3_8b ({q['layers']} of 36 layers, fp32, batch {TPT_QWEN3_BATCH} x "
+          f"{TRAIN_SEQ}) on 1x4: gaps loss {q['loss_gap']:.3g} norm {q['norm_gap']:.3g}, peak "
+          f"a rank {max(q['peak_bytes_per_rank'])} bytes (bound {q['bound_bytes']:.0f}, "
+          f"{q['peak_ratio']:.3f}x one device's {q['one_device']['peak_bytes']}), "
+          f"{q['collectives']} collectives (predicted {q['predicted']}), {q['bytes']} bytes, "
+          f"{q['ms']:.1f} ms a step (one device {q['one_device']['ms']:.1f}) ({card})",
           flush=True)
+    q = c["qwen2"]
+    print(f"tp train qwen2_0_5b ({TPT_QWEN2_LAYERS} of 24 layers, fp32) on 1x4, sequence-"
+          f"sharded attention ({q['seq_shard_calls']} calls): gaps loss {q['loss_gap_max']:.3g} "
+          f"norm {q['norm_gap_max']:.3g} grad shard {q['grad_gap_max']:.3g}, "
+          f"{q['collectives_per_step']} collectives (predicted {q['predicted']}), "
+          f"{q['ms_per_step']:.1f} ms a step (one device {q['one_device_ms_per_step']:.1f}) "
+          f"({card})", flush=True)
+    f, sv = c["free"], c["serve"]
+    print(f"tp train vusa_edge 1x2 free run ({TPT_FREE_STEPS} steps, pruned at {TPT_PRUNE}): "
+          f"final loss {f['final_loss']:.5f} (one device {f['one_device_final_loss']:.5f}, "
+          f"gap {f['final_loss_gap']:.3g}), sparsity {f['sparsity']:.4f}, "
+          f"{f['ms_per_step']:.1f} ms a step (one device {f['one_device']['ms_per_step']:.1f}),"
+          f" {f['collectives_per_step']:.0f} collectives and {f['bytes_per_step']:.0f} bytes a "
+          f"step a rank, peak a rank {f['peak_bytes']} (one device "
+          f"{f['one_device']['peak_bytes']}); served on 1x2 through B1/B2 (fp32 values): "
+          f"first-step gap {sv['first_step_gap_rel']:.3g}, token agreement "
+          f"{sv['token_agreement']:.3f}, launches {sv['launches']}, "
+          f"{sv['ms_per_step']:.1f} ms a decode step (one device "
+          f"{sv['one_device_ms_per_step']:.1f}) ({card})", flush=True)
+    print(f"tensor-parallel phase {t['seconds']:.1f}s (limit {TP_PHASE_LIMIT_S:.0f}s; oracles "
+          f"{t['oracle_s']:.1f}s, the slowest rank's part of the shared world "
+          f"{t['ranks_s']:.1f}s, of it (a)-(b) {max(t['rank_ab_seconds']):.1f}s, (c) by part "
+          f"{tpt_part_seconds(c)}; single-device references {t['reference_s']:.1f}s beside it; "
+          f"the world with phase 15 {t['world_s']:.1f}s)", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -4311,13 +4756,11 @@ def main() -> None:
     rec = recurrent_phase()
     print_recurrent(rec, card)
 
-    mesh = mesh_phase()
-    print_mesh(mesh, card)
-
     left = leftovers_phase(raw, params, cfg)
     print_leftovers(left, card)
 
-    tpp = tp_phase()
+    mesh, tpp = world_phases()
+    print_mesh(mesh, card)
     print_tp(tpp, card)
 
     replaces = {"vusa_packed_matmul": "src/repro/kernels/vusa_packed.py:129",

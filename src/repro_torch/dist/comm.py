@@ -8,6 +8,16 @@ received.  The backend is the process group's: gloo takes CUDA tensors
 for all-gather and broadcast (the ranks that share one card use it), nccl
 needs one GPU per rank.  A collective that fails raises; nothing here retries or falls
 back to a local result.
+
+Three autograd Functions carry the ``model`` axis's collectives through a
+backward, Megatron's f/g pair (a tensor-parallel training step,
+``dist/tp.py``): ``enter_model`` (identity forward, ordered sum backward)
+enters a region in which the ranks split the work, ``sum_model`` (ordered
+sum forward, identity backward) and ``gather_model`` (all-gather forward,
+this rank's slice backward) leave it.  Every region entered through one and
+left through another leaves each replicated tensor's gradient complete and
+the same bits on every ``model`` rank.  Their collectives count in ``STATS``
+as the primitives' do, the backward's too.
 """
 
 from __future__ import annotations
@@ -18,7 +28,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["STATS", "reset_stats", "axis_size", "axis_index", "mesh_shape", "all_gather",
-           "sum_in_rank_order", "broadcast", "broadcast_mesh", "gather_leaves"]
+           "sum_in_rank_order", "broadcast", "broadcast_mesh", "gather_leaves", "enter_model",
+           "sum_model", "gather_model", "gather_model_leaves"]
 
 # collectives made and bytes this rank received, since the last reset, in
 # all and per type ("by_type": {"all-gather" | "all-reduce" | "broadcast":
@@ -153,3 +164,97 @@ def broadcast_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
     for a in mesh.mesh_dim_names:
         broadcast(t, mesh, a, src=0)
     return t
+
+
+# -- differentiable collectives over ``model`` -----------------------------------
+
+
+def _sum_flat(grads: list, mesh) -> list:
+    """``sum_in_rank_order`` over ``model`` of every tensor of ``grads``, one
+    collective a dtype: the tensors are flattened into one buffer, summed,
+    and cut apart (an elementwise sum, so the same bits as a sum a
+    tensor)."""
+    out = list(grads)
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        total, off = sum_in_rank_order(flat, mesh, "model"), 0
+        for i in idx:
+            out[i] = total[off:off + grads[i].numel()].view_as(grads[i])
+            off += grads[i].numel()
+    return out
+
+
+class _EnterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *_sum_flat([g.contiguous() for g in gs], ctx.mesh))
+
+
+class _SumModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, y):
+        return sum_in_rank_order(y, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, dims, *ys):
+        ctx.dims, ctx.sizes = dims, [y.shape[d] for y, d in zip(ys, dims)]
+        ctx.rank = axis_index(mesh, "model")
+        return tuple(gather_leaves(list(ys), list(dims), mesh, "model"))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *(g.narrow(d, ctx.rank * n, n)
+                              for g, d, n in zip(gs, ctx.dims, ctx.sizes)))
+
+
+def enter_model(xs, mesh):
+    """Enter a region whose work the ``model`` ranks split: ``xs`` (a tensor
+    or a tuple of tensors, each whole and the same bits on every rank) as
+    they are; in the backward each gradient, this rank's part of the
+    whole, is summed over ``model`` in rank order (one collective for all
+    of ``xs``).  Identity on a size-1 axis or outside autograd."""
+    single = isinstance(xs, torch.Tensor)
+    ts = (xs,) if single else tuple(xs)
+    if axis_size(mesh, "model") > 1 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in ts):
+        ts = _EnterModel.apply(mesh, *ts)
+    return ts[0] if single else ts
+
+
+def sum_model(y: torch.Tensor, mesh) -> torch.Tensor:
+    """Leave a split region through a sum: ``sum_in_rank_order`` over
+    ``model``; the gradient passes through unchanged (each rank's partial
+    contributed to every rank's sum)."""
+    if axis_size(mesh, "model") == 1:
+        return y
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _SumModel.apply(mesh, y)
+    return sum_in_rank_order(y, mesh, "model")
+
+
+def gather_model(y: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Leave a split region through a gather: ``all_gather`` over ``model``
+    along ``dim``; the gradient of the whole is cut to this rank's slice."""
+    return gather_model_leaves([y], [dim], mesh)[0]
+
+
+def gather_model_leaves(ys: list, dims: list, mesh) -> list:
+    """``gather_model`` of each of ``ys`` along its ``dims`` entry in one
+    collective (``gather_leaves``; every tensor one dtype)."""
+    if axis_size(mesh, "model") == 1 or not ys:
+        return list(ys)
+    if torch.is_grad_enabled() and any(y.requires_grad for y in ys):
+        return list(_GatherModel.apply(mesh, tuple(dims), *ys))
+    return gather_leaves(list(ys), list(dims), mesh, "model")

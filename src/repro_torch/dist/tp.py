@@ -39,6 +39,21 @@ the same bits.
 ``TPPlan`` is the engine's record of one mesh's splits; the layers read it
 through ``models.common.mesh_context``.  ``WholeView`` gathers one leaf at
 a time for the pack builders, so a rank never holds the whole tree.
+
+The trainer runs the same splits forward and backward (``training_plan``:
+the trainer's placements, ``params_shardings``, norm scales included).
+The step gathers every ``data``-sharded leaf once (``train/step.py``), so
+the compute holds each leaf at its ``model`` shard; the collectives are
+``comm``'s differentiable ones: a column-parallel product's input enters
+through ``enter_model`` (its gradient summed over ``model`` in the
+backward), a row-parallel product leaves through ``sum_model``, the
+sequence-sharded attention through ``gather_model``.  The head stays
+vocab-parallel into the loss (``TPPlan.xent``): the whole (B, S, V) logits
+never exist on a rank.  A replicated leaf read inside a split region (the
+qk-norm scales under split heads) enters it too, and a heads leaf gathered
+over ``model`` (its kv leaf whole) is gathered through ``gather_model``, so
+every replicated leaf's gradient is complete and the same bits on every
+``model`` rank.
 """
 
 from __future__ import annotations
@@ -52,20 +67,26 @@ import torch
 import torch.nn.functional as F
 
 from ..models.common import per_row
-from .comm import all_gather, axis_index, axis_size, gather_leaves, mesh_shape, sum_in_rank_order
+from ..optim.adamw import tree_items
+from .comm import (
+    all_gather, axis_index, axis_size, enter_model, gather_leaves, gather_model_leaves,
+    mesh_shape, sum_model,
+)
 from .sharding import _names, gather_whole, local_shard, params_shardings
 
-__all__ = ["TPPlan", "serving_plan", "local_config", "storage_placements", "shard_shape",
-           "place_params", "placement_bytes", "tree_bytes", "WholeView"]
+__all__ = ["TPPlan", "serving_plan", "training_plan", "local_config", "storage_placements",
+           "shard_shape", "place_params", "placement_bytes", "tree_bytes", "WholeView"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
-    """The splits of one mesh for the dense family's serving path.
-    ``placements`` is the storage placement tree (``storage_placements``);
+    """The splits of one mesh for the dense family's serving path, or for
+    its training step (``train``).  ``placements`` is the storage placement
+    tree (``storage_placements``; the trainer's, ``params_shardings``);
     ``heads``, ``ff`` and ``vocab`` say whether the compute runs on local
     heads, a local ff slab and a local vocab range; ``rank`` is this rank's
-    ``model`` coordinate."""
+    ``model`` coordinate; ``train``: the trainer's plan, whose step holds
+    every leaf gathered over ``data`` (``held``)."""
 
     mesh: object
     placements: dict
@@ -74,6 +95,13 @@ class TPPlan:
     heads: bool
     ff: bool
     vocab: bool
+    train: bool = False
+
+    def held(self, placement: tuple) -> tuple:
+        """The placement a leaf stored at ``placement`` is held at while the
+        plan computes: as stored, or under the training plan with every
+        ``data`` dim whole (the step gathers them once)."""
+        return tuple(None if a == "data" else a for a in placement) if self.train else placement
 
     # -- parameters at their point of use ------------------------------------
     def _want(self, group: str, placement: tuple) -> tuple:
@@ -99,7 +127,7 @@ class TPPlan:
             for name in leaves:
                 if name not in lp[group]:
                     continue
-                have = self.placements["layers"][group][name][1:]
+                have = self.held(self.placements["layers"][group][name])[1:]
                 want = self._want(group, have)
                 if have != want:
                     todo[(group, name)] = (lp[group][name], have, want)
@@ -125,7 +153,7 @@ class TPPlan:
         ``data``."""
         name = "embed" if tied else "lm_head"
         w = params[name]
-        if "data" in self.placements[name]:
+        if "data" in self.held(self.placements[name]):
             w = all_gather(w, self.mesh, "data", dim=self.placements[name].index("data"))
         return w.T if tied else w
 
@@ -137,14 +165,13 @@ class TPPlan:
         rank's tokens are looked up in this rank's columns and the columns
         gathered, and this rank keeps its own rows."""
         e = params["embed"]
-        on_data = self.placements["embed"][1] == "data"
+        on_data = self.held(self.placements["embed"])[1] == "data"
         toks = all_gather(tokens, self.mesh, "data", dim=0) if on_data else tokens
         if self.vocab:
             idx = toks - self.rank * e.shape[0]
             inside = (idx >= 0) & (idx < e.shape[0])
             rows = F.embedding(idx.clamp(0, e.shape[0] - 1), e)
-            rows = sum_in_rank_order(torch.where(inside[..., None], rows, 0.0), self.mesh,
-                                     "model")
+            rows = sum_model(torch.where(inside[..., None], rows, 0.0), self.mesh)
         else:
             rows = F.embedding(toks, e)
         if on_data:
@@ -159,13 +186,118 @@ class TPPlan:
         y = per_row(lambda r: r @ head, x, rowwise)
         return all_gather(y, self.mesh, "model", dim=-1) if self.vocab else y
 
+    def heads_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of the column-parallel q/k/v products on the local
+        heads (``enter_model``: its gradient summed over ``model``)."""
+        return enter_model(x, self.mesh) if self.heads else x
+
     def heads_out(self, y: torch.Tensor) -> torch.Tensor:
         """The row-parallel ``wo`` partials summed over ``model``."""
-        return sum_in_rank_order(y, self.mesh, "model") if self.heads else y
+        return sum_model(y, self.mesh) if self.heads else y
+
+    def ff_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of the column-parallel ``w_gate``/``w_up`` products."""
+        return enter_model(x, self.mesh) if self.ff else x
 
     def ff_out(self, y: torch.Tensor) -> torch.Tensor:
         """The row-parallel ``w_down`` partials summed over ``model``."""
-        return sum_in_rank_order(y, self.mesh, "model") if self.ff else y
+        return sum_model(y, self.mesh) if self.ff else y
+
+    # -- the training forward ------------------------------------------------
+    def train_params(self, params: dict) -> dict:
+        """``params`` (held: every leaf at its ``model`` shard) as the
+        training forward reads them: where attention does not split by
+        heads, every attention leaf split over ``model`` gathered whole
+        (one ``gather_model`` call: its gradient cut back to this rank's
+        slice); where it does, the replicated qk-norm scales, read on the
+        local heads, entered through ``enter_model`` (one call)."""
+        attn = dict(params["layers"]["attn"])
+        pl = self.placements["layers"]["attn"]
+        if not self.heads:
+            names = [n for n in sorted(attn) if "model" in self.held(pl[n])]
+            whole = gather_model_leaves([attn[n] for n in names],
+                                        [pl[n].index("model") for n in names], self.mesh)
+            attn.update(zip(names, whole))
+        else:
+            names = [n for n in ("q_norm", "k_norm") if n in attn]
+            attn.update(zip(names, enter_model(tuple(attn[n] for n in names), self.mesh)))
+        return dict(params, layers=dict(params["layers"], attn=attn))
+
+    def train_logits(self, x: torch.Tensor, params: dict, tied: bool) -> torch.Tensor:
+        """This rank's vocab columns of the logits, (B, S, V / tp): the head
+        on the local vocab range, its input entered through
+        ``enter_model``."""
+        head = self.head_matrix(params, tied).to(x.dtype)
+        if self.vocab:
+            x = enter_model(x, self.mesh)
+        return torch.einsum("bsd,dv->bsv", x, head)
+
+    def xent(self, logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+        """Vocab-parallel mean next-token cross-entropy of this rank's logit
+        columns (``train_logits``); ids >= ``vocab`` (padding) masked, as
+        ``families._xent``.  The row maximum is the largest of every rank's
+        (gathered, detached: exact); the sum of ``exp`` and the label's
+        logit, taken from the one rank whose columns hold it (the other
+        addends 0, so exact), are summed over ``model`` in one
+        ``sum_model``.  The logsumexp form of ``_xent``'s ``xent_lse``
+        route: the label's logit picked in model dtype and widened."""
+        if not self.vocab:
+            from ..models.families import _xent
+
+            return _xent(logits, labels, vocab)
+        mask = (labels >= 0) & (labels < vocab)
+        labels = labels.clamp(0, vocab - 1).long()
+        v = logits.shape[-1]
+        l32 = logits.float()
+        m = all_gather(l32.detach().amax(dim=-1, keepdim=True), self.mesh, "model",
+                       dim=-1).amax(dim=-1)
+        idx = labels - self.rank * v
+        inside = (idx >= 0) & (idx < v)
+        picked = logits.gather(-1, idx.clamp(0, v - 1)[..., None])[..., 0]
+        picked = torch.where(inside, picked.float(), 0.0)
+        sums = sum_model(torch.stack([torch.exp(l32 - m[..., None]).sum(dim=-1), picked]),
+                         self.mesh)
+        ll = sums[1] - (m + torch.log(sums[0]))
+        return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+
+    def train_collectives(self, cfg, seq: int, microbatches: int = 1, split: bool = False,
+                          compress: bool = False) -> int:
+        """The collectives one training step makes on a rank under this
+        (training) plan, batches of ``seq`` tokens.  A forward: the
+        embedding's sum, a layer's ``wo`` sum (or, where the heads do not
+        split, the sequence-sharded attention's gather) and ``w_down`` sum,
+        the loss's maximum gather and its sum, and where the heads do not
+        split one gather of the attention leaves split over ``model``.  Its
+        backward: the head's input entered, a layer's q/k/v input (or the
+        sequence split's q, k and v) and MLP input entered, and where the
+        heads split the qk-norm scales entered.  ``cfg.remat`` makes each
+        layer's forward collectives again in the backward but the MLP's
+        ``w_down`` sum, which ends the layer: the recompute stops at the
+        last tensor the backward saved (``torch.utils.checkpoint``'s early
+        stop), and ``sum_model`` saves none.  All of it a
+        microbatch; then once a step the ``data`` gather, with ``split``
+        the sum over the data ranks of every gradient leaf and the loss
+        (``comm.sum_in_rank_order``: one all-reduce over one axis of two,
+        else a gather an axis), the norm's sum over ``model`` and with
+        ``compress`` the scales' gather."""
+        from ..models.opt_flags import FLAGS
+
+        layers = cfg.n_layers
+        seq_split = (not self.heads and FLAGS["attn_seq_shard"] and seq % self.tp == 0)
+        per_layer = int(self.heads or seq_split) + int(self.ff)
+        attn = self.placements["layers"]["attn"]
+        gathered = not self.heads and any("model" in pl for pl in attn.values())
+        forward = 3 * int(self.vocab) + layers * per_layer + int(gathered)
+        backward = int(self.vocab) + layers * per_layer + int(self.heads and cfg.qk_norm)
+        remat = layers * (per_layer - int(self.ff)) if cfg.remat else 0
+        n = microbatches * (forward + backward + remat)
+        pls = [pl for _, pl in tree_items(self.placements)]
+        n += int(axis_size(self.mesh, "data") > 1 and any("data" in pl for pl in pls))
+        if split:
+            sizes = [axis_size(self.mesh, a) for a in ("pod", "data")]
+            live = [k for k in sizes if k > 1]
+            n += (len(pls) + 1) * (1 if live == [2] else len(live))
+        return n + 1 + int(compress)
 
 
 def serving_plan(cfg, mesh) -> Optional[TPPlan]:
@@ -175,14 +307,31 @@ def serving_plan(cfg, mesh) -> Optional[TPPlan]:
         return None
     from ..models import build_model
 
-    specs = build_model(cfg).specs()
-    pl = storage_placements(specs, mesh)
+    return _plan(mesh, storage_placements(build_model(cfg).specs(), mesh), train=False)
+
+
+def _plan(mesh, pl: dict, train: bool) -> TPPlan:
+    """The splits of placements ``pl`` on ``mesh``."""
     attn = pl["layers"]["attn"]
     return TPPlan(
         mesh=mesh, placements=pl, tp=axis_size(mesh, "model"), rank=axis_index(mesh, "model"),
         heads=attn["wq"][2] == "model" and attn["wk"][2] == "model",
         ff=pl["layers"]["ffn"]["w_gate"][2] == "model",
-        vocab=pl["embed"][0] == "model")
+        vocab=pl["embed"][0] == "model", train=train)
+
+
+def training_plan(cfg, mesh) -> Optional[TPPlan]:
+    """The plan of the dense family's training step on ``mesh``: the
+    serving plan's splits on the trainer's placements (``params_shardings``,
+    the norm scales on ``data`` too), held gathered over ``data`` while the
+    step computes.  None for no mesh, a ``model`` axis of 1 (the step is
+    then the single-device program on gathered parameters) or another
+    family."""
+    if cfg.family != "dense" or axis_size(mesh, "model") == 1:
+        return None
+    from ..models import build_model
+
+    return _plan(mesh, params_shardings(build_model(cfg).specs(), mesh), train=True)
 
 
 def local_config(cfg, plan: Optional[TPPlan]):

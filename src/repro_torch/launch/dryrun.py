@@ -13,8 +13,12 @@ no storage) under ``launch/op_cost.py``'s counter:
 * ``train`` — the port's train step (``train/step.py make_train_step``
   with ``Trainer``'s mesh arguments): parameters and both AdamW moments as
   rank 0's shards under ``dist/sharding.py params_shardings``, the batch
-  rows split over ``pod`` x ``data``, the whole parameters gathered for the
-  forward and the gradients summed over those axes in rank order;
+  rows split over ``pod`` x ``data`` and the gradients summed over those
+  axes in rank order; the dense family's step tensor-parallel
+  (``dist.tp.training_plan``: the ``data`` dims gathered once, the forward
+  and backward on rank 0's ``model`` shards, the sequence-sharded attention
+  where the heads do not divide ``model``), the other families' on the
+  whole parameters gathered for the forward;
 * ``prefill`` — ``Model.prefill`` (``Model.forward`` for the recurrent
   families, as the reference chooses) on rank 0's rows of the batch, under
   ``models.common.mesh_context`` so the sequence-sharded attention applies
@@ -66,7 +70,7 @@ from ..dist import comm
 from ..dist.sharding import (
     _batch_axes, batch_sharding, local_shard, params_shardings, serve_shardings, shard_tree,
 )
-from ..dist.tp import local_config, serving_plan
+from ..dist.tp import local_config, serving_plan, training_plan
 from ..models import build_model
 from ..models import opt_flags
 from ..models.common import mesh_context
@@ -176,7 +180,7 @@ def build_step(cfg, kind: str, batch: int, seq: int, mesh=None, device="meta",
         if rows is not None:
             inputs = {k: v[:rows] for k, v in inputs.items()}
         step = make_train_step(model.loss, TrainHParams(microbatches=1), mesh, p_shard,
-                               split=rows is not None)
+                               split=rows is not None, plan=training_plan(cfg, mesh))
 
         def run():
             return step(params, opt, inputs)

@@ -30,17 +30,21 @@ plan (``dist/tp.py``, installed by ``common.mesh_context``): the parameters
 are this rank's shards, each layer's leaves gathered over ``data`` at use
 (``_dense_layer``), the embedding and the head vocab-parallel
 (``_embed_tokens``, ``_head_logits``).  With no plan they are the
-single-device program.
+single-device program.  ``lm_forward`` and ``lm_loss`` run under the
+trainer's plan (``dist.tp.training_plan``) forward and backward on this
+rank's shards, the loss vocab-parallel (``TPPlan.xent``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as Fn
 from torch.utils.checkpoint import checkpoint
 
 from .cache import batch_axes, slot_view
-from .common import ParamSpec, current_tp, per_row, rms_norm
+from .common import ParamSpec, current_tp, mesh_context, per_row, rms_norm
 from .layers import (
     MaskSpec, attention, attention_chunk, attention_decode, attention_specs, cross_attention,
     encode_cross_kv, mlp, mlp_specs, moe, moe_specs,
@@ -175,21 +179,45 @@ def _lm_layer(lp, x, cfg, mask, positions):
     return x + y, aux
 
 
+def _layer_in(mesh, plan, *args):
+    """``_lm_layer`` under ``mesh_context(mesh, plan)``.  A remat recompute
+    runs where autograd runs the backward, on the card its device thread,
+    which the caller's context (thread-local) does not reach: the layer
+    would recompute without the plan, on other shapes."""
+    with mesh_context(mesh, plan):
+        return _lm_layer(*args)
+
+
 def lm_forward(params, batch, cfg):
     """Teacher-forced logits (B, S, V) of the text positions and the aux
     loss summed over layers (0 but for the moe family).  Under grad with
     ``cfg.remat`` each layer is recomputed in the backward
-    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``."""
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+
+    Under the trainer's tensor-parallel plan (the dense family,
+    ``dist.tp.training_plan``) ``params`` are this rank's ``model`` shards,
+    the layers run on the local heads and ff slab (``TPPlan.train_params``,
+    ``dist.tp.local_config``) and the logits are this rank's vocab columns
+    (B, S, V / tp), which ``lm_loss`` takes to ``TPPlan.xent``."""
+    plan = current_tp()
+    lcfg = cfg
+    if plan is not None:
+        from ..dist.tp import local_config
+
+        params, lcfg = plan.train_params(params), local_config(cfg, plan)
     x, mask, positions = _lm_inputs(params, batch, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
+    layer = _lm_layer if plan is None else functools.partial(_layer_in, plan.mesh, plan)
     aux = 0.0
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
-            x, a = checkpoint(_lm_layer, lp, x, cfg, mask, positions, use_reentrant=False)
+            x, a = checkpoint(layer, lp, x, lcfg, mask, positions, use_reentrant=False)
         else:
-            x, a = _lm_layer(lp, x, cfg, mask, positions)
+            x, a = _lm_layer(lp, x, lcfg, mask, positions)
         aux = aux + a
     x = rms_norm(x, params["final_norm"])
+    if plan is not None:
+        return plan.train_logits(x, params, cfg.tie_embeddings), aux
     logits = torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
     if cfg.family == "vlm":  # only text positions produce logits
         logits = logits[:, cfg.patch_tokens :]
@@ -216,9 +244,12 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tenso
 
 def lm_loss(params, batch, cfg):
     """Next-token loss over the shifted tokens plus 0.01 x the aux loss
-    (0 but for the moe family)."""
+    (0 but for the moe family); under the trainer's tensor-parallel plan
+    the vocab-parallel cross-entropy of this rank's logit columns."""
     logits, aux = lm_forward(params, batch, cfg)
-    return _xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab) + 0.01 * aux
+    plan = current_tp()
+    xent = _xent if plan is None else plan.xent
+    return xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab) + 0.01 * aux
 
 
 # ---- decode ----------------------------------------------------------------

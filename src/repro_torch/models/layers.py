@@ -17,15 +17,17 @@ accumulation, else fp32 (the reference's model tests pin it off to
 compare prefill with decode); the MoE finds each assignment's place in
 its expert by a stable sort or a one-hot count (``moe_sort_positions``),
 with one dump slot or, under ``moe_shard_capacity``, the reference's
-capacity rounded up to 256; prefill attention splits its queries over a
-mesh's ``model`` axis under ``attn_seq_shard``.  Masked scores are
-``-1e30``, not ``-inf``.
+capacity rounded up to 256; prefill and training attention split their
+queries over a mesh's ``model`` axis under ``attn_seq_shard``.  Masked
+scores are ``-1e30``, not ``-inf``.
 
-Under the serving engine's tensor-parallel plan (``dist/tp.py``, read
-through ``common.current_tp``) the dense family's attention runs on this
-rank's heads (the config's head counts are the local ones) with its
-``wo`` partials summed over ``model``, and the MLP on its ff slab with its
-``w_down`` partials summed; packed projections are then the rank's own
+Under a tensor-parallel plan (``dist/tp.py``, the serving engine's or the
+trainer's, read through ``common.current_tp``) the dense family's
+attention runs on this rank's heads (the config's head counts are the
+local ones) with its ``wo`` partials summed over ``model``, and the MLP on
+its ff slab with its ``w_down`` partials summed; the inputs of both enter
+through ``comm.enter_model``, so a backward sums their gradients over
+``model``.  Packed projections are then the rank's own
 (``serve/packed.py``, ``split_heads``).
 """
 
@@ -209,68 +211,79 @@ class _FlashAttention(torch.autograd.Function):
     ``attn_bf16_probs`` (else fp32), at the reference's rounding points:
     torch autograd through :func:`_flash_chunks` rounds elsewhere, and its
     gradients then part from the reference's by 3e-3 of the largest or
-    more.  q (B, S, KVH, G, hd), k and v (B, S, KVH, hd), ``pos`` (S,) and
-    ``valid`` (S,) bool, with S a multiple of ``chunk`` (query and KV chunks
-    alike).  Returns the fp32 output (B, S, KVH, G, hd).
+    more.  q (B, Sq, KVH, G, hd), k and v (B, Sk, KVH, hd), ``q_pos``
+    (Sq,), ``k_pos`` (Sk,) and ``valid`` (Sk,) bool, with Sq a multiple of
+    ``q_chunk`` and Sk of ``k_chunk``.  Returns the fp32 output (B, Sq,
+    KVH, G, hd).
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, pos, valid, chunk: int, mask: MaskSpec):
-        out, m, l = _flash_chunks(q, k, v, mask, pos, pos, valid, chunk)
+    def forward(ctx, q, k, v, q_pos, k_pos, valid, q_chunk: int, k_chunk: int,
+                mask: MaskSpec):
+        out, m, l = _flash_chunks(q, k, v, mask, q_pos, k_pos, valid, k_chunk)
         out = out.permute(0, 3, 1, 2, 4)
-        ctx.save_for_backward(q, k, v, out, m, l, pos, valid)
-        ctx.chunk, ctx.mask = chunk, mask
+        ctx.save_for_backward(q, k, v, out, m, l, q_pos, k_pos, valid)
+        ctx.chunks, ctx.mask = (q_chunk, k_chunk), mask
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, m, l, pos, valid = ctx.saved_tensors
-        c, mask = ctx.chunk, ctx.mask
-        s_len, hd = q.shape[1], q.shape[-1]
+        q, k, v, out, m, l, q_pos, k_pos, valid = ctx.saved_tensors
+        (cq, ck), mask = ctx.chunks, ctx.mask
+        sq, sk, hd = q.shape[1], k.shape[1], q.shape[-1]
         scale = hd**-0.5
         do = dout.float()
         d_stat = torch.einsum("bqhgd,bqhgd->bhgq", do, out)  # D_i = rowsum(dO * O)
         p_div = torch.clamp_min(l, 1e-30)
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dks, dvs = [], []
-        for k0 in range(0, s_len, c):
-            kj, vj = k[:, k0 : k0 + c].float(), v[:, k0 : k0 + c].float()
+        for k0 in range(0, sk, ck):
+            kj, vj = k[:, k0 : k0 + ck].float(), v[:, k0 : k0 + ck].float()
             kb = _probs_operand(kj)
-            allow_k = valid[None, k0 : k0 + c]
+            allow_k = valid[None, k0 : k0 + ck]
             dkj = torch.zeros(kj.shape, dtype=torch.float32, device=q.device)
             dvj = torch.zeros(vj.shape, dtype=torch.float32, device=q.device)
-            for q0 in range(0, s_len, c):
-                qi, doi = q[:, q0 : q0 + c].float(), do[:, q0 : q0 + c]
+            for q0 in range(0, sq, cq):
+                qi, doi = q[:, q0 : q0 + cq].float(), do[:, q0 : q0 + cq]
                 s = scale * torch.einsum("bqhgd,bkhd->bhgqk", qi, kj)
-                allow = mask(pos[q0 : q0 + c], pos[k0 : k0 + c]) & allow_k
+                allow = mask(q_pos[q0 : q0 + cq], k_pos[k0 : k0 + ck]) & allow_k
                 s = s.masked_fill(~allow, _NEG_INF)
-                p = torch.exp(s - m[..., q0 : q0 + c, None]) / p_div[..., q0 : q0 + c, None]
+                p = torch.exp(s - m[..., q0 : q0 + cq, None]) / p_div[..., q0 : q0 + cq, None]
                 dp = torch.einsum("bqhgd,bkhd->bhgqk", doi, vj)
-                dsv = p * (dp - d_stat[..., q0 : q0 + c, None]) * scale
+                dsv = p * (dp - d_stat[..., q0 : q0 + cq, None]) * scale
                 pc, dc = _probs_operand(p), _probs_operand(dsv)
                 dvj = dvj + torch.einsum("bhgqk,bqhgd->bkhd", pc, _probs_operand(doi))
                 dkj = dkj + torch.einsum("bhgqk,bqhgd->bkhd", dc, _probs_operand(qi))
-                dq[:, q0 : q0 + c] += torch.einsum("bhgqk,bkhd->bqhgd", dc, kb)
+                dq[:, q0 : q0 + cq] += torch.einsum("bhgqk,bkhd->bqhgd", dc, kb)
             dks.append(dkj)
             dvs.append(dvj)
         dk, dv = torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 6
 
 
-def flash_attention_train(q, k, v, positions, mask: MaskSpec = MaskSpec("causal")):
-    """Training attention through :class:`_FlashAttention`: chunks of
-    ``min(512, s)``, s padded to a multiple of the chunk (padded keys are
-    invalid, padded rows are dropped), as the reference's custom-VJP path.
-    Returns (B, S, KVH, G, hd) in ``q.dtype``."""
-    s = q.shape[1]
-    chunk = min(512, s)
-    pad = (-s) % chunk
-    valid = torch.ones((s + pad,), dtype=torch.bool, device=q.device)
-    if pad:
-        q, k, v = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (q, k, v))
-        positions = F.pad(positions, (0, pad))
-        valid[s:] = False
-    return _FlashAttention.apply(q, k, v, positions, valid, chunk, mask)[:, :s].to(q.dtype)
+def flash_attention_train(q, k, v, positions, mask: MaskSpec = MaskSpec("causal"),
+                          k_positions=None):
+    """Training attention through :class:`_FlashAttention`: query chunks of
+    ``min(512, Sq)`` and KV chunks of ``min(512, Sk)``, each length padded
+    to a multiple of its chunk (padded keys are invalid, padded rows are
+    dropped), as the reference's custom-VJP path.  ``k_positions`` (default
+    ``positions``): the keys' positions, where the queries are a slice of
+    the sequence (the sequence-sharded attention).  Returns (B, Sq, KVH, G,
+    hd) in ``q.dtype``."""
+    k_positions = positions if k_positions is None else k_positions
+    sq, sk = q.shape[1], k.shape[1]
+    cq, ck = min(512, sq), min(512, sk)
+    pq, pk = (-sq) % cq, (-sk) % ck
+    valid = torch.ones((sk + pk,), dtype=torch.bool, device=q.device)
+    if pq:
+        q = F.pad(q, (0, 0) * (q.ndim - 2) + (0, pq))
+        positions = F.pad(positions, (0, pq))
+    if pk:
+        k, v = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pk)) for t in (k, v))
+        k_positions = F.pad(k_positions, (0, pk))
+        valid[sk:] = False
+    return _FlashAttention.apply(q, k, v, positions, k_positions, valid, cq, ck,
+                                 mask)[:, :sq].to(q.dtype)
 
 
 def _direct_attend(
@@ -376,25 +389,26 @@ def attention(
     """Full-sequence self-attention (train / prefill).  With ``return_kv``
     also returns the projected K/V rows, which prefill writes to the cache
     (the reference recomputes them; the values are the same).  When q, k or
-    v require grad and there is no ``kv_valid``, it is the training path:
-    the reference's custom-VJP flash attention (:func:`flash_attention_train`),
-    or with ``flash_custom_vjp`` off autograd through :func:`_flash_attend`."""
+    v require grad and there is no ``kv_valid``, it is the training path
+    (:func:`_train_attend`).  On a mesh whose ``model`` axis the heads do
+    not divide, either path may split the queries over ``model``
+    (:func:`_maybe_seq_sharded_attention`); under a tensor-parallel plan
+    whose heads split, ``x`` enters the local heads' products through
+    ``comm.enter_model``."""
     b, s, _ = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    plan = current_tp()
+    q, k, v = _project_qkv(p, x if plan is None else plan.heads_in(x), cfg, positions)
     q = q.reshape(b, s, kvh, nh // kvh, hd)
-    if kv_valid is None and not return_kv and any(t.requires_grad for t in (q, k, v)):
-        if FLAGS["flash_custom_vjp"]:
-            out = flash_attention_train(q, k, v, positions, mask)
-        else:  # the baseline: autograd keeps every chunk's scores for the backward
-            out = _flash_attend(q, k, v, mask, positions, positions)
-    else:
-        out = None if kv_valid is not None else _maybe_seq_sharded_attention(
-            q, k, v, mask, positions)
-        if out is None:
-            out = _flash_attend(q, k, v, mask, positions, positions, kv_valid=kv_valid)
+    out = None
+    if kv_valid is None:
+        out = _maybe_seq_sharded_attention(q, k, v, mask, positions)
+        if out is None and not return_kv and any(t.requires_grad for t in (q, k, v)):
+            out = _train_attend(q, k, v, mask, positions)
+    if out is None:
+        out = _flash_attend(q, k, v, mask, positions, positions, kv_valid=kv_valid)
     out = out.reshape(b, s, nh, hd)
     y = _heads_out(torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype)))
     return (y, k, v) if return_kv else y
@@ -407,19 +421,37 @@ def _heads_out(y: torch.Tensor) -> torch.Tensor:
     return y if plan is None else plan.heads_out(y)
 
 
+def _train_attend(q, k, v, mask: MaskSpec, q_pos, k_pos=None):
+    """The training attend of queries ``q`` at ``q_pos`` over keys at
+    ``k_pos`` (default ``q_pos``): the reference's custom-VJP flash
+    attention (:func:`flash_attention_train`), or with ``flash_custom_vjp``
+    off autograd through :func:`_flash_attend` (every chunk's scores kept
+    for the backward)."""
+    k_pos = q_pos if k_pos is None else k_pos
+    if FLAGS["flash_custom_vjp"]:
+        return flash_attention_train(q, k, v, q_pos, mask, k_pos)
+    return _flash_attend(q, k, v, mask, q_pos, k_pos)
+
+
 def _maybe_seq_sharded_attention(q, k, v, mask: MaskSpec, positions):
-    """Sequence-parallel prefill attention, the reference's
+    """Sequence-parallel attention, the reference's
     ``_maybe_seq_sharded_attention``.  When the q-heads and the
     kv-heads do not both divide the mesh's ``model`` axis, head tensor
     parallelism would split heads across ranks.  Instead each model rank
     attends its contiguous slice of the queries against the whole K/V,
-    and the slices are all-gathered along the sequence.  Returns None when
-    it does not apply: no mesh, a size-1 ``model`` axis, heads that both
-    divide, a sequence the axis does not divide, or the ``attn_seq_shard``
-    flag off, or heads already split over ``model`` by the engine's
-    tensor-parallel plan.  Inference only: the training forward stays the
-    single-device program."""
-    from ..dist.comm import all_gather, axis_index, axis_size
+    and the slices are all-gathered along the sequence.  Under grad (the
+    tensor-parallel training step) q, k and v, whole on every rank, enter
+    the split through ``comm.enter_model`` (their gradients, each rank's
+    part from its query slice, summed over ``model``), the slice runs the
+    training attend (the reference's flash custom VJP) and the slices
+    leave through ``comm.gather_model``.  Returns None when it does not
+    apply: no mesh, a size-1 ``model`` axis, heads that both divide, a
+    sequence the axis does not divide, or the ``attn_seq_shard`` flag off,
+    or heads already split over ``model`` by the tensor-parallel plan.
+    The reference also needs the batch to divide the data ranks (its
+    ``shard_map``'s batch spec); a port rank attends the rows it holds,
+    whether the trainer split the batch or not."""
+    from ..dist.comm import axis_index, axis_size, enter_model, gather_model
     from .common import current_mesh
 
     mesh = current_mesh()
@@ -431,10 +463,14 @@ def _maybe_seq_sharded_attention(q, k, v, mask: MaskSpec, positions):
         return None
     s_loc = s // tp
     r = axis_index(mesh, "model")
-    q_loc = q[:, r * s_loc:(r + 1) * s_loc]
-    out = _flash_attend(q_loc, k, v, mask, positions[r * s_loc:(r + 1) * s_loc], positions)
+    rows = slice(r * s_loc, (r + 1) * s_loc)
+    if any(t.requires_grad for t in (q, k, v)):
+        q, k, v = enter_model((q, k, v), mesh)
+        out = _train_attend(q[:, rows], k, v, mask, positions[rows], positions)
+    else:
+        out = _flash_attend(q[:, rows], k, v, mask, positions[rows], positions)
     _maybe_seq_sharded_attention.calls += 1
-    return all_gather(out, mesh, "model", dim=1)
+    return gather_model(out, mesh, dim=1)
 
 
 _maybe_seq_sharded_attention.calls = 0  # times it applied, for tests and the chip phase
@@ -635,11 +671,14 @@ def encode_cross_kv(p: dict, enc_out: torch.Tensor, cfg):
 
 def mlp(p: dict, x: torch.Tensor, rowwise: bool = False) -> torch.Tensor:
     """SwiGLU MLP; ``rowwise`` as in ``_project_qkv`` (weights cast once).
-    Under a tensor-parallel plan the weights are this rank's ff slab and the
-    ``w_down`` partials are summed over ``model``."""
+    Under a tensor-parallel plan the weights are this rank's ff slab, the
+    input enters through ``enter_model`` and the ``w_down`` partials are
+    summed over ``model``."""
     wg, wu, wd = (p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down"))
-    y = per_row(lambda r: (F.silu(r @ wg) * (r @ wu)) @ wd, x, rowwise)
     plan = current_tp()
+    if plan is not None:
+        x = plan.ff_in(x)
+    y = per_row(lambda r: (F.silu(r @ wg) * (r @ wu)) @ wd, x, rowwise)
     return y if plan is None else plan.ff_out(y)
 
 

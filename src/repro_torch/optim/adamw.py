@@ -14,6 +14,7 @@ scales ``(L, d)`` and the embedding, not only the matrices.
 
 from __future__ import annotations
 
+import math
 from typing import Iterator, NamedTuple, Tuple
 
 import torch
@@ -50,8 +51,12 @@ def adamw_init(params: dict) -> AdamState:
 
 @torch.no_grad()
 def clip_by_global_norm(grads: list, max_norm: float) -> Tuple[list, torch.Tensor]:
-    """``grads`` is a list of leaves; returns (scaled leaves, global norm)."""
+    """``grads`` is a list of leaves; returns (scaled leaves, global norm).
+    With ``max_norm`` infinite the scale is exactly 1 and ``grads`` itself
+    is returned (no copy of every gradient)."""
     gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    if math.isinf(max_norm):
+        return grads, gnorm
     scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
     return [g * scale for g in grads], gnorm
 
@@ -68,18 +73,30 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     max_grad_norm: float = 1.0,
+    consume: bool = False,
 ):
     """One AdamW step in place.  ``grads`` are the leaves of ``params`` in
     :func:`tree_items` order.  Returns ``(params, state, gnorm)``, the same
-    objects, updated."""
+    objects, updated.  With ``consume`` (and ``max_grad_norm`` infinite, so
+    the list is the caller's) the leaves are updated smallest first and
+    each entry of ``grads`` is set to None once its leaf is updated: the
+    largest leaves' temporaries then meet the fewest gradients still held
+    (each leaf's update is its own, so the bits are the same in any
+    order)."""
     grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
     state.step.add_(1)
     step = state.step.float()
     c1 = 1.0 - torch.pow(b1, step)
     c2 = 1.0 - torch.pow(b2, step)
-    leaves = zip(tree_items(params), tree_items(state.mu), tree_items(state.nu), grads)
-    for (_, p), (_, m), (_, v), g in leaves:
-        g = g.float()
+    leaves = list(zip(tree_items(params), tree_items(state.mu), tree_items(state.nu)))
+    order = range(len(leaves))
+    if consume:
+        order = sorted(order, key=lambda i: grads[i].numel())
+    for i in order:
+        (_, p), (_, m), (_, v) = leaves[i]
+        g = grads[i].float()
+        if consume:
+            grads[i] = None
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g.square())
         delta = (m / c1) / (torch.sqrt(v / c2) + eps)

@@ -9,10 +9,17 @@ stored as each rank's shards under ``dist.sharding.params_shardings``,
 the batch rows split over every pure data axis, ``("pod", "data")``
 flattened pod-major as the reference's batch placement (when their
 product divides them), and the
-step is ``train/step.py``'s sharded step; the pruning masks are computed
-on the whole tree, in the single-device order.  A checkpoint stays the
+step is ``train/step.py``'s sharded step: for the dense family on a
+``model`` axis above 1 the tensor-parallel one (``dist.tp.training_plan``:
+no rank gathers the tree), else the single-device program on gathered
+parameters.  Each rank draws its shards leaf by leaf, and the pruning
+masks are refreshed one leaf at a time (each leaf gathered whole,
+``magnitude_mask`` on it, this rank's shard kept: the single-device masks,
+bitwise).  A checkpoint stays the
 logical tree with the reference's files and leaf keys: every rank gathers
-it, rank 0 writes it, and any mesh restores it.  Fault-tolerance model:
+it, rank 0 writes it, and any mesh restores it; ``train()`` returns the
+gathered tree too, and on a mesh also this rank's ``shards``, which
+``Engine(mesh=)`` takes as they are.  Fault-tolerance model:
   * the data pipeline is a pure function of the step, so a restart resumes
     the exact stream (``SyntheticDataset.skip_to``);
   * SIGTERM/SIGINT set a flag that makes the loop checkpoint and stop after
@@ -42,10 +49,13 @@ from ..checkpoint.ckpt import Checkpointer
 from ..configs.base import ArchConfig
 from ..dist.comm import axis_index, mesh_shape
 from ..dist.sharding import _batch_axes
-from ..core.pruning import apply_masks, masks_tree, polynomial_sparsity, tree_sparsity
+from ..core.pruning import (
+    _prunable, apply_masks, magnitude_mask, masks_tree, polynomial_sparsity, tree_sparsity,
+)
 from ..data.pipeline import SyntheticDataset
 from ..models import build_model
 from ..optim import AdamState, adamw_init
+from ..optim.adamw import tree_items
 from .step import TrainHParams, make_train_step
 
 __all__ = ["TrainConfig", "Trainer"]
@@ -79,11 +89,13 @@ class Trainer:
         self.model = build_model(cfg)
         self.mesh = mesh if math.prod(mesh_shape(mesh).values()) > 1 else None
         self.rows = None  # this rank's rows of each batch, on a data axis that divides it
-        self.p_shard = None
+        self.p_shard = self.plan = None
         if self.mesh is not None:
             from ..dist.sharding import params_shardings
+            from ..dist.tp import training_plan
 
             self.p_shard = params_shardings(self.model.specs(), self.mesh)
+            self.plan = training_plan(cfg, self.mesh)
             # the batch rule's axes, ("pod", "data"), flattened pod-major
             axes = _batch_axes(self.mesh)
             shape = mesh_shape(self.mesh)
@@ -95,7 +107,7 @@ class Trainer:
                     r = r * shape[a] + axis_index(self.mesh, a)
                 self.rows = slice(r * k, (r + 1) * k)
         self.step_fn = make_train_step(self.model.loss, tc.hp, self.mesh, self.p_shard,
-                                       split=self.rows is not None)
+                                       split=self.rows is not None, plan=self.plan)
         self.ckpt = Checkpointer(tc.ckpt_dir) if tc.ckpt_dir else None
         self._preempted = False
         self.metrics_log: List[Dict] = []
@@ -119,13 +131,40 @@ class Trainer:
     # -- setup ----------------------------------------------------------------
     def init_state(self):
         """The initial parameters and AdamW state: on a mesh, this rank's
-        shards of the whole init (every rank draws the same tree)."""
-        params = self.model.init(self.tc.seed, device=self.device)
+        shards of the whole init, each leaf drawn (the same on every rank)
+        and cut on the host before it moves, so the whole tree never
+        exists."""
+        leaf = None
         if self.mesh is not None:
-            from ..dist.sharding import shard_tree
+            from ..dist.sharding import local_shard
 
-            params = shard_tree(params, self.p_shard, self.mesh)
+            spec = dict(tree_items(self.p_shard))
+
+            def leaf(path, t):
+                return local_shard(t, spec[path], self.mesh)
+
+        params = self.model.init(self.tc.seed, device=self.device, leaf=leaf)
         return params, adamw_init(params)
+
+    def refresh_masks(self, params: dict, sparsity: float) -> dict:
+        """Keep-masks of ``params`` at ``sparsity`` (``masks_tree``); on a
+        mesh this rank's shards of the whole tree's masks, one leaf at a
+        time: each prunable leaf gathered whole (``dist.tp.WholeView``), its
+        mask made and cut to this rank's shard, so the peak is one leaf
+        whole and the masks are the single-device ones bitwise."""
+        if self.mesh is None:
+            return masks_tree(params, sparsity)
+        from ..dist.sharding import local_shard
+        from ..dist.tp import WholeView
+
+        view = WholeView(params, self.p_shard, self.mesh)
+
+        def walk(tree, whole, pls, path):
+            return {k: walk(v, whole[k], pls[k], path + (k,)) if isinstance(v, dict)
+                    else local_shard(magnitude_mask(whole[k], sparsity), pls[k], self.mesh)
+                    if _prunable(path + (k,), v) else None for k, v in tree.items()}
+
+        return walk(params, view, self.p_shard, ())
 
     def _whole(self, params: dict, opt=None):
         """The whole parameters (and AdamW state), gathered from every
@@ -199,11 +238,7 @@ class Trainer:
             # optimizer cannot resurrect pruned weights
             if cfg.sparsity > 0 and step >= tc.prune_begin and step % tc.prune_every == 0:
                 target = polynomial_sparsity(step, tc.prune_begin, tc.prune_end, cfg.sparsity)
-                masks = masks_tree(self._whole(params)[0], target)  # on the whole tree
-                if self.mesh is not None:
-                    from ..dist.sharding import shard_tree
-
-                    masks = shard_tree(masks, self.p_shard, self.mesh)
+                masks = self.refresh_masks(params, target)
             if masks is not None:
                 apply_masks(params, masks)
 
@@ -222,12 +257,16 @@ class Trainer:
 
         if self.ckpt:
             self.ckpt.wait()
+        shards = params
         # the whole tree: the last checkpoint's when it holds the last step
         params, opt = saved[1:] if saved[0] == step + 1 else self._whole(params, opt)
-        return {
+        out = {
             "params": params,
             "opt": opt,
             "final_loss": final_loss,
             "sparsity": tree_sparsity(params),
             "steps_run": step + 1 - start_step,
         }
+        if self.mesh is not None:
+            out["shards"] = shards
+        return out

@@ -5,9 +5,17 @@ One 2x2 world (``launch/mesh.spawn``, a rendezvous file under
 sub-mesh (1x2), its ``data`` sub-mesh (2x1) and the whole mesh, with the
 pruning masks refreshed on the way:
 
-- 1x2 is the single-device trainer bitwise: loss every step, params,
-  both AdamW moments and the pruned zeros (each rank updates its shard of
-  the same gradients, clipped whole in the single-device order);
+- 1x2 is the tensor-parallel trainer (``dist.tp.training_plan``): its
+  ordered sums add the ranks' partials in another order than one device's
+  products, so it is the single-device trainer within rounding, not
+  bitwise: the loss every step within 1e-5 relative (measured 5.0e-6),
+  the parameters within the bound Adam's steps put on a weight's move
+  (measured 8.1e-5, bound about 1e-2), both moments within 1e-2 of each
+  leaf's largest (measured 4.0e-3 and 3.7e-3, ``wv``: the gradients part
+  by up to 5e-4 of the largest a step where the flash attention's bf16
+  probabilities round apart, and the moments carry that over 4 steps),
+  and the pruned sparsity equal (the ranks' bits agree with each other,
+  ``test_ranks_agree``);
 - 2x1 (each data rank takes half the batch, the gradients summed over the
   data ranks in rank order) stays within 1e-5 relative of the
   single-device loss at each of its 4 steps; the gap grows with steps, as
@@ -132,13 +140,34 @@ def world(tmp_path_factory):
                  args=(ckpt,)), ckpt
 
 
-def test_model_axis_training_is_bitwise(world, single):
+def _adam_move(tc) -> float:
+    """The most a weight can move apart between two runs over ``tc``'s
+    steps: each step at most 2 x lr x (Adam's largest |m_hat / sqrt(v_hat)|
+    at that step, by Cauchy-Schwarz, plus the decay of a weight below 1)."""
+    from repro_torch.optim.schedule import cosine_schedule
+
+    hp, b1, b2 = tc.hp, 0.9, 0.95
+    total = 0.0
+    for t in range(1, tc.steps + 1):
+        w = [((1 - b1) * b1 ** (t - i)) ** 2 / ((1 - b2) * b2 ** (t - i)) for i in range(1, t + 1)]
+        bound = np.sqrt(sum(w)) * np.sqrt(1 - b2**t) / (1 - b1**t)
+        total += 2 * cosine_schedule(t - 1, hp.warmup, hp.total_steps, hp.lr) * (
+            bound + hp.weight_decay)
+    return total
+
+
+def test_model_axis_training_within_tolerance(world, single):
     for rank in world[0]:
         got = rank["1x2"]
-        assert got["losses"] == single["losses"]
-        for leaf in ("params", "mu", "nu"):
+        rel = np.abs(np.asarray(got["losses"]) - single["losses"]) / np.abs(single["losses"])
+        assert len(got["losses"]) == STEPS and rel.max() <= 1e-5, rel
+        move = _adam_move(_tc())
+        for k, v in single["params"].items():
+            assert float((got["params"][k] - v).abs().max()) <= move, k
+        for leaf in ("mu", "nu"):
             for k, v in single[leaf].items():
-                assert torch.equal(got[leaf][k], v), (leaf, k)
+                gap = float((got[leaf][k] - v).abs().max())
+                assert gap <= 1e-2 * float(v.abs().max()), (leaf, k, gap)
         assert got["sparsity"] == single["sparsity"] > 0
 
 
