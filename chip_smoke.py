@@ -393,9 +393,30 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    one lockstep step gated as (c1): its 14 heads over 2 kv heads do not
    divide 4, so training takes the sequence-sharded attention under grad.
    Phase 15's 1x2 training moved here: with the products tensor-parallel
-   it is one device's within rounding, not bitwise.  Reported beside the
-   card: ms a step against one device's, collectives and bytes a step a
-   rank, peak memory a rank, each part's seconds;
+   it is one device's within rounding, not bitwise.  (d) expert
+   parallelism for the moe family (``dist.tp`` plans with
+   ``TPPlan.experts``: a rank stores and runs 16 of the 64 experts on
+   1x4), fp32, fp32 attention probabilities, the contracted fan-in, one
+   device's oracles first (in this process, then freed; (d3)'s gradients
+   kept on the card and read by the ranks through CUDA IPC): (d1)
+   ``olmoe_1b_7b`` at its full 16 layers and widths, the published
+   ``moe_cf`` 1.25, on 1x4, ``generate`` B = 4, prompt 32, 16 new tokens
+   (capacity 1 at the decode steps: drops); gates: layer 0's routing
+   integers of the first decode step bitwise one device's, first-step
+   logits within 1e-4 of the largest, each rank's peak (draw and run) at
+   most 0.3x one device's, every rank's bits rank 0's, the stored bytes
+   the placement's, 34 collectives a step; (d2) ``moonshot_v1_16b_a3b``
+   (vocab 163840, top-6) at 4 of its 48 layers (``EP_CUT_WHY``), the same
+   gates; (d3) ``olmoe``'s training step, 8 x 128, remat, from the draw:
+   on 1x4 at 4 layers the loss within 1e-5 relative and each gradient
+   shard within 1e-4 of the leaf's largest |g| of one device's step; on
+   2x2 at 2 layers (the batch split over ``data``: C16's whole-batch
+   routing) the norm and shards within C13's 2e-3 and layer 0's routing
+   integers one device's rows; the collectives as
+   ``TPPlan.train_collectives`` predicts; the 1x4-trained shards served
+   on 1x4 give one device's tokens on the gathered tree.  Reported beside
+   the card: ms a step against one device's, collectives and bytes a step
+   a rank, peak memory a rank, each part's seconds;
 18. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, phase 10's speculative pool graph launches, CUDA launches per
@@ -460,6 +481,7 @@ from repro_torch.checkpoint.ckpt import restore  # noqa: E402
 from repro_torch.data.pipeline import SyntheticDataset  # noqa: E402
 from repro_torch.dist import comm  # noqa: E402
 from repro_torch.dist.sharding import (  # noqa: E402
+    gather_whole,
     local_shard,
     params_shardings,
     shard_ranges,
@@ -634,6 +656,35 @@ TPT_CUT_WHY = {  # every cut is of depth, never of a width
                 "over the 80 GB card the four ranks share too",
     "qwen2_0_5b": "6 of 24 layers: the phase's time on a slow host, as phase 15's qwen2 run"}
 TP_PHASE_LIMIT_S = 240.0
+# its part (d), expert parallelism for the moe family (each rank E / tp
+# experts): (d1) olmoe at full width and depth (16 layers, the published
+# moe_cf 1.25, fp32) on 1x4, generate B = 4, prompt 32, EP_NEW new tokens;
+# (d2) moonshot cut in depth (EP_CUT_WHY); (d3) olmoe training at
+# EP_TRAIN_LAYERS of 16 (each mesh's depth), batch 8 x 128, remat, one step
+# from the drawn state on 1x4 and on 2x2 beside one device's whole-batch
+# step at that depth, the 1x4 step's shards then served on 1x4.  The gates, written before the first run:
+# (d1)/(d2) layer 0's routing integers of the first decode step bitwise one
+# device's (B = 4 gives capacity 1: drops on both), first-step logits within
+# EP_LOGIT_TOL of the largest, each rank's peak at most TP_MEM_RATIO of one
+# device's; (d3) on 1x4 the loss within EP_LOSS_TOL relative and each
+# gradient shard within EP_GRAD_TOL of the leaf's largest |g|; on 2x2 (rows
+# split over data: the C16 repair) the global norm and each gradient shard
+# within C13's TPT_NORM_TOL / TPT_GRAD_TOL and layer 0's routing integers of
+# the step one device's rows; the served tokens equal one device's on the
+# gathered tree
+EP_ARCH, EP_MOONSHOT = "olmoe_1b_7b", "moonshot_v1_16b_a3b"
+EP_NEW = 16
+EP_LOGIT_TOL, EP_LOSS_TOL, EP_GRAD_TOL = 1e-4, 1e-5, 1e-4
+EP_MOONSHOT_LAYERS = 4
+EP_TRAIN_LAYERS = {"1x4": 4, "2x2": 2}
+EP_CUT_WHY = {
+    EP_MOONSHOT: "4 of 48 layers: one device's fp32 tree at 48 layers is about 113 GB, over "
+                 "the 80 GB card",
+    "training on 1x4": "4 of 16 layers: one device's fp32 parameters, gradients and Adam "
+                       "moments at 16 layers are about 111 GB",
+    "training on 2x2": "2 of 16 layers: at 4 the ranks' steps (each holds its tree gathered "
+                       "over data, 1/2 of it) beside one device's gradients held for them "
+                       "ran out of the card's 80 GB"}
 # the leftovers phase (16): the 2:4 arm's structure and job width, the legacy
 # MLP pack's first-step tolerance (of the largest logit) on the 2-layer cut
 # and at full depth (C6), the dry run's cells (kind, batch, tokens) and the
@@ -3098,9 +3149,10 @@ def first_step_logits(eng, prompts) -> torch.Tensor:
     a data axis from each rank's rows gathered (the step ``generate``
     takes)."""
     rows = eng._rows(len(prompts))
+    split = rows is not None
     with torch.no_grad():
-        nxt, cache = eng.prime(prompts if rows is None else prompts[rows])
-        lg = eng._logits(nxt, cache, eng._route_pack())[:, -1].float()
+        nxt, cache = eng.prime(prompts[rows] if split else prompts, split=split)
+        lg = eng._logits(nxt, cache, eng._route_pack(), split=split)[:, -1].float()
     return eng._whole(lg, rows).cpu()
 
 
@@ -3537,11 +3589,27 @@ def run_async(what: str, coro_fn, timeout: float = 300.0):
 # --------------------------------------------------------------------------
 
 
+def draw_put(leaf, chunk, starts: tuple, ranges: list) -> None:
+    """The part of ``chunk`` (a drawn piece of a whole leaf beginning at
+    ``starts`` on its leading dims, whole on the rest) inside this rank's
+    shard ``ranges`` (``shard_ranges``), written into ``leaf`` (the shard)."""
+    part, dst = chunk, []
+    for dim, (s, k) in enumerate(ranges):
+        c0 = starts[dim] if dim < len(starts) else 0
+        a, b = max(c0, s), min(c0 + chunk.shape[dim], s + k)
+        if a >= b:
+            return
+        part = part.narrow(dim, a - c0, b - a)
+        dst.append(slice(a - s, b - s))
+    leaf[tuple(dst)] = part
+
+
 def sharded_init(cfg, mesh=None, placements=None) -> dict:
     """``device_init``'s draw (the contracted fan-in, the zeros and ones
     leaves perturbed), leaf by leaf in tree order, each leaf in chunks of
     dim 0 (a layer of a stacked leaf, ``TP_DRAW_ENTRIES`` entries of a
-    matrix), every rank drawing every chunk from the same generator and
+    matrix; a layer above that in chunks of its dim 1, ``draw_put``),
+    every rank drawing every chunk from the same generator and
     keeping its shard under ``placements`` (default: the serving engine's,
     ``dist.tp.storage_placements``); with no mesh, every chunk.  So a rank
     never holds a leaf whole, and the ranks' shards cut one device's tree."""
@@ -3566,20 +3634,20 @@ def sharded_init(cfg, mesh=None, placements=None) -> dict:
             leaf = torch.empty([n for _, n in ranges], device=DEVICE)
             inner = math.prod(shape[1:])
             step = 1 if len(shape) >= 3 else max(1, TP_DRAW_ENTRIES // max(inner, 1))
-            lo, n = ranges[0]
+            # a layer of a stacked leaf above TP_DRAW_ENTRIES (the experts'
+            # (E, d, ff)) in chunks of its dim 1 too
+            sub = (max(1, TP_DRAW_ENTRIES // math.prod(shape[2:]))
+                   if len(shape) >= 3 and inner > TP_DRAW_ENTRIES else None)
             for r0 in range(0, shape[0], step):
                 r1 = min(r0 + step, shape[0])
-                chunk = torch.randn((r1 - r0,) + tuple(shape[1:]), generator=gen,
-                                    device=DEVICE) * std
-                if spec.init == "ones":
-                    chunk += 1.0
-                a, b = max(r0, lo), min(r1, lo + n)
-                if a < b:
-                    part = chunk[a - r0:b - r0]
-                    for dim, (s, k) in enumerate(ranges[1:], 1):
-                        part = part.narrow(dim, s, k)
-                    leaf[a - lo:b - lo] = part
-                del chunk
+                for j0 in range(0, shape[1], sub) if sub else (None,):
+                    span = (r1 - r0,) + ((min(j0 + sub, shape[1]) - j0,) if sub else ())
+                    chunk = torch.randn(span + tuple(shape[len(span):]), generator=gen,
+                                        device=DEVICE).mul_(std)
+                    if spec.init == "ones":
+                        chunk += 1.0
+                    draw_put(leaf, chunk, (r0,) + ((j0,) if sub else ()), ranges)
+                    del chunk
             out[name] = leaf
         return out
 
@@ -3909,11 +3977,303 @@ def tpt_rank(mesh, one_by_four, prompts) -> dict:
     return out
 
 
-def tp_rank(mesh, device, qprompts, prompts) -> dict:
+def ep_routing(fn):
+    """``fn()`` with ``layers.moe.trace`` on: its result and every routed
+    call's integers, on the host."""
+    model_layers.moe.trace = []
+    try:
+        out = fn()
+        return out, [{k: v.cpu().numpy() for k, v in t.items()}
+                     for t in model_layers.moe.trace]
+    finally:
+        model_layers.moe.trace = None
+
+
+def ep_serve(cfg, mesh) -> dict:
+    """(d1)/(d2): ``cfg`` drawn with the contracted fan-in (``sharded_init``:
+    on a mesh this rank's shards, the experts split over ``model``), served
+    dense on ``mesh`` (None: one device), ``tp_run``'s record and layer 0's
+    routing integers of the first decode step, with the peak memory of draw
+    and run above what the process held before."""
+    prompts = prompts_for(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    params = sharded_init(cfg, mesh)
+    draw_s = time.monotonic() - t0
+    eng = tp_engine(cfg, params, mesh, "dense", EP_NEW)
+    del params
+    rec, routing = ep_routing(lambda: tp_run(eng, prompts, EP_NEW))
+    torch.cuda.synchronize()
+    rec.update(peak_bytes=torch.cuda.max_memory_allocated() - held, draw_s=draw_s,
+               routing=routing[cfg.n_layers])  # the prefill's layers come first
+    del eng
+    release()
+    return rec
+
+
+def ep_train_oracle(layers: int) -> dict:
+    """(d3)'s one device: one step of olmoe at ``layers`` from
+    ``sharded_init``'s whole draw on the first batch: the loss, the norm,
+    every gradient whole (kept on the card for the ranks, which read them
+    through CUDA IPC) and each one's largest |g|, layer 0's routing
+    integers, ms and the peak above what the process held before."""
+    cfg = mesh_cfg(EP_ARCH, layers)
+    tr = Trainer(cfg, tpt_config(1), device=DEVICE)
+    batch, _ = next(tpt_batches(cfg, tr.tc))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = sharded_init(cfg)
+    paths = [p for p, _ in tree_items(params)]
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    (_, _, m), routing = ep_routing(lambda: tr.step_fn(params, opt, batch, return_grads=True))
+    torch.cuda.synchronize()
+    rec = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+           "ms": 1e3 * (time.monotonic() - t0),
+           "peak_bytes": torch.cuda.max_memory_allocated() - held,
+           "grads": dict(zip(paths, m["grads"])), "routing": routing[0]}
+    rec["gmax"] = {p: float(g.abs().max()) for p, g in rec["grads"].items()}
+    del params, opt, m
+    release()
+    return rec
+
+
+def ep_train(cfg, mesh, grads: dict, gmax: dict) -> tuple:
+    """(d3) on one rank: one step of the trainer on ``mesh`` from this
+    rank's shards of the draw (``sharded_init`` at the trainer's
+    placement) on its rows of the first batch, beside one device's
+    gradients ``grads`` (whole, on the card): the loss, norm, the largest
+    gradient-shard gap (of the leaf's largest |g|, ``gmax``), collectives
+    and the plan's prediction, bytes, ms, layer 0's routing integers and
+    this rank's rows; and the updated shards."""
+    tr = Trainer(cfg, tpt_config(1), device=DEVICE, mesh=mesh)
+    _, rows = next(tpt_batches(cfg, tr.tc, tr.rows))
+    shards = sharded_init(cfg, mesh, tr.p_shard)
+    opt = adamw_init(shards)
+    comm.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    (shards, opt, m), routing = ep_routing(
+        lambda: tr.step_fn(shards, opt, rows, return_grads=True))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.monotonic() - t0)
+    rec = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]), "ms": ms,
+           "collectives": comm.STATS["collectives"], "bytes": comm.STATS["bytes"],
+           "predicted": tr.plan.train_collectives(cfg, TRAIN_SEQ, split=tr.rows is not None),
+           "routing": routing[0], "rows": None if tr.rows is None else (tr.rows.start,
+                                                                        tr.rows.stop),
+           "experts": tr.plan.experts}
+    gaps = {}
+    for (path, pl), g in zip(tree_items(tr.p_shard), m["grads"]):
+        gaps["/".join(path)] = float((g - local_shard(grads[path], pl, mesh)).abs().max()) / max(
+            gmax[path], 1e-30)
+    rec["grad_gap"] = max(gaps.values())
+    rec["grad_gap_leaf"] = max(gaps, key=gaps.get)
+    del opt, m
+    release()
+    return rec, shards
+
+
+def ep_rank(mesh, one_by_four, ep_ref: dict) -> dict:
+    """Part (d) on one rank of phase 17's 2x2 world, fp32 attention
+    probabilities: (d1) olmoe at 16 layers and (d2) moonshot at
+    ``EP_MOONSHOT_LAYERS`` served on 1x4; (d3) olmoe's training step on 1x4,
+    its shards served on 1x4 beside one device's engine on the gathered
+    tree (on the lead rank), then its step on 2x2; ``ep_ref``: one
+    device's gradients and their largest |g| for each mesh's depth."""
+    t0 = time.monotonic()
+    lead = not any(mesh.get_coordinate())
+    out = {"seconds": {}}
+
+    def part(name, fn, *args):
+        t = time.monotonic()
+        got = fn(*args)
+        out["seconds"][name] = time.monotonic() - t
+        return got
+
+    out["olmoe"] = part("d1", ep_serve, mesh_cfg(EP_ARCH), one_by_four)
+    out["moonshot"] = part("d2", ep_serve, mesh_cfg(EP_MOONSHOT, EP_MOONSHOT_LAYERS),
+                           one_by_four)
+    cfg = mesh_cfg(EP_ARCH, EP_TRAIN_LAYERS["1x4"])
+    t = time.monotonic()
+    out["train_1x4"], shards = ep_train(cfg, one_by_four, *ep_ref["1x4"])
+    out["seconds"]["d3 1x4"] = time.monotonic() - t
+    t = time.monotonic()
+    eng = tp_engine(cfg, shards, one_by_four, "dense", EP_NEW)
+    out["served"] = tp_run(eng, prompts_for(cfg), EP_NEW)
+    del eng
+    placements = params_shardings(build_model(cfg).specs(), one_by_four)
+    whole = {}
+    for path, pl in tree_items(placements):  # one leaf whole at a time off the lead
+        leaf = shards
+        for k in path:
+            leaf = leaf[k]
+        w = gather_whole(leaf, pl, one_by_four)
+        if lead:
+            node = whole
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = w
+        del w
+    del shards
+    release()
+    if lead:
+        eng = tp_engine(cfg, whole, None, "dense", EP_NEW)
+        out["served_one"] = tp_run(eng, prompts_for(cfg), EP_NEW)
+        del eng
+    del whole
+    release()
+    out["seconds"]["d3 serve"] = time.monotonic() - t
+    t = time.monotonic()
+    out["train_2x2"], shards = ep_train(mesh_cfg(EP_ARCH, EP_TRAIN_LAYERS["2x2"]), mesh,
+                                        *ep_ref["2x2"])
+    del shards
+    release()
+    out["seconds"]["d3 2x2"] = time.monotonic() - t
+    out["seconds"]["all"] = time.monotonic() - t0
+    return out
+
+
+def ep_oracles() -> dict:
+    """Part (d)'s one device, before the ranks use the card: (d1) and (d2)
+    served and freed, (d3)'s step (its gradients kept on the card for the
+    ranks)."""
+    t0 = time.monotonic()
+    with fp32_probs():
+        out = {"olmoe": ep_serve(mesh_cfg(EP_ARCH), None)}
+        out["moonshot"] = ep_serve(mesh_cfg(EP_MOONSHOT, EP_MOONSHOT_LAYERS), None)
+        out["train"] = {name: ep_train_oracle(n) for name, n in EP_TRAIN_LAYERS.items()}
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def ep_gates(ranks: list, oracle: dict) -> dict:
+    """Part (d)'s gates over every rank's ``ep_rank`` record beside one
+    device's (``ep_oracles``); returns the part's report."""
+    res = {"seconds": [r["seconds"] for r in ranks], "oracle_s": oracle["seconds"]}
+    for name, arch in (("olmoe", EP_ARCH), ("moonshot", EP_MOONSHOT)):
+        want, got = oracle[name], ranks[0][name]
+        what = f"ep {arch} on 1x4"
+        gap = gap_rel(got["first"], want["first"])
+        if gap > EP_LOGIT_TOL:
+            fail(f"{what}: first-step logit gap {gap:.3g} of the largest > {EP_LOGIT_TOL}")
+        for i, r in enumerate(x[name] for x in ranks):
+            for k in ("eids", "pos", "dropped"):
+                if not np.array_equal(r["routing"][k], want["routing"][k]):
+                    fail(f"{what}: rank {i}'s layer-0 routing {k} of the first decode step "
+                         "differs from one device's")
+            if r["digest"] != got["digest"]:
+                fail(f"{what}: rank {i}'s tokens or logits differ from rank 0's")
+            if r["dense_bytes"] != r["dense_bytes_want"]:
+                fail(f"{what}: rank {i} stores {r['dense_bytes']} bytes, the placement says "
+                     f"{r['dense_bytes_want']}")
+        ratios = [x[name]["peak_bytes"] / want["peak_bytes"] for x in ranks]
+        if max(ratios) > TP_MEM_RATIO:
+            fail(f"{what}: a rank's peak memory is {max(ratios):.3f}x one device's > "
+                 f"{TP_MEM_RATIO}")
+        cfg = mesh_cfg(arch, None if name == "olmoe" else EP_MOONSHOT_LAYERS)
+        predicted = tp_predicted("dense", 1, 4, cfg.n_layers, False)
+        if got["collectives_per_step"] != predicted:
+            fail(f"{what}: {got['collectives_per_step']} collectives a decode step, predicted "
+                 f"{predicted}")
+        res[name] = {
+            "layers": cfg.n_layers, "first_step_gap_rel": gap,
+            "token_agreement": float(np.mean(got["tokens"] == want["tokens"])),
+            "dropped_first_step_layer0": int(want["routing"]["dropped"].sum()),
+            "assignments_first_step_layer0": int(want["routing"]["dropped"].size),
+            "peak_ratio_per_rank": ratios, "collectives_predicted": predicted,
+            "one_device": {k: want[k] for k in ("ms_per_step", "tok_per_s", "peak_bytes",
+                                                "dense_bytes", "draw_s")},
+            **{k: got[k] for k in ("ms_per_step", "tok_per_s", "collectives_per_step",
+                                   "bytes_per_step", "peak_bytes", "dense_bytes", "draw_s")}}
+    for key, mesh_name in (("train_1x4", "1x4"), ("train_2x2", "2x2")):
+        t = oracle["train"][mesh_name]
+        loss_tol, grad_tol = ((EP_LOSS_TOL, EP_GRAD_TOL) if mesh_name == "1x4"
+                              else (TPT_LOSS_TOL, TPT_GRAD_TOL))
+        recs = [r[key] for r in ranks]
+        for i, r in enumerate(recs):
+            what = f"ep train olmoe {mesh_name}: rank {i}"
+            loss_gap, norm_gap = abs(r["loss"] / t["loss"] - 1), abs(r["gnorm"] / t["gnorm"] - 1)
+            if loss_gap > loss_tol or r["grad_gap"] > grad_tol or (
+                    mesh_name == "2x2" and norm_gap > TPT_NORM_TOL):
+                fail(f"{what}: loss gap {loss_gap:.3g} (limit {loss_tol}), norm gap "
+                     f"{norm_gap:.3g}, gradient-shard gap {r['grad_gap']:.3g} at "
+                     f"{r['grad_gap_leaf']} (limit {grad_tol})")
+            if r["collectives"] != r["predicted"] or not r["experts"]:
+                fail(f"{what}: {r['collectives']} collectives, predicted {r['predicted']}, "
+                     f"experts split {r['experts']}")
+            want = t["routing"]
+            for k in ("eids", "pos", "dropped"):
+                w = want[k]
+                if r["rows"] is not None:
+                    w = w.reshape(TRAIN_BATCH, -1)[r["rows"][0]:r["rows"][1]].reshape(-1)
+                if not np.array_equal(r["routing"][k], w):
+                    fail(f"{what}: layer-0 routing {k} differs from one device's whole-batch "
+                         "step's rows")
+        res[key] = {"loss_gap_max": max(abs(r["loss"] / t["loss"] - 1) for r in recs),
+                    "norm_gap_max": max(abs(r["gnorm"] / t["gnorm"] - 1) for r in recs),
+                    "grad_gap_max": max(r["grad_gap"] for r in recs),
+                    "grad_gap_leaf": recs[0]["grad_gap_leaf"],
+                    "dropped_layer0": int(t["routing"]["dropped"].sum()),
+                    "layers": EP_TRAIN_LAYERS[mesh_name],
+                    "one_device": {k: t[k] for k in ("loss", "gnorm", "ms", "peak_bytes")},
+                    **{k: recs[0][k] for k in ("collectives", "predicted", "bytes", "ms")}}
+    served, one = ranks[0]["served"], ranks[0]["served_one"]
+    if not np.array_equal(served["tokens"], one["tokens"]):
+        fail("ep train olmoe 1x4: the trained shards served on 1x4 give tokens other than one "
+             "device's on the gathered tree")
+    res["served"] = {"first_step_gap_rel": gap_rel(served["first"], one["first"]),
+                     "token_agreement": float(np.mean(served["tokens"] == one["tokens"])),
+                     **{k: served[k] for k in ("ms_per_step", "collectives_per_step")},
+                     "one_device_ms_per_step": one["ms_per_step"]}
+    return res
+
+
+def print_ep(e: dict, card: str) -> None:
+    print("ep: cuts of depth, never of a width: " + "; ".join(
+        f"{k} {v}" for k, v in EP_CUT_WHY.items()), flush=True)
+    for name, arch in (("olmoe", EP_ARCH), ("moonshot", EP_MOONSHOT)):
+        r = e[name]
+        print(f"ep {arch} ({r['layers']} layers, fp32, moe_cf 1.25, dense, B={BATCH}, prompt "
+              f"{PROMPT}, {EP_NEW} new) on 1x4, experts split 4 ways: first-step logit gap "
+              f"{r['first_step_gap_rel']:.3g} of the largest, token agreement "
+              f"{r['token_agreement']:.3f}, layer 0 first decode step dropped "
+              f"{r['dropped_first_step_layer0']} of {r['assignments_first_step_layer0']} "
+              f"assignments (routing bitwise one device's), peak a rank {r['peak_bytes']} "
+              f"bytes ({max(r['peak_ratio_per_rank']):.3f}x one device's "
+              f"{r['one_device']['peak_bytes']}), bytes stored a rank {r['dense_bytes']} (one "
+              f"device {r['one_device']['dense_bytes']}), {r['collectives_per_step']:.0f} "
+              f"collectives a step (predicted {r['collectives_predicted']}), "
+              f"{r['bytes_per_step']:.0f} bytes a step a rank, {r['ms_per_step']:.2f} ms a step "
+              f"(one device {r['one_device']['ms_per_step']:.2f}) ({card})", flush=True)
+    for key in ("train_1x4", "train_2x2"):
+        r = e[key]
+        print(f"ep train olmoe ({r['layers']} of 16 layers, fp32, remat, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, one step from the draw) on {key[-3:]}: gaps loss "
+              f"{r['loss_gap_max']:.3g} norm {r['norm_gap_max']:.3g} gradient shard "
+              f"{r['grad_gap_max']:.3g} (largest at {r['grad_gap_leaf']}), layer 0 routing "
+              f"bitwise one device's whole-batch step ({r['dropped_layer0']} assignments "
+              f"dropped), {r['collectives']} collectives (predicted {r['predicted']}), "
+              f"{r['bytes']} bytes, {r['ms']:.1f} ms (one device {r['one_device']['ms']:.1f}) "
+              f"({card})", flush=True)
+    s = e["served"]
+    print(f"ep train olmoe 1x4 shards served on 1x4: first-step gap "
+          f"{s['first_step_gap_rel']:.3g}, token agreement {s['token_agreement']:.3f} with one "
+          f"device on the gathered tree, {s['collectives_per_step']:.0f} collectives a step, "
+          f"{s['ms_per_step']:.2f} ms a step (one device {s['one_device_ms_per_step']:.2f}) "
+          f"({card})", flush=True)
+
+
+def tp_rank(mesh, device, qprompts, prompts, ep_ref) -> dict:
     """One rank of phase 17's 2x2 world: (a) on a 1x4 mesh over the four
     ranks, then (b) on the 2x2 mesh's ``model`` sub-mesh (1x2; the two data
     coordinates run the same case), a 1x4 mesh and the 2x2 mesh, then (c)
-    (``tpt_rank``)."""
+    (``tpt_rank``) and (d) (``ep_rank``, one device's gradients of (d3)
+    in ``ep_ref`` read on the card through CUDA IPC)."""
     t0 = time.monotonic()
     lead = not any(mesh.get_coordinate())
     one_by_four = make_local_mesh(1, 4)
@@ -3926,6 +4286,7 @@ def tp_rank(mesh, device, qprompts, prompts) -> dict:
     t1 = time.monotonic()
     with fp32_probs():
         out["train"] = tpt_rank(mesh, one_by_four, prompts)
+        out["ep"] = ep_rank(mesh, one_by_four, ep_ref)
     out["ab_seconds"] = t1 - t0
     out["seconds"] = time.monotonic() - t0
     return out
@@ -3956,11 +4317,11 @@ def tp_references(prompts) -> dict:
     return out
 
 
-def world_rank(mesh, device, prompts, qprompts) -> dict:
+def world_rank(mesh, device, prompts, qprompts, ep_ref) -> dict:
     """One rank of the world phases 15 and 17 share: ``mesh_rank``, then
     ``tp_rank``."""
     return {"mesh": mesh_rank(mesh, device, prompts),
-            "tp": tp_rank(mesh, device, qprompts, prompts)}
+            "tp": tp_rank(mesh, device, qprompts, prompts, ep_ref)}
 
 
 def world_phases() -> tuple:
@@ -3977,13 +4338,18 @@ def world_phases() -> tuple:
             shutil.rmtree(d)
         d.mkdir(parents=True)
     oracles = tp_oracles(qprompts)
+    oracles["ep"] = ep_oracles()
+    oracles["seconds"] += oracles["ep"]["seconds"]
+    # (d3)'s one-device gradients stay on the card for the ranks (CUDA IPC)
+    ep_ref = {k: (v.pop("grads"), v["gmax"]) for k, v in oracles["ep"]["train"].items()}
     box: dict = {}
 
     def run_ranks():
         t0 = time.monotonic()
         try:
             box["ranks"] = spawn(world_rank, 2, 2, "gloo", DEVICE, str(TP_DIR / "rendezvous"),
-                                 args=(prompts, qprompts), timeout_s=TP_PHASE_LIMIT_S)
+                                 args=(prompts, qprompts, ep_ref),
+                                 timeout_s=TP_PHASE_LIMIT_S)
         except BaseException as e:  # re-raised below, in the phase's thread
             box["error"] = e
         box["seconds"] = time.monotonic() - t0
@@ -3995,6 +4361,8 @@ def world_phases() -> tuple:
     t_mesh_ref = time.monotonic() - t0
     tp_ref = tp_references(prompts)
     worker.join()
+    del ep_ref
+    release()
     if "error" in box:
         raise box["error"]
     ranks = box["ranks"]
@@ -4081,6 +4449,7 @@ def tp_gates(ranks: list, oracles: dict, refs: dict) -> dict:
                 fail(f"{what}: rank {i} made {rec['collectives_per_step']} collectives a "
                      f"decode step, predicted {predicted}")
     res["train"] = tpt_gates([r["train"] for r in ranks], oracles["c2"], refs["free"])
+    res["ep"] = ep_gates([r["ep"] for r in ranks], oracles["ep"])
     res["seconds"] = oracles["seconds"] + res["ranks_s"] + time.monotonic() - t_phase
     if res["seconds"] > TP_PHASE_LIMIT_S:
         fail(f"tensor-parallel phase took {res['seconds']:.1f}s, over its "
@@ -4271,11 +4640,13 @@ def print_tp(t: dict, card: str) -> None:
           f"{sv['token_agreement']:.3f}, launches {sv['launches']}, "
           f"{sv['ms_per_step']:.1f} ms a decode step (one device "
           f"{sv['one_device_ms_per_step']:.1f}) ({card})", flush=True)
+    print_ep(t["ep"], card)
     print(f"tensor-parallel phase {t['seconds']:.1f}s (limit {TP_PHASE_LIMIT_S:.0f}s; oracles "
-          f"{t['oracle_s']:.1f}s, the slowest rank's part of the shared world "
-          f"{t['ranks_s']:.1f}s, of it (a)-(b) {max(t['rank_ab_seconds']):.1f}s, (c) by part "
-          f"{tpt_part_seconds(c)}; single-device references {t['reference_s']:.1f}s beside it; "
-          f"the world with phase 15 {t['world_s']:.1f}s)", flush=True)
+          f"{t['oracle_s']:.1f}s, of them (d)'s {t['ep']['oracle_s']:.1f}s, the slowest rank's "
+          f"part of the shared world {t['ranks_s']:.1f}s, of it (a)-(b) "
+          f"{max(t['rank_ab_seconds']):.1f}s, (c) by part {tpt_part_seconds(c)}, (d) by part "
+          f"{tpt_part_seconds(t['ep'])}; single-device references {t['reference_s']:.1f}s "
+          f"beside it; the world with phase 15 {t['world_s']:.1f}s)", flush=True)
 
 
 # --------------------------------------------------------------------------

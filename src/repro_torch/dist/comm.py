@@ -17,7 +17,10 @@ sum forward, identity backward) and ``gather_model`` (all-gather forward,
 this rank's slice backward) leave it.  Every region entered through one and
 left through another leaves each replicated tensor's gradient complete and
 the same bits on every ``model`` rank.  Their collectives count in ``STATS``
-as the primitives' do, the backward's too.
+as the primitives' do, the backward's too.  A fourth, ``batch_totals``,
+serves the ranks that split one batch's rows (the moe routing,
+``models/layers.py moe``): every rank's integer counts and the ordered sum
+of a float vector, in one gather.
 """
 
 from __future__ import annotations
@@ -27,9 +30,10 @@ import math
 import torch
 import torch.distributed as dist
 
-__all__ = ["STATS", "reset_stats", "axis_size", "axis_index", "mesh_shape", "all_gather",
-           "sum_in_rank_order", "broadcast", "broadcast_mesh", "gather_leaves", "enter_model",
-           "sum_model", "gather_model", "gather_model_leaves"]
+__all__ = ["STATS", "reset_stats", "axis_size", "axis_index", "axes_index", "mesh_shape",
+           "all_gather", "gather_axes", "sum_in_rank_order", "broadcast", "broadcast_mesh",
+           "gather_leaves", "enter_model", "sum_model", "gather_model", "gather_model_leaves",
+           "batch_totals"]
 
 # collectives made and bytes this rank received, since the last reset, in
 # all and per type ("by_type": {"all-gather" | "all-reduce" | "broadcast":
@@ -73,6 +77,16 @@ def axis_index(mesh, name: str) -> int:
     return mesh.get_local_rank(name)
 
 
+def axes_index(mesh, names) -> int:
+    """This rank's coordinate over the axes ``names`` flattened row-major
+    (the outer axis's coordinate first): its place in a batch whose rows
+    those axes split, as ``dist.sharding.local_shard`` cuts it."""
+    shape, r = mesh_shape(mesh), 0
+    for a in ((names,) if isinstance(names, str) else names):
+        r = r * shape.get(a, 1) + axis_index(mesh, a)
+    return r
+
+
 def all_gather(t: torch.Tensor, mesh, name: str, dim: int = 0) -> torch.Tensor:
     """The shards of ``t`` of every rank of axis ``name`` concatenated along
     ``dim`` in axis order (every shard the same shape)."""
@@ -93,6 +107,17 @@ def _live_axes(mesh, names) -> tuple:
     return tuple(a for a in names if axis_size(mesh, a) > 1)
 
 
+def gather_axes(t: torch.Tensor, mesh, names) -> torch.Tensor:
+    """Every rank's ``t`` over the axes ``names`` (one name or a tuple),
+    stacked on a new dim 0 in their flattened row-major order
+    (``axes_index``): (n, *t.shape), one gather an axis of size > 1, the
+    innermost first."""
+    parts = t[None]
+    for a in reversed(_live_axes(mesh, names)):
+        parts = all_gather(parts, mesh, a, dim=0)
+    return parts
+
+
 def sum_in_rank_order(t: torch.Tensor, mesh, name) -> torch.Tensor:
     """The sum of ``t`` over the ranks of axis ``name`` (or of a tuple of
     axes, flattened row-major: the outer axis's coordinate first, the rank
@@ -110,9 +135,7 @@ def sum_in_rank_order(t: torch.Tensor, mesh, name) -> torch.Tensor:
         dist.all_reduce(out, group=mesh.get_group(axes[0]))
         _count("all-reduce", t.numel() * t.element_size())
         return out
-    parts = t[None]
-    for a in reversed(axes):
-        parts = all_gather(parts, mesh, a, dim=0)
+    parts = gather_axes(t, mesh, axes)
     out = parts[0]
     for p in parts[1:]:
         out = out + p
@@ -258,3 +281,44 @@ def gather_model_leaves(ys: list, dims: list, mesh) -> list:
     if torch.is_grad_enabled() and any(y.requires_grad for y in ys):
         return list(_GatherModel.apply(mesh, tuple(dims), *ys))
     return gather_leaves(list(ys), list(dims), mesh, "model")
+
+
+# -- the totals of a batch whose rows the ranks split --------------------------------
+
+
+def _totals(mesh, axes, s, counts) -> tuple:
+    e = s.numel()
+    # fp64 carries the fp32 values and the counts exactly
+    parts = gather_axes(torch.cat([s.double(), counts.double()]), mesh, axes)
+    total = parts[0, :e].to(s.dtype)
+    for p in parts[1:, :e]:
+        total = total + p.to(s.dtype)
+    return total, parts[:, e:].to(counts.dtype)
+
+
+class _BatchTotals(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, s, counts):
+        ctx.n = math.prod(axis_size(mesh, a) for a in axes)
+        return _totals(mesh, axes, s, counts)
+
+    @staticmethod
+    def backward(ctx, g, _):
+        return None, None, g * ctx.n, None
+
+
+def batch_totals(s: torch.Tensor, counts: torch.Tensor, mesh, axes) -> tuple:
+    """Over the ranks of the axes ``axes`` that split one batch's rows
+    (flattened row-major, ``axes_index``), in one all-gather: the sum of the
+    float vector ``s`` added in rank order (the same bits on every rank),
+    and every rank's integer ``counts``, (n, *counts.shape) in rank order.
+    Under autograd the sum passes its gradient back times n: every rank's
+    loss reads the sum alike, and the trainer averages the ranks'
+    gradients (``train/step.py``), so the n equal gradients of the sum are
+    this rank's share n times over."""
+    axes = _live_axes(mesh, axes)
+    if not axes:
+        return s, counts[None]
+    if torch.is_grad_enabled() and s.requires_grad:
+        return _BatchTotals.apply(mesh, axes, s, counts)
+    return _totals(mesh, axes, s, counts)

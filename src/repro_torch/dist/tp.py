@@ -1,5 +1,6 @@
-"""Tensor-parallel dense compute on sharded dense storage: the dense
-family's serving path on a (data, model) mesh (ROADMAP A12.1).
+"""Tensor-parallel dense compute on sharded dense storage: the dense and
+moe families' serving paths and training steps on a (data, model) mesh
+(ROADMAP A12, items 1-2).
 
 The reference's ``Engine`` places its dense parameters under
 ``params_shardings`` (heads, kv heads, ff and vocab over ``model``, the
@@ -74,19 +75,22 @@ from .comm import (
 )
 from .sharding import _names, gather_whole, local_shard, params_shardings
 
-__all__ = ["TPPlan", "serving_plan", "training_plan", "local_config", "storage_placements",
-           "shard_shape", "place_params", "placement_bytes", "tree_bytes", "WholeView"]
+__all__ = ["TPPlan", "PLAN_FAMILIES", "serving_plan", "training_plan", "local_config",
+           "storage_placements", "shard_shape", "place_params", "placement_bytes", "tree_bytes",
+           "WholeView"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
-    """The splits of one mesh for the dense family's serving path, or for
-    its training step (``train``).  ``placements`` is the storage placement
-    tree (``storage_placements``; the trainer's, ``params_shardings``);
-    ``heads``, ``ff`` and ``vocab`` say whether the compute runs on local
-    heads, a local ff slab and a local vocab range; ``rank`` is this rank's
-    ``model`` coordinate; ``train``: the trainer's plan, whose step holds
-    every leaf gathered over ``data`` (``held``)."""
+    """The splits of one mesh for the dense or moe family's serving path,
+    or for its training step (``train``).  ``placements`` is the storage
+    placement tree (``storage_placements``; the trainer's,
+    ``params_shardings``); ``heads``, ``ff`` and ``vocab`` say whether the
+    compute runs on local heads, a local ff slab (the MLP's, or every
+    expert's) and a local vocab range, ``experts`` whether it runs this
+    rank's ``E / tp`` experts (``w_gate``'s experts dim on ``model``);
+    ``rank`` is this rank's ``model`` coordinate; ``train``: the trainer's
+    plan, whose step holds every leaf gathered over ``data`` (``held``)."""
 
     mesh: object
     placements: dict
@@ -96,6 +100,7 @@ class TPPlan:
     ff: bool
     vocab: bool
     train: bool = False
+    experts: bool = False
 
     def held(self, placement: tuple) -> tuple:
         """The placement a leaf stored at ``placement`` is held at while the
@@ -265,16 +270,20 @@ class TPPlan:
         """The collectives one training step makes on a rank under this
         (training) plan, batches of ``seq`` tokens.  A forward: the
         embedding's sum, a layer's ``wo`` sum (or, where the heads do not
-        split, the sequence-sharded attention's gather) and ``w_down`` sum,
-        the loss's maximum gather and its sum, and where the heads do not
-        split one gather of the attention leaves split over ``model``.  Its
-        backward: the head's input entered, a layer's q/k/v input (or the
-        sequence split's q, k and v) and MLP input entered, and where the
-        heads split the qk-norm scales entered.  ``cfg.remat`` makes each
-        layer's forward collectives again in the backward but the MLP's
-        ``w_down`` sum, which ends the layer: the recompute stops at the
-        last tensor the backward saved (``torch.utils.checkpoint``'s early
-        stop), and ``sum_model`` saves none.  All of it a
+        split, the sequence-sharded attention's gather) and ``w_down`` sum
+        (the moe family's: its experts' partials, where ``experts`` or
+        ``ff`` splits them; with ``split`` first the routing's gather over
+        each data axis of size > 1, ``comm.batch_totals``), the loss's
+        maximum gather and its sum, and where the heads do not split one
+        gather of the attention leaves split over ``model``.  Its backward:
+        the head's input entered, a layer's q/k/v input (or the sequence
+        split's q, k and v) and MLP input (the moe family's token rows and
+        gate weights) entered, and where the heads split the qk-norm scales
+        entered.  ``cfg.remat`` makes each layer's forward collectives
+        again in the backward but the MLP's sum, which ends the layer: the
+        recompute stops at the last tensor the backward saved
+        (``torch.utils.checkpoint``'s early stop), and ``sum_model`` saves
+        none.  All of it a
         microbatch; then once a step the ``data`` gather, with ``split``
         the sum over the data ranks of every gradient leaf and the loss
         (``comm.sum_in_rank_order``: one all-reduce over one axis of two,
@@ -283,27 +292,32 @@ class TPPlan:
         from ..models.opt_flags import FLAGS
 
         layers = cfg.n_layers
+        sizes = [axis_size(self.mesh, a) for a in ("pod", "data")]
+        live = [k for k in sizes if k > 1]
         seq_split = (not self.heads and FLAGS["attn_seq_shard"] and seq % self.tp == 0)
-        per_layer = int(self.heads or seq_split) + int(self.ff)
+        mlp = int(self.ff or self.experts)
+        routing = len(live) if split and cfg.family == "moe" else 0
+        per_layer = int(self.heads or seq_split) + mlp
         attn = self.placements["layers"]["attn"]
         gathered = not self.heads and any("model" in pl for pl in attn.values())
-        forward = 3 * int(self.vocab) + layers * per_layer + int(gathered)
+        forward = 3 * int(self.vocab) + layers * (per_layer + routing) + int(gathered)
         backward = int(self.vocab) + layers * per_layer + int(self.heads and cfg.qk_norm)
-        remat = layers * (per_layer - int(self.ff)) if cfg.remat else 0
+        remat = layers * (per_layer + routing - mlp) if cfg.remat else 0
         n = microbatches * (forward + backward + remat)
         pls = [pl for _, pl in tree_items(self.placements)]
         n += int(axis_size(self.mesh, "data") > 1 and any("data" in pl for pl in pls))
         if split:
-            sizes = [axis_size(self.mesh, a) for a in ("pod", "data")]
-            live = [k for k in sizes if k > 1]
             n += (len(pls) + 1) * (1 if live == [2] else len(live))
         return n + 1 + int(compress)
 
 
+PLAN_FAMILIES = ("dense", "moe")
+
+
 def serving_plan(cfg, mesh) -> Optional[TPPlan]:
-    """The plan of the dense family's serving path on ``mesh``; None for no
-    mesh or another family (their engines hold whole parameters)."""
-    if cfg.family != "dense" or math.prod(mesh_shape(mesh).values()) <= 1:
+    """The plan of the dense or moe family's serving path on ``mesh``; None
+    for no mesh or another family (their engines hold whole parameters)."""
+    if cfg.family not in PLAN_FAMILIES or math.prod(mesh_shape(mesh).values()) <= 1:
         return None
     from ..models import build_model
 
@@ -311,23 +325,25 @@ def serving_plan(cfg, mesh) -> Optional[TPPlan]:
 
 
 def _plan(mesh, pl: dict, train: bool) -> TPPlan:
-    """The splits of placements ``pl`` on ``mesh``."""
-    attn = pl["layers"]["attn"]
+    """The splits of placements ``pl`` on ``mesh``: the MLP's ``w_gate``
+    (L, d, ff), or the experts' (L, E, d, ff), tells the ff and experts
+    splits."""
+    attn, gate = pl["layers"]["attn"], pl["layers"]["ffn"]["w_gate"]
     return TPPlan(
         mesh=mesh, placements=pl, tp=axis_size(mesh, "model"), rank=axis_index(mesh, "model"),
         heads=attn["wq"][2] == "model" and attn["wk"][2] == "model",
-        ff=pl["layers"]["ffn"]["w_gate"][2] == "model",
-        vocab=pl["embed"][0] == "model", train=train)
+        ff=gate[-1] == "model", vocab=pl["embed"][0] == "model", train=train,
+        experts=len(gate) == 4 and gate[1] == "model")
 
 
 def training_plan(cfg, mesh) -> Optional[TPPlan]:
-    """The plan of the dense family's training step on ``mesh``: the
-    serving plan's splits on the trainer's placements (``params_shardings``,
-    the norm scales on ``data`` too), held gathered over ``data`` while the
-    step computes.  None for no mesh, a ``model`` axis of 1 (the step is
-    then the single-device program on gathered parameters) or another
-    family."""
-    if cfg.family != "dense" or axis_size(mesh, "model") == 1:
+    """The plan of the dense or moe family's training step on ``mesh``: the
+    serving plan's splits on the trainer's placements
+    (``params_shardings``, the norm scales on ``data`` too), held gathered
+    over ``data`` while the step computes.  None for no mesh, a ``model``
+    axis of 1 (the step is then the single-device program on gathered
+    parameters) or another family."""
+    if cfg.family not in PLAN_FAMILIES or axis_size(mesh, "model") == 1:
         return None
     from ..models import build_model
 
@@ -337,7 +353,11 @@ def training_plan(cfg, mesh) -> Optional[TPPlan]:
 def local_config(cfg, plan: Optional[TPPlan]):
     """``cfg`` with this rank's head counts (the head width pinned), the
     config the attend and the KV cache are built from; ``cfg`` itself when
-    the heads do not split."""
+    the heads do not split.  The moe family's ``n_experts`` stays the
+    whole count: the capacity ``int(cf t k / e) + 1`` and the aux loss read
+    it, and a rank's ``E / tp`` there would raise the capacity ``tp``
+    times and drop fewer tokens than one device (a rank knows its experts
+    from its weights' shape)."""
     if plan is None or not plan.heads:
         return cfg
     return dataclasses.replace(cfg, head_dim=cfg.hd, n_heads=cfg.n_heads // plan.tp,

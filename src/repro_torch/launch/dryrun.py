@@ -14,20 +14,23 @@ no storage) under ``launch/op_cost.py``'s counter:
   with ``Trainer``'s mesh arguments): parameters and both AdamW moments as
   rank 0's shards under ``dist/sharding.py params_shardings``, the batch
   rows split over ``pod`` x ``data`` and the gradients summed over those
-  axes in rank order; the dense family's step tensor-parallel
+  axes in rank order; the dense and moe families' step tensor-parallel
   (``dist.tp.training_plan``: the ``data`` dims gathered once, the forward
-  and backward on rank 0's ``model`` shards, the sequence-sharded attention
-  where the heads do not divide ``model``), the other families' on the
-  whole parameters gathered for the forward;
+  and backward on rank 0's ``model`` shards, the moe family's experts
+  split over ``model``, the sequence-sharded attention where the heads do
+  not divide ``model``), the other families' on the whole parameters
+  gathered for the forward; the moe routing over the whole batch;
 * ``prefill`` — ``Model.prefill`` (``Model.forward`` for the recurrent
   families, as the reference chooses) on rank 0's rows of the batch, under
   ``models.common.mesh_context`` so the sequence-sharded attention applies
-  where the heads do not divide ``model``; the dense family as the serving
-  engine runs it, on rank 0's shards of the parameters with
-  tensor-parallel products (``dist/tp.py``), the other families on whole
+  where the heads do not divide ``model``; the dense and moe families as
+  the serving engine runs them, on rank 0's shards of the parameters with
+  tensor-parallel products and the experts split (``dist/tp.py``), the
+  moe routing over the whole batch, the other families on whole
   parameters (ROADMAP.md A12);
 * ``decode`` — ``Model.decode_step`` of one token on rank 0's rows of the
-  cache (``serve_shardings``; the dense family's holds rank 0's heads),
+  cache (``serve_shardings``; the dense and moe families' hold rank 0's
+  heads),
   the parameters as for prefill.
 
 So a record shows what the port's rank 0 would do on that mesh.  The
@@ -186,9 +189,11 @@ def build_step(cfg, kind: str, batch: int, seq: int, mesh=None, device="meta",
             return step(params, opt, inputs)
 
         return run, {"params": params, "opt": opt, "batch": inputs}
-    # the serving engine's storage and model: the dense family's shards and
-    # local heads under its tensor-parallel plan, else whole
+    # the serving engine's storage and model: the dense and moe families'
+    # shards and local heads under their tensor-parallel plan, else whole;
+    # a rank's rows of a split batch route over the whole batch
     plan = serving_plan(cfg, mesh)
+    split = (mesh, _batch_axes(mesh)) if _rows(batch, mesh) else None
     if plan is not None:
         model = build_model(local_config(cfg, plan))
         whole = shard_tree(whole, plan.placements, mesh)
@@ -201,7 +206,7 @@ def build_step(cfg, kind: str, batch: int, seq: int, mesh=None, device="meta",
                     return model.forward(whole, inputs)
         else:
             def run():
-                with torch.no_grad(), mesh_context(mesh, plan):
+                with torch.no_grad(), mesh_context(mesh, plan, split):
                     return model.prefill(whole, inputs, seq)
         return run, {"params": whole, "batch": inputs}
     if kind == "decode":
@@ -217,7 +222,7 @@ def build_step(cfg, kind: str, batch: int, seq: int, mesh=None, device="meta",
         token = inputs_of("decode")["token"][:rows]
 
         def run():
-            with torch.no_grad(), mesh_context(mesh, plan):
+            with torch.no_grad(), mesh_context(mesh, plan, split):
                 return model.decode_step(whole, token, cache)
 
         return run, {"params": whole, "cache": cache, "batch": {"token": token}}

@@ -23,6 +23,8 @@ optional VUSA packing, one batched ``generate``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_tiny --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --packed all \
         --mesh 2,2 --dist-backend gloo --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b --smoke \
+        --mesh 1,2 --dist-backend gloo --device cpu
 
 Port of the JAX package's ``launch/serve.py``: one batched ``generate``,
 with its speculative options, or with ``--requests N`` N synthetic
@@ -43,10 +45,10 @@ stats print and the journal closes clean.  ``--mesh DP,TP`` serves on a
 this machine, with the collective backend ``--dist-backend``: ``nccl``
 for one GPU per rank, ``gloo`` for ranks that share a GPU or run on the
 CPU (gloo collectives cannot be captured in a CUDA graph, so with TP > 1
-the steps run eagerly); rank 0 prints.  A dense-family model serves
-tensor-parallel on sharded storage (``dist/tp.py``): each rank draws each
-leaf, prunes it whole and keeps its shard, so no rank holds the whole
-model.  ``--no-fused`` decodes in the eager host
+the steps run eagerly); rank 0 prints.  A dense or moe model serves
+tensor-parallel on sharded storage (``dist/tp.py``; the moe family's
+experts split over ``model``): each rank draws each leaf, prunes it whole
+and keeps its shard, so no rank holds the whole model.  ``--no-fused`` decodes in the eager host
 loop instead of the CUDA graph.  ``--arch`` takes every id of
 ``configs.ARCH_IDS`` (the dense, moe, vlm, hybrid, ssm and encdec
 families); a vlm model's one-shot ``generate`` gets seeded stand-in patch

@@ -12,7 +12,12 @@ batch split over pod x data) that ``launch/mesh.spawn`` starts on this
 machine, with the
 collective backend ``--dist-backend`` (``nccl``: one GPU per rank;
 ``gloo``: ranks that share a GPU or run on the CPU); rank 0 prints and
-writes the checkpoints.
+writes the checkpoints.  On ``--model`` above 1 the dense and moe
+families train tensor-parallel (``dist.tp.training_plan``; the moe
+family's experts split over ``model``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe_1b_7b --smoke \
+        --device cpu --model 2 --dist-backend gloo
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 __all__ = ["ParamSpec", "init_params", "abstract_params", "rms_norm", "layer_norm", "rope", "apply_rope",
-           "strict_fp32", "per_row", "mesh_context", "current_mesh", "current_tp"]
+           "strict_fp32", "per_row", "mesh_context", "current_mesh", "current_tp", "current_rows",
+           "current_context"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,22 +100,27 @@ _ctx = threading.local()
 
 
 @contextlib.contextmanager
-def mesh_context(mesh, tp=None):
+def mesh_context(mesh, tp=None, rows=None):
     """Install ``mesh`` for the code inside: the layers that act on a mesh
     (``layers._maybe_seq_sharded_attention``) read it through
-    :func:`current_mesh`, and the dense family's tensor-parallel layers read
-    ``tp``, the serving engine's ``dist.tp.TPPlan`` (its splits and storage
-    placements), through :func:`current_tp`.  The reference's context also
-    carries activation rules for its sharding constraints; in the port each
-    rank computes on tensors it holds whole or as its shard, placed where
-    they are made (``dist/sharding.py``), so there is nothing to
-    constrain."""
-    prev = getattr(_ctx, "mesh", None), getattr(_ctx, "tp", None)
-    _ctx.mesh, _ctx.tp = mesh, tp
+    :func:`current_mesh`, and the tensor-parallel layers read ``tp``, the
+    serving engine's or the trainer's ``dist.tp.TPPlan`` (its splits and
+    storage placements), through :func:`current_tp`.  ``rows``: ``(mesh,
+    axes)`` when the caller cut the batch rows of this call over those mesh
+    axes, each rank computing its own (``Engine.generate`` and the trainer
+    on a data axis); the moe routing reads it through
+    :func:`current_rows` to count over the whole batch, as the reference's
+    program over the global batch does (``layers.moe``).  The reference's
+    context also carries activation rules for its sharding constraints; in
+    the port each rank computes on tensors it holds whole or as its shard,
+    placed where they are made (``dist/sharding.py``), so there is nothing
+    to constrain."""
+    prev = current_context()
+    _ctx.mesh, _ctx.tp, _ctx.rows = mesh, tp, rows
     try:
         yield
     finally:
-        _ctx.mesh, _ctx.tp = prev
+        _ctx.mesh, _ctx.tp, _ctx.rows = prev
 
 
 def current_mesh():
@@ -124,8 +130,20 @@ def current_mesh():
 
 def current_tp():
     """The tensor-parallel plan of the innermost ``mesh_context``, or None
-    (one device, the trainer, any family but dense)."""
+    (one device, or a step on gathered parameters)."""
     return getattr(_ctx, "tp", None)
+
+
+def current_rows():
+    """``(mesh, axes)`` of the innermost ``mesh_context`` whose caller split
+    the batch rows over ``axes``, or None."""
+    return getattr(_ctx, "rows", None)
+
+
+def current_context() -> tuple:
+    """``(mesh, tp, rows)`` of the innermost ``mesh_context``: what a
+    recompute on another thread installs again (``families._layer_in``)."""
+    return current_mesh(), current_tp(), current_rows()
 
 
 # --------------------------------------------------------------------------

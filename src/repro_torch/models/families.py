@@ -44,7 +44,7 @@ import torch.nn.functional as Fn
 from torch.utils.checkpoint import checkpoint
 
 from .cache import batch_axes, slot_view
-from .common import ParamSpec, current_tp, mesh_context, per_row, rms_norm
+from .common import ParamSpec, current_context, current_tp, mesh_context, per_row, rms_norm
 from .layers import (
     MaskSpec, attention, attention_chunk, attention_decode, attention_specs, cross_attention,
     encode_cross_kv, mlp, mlp_specs, moe, moe_specs,
@@ -156,13 +156,10 @@ def _ffn(p, h, cfg, rowwise: bool = False):
     or for the moe family the routed experts and their aux loss; with
     ``rowwise`` the experts route and dispatch each batch row alone (aux
     0), so row b is the B = 1 call, as the reference's pool step, a B = 1
-    step mapped over the slots, computes it."""
+    step mapped over the slots, computes it (``layers.moe``)."""
     if cfg.family != "moe":
         return mlp(p, h, rowwise), 0.0
-    if rowwise and h.shape[0] > 1:  # the experts cast once, not once per row
-        pc = {k: v if k == "router" else v.to(h.dtype) for k, v in p.items()}
-        return per_row(lambda r: moe(pc, r, cfg)[0], h, True), 0.0
-    return moe(p, h, cfg)
+    return moe(p, h, cfg, rowwise=rowwise)
 
 
 def _unstack(tree: dict, n: int) -> list:
@@ -179,12 +176,13 @@ def _lm_layer(lp, x, cfg, mask, positions):
     return x + y, aux
 
 
-def _layer_in(mesh, plan, *args):
-    """``_lm_layer`` under ``mesh_context(mesh, plan)``.  A remat recompute
-    runs where autograd runs the backward, on the card its device thread,
-    which the caller's context (thread-local) does not reach: the layer
-    would recompute without the plan, on other shapes."""
-    with mesh_context(mesh, plan):
+def _layer_in(ctx, *args):
+    """``_lm_layer`` under ``mesh_context(*ctx)``.  A remat recompute runs
+    where autograd runs the backward, on the card its device thread, which
+    the caller's context (thread-local) does not reach: the layer would
+    recompute without the plan, on other shapes, or route its experts over
+    this rank's rows alone."""
+    with mesh_context(*ctx):
         return _lm_layer(*args)
 
 
@@ -207,7 +205,8 @@ def lm_forward(params, batch, cfg):
         params, lcfg = plan.train_params(params), local_config(cfg, plan)
     x, mask, positions = _lm_inputs(params, batch, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
-    layer = _lm_layer if plan is None else functools.partial(_layer_in, plan.mesh, plan)
+    ctx = current_context()
+    layer = _lm_layer if all(c is None for c in ctx) else functools.partial(_layer_in, ctx)
     aux = 0.0
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
@@ -318,7 +317,7 @@ def lm_decode_step(params, token, cache, cfg, rowwise: bool = False, x=None):
 
 
 DENSE_LEAVES = {"attn": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
-                "ffn": ("w_gate", "w_up", "w_down")}
+                "ffn": ("router", "w_gate", "w_up", "w_down")}
 
 
 def _dense_layer(params, i: int, names=None) -> dict:

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from .cache import paged_gather, paged_scatter_rows
-from .common import ParamSpec, apply_rope, current_tp, per_row, rms_norm, rope
+from .common import ParamSpec, apply_rope, current_rows, current_tp, per_row, rms_norm, rope
 from .opt_flags import FLAGS
 
 __all__ = [
@@ -690,7 +690,8 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe(p: dict, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None):
+def moe(p: dict, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None,
+        rowwise: bool = False):
     """Top-k MoE with capacity-bounded dispatch (token-dropping), the
     reference's default route.  x (B, S, d); returns (y (B, S, d), the
     Switch load-balance aux loss).
@@ -708,9 +709,59 @@ def moe(p: dict, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None):
     gate 0; the reference piles its token into the dump slot (place cap),
     here the dump slot stays zero, so its expert output is exactly 0 and no
     dropped token's values can reach a kept output.  Capacity couples the
-    rows of one call unless ``cf >= e / k`` (dropless)."""
+    rows of one call unless ``cf >= e / k`` (dropless).  ``rowwise``: each
+    batch row routes and dispatches alone (its own capacity, aux 0), so row
+    b is the B = 1 call (the pool step); the experts are cast once.
+
+    Where the caller cut the batch rows over ``data`` (``current_rows``)
+    the routing is the whole batch's, as the reference's program over the
+    global batch computes it: ``t`` and ``cap`` count every rank's tokens,
+    an assignment's place adds the count of its expert's assignments on
+    earlier ranks (rows split rank-major), and the aux loss takes the
+    whole batch's mean probabilities and counts (``comm.batch_totals``,
+    one gather a call).  Each rank still dispatches only its own tokens,
+    into a buffer of its own places (at most one slot a token of its own,
+    the dump slot after): an expert's output for one slot does not depend
+    on the other slots.
+
+    Under a tensor-parallel plan (``dist/tp.py``) whose placements split
+    the experts over ``model`` (``TPPlan.experts``) the weights are this
+    rank's ``E / tp`` experts: every ``model`` rank holds the same tokens,
+    so each computes the same router, top-k, places and drops (over the
+    config's whole ``e``); each dispatches to, runs and weighs only its own
+    experts, and the ranks' partial outputs are summed over ``model`` in
+    rank order (``comm.sum_model``, one collective a call, rowwise too).
+    Where the experts stay whole but their ff dim splits (``TPPlan.ff``:
+    ``e`` does not divide ``model``) each rank runs every expert on its ff
+    slab and the partials are summed alike.  The token rows and the gate
+    weights enter the split through one ``comm.enter_model``: the router
+    and the aux loss read neither, so their gradients stay complete on
+    every rank and are not summed again."""
+    plan = current_tp()
+    split = plan is not None and (plan.experts or plan.ff)
+    cf = cfg.moe_cf if capacity_factor is None else capacity_factor
+    b = x.shape[0]
+    if rowwise and b > 1:
+        p = {k: v if k == "router" else v.to(x.dtype) for k, v in p.items()}  # cast once
+        y = torch.cat([_moe_part(p, x[i : i + 1], cfg, cf, plan if split else None, None)[0]
+                       for i in range(b)])
+        aux = 0.0
+    else:  # a row-wise call routes its row alone, whoever split the batch
+        y, aux = _moe_part(p, x, cfg, cf, plan if split else None,
+                           None if rowwise else current_rows())
+    if split:
+        from ..dist.comm import sum_model
+
+        y = sum_model(y, plan.mesh)
+    return y, aux
+
+
+def _moe_part(p: dict, x: torch.Tensor, cfg, cf: float, plan, rows):
+    """One routed call of :func:`moe` on ``x`` (B, S, d): (y, aux), y this
+    rank's partial under a split ``plan`` (None: whole), the routing over
+    the whole batch where ``rows`` (``current_rows``) splits it."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    e, k = cfg.n_experts, cfg.top_k  # the whole e, on every rank
     t = b * s
     xf = x.reshape(t, d)
     probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)  # (T, E)
@@ -718,18 +769,27 @@ def moe(p: dict, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None):
     gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
 
     flat_e = eids.reshape(-1)  # (T * k,)
-    counts = torch.zeros((e,), dtype=torch.float32, device=x.device)
-    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
-    aux = e * torch.sum(probs.mean(0) * (counts / (t * k)))
+    counts = torch.zeros((e,), dtype=torch.long, device=x.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    before = None
+    if rows is None:
+        aux = e * torch.sum(probs.mean(0) * (counts.float() / (t * k)))
+    else:
+        from ..dist.comm import axes_index, batch_totals
 
-    cf = cfg.moe_cf if capacity_factor is None else capacity_factor
+        mesh, axes = rows
+        total, every = batch_totals(probs.sum(0), counts, mesh, axes)  # (E,), (n, E)
+        before = every[: axes_index(mesh, axes)].sum(0)
+        t = t * every.shape[0]
+        aux = e * torch.sum((total / t) * (every.sum(0).float() / (t * k)))
+
     cap = int(cf * t * k / e) + 1
     if FLAGS["moe_sort_positions"]:
         order = torch.argsort(flat_e, stable=True)
         sorted_e = flat_e[order]
         run_start = torch.searchsorted(sorted_e, sorted_e, side="left")
         pos = torch.empty_like(flat_e).index_copy_(
-            0, order, torch.arange(t * k, device=x.device) - run_start)
+            0, order, torch.arange(flat_e.numel(), device=x.device) - run_start)
     else:  # the baseline: each expert's running count over a (T * k, E) one-hot
         counts_run = torch.cumsum(F.one_hot(flat_e, e), dim=0) - 1
         pos = counts_run.gather(1, flat_e[:, None])[:, 0]
@@ -737,16 +797,48 @@ def moe(p: dict, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None):
     if FLAGS["moe_shard_capacity"]:  # the reference's capacity for a sharded buffer
         cap = -(-cap // 256) * 256
         n_slots = cap + 256
-    dropped = pos >= cap
-    pos = torch.where(dropped, cap, pos)  # every dropped assignment aims at the dump slot
+    dump = cap
+    if before is None:
+        dropped = pos >= cap
+        place = pos
+    else:  # the assignments of earlier ranks' rows come first
+        place = pos + before[flat_e]
+        dropped = place >= cap
+        # this rank's kept assignments to an expert are the run of places
+        # [before, before + its count) below cap: its buffer holds that run
+        # alone, at most one slot a token of its own, and the dump slot after
+        dump = min(cap, b * s)
+        n_slots = dump + 1
+    if moe.trace is not None:
+        moe.trace.append({"eids": flat_e.clone(), "pos": place.clone(),
+                          "dropped": dropped.clone()})
+    pos = torch.where(dropped, dump, pos)  # every dropped assignment aims at the dump slot
 
-    xk = torch.where(dropped[:, None], 0, xf.repeat_interleave(k, dim=0))  # (T * k, d)
-    buf = torch.zeros((e, n_slots, d), dtype=x.dtype, device=x.device).index_put(
-        (flat_e, pos), xk)  # the dump slot's writes are all zeros
     wg, wu, wd = (p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down"))
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum("ecd,edf->ecf", buf, wu)
-    out = torch.einsum("ecf,efd->ecd", h, wd)  # (e, cap + 1, d)
+    keep, idx = ~dropped, flat_e
+    if plan is not None:
+        from ..dist.comm import enter_model
 
-    w = torch.where(dropped, 0.0, gate_w.reshape(-1)).to(x.dtype)
-    y = (out[flat_e, pos] * w[:, None]).reshape(t, k, d).sum(dim=1)
+        xf, gate_w = enter_model((xf, gate_w), plan.mesh)
+        if plan.experts:  # this rank's experts; the others' assignments aim at a dump slot
+            lo = plan.rank * wg.shape[0]
+            mine = (flat_e >= lo) & (flat_e < lo + wg.shape[0])
+            keep = keep & mine
+            idx = torch.where(mine, flat_e - lo, 0)
+            pos = torch.where(mine, pos, dump)
+    xk = torch.where(keep[:, None], xf.repeat_interleave(k, dim=0), 0)  # (T * k, d)
+    buf = torch.zeros((wg.shape[0], n_slots, d), dtype=x.dtype, device=x.device).index_put(
+        (idx, pos), xk)  # the dump slot's writes are all zeros
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum("ecd,edf->ecf", buf, wu)
+    out = torch.einsum("ecf,efd->ecd", h, wd)  # (experts here, n_slots, d)
+
+    w = torch.where(keep, gate_w.reshape(-1), 0.0).to(x.dtype)
+    y = (out[idx, pos] * w[:, None]).reshape(b * s, k, d).sum(dim=1)
     return y.reshape(b, s, d), aux
+
+
+# set to a list, every routed call appends its integers: each assignment's
+# expert ("eids", (T * k,), token-major), its place in the expert over the
+# whole batch ("pos") and whether capacity dropped it ("dropped"); for the
+# tests and the card's gates
+moe.trace = None

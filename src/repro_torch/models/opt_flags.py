@@ -31,10 +31,12 @@ time by the sites below; ``models.layers.FLAGS`` is the same object.
 * ``moe_shard_capacity`` — default off.  In the reference it shards the
   dispatch buffers over (experts x data) and, to make the capacity dim
   divide, rounds the capacity up to a multiple of 256 with 256 dump slots.
-  The port has no expert-parallel placement (ROADMAP.md A12), so on it
-  keeps only the capacity rounding: results are bitwise those of the flag
-  off wherever no assignment overflows either capacity, and otherwise the
-  larger capacity drops fewer assignments, as in the reference.
+  The port's expert parallelism (ROADMAP.md A12) splits the experts over
+  ``model`` and keeps each rank's own token slots, never the capacity over
+  ``data``, so on it keeps only the capacity rounding: results are bitwise
+  those of the flag off wherever no assignment overflows either capacity,
+  and otherwise the larger capacity drops fewer assignments, as in the
+  reference.
 """
 
 from __future__ import annotations

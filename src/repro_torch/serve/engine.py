@@ -44,7 +44,8 @@ the same property by splitting its key once per emitted token.  No random
 state lives in a graph.
 
 On a mesh (``Engine(..., mesh=)``, a (data, model) DeviceMesh of ranks
-that all run the same code; ``launch/mesh.py``) the dense family's engine
+that all run the same code; ``launch/mesh.py``) the dense and moe families'
+engine
 stores each dense leaf as this rank's shard under the reference's
 placements (``dist/tp.py storage_placements``: heads, kv heads, ff and
 vocab over ``model``, the embed dim over ``data``; the norm scales held
@@ -60,8 +61,11 @@ tensor-parallel appliers; where attention splits by heads, a rank packs
 its attention from its own heads (``pack_lm_weights(split_heads=True)``),
 so the KV cache the packed route and its dense twin share holds the
 local heads.  The dense twin of a pack is the tensor-parallel dense
-route.  The other families hold their parameters whole on every
-rank and run the single-device program.
+route.  The moe family stores its experts split over ``model``
+(``E / tp`` a rank, expert parallelism) under the same rules and serves
+dense; where ``generate`` splits its rows over ``data`` the routing counts
+over the whole batch (``layers.moe``).  The other families hold their
+parameters whole on every rank and run the single-device program.
 The batch rows (or the scheduler's slots) are split over ``data`` when
 its size divides them, and kept whole on every rank when it does not.
 The logits of every step are gathered whole before a token is chosen, and
@@ -318,8 +322,8 @@ class Engine:
         self.dp, self.tp = axis_size(self.mesh, "data"), axis_size(self.mesh, "model")
         # a rank packs only its own windows of each pack
         self._model_rank = axis_index(self.mesh, "model") if self.tp > 1 else None
-        # the dense family's tensor-parallel plan; the model is built with
-        # this rank's head counts, so the attend and its caches hold them
+        # the dense or moe family's tensor-parallel plan; the model is built
+        # with this rank's head counts, so the attend and its caches hold them
         self.plan = serving_plan(cfg, self.mesh)
         self.model = build_model(local_config(cfg, self.plan))
         # attention split by heads: each rank packs its heads' projections
@@ -520,9 +524,14 @@ class Engine:
         one each drafter step's embedding makes a collective)."""
         return self._graphed() and self.plan is None
 
+    def _context(self, split: bool = False):
+        """``mesh_context`` of the engine's mesh and plan; ``split``: the
+        call's rows are this rank's of a batch cut over ``data``."""
+        return mesh_context(self.mesh, self.plan, (self.mesh, ("data",)) if split else None)
+
     def _embed(self, token: torch.Tensor) -> torch.Tensor:
         """The embedding rows of ``token`` (a captured step's ``pre``)."""
-        with mesh_context(self.mesh, self.plan):
+        with self._context():
             return _embed_tokens(self.params, token, self.model.cfg)
 
     def _validate_tokens(self, tokens) -> None:
@@ -538,12 +547,14 @@ class Engine:
             )
 
     # -- one step -------------------------------------------------------------
-    def _logits(self, token, cache, packed, rowwise: bool = False, x=None) -> torch.Tensor:
+    def _logits(self, token, cache, packed, rowwise: bool = False, x=None,
+                split: bool = False) -> torch.Tensor:
         """(B, s, V) logits of ``token`` (B, s) through ``packed`` (dense
         when None); advances the cache in place.  ``rowwise``: row b bitwise
         a B = 1 step (``families.lm_decode_step``); ``x``: the embedding
-        rows, made before a replay."""
-        with mesh_context(self.mesh, self.plan):
+        rows, made before a replay; ``split``: ``token`` holds this rank's
+        rows of a batch cut over ``data``."""
+        with self._context(split):
             if packed is not None:
                 from .packed import lm_decode_step_packed
 
@@ -569,14 +580,15 @@ class Engine:
         """One decode step on ``st``: the token at ``st.count`` and its
         integrity flag (``isfinite`` over the fp32 logits) written to the
         outputs, the token fed back, the count and ``pos`` advanced."""
-        self._emit(st, self._logits(self._feed(st), st.cache, self._route_pack())[:, -1].float())
+        self._emit(st, self._logits(self._feed(st), st.cache, self._route_pack(),
+                                    split=st.rows is not None)[:, -1].float())
 
     def _step_logits(self, st: _Loop) -> None:
         """The captured part of a step on a mesh: this rank's logits, from
         the static embedding rows ``st.x`` when the engine has a plan, into
         the static ``st.logits``."""
-        st.logits.copy_(self._logits(self._feed(st), st.cache, self._route_pack(),
-                                     x=st.x)[:, -1].float())
+        st.logits.copy_(self._logits(self._feed(st), st.cache, self._route_pack(), x=st.x,
+                                     split=st.rows is not None)[:, -1].float())
 
     def _emit(self, st: _Loop, logits: torch.Tensor) -> None:
         """The rest of a step from this rank's (rows, V) fp32 logits: the
@@ -1013,7 +1025,7 @@ class Engine:
         return -torch.log(-torch.log(u))
 
     @torch.no_grad()
-    def prime(self, prompts, extras: Optional[Dict] = None):
+    def prime(self, prompts, extras: Optional[Dict] = None, split: bool = False):
         """Prefill ``prompts`` (B, S) and bulk-fill the KV cache.  Returns
         ``(first_token (B, 1), cache)``; the first token is the prefill
         logits' argmax, as in the reference.  ``extras`` are further batch
@@ -1024,7 +1036,9 @@ class Engine:
         K/V; it drops the prompt, as the reference does: zero logits, so
         the first token is 0, and decode starts at ``pos`` 0 (ROADMAP C12).
         The recurrent families (hybrid, ssm) have no prefill: the prompt
-        runs through decode steps (:meth:`_prime_recurrent`)."""
+        runs through decode steps (:meth:`_prime_recurrent`).  ``split``:
+        ``prompts`` are this rank's rows of a batch cut over ``data``
+        (``generate``; the moe routing then counts over the whole batch)."""
         prompts = np.asarray(prompts)
         if self.cfg.family in RECURRENT_FAMILIES:
             return self._prime_recurrent(prompts)
@@ -1034,7 +1048,7 @@ class Engine:
         batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=self.device)}
         for name, val in (extras or {}).items():
             batch[name] = torch.as_tensor(np.asarray(val), device=self.device)
-        with mesh_context(self.mesh, self.plan):
+        with self._context(split):
             logits, cache = self.model.prefill(self.params, batch, self.sc.max_len)
         return torch.argmax(logits.float(), dim=-1)[:, None], cache
 
@@ -1091,7 +1105,7 @@ class Engine:
         self._validate_tokens(prompts)
         tokens = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
         lens = torch.as_tensor(np.asarray(lengths, np.int64), device=self.device)
-        with mesh_context(self.mesh, self.plan):
+        with self._context():
             logits, cache = self.model.prefill(self.params, {"tokens": tokens}, self.sc.max_len,
                                                lengths=lens)
         return torch.argmax(logits.float(), dim=-1)[:, None], cache
@@ -1105,7 +1119,7 @@ class Engine:
         self._validate_tokens(tokens)
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
         table = torch.as_tensor(np.asarray(table_row, np.int64), device=self.device)
-        with mesh_context(self.mesh, self.plan):
+        with self._context():
             return self.model.prefill_chunk(self.params, toks, arena, table, int(start),
                                             int(true_len), int(write_from))
 
@@ -1291,7 +1305,7 @@ class Engine:
             prompts = prompts[rows]
             extras = {k: np.asarray(v)[rows] for k, v in (extras or {}).items()}
         t0 = self._clock()
-        nxt, cache = self.prime(prompts, extras)
+        nxt, cache = self.prime(prompts, extras, split=rows is not None)
         nxt = self._whole(nxt, rows)
         self._sync()
         t_prefill = self._clock() - t0

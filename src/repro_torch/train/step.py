@@ -16,14 +16,16 @@ parameters whole for the forward, so it is the single-device program on
 this rank's rows of the batch; with ``split`` (the batch rows split over
 the pure data axes, ``("pod", "data")``) the gradients and the loss are
 summed over those ranks in their flattened rank order, pod-major, and
-divided by their count.  The global-norm clip runs on the
-whole gradients in the single-device order, and each rank then updates
-only its shard.  On a ``model`` axis alone the step is the single-device
-step bitwise.
+divided by their count; the moe family's routing then counts over the
+whole batch, as the reference's program over the global batch does
+(``models.common.mesh_context``'s ``rows``, ``layers.moe``).  The
+global-norm clip runs on the whole gradients in the single-device order,
+and each rank then updates only its shard.  On a ``model`` axis alone the
+step is the single-device step bitwise.
 
 With a tensor-parallel plan (``plan=``, ``dist.tp.training_plan``: the
-dense family on a ``model`` axis above 1) no rank gathers the tree: the
-step gathers every ``data``-sharded leaf over ``data`` once (one
+dense and moe families on a ``model`` axis above 1) no rank gathers the
+tree: the step gathers every ``data``-sharded leaf over ``data`` once (one
 ``comm.gather_leaves`` a dtype), runs the forward and the backward under
 the plan (``models.common.mesh_context``), so the gradients are this
 rank's ``model`` shards, sums them over the data ranks as above and cuts
@@ -38,6 +40,7 @@ compressed step within rounding.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -98,6 +101,11 @@ def make_train_step(loss_fn: Callable, hp: TrainHParams, mesh=None, placements=N
     adds ``"grads"``: the gradients the update clips (after the sum over
     the data ranks and the compression), this rank's shards under
     ``placements`` (whole on one device), in ``tree_items`` order."""
+    from ..dist.sharding import _batch_axes
+    from ..models.common import mesh_context
+
+    # the axes this rank's rows were cut over, for the moe routing
+    rows = (mesh, _batch_axes(mesh)) if split else None
 
     def step(params: dict, opt: AdamState, batch: dict, return_grads: bool = False):
         t = int(opt.step)  # the lr of this update: the count before it
@@ -109,7 +117,8 @@ def make_train_step(loss_fn: Callable, hp: TrainHParams, mesh=None, placements=N
             from ..dist.sharding import gather_tree
 
             shards, params = params, gather_tree(params, placements, mesh)
-        loss, grads = _accumulate(params, batch)
+        with contextlib.nullcontext() if rows is None else mesh_context(None, None, rows):
+            loss, grads = _accumulate(params, batch)
         if shards is not None:
             return _sharded_update(shards, params, grads, loss, opt, lr, t, return_grads)
         if hp.grad_compress:
@@ -173,7 +182,6 @@ def make_train_step(loss_fn: Callable, hp: TrainHParams, mesh=None, placements=N
         docstring)."""
         from ..dist.comm import gather_leaves, sum_in_rank_order
         from ..dist.sharding import local_shard
-        from ..models.common import mesh_context
 
         paths, leaves = zip(*tree_items(shards))
         spec = dict(tree_items(placements))
@@ -186,7 +194,7 @@ def make_train_step(loss_fn: Callable, hp: TrainHParams, mesh=None, placements=N
                                   mesh, "data")
             for i, w in zip(idx, whole):
                 held[i] = w
-        with mesh_context(mesh, plan):
+        with mesh_context(mesh, plan, rows):
             loss, grads = _accumulate(_tree(paths, held), batch)
         del held
         grads, loss = _data_sum(grads, loss)

@@ -9,10 +9,11 @@ stored as each rank's shards under ``dist.sharding.params_shardings``,
 the batch rows split over every pure data axis, ``("pod", "data")``
 flattened pod-major as the reference's batch placement (when their
 product divides them), and the
-step is ``train/step.py``'s sharded step: for the dense family on a
-``model`` axis above 1 the tensor-parallel one (``dist.tp.training_plan``:
-no rank gathers the tree), else the single-device program on gathered
-parameters.  Each rank draws its shards leaf by leaf, and the pruning
+step is ``train/step.py``'s sharded step: for the dense and moe families
+on a ``model`` axis above 1 the tensor-parallel one
+(``dist.tp.training_plan``: no rank gathers the tree; the moe family's
+experts split over ``model``), else the single-device program on gathered
+parameters, the moe routing over the whole batch where the rows split.  Each rank draws its shards leaf by leaf, and the pruning
 masks are refreshed one leaf at a time (each leaf gathered whole,
 ``magnitude_mask`` on it, this rank's shard kept: the single-device masks,
 bitwise).  A checkpoint stays the
@@ -47,7 +48,7 @@ import torch
 
 from ..checkpoint.ckpt import Checkpointer
 from ..configs.base import ArchConfig
-from ..dist.comm import axis_index, mesh_shape
+from ..dist.comm import axes_index, mesh_shape
 from ..dist.sharding import _batch_axes
 from ..core.pruning import (
     _prunable, apply_masks, magnitude_mask, masks_tree, polynomial_sparsity, tree_sparsity,
@@ -102,9 +103,7 @@ class Trainer:
             dp = math.prod(shape[a] for a in axes)
             if dp > 1 and tc.global_batch % dp == 0:
                 k = tc.global_batch // dp
-                r = 0
-                for a in axes:
-                    r = r * shape[a] + axis_index(self.mesh, a)
+                r = axes_index(self.mesh, axes)
                 self.rows = slice(r * k, (r + 1) * k)
         self.step_fn = make_train_step(self.model.loss, tc.hp, self.mesh, self.p_shard,
                                        split=self.rows is not None, plan=self.plan)
