@@ -414,9 +414,32 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    routing) the norm and shards within C13's 2e-3 and layer 0's routing
    integers one device's rows; the collectives as
    ``TPPlan.train_collectives`` predicts; the 1x4-trained shards served
-   on 1x4 give one device's tokens on the gathered tree.  Reported beside
-   the card: ms a step against one device's, collectives and bytes a step
-   a rank, peak memory a rank, each part's seconds;
+   on 1x4 give one device's tokens on the gathered tree.  (e) tensor
+   parallelism for the vlm, hybrid and ssm families (``TPPlan.ssm``: a
+   rank runs 20 of Mamba-2's 80 SSM heads on 1x4, ``TPPlan.rglru``: 1024
+   of the RG-LRU's 4096 channels; paligemma's and recurrentgemma's one kv
+   head keeps attention whole), fp32, fp32 attention probabilities, the
+   contracted fan-in, one device's oracles first (then freed; (e2)'s
+   gradients handed to the ranks through files), its own limit of
+   ``TPR_PHASE_LIMIT_S``: (e1) ``paligemma_3b`` whole (18 layers, 256
+   seeded stand-in patches, prompt 32, 8 new tokens), ``mamba2_2_7b``
+   whole (64 layers, prompt 8, 4 new), ``recurrentgemma_9b`` at 8 of 38
+   layers (two groups and the 2-layer RG-LRU tail, ``TPR_CUT_WHY``),
+   ``generate`` B = 4 on 1x4; gates: first-step logits within 1e-4 of
+   the largest of one device's, tokens equal, every rank's bits rank 0's,
+   the stored bytes the placement's, each rank's peak at most 0.3x one
+   device's, the collectives a decode step
+   ``TPPlan.decode_collectives``'; (e2) one step from the draw
+   (``TPR_TRAIN``): paligemma at 2 layers and mamba2 at 4 on 1x4 and
+   2x2, 8 x (256 patches +) 128, remat, each the Trainer's step, and
+   recurrentgemma at 3 layers on 1x4, the loss and its gradients under
+   the plan; gates (d3)'s: the loss within 1e-5 relative, each gradient
+   shard within 1e-4 (1x4) or C13's 2e-3 (2x2) of the leaf's largest |g|,
+   the collectives as ``train_collectives`` (``grad_collectives``)
+   predicts; mamba2's 1x4-trained shards served on 1x4 give one device's
+   tokens on the gathered tree.  Reported beside the
+   card: ms a step against one device's, collectives and bytes a step a
+   rank, peak memory a rank, each part's seconds;
 18. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
    launches in the counted run and per decode step, the graph run's
    launches, phase 10's speculative pool graph launches, CUDA launches per
@@ -436,6 +459,7 @@ import argparse
 import asyncio
 import contextlib
 import dataclasses
+import faulthandler
 import functools
 import gc
 import hashlib
@@ -498,7 +522,7 @@ from repro_torch.kernels.vusa_spmm import (  # noqa: E402
 )
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
-from repro_torch.models.common import strict_fp32  # noqa: E402
+from repro_torch.models.common import mesh_context, strict_fp32  # noqa: E402
 from repro_torch.models.cache import (  # noqa: E402
     PagedLayout,
     bind_slot_pages,
@@ -685,6 +709,56 @@ EP_CUT_WHY = {
     "training on 2x2": "2 of 16 layers: at 4 the ranks' steps (each holds its tree gathered "
                        "over data, 1/2 of it) beside one device's gradients held for them "
                        "ran out of the card's 80 GB"}
+# its part (e), tensor parallelism for the vlm and recurrent families (the
+# SSM's heads and the RG-LRU's channels split over model): (e1) each arch
+# served on 1x4 at its published widths, (layers, prompt, new tokens) as
+# TPR_SERVE (None: every layer), generate B = 4, paligemma with 256 seeded
+# stand-in patches; (e2) one training step from the drawn state at
+# TPR_TRAIN's depths and meshes beside one device's step (its gradients
+# handed to the ranks through a file under TPR_DIR, so the card holds none of
+# them while phase 17's earlier parts run), the 1x4-trained shards then
+# served on 1x4.  The gates, written before the first run: (e1) first-step logits within
+# TPR_LOGIT_TOL of the largest of one device's, tokens equal, every rank's
+# bits rank 0's, the stored bytes the placement's, each rank's peak at most
+# TP_MEM_RATIO of one device's, the collectives a decode step
+# TPPlan.decode_collectives'; (e2) (d3)'s: the loss within EP_LOSS_TOL
+# relative, each gradient shard within EP_GRAD_TOL of the leaf's largest |g|
+# on 1x4 and within C13's TPT_GRAD_TOL on 2x2, the collectives as
+# TPPlan.train_collectives (or grad_collectives) predicts; the served tokens
+# one device's on the gathered tree.  The part's own time limit
+TPR_ARCHS = ("paligemma_3b", "mamba2_2_7b", "recurrentgemma_9b")
+TPR_SERVE = {"paligemma_3b": (None, 32, 8), "mamba2_2_7b": (None, 8, 4),
+             "recurrentgemma_9b": (8, 8, 4)}
+# arch -> (layers, meshes, whole step, leaves not compared): a whole step is
+# the Trainer's, else the loss and its gradients under the plan; TPR_SERVED's
+# 1x4-trained shards are then served on 1x4
+TPR_DIR = TP_DIR / "e2"
+TPR_TRAIN = {"paligemma_3b": (2, ("1x4", "2x2"), True, ()),
+             "mamba2_2_7b": (4, ("1x4", "2x2"), True, ()),
+             "recurrentgemma_9b": (3, ("1x4",), False, ("embed", "lm_head"))}
+TPR_SERVED = ("mamba2_2_7b",)
+TPR_LOGIT_TOL = 1e-4
+TPR_CUT_WHY = {  # every cut is of depth, never of a width
+    "recurrentgemma_9b serving": "8 of 38 layers (2 groups and the 2-layer rglru tail): one "
+                                 "device's fp32 tree at 38 layers is about 42 GB, beside the "
+                                 "ranks' and (d3)'s gradients held for the ranks",
+    "paligemma_3b training": "2 of 18 layers: one device's parameters, gradients and Adam "
+                             "moments at 18 layers are about 49 GB, and at 2 its 257216-wide "
+                             "embedding and head keep a 2x2 rank near 10 GB beside (d3)'s "
+                             "gradients held for the ranks",
+    "mamba2_2_7b training": "4 of 64 layers: one device's parameters, gradients and Adam "
+                            "moments at 64 layers are about 45 GB",
+    "recurrentgemma_9b training": "3 of 38 layers (one group), 1x4 only (a 2x2 rank's step "
+                                  "would hold about 19 GB: its half of the tree gathered over "
+                                  "data, their gradients, its Adam moments; four of them over "
+                                  "the card), the loss and its "
+                                  "gradients without the optimizer (the Adam moments, 5.5 GB "
+                                  "a rank, and the update are the other archs' steps'), "
+                                  "every gradient but the embedding's and the head's (the "
+                                  "vocab-parallel loss the other two archs hold) compared: "
+                                  "those two are 8.4 GB of one device's 11 GB of gradients "
+                                  "handed to the ranks"}
+TPR_PHASE_LIMIT_S = 150.0
 # the leftovers phase (16): the 2:4 arm's structure and job width, the legacy
 # MLP pack's first-step tolerance (of the largest logit) on the 2-layer cut
 # and at full depth (C6), the dry run's cells (kind, batch, tokens) and the
@@ -4268,12 +4342,388 @@ def print_ep(e: dict, card: str) -> None:
           f"({card})", flush=True)
 
 
-def tp_rank(mesh, device, qprompts, prompts, ep_ref) -> dict:
+def tpr_inputs(cfg, prompt: int):
+    """(e1)'s prompts (B = 4, ``prompt`` tokens) and, for the vlm family,
+    its seeded stand-in patches (normal, std 0.02, as the data pipeline
+    makes them)."""
+    rng = np.random.default_rng(FAM_SEED)
+    prompts = rng.integers(1, cfg.vocab, size=(BATCH, prompt)).astype(np.int32)
+    if cfg.family != "vlm":
+        return prompts, None
+    patches = rng.normal(0, 0.02, (BATCH, cfg.patch_tokens, cfg.d_model)).astype(np.float32)
+    return prompts, {"patches": patches}
+
+
+def tpr_serve(arch: str, mesh) -> dict:
+    """(e1) on one rank (``mesh`` None: one device): ``arch`` drawn with the
+    contracted fan-in (``sharded_init``: on a mesh this rank's shards),
+    served dense, ``generate`` B = 4: the tokens, the first decode step's
+    whole logits and the digest of both, the collectives and bytes a decode
+    step beside ``TPPlan.decode_collectives``, ms a step, the dense bytes
+    stored beside the placement's, the peak of draw and run above what the
+    process held before."""
+    layers, prompt, new = TPR_SERVE[arch]
+    cfg = mesh_cfg(arch, layers)
+    prompts, extras = tpr_inputs(cfg, prompt)
+    patches = cfg.patch_tokens if cfg.family == "vlm" else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    params = sharded_init(cfg, mesh)
+    draw_s = time.monotonic() - t0
+    eng = Engine(cfg, params, ServeConfig(max_len=patches + prompt + new + 8, fused=False),
+                 device=DEVICE, mesh=mesh)
+    del params
+    seen, box, choose, segment = [], {}, eng._choose, eng.decode_segment
+
+    def keep(logits, *a):
+        if not seen:
+            seen.append(logits.float().cpu())
+        return choose(logits, *a)
+
+    def counted(*a, **kw):
+        comm.reset_stats()
+        out = segment(*a, **kw)
+        box.update(collectives=comm.STATS["collectives"], bytes=comm.STATS["bytes"])
+        return out
+
+    eng._choose, eng.decode_segment = keep, counted
+    out = eng.generate(prompts, max_new=new, extras=extras)
+    torch.cuda.synchronize()
+    specs = build_model(cfg).specs()
+    steps = new - 1
+    rec = {"tokens": out["tokens"], "first": seen[0],
+           "digest": digest(seen[0], torch.from_numpy(out["tokens"])),
+           "collectives_per_step": box["collectives"] / steps,
+           "bytes_per_step": box["bytes"] / steps, "ms_per_step": 1e3 * out["decode_s"] / steps,
+           "prefill_s": out["prefill_s"], "tok_per_s": out["tok_per_s"],
+           "dense_bytes": eng.dense_param_bytes,
+           "dense_bytes_want": placement_bytes(
+               specs, storage_placements(specs, None) if eng.plan is None
+               else eng.plan.placements, eng.mesh),
+           "predicted": None if eng.plan is None else eng.plan.decode_collectives(
+               cfg, eng._rows(BATCH) is not None),
+           "split": None if eng.plan is None else {
+               k: getattr(eng.plan, k) for k in ("heads", "ff", "vocab", "ssm", "rglru")},
+           "peak_bytes": torch.cuda.max_memory_allocated() - held, "draw_s": draw_s,
+           "layers": cfg.n_layers}
+    del eng
+    release()
+    return rec
+
+
+def tpr_config(cfg) -> TrainConfig:
+    """(e2)'s one step: (c)'s batch, lr and stream; the vlm family's
+    sequence holds its patch prefix and ``TRAIN_SEQ`` text tokens."""
+    tc = tpt_config(1)
+    return dataclasses.replace(tc, seq_len=(cfg.patch_tokens if cfg.family == "vlm" else 0)
+                               + TRAIN_SEQ)
+
+
+def tpr_grads(tr, params: dict, batch: dict) -> tuple:
+    """The trainer's loss of ``batch`` and its fp32 gradients (``tree_items``
+    order) under its plan, without the optimizer (``train/step.py``'s
+    ``_value_and_grad`` inside ``_tp_step``'s context; on one ``model``
+    axis and no ``data`` axis the step holds its leaves as stored)."""
+    paths, leaves = zip(*tree_items(params))
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    tree: dict = {}
+    for path, t in zip(paths, live):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    with mesh_context(tr.mesh, tr.plan):
+        loss = tr.model.loss(tree, batch)
+    grads = torch.autograd.grad(loss, live)
+    return loss.detach(), [g.float() for g in grads]
+
+
+def tpr_train_oracle(arch: str) -> dict:
+    """(e2)'s one device: ``arch`` at its training depth from
+    ``sharded_init``'s whole draw, the first batch: the Trainer's step (or
+    the loss and gradients alone, ``TPR_TRAIN``): the loss, ms, the peak
+    above what the process held before, each compared gradient's largest
+    |g| and the directory holding them whole (a ``.npy`` file a leaf, read
+    by the ranks memory-mapped, each its own slices)."""
+    layers, _, whole_step, skip = TPR_TRAIN[arch]
+    cfg = mesh_cfg(arch, layers)
+    tr = Trainer(cfg, tpr_config(cfg), device=DEVICE)
+    batch, _ = next(tpt_batches(cfg, tr.tc))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = sharded_init(cfg)
+    paths = [p for p, _ in tree_items(params)]
+    t0 = time.monotonic()
+    if whole_step:
+        m = tr.step_fn(params, adamw_init(params), batch, return_grads=True)[2]
+        loss, grads = m.pop("loss"), m.pop("grads")
+    else:
+        loss, grads = tpr_grads(tr, params, batch)
+    torch.cuda.synchronize()
+    rec = {"loss": float(loss), "ms": 1e3 * (time.monotonic() - t0),
+           "peak_bytes": torch.cuda.max_memory_allocated() - held, "layers": layers,
+           "gmax": {p: float(g.abs().max()) for p, g in zip(paths, grads) if p[0] not in skip},
+           "path": str(TPR_DIR / arch)}
+    Path(rec["path"]).mkdir(parents=True, exist_ok=True)
+    for p, g in zip(paths, grads):
+        if p[0] not in skip:
+            np.save(Path(rec["path"]) / f"{'__'.join(p)}.npy", g.cpu().numpy())
+    del params, grads
+    release()
+    return rec
+
+
+def tpr_train(arch: str, mesh, path: str, gmax: dict) -> tuple:
+    """(e2) on one rank: ``arch``'s step on ``mesh`` from this rank's shards
+    of the draw on its rows of the first batch, beside one device's
+    gradients (the directory ``path``, each leaf's file read memory-mapped:
+    this rank's slice of it, to the card): the loss, the largest
+    gradient-shard gap (of the leaf's largest |g|) and its leaf, the
+    collectives beside the plan's prediction, bytes and ms; and the updated
+    shards (a whole step's) or None."""
+    layers, _, whole_step, _ = TPR_TRAIN[arch]
+    cfg = mesh_cfg(arch, layers)
+    tr = Trainer(cfg, tpr_config(cfg), device=DEVICE, mesh=mesh)
+    _, rows = next(tpt_batches(cfg, tr.tc, tr.rows))
+    shards = sharded_init(cfg, mesh, tr.p_shard)
+    split = tr.rows is not None
+    comm.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    if whole_step:
+        shards, _, m = tr.step_fn(shards, adamw_init(shards), rows, return_grads=True)
+        loss, got = m["loss"], m["grads"]
+        predicted = tr.plan.train_collectives(cfg, tr.tc.seq_len, split=split)
+    else:
+        loss, got = tpr_grads(tr, shards, rows)
+        predicted = tr.plan.grad_collectives(cfg, tr.tc.seq_len, split=split)
+        shards = None
+    torch.cuda.synchronize()
+    rec = {"loss": float(loss), "ms": 1e3 * (time.monotonic() - t0),
+           "collectives": comm.STATS["collectives"], "bytes": comm.STATS["bytes"],
+           "predicted": predicted, "whole_step": whole_step,
+           "split": {k: getattr(tr.plan, k) for k in ("heads", "ff", "vocab", "ssm", "rglru")}}
+    gaps = {}
+    for (leaf, pl), g in zip(tree_items(tr.p_shard), got):
+        if leaf in gmax:
+            whole = np.load(Path(path) / f"{'__'.join(leaf)}.npy", mmap_mode="r")
+            cut = tuple(slice(s, s + n) for s, n in shard_ranges(whole.shape, pl, mesh))
+            w = torch.from_numpy(np.ascontiguousarray(whole[cut])).to(DEVICE)
+            gaps["/".join(leaf)] = float((g - w).abs().max()) / max(gmax[leaf], 1e-30)
+            del whole, w
+    rec["grad_gap"] = max(gaps.values())
+    rec["compared"] = len(gaps)
+    rec["grad_gap_leaf"] = max(gaps, key=gaps.get)
+    del got
+    release()
+    return rec, shards
+
+
+def tpr_trained_serve(arch: str, mesh, shards: dict, lead: bool) -> dict:
+    """(e2)'s trained shards served on ``mesh`` (``generate`` B = 4, 8
+    prompt and 4 new tokens), and on the lead rank one device's engine on
+    the tree gathered leaf by leaf: both runs' tokens and first-step
+    logits."""
+    cfg = mesh_cfg(arch, TPR_TRAIN[arch][0])
+    prompts, extras = tpr_inputs(cfg, 8)
+    patches = cfg.patch_tokens if cfg.family == "vlm" else 0
+    sc = ServeConfig(max_len=patches + 8 + 4 + 8, fused=False)
+
+    def run(params, m):
+        eng = Engine(cfg, params, sc, device=DEVICE, mesh=m)
+        seen, choose = [], eng._choose
+
+        def keep(logits, *a):
+            if not seen:
+                seen.append(logits.float().cpu())
+            return choose(logits, *a)
+
+        eng._choose = keep
+        out = eng.generate(prompts, max_new=4, extras=extras)
+        return {"tokens": out["tokens"], "first": seen[0],
+                "ms_per_step": 1e3 * out["decode_s"] / 3}
+
+    out = {"served": run(shards, mesh)}
+    placements = params_shardings(build_model(cfg).specs(), mesh)
+    whole = {}
+    for path, pl in tree_items(placements):  # one leaf whole at a time off the lead
+        leaf = shards
+        for k in path:
+            leaf = leaf[k]
+        w = gather_whole(leaf, pl, mesh)
+        if lead:
+            node = whole
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = w
+        del w
+    if lead:
+        out["one"] = run(whole, None)
+    del whole
+    release()
+    return out
+
+
+def tpr_rank(mesh, one_by_four, tpr_ref: dict) -> dict:
+    """Part (e) on one rank of phase 17's 2x2 world, fp32 attention
+    probabilities: (e1) each of ``TPR_ARCHS`` served on 1x4; (e2) each
+    training step of ``TPR_TRAIN`` on its meshes (``tpr_ref``: the files of
+    one device's gradients and their largest |g| by arch), ``TPR_SERVED``'s
+    1x4 shards served on 1x4."""
+    t0 = time.monotonic()
+    lead = not any(mesh.get_coordinate())
+    meshes = {"1x4": one_by_four, "2x2": mesh}
+    out = {"seconds": {}, "serve": {}, "train": {}, "served": {}}
+    for arch in TPR_ARCHS:
+        t = time.monotonic()
+        out["serve"][arch] = tpr_serve(arch, one_by_four)
+        if not lead:
+            del out["serve"][arch]["first"]
+        out["seconds"][f"e1 {arch}"] = time.monotonic() - t
+    for arch in TPR_ARCHS:
+        for name in TPR_TRAIN[arch][1]:
+            t = time.monotonic()
+            out["train"][(arch, name)], shards = tpr_train(arch, meshes[name], *tpr_ref[arch])
+            if arch in TPR_SERVED and name == "1x4":
+                out["served"][arch] = tpr_trained_serve(arch, one_by_four, shards, lead)
+            del shards
+            release()
+            out["seconds"][f"e2 {arch} {name}"] = time.monotonic() - t
+    out["seconds"]["all"] = time.monotonic() - t0
+    return out
+
+
+def tpr_oracles() -> dict:
+    """Part (e)'s one device, before the ranks use the card: (e1) served
+    and freed, (e2)'s steps (their gradients written to files for the
+    ranks)."""
+    t0 = time.monotonic()
+    with fp32_probs():
+        out = {"serve": {arch: tpr_serve(arch, None) for arch in TPR_ARCHS}}
+        out["train"] = {arch: tpr_train_oracle(arch) for arch in TPR_ARCHS}
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def tpr_gates(ranks: list, oracle: dict) -> dict:
+    """Part (e)'s gates over every rank's ``tpr_rank`` record beside one
+    device's (``tpr_oracles``); returns the part's report.  Fails past
+    ``TPR_PHASE_LIMIT_S`` (its oracles, the slowest rank's part, the
+    gates)."""
+    t_gates = time.monotonic()
+    res = {"seconds": [r["seconds"] for r in ranks], "oracle_s": oracle["seconds"],
+           "ranks_s": max(r["seconds"]["all"] for r in ranks), "serve": {}, "train": {},
+           "served": {}}
+    for arch in TPR_ARCHS:
+        want, got = oracle["serve"][arch], ranks[0]["serve"][arch]
+        what = f"tp {arch} on 1x4"
+        gap = gap_rel(got["first"], want["first"])
+        if gap > TPR_LOGIT_TOL:
+            fail(f"{what}: first-step logit gap {gap:.3g} of the largest > {TPR_LOGIT_TOL}")
+        if not np.array_equal(got["tokens"], want["tokens"]):
+            fail(f"{what}: tokens differ from one device's")
+        for i, r in enumerate(x["serve"][arch] for x in ranks):
+            if r["digest"] != got["digest"]:
+                fail(f"{what}: rank {i}'s tokens or logits differ from rank 0's")
+            if r["dense_bytes"] != r["dense_bytes_want"]:
+                fail(f"{what}: rank {i} stores {r['dense_bytes']} bytes, the placement says "
+                     f"{r['dense_bytes_want']}")
+            if r["collectives_per_step"] != r["predicted"]:
+                fail(f"{what}: rank {i} made {r['collectives_per_step']} collectives a decode "
+                     f"step, predicted {r['predicted']}")
+        ratios = [x["serve"][arch]["peak_bytes"] / want["peak_bytes"] for x in ranks]
+        if max(ratios) > TP_MEM_RATIO:
+            fail(f"{what}: a rank's peak memory is {max(ratios):.3f}x one device's > "
+                 f"{TP_MEM_RATIO}")
+        res["serve"][arch] = {
+            "layers": got["layers"], "first_step_gap_rel": gap,
+            "token_agreement": float(np.mean(got["tokens"] == want["tokens"])),
+            "peak_ratio_per_rank": ratios, "split": got["split"],
+            "dense_bytes_ratio": got["dense_bytes"] / want["dense_bytes"],
+            "one_device": {k: want[k] for k in ("ms_per_step", "tok_per_s", "peak_bytes",
+                                                "dense_bytes", "draw_s", "prefill_s")},
+            **{k: got[k] for k in ("ms_per_step", "tok_per_s", "collectives_per_step",
+                                   "predicted", "bytes_per_step", "peak_bytes", "dense_bytes",
+                                   "draw_s", "prefill_s")}}
+    for (arch, name), lead in ranks[0]["train"].items():
+        t = oracle["train"][arch]
+        grad_tol = EP_GRAD_TOL if name == "1x4" else TPT_GRAD_TOL
+        recs = [r["train"][(arch, name)] for r in ranks]
+        for i, r in enumerate(recs):
+            what = f"tp train {arch} {name}: rank {i}"
+            loss_gap = abs(r["loss"] / t["loss"] - 1)
+            if loss_gap > EP_LOSS_TOL or r["grad_gap"] > grad_tol:
+                fail(f"{what}: loss gap {loss_gap:.3g} (limit {EP_LOSS_TOL}), gradient-shard "
+                     f"gap {r['grad_gap']:.3g} at {r['grad_gap_leaf']} (limit {grad_tol})")
+            if r["collectives"] != r["predicted"]:
+                fail(f"{what}: {r['collectives']} collectives, predicted {r['predicted']}")
+        res["train"][f"{arch} {name}"] = {
+            "loss_gap_max": max(abs(r["loss"] / t["loss"] - 1) for r in recs),
+            "grad_gap_max": max(r["grad_gap"] for r in recs), "layers": t["layers"],
+            "grad_gap_leaf": max(recs, key=lambda r: r["grad_gap"])["grad_gap_leaf"],
+            "one_device": {k: t[k] for k in ("loss", "ms", "peak_bytes")},
+            **{k: lead[k] for k in ("collectives", "predicted", "bytes", "ms", "whole_step",
+                                    "split", "compared")}}
+    for arch, s in ranks[0]["served"].items():
+        if not np.array_equal(s["served"]["tokens"], s["one"]["tokens"]):
+            fail(f"tp train {arch} 1x4: the trained shards served on 1x4 give tokens other "
+                 "than one device's on the gathered tree")
+        res["served"][arch] = {
+            "first_step_gap_rel": gap_rel(s["served"]["first"], s["one"]["first"]),
+            "token_agreement": float(np.mean(s["served"]["tokens"] == s["one"]["tokens"])),
+            "ms_per_step": s["served"]["ms_per_step"],
+            "one_device_ms_per_step": s["one"]["ms_per_step"]}
+    res["part_s"] = oracle["seconds"] + res["ranks_s"] + time.monotonic() - t_gates
+    if res["part_s"] > TPR_PHASE_LIMIT_S:
+        fail(f"tensor-parallel part (e) took {res['part_s']:.1f}s, over its "
+             f"{TPR_PHASE_LIMIT_S:.0f}s")
+    return res
+
+
+def print_tpr(e: dict, card: str) -> None:
+    print("tp (e): cuts of depth, never of a width: " + "; ".join(
+        f"{k} {v}" for k, v in TPR_CUT_WHY.items()), flush=True)
+    for arch, r in e["serve"].items():
+        _, prompt, new = TPR_SERVE[arch]
+        print(f"tp {arch} ({r['layers']} layers, fp32, dense, B={BATCH}, prompt {prompt}, {new} "
+              f"new) on 1x4, splits {r['split']}: first-step logit gap "
+              f"{r['first_step_gap_rel']:.3g} of the largest, token agreement "
+              f"{r['token_agreement']:.3f}, peak a rank {r['peak_bytes']} bytes "
+              f"({max(r['peak_ratio_per_rank']):.3f}x one device's "
+              f"{r['one_device']['peak_bytes']}), bytes stored a rank {r['dense_bytes']} "
+              f"({r['dense_bytes_ratio']:.4f} of one device's), {r['collectives_per_step']:.0f} "
+              f"collectives a step (predicted {r['predicted']}), {r['bytes_per_step']:.0f} bytes "
+              f"a step a rank, {r['ms_per_step']:.2f} ms a step (one device "
+              f"{r['one_device']['ms_per_step']:.2f}), prefill {r['prefill_s']:.2f}s (one "
+              f"device {r['one_device']['prefill_s']:.2f}s) ({card})", flush=True)
+    for key, r in e["train"].items():
+        kind = "one step" if r["whole_step"] else "the loss and gradients"
+        print(f"tp train {key} ({r['layers']} layers, fp32, remat, batch {TRAIN_BATCH}, {kind} "
+              f"from the draw): gaps loss {r['loss_gap_max']:.3g} gradient shard "
+              f"{r['grad_gap_max']:.3g} (largest at {r['grad_gap_leaf']}; {r['compared']} leaves "
+              f"compared), {r['collectives']} "
+              f"collectives (predicted {r['predicted']}), {r['bytes']} bytes, {r['ms']:.1f} ms "
+              f"(one device {r['one_device']['ms']:.1f}) ({card})", flush=True)
+    for arch, s in e["served"].items():
+        print(f"tp train {arch} 1x4 shards served on 1x4: first-step gap "
+              f"{s['first_step_gap_rel']:.3g}, token agreement {s['token_agreement']:.3f} with "
+              f"one device on the gathered tree, {s['ms_per_step']:.2f} ms a step (one device "
+              f"{s['one_device_ms_per_step']:.2f}) ({card})", flush=True)
+    print(f"tensor-parallel part (e) {e['part_s']:.1f}s (limit {TPR_PHASE_LIMIT_S:.0f}s; "
+          f"oracles {e['oracle_s']:.1f}s, the slowest rank {e['ranks_s']:.1f}s, by part "
+          f"{tpt_part_seconds(e)})", flush=True)
+
+
+def tp_rank(mesh, device, qprompts, prompts, ep_ref, tpr_ref) -> dict:
     """One rank of phase 17's 2x2 world: (a) on a 1x4 mesh over the four
     ranks, then (b) on the 2x2 mesh's ``model`` sub-mesh (1x2; the two data
     coordinates run the same case), a 1x4 mesh and the 2x2 mesh, then (c)
     (``tpt_rank``) and (d) (``ep_rank``, one device's gradients of (d3)
-    in ``ep_ref`` read on the card through CUDA IPC)."""
+    in ``ep_ref`` read on the card through CUDA IPC), then (e)
+    (``tpr_rank``, its gradients in ``tpr_ref``), timed apart."""
     t0 = time.monotonic()
     lead = not any(mesh.get_coordinate())
     one_by_four = make_local_mesh(1, 4)
@@ -4287,8 +4737,9 @@ def tp_rank(mesh, device, qprompts, prompts, ep_ref) -> dict:
     with fp32_probs():
         out["train"] = tpt_rank(mesh, one_by_four, prompts)
         out["ep"] = ep_rank(mesh, one_by_four, ep_ref)
-    out["ab_seconds"] = t1 - t0
-    out["seconds"] = time.monotonic() - t0
+        out["ab_seconds"] = t1 - t0
+        out["seconds"] = time.monotonic() - t0
+        out["rec"] = tpr_rank(mesh, one_by_four, tpr_ref)
     return out
 
 
@@ -4317,11 +4768,11 @@ def tp_references(prompts) -> dict:
     return out
 
 
-def world_rank(mesh, device, prompts, qprompts, ep_ref) -> dict:
+def world_rank(mesh, device, prompts, qprompts, ep_ref, tpr_ref) -> dict:
     """One rank of the world phases 15 and 17 share: ``mesh_rank``, then
     ``tp_rank``."""
     return {"mesh": mesh_rank(mesh, device, prompts),
-            "tp": tp_rank(mesh, device, qprompts, prompts, ep_ref)}
+            "tp": tp_rank(mesh, device, qprompts, prompts, ep_ref, tpr_ref)}
 
 
 def world_phases() -> tuple:
@@ -4340,15 +4791,18 @@ def world_phases() -> tuple:
     oracles = tp_oracles(qprompts)
     oracles["ep"] = ep_oracles()
     oracles["seconds"] += oracles["ep"]["seconds"]
-    # (d3)'s one-device gradients stay on the card for the ranks (CUDA IPC)
+    oracles["rec"] = tpr_oracles()  # part (e)'s, timed apart
+    # (d3)'s one-device gradients stay on the card for the ranks (CUDA IPC);
+    # (e2)'s wait in files
     ep_ref = {k: (v.pop("grads"), v["gmax"]) for k, v in oracles["ep"]["train"].items()}
+    tpr_ref = {k: (v["path"], v["gmax"]) for k, v in oracles["rec"]["train"].items()}
     box: dict = {}
 
     def run_ranks():
         t0 = time.monotonic()
         try:
             box["ranks"] = spawn(world_rank, 2, 2, "gloo", DEVICE, str(TP_DIR / "rendezvous"),
-                                 args=(prompts, qprompts, ep_ref),
+                                 args=(prompts, qprompts, ep_ref, tpr_ref),
                                  timeout_s=TP_PHASE_LIMIT_S)
         except BaseException as e:  # re-raised below, in the phase's thread
             box["error"] = e
@@ -4361,7 +4815,7 @@ def world_phases() -> tuple:
     t_mesh_ref = time.monotonic() - t0
     tp_ref = tp_references(prompts)
     worker.join()
-    del ep_ref
+    del ep_ref, tpr_ref
     release()
     if "error" in box:
         raise box["error"]
@@ -4454,6 +4908,7 @@ def tp_gates(ranks: list, oracles: dict, refs: dict) -> dict:
     if res["seconds"] > TP_PHASE_LIMIT_S:
         fail(f"tensor-parallel phase took {res['seconds']:.1f}s, over its "
              f"{TP_PHASE_LIMIT_S:.0f}s")
+    res["rec"] = tpr_gates([r["rec"] for r in ranks], oracles["rec"])
     return res
 
 
@@ -4641,6 +5096,7 @@ def print_tp(t: dict, card: str) -> None:
           f"{sv['ms_per_step']:.1f} ms a decode step (one device "
           f"{sv['one_device_ms_per_step']:.1f}) ({card})", flush=True)
     print_ep(t["ep"], card)
+    print_tpr(t["rec"], card)
     print(f"tensor-parallel phase {t['seconds']:.1f}s (limit {TP_PHASE_LIMIT_S:.0f}s; oracles "
           f"{t['oracle_s']:.1f}s, of them (d)'s {t['ep']['oracle_s']:.1f}s, the slowest rank's "
           f"part of the shared world {t['ranks_s']:.1f}s, of it (a)-(b) "
@@ -4890,6 +5346,7 @@ def print_leftovers(lo: dict, card: str) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run only on the card")
+    faulthandler.enable()  # a crash in native code prints the Python stack
     strict_fp32()  # TF32 off: dense fp32 products are true fp32
     t_start = time.monotonic()
     card = card_line()

@@ -1,14 +1,14 @@
-"""Tensor-parallel dense compute on sharded dense storage: the dense and
-moe families' serving paths and training steps on a (data, model) mesh
-(ROADMAP A12, items 1-2).
+"""Tensor-parallel compute on sharded storage: the serving paths and the
+training steps of the dense, moe, vlm, hybrid and ssm families on a (data,
+model) mesh (ROADMAP A12, items 1-2).
 
-The reference's ``Engine`` places its dense parameters under
-``params_shardings`` (heads, kv heads, ff and vocab over ``model``, the
-embed dim over ``data``) and GSPMD runs the products tensor-parallel.  The
-port does it in PyTorch's idiom: each rank stores its shard of every dense
-leaf under the same rules (``dist/sharding.py``), and the layers compute on
-those shards with explicit collectives (``dist/comm.py``), Megatron's
-layout:
+The reference's ``Engine`` places its parameters under
+``params_shardings`` (heads, kv heads, ff, vocab, the SSM's inner dim and
+the RG-LRU's channels over ``model``, the embed dim over ``data``) and
+GSPMD runs the products tensor-parallel.  The port does it in PyTorch's
+idiom: each rank stores its shard of every leaf under the same rules
+(``dist/sharding.py``), and the layers compute on those shards with
+explicit collectives (``dist/comm.py``), Megatron's layout:
 
 * attention is column-parallel on the local heads and kv heads (wq, wk,
   wv and their biases), so the attend and the KV cache hold local heads
@@ -19,6 +19,17 @@ layout:
 * the embedding looks up the local vocab range (rows outside it zero) and
   sums over ``model``; the head is vocab-parallel, its logits all-gathered
   over ``model``, so every rank holds the whole logits, the same bits;
+* Mamba-2's mixer (``models/ssm.py``) runs the SSD on the rank's
+  ``h / tp`` heads: the stored ``in_proj`` and conv slabs do not line up
+  with the heads, so the ``in_proj`` product's columns and the conv
+  weights are gathered whole over ``model`` (one collective) and each rank
+  slices its heads' ``z``, ``x`` and ``dt`` and the shared ``B`` and
+  ``C``; the gated norm's sum of squares is an ordered sum over ``model``
+  and ``out_proj`` is row-parallel;
+* the RG-LRU runs on the rank's ``r / tp`` channels: ``w_x`` and
+  ``w_gate_branch`` column-parallel, the conv and the scan per channel,
+  the two gates' partial products (``w_a`` and ``w_i``'s rows) summed over
+  ``model`` in one ordered sum, ``w_out`` row-parallel;
 * a leaf whose embed dim sits on ``data`` (FSDP) is gathered over ``data``
   just before its layer runs, the layer's leaves in one collective, and
   dropped after it (the reference's GSPMD does the same); the embedding's
@@ -28,14 +39,18 @@ layout:
   life (``storage_placements``), a few KB a layer.
 
 Where the heads or the kv heads do not divide ``model`` (qwen2's 14 heads
-and 2 kv heads on four ranks) the rules replicate them, and attention stays
-whole on every rank as on one device (the sequence-sharded prefill
-attention applies there); a heads leaf the rules split while its kv leaf
-stays whole is gathered over ``model`` before use.  The ff and vocab splits
-hold either way.  Column products are the single-device columns; an
-ordered sum adds the ranks' partials in another order than one device's
-reduction, so logits agree within rounding, and every rank ends a step with
-the same bits.
+and 2 kv heads on four ranks, paligemma's and recurrentgemma's one kv
+head) the rules replicate them, and attention stays whole on every rank as
+on one device (the sequence-sharded prefill attention applies there); a
+heads leaf the rules split while its kv leaf stays whole is gathered over
+``model`` before use.  Where the SSM heads do not divide ``model`` the SSD
+runs whole on every rank (the ``in_proj`` and conv slabs gathered if the
+rules split them) and the norm's output enters the row-parallel
+``out_proj`` where its rows split.  The ff and vocab splits hold either
+way.  Column products are the single-device columns; an ordered sum adds
+the ranks' partials in another order than one device's reduction, so
+logits agree within rounding, and every rank ends a step with the same
+bits.
 
 ``TPPlan`` is the engine's record of one mesh's splits; the layers read it
 through ``models.common.mesh_context``.  ``WholeView`` gathers one leaf at
@@ -51,10 +66,15 @@ backward), a row-parallel product leaves through ``sum_model``, the
 sequence-sharded attention through ``gather_model``.  The head stays
 vocab-parallel into the loss (``TPPlan.xent``): the whole (B, S, V) logits
 never exist on a rank.  A replicated leaf read inside a split region (the
-qk-norm scales under split heads) enters it too, and a heads leaf gathered
-over ``model`` (its kv leaf whole) is gathered through ``gather_model``, so
-every replicated leaf's gradient is complete and the same bits on every
-``model`` rank.
+qk-norm scales under split heads; the SSM's ``A_log``, ``D`` and
+``dt_bias`` and the RG-LRU's ``lam``, sliced to the local heads or
+channels) enters it too, and so does every whole tensor the ranks go on to
+use differently (the gathered ``in_proj`` columns and conv weights, the
+norm's summed squares, the RG-LRU's summed gates): their gradients, each
+rank's part, are summed over ``model`` before a gather's backward cuts
+them.  A heads leaf gathered over ``model`` (its kv leaf whole) is
+gathered through ``gather_model``, so every replicated leaf's gradient is
+complete and the same bits on every ``model`` rank.
 """
 
 from __future__ import annotations
@@ -82,15 +102,19 @@ __all__ = ["TPPlan", "PLAN_FAMILIES", "serving_plan", "training_plan", "local_co
 
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
-    """The splits of one mesh for the dense or moe family's serving path,
-    or for its training step (``train``).  ``placements`` is the storage
-    placement tree (``storage_placements``; the trainer's,
-    ``params_shardings``); ``heads``, ``ff`` and ``vocab`` say whether the
-    compute runs on local heads, a local ff slab (the MLP's, or every
-    expert's) and a local vocab range, ``experts`` whether it runs this
-    rank's ``E / tp`` experts (``w_gate``'s experts dim on ``model``);
-    ``rank`` is this rank's ``model`` coordinate; ``train``: the trainer's
-    plan, whose step holds every leaf gathered over ``data`` (``held``)."""
+    """The splits of one mesh for a family's serving path, or for its
+    training step (``train``).  ``placements`` is the storage placement
+    tree (``storage_placements``; the trainer's, ``params_shardings``);
+    ``heads``, ``ff`` and ``vocab`` say whether the compute runs on local
+    heads, a local ff slab (the MLP's, or every expert's) and a local vocab
+    range, ``experts`` whether it runs this rank's ``E / tp`` experts
+    (``w_gate``'s experts dim on ``model``), ``ssm`` whether Mamba-2's SSD
+    runs on this rank's ``h / tp`` heads, ``rglru`` whether the RG-LRU runs
+    on its ``r / tp`` channels; ``attn`` the paths of the attention
+    parameter groups in the tree (``layers/attn``, the hybrid's
+    ``groups/p{i}_attn/mixer`` and ``tail/t{i}_attn/mixer``); ``rank`` is
+    this rank's ``model`` coordinate; ``train``: the trainer's plan, whose
+    step holds every leaf gathered over ``data`` (``held``)."""
 
     mesh: object
     placements: dict
@@ -101,6 +125,9 @@ class TPPlan:
     vocab: bool
     train: bool = False
     experts: bool = False
+    ssm: bool = False
+    rglru: bool = False
+    attn: tuple = (("layers", "attn"),)
 
     def held(self, placement: tuple) -> tuple:
         """The placement a leaf stored at ``placement`` is held at while the
@@ -108,34 +135,56 @@ class TPPlan:
         ``data`` dim whole (the step gathers them once)."""
         return tuple(None if a == "data" else a for a in placement) if self.train else placement
 
+    # -- a rank's sizes ------------------------------------------------------
+    def ssm_sizes(self, cfg) -> tuple:
+        """(inner width, heads) of this rank's Mamba-2 SSD: ``(din / tp, h /
+        tp)`` where the heads split, else the whole ``(din, h)``."""
+        din, h = cfg.expand * cfg.d_model, cfg.ssm_heads
+        return (din // self.tp, h // self.tp) if self.ssm else (din, h)
+
+    def rglru_width(self, cfg) -> int:
+        """This rank's RG-LRU channels: ``r / tp`` where they split."""
+        return cfg.rglru_dim // self.tp if self.rglru else cfg.rglru_dim
+
     # -- parameters at their point of use ------------------------------------
-    def _want(self, group: str, placement: tuple) -> tuple:
+    def _want(self, attn: bool, placement: tuple) -> tuple:
         """The placement the compute reads a layer leaf at: every ``data``
-        dim whole, the heads dims whole where attention is not split."""
+        dim whole, the heads dims of an attention group (``attn``) whole
+        where attention is not split."""
         out = []
         for axis in placement:
-            if axis == "data" or (axis == "model" and group == "attn" and not self.heads):
+            if axis == "data" or (axis == "model" and attn and not self.heads):
                 out.append(None)
             else:
                 out.append(axis)
         return tuple(out)
 
-    def layer(self, layers: dict, i: int, names: dict) -> dict:
-        """Layer ``i`` of the stacked tree ``layers``, its leaves ``names``
-        (``{group: (leaf, ...)}``) gathered where they sit on an axis the
-        compute wants whole: one collective an axis for all of them.  The
-        gathered leaves live as long as the returned dict."""
-        lp = {k: ({n: t[i] for n, t in v.items()} if isinstance(v, dict) else v[i])
-              for k, v in layers.items()}
+    def layer(self, layers: dict, i: Optional[int], names: Optional[dict] = None,
+              placements: Optional[dict] = None, attn: tuple = ("attn",)) -> dict:
+        """Layer ``i`` of the stacked tree ``layers`` (``i`` None: the tree is
+        one unstacked layer, the hybrid's tail), its leaves ``names``
+        (``{group: (leaf, ...)}``; None: every leaf of every group) gathered
+        where they sit on an axis the compute wants whole: one collective an
+        axis for all of them.  ``placements``: the layer tree's placements
+        (default the plan's ``layers``); ``attn``: the groups that are
+        attention (their heads dims gathered where the heads do not split).
+        The gathered leaves live as long as the returned dict."""
+        pls = self.placements["layers"] if placements is None else placements
+        lead = 0 if i is None else 1
+        lp = dict(layers) if i is None else {
+            k: ({n: t[i] for n, t in v.items()} if isinstance(v, dict) else v[i])
+            for k, v in layers.items()}
         todo = {}  # (group, leaf) -> (tensor, placement now, placement wanted)
-        for group, leaves in names.items():
-            for name in leaves:
-                if name not in lp[group]:
+        for group, sub in lp.items():
+            if not isinstance(sub, dict):
+                continue
+            for name in (sub if names is None else names.get(group, ())):
+                if name not in sub:
                     continue
-                have = self.held(self.placements["layers"][group][name])[1:]
-                want = self._want(group, have)
+                have = self.held(pls[group][name])[lead:]
+                want = self._want(group in attn, have)
                 if have != want:
-                    todo[(group, name)] = (lp[group][name], have, want)
+                    todo[(group, name)] = (sub[name], have, want)
         for axis in ("data", "model"):
             keys = [k for k, (_, have, want) in todo.items()
                     if any(h == axis and w != axis for h, w in zip(have, want))]
@@ -151,6 +200,12 @@ class TPPlan:
         for (group, name), (t, _, _) in todo.items():
             lp[group] = dict(lp[group], **{name: t})
         return lp
+
+    def whole_data(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The top-level leaf ``name`` (``t``, as held) gathered whole over
+        ``data`` (the vlm family's ``patch_proj``, read once a prefill)."""
+        pl = self.held(self.placements[name])
+        return all_gather(t, self.mesh, "data", dim=pl.index("data")) if "data" in pl else t
 
     def head_matrix(self, params: dict, tied: bool) -> torch.Tensor:
         """The (d, V_loc) head: the untied ``lm_head``'s local vocab columns
@@ -213,20 +268,23 @@ class TPPlan:
         """``params`` (held: every leaf at its ``model`` shard) as the
         training forward reads them: where attention does not split by
         heads, every attention leaf split over ``model`` gathered whole
-        (one ``gather_model`` call: its gradient cut back to this rank's
-        slice); where it does, the replicated qk-norm scales, read on the
-        local heads, entered through ``enter_model`` (one call)."""
-        attn = dict(params["layers"]["attn"])
-        pl = self.placements["layers"]["attn"]
+        (one ``gather_model`` call for every attention group of the tree:
+        its gradient cut back to this rank's slice); where it does, the
+        replicated qk-norm scales, read on the local heads, entered through
+        ``enter_model`` (one call)."""
+        groups = [(path, _node(params, path), _node(self.placements, path))
+                  for path in self.attn]
         if not self.heads:
-            names = [n for n in sorted(attn) if "model" in self.held(pl[n])]
-            whole = gather_model_leaves([attn[n] for n in names],
-                                        [pl[n].index("model") for n in names], self.mesh)
-            attn.update(zip(names, whole))
+            items = [(path, n) for path, tree, pl in groups for n in sorted(tree)
+                     if "model" in self.held(pl[n])]
+            new = gather_model_leaves(
+                [_node(params, path)[n] for path, n in items],
+                [_node(self.placements, path)[n].index("model") for path, n in items], self.mesh)
         else:
-            names = [n for n in ("q_norm", "k_norm") if n in attn]
-            attn.update(zip(names, enter_model(tuple(attn[n] for n in names), self.mesh)))
-        return dict(params, layers=dict(params["layers"], attn=attn))
+            items = [(path, n) for path, tree, _ in groups for n in ("q_norm", "k_norm")
+                     if n in tree]
+            new = enter_model(tuple(_node(params, path)[n] for path, n in items), self.mesh)
+        return _replace(params, items, new)
 
     def train_logits(self, x: torch.Tensor, params: dict, tied: bool) -> torch.Tensor:
         """This rank's vocab columns of the logits, (B, S, V / tp): the head
@@ -265,45 +323,140 @@ class TPPlan:
         ll = sums[1] - (m + torch.log(sums[0]))
         return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1)
 
-    def train_collectives(self, cfg, seq: int, microbatches: int = 1, split: bool = False,
-                          compress: bool = False) -> int:
-        """The collectives one training step makes on a rank under this
-        (training) plan, batches of ``seq`` tokens.  A forward: the
-        embedding's sum, a layer's ``wo`` sum (or, where the heads do not
-        split, the sequence-sharded attention's gather) and ``w_down`` sum
-        (the moe family's: its experts' partials, where ``experts`` or
+    # -- the collectives a step makes ---------------------------------------
+    def _layers(self, cfg) -> list:
+        """Each layer of ``cfg`` in order as ``(kind, placements, remat)``:
+        ``kind`` lm (a dense, moe or vlm layer), ssm, rglru or attn (the
+        hybrid's), its placement tree with the layer dim dropped, and
+        whether ``cfg.remat`` recomputes it (the hybrid's tail is not)."""
+        def drop(tree):
+            return {k: drop(v) if isinstance(v, dict) else v[1:] for k, v in tree.items()}
+
+        pl = self.placements
+        if cfg.family == "hybrid":
+            from ..models.families import _hybrid_layout
+
+            n_groups, tail = _hybrid_layout(cfg)
+            out = [(kind, drop(pl["groups"][f"p{i}_{kind}"]), True)
+                   for _ in range(n_groups) for i, kind in enumerate(cfg.block_pattern)]
+            return out + [(kind, pl["tail"][f"t{i}_{kind}"], False) for i, kind in enumerate(tail)]
+        kind = "ssm" if cfg.family == "ssm" else "lm"
+        return [(kind, drop(pl["layers"]), True)] * cfg.n_layers
+
+    def _ssm_splits(self, mixer: dict) -> tuple:
+        """(in_proj's columns, the conv's channels, out_proj's rows) split
+        over ``model``, of a Mamba-2 mixer's placements."""
+        return (mixer["in_proj"][-1] == "model", mixer["conv_w"][-1] == "model",
+                mixer["out_proj"][0] == "model")
+
+    def decode_collectives(self, cfg, rows_split: bool = False) -> int:
+        """The collectives one decode step of the dense route makes on a rank
+        under this (serving) plan.  A layer: on ``data`` one gather of its
+        leaves stored there; on ``model`` one gather of its attention
+        leaves where the heads do not split, then its compute's: an
+        attention layer's ``wo`` sum where the heads split and the MLP's
+        ``w_down`` sum where ff splits (the moe family's experts' partials
+        where they or ff split, and with ``rows_split`` on a data axis the
+        routing's gather); a Mamba-2 layer's gather of the ``in_proj``
+        columns and conv weights (where either splits), the norm's sum
+        where the heads split and ``out_proj``'s sum where its rows split;
+        an RG-LRU layer's gates' sum and ``w_out``'s sum where its channels
+        split.  Then the embedding's sum (vocab split) and on ``data`` its
+        two gathers, the head's gather (vocab split) and on ``data`` its
+        leaf's, and with ``rows_split`` the logits' rows."""
+        dp = axis_size(self.mesh, "data")
+        n = 0
+        for kind, lpl, _ in self._layers(cfg):
+            groups = {g: v for g, v in lpl.items() if isinstance(v, dict)}
+            n += int(dp > 1 and any("data" in p for g in groups.values() for p in g.values()))
+            attn = {"lm": "attn", "attn": "mixer"}.get(kind)
+            n += int(attn is not None and not self.heads
+                     and any("model" in p for p in groups[attn].values()))
+            if kind == "lm":
+                n += int(self.heads) + int(self.ff or self.experts)
+                n += int(cfg.family == "moe" and rows_split and dp > 1)
+            elif kind == "attn":
+                n += int(self.heads) + int(self.ff)
+            elif kind == "rglru":
+                n += 2 * int(self.rglru) + int(self.ff)
+            else:
+                i, c, o = self._ssm_splits(groups["mixer"])
+                n += int(i or c) + int(self.ssm) + int(o)
+        head = "embed" if cfg.tie_embeddings else "lm_head"
+        n += 2 * int(self.vocab)
+        n += 2 * int(dp > 1 and self.placements["embed"][1] == "data")
+        n += int(dp > 1 and "data" in self.placements[head])
+        return n + int(rows_split)
+
+    def grad_collectives(self, cfg, seq: int, split: bool = False) -> int:
+        """The collectives the loss and its gradients make on a rank under
+        this (training) plan, one (micro)batch of ``seq`` positions (the
+        vlm family's patch prefix included, as the data pipeline's
+        ``seq_len`` counts it).  A forward: the embedding's sum, and a layer's
+        compute: an attention layer's ``wo`` sum (or, where the heads do
+        not split, the sequence-sharded attention's gather) and ``w_down``
+        sum (the moe family's: its experts' partials, where ``experts`` or
         ``ff`` splits them; with ``split`` first the routing's gather over
-        each data axis of size > 1, ``comm.batch_totals``), the loss's
-        maximum gather and its sum, and where the heads do not split one
-        gather of the attention leaves split over ``model``.  Its backward:
-        the head's input entered, a layer's q/k/v input (or the sequence
-        split's q, k and v) and MLP input (the moe family's token rows and
-        gate weights) entered, and where the heads split the qk-norm scales
-        entered.  ``cfg.remat`` makes each layer's forward collectives
-        again in the backward but the MLP's sum, which ends the layer: the
-        recompute stops at the last tensor the backward saved
+        each data axis of size > 1, ``comm.batch_totals``); a Mamba-2
+        layer's gather of the ``in_proj`` columns and conv weights (where
+        either splits), the norm's sum (heads split) and ``out_proj``'s sum
+        (rows split); an RG-LRU layer's gates' and ``w_out``'s sums
+        (channels split) and its MLP's; then the loss's maximum gather and
+        its sum, and where the heads do not split one gather of every
+        attention leaf split over ``model``.  Its backward: the head's input
+        entered, an attention layer's q/k/v input (or the sequence split's
+        q, k and v) and MLP input (the moe family's token rows and gate
+        weights) entered, and where the heads split the qk-norm scales
+        entered; a Mamba-2 layer's input (``in_proj`` split), its summed
+        squares and, where the heads split, its whole tensors and sliced
+        replicated leaves (one sum a dtype: activations and fp32 leaves),
+        or where they do not its norm's output (``out_proj`` split); an
+        RG-LRU layer's input and its summed gates with ``lam`` (one sum a
+        dtype).  ``cfg.remat`` makes each recomputed layer's forward
+        collectives again in the backward but the sum that ends the layer:
+        the recompute stops at the last tensor the backward saved
         (``torch.utils.checkpoint``'s early stop), and ``sum_model`` saves
-        none.  All of it a
-        microbatch; then once a step the ``data`` gather, with ``split``
-        the sum over the data ranks of every gradient leaf and the loss
-        (``comm.sum_in_rank_order``: one all-reduce over one axis of two,
-        else a gather an axis), the norm's sum over ``model`` and with
-        ``compress`` the scales' gather."""
+        none."""
         from ..models.opt_flags import FLAGS
 
-        layers = cfg.n_layers
         sizes = [axis_size(self.mesh, a) for a in ("pod", "data")]
         live = [k for k in sizes if k > 1]
         seq_split = (not self.heads and FLAGS["attn_seq_shard"] and seq % self.tp == 0)
-        mlp = int(self.ff or self.experts)
-        routing = len(live) if split and cfg.family == "moe" else 0
-        per_layer = int(self.heads or seq_split) + mlp
-        attn = self.placements["layers"]["attn"]
-        gathered = not self.heads and any("model" in pl for pl in attn.values())
-        forward = 3 * int(self.vocab) + layers * (per_layer + routing) + int(gathered)
-        backward = int(self.vocab) + layers * per_layer + int(self.heads and cfg.qk_norm)
-        remat = layers * (per_layer + routing - mlp) if cfg.remat else 0
-        n = microbatches * (forward + backward + remat)
+        dtypes = 1 if cfg.dtype != "bfloat16" else 2  # an entered tuple's sums
+        gathered = not self.heads and any(
+            "model" in p for path in self.attn for p in _node(self.placements, path).values())
+        forward = 3 * int(self.vocab) + int(gathered)
+        backward = int(self.vocab) + int(self.heads and cfg.qk_norm)
+        remat = 0
+        for kind, lpl, again in self._layers(cfg):
+            if kind in ("lm", "attn"):
+                mlp = int(self.ff or self.experts)
+                routing = len(live) if split and cfg.family == "moe" else 0
+                per = int(self.heads or seq_split) + mlp
+                f, b, r = per + routing, per, per + routing - mlp
+            elif kind == "rglru":
+                rg, mlp = int(self.rglru), int(self.ff)
+                f, b, r = 2 * rg + mlp, rg * (1 + dtypes) + mlp, 2 * rg
+            else:
+                i, c, o = self._ssm_splits(lpl["mixer"])
+                f = int(i or c) + int(self.ssm) + int(o)
+                b = int(i) + int(self.ssm) * (1 + dtypes) + int(o and not self.ssm)
+                r = f - int(o)
+            forward, backward = forward + f, backward + b
+            remat += r if cfg.remat and again else 0
+        return forward + backward + remat
+
+    def train_collectives(self, cfg, seq: int, microbatches: int = 1, split: bool = False,
+                          compress: bool = False) -> int:
+        """The collectives one training step makes on a rank under this
+        (training) plan: ``grad_collectives`` a microbatch; then once a step
+        the ``data`` gather, with ``split`` the sum over the data ranks of
+        every gradient leaf and the loss (``comm.sum_in_rank_order``: one
+        all-reduce over one axis of two, else a gather an axis), the norm's
+        sum over ``model`` and with ``compress`` the scales' gather."""
+        sizes = [axis_size(self.mesh, a) for a in ("pod", "data")]
+        live = [k for k in sizes if k > 1]
+        n = microbatches * self.grad_collectives(cfg, seq, split)
         pls = [pl for _, pl in tree_items(self.placements)]
         n += int(axis_size(self.mesh, "data") > 1 and any("data" in pl for pl in pls))
         if split:
@@ -311,43 +464,80 @@ class TPPlan:
         return n + 1 + int(compress)
 
 
-PLAN_FAMILIES = ("dense", "moe")
+def _node(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _replace(tree: dict, items: list, leaves) -> dict:
+    """``tree`` with the leaf ``name`` of the group at ``path`` replaced by
+    each of ``leaves`` for ``(path, name)`` in ``items``: the dicts along
+    the paths copied, the rest shared."""
+    out = dict(tree)
+    for (path, name), leaf in zip(items, leaves):
+        node = out
+        for k in path:
+            node[k] = dict(node[k])
+            node = node[k]
+        node[name] = leaf
+    return out
+
+
+def _paths_with(tree: dict, leaf: str, path: tuple = ()) -> list:
+    """The paths of the groups of a placement tree that hold ``leaf``."""
+    out = [path] if leaf in tree and not isinstance(tree[leaf], dict) else []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _paths_with(v, leaf, path + (k,))
+    return out
+
+
+PLAN_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
 
 def serving_plan(cfg, mesh) -> Optional[TPPlan]:
-    """The plan of the dense or moe family's serving path on ``mesh``; None
-    for no mesh or another family (their engines hold whole parameters)."""
+    """The plan of a family's serving path on ``mesh``; None for no mesh or
+    the encdec family (its engine holds whole parameters)."""
     if cfg.family not in PLAN_FAMILIES or math.prod(mesh_shape(mesh).values()) <= 1:
         return None
     from ..models import build_model
 
-    return _plan(mesh, storage_placements(build_model(cfg).specs(), mesh), train=False)
+    return _plan(cfg, mesh, storage_placements(build_model(cfg).specs(), mesh), train=False)
 
 
-def _plan(mesh, pl: dict, train: bool) -> TPPlan:
-    """The splits of placements ``pl`` on ``mesh``: the MLP's ``w_gate``
-    (L, d, ff), or the experts' (L, E, d, ff), tells the ff and experts
-    splits."""
-    attn, gate = pl["layers"]["attn"], pl["layers"]["ffn"]["w_gate"]
+def _plan(cfg, mesh, pl: dict, train: bool) -> TPPlan:
+    """The splits of placements ``pl`` on ``mesh``: the first attention
+    group's ``wq`` and ``wk`` tell the heads split; the first MLP's
+    ``w_gate`` (d, ff), or the experts' (E, d, ff), the ff and experts
+    splits; the RG-LRU's ``w_x`` its channels'; Mamba-2's heads split where
+    ``model`` divides them."""
+    tp = axis_size(mesh, "model")
+    attn = tuple(_paths_with(pl, "wq"))
+    gates = [_node(pl, p)["w_gate"] for p in _paths_with(pl, "w_gate")]
+    rglru = [_node(pl, p)["w_x"] for p in _paths_with(pl, "w_x")]
+    heads = bool(attn) and all(_node(pl, attn[0])[n][-2] == "model" for n in ("wq", "wk"))
+    gate = gates[0] if gates else ()
     return TPPlan(
-        mesh=mesh, placements=pl, tp=axis_size(mesh, "model"), rank=axis_index(mesh, "model"),
-        heads=attn["wq"][2] == "model" and attn["wk"][2] == "model",
-        ff=gate[-1] == "model", vocab=pl["embed"][0] == "model", train=train,
-        experts=len(gate) == 4 and gate[1] == "model")
+        mesh=mesh, placements=pl, tp=tp, rank=axis_index(mesh, "model"), heads=heads,
+        ff=bool(gate) and gate[-1] == "model", vocab=pl["embed"][0] == "model", train=train,
+        experts=len(gate) == 4 and gate[1] == "model",
+        ssm=cfg.family == "ssm" and tp > 1 and cfg.ssm_heads % tp == 0,
+        rglru=bool(rglru) and rglru[0][-1] == "model", attn=attn)
 
 
 def training_plan(cfg, mesh) -> Optional[TPPlan]:
-    """The plan of the dense or moe family's training step on ``mesh``: the
-    serving plan's splits on the trainer's placements
-    (``params_shardings``, the norm scales on ``data`` too), held gathered
-    over ``data`` while the step computes.  None for no mesh, a ``model``
-    axis of 1 (the step is then the single-device program on gathered
-    parameters) or another family."""
+    """The plan of a family's training step on ``mesh``: the serving plan's
+    splits on the trainer's placements (``params_shardings``, the norm
+    scales on ``data`` and the SSM's on ``model`` too), held gathered over
+    ``data`` while the step computes.  None for no mesh, a ``model`` axis
+    of 1 (the step is then the single-device program on gathered
+    parameters) or the encdec family."""
     if cfg.family not in PLAN_FAMILIES or axis_size(mesh, "model") == 1:
         return None
     from ..models import build_model
 
-    return _plan(mesh, params_shardings(build_model(cfg).specs(), mesh), train=True)
+    return _plan(cfg, mesh, params_shardings(build_model(cfg).specs(), mesh), train=True)
 
 
 def local_config(cfg, plan: Optional[TPPlan]):
@@ -357,7 +547,10 @@ def local_config(cfg, plan: Optional[TPPlan]):
     whole count: the capacity ``int(cf t k / e) + 1`` and the aux loss read
     it, and a rank's ``E / tp`` there would raise the capacity ``tp``
     times and drop fewer tokens than one device (a rank knows its experts
-    from its weights' shape)."""
+    from its weights' shape).  The SSM's and the RG-LRU's widths stay too
+    (``d_model`` cannot shrink): a rank's come from the plan
+    (``TPPlan.ssm_sizes``, ``TPPlan.rglru_width``), which the model's
+    cache specs read (``build_model(cfg, plan)``)."""
     if plan is None or not plan.heads:
         return cfg
     return dataclasses.replace(cfg, head_dim=cfg.hd, n_heads=cfg.n_heads // plan.tp,

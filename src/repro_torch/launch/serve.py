@@ -25,6 +25,8 @@ optional VUSA packing, one batched ``generate``.
         --mesh 2,2 --dist-backend gloo --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b --smoke \
         --mesh 1,2 --dist-backend gloo --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b --smoke \
+        --mesh 2,2 --dist-backend gloo --device cpu
 
 Port of the JAX package's ``launch/serve.py``: one batched ``generate``,
 with its speculative options, or with ``--requests N`` N synthetic
@@ -45,10 +47,13 @@ stats print and the journal closes clean.  ``--mesh DP,TP`` serves on a
 this machine, with the collective backend ``--dist-backend``: ``nccl``
 for one GPU per rank, ``gloo`` for ranks that share a GPU or run on the
 CPU (gloo collectives cannot be captured in a CUDA graph, so with TP > 1
-the steps run eagerly); rank 0 prints.  A dense or moe model serves
+the steps run eagerly); rank 0 prints.  Every model but encdec serves
 tensor-parallel on sharded storage (``dist/tp.py``; the moe family's
-experts split over ``model``): each rank draws each leaf, prunes it whole
-and keeps its shard, so no rank holds the whole model.  ``--no-fused`` decodes in the eager host
+experts, the SSM's heads and the RG-LRU's channels split over ``model``):
+each rank draws each leaf, prunes it whole and keeps its shard, so no
+rank holds the whole model; one-shot ``generate`` on the dense route
+prints the collectives a decode step made beside the plan's prediction
+(``TPPlan.decode_collectives``).  ``--no-fused`` decodes in the eager host
 loop instead of the CUDA graph.  ``--arch`` takes every id of
 ``configs.ARCH_IDS`` (the dense, moe, vlm, hybrid, ssm and encdec
 families); a vlm model's one-shot ``generate`` gets seeded stand-in patch
@@ -68,6 +73,7 @@ import numpy as np
 
 from ..configs import get_config, get_smoke_config
 from ..core.pruning import _prunable, prune, prune_tree
+from ..dist import comm
 from ..dist.sharding import local_shard
 from ..dist.tp import serving_plan
 from .mesh import parse_mesh, rank0_prints, spawn
@@ -266,9 +272,24 @@ def _run(args, mesh=None, device=None):
         frames = np.random.default_rng(0).normal(
             0, 0.02, (batch, min(args.prompt_len, cfg.enc_frames), cfg.d_model))
         extras = {"frames": frames.astype(np.float32)}
+    counted = {}
+    if eng.plan is not None and not args.packed and not args.speculative:
+        segment = eng.decode_segment
+
+        def decode_segment(token, cache, steps, *a, **kw):
+            comm.reset_stats()
+            res = segment(token, cache, steps, *a, **kw)
+            counted.update(steps=steps, collectives=comm.STATS["collectives"])
+            return res
+
+        eng.decode_segment = decode_segment
     out = eng.generate(prompts, max_new=args.max_new, extras=extras)
     line = (f"prefill {out['prefill_s']*1e3:.1f}ms  decode {out['decode_s']*1e3:.1f}ms  "
             f"{out['tok_per_s']:.0f} tok/s  finite={out['finite']}")
+    if counted.get("steps"):
+        predicted = eng.plan.decode_collectives(cfg, eng._rows(batch) is not None)
+        line += (f"  collectives a decode step {counted['collectives'] / counted['steps']:g} "
+                 f"(predicted {predicted})")
     if args.speculative:
         line += (f"  spec rounds {out['spec_rounds']}  accepted {out['spec_accepted']}/"
                  f"{out['spec_proposed']} ({out['acceptance_rate']:.2f})")

@@ -12,12 +12,16 @@ batch split over pod x data) that ``launch/mesh.spawn`` starts on this
 machine, with the
 collective backend ``--dist-backend`` (``nccl``: one GPU per rank;
 ``gloo``: ranks that share a GPU or run on the CPU); rank 0 prints and
-writes the checkpoints.  On ``--model`` above 1 the dense and moe
-families train tensor-parallel (``dist.tp.training_plan``; the moe
-family's experts split over ``model``):
+writes the checkpoints.  On ``--model`` above 1 every family but encdec
+trains tensor-parallel (``dist.tp.training_plan``; the moe family's
+experts, the SSM's heads and the RG-LRU's channels split over ``model``),
+and rank 0 prints the collectives of the last step beside the plan's
+prediction (``TPPlan.train_collectives``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe_1b_7b --smoke \
         --device cpu --model 2 --dist-backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma_9b --smoke \
+        --device cpu --data 2 --model 2 --dist-backend gloo
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import argparse
 
 from ..configs import get_config, get_smoke_config
+from ..dist import comm
 from ..train import TrainConfig, Trainer, TrainHParams
 from .mesh import rank0_prints, spawn
 
@@ -80,8 +85,26 @@ def _run(args, mesh=None, device=None):
             grad_compress=args.grad_compress,
         ),
     )
-    out = Trainer(cfg, tc, device=device or args.device, mesh=mesh).train()
-    print(f"final loss {out['final_loss']:.4f}  sparsity {out['sparsity']:.2%}")
+    tr = Trainer(cfg, tc, device=device or args.device, mesh=mesh)
+    counted = {}
+    if tr.plan is not None:  # the collectives of each step, the last one kept
+        step = tr.step_fn
+
+        def step_fn(*a, **kw):
+            comm.reset_stats()
+            res = step(*a, **kw)
+            counted["collectives"] = comm.STATS["collectives"]
+            return res
+
+        tr.step_fn = step_fn
+    out = tr.train()
+    line = f"final loss {out['final_loss']:.4f}  sparsity {out['sparsity']:.2%}"
+    if counted:
+        predicted = tr.plan.train_collectives(cfg, args.seq, args.microbatches,
+                                              split=tr.rows is not None,
+                                              compress=args.grad_compress)
+        line += f"  collectives a step {counted['collectives']} (predicted {predicted})"
+    print(line)
     return out
 
 

@@ -142,7 +142,7 @@ def current_rows():
 
 def current_context() -> tuple:
     """``(mesh, tp, rows)`` of the innermost ``mesh_context``: what a
-    recompute on another thread installs again (``families._layer_in``)."""
+    recompute on another thread installs again (``families._remat_fn``)."""
     return current_mesh(), current_tp(), current_rows()
 
 

@@ -24,15 +24,20 @@ one per reference leaf.  Every decode step updates its cache in place and
 advances the (B,) ``pos`` with ``add_``, makes no host sync, and with
 ``rowwise`` computes row b as a B = 1 step on its own cache row.
 
-The dense family's serving functions (``lm_decode_step``, ``lm_prefill``,
-``lm_prefill_chunk``) also run tensor-parallel under the serving engine's
-plan (``dist/tp.py``, installed by ``common.mesh_context``): the parameters
-are this rank's shards, each layer's leaves gathered over ``data`` at use
-(``_dense_layer``), the embedding and the head vocab-parallel
-(``_embed_tokens``, ``_head_logits``).  With no plan they are the
-single-device program.  ``lm_forward`` and ``lm_loss`` run under the
-trainer's plan (``dist.tp.training_plan``) forward and backward on this
-rank's shards, the loss vocab-parallel (``TPPlan.xent``).
+The LM families' serving functions (``lm_decode_step``, ``lm_prefill``,
+``lm_prefill_chunk``) and the recurrent families' (``hybrid_decode_step``,
+``ssm_decode_step``, their forwards without grad) also run tensor-parallel
+under the serving engine's plan (``dist/tp.py``, installed by
+``common.mesh_context``): the parameters are this rank's shards, each
+layer's leaves gathered over ``data`` at use (``_dense_layer``,
+``_plan_layer``), the embedding and the head vocab-parallel
+(``_embed_tokens``, ``_head_logits``), the Mamba-2 and RG-LRU mixers on the
+rank's heads or channels (``models/ssm.py``), their caches holding those
+(``ssm_cache_specs``, ``hybrid_cache_specs`` with the plan).  With no plan
+they are the single-device program.  ``lm_forward``, ``hybrid_forward``,
+``ssm_forward`` and their losses run under the trainer's plan
+(``dist.tp.training_plan``) forward and backward on this rank's shards,
+the loss vocab-parallel (``TPPlan.xent``).
 """
 
 from __future__ import annotations
@@ -127,11 +132,12 @@ def _embed_tokens(params, tokens, cfg):
     (indexing's backward, ``index_put_`` with accumulation, may not), so a
     training step is deterministic and a resumed run bitwise the
     uninterrupted one.  Under a tensor-parallel plan the rows come from the
-    vocab-parallel lookup (``dist.tp.TPPlan.embed``)."""
+    vocab-parallel lookup (``dist.tp.TPPlan.embed``), then the same scale."""
     plan = current_tp()
-    if plan is not None:
-        return plan.embed(params, tokens).to(act_dtype(cfg))
-    x = Fn.embedding(tokens, params["embed"]).to(act_dtype(cfg))
+    if plan is not None:  # the rows are exact: one nonzero addend each
+        x = plan.embed(params, tokens).to(act_dtype(cfg))
+    else:
+        x = Fn.embedding(tokens, params["embed"]).to(act_dtype(cfg))
     if cfg.family == "vlm":
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype).item()
     return x
@@ -140,13 +146,18 @@ def _embed_tokens(params, tokens, cfg):
 def _lm_inputs(params, batch, cfg):
     """(x, mask, positions) of a batch: the token embeddings, for the vlm
     family after the projected patch prefix (``batch["patches"]`` (B, P,
-    d)) under a prefix mask; else causal."""
+    d)) under a prefix mask; else causal.  Under a plan ``patch_proj``, (d,
+    d) on ``embed``, is gathered whole over ``data`` where it is stored
+    there (``TPPlan.whole_data``): it stays whole over ``model``."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
     mask = MaskSpec("causal")
     if cfg.family == "vlm":
         patches = batch["patches"].to(x.dtype)
-        x = torch.cat([patches @ params["patch_proj"].to(x.dtype), x], dim=1)
+        proj, plan = params["patch_proj"], current_tp()
+        if plan is not None:
+            proj = plan.whole_data(proj, "patch_proj")
+        x = torch.cat([patches @ proj.to(x.dtype), x], dim=1)
         mask = MaskSpec("prefix", prefix_len=cfg.patch_tokens)
     return x, mask, torch.arange(x.shape[1], device=x.device)
 
@@ -176,27 +187,19 @@ def _lm_layer(lp, x, cfg, mask, positions):
     return x + y, aux
 
 
-def _layer_in(ctx, *args):
-    """``_lm_layer`` under ``mesh_context(*ctx)``.  A remat recompute runs
-    where autograd runs the backward, on the card its device thread, which
-    the caller's context (thread-local) does not reach: the layer would
-    recompute without the plan, on other shapes, or route its experts over
-    this rank's rows alone."""
-    with mesh_context(*ctx):
-        return _lm_layer(*args)
-
-
 def lm_forward(params, batch, cfg):
     """Teacher-forced logits (B, S, V) of the text positions and the aux
     loss summed over layers (0 but for the moe family).  Under grad with
     ``cfg.remat`` each layer is recomputed in the backward
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 
-    Under the trainer's tensor-parallel plan (the dense family,
-    ``dist.tp.training_plan``) ``params`` are this rank's ``model`` shards,
-    the layers run on the local heads and ff slab (``TPPlan.train_params``,
+    Under the trainer's tensor-parallel plan (``dist.tp.training_plan``)
+    ``params`` are this rank's ``model`` shards, the layers run on the
+    local heads and ff slab (``TPPlan.train_params``,
     ``dist.tp.local_config``) and the logits are this rank's vocab columns
-    (B, S, V / tp), which ``lm_loss`` takes to ``TPPlan.xent``."""
+    (B, S, V / tp) of the text positions (the vlm family's patch rows
+    dropped before the head), which ``lm_loss`` takes to
+    ``TPPlan.xent``."""
     plan = current_tp()
     lcfg = cfg
     if plan is not None:
@@ -205,8 +208,7 @@ def lm_forward(params, batch, cfg):
         params, lcfg = plan.train_params(params), local_config(cfg, plan)
     x, mask, positions = _lm_inputs(params, batch, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
-    ctx = current_context()
-    layer = _lm_layer if all(c is None for c in ctx) else functools.partial(_layer_in, ctx)
+    layer = _remat_fn(_lm_layer)
     aux = 0.0
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
@@ -216,6 +218,8 @@ def lm_forward(params, batch, cfg):
         aux = aux + a
     x = rms_norm(x, params["final_norm"])
     if plan is not None:
+        if cfg.family == "vlm":  # only text positions produce logits
+            x = x[:, cfg.patch_tokens :]
         return plan.train_logits(x, params, cfg.tie_embeddings), aux
     logits = torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
     if cfg.family == "vlm":  # only text positions produce logits
@@ -455,17 +459,76 @@ def _rows(step, cache_specs, params, token, cache, cfg):
     return torch.cat(logits), cache
 
 
+def _in_context(ctx, fn, *args):
+    """``fn(*args)`` under ``mesh_context(*ctx)``."""
+    with mesh_context(*ctx):
+        return fn(*args)
+
+
+def _remat_fn(fn):
+    """``fn`` as a checkpointed layer calls it: under the caller's mesh
+    context when one is installed.  A remat recompute runs where autograd
+    runs the backward, on the card its device thread, which the caller's
+    context (thread-local) does not reach: the layer would recompute
+    without the plan, on other shapes, or route its experts over this
+    rank's rows alone."""
+    ctx = current_context()
+    return fn if all(c is None for c in ctx) else functools.partial(_in_context, ctx, fn)
+
+
 def _layers(params: dict, tree_key: str, n: int, remat: bool, fn, x, *args):
     """``x`` through the ``n`` stacked layers ``params[tree_key]``, each
     ``fn(lp, x, *args)``, recomputed in the backward under ``remat``."""
+    again = _remat_fn(fn) if remat else fn
     for lp in _unstack(params[tree_key], n):
-        x = checkpoint(fn, lp, x, *args, use_reentrant=False) if remat else fn(lp, x, *args)
+        x = checkpoint(again, lp, x, *args, use_reentrant=False) if remat else fn(lp, x, *args)
     return x
 
 
+def _serving_plan():
+    """The serving engine's plan of the innermost context, or None (no
+    plan, or the trainer's, whose step holds its leaves gathered)."""
+    plan = current_tp()
+    return None if plan is None or plan.train else plan
+
+
+def _plan_layer(params: dict, path: tuple, i, attn: bool = False) -> dict:
+    """Layer ``i`` of the stacked layer tree at ``path`` (``i`` None: the
+    tree is one layer, the hybrid's tail): under a serving plan with every
+    leaf gathered where the compute wants it whole (``TPPlan.layer``;
+    ``attn``: the ``mixer`` group is attention), else the tree's views."""
+    tree = params
+    for k in path:
+        tree = tree[k]
+    plan = _serving_plan()
+    if plan is None:
+        return tree if i is None else layer_params(tree, i)
+    pls = plan.placements
+    for k in path:
+        pls = pls[k]
+    return plan.layer(tree, i, None, pls, attn=("mixer",) if attn else ())
+
+
 def _logits(params, x, head):
+    """The head's logits of the final-normed ``x``: under the trainer's plan
+    this rank's vocab columns of the untied ``lm_head``
+    (``TPPlan.train_logits``), under a serving plan gathered whole
+    (``TPPlan.logits``; the encdec family, whose head is tied, has no
+    plan)."""
     x = rms_norm(x, params["final_norm"])
+    plan = current_tp()
+    if plan is not None and plan.train:
+        return plan.train_logits(x, params, tied=False)
+    if plan is not None:
+        return plan.logits(x, plan.head_matrix(params, tied=False).to(x.dtype))
     return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+
+
+def _rec_xent():
+    """The loss of ``_logits``' columns: vocab-parallel under the trainer's
+    plan."""
+    plan = current_tp()
+    return plan.xent if plan is not None and plan.train else _xent
 
 
 # ---- hybrid (Griffin / recurrentgemma) --------------------------------------
@@ -517,49 +580,69 @@ def hybrid_forward(params, batch, cfg):
     """Teacher-forced logits (B, S, V) and aux 0.  Under grad with
     ``cfg.remat`` each group's layers are recomputed in the backward (the
     tail's are not, as in the reference).  An empty ``tail`` may be missing
-    from the tree (a walk over leaves drops it)."""
+    from the tree (a walk over leaves drops it).  Under the trainer's plan
+    the attention leaves are read as ``TPPlan.train_params`` holds them,
+    the heads local where they split (``dist.tp.local_config``), and the
+    logits are this rank's vocab columns; under a serving plan (no grad)
+    each layer's leaves are gathered at use."""
+    plan, lcfg = current_tp(), cfg
+    if plan is not None and plan.train:  # a serving caller's cfg is local already
+        from ..dist.tp import local_config
+
+        params, lcfg = plan.train_params(params), local_config(cfg, plan)
     x = _embed_tokens(params, batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    layer = _remat_fn(_hybrid_layer) if remat else _hybrid_layer
     n_groups, _ = _hybrid_layout(cfg)
-    groups = {key: _unstack(tree, n_groups) for key, tree in params["groups"].items()}
+    serving = _serving_plan() is not None
+    groups = {} if serving else {key: _unstack(tree, n_groups)
+                                 for key, tree in params["groups"].items()}
     for g in range(n_groups):
         for i, kind in enumerate(cfg.block_pattern):
-            lp = groups[f"p{i}_{kind}"][g]
+            key = f"p{i}_{kind}"
+            lp = (_plan_layer(params, ("groups", key), g, kind == "attn") if serving
+                  else groups[key][g])
             if remat:
-                x = checkpoint(_hybrid_layer, lp, x, kind, cfg, positions, use_reentrant=False)
+                x = checkpoint(layer, lp, x, kind, lcfg, positions, use_reentrant=False)
             else:
-                x = _hybrid_layer(lp, x, kind, cfg, positions)
-    for name, lp in params.get("tail", {}).items():
-        x = _hybrid_layer(lp, x, name.split("_", 1)[1], cfg, positions)
+                x = _hybrid_layer(lp, x, kind, lcfg, positions)
+            del lp
+    for name in params.get("tail", {}):
+        kind = name.split("_", 1)[1]
+        x = _hybrid_layer(_plan_layer(params, ("tail", name), None, kind == "attn"), x, kind,
+                          lcfg, positions)
     return _logits(params, x, params["lm_head"]), 0.0
 
 
 def hybrid_loss(params, batch, cfg):
     logits, _ = hybrid_forward(params, batch, cfg)
-    return _xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
+    return _rec_xent()(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
 
 
-def _mixer_cache(cfg, kind: str, lead: tuple, batch: int, ring: int) -> dict:
+def _mixer_cache(cfg, kind: str, lead: tuple, batch: int, ring: int, plan=None) -> dict:
     if kind == "rglru":  # the conv window of the RG-LRU is 3 rows (4 taps), as the reference
-        return {"conv": (lead + (batch, 3, cfg.rglru_dim), act_dtype(cfg)),
-                "h": (lead + (batch, cfg.rglru_dim), torch.float32)}
+        r = cfg.rglru_dim if plan is None else plan.rglru_width(cfg)
+        return {"conv": (lead + (batch, 3, r), act_dtype(cfg)),
+                "h": (lead + (batch, r), torch.float32)}
     kv = (lead + (batch, ring, cfg.kv_heads, cfg.hd), act_dtype(cfg))
     return {"k": kv, "v": kv}
 
 
-def hybrid_cache_specs(cfg, batch: int, max_len: int) -> dict:
+def hybrid_cache_specs(cfg, batch: int, max_len: int, plan=None) -> dict:
     """Per pattern position a cache stacked over the groups, then the tail's;
     the attention layers keep a ring of ``min(local_window, max_len)`` rows,
-    so decode is O(window), not O(sequence).  Flat ``/``-joined names."""
+    so decode is O(window), not O(sequence).  Flat ``/``-joined names.
+    ``plan``: a serving plan, whose RG-LRU caches hold this rank's
+    channels (``cfg``, ``local_config``'s, holds its heads)."""
     ring = min(cfg.local_window, max_len)
     n_groups, tail = _hybrid_layout(cfg)
     out = {}
     for i, kind in enumerate(cfg.block_pattern):
-        for leaf, spec in _mixer_cache(cfg, kind, (n_groups,), batch, ring).items():
+        for leaf, spec in _mixer_cache(cfg, kind, (n_groups,), batch, ring, plan).items():
             out[f"groups/p{i}_{kind}/{leaf}"] = spec
     for i, kind in enumerate(tail):
-        for leaf, spec in _mixer_cache(cfg, kind, (), batch, ring).items():
+        for leaf, spec in _mixer_cache(cfg, kind, (), batch, ring, plan).items():
             out[f"tail/t{i}_{kind}/{leaf}"] = spec
     out["pos"] = ((batch,), torch.long)
     return out
@@ -576,7 +659,9 @@ def _hybrid_decode_layer(lp, x, c: dict, kind: str, cfg, pos):
 
 
 def hybrid_decode_step(params, token, cache, cfg, rowwise: bool = False):
-    """token (B, 1).  Returns (logits (B, 1, V), cache with ``pos + 1``)."""
+    """token (B, 1).  Returns (logits (B, 1, V), cache with ``pos + 1``).
+    Under a serving plan each layer's leaves are gathered at use
+    (``_plan_layer``) and the logits gathered whole."""
     if rowwise and token.shape[0] > 1:
         return _rows(hybrid_decode_step, hybrid_cache_specs, params, token, cache, cfg)
     x = _embed_tokens(params, token, cfg)
@@ -590,10 +675,13 @@ def hybrid_decode_step(params, token, cache, cfg, rowwise: bool = False):
     for g in range(n_groups):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"p{i}_{kind}"
-            x = _hybrid_decode_layer(layer_params(params["groups"][key], g), x,
-                                     leaves(f"groups/{key}/", g), kind, cfg, pos)
-    for name, lp in params.get("tail", {}).items():
-        x = _hybrid_decode_layer(lp, x, leaves(f"tail/{name}/"), name.split("_", 1)[1], cfg, pos)
+            lp = _plan_layer(params, ("groups", key), g, kind == "attn")
+            x = _hybrid_decode_layer(lp, x, leaves(f"groups/{key}/", g), kind, cfg, pos)
+            del lp  # under a plan: its gathered leaves
+    for name in params.get("tail", {}):
+        kind = name.split("_", 1)[1]
+        x = _hybrid_decode_layer(_plan_layer(params, ("tail", name), None, kind == "attn"), x,
+                                 leaves(f"tail/{name}/"), kind, cfg, pos)
     logits = _logits(params, x, params["lm_head"])
     pos.add_(1)
     return logits, cache
@@ -618,20 +706,31 @@ def _ssm_layer(lp, x, cfg):
 
 
 def ssm_forward(params, batch, cfg):
+    """Teacher-forced logits (B, S, V) and aux 0; under the trainer's plan
+    this rank's vocab columns, under a serving plan (no grad) each layer's
+    leaves gathered at use."""
     x = _embed_tokens(params, batch["tokens"], cfg)
-    remat = cfg.remat and torch.is_grad_enabled()
-    x = _layers(params, "layers", cfg.n_layers, remat, _ssm_layer, x, cfg)
+    if _serving_plan() is not None:
+        for i in range(cfg.n_layers):
+            x = _ssm_layer(_plan_layer(params, ("layers",), i), x, cfg)
+    else:
+        remat = cfg.remat and torch.is_grad_enabled()
+        x = _layers(params, "layers", cfg.n_layers, remat, _ssm_layer, x, cfg)
     return _logits(params, x, params["lm_head"]), 0.0
 
 
 def ssm_loss(params, batch, cfg):
     logits, _ = ssm_forward(params, batch, cfg)
-    return _xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
+    return _rec_xent()(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
 
 
-def ssm_cache_specs(cfg, batch: int, max_len: int) -> dict:
-    din = cfg.expand * cfg.d_model
-    n, h = cfg.ssm_state, cfg.ssm_heads
+def ssm_cache_specs(cfg, batch: int, max_len: int, plan=None) -> dict:
+    """The conv window (the rank's ``x`` channels and the whole ``B`` and
+    ``C``) and the fp32 SSD state (the rank's heads) of every layer, and
+    ``pos``; ``plan``: a serving plan (``TPPlan.ssm_sizes``)."""
+    din, h = ((cfg.expand * cfg.d_model, cfg.ssm_heads) if plan is None
+              else plan.ssm_sizes(cfg))
+    n = cfg.ssm_state
     return {
         "conv": ((cfg.n_layers, batch, cfg.d_conv - 1, din + 2 * n), act_dtype(cfg)),
         "state": ((cfg.n_layers, batch, h, din // h, n), torch.float32),
@@ -645,9 +744,10 @@ def ssm_decode_step(params, token, cache, cfg, rowwise: bool = False):
         return _rows(ssm_decode_step, ssm_cache_specs, params, token, cache, cfg)
     x = _embed_tokens(params, token, cfg)
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _plan_layer(params, ("layers",), i)
         x = x + mamba2_decode(lp["mixer"], rms_norm(x, lp["norm"]), cfg,
                               {"conv": cache["conv"][i], "state": cache["state"][i]})
+        del lp  # under a plan: its gathered leaves
     logits = _logits(params, x, params["lm_head"])
     cache["pos"].add_(1)
     return logits, cache

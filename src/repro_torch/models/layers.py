@@ -22,9 +22,9 @@ queries over a mesh's ``model`` axis under ``attn_seq_shard``.  Masked
 scores are ``-1e30``, not ``-inf``.
 
 Under a tensor-parallel plan (``dist/tp.py``, the serving engine's or the
-trainer's, read through ``common.current_tp``) the dense family's
-attention runs on this rank's heads (the config's head counts are the
-local ones) with its ``wo`` partials summed over ``model``, and the MLP on
+trainer's, read through ``common.current_tp``) attention runs on this
+rank's heads where they split (the config's head counts are the local
+ones) with its ``wo`` partials summed over ``model``, and the MLP on
 its ff slab with its ``w_down`` partials summed; the inputs of both enter
 through ``comm.enter_model``, so a backward sums their gradients over
 ``model``.  Packed projections are then the rank's own

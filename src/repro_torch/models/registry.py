@@ -32,10 +32,14 @@ _FAMILY_FNS = {
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, plan=None):
+        """``plan``: a serving engine's tensor-parallel plan
+        (``dist.tp.TPPlan``), from which the recurrent families' cache specs
+        take this rank's SSM heads and RG-LRU channels; None: whole."""
         super().__init__()
         F.check_family(cfg)
         self.cfg = cfg
+        self.plan = plan
         (self._specs, self._forward, self._loss, self._cache_specs,
          self._decode_step) = _FAMILY_FNS[cfg.family]
 
@@ -70,6 +74,8 @@ class Model(nn.Module):
     def cache_specs(self, batch: int, max_len: int, frames: int = 0) -> dict:
         if self.cfg.family == "encdec":
             return F.encdec_cache_specs(self.cfg, batch, max_len, frames)
+        if self.cfg.family in F.RECURRENT_FAMILIES:
+            return self._cache_specs(self.cfg, batch, max_len, plan=self.plan)
         return self._cache_specs(self.cfg, batch, max_len)
 
     def decode_step(self, params: dict, token, cache: dict, rowwise: bool = False, x=None):
@@ -185,5 +191,5 @@ class Model(nn.Module):
         raise ValueError(kind)
 
 
-def build_model(cfg: ArchConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ArchConfig, plan=None) -> Model:
+    return Model(cfg, plan)

@@ -44,16 +44,17 @@ the same property by splitting its key once per emitted token.  No random
 state lives in a graph.
 
 On a mesh (``Engine(..., mesh=)``, a (data, model) DeviceMesh of ranks
-that all run the same code; ``launch/mesh.py``) the dense and moe families'
-engine
-stores each dense leaf as this rank's shard under the reference's
-placements (``dist/tp.py storage_placements``: heads, kv heads, ff and
-vocab over ``model``, the embed dim over ``data``; the norm scales held
-whole), given whole or as shards (leaf shapes tell them apart), and its
-dense products run tensor-parallel on those shards with ordered sums and
-gathers (``dist/tp.py``): the attend and the KV cache hold the local
-heads, and every rank ends each step with the same logits bits, within
-rounding of one device's.  Each rank packs only its windows of every pack
+that all run the same code; ``launch/mesh.py``) the engine of every family
+but encdec stores each dense leaf as this rank's shard under the
+reference's placements (``dist/tp.py storage_placements``: heads, kv
+heads, ff, vocab, the SSM's inner dim and the RG-LRU's channels over
+``model``, the embed dim over ``data``; the norm scales held whole), given
+whole or as shards (leaf shapes tell them apart), and its dense products
+run tensor-parallel on those shards with ordered sums and gathers
+(``dist/tp.py``): the attend and the KV cache hold the local heads, the
+recurrent caches the local SSM heads and RG-LRU channels, and every rank
+ends each step with the same logits bits, within rounding of one
+device's.  Each rank packs only its windows of every pack
 (``pack_lm_weights(shards=tp, rank=...)``, what
 ``serve/packed.shard_packed`` leaves of a whole pack), from one leaf
 gathered whole at a time (``dist.tp.WholeView``), run through the
@@ -64,8 +65,10 @@ local heads.  The dense twin of a pack is the tensor-parallel dense
 route.  The moe family stores its experts split over ``model``
 (``E / tp`` a rank, expert parallelism) under the same rules and serves
 dense; where ``generate`` splits its rows over ``data`` the routing counts
-over the whole batch (``layers.moe``).  The other families hold their
-parameters whole on every rank and run the single-device program.
+over the whole batch (``layers.moe``).  The vlm, hybrid and ssm families
+serve dense on their shards (the recurrent ones prime through eager
+decode steps, each making its collectives).  The encdec family holds its
+parameters whole on every rank and runs the single-device program.
 The batch rows (or the scheduler's slots) are split over ``data`` when
 its size divides them, and kept whole on every rank when it does not.
 The logits of every step are gathered whole before a token is chosen, and
@@ -299,8 +302,9 @@ class Engine:
         ``time.monotonic``); the scheduler inherits it, so engine and
         scheduler timings share one timeline.  ``mesh``: a (data, model)
         DeviceMesh this rank belongs to (see the module docstring); a
-        mesh of one rank is no mesh.  On a mesh the dense family's
-        ``params`` may hold any leaf whole or as this rank's shard under
+        mesh of one rank is no mesh.  On a mesh (a family with a plan,
+        ``dist.tp.serving_plan``: every family but encdec) ``params`` may
+        hold any leaf whole or as this rank's shard under
         ``dist.sharding.params_shardings`` (what the trainer stores), so a
         caller that cannot hold the model whole hands over shards; a leaf
         of another shape raises."""
@@ -322,10 +326,11 @@ class Engine:
         self.dp, self.tp = axis_size(self.mesh, "data"), axis_size(self.mesh, "model")
         # a rank packs only its own windows of each pack
         self._model_rank = axis_index(self.mesh, "model") if self.tp > 1 else None
-        # the dense or moe family's tensor-parallel plan; the model is built
-        # with this rank's head counts, so the attend and its caches hold them
+        # the family's tensor-parallel plan; the model is built with this
+        # rank's head counts and reads its SSM heads and RG-LRU channels from
+        # the plan, so the attend and the caches hold them
         self.plan = serving_plan(cfg, self.mesh)
-        self.model = build_model(local_config(cfg, self.plan))
+        self.model = build_model(local_config(cfg, self.plan), self.plan)
         # attention split by heads: each rank packs its heads' projections
         self._split_heads = self.plan is not None and self.plan.heads and self.tp > 1
         self.params = self._place(params)
@@ -1041,7 +1046,7 @@ class Engine:
         (``generate``; the moe routing then counts over the whole batch)."""
         prompts = np.asarray(prompts)
         if self.cfg.family in RECURRENT_FAMILIES:
-            return self._prime_recurrent(prompts)
+            return self._prime_recurrent(prompts, split)
         if prompts.shape[1] > self.sc.max_len:
             raise ValueError(f"prompt length {prompts.shape[1]} exceeds max_len {self.sc.max_len}")
         self._validate_tokens(prompts)
@@ -1052,7 +1057,7 @@ class Engine:
             logits, cache = self.model.prefill(self.params, batch, self.sc.max_len)
         return torch.argmax(logits.float(), dim=-1)[:, None], cache
 
-    def _prime_recurrent(self, prompts: np.ndarray):
+    def _prime_recurrent(self, prompts: np.ndarray, split: bool = False):
         """Prime a recurrent family's state by running the prompt through
         dense decode steps from a zero cache, as the reference does; with
         ``fused`` on a CUDA device the step is a captured graph replayed
@@ -1062,7 +1067,9 @@ class Engine:
         request primed alone in the scheduler draws what one-shot
         ``generate`` at B = 1 draws.  (The reference samples that token
         with its key; sampled tokens cannot match across frameworks, C3.)
-        A ring cache wraps, so the prompt may be longer than ``max_len``."""
+        A ring cache wraps, so the prompt may be longer than ``max_len``.
+        Under a plan the steps run eagerly in the engine's context
+        (``split``: this rank's rows of a batch cut over ``data``)."""
         if prompts.ndim != 2 or prompts.shape[1] < 1:
             raise ValueError(f"prompts must be (B, S) with S >= 1, got {prompts.shape}")
         self._validate_tokens(prompts)
@@ -1079,8 +1086,9 @@ class Engine:
             g.replays += s
             return st.toks.clone(), {name: leaf.clone() for name, leaf in st.cache.items()}
         cache = self.model.init_cache(b, self.sc.max_len, device=self.device)
-        for t in range(s):
-            logits = self.model.decode_step(self.params, toks[:, t : t + 1], cache)[0]
+        with self._context(split):
+            for t in range(s):
+                logits = self.model.decode_step(self.params, toks[:, t : t + 1], cache)[0]
         return torch.argmax(logits[:, -1].float(), dim=-1)[:, None], cache
 
     @torch.no_grad()

@@ -23,9 +23,8 @@ global-norm clip runs on the whole gradients in the single-device order,
 and each rank then updates only its shard.  On a ``model`` axis alone the
 step is the single-device step bitwise.
 
-With a tensor-parallel plan (``plan=``, ``dist.tp.training_plan``: the
-dense and moe families on a ``model`` axis above 1) no rank gathers the
-tree: the step gathers every ``data``-sharded leaf over ``data`` once (one
+With a tensor-parallel plan (``plan=``, ``dist.tp.training_plan``: every
+family but encdec on a ``model`` axis above 1) no rank gathers the tree: the step gathers every ``data``-sharded leaf over ``data`` once (one
 ``comm.gather_leaves`` a dtype), runs the forward and the backward under
 the plan (``models.common.mesh_context``), so the gradients are this
 rank's ``model`` shards, sums them over the data ranks as above and cuts

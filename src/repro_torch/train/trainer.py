@@ -9,10 +9,11 @@ stored as each rank's shards under ``dist.sharding.params_shardings``,
 the batch rows split over every pure data axis, ``("pod", "data")``
 flattened pod-major as the reference's batch placement (when their
 product divides them), and the
-step is ``train/step.py``'s sharded step: for the dense and moe families
+step is ``train/step.py``'s sharded step: for every family but encdec
 on a ``model`` axis above 1 the tensor-parallel one
 (``dist.tp.training_plan``: no rank gathers the tree; the moe family's
-experts split over ``model``), else the single-device program on gathered
+experts, the SSM's heads and the RG-LRU's channels split over ``model``),
+else the single-device program on gathered
 parameters, the moe routing over the whole batch where the rows split.  Each rank draws its shards leaf by leaf, and the pruning
 masks are refreshed one leaf at a time (each leaf gathered whole,
 ``magnitude_mask`` on it, this rank's shard kept: the single-device masks,
