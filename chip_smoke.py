@@ -160,7 +160,9 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
 10. speculative scheduler: phase 9's pool (8 slots, segments of 8
    rounds) and 24-request traffic under sequential admission (each
    request primed alone at its exact length, on both pools), on phase
-   8's tiered weights, bf16 activations, ``max_len`` 272 (a segment of
+   8's tiered weights cut to their first ``SPEC_SCHED_LAYERS`` (6 of 12:
+   every layer alike, and at 12 the phase's 24 scheduler runs took 154-181
+   s of the script's 1200), bf16 activations, ``max_len`` 272 (a segment of
    rounds writes 8 x 5 rows), ``draft_k`` 4, the drafter at 99 %
    sparsity; the verifier dense and packed with fp32 and int8 values.
    Each round is one replay of the pool's captured speculative round:
@@ -168,8 +170,8 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    B1-B4, the accept scan.  Gates, greedy and sampled, slot and paged
    pool (pages of 16, no prefix cache): every completion bitwise the
    plain scheduler's on the same pool and route; paged bitwise the slot
-   pool; the pool graph's B1-B4 launches exactly rounds x (4 x (49, 12)
-   on the float route + (49, 12) on the verifier's); launch counts set to
+   pool; the pool graph's B1-B4 launches exactly rounds x (4 x (25, 6)
+   on the float route + (25, 6) on the verifier's); launch counts set to
    0 before the phase and B1-B4 counted on the float and int8 routes
    after it.  Reported: acceptance, ``stats()`` beside the plain
    scheduler's, ms per pool round (CUDA events, slot and paged) beside a
@@ -307,7 +309,13 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    the gradients summed over ``data`` and each rank's updated shards
    (params and both moments) are bitwise one device's step over the same
    batch in two microbatches, the ranks' rows; a checkpoint written on
-   2x2 restores bitwise on one device.  Reported, beside the card's name and power limit: ms a step,
+   2x2, from the shards one leaf at a time (each leaf gathered whole to
+   the first rank's host, written, dropped), restores bitwise on one
+   device, its files (every leaf and the manifest) are byte for byte one
+   device's save of the gathered tree, no rank's card peak during the
+   save passes its state plus the largest leaf, and the writer's host
+   peak (``tracemalloc``) stays within that leaf, one shard and 64 KiB.
+   Reported, beside the card's name and power limit: ms a step,
    tok/s, collectives and bytes a step a rank, peak memory a rank, the
    phase's seconds (at most 150);
 16. leftovers and cost tools (at most 60 s): (a) 2:4 packs
@@ -365,7 +373,7 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    seconds.  (c) tensor-parallel training (``dist.tp.training_plan``),
    fp32 with fp32 attention probabilities, the contracted fan-in, one
    device's oracle beside it: (c1) ``vusa_edge`` at its 12 layers, batch
-   8 x 128, remat, on 1x2, 1x4 and 2x2, 5 steps each taken from one
+   8 x 128, remat, on 1x2, 1x4 and 2x2, 3 steps each taken from one
    device's state (as phase 15's 2x1 lockstep; each rank computes one
    device's step beside its own, the state is 2.6 GB): the loss within
    1e-4 relative of one device's step, the global norm within 2e-3, each
@@ -398,7 +406,8 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    ``TPPlan.experts``: a rank stores and runs 16 of the 64 experts on
    1x4), fp32, fp32 attention probabilities, the contracted fan-in, one
    device's oracles first (in this process, then freed; (d3)'s gradients
-   kept on the card and read by the ranks through CUDA IPC): (d1)
+   handed to the ranks as a ``.npy`` file a leaf, each rank reading its
+   slices): (d1)
    ``olmoe_1b_7b`` at its full 16 layers and widths, the published
    ``moe_cf`` 1.25, on 1x4, ``generate`` B = 4, prompt 32, 16 new tokens
    (capacity 1 at the decode steps: drops); gates: layer 0's routing
@@ -408,7 +417,7 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    the placement's, 34 collectives a step; (d2) ``moonshot_v1_16b_a3b``
    (vocab 163840, top-6) at 4 of its 48 layers (``EP_CUT_WHY``), the same
    gates; (d3) ``olmoe``'s training step, 8 x 128, remat, from the draw:
-   on 1x4 at 4 layers the loss within 1e-5 relative and each gradient
+   on 1x4 at 2 layers the loss within 1e-5 relative and each gradient
    shard within 1e-4 of the leaf's largest |g| of one device's step; on
    2x2 at 2 layers (the batch split over ``data``: C16's whole-batch
    routing) the norm and shards within C13's 2e-3 and layer 0's routing
@@ -423,7 +432,7 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    gradients handed to the ranks through files), its own limit of
    ``TPR_PHASE_LIMIT_S``: (e1) ``paligemma_3b`` whole (18 layers, 256
    seeded stand-in patches, prompt 32, 8 new tokens), ``mamba2_2_7b``
-   whole (64 layers, prompt 8, 4 new), ``recurrentgemma_9b`` at 8 of 38
+   at 16 of 64 layers (prompt 8, 4 new), ``recurrentgemma_9b`` at 8 of 38
    layers (two groups and the 2-layer RG-LRU tail, ``TPR_CUT_WHY``),
    ``generate`` B = 4 on 1x4; gates: first-step logits within 1e-4 of
    the largest of one device's, tokens equal, every rank's bits rank 0's,
@@ -437,7 +446,21 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    shard within 1e-4 (1x4) or C13's 2e-3 (2x2) of the leaf's largest |g|,
    the collectives as ``train_collectives`` (``grad_collectives``)
    predicts; mamba2's 1x4-trained shards served on 1x4 give one device's
-   tokens on the gathered tree.  Reported beside the
+   tokens on the gathered tree.  (f) tensor parallelism for the encdec
+   family (``whisper_tiny`` whole: 4 + 4 layers at its published widths;
+   its 6 heads split on 1x2 and 2x2 and stay whole on 1x4, where the
+   encoder's full-mask attention is sequence-sharded, 375 frames a rank),
+   fp32, fp32 attention probabilities, the contracted fan-in, 1500 seeded
+   stand-in frames, one device's oracles first (then freed; (f2)'s
+   gradients handed to the ranks through files), its own limit of
+   ``ENC_PHASE_LIMIT_S``: (f1) ``generate`` B = 4 (8 prompt tokens, which
+   the prefill drops, C12; 8 new) on 1x2, 1x4 and 2x2; gates: first-step
+   logits within 1e-4 of the largest of one device's, tokens equal, every
+   rank's bits rank 0's, the stored bytes the placement's, the
+   collectives a decode step ``TPPlan.decode_collectives``'; (f2) one
+   Trainer step of 4 x 128 tokens over the 1500 frames, remat, from the
+   draw on 1x4 and 2x2; gates (e2)'s, the collectives
+   ``train_collectives(frames=1500)``'.  Reported beside the
    card: ms a step against one device's, collectives and bytes a step a
    rank, peak memory a rank, each part's seconds;
 18. one JSON line of every ported kernel (B1-B4 per decode step at B = 4,
@@ -460,6 +483,7 @@ import asyncio
 import contextlib
 import dataclasses
 import faulthandler
+import filecmp
 import functools
 import gc
 import hashlib
@@ -501,17 +525,16 @@ from repro_torch.kernels.vusa_packed import (  # noqa: E402
     vusa_packed_matmul,
     vusa_window_sum,
 )
-from repro_torch.checkpoint.ckpt import restore  # noqa: E402
+from repro_torch.checkpoint.ckpt import restore, save as ckpt_save  # noqa: E402
 from repro_torch.data.pipeline import SyntheticDataset  # noqa: E402
 from repro_torch.dist import comm  # noqa: E402
 from repro_torch.dist.sharding import (  # noqa: E402
-    gather_whole,
     local_shard,
     params_shardings,
     shard_ranges,
     shard_tree,
 )
-from repro_torch.dist.tp import placement_bytes, storage_placements  # noqa: E402
+from repro_torch.dist.tp import WholeView, placement_bytes, storage_placements  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh, spawn  # noqa: E402
 from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
 from repro_torch.optim import AdamState, adamw_init  # noqa: E402
@@ -569,6 +592,9 @@ PRIME_TOL = 1e-3  # prime_many vs prime, fp32 logits, of the largest (2-layer cu
 # the longest request plus a segment of rounds, SCHED_SEGMENT x VERIFY_ROWS rows
 POOL_VERIFY_ROWS = SCHED_SLOTS * VERIFY_ROWS  # the pool verify's rows through B1-B4
 SPEC_MAX_LEN = 272
+# phase 10's depth: its 24 scheduler runs at the model's 12 layers took
+# 154-181 s of the script's 1200 on slow hosts; every layer is alike
+SPEC_SCHED_LAYERS = 6
 WATCHDOG_S = 3.0  # the failure phase's watchdog: well past a sync gap of phase 9's traffic
 # the train phase: the launcher's learnable stream, the pruning ramp, the resume point
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_TOKENS = 200, 8, 128, 256
@@ -633,9 +659,11 @@ MESH_LOGIT_TOL = 1e-3  # first-step logits, of the largest: data split and qwen2
 # slow host: qwen2 (of 24), the 2x1 run beside the 2-layer cut (of 12)
 MESH_QWEN2_LAYERS = 6
 MESH_DP_LAYERS = 6
-MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 20, 8, 128
+# 8 lockstep steps (20 took about 40 s of the script's 1200 on a slow host;
+# every step is alike: the same gates each step)
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 8, 8, 128
 MESH_TRAIN_LAYERS = DEPTH_CUT  # full width; each step gathers every parameter through gloo
-MESH_TRAIN_PRUNE = (4, 16, 4)  # begin, end, every: masks refreshed within the 20 steps
+MESH_TRAIN_PRUNE = (4, 16, 4)  # begin, end, every
 MESH_TRAIN_TOL = 1e-4  # 2x1 loss each step from one device's state, relative
 MESH_CKPT_STEPS = 1
 # every collective crosses host memory and the ranks share the host's cores
@@ -670,7 +698,9 @@ TP_DRAW_ENTRIES = 1 << 25
 # shard within 2e-3 of the largest |g| of one device's matching slice, the
 # free run's final loss within 2 % of one device's, the served first-step
 # logits within MESH_LOGIT_TOL of the largest
-TPT_LOCKSTEP, TPT_REFRESH_AT, TPT_FREE_STEPS = 5, 2, 20
+# 3 lockstep steps, the masks refreshed at the last (5 took about 45 s of the
+# script's 1200 on a slow host over 1x2, 1x4 and 2x2)
+TPT_LOCKSTEP, TPT_REFRESH_AT, TPT_FREE_STEPS = 3, 2, 20
 TPT_PRUNE = (4, 16, 8)
 TPT_LOSS_TOL, TPT_NORM_TOL, TPT_GRAD_TOL, TPT_FREE_TOL = 1e-4, 2e-3, 2e-3, 0.02
 TPT_QWEN3_LAYERS, TPT_QWEN3_BATCH = 4, 4
@@ -700,12 +730,14 @@ EP_ARCH, EP_MOONSHOT = "olmoe_1b_7b", "moonshot_v1_16b_a3b"
 EP_NEW = 16
 EP_LOGIT_TOL, EP_LOSS_TOL, EP_GRAD_TOL = 1e-4, 1e-5, 1e-4
 EP_MOONSHOT_LAYERS = 4
-EP_TRAIN_LAYERS = {"1x4": 4, "2x2": 2}
+EP_TRAIN_LAYERS = {"1x4": 2, "2x2": 2}
 EP_CUT_WHY = {
     EP_MOONSHOT: "4 of 48 layers: one device's fp32 tree at 48 layers is about 113 GB, over "
                  "the 80 GB card",
-    "training on 1x4": "4 of 16 layers: one device's fp32 parameters, gradients and Adam "
-                       "moments at 16 layers are about 111 GB",
+    "training on 1x4": "2 of 16 layers: one device's fp32 parameters, gradients and Adam "
+                       "moments at 16 layers are about 111 GB; at 4 one device's gradients "
+                       "for the ranks (6.5 GB, written to files beside the 2x2 step's) "
+                       "cost about 6 s of the script's 1200, which part (f) needs",
     "training on 2x2": "2 of 16 layers: at 4 the ranks' steps (each holds its tree gathered "
                        "over data, 1/2 of it) beside one device's gradients held for them "
                        "ran out of the card's 80 GB"}
@@ -727,8 +759,8 @@ EP_CUT_WHY = {
 # TPPlan.train_collectives (or grad_collectives) predicts; the served tokens
 # one device's on the gathered tree.  The part's own time limit
 TPR_ARCHS = ("paligemma_3b", "mamba2_2_7b", "recurrentgemma_9b")
-TPR_SERVE = {"paligemma_3b": (None, 32, 8), "mamba2_2_7b": (None, 8, 4),
-             "recurrentgemma_9b": (8, 8, 4)}
+TPR_SERVE = {"paligemma_3b": (None, 32, 8), "mamba2_2_7b": (16, 8, 4),
+             "recurrentgemma_9b": (8, 8, 4), "whisper_tiny": (None, 8, 8)}  # (f1)'s too
 # arch -> (layers, meshes, whole step, leaves not compared): a whole step is
 # the Trainer's, else the loss and its gradients under the plan; TPR_SERVED's
 # 1x4-trained shards are then served on 1x4
@@ -739,6 +771,9 @@ TPR_TRAIN = {"paligemma_3b": (2, ("1x4", "2x2"), True, ()),
 TPR_SERVED = ("mamba2_2_7b",)
 TPR_LOGIT_TOL = 1e-4
 TPR_CUT_WHY = {  # every cut is of depth, never of a width
+    "mamba2_2_7b serving": "16 of 64 layers: its layers are all alike, and at 64 one "
+                           "device's and the ranks' draws and 194 collectives a step took "
+                           "about 20 s of the script's 1200 on a slow host",
     "recurrentgemma_9b serving": "8 of 38 layers (2 groups and the 2-layer rglru tail): one "
                                  "device's fp32 tree at 38 layers is about 42 GB, beside the "
                                  "ranks' and (d3)'s gradients held for the ranks",
@@ -759,6 +794,18 @@ TPR_CUT_WHY = {  # every cut is of depth, never of a width
                                   "those two are 8.4 GB of one device's 11 GB of gradients "
                                   "handed to the ranks"}
 TPR_PHASE_LIMIT_S = 150.0
+# phase 17 part (f): the encdec family on the mesh, whisper_tiny whole (4 + 4
+# layers, every width as published), fp32 with fp32 attention probabilities,
+# the contracted fan-in, ENC_FRAMES seeded stand-in frames: (f1) generate
+# B = 4 (TPR_SERVE's prompt tokens, which the prefill drops, C12, and new
+# tokens) on ENC_MESHES; (f2) one Trainer step of ENC_TRAIN_BATCH x TRAIN_SEQ tokens
+# over the frames, remat, on ENC_TRAIN_MESHES, one device's gradients handed
+# to the ranks as files.  Gates (e)'s; the part's own time limit
+ENC_ARCH = "whisper_tiny"
+ENC_FRAMES, ENC_TRAIN_BATCH = 1500, 4
+ENC_MESHES, ENC_TRAIN_MESHES = ("1x2", "1x4", "2x2"), ("1x4", "2x2")
+ENC_DIR = TP_DIR / "f2"
+ENC_PHASE_LIMIT_S = 45.0
 # the leftovers phase (16): the 2:4 arm's structure and job width, the legacy
 # MLP pack's first-step tolerance (of the largest logit) on the 2-layer cut
 # and at full depth (C6), the dry run's cells (kind, batch, tokens) and the
@@ -1162,9 +1209,9 @@ def counted_run(cfg, eng, route):
     return out, {name: c[route] for name, c in counts.items()}, per_call, peak
 
 
-def first_layers(tree):
-    """A stacked layer tree cut to its first ``DEPTH_CUT`` layers."""
-    return {k: first_layers(v) if isinstance(v, dict) else v[:DEPTH_CUT] for k, v in tree.items()}
+def first_layers(tree, n: int = DEPTH_CUT):
+    """A stacked layer tree cut to its first ``n`` layers."""
+    return {k: first_layers(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
 
 
 def model_phase(cfg, params, eng):
@@ -2019,10 +2066,13 @@ def spec_sched_phase(cfg, raw) -> dict:
     route, pool (slot, paged) and temperature: the speculative scheduler
     against the plain one on the same engine, bitwise; paged against the
     slot pool, bitwise; the speculative pool graph's B1-B4 launches against
-    rounds x (draft_k x (49, 12) on the float route + (49, 12) on the
-    verifier's).  Reported: acceptance, ``stats()``, ms per pool round."""
+    rounds x (draft_k x ``planned_launches`` on the float route + the same on
+    the verifier's), on the first ``SPEC_SCHED_LAYERS`` layers.  Reported:
+    acceptance, ``stats()``, ms per pool round."""
     t_phase = time.monotonic()
     params = tiered(raw)
+    params = {**params, "layers": first_layers(params["layers"], SPEC_SCHED_LAYERS)}
+    cfg = dataclasses.replace(cfg, n_layers=SPEC_SCHED_LAYERS)
     timed = sched_traffic(cfg, arrivals=True)
     per = planned_launches(cfg)
     res, drafter = {"runs": {}, "ms_per_round": {}, "graph_launches": {}}, None
@@ -3177,7 +3227,13 @@ def digest(*tensors) -> str:
 
 
 def tree_digest(tree) -> str:
-    return digest(*(t for _, t in tree_items(tree) if t is not None))
+    """``digest`` of every leaf of ``tree`` in sorted key order, one leaf at
+    a time."""
+    h = hashlib.sha256()
+    for _, t in tree_items(tree):
+        if t is not None:
+            h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def mesh_engine(cfg, params, mesh, route: str = "bf16", max_len: int = PROMPT + MAX_NEW + 8,
@@ -3302,26 +3358,56 @@ def mesh_train_config(steps: int, ckpt_dir=None) -> TrainConfig:
                                        max_grad_norm=TRAIN_CLIP))
 
 
-def mesh_train(cfg, mesh, steps: int, ckpt_dir=None) -> dict:
-    """``steps`` of the trainer on ``mesh`` (None: one device): per-step
-    losses, digests of the final params (their zeros are the pruning
-    masks) and moments, per-step time, collectives and bytes a step on this
-    rank, peak memory."""
+def mesh_train(cfg, mesh, steps: int, ckpt_dir: Path) -> dict:
+    """``steps`` of the trainer on ``mesh``, its checkpoint written from the
+    shards into ``ckpt_dir`` at the last step: per-step losses, per-step
+    time, collectives and bytes a step on this rank, peak memory, and of
+    the save this rank's card peak above what it held before (its state)
+    and, on the writer, the host peak (``tracemalloc``: the numpy leaf and
+    the read-back buffer) beside the largest leaf and shard; on the lead,
+    digests of the final params (their zeros are the pruning masks) and
+    moments, read from ``train()``'s views."""
+    import tracemalloc
+
     comm.reset_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(cfg, mesh_train_config(steps, ckpt_dir), device=DEVICE, mesh=mesh)
+    save, box = tr._save, {}
+
+    def measured(step, params, opt):  # the save alone: its card and host peaks
+        torch.cuda.synchronize()
+        box["peak_before"] = torch.cuda.max_memory_allocated()
+        box["held"] = torch.cuda.memory_allocated()
+        box["shard"] = max(t.numel() * t.element_size() for _, t in tree_items(params))
+        torch.cuda.reset_peak_memory_stats()
+        tracemalloc.start()
+        save(step, params, opt)
+        box["host_peak"] = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        torch.cuda.synchronize()
+        box["save_peak"] = torch.cuda.max_memory_allocated() - box["held"]
+
+    tr._save = measured
     with contextlib.redirect_stdout(io.StringIO()):
         t0 = time.monotonic()
         out = tr.train()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    return {"losses": [r["loss"] for r in tr.metrics_log], "params": tree_digest(out["params"]),
-            "moments": tree_digest({"mu": out["opt"].mu, "nu": out["opt"].nu}),
-            "sparsity": out["sparsity"], "ms_per_step": 1e3 * wall / steps,
-            "collectives_per_step": comm.STATS["collectives"] / steps,
-            "bytes_per_step": comm.STATS["bytes"] / steps,
-            "peak_bytes": torch.cuda.max_memory_allocated()}
+    lead = not any(mesh.get_coordinate())
+    whole = lead_tree({"params": out["params"], "mu": out["opt"].mu, "nu": out["opt"].nu}, lead)
+    rec = {"losses": [r["loss"] for r in tr.metrics_log], "sparsity": out["sparsity"],
+           "ms_per_step": 1e3 * wall / steps,
+           "collectives_per_step": comm.STATS["collectives"] / steps,
+           "bytes_per_step": comm.STATS["bytes"] / steps,
+           "peak_bytes": max(torch.cuda.max_memory_allocated(), box["peak_before"]),
+           "save": {k: box[k] for k in ("held", "save_peak", "host_peak", "shard")}}
+    if lead:
+        rec["params"] = tree_digest(whole["params"])
+        rec["moments"] = tree_digest({"mu": whole["mu"], "nu": whole["nu"]})
+        rec["save"]["leaf"] = max(t.numel() * t.element_size()
+                                  for _, t in tree_items(whole["params"]))
+    return rec
 
 
 def mesh_lockstep(cfg, mesh, steps: int) -> dict:
@@ -3592,8 +3678,33 @@ def mesh_gates(ranks: list, ref: dict, t_ref: float) -> dict:
     if tree_digest(got["params"]) != tr["2x2"]["params"] or tree_digest(
             {"mu": got["opt"].mu, "nu": got["opt"].nu}) != tr["2x2"]["moments"]:
         fail("the checkpoint written on 2x2 does not restore bitwise on one device")
+    # the checkpoint written from the shards, leaf by leaf: one device's files
+    # (its leaves are the gathered tree's bits, the digests say: one device's
+    # save of them is the restored tree's save)
+    ckpt_save(MESH_DIR / "ckpt_one", MESH_CKPT_STEPS, got)
+    step_dir = f"step_{MESH_CKPT_STEPS:08d}"
+    mine, one = MESH_DIR / "ckpt" / step_dir, MESH_DIR / "ckpt_one" / step_dir
+    names = sorted(f.name for f in one.iterdir())
+    same, _, _ = filecmp.cmpfiles(mine, one, names, shallow=False)
+    if sorted(f.name for f in mine.iterdir()) != names or len(same) != len(names):
+        fail(f"the checkpoint written on 2x2 from shards differs from one device's save of the "
+             f"gathered tree: {len(same)} of {len(names)} files equal")
+    saves = [r["train"]["2x2"]["save"] for r in ranks]
+    leaf = tr["2x2"]["save"]["leaf"]
+    for i, sv in enumerate(saves):
+        if sv["save_peak"] > leaf:
+            fail(f"mesh 2x2 checkpoint: rank {i}'s card peak during the save is its state "
+                 f"{sv['held']} + {sv['save_peak']} bytes, above the largest leaf's {leaf}")
+    host = tr["2x2"]["save"]
+    if host["host_peak"] > leaf + host["shard"] + (64 << 10):
+        fail(f"mesh 2x2 checkpoint: the writer's host peak {host['host_peak']} bytes is above "
+             f"the largest leaf {leaf} + a shard {host['shard']} + 64 KiB")
     res["train"] = {name: {k: v for k, v in r.items() if k not in ("params", "moments")}
                     for name, r in tr.items()}
+    res["train"]["2x2"]["checkpoint"] = {
+        "files_equal_one_device": f"{len(same)} of {len(names)}", "largest_leaf": leaf,
+        "card_peak_above_state_per_rank": [sv["save_peak"] for sv in saves],
+        "writer_host_peak": host["host_peak"]}
     res["train"]["2x1"] = {k: v for k, v in lock[0].items() if k not in (
         "losses", "dp_losses", "bitwise", "split_gnorm_gaps")}
     res["train"]["2x1_lockstep"] = {
@@ -3967,8 +4078,9 @@ def tpt_serve(cfg, mesh, out: dict, prompts, lead: bool) -> dict:
     rec = {"tp": tp_run(eng, prompts, TP_NEW)}
     del eng
     release()
+    whole = lead_tree(out["params"], lead)  # the trainer's view: every rank reads
     if lead:
-        one = tp_engine(cfg, out["params"], None, "bf16", TP_NEW)
+        one = tp_engine(cfg, whole, None, "bf16", TP_NEW)
         rec["one"] = tp_run(one, prompts, TP_NEW)
         del one
         release()
@@ -4090,9 +4202,9 @@ def ep_serve(cfg, mesh) -> dict:
 def ep_train_oracle(layers: int) -> dict:
     """(d3)'s one device: one step of olmoe at ``layers`` from
     ``sharded_init``'s whole draw on the first batch: the loss, the norm,
-    every gradient whole (kept on the card for the ranks, which read them
-    through CUDA IPC) and each one's largest |g|, layer 0's routing
-    integers, ms and the peak above what the process held before."""
+    every gradient whole in a file for the ranks (``save_grads``) and each
+    one's largest |g|, layer 0's routing integers, ms and the peak above
+    what the process held before."""
     cfg = mesh_cfg(EP_ARCH, layers)
     tr = Trainer(cfg, tpt_config(1), device=DEVICE)
     batch, _ = next(tpt_batches(cfg, tr.tc))
@@ -4108,19 +4220,19 @@ def ep_train_oracle(layers: int) -> dict:
     torch.cuda.synchronize()
     rec = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
            "ms": 1e3 * (time.monotonic() - t0),
-           "peak_bytes": torch.cuda.max_memory_allocated() - held,
-           "grads": dict(zip(paths, m["grads"])), "routing": routing[0]}
-    rec["gmax"] = {p: float(g.abs().max()) for p, g in rec["grads"].items()}
+           "peak_bytes": torch.cuda.max_memory_allocated() - held, "routing": routing[0],
+           "path": str(TP_DIR / "d3" / str(layers))}
+    rec["gmax"] = save_grads(Path(rec["path"]), paths, m["grads"])
     del params, opt, m
     release()
     return rec
 
 
-def ep_train(cfg, mesh, grads: dict, gmax: dict) -> tuple:
+def ep_train(cfg, mesh, path: str, gmax: dict) -> tuple:
     """(d3) on one rank: one step of the trainer on ``mesh`` from this
     rank's shards of the draw (``sharded_init`` at the trainer's
     placement) on its rows of the first batch, beside one device's
-    gradients ``grads`` (whole, on the card): the loss, norm, the largest
+    gradients (the files under ``path``, ``grad_gaps``): the loss, norm, the largest
     gradient-shard gap (of the leaf's largest |g|, ``gmax``), collectives
     and the plan's prediction, bytes, ms, layer 0's routing integers and
     this rank's rows; and the updated shards."""
@@ -4141,10 +4253,7 @@ def ep_train(cfg, mesh, grads: dict, gmax: dict) -> tuple:
            "routing": routing[0], "rows": None if tr.rows is None else (tr.rows.start,
                                                                         tr.rows.stop),
            "experts": tr.plan.experts}
-    gaps = {}
-    for (path, pl), g in zip(tree_items(tr.p_shard), m["grads"]):
-        gaps["/".join(path)] = float((g - local_shard(grads[path], pl, mesh)).abs().max()) / max(
-            gmax[path], 1e-30)
+    gaps = grad_gaps(path, tr.p_shard, m["grads"], gmax, mesh)
     rec["grad_gap"] = max(gaps.values())
     rec["grad_gap_leaf"] = max(gaps, key=gaps.get)
     del opt, m
@@ -4180,19 +4289,8 @@ def ep_rank(mesh, one_by_four, ep_ref: dict) -> dict:
     eng = tp_engine(cfg, shards, one_by_four, "dense", EP_NEW)
     out["served"] = tp_run(eng, prompts_for(cfg), EP_NEW)
     del eng
-    placements = params_shardings(build_model(cfg).specs(), one_by_four)
-    whole = {}
-    for path, pl in tree_items(placements):  # one leaf whole at a time off the lead
-        leaf = shards
-        for k in path:
-            leaf = leaf[k]
-        w = gather_whole(leaf, pl, one_by_four)
-        if lead:
-            node = whole
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = w
-        del w
+    whole = lead_tree(WholeView(shards, params_shardings(build_model(cfg).specs(), one_by_four),
+                                one_by_four), lead)
     del shards
     release()
     if lead:
@@ -4214,13 +4312,14 @@ def ep_rank(mesh, one_by_four, ep_ref: dict) -> dict:
 
 def ep_oracles() -> dict:
     """Part (d)'s one device, before the ranks use the card: (d1) and (d2)
-    served and freed, (d3)'s step (its gradients kept on the card for the
+    served and freed, (d3)'s step (its gradients written to files for the
     ranks)."""
     t0 = time.monotonic()
     with fp32_probs():
         out = {"olmoe": ep_serve(mesh_cfg(EP_ARCH), None)}
         out["moonshot"] = ep_serve(mesh_cfg(EP_MOONSHOT, EP_MOONSHOT_LAYERS), None)
-        out["train"] = {name: ep_train_oracle(n) for name, n in EP_TRAIN_LAYERS.items()}
+        steps = {n: ep_train_oracle(n) for n in sorted(set(EP_TRAIN_LAYERS.values()))}
+        out["train"] = {name: steps[n] for name, n in EP_TRAIN_LAYERS.items()}
     out["seconds"] = time.monotonic() - t0
     return out
 
@@ -4343,15 +4442,19 @@ def print_ep(e: dict, card: str) -> None:
 
 
 def tpr_inputs(cfg, prompt: int):
-    """(e1)'s prompts (B = 4, ``prompt`` tokens) and, for the vlm family,
-    its seeded stand-in patches (normal, std 0.02, as the data pipeline
+    """(e1)'s and (f1)'s prompts (B = 4, ``prompt`` tokens) and the vlm
+    family's seeded stand-in patches or the encdec family's
+    ``ENC_FRAMES`` stand-in frames (normal, std 0.02, as the data pipeline
     makes them)."""
     rng = np.random.default_rng(FAM_SEED)
     prompts = rng.integers(1, cfg.vocab, size=(BATCH, prompt)).astype(np.int32)
-    if cfg.family != "vlm":
-        return prompts, None
-    patches = rng.normal(0, 0.02, (BATCH, cfg.patch_tokens, cfg.d_model)).astype(np.float32)
-    return prompts, {"patches": patches}
+    if cfg.family == "vlm":
+        patches = rng.normal(0, 0.02, (BATCH, cfg.patch_tokens, cfg.d_model))
+        return prompts, {"patches": patches.astype(np.float32)}
+    if cfg.family == "encdec":
+        frames = rng.normal(0, 0.02, (BATCH, ENC_FRAMES, cfg.d_model))
+        return prompts, {"frames": frames.astype(np.float32)}
+    return prompts, None
 
 
 def tpr_serve(arch: str, mesh) -> dict:
@@ -4440,6 +4543,70 @@ def tpr_grads(tr, params: dict, batch: dict) -> tuple:
     return loss.detach(), [g.float() for g in grads]
 
 
+GRAD_WRITES: list = []  # threads writing one device's gradients (``save_grads``)
+
+
+def save_grads(path: Path, paths: list, grads: list, skip=()) -> dict:
+    """One device's gradients for the ranks: a ``.npy`` file a leaf under
+    ``path`` (never held on the card for them: CUDA IPC slowed phase 15 2x
+    and lost a rank, and its producer warned at exit), every leaf's but
+    those under ``skip``, written from host copies by a thread while the
+    next oracle runs (``wait_grads`` joins it before the ranks read);
+    returns each leaf's largest |g|."""
+    path.mkdir(parents=True, exist_ok=True)
+    gmax, host = {}, []
+    for p, g in zip(paths, grads):
+        if p[0] not in skip:
+            gmax[p] = float(g.abs().max())
+            host.append((path / f"{'__'.join(p)}.npy", g.cpu().numpy()))
+
+    def write():
+        for f, a in host:
+            np.save(f, a)
+
+    GRAD_WRITES.append(threading.Thread(target=write))
+    GRAD_WRITES[-1].start()
+    return gmax
+
+
+def wait_grads() -> None:
+    """Every ``save_grads`` file written."""
+    while GRAD_WRITES:
+        GRAD_WRITES.pop().join()
+
+
+def grad_gaps(path, placements: dict, got: list, gmax: dict, mesh) -> dict:
+    """Each gradient shard ``got`` (``tree_items`` order of
+    ``placements``) of a leaf in ``gmax`` against this rank's slice of one
+    device's file under ``path`` (read memory-mapped, the slice alone to
+    the card): the largest gap of the leaf's largest |g|, by leaf."""
+    gaps = {}
+    for (leaf, pl), g in zip(tree_items(placements), got):
+        if leaf in gmax:
+            whole = np.load(Path(path) / f"{'__'.join(leaf)}.npy", mmap_mode="r")
+            cut = tuple(slice(s, s + n) for s, n in shard_ranges(whole.shape, pl, mesh))
+            w = torch.from_numpy(np.array(whole[cut])).to(DEVICE)
+            gaps["/".join(leaf)] = float((g - w).abs().max()) / max(gmax[leaf], 1e-30)
+            del whole, w
+    return gaps
+
+
+def lead_tree(view, lead: bool) -> dict:
+    """The whole tree of ``view`` (a ``WholeView`` of a mesh's shards, or a
+    dict of them), every leaf read on every rank in sorted key order and
+    kept by the ``lead`` rank alone: one leaf whole at a time off the
+    lead, {} there."""
+    whole: dict = {}
+    for path, w in tree_items(view):
+        if lead:
+            node = whole
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = w
+        del w
+    return whole
+
+
 def tpr_train_oracle(arch: str) -> dict:
     """(e2)'s one device: ``arch`` at its training depth from
     ``sharded_init``'s whole draw, the first batch: the Trainer's step (or
@@ -4465,12 +4632,8 @@ def tpr_train_oracle(arch: str) -> dict:
     torch.cuda.synchronize()
     rec = {"loss": float(loss), "ms": 1e3 * (time.monotonic() - t0),
            "peak_bytes": torch.cuda.max_memory_allocated() - held, "layers": layers,
-           "gmax": {p: float(g.abs().max()) for p, g in zip(paths, grads) if p[0] not in skip},
            "path": str(TPR_DIR / arch)}
-    Path(rec["path"]).mkdir(parents=True, exist_ok=True)
-    for p, g in zip(paths, grads):
-        if p[0] not in skip:
-            np.save(Path(rec["path"]) / f"{'__'.join(p)}.npy", g.cpu().numpy())
+    rec["gmax"] = save_grads(TPR_DIR / arch, paths, grads, skip)
     del params, grads
     release()
     return rec
@@ -4506,14 +4669,7 @@ def tpr_train(arch: str, mesh, path: str, gmax: dict) -> tuple:
            "collectives": comm.STATS["collectives"], "bytes": comm.STATS["bytes"],
            "predicted": predicted, "whole_step": whole_step,
            "split": {k: getattr(tr.plan, k) for k in ("heads", "ff", "vocab", "ssm", "rglru")}}
-    gaps = {}
-    for (leaf, pl), g in zip(tree_items(tr.p_shard), got):
-        if leaf in gmax:
-            whole = np.load(Path(path) / f"{'__'.join(leaf)}.npy", mmap_mode="r")
-            cut = tuple(slice(s, s + n) for s, n in shard_ranges(whole.shape, pl, mesh))
-            w = torch.from_numpy(np.ascontiguousarray(whole[cut])).to(DEVICE)
-            gaps["/".join(leaf)] = float((g - w).abs().max()) / max(gmax[leaf], 1e-30)
-            del whole, w
+    gaps = grad_gaps(path, tr.p_shard, got, gmax, mesh)
     rec["grad_gap"] = max(gaps.values())
     rec["compared"] = len(gaps)
     rec["grad_gap_leaf"] = max(gaps, key=gaps.get)
@@ -4547,19 +4703,8 @@ def tpr_trained_serve(arch: str, mesh, shards: dict, lead: bool) -> dict:
                 "ms_per_step": 1e3 * out["decode_s"] / 3}
 
     out = {"served": run(shards, mesh)}
-    placements = params_shardings(build_model(cfg).specs(), mesh)
-    whole = {}
-    for path, pl in tree_items(placements):  # one leaf whole at a time off the lead
-        leaf = shards
-        for k in path:
-            leaf = leaf[k]
-        w = gather_whole(leaf, pl, mesh)
-        if lead:
-            node = whole
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = w
-        del w
+    whole = lead_tree(WholeView(shards, params_shardings(build_model(cfg).specs(), mesh), mesh),
+                      lead)
     if lead:
         out["one"] = run(whole, None)
     del whole
@@ -4717,13 +4862,202 @@ def print_tpr(e: dict, card: str) -> None:
           f"{tpt_part_seconds(e)})", flush=True)
 
 
-def tp_rank(mesh, device, qprompts, prompts, ep_ref, tpr_ref) -> dict:
+def enc_batch(cfg, tc, rows=None) -> tuple:
+    """(f2)'s batch: the stream's first ``tc.global_batch`` x
+    ``TRAIN_SEQ`` tokens over ``ENC_FRAMES`` seeded stand-in frames
+    (normal, std 0.02, as the pipeline draws its own), on the card, whole
+    and this rank's rows (``rows``)."""
+    whole, _ = next(tpt_batches(cfg, tc))
+    frames = np.random.default_rng(FAM_SEED + 1).normal(
+        0, 0.02, (tc.global_batch, ENC_FRAMES, cfg.d_model)).astype(np.float32)
+    whole["frames"] = torch.from_numpy(frames).to(DEVICE)
+    return whole, whole if rows is None else {k: v[rows] for k, v in whole.items()}
+
+
+def enc_train_oracle() -> dict:
+    """(f2)'s one device: the Trainer's step of whisper from
+    ``sharded_init``'s whole draw on ``enc_batch``: the loss, ms, the peak
+    above what the process held before, every gradient in a file for the
+    ranks and its largest |g|."""
+    cfg = mesh_cfg(ENC_ARCH)
+    tr = Trainer(cfg, tpt_config(1, ENC_TRAIN_BATCH), device=DEVICE)
+    batch, _ = enc_batch(cfg, tr.tc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = sharded_init(cfg)
+    paths = [p for p, _ in tree_items(params)]
+    t0 = time.monotonic()
+    m = tr.step_fn(params, adamw_init(params), batch, return_grads=True)[2]
+    torch.cuda.synchronize()
+    rec = {"loss": float(m["loss"]), "ms": 1e3 * (time.monotonic() - t0),
+           "peak_bytes": torch.cuda.max_memory_allocated() - held, "path": str(ENC_DIR)}
+    rec["gmax"] = save_grads(ENC_DIR, paths, m["grads"])
+    del params, m
+    release()
+    return rec
+
+
+def enc_train(mesh, path: str, gmax: dict) -> dict:
+    """(f2) on one rank: the Trainer's step of whisper on ``mesh`` from this
+    rank's shards of the draw on its rows of ``enc_batch``, beside one
+    device's gradients (the files under ``path``): the loss, the largest
+    gradient-shard gap and its leaf, the collectives beside
+    ``train_collectives``' (``ENC_FRAMES`` encoder frames), bytes, ms."""
+    cfg = mesh_cfg(ENC_ARCH)
+    tr = Trainer(cfg, tpt_config(1, ENC_TRAIN_BATCH), device=DEVICE, mesh=mesh)
+    _, rows = enc_batch(cfg, tr.tc, tr.rows)
+    shards = sharded_init(cfg, mesh, tr.p_shard)
+    comm.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    m = tr.step_fn(shards, adamw_init(shards), rows, return_grads=True)[2]
+    torch.cuda.synchronize()
+    rec = {"loss": float(m["loss"]), "ms": 1e3 * (time.monotonic() - t0),
+           "collectives": comm.STATS["collectives"], "bytes": comm.STATS["bytes"],
+           "predicted": tr.plan.train_collectives(cfg, TRAIN_SEQ, split=tr.rows is not None,
+                                                  frames=ENC_FRAMES),
+           "split": {k: getattr(tr.plan, k) for k in ("heads", "ff", "vocab")}}
+    gaps = grad_gaps(path, tr.p_shard, m["grads"], gmax, mesh)
+    rec.update(grad_gap=max(gaps.values()), grad_gap_leaf=max(gaps, key=gaps.get),
+               compared=len(gaps))
+    del shards, m
+    release()
+    return rec
+
+
+def enc_rank(mesh, one_by_four, enc_ref: tuple) -> dict:
+    """Part (f) on one rank of phase 17's 2x2 world, fp32 attention
+    probabilities: (f1) whisper served on 1x2 (the 2x2 mesh's ``model``
+    sub-mesh), 1x4 and 2x2; (f2) its training step on 1x4 and 2x2
+    (``enc_ref``: the files of one device's gradients and their largest
+    |g|)."""
+    t0 = time.monotonic()
+    lead = not any(mesh.get_coordinate())
+    meshes = {"1x2": mesh["model"], "1x4": one_by_four, "2x2": mesh}
+    out = {"seconds": {}, "serve": {}, "train": {}}
+    with fp32_probs():
+        for name in ENC_MESHES:
+            t = time.monotonic()
+            out["serve"][name] = tpr_serve(ENC_ARCH, meshes[name])
+            if not lead:
+                del out["serve"][name]["first"]
+            out["seconds"][f"f1 {name}"] = time.monotonic() - t
+        for name in ENC_TRAIN_MESHES:
+            t = time.monotonic()
+            out["train"][name] = enc_train(meshes[name], *enc_ref)
+            out["seconds"][f"f2 {name}"] = time.monotonic() - t
+    out["seconds"]["all"] = time.monotonic() - t0
+    return out
+
+
+def enc_oracles() -> dict:
+    """Part (f)'s one device, before the ranks use the card: (f1) served
+    and freed, (f2)'s step (its gradients written to files)."""
+    t0 = time.monotonic()
+    with fp32_probs():
+        out = {"serve": tpr_serve(ENC_ARCH, None), "train": enc_train_oracle()}
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def enc_gates(ranks: list, oracle: dict) -> dict:
+    """Part (f)'s gates over every rank's ``enc_rank`` record beside one
+    device's (``enc_oracles``); returns the part's report.  Fails past
+    ``ENC_PHASE_LIMIT_S`` (its oracles, the slowest rank's part, the
+    gates)."""
+    t_gates = time.monotonic()
+    res = {"seconds": [r["seconds"] for r in ranks], "oracle_s": oracle["seconds"],
+           "ranks_s": max(r["seconds"]["all"] for r in ranks), "serve": {}, "train": {}}
+    want = oracle["serve"]
+    for name in ENC_MESHES:
+        got, what = ranks[0]["serve"][name], f"tp {ENC_ARCH} on {name}"
+        gap = gap_rel(got["first"], want["first"])
+        if gap > TPR_LOGIT_TOL:
+            fail(f"{what}: first-step logit gap {gap:.3g} of the largest > {TPR_LOGIT_TOL}")
+        if not np.array_equal(got["tokens"], want["tokens"]):
+            fail(f"{what}: tokens differ from one device's")
+        for i, r in enumerate(x["serve"][name] for x in ranks):
+            if r["digest"] != got["digest"]:
+                fail(f"{what}: rank {i}'s tokens or logits differ from rank 0's")
+            if r["dense_bytes"] != r["dense_bytes_want"]:
+                fail(f"{what}: rank {i} stores {r['dense_bytes']} bytes, the placement says "
+                     f"{r['dense_bytes_want']}")
+            if r["collectives_per_step"] != r["predicted"]:
+                fail(f"{what}: rank {i} made {r['collectives_per_step']} collectives a decode "
+                     f"step, predicted {r['predicted']}")
+        res["serve"][name] = {
+            "first_step_gap_rel": gap, "split": got["split"],
+            "token_agreement": float(np.mean(got["tokens"] == want["tokens"])),
+            "peak_ratio_per_rank": [x["serve"][name]["peak_bytes"] / want["peak_bytes"]
+                                    for x in ranks],
+            "dense_bytes_ratio": got["dense_bytes"] / want["dense_bytes"],
+            "one_device": {k: want[k] for k in ("ms_per_step", "tok_per_s", "peak_bytes",
+                                                "dense_bytes", "prefill_s")},
+            **{k: got[k] for k in ("ms_per_step", "tok_per_s", "collectives_per_step",
+                                   "predicted", "bytes_per_step", "peak_bytes", "dense_bytes",
+                                   "prefill_s")}}
+    t = oracle["train"]
+    for name in ENC_TRAIN_MESHES:
+        grad_tol = EP_GRAD_TOL if name == "1x4" else TPT_GRAD_TOL
+        recs = [r["train"][name] for r in ranks]
+        for i, r in enumerate(recs):
+            what = f"tp train {ENC_ARCH} {name}: rank {i}"
+            loss_gap = abs(r["loss"] / t["loss"] - 1)
+            if loss_gap > EP_LOSS_TOL or r["grad_gap"] > grad_tol:
+                fail(f"{what}: loss gap {loss_gap:.3g} (limit {EP_LOSS_TOL}), gradient-shard "
+                     f"gap {r['grad_gap']:.3g} at {r['grad_gap_leaf']} (limit {grad_tol})")
+            if r["collectives"] != r["predicted"]:
+                fail(f"{what}: {r['collectives']} collectives, predicted {r['predicted']}")
+        res["train"][name] = {
+            "loss_gap_max": max(abs(r["loss"] / t["loss"] - 1) for r in recs),
+            "grad_gap_max": max(r["grad_gap"] for r in recs),
+            "grad_gap_leaf": max(recs, key=lambda r: r["grad_gap"])["grad_gap_leaf"],
+            "one_device": {k: t[k] for k in ("loss", "ms", "peak_bytes")},
+            **{k: recs[0][k] for k in ("collectives", "predicted", "bytes", "ms", "split",
+                                       "compared")}}
+    res["part_s"] = oracle["seconds"] + res["ranks_s"] + time.monotonic() - t_gates
+    if res["part_s"] > ENC_PHASE_LIMIT_S:
+        fail(f"tensor-parallel part (f) took {res['part_s']:.1f}s, over its "
+             f"{ENC_PHASE_LIMIT_S:.0f}s")
+    return res
+
+
+def print_enc(f: dict, card: str) -> None:
+    _, prompt, new = TPR_SERVE[ENC_ARCH]
+    for name, r in f["serve"].items():
+        print(f"tp {ENC_ARCH} (4 + 4 layers, fp32, dense, B={BATCH}, {ENC_FRAMES} frames, "
+              f"prompt {prompt} dropped, {new} new) on {name}, splits {r['split']}: first-step "
+              f"logit gap {r['first_step_gap_rel']:.3g} of the largest, token agreement "
+              f"{r['token_agreement']:.3f}, bytes stored a rank {r['dense_bytes']} "
+              f"({r['dense_bytes_ratio']:.4f} of one device's), peak a rank {r['peak_bytes']} "
+              f"bytes ({max(r['peak_ratio_per_rank']):.3f}x one device's "
+              f"{r['one_device']['peak_bytes']}), {r['collectives_per_step']:.0f} collectives a "
+              f"step (predicted {r['predicted']}), {r['bytes_per_step']:.0f} bytes a step a "
+              f"rank, {r['ms_per_step']:.2f} ms a step (one device "
+              f"{r['one_device']['ms_per_step']:.2f}), prefill {r['prefill_s']:.2f}s (one "
+              f"device {r['one_device']['prefill_s']:.2f}s) ({card})", flush=True)
+    for name, r in f["train"].items():
+        print(f"tp train {ENC_ARCH} {name} (4 + 4 layers, fp32, remat, batch {ENC_TRAIN_BATCH} "
+              f"x {TRAIN_SEQ} tokens over {ENC_FRAMES} frames, one step from the draw), splits "
+              f"{r['split']}: gaps loss {r['loss_gap_max']:.3g} gradient shard "
+              f"{r['grad_gap_max']:.3g} (largest at {r['grad_gap_leaf']}; {r['compared']} "
+              f"leaves compared), {r['collectives']} collectives (predicted {r['predicted']}), "
+              f"{r['bytes']} bytes, {r['ms']:.1f} ms (one device {r['one_device']['ms']:.1f}) "
+              f"({card})", flush=True)
+    print(f"tensor-parallel part (f) {f['part_s']:.1f}s (limit {ENC_PHASE_LIMIT_S:.0f}s; "
+          f"oracles {f['oracle_s']:.1f}s, the slowest rank {f['ranks_s']:.1f}s, by part "
+          f"{tpt_part_seconds(f)})", flush=True)
+
+
+def tp_rank(mesh, device, qprompts, prompts, ep_ref, tpr_ref, enc_ref) -> dict:
     """One rank of phase 17's 2x2 world: (a) on a 1x4 mesh over the four
     ranks, then (b) on the 2x2 mesh's ``model`` sub-mesh (1x2; the two data
     coordinates run the same case), a 1x4 mesh and the 2x2 mesh, then (c)
     (``tpt_rank``) and (d) (``ep_rank``, one device's gradients of (d3)
-    in ``ep_ref`` read on the card through CUDA IPC), then (e)
-    (``tpr_rank``, its gradients in ``tpr_ref``), timed apart."""
+    in the files of ``ep_ref``), then (e) (``tpr_rank``, its gradients in
+    ``tpr_ref``) and (f) (``enc_rank``, its gradients in ``enc_ref``), (e)
+    and (f) timed apart."""
     t0 = time.monotonic()
     lead = not any(mesh.get_coordinate())
     one_by_four = make_local_mesh(1, 4)
@@ -4740,6 +5074,7 @@ def tp_rank(mesh, device, qprompts, prompts, ep_ref, tpr_ref) -> dict:
         out["ab_seconds"] = t1 - t0
         out["seconds"] = time.monotonic() - t0
         out["rec"] = tpr_rank(mesh, one_by_four, tpr_ref)
+        out["enc"] = enc_rank(mesh, one_by_four, enc_ref)
     return out
 
 
@@ -4768,11 +5103,11 @@ def tp_references(prompts) -> dict:
     return out
 
 
-def world_rank(mesh, device, prompts, qprompts, ep_ref, tpr_ref) -> dict:
+def world_rank(mesh, device, prompts, qprompts, ep_ref, tpr_ref, enc_ref) -> dict:
     """One rank of the world phases 15 and 17 share: ``mesh_rank``, then
     ``tp_rank``."""
     return {"mesh": mesh_rank(mesh, device, prompts),
-            "tp": tp_rank(mesh, device, qprompts, prompts, ep_ref, tpr_ref)}
+            "tp": tp_rank(mesh, device, qprompts, prompts, ep_ref, tpr_ref, enc_ref)}
 
 
 def world_phases() -> tuple:
@@ -4792,17 +5127,19 @@ def world_phases() -> tuple:
     oracles["ep"] = ep_oracles()
     oracles["seconds"] += oracles["ep"]["seconds"]
     oracles["rec"] = tpr_oracles()  # part (e)'s, timed apart
-    # (d3)'s one-device gradients stay on the card for the ranks (CUDA IPC);
-    # (e2)'s wait in files
-    ep_ref = {k: (v.pop("grads"), v["gmax"]) for k, v in oracles["ep"]["train"].items()}
+    oracles["enc"] = enc_oracles()  # part (f)'s, timed apart
+    # one device's gradients of (d3), (e2) and (f2) wait in files
+    ep_ref = {k: (v["path"], v["gmax"]) for k, v in oracles["ep"]["train"].items()}
     tpr_ref = {k: (v["path"], v["gmax"]) for k, v in oracles["rec"]["train"].items()}
+    enc_ref = (oracles["enc"]["train"]["path"], oracles["enc"]["train"]["gmax"])
+    wait_grads()
     box: dict = {}
 
     def run_ranks():
         t0 = time.monotonic()
         try:
             box["ranks"] = spawn(world_rank, 2, 2, "gloo", DEVICE, str(TP_DIR / "rendezvous"),
-                                 args=(prompts, qprompts, ep_ref, tpr_ref),
+                                 args=(prompts, qprompts, ep_ref, tpr_ref, enc_ref),
                                  timeout_s=TP_PHASE_LIMIT_S)
         except BaseException as e:  # re-raised below, in the phase's thread
             box["error"] = e
@@ -4815,7 +5152,7 @@ def world_phases() -> tuple:
     t_mesh_ref = time.monotonic() - t0
     tp_ref = tp_references(prompts)
     worker.join()
-    del ep_ref, tpr_ref
+    del ep_ref, tpr_ref, enc_ref
     release()
     if "error" in box:
         raise box["error"]
@@ -4909,6 +5246,7 @@ def tp_gates(ranks: list, oracles: dict, refs: dict) -> dict:
         fail(f"tensor-parallel phase took {res['seconds']:.1f}s, over its "
              f"{TP_PHASE_LIMIT_S:.0f}s")
     res["rec"] = tpr_gates([r["rec"] for r in ranks], oracles["rec"])
+    res["enc"] = enc_gates([r["enc"] for r in ranks], oracles["enc"])
     return res
 
 
@@ -5097,6 +5435,7 @@ def print_tp(t: dict, card: str) -> None:
           f"{sv['one_device_ms_per_step']:.1f}) ({card})", flush=True)
     print_ep(t["ep"], card)
     print_tpr(t["rec"], card)
+    print_enc(t["enc"], card)
     print(f"tensor-parallel phase {t['seconds']:.1f}s (limit {TP_PHASE_LIMIT_S:.0f}s; oracles "
           f"{t['oracle_s']:.1f}s, of them (d)'s {t['ep']['oracle_s']:.1f}s, the slowest rank's "
           f"part of the shared world {t['ranks_s']:.1f}s, of it (a)-(b) "
@@ -5560,7 +5899,8 @@ def main() -> None:
         print(f"speculative scheduler ms per pool round {route}: slot {t['slot']:.4f}, paged "
               f"{t['paged']:.4f} (a plain pool step {t['plain_pool_step']:.4f}) at "
               f"{SCHED_SLOTS} slots, a verify of {POOL_VERIFY_ROWS} rows", flush=True)
-    print(f"speculative scheduler phase {time.monotonic() - t0:.1f}s ({card})", flush=True)
+    print(f"speculative scheduler phase {time.monotonic() - t0:.1f}s ({SPEC_SCHED_LAYERS} of "
+          f"{cfg.n_layers} layers) ({card})", flush=True)
 
     fails = failure_phase(cfg, params, raw)
     for what, r in fails.items():

@@ -11,7 +11,10 @@ crosses between the two packages in both directions.  Writes are atomic
 the newest K steps.  The manifest records each leaf's CRC32 and byte count
 at save, and restore verifies them, so a truncated or bit-flipped leaf file
 raises a ``ValueError`` naming the leaf instead of restoring garbage.
-Manifests written before those fields existed still restore.
+Manifests written before those fields existed still restore.  A tree
+held as shards over a mesh is written one leaf at a time
+(``save_stream``, ``train/trainer.py``): each leaf gathered whole to the
+writer, written and dropped before the next, into the same files.
 
 The record log: the frame is byte-identical to the reference's, ``<u32
 length><u32 crc32>payload``, little-endian, so a log written by either
@@ -30,13 +33,14 @@ import struct
 import threading
 import zlib
 from pathlib import Path
-from typing import Any, BinaryIO, List, Optional, Tuple
+from typing import Any, BinaryIO, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = [
-    "save", "restore", "latest_step", "Checkpointer", "append_record", "read_records",
+    "save", "save_stream", "restore", "latest_step", "Checkpointer", "append_record",
+    "read_records",
 ]
 
 _REC_HDR = struct.Struct("<II")  # payload byte length, crc32(payload)
@@ -116,8 +120,31 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
+CRC_CHUNK = 1 << 20  # bytes a leaf file is read back in for its CRC
+
+
+def _file_crc(f: Path) -> tuple:
+    """(byte count, CRC32) of a file, read into one buffer of at most
+    ``CRC_CHUNK`` bytes."""
+    n, crc = 0, 0
+    buf = memoryview(bytearray(max(min(CRC_CHUNK, f.stat().st_size), 1)))
+    with open(f, "rb") as fh:
+        while got := fh.readinto(buf):
+            n, crc = n + got, zlib.crc32(buf[:got], crc)
+    return n, crc
+
+
 def save(path: str | Path, step: int, tree: Any) -> Path:
     """Atomically save a tree of tensors / arrays under ``path/step_<N>/``."""
+    return save_stream(path, step, sorted(_flatten(tree).items()))
+
+
+def save_stream(path: str | Path, step: int, leaves: Iterable[Tuple[str, Any]]) -> Path:
+    """``save`` of a tree given as ``(key, leaf)`` pairs in sorted key order
+    (``_flatten``'s keys), drawn one at a time: each leaf is written before
+    the next is drawn, so a caller that makes them on demand (a leaf
+    gathered whole from a mesh's shards) holds one at a time.  The files
+    and the manifest are ``save``'s of the same tree, byte for byte."""
     path = Path(path)
     final = path / f"step_{step:08d}"
     tmp = path / f".tmp_step_{step:08d}"
@@ -125,18 +152,18 @@ def save(path: str | Path, step: int, tree: Any) -> Path:
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
     manifest = {}
-    for i, (key, leaf) in enumerate(sorted(_flatten(tree).items())):
+    # a plain loop: ``enumerate`` would keep the previous pair alive while
+    # the next leaf is drawn
+    for key, leaf in leaves:
         arr = leaf if isinstance(leaf, np.ndarray) else _to_numpy(leaf)
-        fname = f"leaf_{i:05d}.npy"
+        del leaf
+        fname = f"leaf_{len(manifest):05d}.npy"
         np.save(tmp / fname, arr)
-        raw = (tmp / fname).read_bytes()
-        manifest[key] = {
-            "file": fname,
-            "shape": list(arr.shape),
-            "dtype": str(arr.dtype),
-            "nbytes": len(raw),
-            "crc32": zlib.crc32(raw),
-        }
+        shape, dtype = list(arr.shape), str(arr.dtype)
+        del arr  # freed before the file is read back and the next leaf drawn
+        nbytes, crc = _file_crc(tmp / fname)
+        manifest[key] = {"file": fname, "shape": shape, "dtype": dtype, "nbytes": nbytes,
+                         "crc32": crc}
     (tmp / "manifest.json").write_text(json.dumps({"step": step, "leaves": manifest}))
     if final.exists():
         shutil.rmtree(final)
@@ -245,6 +272,13 @@ class Checkpointer:
             self._thread.start()
         else:
             work()
+
+    def save_stream(self, step: int, leaves: Iterable[Tuple[str, Any]]) -> None:
+        """``save_stream`` of ``leaves`` as step ``step``, on this thread
+        (each leaf drawn when the previous is written), then retention."""
+        self.wait()
+        save_stream(self.path, step, leaves)
+        self._gc()
 
     def wait(self):
         if self._thread is not None:

@@ -18,23 +18,29 @@ degrades to replication, never to an error: a dim is sharded only when
 the mesh axis exists, has size > 1, is not already used by an earlier dim
 of the same tensor, and divides the dim.  The rules take a DeviceMesh or a
 plain {axis: size} mapping; ``local_shard`` and ``gather_whole`` move a
-tensor between its whole form and a rank's shard.
+tensor between its whole form and a rank's shard, and ``gather_to_first``
+brings a leaf whole to the host of the mesh's first rank alone (a
+checkpoint's writer).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.common import ParamSpec
-from .comm import all_gather, axis_index, mesh_shape
+from .comm import _count, all_gather, axis_index, mesh_shape
 
 __all__ = [
     "PARAM_RULES", "act_rules", "param_sharding", "params_shardings", "batch_sharding",
     "batch_shardings", "serve_shardings", "window_sharding", "block_sharding",
-    "shard_ranges", "local_shard", "gather_whole", "shard_tree", "gather_tree",
+    "shard_ranges", "local_shard", "gather_whole", "mesh_coords", "gather_to_first",
+    "shard_tree", "gather_tree",
 ]
 
 
@@ -194,12 +200,18 @@ def shard_ranges(shape, placement, mesh) -> list:
     under ``placement``: for each sharded dim, the chunk at the rank's
     coordinate (row-major over a tuple of axes); the whole dim where
     nothing shards it (and with no mesh)."""
-    sizes = mesh_shape(mesh)
+    return _ranges_at(shape, placement, mesh_shape(mesh),
+                      lambda a: axis_index(mesh, a))
+
+
+def _ranges_at(shape, placement, sizes: dict, coord) -> list:
+    """``shard_ranges`` of the rank whose coordinate on axis ``a`` is
+    ``coord(a)``."""
     out = []
     for dim, d in enumerate(shape):
         index, n = 0, 1
         for a in _names(placement[dim] if dim < len(placement) else None):
-            index, n = index * sizes[a] + axis_index(mesh, a), n * sizes[a]
+            index, n = index * sizes[a] + coord(a), n * sizes[a]
         out.append((index * (d // n), d // n))
     return out
 
@@ -219,6 +231,54 @@ def gather_whole(t: torch.Tensor, placement: tuple, mesh) -> torch.Tensor:
         for a in reversed(_names(entry)):
             t = all_gather(t, mesh, a, dim=dim)
     return t
+
+
+def mesh_coords(mesh) -> dict:
+    """{global rank: {axis: coordinate}} of every rank of ``mesh``."""
+    grid, names = mesh.mesh, mesh.mesh_dim_names
+    return {int(grid[idx]): dict(zip(names, idx))
+            for idx in itertools.product(*(range(n) for n in grid.shape))}
+
+
+def gather_to_first(t: torch.Tensor, placement: tuple, mesh,
+                    coords: Optional[dict] = None) -> Optional[np.ndarray]:
+    """The whole leaf of every rank's shard ``t`` under ``placement``, as a
+    numpy array on the host of the mesh's first rank (every coordinate 0);
+    None on every other rank.  One rank of each distinct shard (coordinate
+    0 on the axes ``placement`` leaves whole) sends it, from host memory
+    (from the card where the backend is nccl), and the first rank copies
+    each into its slice of the whole as it arrives: it holds the leaf whole
+    and one shard beside it, the others their shard's host copy.  Every
+    rank of the mesh must call it for the same leaf at once; it counts as
+    one gather in ``comm.STATS``.  ``coords``: ``mesh_coords(mesh)``, made
+    once by a caller that gathers many leaves."""
+    sizes = mesh_shape(mesh)
+    coords = mesh_coords(mesh) if coords is None else coords
+    used = {a for e in placement for a in _names(e)}
+    senders = sorted(r for r, c in coords.items()
+                     if all(i == 0 for a, i in c.items() if a not in used))
+    me = dist.get_rank()
+    first = next(r for r, c in coords.items() if not any(c.values()))
+    via = t.device if dist.get_backend() == "nccl" else torch.device("cpu")
+    mine = t.detach().to(via).contiguous()
+    if me != first:
+        if me in senders:
+            dist.send(mine, dst=first)
+        _count("gather", 0)
+        return None
+    whole = np.empty([d * math.prod(sizes[a] for a in _names(e))
+                      for d, e in zip(t.shape, placement)],
+                     dtype=torch.empty((), dtype=t.dtype).numpy().dtype)
+    buf = torch.empty_like(mine)
+    for r in senders:
+        if r != me:
+            dist.recv(buf, src=r)
+        part = (mine if r == me else buf).cpu().numpy()
+        cut = tuple(slice(s, s + n) for s, n in
+                    _ranges_at(whole.shape, placement, sizes, coords[r].__getitem__))
+        whole[cut] = part
+    _count("gather", (len(senders) - 1) * mine.numel() * mine.element_size())
+    return whole
 
 
 def _map_tree(fn, tree: dict, placements: dict, mesh) -> dict:

@@ -1,6 +1,6 @@
 """Tensor-parallel compute on sharded storage: the serving paths and the
-training steps of the dense, moe, vlm, hybrid and ssm families on a (data,
-model) mesh (ROADMAP A12, items 1-2).
+training steps of every family (dense, moe, vlm, hybrid, ssm and encdec)
+on a (data, model) mesh (ROADMAP A12, items 1-3).
 
 The reference's ``Engine`` places its parameters under
 ``params_shardings`` (heads, kv heads, ff, vocab, the SSM's inner dim and
@@ -40,8 +40,11 @@ explicit collectives (``dist/comm.py``), Megatron's layout:
 
 Where the heads or the kv heads do not divide ``model`` (qwen2's 14 heads
 and 2 kv heads on four ranks, paligemma's and recurrentgemma's one kv
-head) the rules replicate them, and attention stays whole on every rank as
-on one device (the sequence-sharded prefill attention applies there); a
+head, whisper's 6 heads on four ranks) the rules replicate them, and
+attention stays whole on every rank as on one device (the
+sequence-sharded prefill attention applies there, the encoder's
+full-mask attention too; the cross attention, as the reference's, is
+never sequence-sharded); a
 heads leaf the rules split while its kv leaf stays whole is gathered over
 ``model`` before use.  Where the SSM heads do not divide ``model`` the SSD
 runs whole on every rank (the ``in_proj`` and conv slabs gathered if the
@@ -112,7 +115,9 @@ class TPPlan:
     runs on this rank's ``h / tp`` heads, ``rglru`` whether the RG-LRU runs
     on its ``r / tp`` channels; ``attn`` the paths of the attention
     parameter groups in the tree (``layers/attn``, the hybrid's
-    ``groups/p{i}_attn/mixer`` and ``tail/t{i}_attn/mixer``); ``rank`` is
+    ``groups/p{i}_attn/mixer`` and ``tail/t{i}_attn/mixer``, the encdec
+    family's ``enc_layers/attn``, ``dec_layers/self_attn`` and
+    ``dec_layers/cross_attn``); ``rank`` is
     this rank's ``model`` coordinate; ``train``: the trainer's plan, whose
     step holds every leaf gathered over ``data`` (``held``)."""
 
@@ -327,12 +332,16 @@ class TPPlan:
     def _layers(self, cfg) -> list:
         """Each layer of ``cfg`` in order as ``(kind, placements, remat)``:
         ``kind`` lm (a dense, moe or vlm layer), ssm, rglru or attn (the
-        hybrid's), its placement tree with the layer dim dropped, and
+        hybrid's), enc or dec (the encdec family's encoder and decoder
+        layers), its placement tree with the layer dim dropped, and
         whether ``cfg.remat`` recomputes it (the hybrid's tail is not)."""
         def drop(tree):
             return {k: drop(v) if isinstance(v, dict) else v[1:] for k, v in tree.items()}
 
         pl = self.placements
+        if cfg.family == "encdec":
+            return ([("enc", drop(pl["enc_layers"]), True)] * cfg.enc_layers
+                    + [("dec", drop(pl["dec_layers"]), True)] * cfg.n_layers)
         if cfg.family == "hybrid":
             from ..models.families import _hybrid_layout
 
@@ -354,7 +363,9 @@ class TPPlan:
         under this (serving) plan.  A layer: on ``data`` one gather of its
         leaves stored there; on ``model`` one gather of its attention
         leaves where the heads do not split, then its compute's: an
-        attention layer's ``wo`` sum where the heads split and the MLP's
+        attention layer's ``wo`` sum where the heads split (an encdec
+        decoder layer's two: its self and its cross attention's; its
+        encoder ran in the prefill) and the MLP's
         ``w_down`` sum where ff splits (the moe family's experts' partials
         where they or ff split, and with ``rows_split`` on a data axis the
         routing's gather); a Mamba-2 layer's gather of the ``in_proj``
@@ -367,14 +378,19 @@ class TPPlan:
         dp = axis_size(self.mesh, "data")
         n = 0
         for kind, lpl, _ in self._layers(cfg):
+            if kind == "enc":
+                continue
             groups = {g: v for g, v in lpl.items() if isinstance(v, dict)}
             n += int(dp > 1 and any("data" in p for g in groups.values() for p in g.values()))
-            attn = {"lm": "attn", "attn": "mixer"}.get(kind)
-            n += int(attn is not None and not self.heads
-                     and any("model" in p for p in groups[attn].values()))
+            attn = {"lm": ("attn",), "attn": ("mixer",),
+                    "dec": ("self_attn", "cross_attn")}.get(kind, ())
+            n += int(bool(attn) and not self.heads
+                     and any("model" in p for a in attn for p in groups[a].values()))
             if kind == "lm":
                 n += int(self.heads) + int(self.ff or self.experts)
                 n += int(cfg.family == "moe" and rows_split and dp > 1)
+            elif kind == "dec":
+                n += 2 * int(self.heads) + int(self.ff)
             elif kind == "attn":
                 n += int(self.heads) + int(self.ff)
             elif kind == "rglru":
@@ -382,19 +398,26 @@ class TPPlan:
             else:
                 i, c, o = self._ssm_splits(groups["mixer"])
                 n += int(i or c) + int(self.ssm) + int(o)
-        head = "embed" if cfg.tie_embeddings else "lm_head"
+        # the encdec family's head is the embedding too (its tree has no lm_head)
+        head = "embed" if cfg.tie_embeddings or cfg.family == "encdec" else "lm_head"
         n += 2 * int(self.vocab)
         n += 2 * int(dp > 1 and self.placements["embed"][1] == "data")
         n += int(dp > 1 and "data" in self.placements[head])
         return n + int(rows_split)
 
-    def grad_collectives(self, cfg, seq: int, split: bool = False) -> int:
+    def grad_collectives(self, cfg, seq: int, split: bool = False,
+                         frames: Optional[int] = None) -> int:
         """The collectives the loss and its gradients make on a rank under
         this (training) plan, one (micro)batch of ``seq`` positions (the
         vlm family's patch prefix included, as the data pipeline's
-        ``seq_len`` counts it).  A forward: the embedding's sum, and a layer's
+        ``seq_len`` counts it) and, for the encdec family, ``frames``
+        encoder frames (default the pipeline's ``min(seq, enc_frames)``).
+        A forward: the embedding's sum, and a layer's
         compute: an attention layer's ``wo`` sum (or, where the heads do
-        not split, the sequence-sharded attention's gather) and ``w_down``
+        not split, the sequence-sharded attention's gather, where ``model``
+        divides the layer's sequence: the encoder's frames, else ``seq``;
+        an encdec decoder layer's cross attention adds its ``wo`` sum where
+        the heads split) and ``w_down``
         sum (the moe family's: its experts' partials, where ``experts`` or
         ``ff`` splits them; with ``split`` first the routing's gather over
         each data axis of size > 1, ``comm.batch_totals``); a Mamba-2
@@ -406,7 +429,9 @@ class TPPlan:
         attention leaf split over ``model``.  Its backward: the head's input
         entered, an attention layer's q/k/v input (or the sequence split's
         q, k and v) and MLP input (the moe family's token rows and gate
-        weights) entered, and where the heads split the qk-norm scales
+        weights) entered (an encdec decoder layer's cross attention, where
+        the heads split, its decoder states and the encoder's output, each
+        entered apart), and where the heads split the qk-norm scales
         entered; a Mamba-2 layer's input (``in_proj`` split), its summed
         squares and, where the heads split, its whole tensors and sliced
         replicated leaves (one sum a dtype: activations and fp32 leaves),
@@ -421,7 +446,12 @@ class TPPlan:
 
         sizes = [axis_size(self.mesh, a) for a in ("pod", "data")]
         live = [k for k in sizes if k > 1]
-        seq_split = (not self.heads and FLAGS["attn_seq_shard"] and seq % self.tp == 0)
+        if frames is None:
+            frames = min(seq, cfg.enc_frames)
+
+        def seq_split(s: int) -> bool:
+            return not self.heads and FLAGS["attn_seq_shard"] and s % self.tp == 0
+
         dtypes = 1 if cfg.dtype != "bfloat16" else 2  # an entered tuple's sums
         gathered = not self.heads and any(
             "model" in p for path in self.attn for p in _node(self.placements, path).values())
@@ -429,11 +459,13 @@ class TPPlan:
         backward = int(self.vocab) + int(self.heads and cfg.qk_norm)
         remat = 0
         for kind, lpl, again in self._layers(cfg):
-            if kind in ("lm", "attn"):
+            if kind in ("lm", "attn", "enc", "dec"):
                 mlp = int(self.ff or self.experts)
                 routing = len(live) if split and cfg.family == "moe" else 0
-                per = int(self.heads or seq_split) + mlp
+                per = int(self.heads or seq_split(frames if kind == "enc" else seq)) + mlp
                 f, b, r = per + routing, per, per + routing - mlp
+                if kind == "dec":  # the cross attention: wo's sum; its two inputs entered
+                    f, b, r = f + int(self.heads), b + 2 * int(self.heads), r + int(self.heads)
             elif kind == "rglru":
                 rg, mlp = int(self.rglru), int(self.ff)
                 f, b, r = 2 * rg + mlp, rg * (1 + dtypes) + mlp, 2 * rg
@@ -447,16 +479,17 @@ class TPPlan:
         return forward + backward + remat
 
     def train_collectives(self, cfg, seq: int, microbatches: int = 1, split: bool = False,
-                          compress: bool = False) -> int:
+                          compress: bool = False, frames: Optional[int] = None) -> int:
         """The collectives one training step makes on a rank under this
-        (training) plan: ``grad_collectives`` a microbatch; then once a step
+        (training) plan: ``grad_collectives`` a microbatch (``frames``: the
+        encdec family's, as there); then once a step
         the ``data`` gather, with ``split`` the sum over the data ranks of
         every gradient leaf and the loss (``comm.sum_in_rank_order``: one
         all-reduce over one axis of two, else a gather an axis), the norm's
         sum over ``model`` and with ``compress`` the scales' gather."""
         sizes = [axis_size(self.mesh, a) for a in ("pod", "data")]
         live = [k for k in sizes if k > 1]
-        n = microbatches * self.grad_collectives(cfg, seq, split)
+        n = microbatches * self.grad_collectives(cfg, seq, split, frames)
         pls = [pl for _, pl in tree_items(self.placements)]
         n += int(axis_size(self.mesh, "data") > 1 and any("data" in pl for pl in pls))
         if split:
@@ -493,12 +526,12 @@ def _paths_with(tree: dict, leaf: str, path: tuple = ()) -> list:
     return out
 
 
-PLAN_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+PLAN_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 
 
 def serving_plan(cfg, mesh) -> Optional[TPPlan]:
-    """The plan of a family's serving path on ``mesh``; None for no mesh or
-    the encdec family (its engine holds whole parameters)."""
+    """The plan of a family's serving path on ``mesh`` (every family has
+    one); None for no mesh, or a mesh of one rank."""
     if cfg.family not in PLAN_FAMILIES or math.prod(mesh_shape(mesh).values()) <= 1:
         return None
     from ..models import build_model
@@ -511,7 +544,10 @@ def _plan(cfg, mesh, pl: dict, train: bool) -> TPPlan:
     group's ``wq`` and ``wk`` tell the heads split; the first MLP's
     ``w_gate`` (d, ff), or the experts' (E, d, ff), the ff and experts
     splits; the RG-LRU's ``w_x`` its channels'; Mamba-2's heads split where
-    ``model`` divides them."""
+    ``model`` divides them.  The encdec family's three attention groups a
+    layer (``enc_layers/attn``, ``dec_layers/self_attn``,
+    ``dec_layers/cross_attn``) share one config, so the first tells the
+    heads split of all; its FFN is ``ffn``, as the other families'."""
     tp = axis_size(mesh, "model")
     attn = tuple(_paths_with(pl, "wq"))
     gates = [_node(pl, p)["w_gate"] for p in _paths_with(pl, "w_gate")]
@@ -530,9 +566,9 @@ def training_plan(cfg, mesh) -> Optional[TPPlan]:
     """The plan of a family's training step on ``mesh``: the serving plan's
     splits on the trainer's placements (``params_shardings``, the norm
     scales on ``data`` and the SSM's on ``model`` too), held gathered over
-    ``data`` while the step computes.  None for no mesh, a ``model`` axis
-    of 1 (the step is then the single-device program on gathered
-    parameters) or the encdec family."""
+    ``data`` while the step computes.  None for no mesh or a ``model``
+    axis of 1 (the step is then the single-device program on gathered
+    parameters, ROADMAP A12 item 4)."""
     if cfg.family not in PLAN_FAMILIES or axis_size(mesh, "model") == 1:
         return None
     from ..models import build_model
@@ -630,9 +666,11 @@ class WholeView(Mapping):
     """A read-only view of a rank's sharded parameter tree whose leaves are
     gathered whole on access (and ``transform(path, leaf)`` applied), one
     leaf at a time, never cached: the pack builders read a leaf, pack this
-    rank's windows of it and drop it, so the peak is one leaf whole.  Every
-    rank must read the same leaves in the same order (each read is a
-    collective)."""
+    rank's windows of it and drop it, so the peak is one leaf whole; the
+    trainer returns its params and moments as views (``Trainer.train``).
+    Every rank must read the same leaves in the same order (each read is a
+    collective): ``optim.adamw.tree_items`` walks a view in sorted key
+    order."""
 
     def __init__(self, tree: dict, placements: dict, mesh,
                  transform: Optional[Callable] = None, path: tuple = ()):

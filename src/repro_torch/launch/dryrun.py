@@ -14,20 +14,20 @@ no storage) under ``launch/op_cost.py``'s counter:
   with ``Trainer``'s mesh arguments): parameters and both AdamW moments as
   rank 0's shards under ``dist/sharding.py params_shardings``, the batch
   rows split over ``pod`` x ``data`` and the gradients summed over those
-  axes in rank order; every family's step but encdec's tensor-parallel
+  axes in rank order; every family's step tensor-parallel
   (``dist.tp.training_plan``: the ``data`` dims gathered once, the forward
   and backward on rank 0's ``model`` shards, the moe family's experts,
-  the SSM's heads and the RG-LRU's channels split over ``model``, the
-  sequence-sharded attention where the heads do not divide ``model``),
-  encdec's on the whole parameters gathered for the forward; the moe
-  routing over the whole batch;
+  the SSM's heads, the RG-LRU's channels and the encdec family's encoder
+  and decoder heads split over ``model``, the sequence-sharded attention
+  where the heads do not divide ``model``); the moe routing over the
+  whole batch;
 * ``prefill`` — ``Model.prefill`` (``Model.forward`` for the recurrent
   families, as the reference chooses) on rank 0's rows of the batch, under
   ``models.common.mesh_context`` so the sequence-sharded attention applies
-  where the heads do not divide ``model``; every family but encdec as the
-  serving engine runs it, on rank 0's shards of the parameters with
-  tensor-parallel products (``dist/tp.py``), the moe routing over the
-  whole batch, encdec on whole parameters (ROADMAP.md A12);
+  where the heads do not divide ``model`` (the encdec encoder's
+  full-mask attention too); every family as the serving engine runs it,
+  on rank 0's shards of the parameters with tensor-parallel products
+  (``dist/tp.py``), the moe routing over the whole batch;
 * ``decode`` — ``Model.decode_step`` of one token on rank 0's rows of the
   cache (``serve_shardings``; under a plan they hold rank 0's heads, SSM
   heads and RG-LRU channels), the parameters as for prefill.
@@ -189,9 +189,8 @@ def build_step(cfg, kind: str, batch: int, seq: int, mesh=None, device="meta",
 
         return run, {"params": params, "opt": opt, "batch": inputs}
     # the serving engine's storage and model: every family's shards, local
-    # heads, SSM heads and RG-LRU channels under its tensor-parallel plan
-    # (encdec whole); a rank's rows of a split batch route over the whole
-    # batch
+    # heads, SSM heads and RG-LRU channels under its tensor-parallel plan;
+    # a rank's rows of a split batch route over the whole batch
     plan = serving_plan(cfg, mesh)
     split = (mesh, _batch_axes(mesh)) if _rows(batch, mesh) else None
     if plan is not None:

@@ -21,6 +21,8 @@ optional VUSA packing, one batched ``generate``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b --smoke --device cpu \
         --requests 8 --slots 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_tiny --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_tiny --smoke \
+        --mesh 2,2 --dist-backend gloo --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch vusa_edge --smoke --packed all \
         --mesh 2,2 --dist-backend gloo --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b --smoke \
@@ -47,9 +49,10 @@ stats print and the journal closes clean.  ``--mesh DP,TP`` serves on a
 this machine, with the collective backend ``--dist-backend``: ``nccl``
 for one GPU per rank, ``gloo`` for ranks that share a GPU or run on the
 CPU (gloo collectives cannot be captured in a CUDA graph, so with TP > 1
-the steps run eagerly); rank 0 prints.  Every model but encdec serves
+the steps run eagerly); rank 0 prints.  Every model serves
 tensor-parallel on sharded storage (``dist/tp.py``; the moe family's
-experts, the SSM's heads and the RG-LRU's channels split over ``model``):
+experts, the SSM's heads, the RG-LRU's channels and whisper's encoder and
+decoder split over ``model``):
 each rank draws each leaf, prunes it whole and keeps its shard, so no
 rank holds the whole model; one-shot ``generate`` on the dense route
 prints the collectives a decode step made beside the plan's prediction

@@ -12,15 +12,18 @@ batch split over pod x data) that ``launch/mesh.spawn`` starts on this
 machine, with the
 collective backend ``--dist-backend`` (``nccl``: one GPU per rank;
 ``gloo``: ranks that share a GPU or run on the CPU); rank 0 prints and
-writes the checkpoints.  On ``--model`` above 1 every family but encdec
-trains tensor-parallel (``dist.tp.training_plan``; the moe family's
-experts, the SSM's heads and the RG-LRU's channels split over ``model``),
-and rank 0 prints the collectives of the last step beside the plan's
-prediction (``TPPlan.train_collectives``):
+writes the checkpoints, each leaf gathered to it from the shards one at a
+time.  On ``--model`` above 1 every family trains tensor-parallel
+(``dist.tp.training_plan``; the moe family's experts, the SSM's heads,
+the RG-LRU's channels and whisper's encoder and decoder split over
+``model``), and rank 0 prints the collectives of the last step beside the
+plan's prediction (``TPPlan.train_collectives``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe_1b_7b --smoke \
         --device cpu --model 2 --dist-backend gloo
     PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma_9b --smoke \
+        --device cpu --data 2 --model 2 --dist-backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper_tiny --smoke \
         --device cpu --data 2 --model 2 --dist-backend gloo
 """
 
@@ -65,8 +68,11 @@ def main(argv=None):
 
 
 def _mesh_rank(mesh, device, args):
-    """One rank of the mesh: the run on this rank's device; rank 0 prints."""
-    return rank0_prints(_run, args, mesh, device)
+    """One rank of the mesh: the run on this rank's device; rank 0 prints.
+    The result leaves the world without the trainer's views of the whole
+    tree (``Trainer.train``: each read is a collective of the mesh)."""
+    out = rank0_prints(_run, args, mesh, device)
+    return {k: v for k, v in out.items() if k not in ("params", "opt")}
 
 
 def _run(args, mesh=None, device=None):

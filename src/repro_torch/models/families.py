@@ -25,19 +25,22 @@ advances the (B,) ``pos`` with ``add_``, makes no host sync, and with
 ``rowwise`` computes row b as a B = 1 step on its own cache row.
 
 The LM families' serving functions (``lm_decode_step``, ``lm_prefill``,
-``lm_prefill_chunk``) and the recurrent families' (``hybrid_decode_step``,
-``ssm_decode_step``, their forwards without grad) also run tensor-parallel
+``lm_prefill_chunk``), the recurrent families' (``hybrid_decode_step``,
+``ssm_decode_step``, their forwards without grad) and the encdec family's
+(``encdec_prefill``, ``encdec_decode_step``) also run tensor-parallel
 under the serving engine's plan (``dist/tp.py``, installed by
 ``common.mesh_context``): the parameters are this rank's shards, each
 layer's leaves gathered over ``data`` at use (``_dense_layer``,
-``_plan_layer``), the embedding and the head vocab-parallel
-(``_embed_tokens``, ``_head_logits``), the Mamba-2 and RG-LRU mixers on the
+``_plan_layer``; the encoder's and the decoder's stacks apart), the
+embedding and the head vocab-parallel (``_embed_tokens``,
+``_head_logits``, ``_logits``), the Mamba-2 and RG-LRU mixers on the
 rank's heads or channels (``models/ssm.py``), their caches holding those
-(``ssm_cache_specs``, ``hybrid_cache_specs`` with the plan).  With no plan
-they are the single-device program.  ``lm_forward``, ``hybrid_forward``,
-``ssm_forward`` and their losses run under the trainer's plan
-(``dist.tp.training_plan``) forward and backward on this rank's shards,
-the loss vocab-parallel (``TPPlan.xent``).
+(``ssm_cache_specs``, ``hybrid_cache_specs`` with the plan; the encdec
+self and cross K/V the local kv heads).  With no plan they are the
+single-device program.  ``lm_forward``, ``hybrid_forward``,
+``ssm_forward``, ``encdec_forward`` and their losses run under the
+trainer's plan (``dist.tp.training_plan``) forward and backward on this
+rank's shards, the loss vocab-parallel (``TPPlan.xent``).
 """
 
 from __future__ import annotations
@@ -492,11 +495,12 @@ def _serving_plan():
     return None if plan is None or plan.train else plan
 
 
-def _plan_layer(params: dict, path: tuple, i, attn: bool = False) -> dict:
+def _plan_layer(params: dict, path: tuple, i, attn: tuple = (), names=None) -> dict:
     """Layer ``i`` of the stacked layer tree at ``path`` (``i`` None: the
-    tree is one layer, the hybrid's tail): under a serving plan with every
-    leaf gathered where the compute wants it whole (``TPPlan.layer``;
-    ``attn``: the ``mixer`` group is attention), else the tree's views."""
+    tree is one layer, the hybrid's tail): under a serving plan with its
+    leaves ``names`` (None: every leaf) gathered where the compute wants
+    them whole (``TPPlan.layer``; ``attn``: the groups that are attention),
+    else the tree's views."""
     tree = params
     for k in path:
         tree = tree[k]
@@ -506,22 +510,27 @@ def _plan_layer(params: dict, path: tuple, i, attn: bool = False) -> dict:
     pls = plan.placements
     for k in path:
         pls = pls[k]
-    return plan.layer(tree, i, None, pls, attn=("mixer",) if attn else ())
+    return plan.layer(tree, i, names, pls, attn=attn)
 
 
-def _logits(params, x, head):
+def _logits(params, x, head, tied: bool = False):
     """The head's logits of the final-normed ``x``: under the trainer's plan
-    this rank's vocab columns of the untied ``lm_head``
-    (``TPPlan.train_logits``), under a serving plan gathered whole
-    (``TPPlan.logits``; the encdec family, whose head is tied, has no
-    plan)."""
+    this rank's vocab columns of the untied ``lm_head`` or, ``tied`` (the
+    encdec family's), the embedding (``TPPlan.train_logits``), under a
+    serving plan gathered whole (``TPPlan.logits``)."""
     x = rms_norm(x, params["final_norm"])
     plan = current_tp()
     if plan is not None and plan.train:
-        return plan.train_logits(x, params, tied=False)
+        return plan.train_logits(x, params, tied=tied)
     if plan is not None:
-        return plan.logits(x, plan.head_matrix(params, tied=False).to(x.dtype))
+        return plan.logits(x, plan.head_matrix(params, tied=tied).to(x.dtype))
     return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+
+
+def _mixer_attn(kind: str) -> tuple:
+    """The attention groups of a hybrid layer of ``kind``: its ``mixer``
+    where it is attention."""
+    return ("mixer",) if kind == "attn" else ()
 
 
 def _rec_xent():
@@ -601,7 +610,7 @@ def hybrid_forward(params, batch, cfg):
     for g in range(n_groups):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"p{i}_{kind}"
-            lp = (_plan_layer(params, ("groups", key), g, kind == "attn") if serving
+            lp = (_plan_layer(params, ("groups", key), g, _mixer_attn(kind)) if serving
                   else groups[key][g])
             if remat:
                 x = checkpoint(layer, lp, x, kind, lcfg, positions, use_reentrant=False)
@@ -610,8 +619,8 @@ def hybrid_forward(params, batch, cfg):
             del lp
     for name in params.get("tail", {}):
         kind = name.split("_", 1)[1]
-        x = _hybrid_layer(_plan_layer(params, ("tail", name), None, kind == "attn"), x, kind,
-                          lcfg, positions)
+        x = _hybrid_layer(_plan_layer(params, ("tail", name), None, _mixer_attn(kind)), x,
+                          kind, lcfg, positions)
     return _logits(params, x, params["lm_head"]), 0.0
 
 
@@ -675,13 +684,13 @@ def hybrid_decode_step(params, token, cache, cfg, rowwise: bool = False):
     for g in range(n_groups):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"p{i}_{kind}"
-            lp = _plan_layer(params, ("groups", key), g, kind == "attn")
+            lp = _plan_layer(params, ("groups", key), g, _mixer_attn(kind))
             x = _hybrid_decode_layer(lp, x, leaves(f"groups/{key}/", g), kind, cfg, pos)
             del lp  # under a plan: its gathered leaves
     for name in params.get("tail", {}):
         kind = name.split("_", 1)[1]
-        x = _hybrid_decode_layer(_plan_layer(params, ("tail", name), None, kind == "attn"), x,
-                                 leaves(f"tail/{name}/"), kind, cfg, pos)
+        x = _hybrid_decode_layer(_plan_layer(params, ("tail", name), None, _mixer_attn(kind)),
+                                 x, leaves(f"tail/{name}/"), kind, cfg, pos)
     logits = _logits(params, x, params["lm_head"])
     pos.add_(1)
     return logits, cache
@@ -788,14 +797,34 @@ def _enc_layer(lp, x, cfg, positions):
     return x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
 
 
+_ENC_ATTN, _DEC_ATTN = ("attn",), ("self_attn", "cross_attn")
+# the leaves a decode step reads of a decoder layer: not the cross
+# attention's wk/wv, whose K/V the prefill cached
+_DEC_STEP_LEAVES = {"self_attn": DENSE_LEAVES["attn"], "cross_attn": ("wq", "wo"),
+                    "ffn": ("w_gate", "w_up", "w_down")}
+
+
 def encdec_encode(params, frames, cfg):
     """frames (B, F, d), F <= enc_frames: stub frame embeddings -> the
-    encoder's states under full self-attention."""
+    encoder's states under full self-attention.  Under a plan (``cfg`` the
+    local config) the layers run on this rank's shards: on its heads where
+    they split, else whole with the full-mask attention sequence-sharded
+    over ``model`` where ``model`` divides F (as the reference's); under a
+    serving plan each layer's leaves are gathered at use, and ``enc_pos``,
+    ``(None, "embed")``, is gathered over ``data`` where it is stored
+    there."""
     adt = act_dtype(cfg)
-    x = frames.to(adt) + params["enc_pos"][None, : frames.shape[1]].to(adt)
+    pos, plan = params["enc_pos"], current_tp()
+    if plan is not None:
+        pos = plan.whole_data(pos, "enc_pos")
+    x = frames.to(adt) + pos[None, : frames.shape[1]].to(adt)
     positions = torch.arange(x.shape[1], device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    x = _layers(params, "enc_layers", cfg.enc_layers, remat, _enc_layer, x, cfg, positions)
+    if _serving_plan() is not None:
+        for i in range(cfg.enc_layers):
+            x = _enc_layer(_plan_layer(params, ("enc_layers",), i, _ENC_ATTN), x, cfg, positions)
+    else:
+        remat = cfg.remat and torch.is_grad_enabled()
+        x = _layers(params, "enc_layers", cfg.enc_layers, remat, _enc_layer, x, cfg, positions)
     return rms_norm(x, params["enc_norm"])
 
 
@@ -808,23 +837,43 @@ def _dec_layer(lp, x, cfg, positions, enc):
 
 
 def encdec_forward(params, batch, cfg):
-    """batch {"frames": (B, F, d), "tokens": (B, S)} -> logits (B, S, V), 0."""
-    enc = encdec_encode(params, batch["frames"], cfg)
+    """batch {"frames": (B, F, d), "tokens": (B, S)} -> logits (B, S, V), 0.
+    Under the trainer's plan the encoder and decoder run forward and
+    backward on this rank's shards and the logits are its vocab columns of
+    the tied head (``TPPlan.train_logits``); under a serving plan (no grad)
+    each layer's leaves are gathered at use."""
+    plan, lcfg = current_tp(), cfg
+    if plan is not None and plan.train:  # a serving caller's cfg is local already
+        from ..dist.tp import local_config
+
+        params, lcfg = plan.train_params(params), local_config(cfg, plan)
+    enc = encdec_encode(params, batch["frames"], lcfg)
     x = _embed_tokens(params, batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    x = _layers(params, "dec_layers", cfg.n_layers, remat, _dec_layer, x, cfg, positions, enc)
-    return _logits(params, x, params["embed"].T), 0.0
+    if _serving_plan() is not None:
+        for i in range(cfg.n_layers):
+            x = _dec_layer(_plan_layer(params, ("dec_layers",), i, _DEC_ATTN), x, lcfg,
+                           positions, enc)
+    else:
+        remat = cfg.remat and torch.is_grad_enabled()
+        x = _layers(params, "dec_layers", cfg.n_layers, remat, _dec_layer, x, lcfg, positions,
+                    enc)
+    return _logits(params, x, params["embed"].T, tied=True), 0.0
 
 
 def encdec_loss(params, batch, cfg):
+    """Next-token loss; under the trainer's plan the vocab-parallel
+    cross-entropy of this rank's logit columns."""
     logits, _ = encdec_forward(params, batch, cfg)
-    return _xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
+    return _rec_xent()(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
 
 
 def encdec_cache_specs(cfg, batch: int, max_len: int, frames: int = 0) -> dict:
     """Self-attention K/V, and the cross-attention K/V over the encoder's
-    ``frames`` rows (0: ``enc_frames``; the prefill fills them)."""
+    ``frames`` rows (0: ``enc_frames``; the prefill fills them).  Under a
+    serving plan ``cfg`` is ``dist.tp.local_config``'s, so both hold this
+    rank's kv heads, and ``batch`` is this rank's rows where ``data``
+    splits them."""
     kv = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
     xkv = (cfg.n_layers, batch, frames or cfg.enc_frames, cfg.kv_heads, cfg.hd)
     adt = act_dtype(cfg)
@@ -833,18 +882,22 @@ def encdec_cache_specs(cfg, batch: int, max_len: int, frames: int = 0) -> dict:
 
 
 def encdec_decode_step(params, token, cache, cfg, rowwise: bool = False):
-    """Decode one token; the cross K/V come from ``encdec_prefill``."""
+    """Decode one token; the cross K/V come from ``encdec_prefill``.  Under
+    a serving plan each decoder layer's leaves are gathered at use (not the
+    cross attention's ``wk``/``wv``), the attention runs on the local heads
+    where they split and the logits of the tied head are gathered whole."""
     if rowwise and token.shape[0] > 1:
         return _rows(encdec_decode_step, encdec_cache_specs, params, token, cache, cfg)
     x = _embed_tokens(params, token, cfg)
     for i in range(cfg.n_layers):
-        lp = layer_params(params["dec_layers"], i)
+        lp = _plan_layer(params, ("dec_layers",), i, _DEC_ATTN, _DEC_STEP_LEAVES)
         x = x + attention_decode(lp["self_attn"], rms_norm(x, lp["norm1"]), cfg,
                                  layer_cache(cache, i))
         x = x + cross_attention(lp["cross_attn"], rms_norm(x, lp["norm_x"]),
                                 (cache["xk"][i], cache["xv"][i]), cfg)
         x = x + mlp(lp["ffn"], rms_norm(x, lp["norm2"]))
-    logits = _logits(params, x, params["embed"].T)
+        del lp  # under a plan: its gathered leaves
+    logits = _logits(params, x, params["embed"].T, tied=True)
     cache["pos"].add_(1)
     return logits, cache
 
@@ -853,12 +906,16 @@ def encdec_prefill(params, batch, cfg, max_len: int):
     """Encode ``batch["frames"]`` (B, F, d) and fill the cross K/V (F rows);
     the prompt tokens are not run, as in the reference: the logits are
     zeros (so the first token is 0) and decode starts at ``pos`` 0
-    (ROADMAP C12)."""
+    (ROADMAP C12).  Under a serving plan the encoder runs on this rank's
+    shards and each layer's cross K/V hold its kv heads (its ``wk``/``wv``
+    gathered over ``data`` at use)."""
     enc = encdec_encode(params, batch["frames"], cfg)
     b, f = enc.shape[:2]
     cache = init_cache(encdec_cache_specs(cfg, b, max_len, f), enc.device)
     for i in range(cfg.n_layers):
-        xk, xv = encode_cross_kv(layer_params(params["dec_layers"], i)["cross_attn"], enc, cfg)
+        lp = _plan_layer(params, ("dec_layers",), i, _DEC_ATTN, {"cross_attn": ("wk", "wv")})
+        xk, xv = encode_cross_kv(lp["cross_attn"], enc, cfg)
         cache["xk"][i] = xk.to(cache["xk"].dtype)
         cache["xv"][i] = xv.to(cache["xv"].dtype)
+        del lp
     return torch.zeros((b, cfg.padded_vocab), dtype=act_dtype(cfg), device=enc.device), cache

@@ -24,7 +24,8 @@ scores are ``-1e30``, not ``-inf``.
 Under a tensor-parallel plan (``dist/tp.py``, the serving engine's or the
 trainer's, read through ``common.current_tp``) attention runs on this
 rank's heads where they split (the config's head counts are the local
-ones) with its ``wo`` partials summed over ``model``, and the MLP on
+ones; the encdec family's cross attention too, its K/V computed on the
+local kv heads) with its ``wo`` partials summed over ``model``, and the MLP on
 its ff slab with its ``w_down`` partials summed; the inputs of both enter
 through ``comm.enter_model``, so a backward sums their gradients over
 ``model``.  Packed projections are then the rank's own
@@ -647,18 +648,36 @@ def cross_attention(
 ) -> torch.Tensor:
     """Attention of decoder states over the encoder's precomputed keys and
     values under the ``full`` mask, through the flash path, as the
-    reference computes it at every decode step too: no rope, no bias."""
+    reference computes it at every decode step too: no rope, no bias.
+    Under a tensor-parallel plan whose heads split, ``wq`` and ``wo`` are
+    this rank's heads and ``enc_kv`` holds its kv heads (``cfg`` is the
+    local config): ``x`` enters the column-parallel ``wq`` product through
+    ``comm.enter_model`` and ``wo``'s partials leave through the ordered
+    sum.  Where the heads do not split it runs whole on every rank: the
+    reference's cross attention is never sequence-sharded."""
     b, s, _ = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     k, v = enc_kv
+    plan = current_tp()
+    if plan is not None:
+        x = plan.heads_in(x)
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(x.dtype)).reshape(b, s, kvh, nh // kvh, hd)
     out = _flash_attend(q, k, v, MaskSpec("full"), torch.arange(s, device=x.device),
                         torch.arange(k.shape[1], device=x.device))
-    return torch.einsum("bsnh,nhd->bsd", out.reshape(b, s, nh, hd), p["wo"].to(x.dtype))
+    return _heads_out(torch.einsum("bsnh,nhd->bsd", out.reshape(b, s, nh, hd),
+                                   p["wo"].to(x.dtype)))
 
 
 def encode_cross_kv(p: dict, enc_out: torch.Tensor, cfg):
-    """Cross-attention K/V of the encoder's output, computed once a request."""
+    """Cross-attention K/V of the encoder's output, computed once a request.
+    Under a tensor-parallel plan whose heads split, ``wk`` and ``wv`` are
+    this rank's kv heads, so the K/V hold them, and ``enc_out`` enters the
+    two column-parallel products through ``comm.enter_model``: under grad
+    each rank's part of its gradient is summed over ``model`` (without it
+    the encoder's gradient would miss the other ranks' heads)."""
+    plan = current_tp()
+    if plan is not None:
+        enc_out = plan.heads_in(enc_out)
     k = torch.einsum("bsd,dnh->bsnh", enc_out, p["wk"].to(enc_out.dtype))
     v = torch.einsum("bsd,dnh->bsnh", enc_out, p["wv"].to(enc_out.dtype))
     return k, v

@@ -15,6 +15,7 @@ scales ``(L, d)`` and the embedding, not only the matrices.
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Iterator, NamedTuple, Tuple
 
 import torch
@@ -29,10 +30,12 @@ class AdamState(NamedTuple):
 
 
 def tree_items(tree: dict, prefix: Tuple[str, ...] = ()) -> Iterator[tuple]:
-    """``(path, leaf)`` of a nested dict, keys sorted at every level."""
+    """``(path, leaf)`` of a nested dict (or any nested ``Mapping``, such as
+    a ``dist.tp.WholeView``, whose leaves are then read one at a time in
+    this order), keys sorted at every level."""
     for key in sorted(tree):
         val = tree[key]
-        if isinstance(val, dict):
+        if isinstance(val, Mapping):
             yield from tree_items(val, prefix + (key,))
         else:
             yield prefix + (key,), val

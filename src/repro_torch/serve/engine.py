@@ -45,7 +45,7 @@ state lives in a graph.
 
 On a mesh (``Engine(..., mesh=)``, a (data, model) DeviceMesh of ranks
 that all run the same code; ``launch/mesh.py``) the engine of every family
-but encdec stores each dense leaf as this rank's shard under the
+stores each dense leaf as this rank's shard under the
 reference's placements (``dist/tp.py storage_placements``: heads, kv
 heads, ff, vocab, the SSM's inner dim and the RG-LRU's channels over
 ``model``, the embed dim over ``data``; the norm scales held whole), given
@@ -65,11 +65,12 @@ local heads.  The dense twin of a pack is the tensor-parallel dense
 route.  The moe family stores its experts split over ``model``
 (``E / tp`` a rank, expert parallelism) under the same rules and serves
 dense; where ``generate`` splits its rows over ``data`` the routing counts
-over the whole batch (``layers.moe``).  The vlm, hybrid and ssm families
-serve dense on their shards (the recurrent ones prime through eager
-decode steps, each making its collectives).  The encdec family holds its
-parameters whole on every rank and runs the single-device program.
-The batch rows (or the scheduler's slots) are split over ``data`` when
+over the whole batch (``layers.moe``).  The vlm, hybrid, ssm and encdec
+families serve dense on their shards (the recurrent ones prime through
+eager decode steps, each making its collectives; the encdec prefill runs
+the encoder on the rank's shards over its rows of ``frames`` and writes
+the cross K/V of the rank's kv heads).  The batch rows (or the
+scheduler's slots) are split over ``data`` when
 its size divides them, and kept whole on every rank when it does not.
 The logits of every step are gathered whole before a token is chosen, and
 every rank draws from the same noise, so every rank chooses every row's
@@ -302,8 +303,8 @@ class Engine:
         ``time.monotonic``); the scheduler inherits it, so engine and
         scheduler timings share one timeline.  ``mesh``: a (data, model)
         DeviceMesh this rank belongs to (see the module docstring); a
-        mesh of one rank is no mesh.  On a mesh (a family with a plan,
-        ``dist.tp.serving_plan``: every family but encdec) ``params`` may
+        mesh of one rank is no mesh.  On a mesh (every family has a plan,
+        ``dist.tp.serving_plan``) ``params`` may
         hold any leaf whole or as this rank's shard under
         ``dist.sharding.params_shardings`` (what the trainer stores), so a
         caller that cannot hold the model whole hands over shards; a leaf

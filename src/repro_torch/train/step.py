@@ -11,11 +11,13 @@ compressed run trains alike but not bit for bit.
 
 On a mesh (``make_train_step(..., mesh=, placements=)``) the parameters
 and both AdamW moments are each rank's shards under ``placements``
-(ZeRO-style: the moments follow the parameters).  A step gathers the
-parameters whole for the forward, so it is the single-device program on
-this rank's rows of the batch; with ``split`` (the batch rows split over
-the pure data axes, ``("pod", "data")``) the gradients and the loss are
-summed over those ranks in their flattened rank order, pod-major, and
+(ZeRO-style: the moments follow the parameters).  With no plan (a
+``model`` axis of 1: the per-layer gather of ROADMAP A12 item 4 is still
+to come) a step gathers the parameters whole for the forward, so it is
+the single-device program on this rank's rows of the batch; with
+``split`` (the batch rows split over the pure data axes, ``("pod",
+"data")``) the gradients and the loss are summed over those ranks in
+their flattened rank order, pod-major, and
 divided by their count; the moe family's routing then counts over the
 whole batch, as the reference's program over the global batch does
 (``models.common.mesh_context``'s ``rows``, ``layers.moe``).  The
@@ -24,7 +26,9 @@ and each rank then updates only its shard.  On a ``model`` axis alone the
 step is the single-device step bitwise.
 
 With a tensor-parallel plan (``plan=``, ``dist.tp.training_plan``: every
-family but encdec on a ``model`` axis above 1) no rank gathers the tree: the step gathers every ``data``-sharded leaf over ``data`` once (one
+family on a ``model`` axis above 1, the encdec family's encoder and
+decoder included) no rank gathers the tree: the step gathers every
+``data``-sharded leaf over ``data`` once (one
 ``comm.gather_leaves`` a dtype), runs the forward and the backward under
 the plan (``models.common.mesh_context``), so the gradients are this
 rank's ``model`` shards, sums them over the data ranks as above and cuts

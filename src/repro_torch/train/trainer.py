@@ -8,20 +8,27 @@ code (``launch/mesh.py``): the parameters and both AdamW moments are
 stored as each rank's shards under ``dist.sharding.params_shardings``,
 the batch rows split over every pure data axis, ``("pod", "data")``
 flattened pod-major as the reference's batch placement (when their
-product divides them), and the
-step is ``train/step.py``'s sharded step: for every family but encdec
-on a ``model`` axis above 1 the tensor-parallel one
+product divides them), and the step is ``train/step.py``'s sharded step:
+on a ``model`` axis above 1 the tensor-parallel one, for every family
 (``dist.tp.training_plan``: no rank gathers the tree; the moe family's
-experts, the SSM's heads and the RG-LRU's channels split over ``model``),
-else the single-device program on gathered
-parameters, the moe routing over the whole batch where the rows split.  Each rank draws its shards leaf by leaf, and the pruning
-masks are refreshed one leaf at a time (each leaf gathered whole,
+experts, the SSM's heads, the RG-LRU's channels and the encdec family's
+encoder and decoder heads split over ``model``), else the single-device
+program on gathered parameters, the moe routing over the whole batch
+where the rows split.  Each rank draws its shards leaf by leaf, and the
+pruning masks are refreshed one leaf at a time (each leaf gathered whole,
 ``magnitude_mask`` on it, this rank's shard kept: the single-device masks,
-bitwise).  A checkpoint stays the
-logical tree with the reference's files and leaf keys: every rank gathers
-it, rank 0 writes it, and any mesh restores it; ``train()`` returns the
-gathered tree too, and on a mesh also this rank's ``shards``, which
-``Engine(mesh=)`` takes as they are.  Fault-tolerance model:
+bitwise).  A checkpoint stays the logical tree with the reference's files
+and leaf keys, and any mesh restores it: on a mesh it is written from the
+shards one leaf at a time (the params and both moments, each leaf
+gathered whole to the host of the mesh's first rank,
+``dist.sharding.gather_to_first``, written and dropped before the next:
+``checkpoint.ckpt.save_stream``), so no rank holds more than its shards
+and one leaf whole, and the files are one device's save of the gathered
+tree, byte for byte.  ``train()`` returns the same on one device as
+before; on a mesh it builds no whole tree: it returns this rank's
+``shards`` (which ``Engine(mesh=)`` takes as they are) and views of the
+whole params and moments that gather a leaf when it is read (see
+``train``).  Fault-tolerance model:
   * the data pipeline is a pure function of the step, so a restart resumes
     the exact stream (``SyntheticDataset.skip_to``);
   * SIGTERM/SIGINT set a flag that makes the loop checkpoint and stop after
@@ -47,10 +54,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..checkpoint.ckpt import Checkpointer
+from ..checkpoint.ckpt import Checkpointer, _flatten
 from ..configs.base import ArchConfig
-from ..dist.comm import axes_index, mesh_shape
-from ..dist.sharding import _batch_axes
+from ..dist.comm import axes_index, mesh_shape, sum_in_rank_order
+from ..dist.sharding import _batch_axes, _names
 from ..core.pruning import (
     _prunable, apply_masks, magnitude_mask, masks_tree, polynomial_sparsity, tree_sparsity,
 )
@@ -166,28 +173,62 @@ class Trainer:
 
         return walk(params, view, self.p_shard, ())
 
-    def _whole(self, params: dict, opt=None):
-        """The whole parameters (and AdamW state), gathered from every
-        rank's shards on a mesh; as they are on one device."""
+    def _save(self, step: int, params: dict, opt) -> None:
+        """Checkpoint the logical tree.  On a mesh every rank walks the leaves
+        in the files' order (the params and both moments), each leaf
+        gathered whole to the host of the mesh's first rank
+        (``gather_to_first``), which writes it and drops it before the
+        next (``Checkpointer.save_stream``)."""
         if self.mesh is None:
-            return params, opt
-        from ..dist.sharding import gather_tree
-
-        params = gather_tree(params, self.p_shard, self.mesh)
-        if opt is not None:
-            opt = AdamState(step=opt.step, mu=gather_tree(opt.mu, self.p_shard, self.mesh),
-                            nu=gather_tree(opt.nu, self.p_shard, self.mesh))
-        return params, opt
-
-    def _save(self, step: int, params: dict, opt) -> tuple:
-        """Checkpoint the logical tree: gathered on every rank, written by
-        the mesh's rank 0 alone.  Returns the gathered (params, opt)."""
-        params, opt = self._whole(params, opt)
-        if self.mesh is None or not any(self.mesh.get_coordinate()):
             self.ckpt.save(step, {"params": params, "opt": opt})
-        return params, opt
+            return
+        from ..dist.sharding import gather_to_first, mesh_coords
+
+        coords = mesh_coords(self.mesh)
+        pls = _flatten({"params": self.p_shard,
+                        "opt": AdamState(step=None, mu=self.p_shard, nu=self.p_shard)})
+        state = sorted(_flatten({"params": params, "opt": opt}).items())
+        leaves = ((key, gather_to_first(leaf, pls.get(key) or (), self.mesh, coords))
+                  for key, leaf in state)
+        if not any(self.mesh.get_coordinate()):
+            self.ckpt.save_stream(step, leaves)
+        else:
+            for _ in leaves:  # the gathers, in the writer's order
+                pass
+
+    def _sparsity(self, params: dict) -> float:
+        """``tree_sparsity`` of the whole tree from this rank's shards: each
+        prunable leaf's zeros counted on the ranks holding its distinct
+        shards (coordinate 0 on the axes its placement leaves whole), the
+        counts summed over the mesh (exact integers); the same float as
+        one device's on the gathered tree."""
+        sizes = mesh_shape(self.mesh)
+        coord = dict(zip(self.mesh.mesh_dim_names, self.mesh.get_coordinate()))
+        pls = dict(tree_items(self.p_shard))
+        zeros, total = 0, 0
+        for path, leaf in tree_items(params):
+            if _prunable(path, leaf):
+                used = {a for e in pls[path] for a in _names(e)}
+                if all(i == 0 for a, i in coord.items() if a not in used):
+                    zeros += int((leaf == 0).sum())
+                total += leaf.numel() * math.prod(sizes[a] for a in used)
+        zeros = sum_in_rank_order(torch.tensor(zeros, dtype=torch.int64, device=self.device),
+                                  self.mesh, tuple(sizes))
+        return int(zeros) / max(total, 1)
 
     def train(self) -> Dict:
+        """The run (``TrainConfig``), resumed from the latest checkpoint when
+        one exists.  Returns ``{"params", "opt", "final_loss", "sparsity",
+        "steps_run"}``: on one device the trained tree and AdamW state; on a
+        mesh also ``"shards"``, this rank's shards of the params, and then
+        ``"params"`` and ``"opt"``'s moments are ``dist.tp.WholeView`` s of
+        the shards (``opt.step`` a tensor): a leaf read is gathered whole on
+        every rank of the mesh (a collective), never cached, so every rank
+        must read the same leaves in the same order (``tree_items`` reads
+        every leaf in sorted key order) and no rank holds more than the
+        leaves it keeps.  ``"sparsity"`` is one device's
+        ``tree_sparsity`` of the gathered tree, bitwise, counted from the
+        shards."""
         previous = self._install_signal_handlers()
         try:
             return self._train()
@@ -216,7 +257,6 @@ class Trainer:
         times: List[float] = []
         it = iter(data)
         final_loss = float("nan")
-        saved = (None, None, None)  # (step, whole params, whole opt) of the last checkpoint
         masks = None  # persistent keep-masks once pruning starts
         step = start_step - 1
         for step in range(start_step, tc.steps):
@@ -250,23 +290,24 @@ class Trainer:
                 print(f"step {step:5d} loss {final_loss:.4f} dt {dt*1e3:.0f}ms", flush=True)
 
             if self.ckpt and ((step + 1) % tc.ckpt_every == 0 or self._preempted):
-                saved = (step + 1, *self._save(step + 1, params, opt))
+                self._save(step + 1, params, opt)
             if self._preempted:
                 print(f"[preempt] checkpointed at step {step + 1}, exiting", flush=True)
                 break
 
         if self.ckpt:
             self.ckpt.wait()
-        shards = params
-        # the whole tree: the last checkpoint's when it holds the last step
-        params, opt = saved[1:] if saved[0] == step + 1 else self._whole(params, opt)
-        out = {
-            "params": params,
-            "opt": opt,
-            "final_loss": final_loss,
-            "sparsity": tree_sparsity(params),
-            "steps_run": step + 1 - start_step,
-        }
-        if self.mesh is not None:
-            out["shards"] = shards
+        out = {"params": params, "opt": opt, "final_loss": final_loss,
+               "steps_run": step + 1 - start_step}
+        if self.mesh is None:
+            out["sparsity"] = tree_sparsity(params)
+            return out
+        from ..dist.tp import WholeView
+
+        def view(tree):
+            return WholeView(tree, self.p_shard, self.mesh)
+
+        out.update(params=view(params), opt=AdamState(step=opt.step, mu=view(opt.mu),
+                                                      nu=view(opt.nu)),
+                   sparsity=self._sparsity(params), shards=params)
         return out

@@ -34,6 +34,7 @@ pruning masks refreshed on the way:
 
 import dataclasses
 import functools
+from collections.abc import Mapping
 
 import numpy as np
 import pytest
@@ -61,9 +62,11 @@ def _tc(ckpt=None):
 
 
 def _flat(tree, prefix=""):
+    """Every leaf of ``tree`` (on a mesh the trainer's views of the whole
+    tree: each leaf gathered as it is read, in sorted key order) by path."""
     for k in sorted(tree):
         v = tree[k]
-        if isinstance(v, dict):
+        if isinstance(v, Mapping):
             yield from _flat(v, f"{prefix}{k}/")
         elif v is not None:
             yield prefix + k, v.detach().cpu()

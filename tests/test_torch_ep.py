@@ -320,7 +320,8 @@ def _train_then_serve(cfg, mesh):
     out = Trainer(cfg, tc, device="cpu", mesh=mesh).train()
     sc = ServeConfig(max_len=24)
     got = Engine(cfg, out["shards"], sc, device="cpu", mesh=mesh).generate(_prompts(cfg), NEW)
-    want = Engine(cfg, out["params"], sc, device="cpu").generate(_prompts(cfg), NEW)
+    whole = _nest(*zip(*tree_items(out["params"])))  # the trainer's view, leaf by leaf
+    want = Engine(cfg, whole, sc, device="cpu").generate(_prompts(cfg), NEW)
     return {"got": got["tokens"], "want": want["tokens"], "sparsity": out["sparsity"],
             "expert_bytes": sum(v.numel() * 4 for k, v in out["shards"]["layers"]["ffn"].items()
                                 if k != "router")}

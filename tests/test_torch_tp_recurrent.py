@@ -415,11 +415,16 @@ def test_full_config_rank_stores_under_three_tenths(arch):
 
 
 def test_encdec_keeps_the_whole_tree_path():
-    """The encdec family (whisper) has no plan on any mesh: its engine and
-    trainer keep today's whole-tree path; every other family has one."""
+    """Every family has a plan now, the encdec family (whisper) too
+    (``tests/test_torch_tp_encdec.py`` holds it on meshes); the trainer's
+    whole-tree path is left only where the ``model`` axis is 1 (ROADMAP
+    A12 item 4), for whisper as for every family, and no mesh has no
+    plan."""
     from repro_torch.dist.tp import PLAN_FAMILIES, serving_plan
+    from repro_torch.models.families import FAMILIES
 
-    mesh = {"data": 2, "model": 2}
     cfg = get_smoke_config("whisper_tiny")
-    assert serving_plan(cfg, mesh) is None and training_plan(cfg, mesh) is None
-    assert set(PLAN_FAMILIES) == {"dense", "moe", "vlm", "hybrid", "ssm"}
+    assert set(PLAN_FAMILIES) == set(FAMILIES)
+    for arch in ("whisper_tiny", "mamba2_2_7b"):
+        assert training_plan(get_smoke_config(arch), {"data": 2, "model": 1}) is None
+    assert serving_plan(cfg, None) is None and training_plan(cfg, None) is None

@@ -60,6 +60,7 @@ from repro_torch.optim import AdamState, adamw_init
 from repro_torch.optim.adamw import tree_items
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.train import TrainConfig, Trainer, TrainHParams
+from repro_torch.train.step import _tree as nest
 
 ARCHS = ("vusa_edge", "llama3_2_1b", "qwen3_8b", "qwen2_0_5b")
 STEPS = 3
@@ -266,7 +267,8 @@ def _serve(mesh):
     sc = ServeConfig(max_len=48, packed_weights="all")
     prompts = np.random.default_rng(2).integers(0, cfg.vocab, (4, 8))
     tp = Engine(cfg, out["shards"], sc, device="cpu", mesh=mesh).generate(prompts, max_new=6)
-    one = Engine(cfg, out["params"], sc, device="cpu").generate(prompts, max_new=6)
+    whole = nest(*zip(*tree_items(out["params"])))  # the trainer's view, leaf by leaf
+    one = Engine(cfg, whole, sc, device="cpu").generate(prompts, max_new=6)
     return {"tp": tp["tokens"], "one": one["tokens"], "sparsity": out["sparsity"]}
 
 

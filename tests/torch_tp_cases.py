@@ -49,13 +49,16 @@ def prompts(cfg):
 
 
 def extras(cfg):
-    """The vlm family's seeded stand-in patches, (B, P, d); None for the
-    others."""
-    if cfg.family != "vlm":
-        return None
+    """The vlm family's seeded stand-in patches, (B, P, d), the encdec
+    family's stand-in frames, (B, enc_frames, d); None for the others."""
     rng = np.random.default_rng(7)
-    return {"patches": rng.normal(0, 0.02, (BATCH, cfg.patch_tokens, cfg.d_model)).astype(
-        np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": rng.normal(0, 0.02, (BATCH, cfg.patch_tokens, cfg.d_model)).astype(
+            np.float32)}
+    if cfg.family == "encdec":
+        return {"frames": rng.normal(0, 0.02, (BATCH, cfg.enc_frames, cfg.d_model)).astype(
+            np.float32)}
+    return None
 
 
 def batches(cfg, n):
@@ -209,8 +212,8 @@ def train_then_serve(cfg, mesh) -> dict:
     sc = ServeConfig(max_len=MAX_LEN)
     got = Engine(cfg, out["shards"], sc, device="cpu", mesh=mesh).generate(
         prompts(cfg), NEW, extras=extras(cfg))
-    want = Engine(cfg, out["params"], sc, device="cpu").generate(prompts(cfg), NEW,
-                                                                extras=extras(cfg))
+    whole = nest(*zip(*tree_items(out["params"])))  # the trainer's view, leaf by leaf
+    want = Engine(cfg, whole, sc, device="cpu").generate(prompts(cfg), NEW, extras=extras(cfg))
     return {"got": got["tokens"], "want": want["tokens"], "sparsity": out["sparsity"]}
 
 
