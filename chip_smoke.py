@@ -253,8 +253,9 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    ``recurrentgemma_9b`` (d 4096, 16 heads over 1 KV head of 256, ff
    12288, RG-LRU width 4096, vocab 256000, window 2048) cut to 5 of 38
    layers, one scanned group (rglru, rglru, attn) and the two-layer rglru
-   tail; ``mamba2_2_7b`` whole (64 layers, d 2560, inner 5120, 80 heads,
-   state 128, chunks of 256, vocab 50280); ``whisper_tiny`` whole (4 + 4
+   tail; ``mamba2_2_7b`` cut to 16 of 64 layers (d 2560, inner 5120, 80
+   heads, state 128, chunks of 256, vocab 50280 padded to 50304: no token
+   choice reaches a padding id, C17); ``whisper_tiny`` whole (4 + 4
    layers, d 384, 6 heads, ff 1536, vocab 51865, 1500 seeded frames).
    Gates: ``generate`` (B = 4, prompt 32, 32 new tokens, bf16) through the
    CUDA graph bitwise the eager loop, greedy and sampled, tokens finite
@@ -304,11 +305,14 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    and tokens equal on the 2-layer cut; training full-width ``vusa_edge``
    (batch 8 x 128; its 1x2 run is phase 17's, tensor-parallel):
    on 2x1, each step taken from one device's
-   state (lockstep, on two of the ranks), the loss
-   is within 1e-4 relative of one device's step, and the global norm of
-   the gradients summed over ``data`` and each rank's updated shards
-   (params and both moments) are bitwise one device's step over the same
-   batch in two microbatches, the ranks' rows; a checkpoint written on
+   state (lockstep, on two of the ranks; each layer's leaves gathered at
+   use, their gradients reduce-scattered in rank order), the loss
+   is within 1e-4 relative of one device's step, each rank's updated
+   shards (params and both moments) are bitwise one device's step over the
+   same batch in two microbatches, the ranks' rows, the global norm (an
+   ordered sum of the shards' squares) within 1e-6 of that step's, the
+   collectives a step as ``TPPlan.train_collectives`` predicts and the
+   FSDP gates (``fsdp_check``) met; a checkpoint written on
    2x2, from the shards one leaf at a time (each leaf gathered whole to
    the first rank's host, written, dropped), restores bitwise on one
    device, its files (every leaf and the manifest) are byte for byte one
@@ -420,10 +424,17 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    on 1x4 at 2 layers the loss within 1e-5 relative and each gradient
    shard within 1e-4 of the leaf's largest |g| of one device's step; on
    2x2 at 2 layers (the batch split over ``data``: C16's whole-batch
-   routing) the norm and shards within C13's 2e-3 and layer 0's routing
-   integers one device's rows; the collectives as
+   routing) at 4 layers (each rank gathering one layer's leaves over
+   ``data`` at a time) the norm and shards within C13's 2e-3 and layer 0's
+   routing integers one device's rows; the collectives as
    ``TPPlan.train_collectives`` predicts; the 1x4-trained shards served
-   on 1x4 give one device's tokens on the gathered tree.  (e) tensor
+   on 1x4 give one device's tokens on the gathered tree.  Every training
+   part with a ``data`` axis ((c1) on 2x2, (d3), (e2), (f2)) also meets
+   the FSDP gates (``FSDP_BOUND_TERMS``, ``fsdp_check``): its gathers over
+   ``data`` and their reduce-scatters, counts and bytes, as
+   ``TPPlan.fsdp_traffic`` predicts, at most two layers' leaves and the
+   top-level leaves gathered at once, and (d3), (e2), (f2) each rank's
+   card peak above its state at most the predicted bound.  (e) tensor
    parallelism for the vlm, hybrid and ssm families (``TPPlan.ssm``: a
    rank runs 20 of Mamba-2's 80 SSM heads on 1x4, ``TPPlan.rglru``: 1024
    of the RG-LRU's 4096 channels; paligemma's and recurrentgemma's one kv
@@ -441,8 +452,9 @@ Phases, each of which fails the run (exit code 1, no result line) if it fails:
    ``TPPlan.decode_collectives``'; (e2) one step from the draw
    (``TPR_TRAIN``): paligemma at 2 layers and mamba2 at 4 on 1x4 and
    2x2, 8 x (256 patches +) 128, remat, each the Trainer's step, and
-   recurrentgemma at 3 layers on 1x4, the loss and its gradients under
-   the plan; gates (d3)'s: the loss within 1e-5 relative, each gradient
+   recurrentgemma at 3 layers on 1x4 and 2x2, the loss and its gradients
+   under the plan (summed over ``data`` as the step sums them); gates
+   (d3)'s: the loss within 1e-5 relative, each gradient
    shard within 1e-4 (1x4) or C13's 2e-3 (2x2) of the leaf's largest |g|,
    the collectives as ``train_collectives`` (``grad_collectives``)
    predicts; mamba2's 1x4-trained shards served on 1x4 give one device's
@@ -529,6 +541,7 @@ from repro_torch.checkpoint.ckpt import restore, save as ckpt_save  # noqa: E402
 from repro_torch.data.pipeline import SyntheticDataset  # noqa: E402
 from repro_torch.dist import comm  # noqa: E402
 from repro_torch.dist.sharding import (  # noqa: E402
+    _batch_axes,
     local_shard,
     params_shardings,
     shard_ranges,
@@ -635,12 +648,16 @@ FAM_PHASE_LIMIT_S = 200.0
 # its 2048 rows; three SSD chunks of 256, the last padded), the scheduler's
 # slots and the phase's time limit
 REC_ARCHS = ("recurrentgemma_9b", "mamba2_2_7b", "whisper_tiny")
-REC_DEPTH = {"recurrentgemma_9b": 5, "mamba2_2_7b": None, "whisper_tiny": None}
+REC_DEPTH = {"recurrentgemma_9b": 5, "mamba2_2_7b": 16, "whisper_tiny": None}
 REC_CUT_WHY = {  # every cut is of depth, never of a width
     "recurrentgemma_9b": "5 of 38 layers: one scanned group (rglru, rglru, attn) and the "
                          "two-layer rglru tail, so both code paths and every layer kind run; "
                          "at 38 the fp32 weights are about 42 GB and the 2,100-position "
                          "decode would not fit the phase's 200 s",
+    "mamba2_2_7b": "16 of 64 layers: its layers are all alike, and at 64 the 600-position "
+                   "teacher forcing and the scheduler took about 35-45 s more of the "
+                   "script's 1200; no token choice reaches the 24 padding ids of its "
+                   "50304-wide head (C17, repaired), so the range gate holds at any depth",
 }
 REC_TF_POSITIONS = {"recurrentgemma_9b": 2100, "mamba2_2_7b": 600, "whisper_tiny": MAX_NEW}
 REC_SCHED_SLOTS = 4
@@ -662,7 +679,11 @@ MESH_DP_LAYERS = 6
 # 8 lockstep steps (20 took about 40 s of the script's 1200 on a slow host;
 # every step is alike: the same gates each step)
 MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 8, 8, 128
-MESH_TRAIN_LAYERS = DEPTH_CUT  # full width; each step gathers every parameter through gloo
+MESH_TRAIN_LAYERS = DEPTH_CUT  # full width; each step gathers a layer's leaves at a time
+# the 2x1 lockstep's global norm against the microbatched step's, relative:
+# an ordered sum of the shards' squares, not one device's sum over each
+# whole leaf (the shards and moments stay bitwise: the clip is off, C10)
+MESH_NORM_TOL = 1e-6
 MESH_TRAIN_PRUNE = (4, 16, 4)  # begin, end, every
 MESH_TRAIN_TOL = 1e-4  # 2x1 loss each step from one device's state, relative
 MESH_CKPT_STEPS = 1
@@ -716,7 +737,8 @@ TP_PHASE_LIMIT_S = 240.0
 # (d2) moonshot cut in depth (EP_CUT_WHY); (d3) olmoe training at
 # EP_TRAIN_LAYERS of 16 (each mesh's depth), batch 8 x 128, remat, one step
 # from the drawn state on 1x4 and on 2x2 beside one device's whole-batch
-# step at that depth, the 1x4 step's shards then served on 1x4.  The gates, written before the first run:
+# step at that depth, the 1x4 step's shards then served on 1x4.  The gates,
+# written before the first run:
 # (d1)/(d2) layer 0's routing integers of the first decode step bitwise one
 # device's (B = 4 gives capacity 1: drops on both), first-step logits within
 # EP_LOGIT_TOL of the largest, each rank's peak at most TP_MEM_RATIO of one
@@ -730,7 +752,7 @@ EP_ARCH, EP_MOONSHOT = "olmoe_1b_7b", "moonshot_v1_16b_a3b"
 EP_NEW = 16
 EP_LOGIT_TOL, EP_LOSS_TOL, EP_GRAD_TOL = 1e-4, 1e-5, 1e-4
 EP_MOONSHOT_LAYERS = 4
-EP_TRAIN_LAYERS = {"1x4": 2, "2x2": 2}
+EP_TRAIN_LAYERS = {"1x4": 2, "2x2": 4}
 EP_CUT_WHY = {
     EP_MOONSHOT: "4 of 48 layers: one device's fp32 tree at 48 layers is about 113 GB, over "
                  "the 80 GB card",
@@ -738,9 +760,11 @@ EP_CUT_WHY = {
                        "moments at 16 layers are about 111 GB; at 4 one device's gradients "
                        "for the ranks (6.5 GB, written to files beside the 2x2 step's) "
                        "cost about 6 s of the script's 1200, which part (f) needs",
-    "training on 2x2": "2 of 16 layers: at 4 the ranks' steps (each holds its tree gathered "
-                       "over data, 1/2 of it) beside one device's gradients held for them "
-                       "ran out of the card's 80 GB"}
+    "training on 2x2": "4 of 16 layers: one device's oracle at 4 (29 GB of fp32 parameters, "
+                       "gradients and Adam moments, its gradients then written to files for "
+                       "the ranks) and the files' 7.5 GB more to write; each rank gathers one "
+                       "layer's leaves at a time over data, where at 4 a step holding its tree "
+                       "gathered over data ran the card out of memory"}
 # its part (e), tensor parallelism for the vlm and recurrent families (the
 # SSM's heads and the RG-LRU's channels split over model): (e1) each arch
 # served on 1x4 at its published widths, (layers, prompt, new tokens) as
@@ -767,7 +791,7 @@ TPR_SERVE = {"paligemma_3b": (None, 32, 8), "mamba2_2_7b": (16, 8, 4),
 TPR_DIR = TP_DIR / "e2"
 TPR_TRAIN = {"paligemma_3b": (2, ("1x4", "2x2"), True, ()),
              "mamba2_2_7b": (4, ("1x4", "2x2"), True, ()),
-             "recurrentgemma_9b": (3, ("1x4",), False, ("embed", "lm_head"))}
+             "recurrentgemma_9b": (3, ("1x4", "2x2"), False, ("embed", "lm_head"))}
 TPR_SERVED = ("mamba2_2_7b",)
 TPR_LOGIT_TOL = 1e-4
 TPR_CUT_WHY = {  # every cut is of depth, never of a width
@@ -783,10 +807,9 @@ TPR_CUT_WHY = {  # every cut is of depth, never of a width
                              "gradients held for the ranks",
     "mamba2_2_7b training": "4 of 64 layers: one device's parameters, gradients and Adam "
                             "moments at 64 layers are about 45 GB",
-    "recurrentgemma_9b training": "3 of 38 layers (one group), 1x4 only (a 2x2 rank's step "
-                                  "would hold about 19 GB: its half of the tree gathered over "
-                                  "data, their gradients, its Adam moments; four of them over "
-                                  "the card), the loss and its "
+    "recurrentgemma_9b training": "3 of 38 layers (one group), on 1x4 and on 2x2 (a 2x2 rank "
+                                  "gathers one layer's leaves at a time over data), the "
+                                  "loss and its "
                                   "gradients without the optimizer (the Adam moments, 5.5 GB "
                                   "a rank, and the update are the other archs' steps'), "
                                   "every gradient but the embedding's and the head's (the "
@@ -794,6 +817,18 @@ TPR_CUT_WHY = {  # every cut is of depth, never of a width
                                   "those two are 8.4 GB of one device's 11 GB of gradients "
                                   "handed to the ranks"}
 TPR_PHASE_LIMIT_S = 150.0
+# the FSDP step's gates on every training part with a data axis (written
+# before their first run): its fsdp-gather and reduce-scatter counts
+# and bytes as TPPlan.fsdp_traffic predicts; the gathered leaves alive at
+# once (comm.GATHERED) at most two layers' plus the top-level leaves'; and
+# where one device's oracle measured its peak, the rank's card peak above
+# what it held before the step at most FSDP_BOUND_TERMS: its gradient
+# shards, three of its largest layer as the compute reads it (the leaves
+# gathered twice at a recompute boundary and that layer's whole gradient),
+# two of its top-level leaves (gathered, and their whole gradient), and
+# one device's activations and temporaries (its peak above its own
+# parameters, gradients and moments)
+FSDP_BOUND_TERMS = ("grads", "3 x layer", "2 x top", "one device's activations")
 # phase 17 part (f): the encdec family on the mesh, whisper_tiny whole (4 + 4
 # layers, every width as published), fp32 with fp32 attention probabilities,
 # the contracted fan-in, ENC_FRAMES seeded stand-in frames: (f1) generate
@@ -3157,7 +3192,7 @@ def recurrent_phase() -> dict:
     """Phase 14 (module docstring).  Fails past ``REC_PHASE_LIMIT_S``."""
     t0 = time.monotonic()
     print("recurrent families: depth cuts: " + "; ".join(
-        f"{a} {w}" for a, w in REC_CUT_WHY.items()) + "; mamba2_2_7b and whisper_tiny whole",
+        f"{a} {w}" for a, w in REC_CUT_WHY.items()) + "; whisper_tiny whole",
         flush=True)
     reset_all_launch_counts()
     res = {}
@@ -3422,12 +3457,15 @@ def mesh_lockstep(cfg, mesh, steps: int) -> dict:
     microbatches (``TrainHParams.microbatches``), each data rank's rows:
     the mesh's arithmetic (each half's gradients, their sum, halved), on
     one device, with no collective.  Returns the losses of the mesh step
-    and of one device's whole-batch step, whether the mesh step's global
-    gradient norm and this rank's updated shards (params and both moments)
-    equal the microbatched step's bitwise, the global-norm gap between
-    the microbatched and the whole-batch step (the card's own split-batch
-    rounding, ``scripts/grad_split.py``), and the mesh step's ms,
-    collectives and bytes a step."""
+    and of one device's whole-batch step, whether this rank's updated
+    shards (params and both moments) equal the microbatched step's
+    bitwise (each layer's leaves gathered at use, their gradients
+    reduce-scattered in rank order), the mesh step's global-norm gap to
+    the microbatched step's (an ordered sum of the shards' squares), the
+    global-norm gap between the microbatched and the whole-batch step (the
+    card's own split-batch rounding, ``scripts/grad_split.py``), the mesh
+    step's ms, collectives and bytes a step beside the plan's prediction,
+    and its FSDP record (``fsdp_step``) a step."""
     tc = dataclasses.replace(mesh_train_config(steps), prune_begin=steps + 1)
     one = Trainer(cfg, tc, device=DEVICE)
     dp = Trainer(cfg, tc, device=DEVICE, mesh=mesh)
@@ -3445,7 +3483,8 @@ def mesh_lockstep(cfg, mesh, steps: int) -> dict:
     def equal(a, b) -> bool:
         return all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
 
-    out = {k: [] for k in ("losses", "dp_losses", "bitwise", "split_gnorm_gaps")}
+    out = {k: [] for k in ("losses", "dp_losses", "bitwise", "split_gnorm_gaps", "norm_gaps",
+                           "fsdp")}
     ms = []
     comm.reset_stats()
     for _ in range(steps):
@@ -3453,23 +3492,26 @@ def mesh_lockstep(cfg, mesh, steps: int) -> dict:
         batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
         rows = {k: torch.from_numpy(v[dp.rows]).to(DEVICE) for k, v in host.items()}
         state = AdamState(opt.step.clone(), shard(opt.mu), shard(opt.nu))
+        sh = shard(params)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        new, new_state, m_dp = dp.step_fn(shard(params), state, rows)
-        torch.cuda.synchronize()
+        (new, new_state, m_dp), fsdp = fsdp_step(dp, cfg, sh, lambda: dp.step_fn(sh, state,
+                                                                                 rows))
         ms.append(1e3 * (time.monotonic() - t0))
+        out["fsdp"].append(fsdp)
         acc, acc_opt, m_acc = halves.step_fn(
             clone(params), AdamState(opt.step.clone(), clone(opt.mu), clone(opt.nu)), batch)
         params, opt, m_one = one.step_fn(params, opt, batch)
-        out["bitwise"].append(bool(torch.equal(m_dp["gnorm"], m_acc["gnorm"])) and equal(
-            new, shard(acc)) and equal(new_state.mu, shard(acc_opt.mu)) and equal(
-            new_state.nu, shard(acc_opt.nu)))
+        out["bitwise"].append(equal(new, shard(acc)) and equal(new_state.mu, shard(acc_opt.mu))
+                              and equal(new_state.nu, shard(acc_opt.nu)))
+        out["norm_gaps"].append(abs(float(m_dp["gnorm"]) / float(m_acc["gnorm"]) - 1))
         out["split_gnorm_gaps"].append(abs(float(m_acc["gnorm"]) / float(m_one["gnorm"]) - 1))
         out["losses"].append(float(m_one["loss"]))
         out["dp_losses"].append(float(m_dp["loss"]))
-        del new, new_state, acc, acc_opt
+        del new, new_state, acc, acc_opt, sh
     return {**out, "ms_per_step": float(np.median(ms)),
             "collectives_per_step": comm.STATS["collectives"] / steps,
+            "predicted": dp.plan.train_collectives(cfg, tc.seq_len, split=True),
             "bytes_per_step": comm.STATS["bytes"] / steps}
 
 
@@ -3669,9 +3711,17 @@ def mesh_gates(ranks: list, ref: dict, t_ref: float) -> dict:
         fail(f"mesh 2x1 training: a step's loss {rel:.3g} relative from one device's step from "
              f"the same state > {MESH_TRAIN_TOL}")
     if not all(all(r["bitwise"]) for r in lock):
-        fail("mesh 2x1 training: the global gradient norm or a rank's updated shards differ "
-             "from one device's step over the same two halves of the batch: "
-             f"{[r['bitwise'] for r in lock]}")
+        fail("mesh 2x1 training: a rank's updated shards differ from one device's step over "
+             f"the same two halves of the batch: {[r['bitwise'] for r in lock]}")
+    norm_gap = max(max(r["norm_gaps"]) for r in lock)
+    if norm_gap > MESH_NORM_TOL:
+        fail(f"mesh 2x1 training: the global norm {norm_gap:.3g} relative from the "
+             f"microbatched step's > {MESH_NORM_TOL}")
+    for i, r in enumerate(lock):
+        if r["collectives_per_step"] != r["predicted"]:
+            fail(f"mesh 2x1 training: rank {i} made {r['collectives_per_step']} collectives a "
+                 f"step, predicted {r['predicted']}")
+        r["fsdp_report"] = [fsdp_check(f"mesh 2x1 training: rank {i}", f) for f in r["fsdp"]]
     split_gap = max(lock[0]["split_gnorm_gaps"])
     like = build_model(mesh_cfg("vusa_edge", MESH_TRAIN_LAYERS)).init(0, device=DEVICE)
     got = restore(MESH_DIR / "ckpt", MESH_CKPT_STEPS, {"params": like, "opt": adamw_init(like)})
@@ -3706,9 +3756,12 @@ def mesh_gates(ranks: list, ref: dict, t_ref: float) -> dict:
         "card_peak_above_state_per_rank": [sv["save_peak"] for sv in saves],
         "writer_host_peak": host["host_peak"]}
     res["train"]["2x1"] = {k: v for k, v in lock[0].items() if k not in (
-        "losses", "dp_losses", "bitwise", "split_gnorm_gaps")}
+        "losses", "dp_losses", "bitwise", "split_gnorm_gaps", "norm_gaps", "fsdp",
+        "fsdp_report")}
     res["train"]["2x1_lockstep"] = {
-        "loss_gap_rel": rel, "gnorm_and_shards_bitwise_microbatched": True,
+        "loss_gap_rel": rel, "shards_bitwise_microbatched": True,
+        "gnorm_gap_rel_microbatched": norm_gap,
+        "fsdp_per_rank": [r["fsdp_report"][0] for r in lock],
         "microbatched_vs_whole_gnorm_gap_rel": split_gap}
     del got, like
     release()
@@ -3983,6 +4036,82 @@ def tpt_batches(cfg, tc, rows=None):
         yield whole, whole if rows is None else {k: v[rows] for k, v in whole.items()}
 
 
+def fsdp_terms(tr, shards: dict) -> dict:
+    """The terms of a rank's FSDP gates (``FSDP_BOUND_TERMS``) from its
+    shards under the trainer's placements: ``grads`` its gradient shards'
+    bytes (fp32, its parameters' shapes), ``layer`` the largest layer's
+    leaves as the compute reads them (whole over ``data``, and an attention
+    leaf whole over ``model`` where the heads do not split), ``layer_data``
+    its leaves gathered over ``data`` alone (what ``comm.GATHERED``
+    counts), ``top`` the top-level leaves gathered over ``data``."""
+    sizes = comm.mesh_shape(tr.mesh)
+    dp, tp = sizes.get("data", 1), sizes.get("model", 1)
+    read, data, top, grads = {}, {}, 0, 0
+    for (path, t), (_, pl) in zip(tree_items(shards), tree_items(tr.p_shard)):
+        grads += t.numel() * 4
+        if path[0] in ("layers", "enc_layers", "dec_layers", "groups", "tail"):
+            key = path[:2] if path[0] in ("groups", "tail") else path[:1]
+            n = t.numel() * t.element_size() // (t.shape[0] if path[0] != "tail" else 1)
+            whole_model = ("model" in pl and not tr.plan.heads
+                           and any(path[:len(a)] == a for a in tr.plan.attn))
+            read[key] = read.get(key, 0) + (n * (dp if "data" in pl else 1)
+                                            * (tp if whole_model else 1))
+            data[key] = data.get(key, 0) + (n * dp if "data" in pl else 0)
+        elif "data" in pl:
+            top += t.numel() * t.element_size() * dp
+    return {"grads": grads, "layer": max(read.values(), default=0),
+            "layer_data": max(data.values(), default=0), "top": top}
+
+
+def fsdp_step(tr, cfg, shards: dict, run, microbatches: int = 1):
+    """``run()``, one training step (or its loss and gradients) of this
+    rank, measured for the FSDP gates: its card peak above what the process
+    held before it, the peak of the leaves gathered over ``data`` alive at
+    once (``comm.GATHERED``), its ``fsdp-gather`` and ``reduce-scatter``
+    counts and bytes beside ``TPPlan.fsdp_traffic``'s, and
+    ``fsdp_terms``.  Returns (``run()``'s result, the record)."""
+    kinds = ("fsdp-gather", "reduce-scatter")
+    rec = fsdp_terms(tr, shards)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = {k: dict(comm.STATS["by_type"].get(k, {"count": 0, "bytes": 0})) for k in kinds}
+    comm.reset_gathered()
+    out = run()
+    torch.cuda.synchronize()
+    rec["peak_above_held"] = torch.cuda.max_memory_allocated() - held
+    rec["gathered_peak"] = comm.GATHERED["peak"]
+    after = comm.STATS["by_type"]
+    rec["traffic"] = {k: {f: after.get(k, {"count": 0, "bytes": 0})[f] - before[k][f]
+                          for f in ("count", "bytes")} for k in kinds}
+    rec["traffic_want"] = tr.plan.fsdp_traffic(cfg, microbatches, split=tr.rows is not None)
+    return out, rec
+
+
+def fsdp_check(what: str, rec: dict, act_one=None) -> dict:
+    """The FSDP gates of one rank's ``fsdp_step`` record (fails on a
+    miss): its traffic as predicted, the gathered leaves' peak at most two
+    layers' plus the top-level leaves', and with ``act_one`` (one device's
+    activations and temporaries, bytes) its card peak at most the
+    predicted bound (``FSDP_BOUND_TERMS``).  Returns the report."""
+    if rec["traffic"] != rec["traffic_want"]:
+        fail(f"{what}: FSDP traffic {rec['traffic']}, predicted {rec['traffic_want']}")
+    gathered_bound = 2 * rec["layer_data"] + rec["top"]
+    if rec["gathered_peak"] > gathered_bound:
+        fail(f"{what}: {rec['gathered_peak']} bytes gathered over data alive at once, above two "
+             f"layers' and the top-level leaves' {gathered_bound}")
+    out = {k: rec[k] for k in ("peak_above_held", "gathered_peak", "grads", "layer", "top",
+                               "traffic")}
+    out["gathered_bound"] = gathered_bound
+    if act_one is not None:
+        bound = rec["grads"] + 3 * rec["layer"] + 2 * rec["top"] + max(int(act_one), 0)
+        out.update(bound=bound, one_device_activations=max(int(act_one), 0))
+        if rec["peak_above_held"] > bound:
+            fail(f"{what}: card peak {rec['peak_above_held']} bytes above the state, over the "
+                 f"predicted {bound} ({' + '.join(FSDP_BOUND_TERMS)})")
+    return out
+
+
 def tpt_lockstep(cfg, mesh, steps: int, refresh_at: int) -> dict:
     """(c1)/(c3): ``steps`` tensor-parallel steps on ``mesh``, each from this
     rank's shards of one device's state (``device_init``'s weights, as
@@ -4002,7 +4131,7 @@ def tpt_lockstep(cfg, mesh, steps: int, refresh_at: int) -> dict:
     shard = functools.partial(shard_tree, placements=tp.p_shard, mesh=mesh)
     spec = [pl for _, pl in tree_items(tp.p_shard)]
     rec = {k: [] for k in ("loss_gaps", "norm_gaps", "grad_gaps", "ms", "one_ms",
-                           "collectives", "bytes", "same", "replicated")}
+                           "collectives", "bytes", "same", "replicated", "fsdp")}
     for k, (batch, rows) in zip(range(steps), tpt_batches(cfg, tc, tp.rows)):
         sh = shard(params)
         if k == refresh_at:
@@ -4015,9 +4144,10 @@ def tpt_lockstep(cfg, mesh, steps: int, refresh_at: int) -> dict:
         comm.reset_stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        _, _, got = tp.step_fn(sh, state, rows, return_grads=True)
-        torch.cuda.synchronize()
+        (_, _, got), fsdp = fsdp_step(tp, cfg, sh, lambda: tp.step_fn(sh, state, rows,
+                                                                      return_grads=True))
         rec["ms"].append(1e3 * (time.monotonic() - t0))
+        rec["fsdp"].append(fsdp)
         rec["collectives"].append(comm.STATS["collectives"])
         rec["bytes"].append(comm.STATS["bytes"])
         t0 = time.monotonic()
@@ -4221,7 +4351,11 @@ def ep_train_oracle(layers: int) -> dict:
     rec = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
            "ms": 1e3 * (time.monotonic() - t0),
            "peak_bytes": torch.cuda.max_memory_allocated() - held, "routing": routing[0],
-           "path": str(TP_DIR / "d3" / str(layers))}
+           "path": str(TP_DIR / "d3" / str(layers)),
+           "tree_bytes": sum(t.numel() * t.element_size() for _, t in tree_items(params))}
+    # its activations and temporaries: the peak above its parameters, both
+    # moments and its gradients
+    rec["activations"] = rec["peak_bytes"] - 4 * rec["tree_bytes"]
     rec["gmax"] = save_grads(Path(rec["path"]), paths, m["grads"])
     del params, opt, m
     release()
@@ -4243,16 +4377,15 @@ def ep_train(cfg, mesh, path: str, gmax: dict) -> tuple:
     comm.reset_stats()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    (shards, opt, m), routing = ep_routing(
-        lambda: tr.step_fn(shards, opt, rows, return_grads=True))
-    torch.cuda.synchronize()
+    ((shards, opt, m), routing), fsdp = fsdp_step(tr, cfg, shards, lambda: ep_routing(
+        lambda: tr.step_fn(shards, opt, rows, return_grads=True)))
     ms = 1e3 * (time.monotonic() - t0)
     rec = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]), "ms": ms,
            "collectives": comm.STATS["collectives"], "bytes": comm.STATS["bytes"],
            "predicted": tr.plan.train_collectives(cfg, TRAIN_SEQ, split=tr.rows is not None),
            "routing": routing[0], "rows": None if tr.rows is None else (tr.rows.start,
                                                                         tr.rows.stop),
-           "experts": tr.plan.experts}
+           "experts": tr.plan.experts, "fsdp": fsdp}
     gaps = grad_gaps(path, tr.p_shard, m["grads"], gmax, mesh)
     rec["grad_gap"] = max(gaps.values())
     rec["grad_gap_leaf"] = max(gaps, key=gaps.get)
@@ -4379,6 +4512,7 @@ def ep_gates(ranks: list, oracle: dict) -> dict:
             if r["collectives"] != r["predicted"] or not r["experts"]:
                 fail(f"{what}: {r['collectives']} collectives, predicted {r['predicted']}, "
                      f"experts split {r['experts']}")
+            r["fsdp_report"] = fsdp_check(what, r["fsdp"], t["activations"])
             want = t["routing"]
             for k in ("eids", "pos", "dropped"):
                 w = want[k]
@@ -4393,7 +4527,9 @@ def ep_gates(ranks: list, oracle: dict) -> dict:
                     "grad_gap_leaf": recs[0]["grad_gap_leaf"],
                     "dropped_layer0": int(t["routing"]["dropped"].sum()),
                     "layers": EP_TRAIN_LAYERS[mesh_name],
-                    "one_device": {k: t[k] for k in ("loss", "gnorm", "ms", "peak_bytes")},
+                    "one_device": {k: t[k] for k in ("loss", "gnorm", "ms", "peak_bytes",
+                                                     "tree_bytes", "activations")},
+                    "fsdp_per_rank": [r["fsdp_report"] for r in recs],
                     **{k: recs[0][k] for k in ("collectives", "predicted", "bytes", "ms")}}
     served, one = ranks[0]["served"], ranks[0]["served_one"]
     if not np.array_equal(served["tokens"], one["tokens"]):
@@ -4404,6 +4540,19 @@ def ep_gates(ranks: list, oracle: dict) -> dict:
                      **{k: served[k] for k in ("ms_per_step", "collectives_per_step")},
                      "one_device_ms_per_step": one["ms_per_step"]}
     return res
+
+
+def fsdp_line(reports: list) -> str:
+    """One line of the ranks' FSDP reports (``fsdp_check``)."""
+    peak = max(r["peak_above_held"] for r in reports)
+    line = (f"FSDP: a rank's card peak above its state {peak} bytes"
+            + (f" (predicted bound {max(r['bound'] for r in reports)})"
+               if "bound" in reports[0] else "")
+            + f", gathered over data alive at once {max(r['gathered_peak'] for r in reports)} "
+            f"(bound {reports[0]['gathered_bound']}), fsdp-gather "
+            f"{reports[0]['traffic']['fsdp-gather']} reduce-scatter "
+            f"{reports[0]['traffic']['reduce-scatter']} a rank as predicted")
+    return line
 
 
 def print_ep(e: dict, card: str) -> None:
@@ -4431,8 +4580,8 @@ def print_ep(e: dict, card: str) -> None:
               f"{r['grad_gap_max']:.3g} (largest at {r['grad_gap_leaf']}), layer 0 routing "
               f"bitwise one device's whole-batch step ({r['dropped_layer0']} assignments "
               f"dropped), {r['collectives']} collectives (predicted {r['predicted']}), "
-              f"{r['bytes']} bytes, {r['ms']:.1f} ms (one device {r['one_device']['ms']:.1f}) "
-              f"({card})", flush=True)
+              f"{r['bytes']} bytes, {r['ms']:.1f} ms (one device {r['one_device']['ms']:.1f}); "
+              f"{fsdp_line(r['fsdp_per_rank'])} ({card})", flush=True)
     s = e["served"]
     print(f"ep train olmoe 1x4 shards served on 1x4: first-step gap "
           f"{s['first_step_gap_rel']:.3g}, token agreement {s['token_agreement']:.3f} with one "
@@ -4525,10 +4674,13 @@ def tpr_config(cfg) -> TrainConfig:
 
 
 def tpr_grads(tr, params: dict, batch: dict) -> tuple:
-    """The trainer's loss of ``batch`` and its fp32 gradients (``tree_items``
-    order) under its plan, without the optimizer (``train/step.py``'s
-    ``_value_and_grad`` inside ``_tp_step``'s context; on one ``model``
-    axis and no ``data`` axis the step holds its leaves as stored)."""
+    """The trainer's loss of ``batch`` (this rank's rows) and its fp32
+    gradients (``tree_items`` order) under its plan, without the optimizer,
+    as ``train/step.py``'s sharded step takes them: each layer's leaves
+    gathered over ``data`` at use, their gradients reduce-scattered where
+    the rows split, then the loss and the gradients of the leaves no
+    ``data`` dim holds summed over the data ranks in rank order and
+    divided by their count (one ``comm.sum_in_rank_order``)."""
     paths, leaves = zip(*tree_items(params))
     live = [t.detach().requires_grad_(True) for t in leaves]
     tree: dict = {}
@@ -4537,10 +4689,22 @@ def tpr_grads(tr, params: dict, batch: dict) -> tuple:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = t
-    with mesh_context(tr.mesh, tr.plan):
+    axes = _batch_axes(tr.mesh)
+    with mesh_context(tr.mesh, tr.plan, None if tr.rows is None else (tr.mesh, axes)):
         loss = tr.model.loss(tree, batch)
-    grads = torch.autograd.grad(loss, live)
-    return loss.detach(), [g.float() for g in grads]
+    grads = [g.float() for g in torch.autograd.grad(loss, live)]
+    loss = loss.detach()
+    if tr.rows is not None:
+        n = math.prod(comm.axis_size(tr.mesh, a) for a in axes)
+        rest = [i for i, (_, pl) in enumerate(tree_items(tr.p_shard)) if "data" not in pl]
+        total = comm.sum_in_rank_order(torch.cat([loss.reshape(1)] + [grads[i].reshape(-1)
+                                                                      for i in rest]),
+                                       tr.mesh, axes) / n
+        loss, off = total[0], 1
+        for i in rest:
+            grads[i] = total[off:off + grads[i].numel()].view_as(grads[i])
+            off += grads[i].numel()
+    return loss, grads
 
 
 GRAD_WRITES: list = []  # threads writing one device's gradients (``save_grads``)
@@ -4632,7 +4796,11 @@ def tpr_train_oracle(arch: str) -> dict:
     torch.cuda.synchronize()
     rec = {"loss": float(loss), "ms": 1e3 * (time.monotonic() - t0),
            "peak_bytes": torch.cuda.max_memory_allocated() - held, "layers": layers,
-           "path": str(TPR_DIR / arch)}
+           "path": str(TPR_DIR / arch),
+           "tree_bytes": sum(t.numel() * t.element_size() for _, t in tree_items(params))}
+    # its activations and temporaries: the peak above its parameters and
+    # gradients (and both moments, a whole step's)
+    rec["activations"] = rec["peak_bytes"] - (4 if whole_step else 2) * rec["tree_bytes"]
     rec["gmax"] = save_grads(TPR_DIR / arch, paths, grads, skip)
     del params, grads
     release()
@@ -4657,17 +4825,21 @@ def tpr_train(arch: str, mesh, path: str, gmax: dict) -> tuple:
     torch.cuda.synchronize()
     t0 = time.monotonic()
     if whole_step:
-        shards, _, m = tr.step_fn(shards, adamw_init(shards), rows, return_grads=True)
+        opt = adamw_init(shards)
+        (shards, _, m), fsdp = fsdp_step(tr, cfg, shards, lambda: tr.step_fn(
+            shards, opt, rows, return_grads=True))
+        del opt
         loss, got = m["loss"], m["grads"]
         predicted = tr.plan.train_collectives(cfg, tr.tc.seq_len, split=split)
     else:
-        loss, got = tpr_grads(tr, shards, rows)
-        predicted = tr.plan.grad_collectives(cfg, tr.tc.seq_len, split=split)
+        (loss, got), fsdp = fsdp_step(tr, cfg, shards, lambda: tpr_grads(tr, shards, rows))
+        # and the data ranks' sum of the loss and the leaves off data: one
+        # all-reduce over one axis of two
+        predicted = tr.plan.grad_collectives(cfg, tr.tc.seq_len, split=split) + int(split)
         shards = None
-    torch.cuda.synchronize()
     rec = {"loss": float(loss), "ms": 1e3 * (time.monotonic() - t0),
            "collectives": comm.STATS["collectives"], "bytes": comm.STATS["bytes"],
-           "predicted": predicted, "whole_step": whole_step,
+           "predicted": predicted, "whole_step": whole_step, "fsdp": fsdp,
            "split": {k: getattr(tr.plan, k) for k in ("heads", "ff", "vocab", "ssm", "rglru")}}
     gaps = grad_gaps(path, tr.p_shard, got, gmax, mesh)
     rec["grad_gap"] = max(gaps.values())
@@ -4805,11 +4977,14 @@ def tpr_gates(ranks: list, oracle: dict) -> dict:
                      f"gap {r['grad_gap']:.3g} at {r['grad_gap_leaf']} (limit {grad_tol})")
             if r["collectives"] != r["predicted"]:
                 fail(f"{what}: {r['collectives']} collectives, predicted {r['predicted']}")
+            r["fsdp_report"] = fsdp_check(what, r["fsdp"], t["activations"])
         res["train"][f"{arch} {name}"] = {
             "loss_gap_max": max(abs(r["loss"] / t["loss"] - 1) for r in recs),
             "grad_gap_max": max(r["grad_gap"] for r in recs), "layers": t["layers"],
             "grad_gap_leaf": max(recs, key=lambda r: r["grad_gap"])["grad_gap_leaf"],
-            "one_device": {k: t[k] for k in ("loss", "ms", "peak_bytes")},
+            "one_device": {k: t[k] for k in ("loss", "ms", "peak_bytes", "tree_bytes",
+                                             "activations")},
+            "fsdp_per_rank": [r["fsdp_report"] for r in recs],
             **{k: lead[k] for k in ("collectives", "predicted", "bytes", "ms", "whole_step",
                                     "split", "compared")}}
     for arch, s in ranks[0]["served"].items():
@@ -4851,7 +5026,8 @@ def print_tpr(e: dict, card: str) -> None:
               f"{r['grad_gap_max']:.3g} (largest at {r['grad_gap_leaf']}; {r['compared']} leaves "
               f"compared), {r['collectives']} "
               f"collectives (predicted {r['predicted']}), {r['bytes']} bytes, {r['ms']:.1f} ms "
-              f"(one device {r['one_device']['ms']:.1f}) ({card})", flush=True)
+              f"(one device {r['one_device']['ms']:.1f}); {fsdp_line(r['fsdp_per_rank'])} "
+              f"({card})", flush=True)
     for arch, s in e["served"].items():
         print(f"tp train {arch} 1x4 shards served on 1x4: first-step gap "
               f"{s['first_step_gap_rel']:.3g}, token agreement {s['token_agreement']:.3f} with "
@@ -4891,7 +5067,11 @@ def enc_train_oracle() -> dict:
     m = tr.step_fn(params, adamw_init(params), batch, return_grads=True)[2]
     torch.cuda.synchronize()
     rec = {"loss": float(m["loss"]), "ms": 1e3 * (time.monotonic() - t0),
-           "peak_bytes": torch.cuda.max_memory_allocated() - held, "path": str(ENC_DIR)}
+           "peak_bytes": torch.cuda.max_memory_allocated() - held, "path": str(ENC_DIR),
+           "tree_bytes": sum(t.numel() * t.element_size() for _, t in tree_items(params))}
+    # its activations and temporaries: the peak above its parameters, both
+    # moments and its gradients
+    rec["activations"] = rec["peak_bytes"] - 4 * rec["tree_bytes"]
     rec["gmax"] = save_grads(ENC_DIR, paths, m["grads"])
     del params, m
     release()
@@ -4908,20 +5088,21 @@ def enc_train(mesh, path: str, gmax: dict) -> dict:
     tr = Trainer(cfg, tpt_config(1, ENC_TRAIN_BATCH), device=DEVICE, mesh=mesh)
     _, rows = enc_batch(cfg, tr.tc, tr.rows)
     shards = sharded_init(cfg, mesh, tr.p_shard)
+    opt = adamw_init(shards)
     comm.reset_stats()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    m = tr.step_fn(shards, adamw_init(shards), rows, return_grads=True)[2]
-    torch.cuda.synchronize()
+    (_, _, m), fsdp = fsdp_step(tr, cfg, shards, lambda: tr.step_fn(shards, opt, rows,
+                                                                   return_grads=True))
     rec = {"loss": float(m["loss"]), "ms": 1e3 * (time.monotonic() - t0),
            "collectives": comm.STATS["collectives"], "bytes": comm.STATS["bytes"],
            "predicted": tr.plan.train_collectives(cfg, TRAIN_SEQ, split=tr.rows is not None,
                                                   frames=ENC_FRAMES),
-           "split": {k: getattr(tr.plan, k) for k in ("heads", "ff", "vocab")}}
+           "split": {k: getattr(tr.plan, k) for k in ("heads", "ff", "vocab")}, "fsdp": fsdp}
     gaps = grad_gaps(path, tr.p_shard, m["grads"], gmax, mesh)
     rec.update(grad_gap=max(gaps.values()), grad_gap_leaf=max(gaps, key=gaps.get),
                compared=len(gaps))
-    del shards, m
+    del shards, opt, m
     release()
     return rec
 
@@ -5009,11 +5190,14 @@ def enc_gates(ranks: list, oracle: dict) -> dict:
                      f"gap {r['grad_gap']:.3g} at {r['grad_gap_leaf']} (limit {grad_tol})")
             if r["collectives"] != r["predicted"]:
                 fail(f"{what}: {r['collectives']} collectives, predicted {r['predicted']}")
+            r["fsdp_report"] = fsdp_check(what, r["fsdp"], t["activations"])
         res["train"][name] = {
             "loss_gap_max": max(abs(r["loss"] / t["loss"] - 1) for r in recs),
             "grad_gap_max": max(r["grad_gap"] for r in recs),
             "grad_gap_leaf": max(recs, key=lambda r: r["grad_gap"])["grad_gap_leaf"],
-            "one_device": {k: t[k] for k in ("loss", "ms", "peak_bytes")},
+            "one_device": {k: t[k] for k in ("loss", "ms", "peak_bytes", "tree_bytes",
+                                             "activations")},
+            "fsdp_per_rank": [r["fsdp_report"] for r in recs],
             **{k: recs[0][k] for k in ("collectives", "predicted", "bytes", "ms", "split",
                                        "compared")}}
     res["part_s"] = oracle["seconds"] + res["ranks_s"] + time.monotonic() - t_gates
@@ -5043,8 +5227,8 @@ def print_enc(f: dict, card: str) -> None:
               f"{r['split']}: gaps loss {r['loss_gap_max']:.3g} gradient shard "
               f"{r['grad_gap_max']:.3g} (largest at {r['grad_gap_leaf']}; {r['compared']} "
               f"leaves compared), {r['collectives']} collectives (predicted {r['predicted']}), "
-              f"{r['bytes']} bytes, {r['ms']:.1f} ms (one device {r['one_device']['ms']:.1f}) "
-              f"({card})", flush=True)
+              f"{r['bytes']} bytes, {r['ms']:.1f} ms (one device {r['one_device']['ms']:.1f}); "
+              f"{fsdp_line(r['fsdp_per_rank'])} ({card})", flush=True)
     print(f"tensor-parallel part (f) {f['part_s']:.1f}s (limit {ENC_PHASE_LIMIT_S:.0f}s; "
           f"oracles {f['oracle_s']:.1f}s, the slowest rank {f['ranks_s']:.1f}s, by part "
           f"{tpt_part_seconds(f)})", flush=True)
@@ -5268,6 +5452,7 @@ def tpt_gates(ranks: list, q_oracle: dict, free_ref: dict) -> dict:
             if any(c != r["predicted"] for c in r["collectives"]):
                 fail(f"tp train {what}: rank {i} made {r['collectives']} collectives a step, "
                      f"predicted {r['predicted']}")
+            r["fsdp_report"] = [fsdp_check(f"tp train {what}: rank {i}", f) for f in r["fsdp"]]
             if not r.get("masks_equal"):
                 fail(f"tp train {what}: rank {i}'s masks refreshed leaf by leaf differ from "
                      "one device's")
@@ -5282,6 +5467,7 @@ def tpt_gates(ranks: list, q_oracle: dict, free_ref: dict) -> dict:
                 "norm_gap_max": max(max(x["norm_gaps"]) for x in recs),
                 "grad_gap_max": max(max(x["grad_gaps"]) for x in recs),
                 "collectives_per_step": r["collectives"][0], "predicted": r["predicted"],
+                "fsdp_per_rank": [x["fsdp_report"][0] for x in recs],
                 "bytes_per_step": float(np.mean(r["bytes"])),
                 "ms_per_step": float(np.median(r["ms"])),
                 "one_device_ms_per_step": float(np.median(r["one_ms"])), "ranks": len(recs)}

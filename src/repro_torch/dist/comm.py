@@ -21,11 +21,23 @@ as the primitives' do, the backward's too.  A fourth, ``batch_totals``,
 serves the ranks that split one batch's rows (the moe routing,
 ``models/layers.py moe``): every rank's integer counts and the ordered sum
 of a float vector, in one gather.
+
+The FSDP pair serves the leaves stored on ``data`` (``dist/sharding.py``:
+every weight's d_model dim): ``reduce_scatter_in_rank_order`` adds each
+rank's chunk of a tensor over the pure data axes in their flattened rank
+order and leaves each rank only its own chunk (the bits of
+``local_shard(sum_in_rank_order(t))``, about 1/n of its bytes received),
+and ``gather_data`` gathers leaves whole over ``data`` with that
+reduce-scatter as its backward, so a training step holds one layer's
+leaves whole at a time (``dist/tp.py TPPlan.layer``).  ``GATHERED`` counts
+the bytes of the leaves ``gather_data`` holds gathered.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -33,16 +45,30 @@ import torch.distributed as dist
 __all__ = ["STATS", "reset_stats", "axis_size", "axis_index", "axes_index", "mesh_shape",
            "all_gather", "gather_axes", "sum_in_rank_order", "broadcast", "broadcast_mesh",
            "gather_leaves", "enter_model", "sum_model", "gather_model", "gather_model_leaves",
-           "batch_totals"]
+           "batch_totals", "reduce_scatter_in_rank_order", "reduce_scatter_leaves",
+           "gather_data", "GATHERED", "reset_gathered"]
 
 # collectives made and bytes this rank received, since the last reset, in
-# all and per type ("by_type": {"all-gather" | "all-reduce" | "broadcast":
-# {"count", "bytes"}}, what ``launch/op_cost.py`` reports)
+# all and per type ("by_type": {"all-gather" | "all-reduce" | "broadcast" |
+# "fsdp-gather" | "reduce-scatter": {"count", "bytes"}}, what
+# ``launch/op_cost.py`` reports; "fsdp-gather" is ``gather_data``'s)
 STATS = {"collectives": 0, "bytes": 0, "by_type": {}}
+
+# bytes of the leaves ``gather_data`` made that are still alive, and their
+# peak since the last reset (each output's storage watched by a weakref; a
+# backward's recompute gathers on autograd's thread, hence the lock)
+GATHERED = {"live": 0, "peak": 0}
+_GATHERED_LOCK = threading.Lock()
 
 
 def reset_stats() -> None:
     STATS.update(collectives=0, bytes=0, by_type={})
+
+
+def reset_gathered() -> None:
+    """Restart ``GATHERED``'s peak from the bytes alive now."""
+    with _GATHERED_LOCK:
+        GATHERED["peak"] = GATHERED["live"]
 
 
 def _count(kind: str, nbytes: int) -> None:
@@ -87,16 +113,18 @@ def axes_index(mesh, names) -> int:
     return r
 
 
-def all_gather(t: torch.Tensor, mesh, name: str, dim: int = 0) -> torch.Tensor:
+def all_gather(t: torch.Tensor, mesh, name: str, dim: int = 0,
+               kind: str = "all-gather") -> torch.Tensor:
     """The shards of ``t`` of every rank of axis ``name`` concatenated along
-    ``dim`` in axis order (every shard the same shape)."""
+    ``dim`` in axis order (every shard the same shape); counted in
+    ``STATS`` as ``kind``."""
     n = axis_size(mesh, name)
     if n == 1:
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=mesh.get_group(name))
-    _count("all-gather", (n - 1) * t.numel() * t.element_size())
+    _count(kind, (n - 1) * t.numel() * t.element_size())
     return torch.cat(parts, dim=dim)
 
 
@@ -142,22 +170,89 @@ def sum_in_rank_order(t: torch.Tensor, mesh, name) -> torch.Tensor:
     return out
 
 
-def gather_leaves(tensors: list, dims: list, mesh, name: str) -> list:
+def gather_leaves(tensors: list, dims: list, mesh, name: str, kind: str = "all-gather") -> list:
     """``all_gather`` of each of ``tensors`` along its ``dims`` entry over
-    axis ``name``, in one collective: the shards are flattened into one
-    buffer, gathered, and cut apart again (the same bits as a gather a
-    tensor).  Every tensor shares one dtype."""
+    axis ``name``, in one collective (counted as ``kind``): the shards are
+    flattened into one buffer, gathered, and cut apart again (the same bits
+    as a gather a tensor).  Every tensor shares one dtype."""
     n = axis_size(mesh, name)
     if n == 1 or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    whole = all_gather(flat[None], mesh, name, dim=0)  # (n, total), rank order
+    whole = all_gather(flat[None], mesh, name, dim=0, kind=kind)  # (n, total), rank order
     out, off = [], 0
     for t, dim in zip(tensors, dims):
         part = whole[:, off:off + t.numel()].reshape(n, *t.shape)
         out.append(torch.cat(part.unbind(0), dim=dim))
         off += t.numel()
     return out
+
+
+def _all_to_all(t: torch.Tensor, mesh, name: str) -> torch.Tensor:
+    """Row j of ``t`` (n, m) sent to rank j of axis ``name``; row j of the
+    result is what rank j sent this rank.  Gloo's all-to-all is run on host
+    copies of a CUDA tensor (gloo stages its CUDA collectives through host
+    memory anyway)."""
+    group = mesh.get_group(name)
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        host = t.cpu()
+        out = torch.empty_like(host)
+        dist.all_to_all_single(out, host, group=group)
+        return out.to(t.device)
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+def reduce_scatter_leaves(tensors: list, dims: list, mesh, axes, over: str = "data") -> list:
+    """``reduce_scatter_in_rank_order`` of each of ``tensors`` along its
+    ``dims`` entry, in one collective an axis: the chunks are flattened
+    into one buffer a rank, exchanged, added and cut apart (an elementwise
+    sum, so the same bits as one call a tensor).  Every tensor shares one
+    dtype."""
+    axes = _live_axes(mesh, axes)
+    if not tensors or not axes:
+        return list(tensors)
+    if over in axes and axes[-1] != over:
+        raise ValueError(f"the scattered axis {over!r} must be the innermost of {axes}")
+    ns = axis_size(mesh, over)
+    shards = [tuple(n // ns if i == d else n for i, n in enumerate(t.shape))
+              for t, d in zip(tensors, dims)]
+    buf = torch.cat([torch.stack(t.chunk(ns, dim=d)).reshape(ns, -1)
+                     for t, d in zip(tensors, dims)], dim=1)  # (ns, total): rank j's chunks
+    if ns > 1:
+        buf = _all_to_all(buf.contiguous(), mesh, over)
+        _count("reduce-scatter", (ns - 1) * buf[0].numel() * buf.element_size())
+    parts = buf[None]  # (1, ns, total)
+    for a in reversed([a for a in axes if a != over]):  # the outer axes, innermost first
+        parts = all_gather(parts, mesh, a, dim=0, kind="reduce-scatter")
+    parts = parts.reshape(-1, buf.shape[1])  # flattened rank order, the outer axis first
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    res, off = [], 0
+    for shape in shards:
+        k = math.prod(shape)
+        res.append(out[off:off + k].reshape(shape))
+        off += k
+    return res
+
+
+def reduce_scatter_in_rank_order(t: torch.Tensor, mesh, axes, dim: int,
+                                 over: str = "data") -> torch.Tensor:
+    """This rank's chunk of the sum of ``t`` over the ranks of ``axes`` (a
+    name or a tuple, flattened row-major as ``sum_in_rank_order`` orders
+    them), ``t`` cut along ``dim`` into one chunk a rank of axis ``over``
+    (the innermost of ``axes``; the chunk this rank's ``over`` coordinate
+    names, whatever its coordinate on the outer axes): the bits of
+    ``local_shard(sum_in_rank_order(t, mesh, axes))`` under a placement with
+    ``over`` on ``dim``.  Each rank receives its chunk from every rank of
+    its ``over`` axis (one all-to-all), then those of every rank of the
+    outer axes (one gather an axis), and adds the n chunks in rank order:
+    (n - 1) chunks received, (n - 1) / n of ``t``'s bytes on one axis, where
+    the ordered sum receives (n - 1) times them.  Counted in ``STATS`` as
+    ``"reduce-scatter"``, one collective an axis of size > 1."""
+    return reduce_scatter_leaves([t], [dim], mesh, axes, over)[0]
 
 
 def broadcast(t: torch.Tensor, mesh, name: str, src: int = 0) -> torch.Tensor:
@@ -281,6 +376,67 @@ def gather_model_leaves(ys: list, dims: list, mesh) -> list:
     if torch.is_grad_enabled() and any(y.requires_grad for y in ys):
         return list(_GatherModel.apply(mesh, tuple(dims), *ys))
     return gather_leaves(list(ys), list(dims), mesh, "model")
+
+
+# -- FSDP: leaves gathered whole over ``data`` at use ---------------------------------
+
+
+def _watch(ts) -> None:
+    """Add the bytes of ``ts`` (fresh tensors, one storage each) to
+    ``GATHERED`` until each storage is freed."""
+    for t in ts:
+        st = t.untyped_storage()
+        nbytes = st.nbytes()
+        with _GATHERED_LOCK:
+            GATHERED["live"] += nbytes
+            GATHERED["peak"] = max(GATHERED["peak"], GATHERED["live"])
+        weakref.finalize(st, _unwatch, nbytes)
+
+
+def _unwatch(nbytes: int) -> None:
+    with _GATHERED_LOCK:
+        GATHERED["live"] -= nbytes
+
+
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, dims, axes, *ys):
+        ctx.mesh, ctx.dims, ctx.axes = mesh, dims, axes
+        ctx.sizes = [y.shape[d] for y, d in zip(ys, dims)]
+        ctx.rank = axis_index(mesh, "data")
+        out = gather_leaves(list(ys), list(dims), mesh, "data", kind="fsdp-gather")
+        _watch(out)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        if ctx.axes is None:  # every rank ran the whole batch: its own slice
+            return (None, None, None, *(g.narrow(d, ctx.rank * n, n)
+                                        for g, d, n in zip(gs, ctx.dims, ctx.sizes)))
+        n = math.prod(axis_size(ctx.mesh, a) for a in ctx.axes)
+        parts = reduce_scatter_leaves([g.contiguous() for g in gs], list(ctx.dims), ctx.mesh,
+                                      ctx.axes)
+        return (None, None, None, *(p / n for p in parts))
+
+
+def gather_data(ys: list, dims: list, mesh, axes=None) -> list:
+    """Each of ``ys`` (shards on ``data`` along its ``dims`` entry, one
+    dtype) gathered whole over ``data`` in one collective
+    (``gather_leaves``), under autograd differentiable: with ``axes`` (the
+    pure data axes the caller split the batch rows over, ``("pod",
+    "data")``) each gradient leaves through ``reduce_scatter_leaves`` over
+    them, divided by their rank count (the mean of the ranks' gradients,
+    as the trainer takes it), so it arrives summed and cut to this rank's
+    shard; with none (every rank ran the whole batch) it is cut to this
+    rank's slice.  The gather counts in ``STATS`` as ``"fsdp-gather"``, and
+    the outputs count in ``GATHERED`` while they live."""
+    if axis_size(mesh, "data") == 1 or not ys:
+        return list(ys)
+    if torch.is_grad_enabled() and any(y.requires_grad for y in ys):
+        return list(_GatherData.apply(mesh, tuple(dims), axes, *ys))
+    out = gather_leaves(list(ys), list(dims), mesh, "data", kind="fsdp-gather")
+    _watch(out)
+    return out
 
 
 # -- the totals of a batch whose rows the ranks split --------------------------------

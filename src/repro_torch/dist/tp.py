@@ -1,6 +1,6 @@
 """Tensor-parallel compute on sharded storage: the serving paths and the
 training steps of every family (dense, moe, vlm, hybrid, ssm and encdec)
-on a (data, model) mesh (ROADMAP A12, items 1-3).
+on a (data, model) mesh (ROADMAP A12, items 1-4).
 
 The reference's ``Engine`` places its parameters under
 ``params_shardings`` (heads, kv heads, ff, vocab, the SSM's inner dim and
@@ -60,10 +60,18 @@ through ``models.common.mesh_context``.  ``WholeView`` gathers one leaf at
 a time for the pack builders, so a rank never holds the whole tree.
 
 The trainer runs the same splits forward and backward (``training_plan``:
-the trainer's placements, ``params_shardings``, norm scales included).
-The step gathers every ``data``-sharded leaf once (``train/step.py``), so
-the compute holds each leaf at its ``model`` shard; the collectives are
-``comm``'s differentiable ones: a column-parallel product's input enters
+the trainer's placements, ``params_shardings``, norm scales included; on
+every mesh of more than one rank, a ``model`` axis of 1 too, where it
+splits nothing over ``model``).  FSDP as the reference's GSPMD runs it:
+each layer's ``data``-sharded leaves are gathered where the layer runs
+(``TPPlan.layer`` through ``comm.gather_data``, inside the layer's
+checkpointed call, so under remat they are dropped after its forward and
+gathered again in its recompute), the top-level leaves where they are
+read (``TPPlan.top``), and each gather's backward is a reduce-scatter in
+rank order over the pure data axes (``comm.reduce_scatter_in_rank_order``):
+a rank holds its shards, one layer's leaves whole at a time and that
+layer's whole gradient.  The other collectives are ``comm``'s
+differentiable ones: a column-parallel product's input enters
 through ``enter_model`` (its gradient summed over ``model`` in the
 backward), a row-parallel product leaves through ``sum_model``, the
 sequence-sharded attention through ``gather_model``.  The head stays
@@ -76,8 +84,10 @@ use differently (the gathered ``in_proj`` columns and conv weights, the
 norm's summed squares, the RG-LRU's summed gates): their gradients, each
 rank's part, are summed over ``model`` before a gather's backward cuts
 them.  A heads leaf gathered over ``model`` (its kv leaf whole) is
-gathered through ``gather_model``, so every replicated leaf's gradient is
-complete and the same bits on every ``model`` rank.
+gathered with its layer through ``gather_model``, so every replicated
+leaf's gradient is complete and the same bits on every ``model`` rank.
+``train_collectives`` and ``fsdp_traffic`` predict a step's collectives
+and its gathers' and reduce-scatters' bytes.
 """
 
 from __future__ import annotations
@@ -90,11 +100,11 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from ..models.common import per_row
+from ..models.common import current_rows, per_row
 from ..optim.adamw import tree_items
 from .comm import (
-    all_gather, axis_index, axis_size, enter_model, gather_leaves, gather_model_leaves,
-    mesh_shape, sum_model,
+    all_gather, axis_index, axis_size, enter_model, gather_data, gather_leaves,
+    gather_model_leaves, mesh_shape, sum_model,
 )
 from .sharding import _names, gather_whole, local_shard, params_shardings
 
@@ -119,7 +129,8 @@ class TPPlan:
     family's ``enc_layers/attn``, ``dec_layers/self_attn`` and
     ``dec_layers/cross_attn``); ``rank`` is
     this rank's ``model`` coordinate; ``train``: the trainer's plan, whose
-    step holds every leaf gathered over ``data`` (``held``)."""
+    forward gathers each layer's leaves over ``data`` at use (``layer``)
+    and its top-level leaves where it reads them (``top``, ``held``)."""
 
     mesh: object
     placements: dict
@@ -135,9 +146,11 @@ class TPPlan:
     attn: tuple = (("layers", "attn"),)
 
     def held(self, placement: tuple) -> tuple:
-        """The placement a leaf stored at ``placement`` is held at while the
-        plan computes: as stored, or under the training plan with every
-        ``data`` dim whole (the step gathers them once)."""
+        """The placement a top-level leaf stored at ``placement`` is read at
+        while the plan computes: as stored, or under the training plan with
+        every ``data`` dim whole (the training forward gathers its top-level
+        leaves where it uses them, ``top``; its layers' leaves ``layer``
+        gathers)."""
         return tuple(None if a == "data" else a for a in placement) if self.train else placement
 
     # -- a rank's sizes ------------------------------------------------------
@@ -164,29 +177,52 @@ class TPPlan:
                 out.append(axis)
         return tuple(out)
 
+    def _gather(self, axis: str, tensors: list, dims: list) -> list:
+        """``tensors`` (one dtype) gathered whole over ``axis`` in one
+        collective: under the training plan through the differentiable
+        gathers (``comm.gather_data``, whose backward reduce-scatters over
+        the axes the caller split the batch rows over, ``current_rows``;
+        ``comm.gather_model_leaves``), else ``comm.gather_leaves``."""
+        if not self.train:
+            return gather_leaves(tensors, dims, self.mesh, axis)
+        if axis == "model":
+            return gather_model_leaves(tensors, dims, self.mesh)
+        rows = current_rows()
+        return gather_data(tensors, dims, self.mesh, None if rows is None else rows[1])
+
     def layer(self, layers: dict, i: Optional[int], names: Optional[dict] = None,
-              placements: Optional[dict] = None, attn: tuple = ("attn",)) -> dict:
+              placements: Optional[dict] = None, attn: tuple = ("attn",),
+              lead: Optional[int] = None) -> dict:
         """Layer ``i`` of the stacked tree ``layers`` (``i`` None: the tree is
-        one unstacked layer, the hybrid's tail), its leaves ``names``
-        (``{group: (leaf, ...)}``; None: every leaf of every group) gathered
-        where they sit on an axis the compute wants whole: one collective an
-        axis for all of them.  ``placements``: the layer tree's placements
-        (default the plan's ``layers``); ``attn``: the groups that are
-        attention (their heads dims gathered where the heads do not split).
-        The gathered leaves live as long as the returned dict."""
+        one layer, the hybrid's tail or a layer the caller unstacked), its
+        leaves ``names`` (``{group: (leaf, ...)}``; None: every leaf, the
+        layer's own leaves such as its norm scales too) gathered where they
+        sit on an axis the compute wants whole: one collective an axis for
+        all of them.  ``placements``: the layer tree's placements (default
+        the plan's ``layers``); ``lead``: the dims of those placements the
+        layer no longer has (default 1 where ``i`` indexes the stack, else
+        0); ``attn``: the groups that are attention (their heads dims
+        gathered where the heads do not split).  Under the training plan the
+        gathers are differentiable (``_gather``).  The gathered leaves live
+        as long as the returned dict."""
         pls = self.placements["layers"] if placements is None else placements
-        lead = 0 if i is None else 1
+        if lead is None:
+            lead = 0 if i is None else 1
         lp = dict(layers) if i is None else {
             k: ({n: t[i] for n, t in v.items()} if isinstance(v, dict) else v[i])
             for k, v in layers.items()}
-        todo = {}  # (group, leaf) -> (tensor, placement now, placement wanted)
+        todo = {}  # (group, leaf) or (leaf,) -> (tensor, placement now, placement wanted)
         for group, sub in lp.items():
             if not isinstance(sub, dict):
+                if names is None:
+                    have = pls[group][lead:]
+                    if have != self._want(False, have):
+                        todo[(group,)] = (sub, have, self._want(False, have))
                 continue
             for name in (sub if names is None else names.get(group, ())):
                 if name not in sub:
                     continue
-                have = self.held(pls[group][name])[lead:]
+                have = pls[group][name][lead:]
                 want = self._want(group in attn, have)
                 if have != want:
                     todo[(group, name)] = (sub[name], have, want)
@@ -198,13 +234,35 @@ class TPPlan:
             dims = [todo[k][1].index(axis) for k in keys]
             for dtype in sorted({todo[k][0].dtype for k in keys}, key=str):
                 ks = [(k, d) for k, d in zip(keys, dims) if todo[k][0].dtype == dtype]
-                whole = gather_leaves([todo[k][0] for k, _ in ks], [d for _, d in ks],
-                                      self.mesh, axis)
+                whole = self._gather(axis, [todo[k][0] for k, _ in ks], [d for _, d in ks])
                 for (k, _), t in zip(ks, whole):
                     todo[k] = (t,) + todo[k][1:]
-        for (group, name), (t, _, _) in todo.items():
-            lp[group] = dict(lp[group], **{name: t})
+        for key, (t, _, _) in todo.items():
+            if len(key) == 1:
+                lp[key[0]] = t
+            else:
+                lp[key[0]] = dict(lp[key[0]], **{key[1]: t})
         return lp
+
+    def top(self, params: dict, names) -> dict:
+        """``{name: leaf}`` of the top-level leaves ``names`` that
+        ``params`` holds, as the training forward reads them (``held``):
+        gathered whole over ``data`` where they are stored there, in one
+        collective a dtype (``_gather``: their gradients reduce-scattered),
+        the others as they are.  The training forward calls it where it
+        first uses them, and a leaf it reads twice (a tied embedding, the
+        lookup and the head) is gathered once."""
+        names = [n for n in names if n in params]
+        out = {n: params[n] for n in names}
+        on = [n for n in names if "data" in self.placements[n]]
+        if axis_size(self.mesh, "data") == 1 or not on:
+            return out
+        for dtype in sorted({params[n].dtype for n in on}, key=str):
+            ns = [n for n in on if params[n].dtype == dtype]
+            whole = self._gather("data", [params[n] for n in ns],
+                                 [self.placements[n].index("data") for n in ns])
+            out.update(zip(ns, whole))
+        return out
 
     def whole_data(self, t: torch.Tensor, name: str) -> torch.Tensor:
         """The top-level leaf ``name`` (``t``, as held) gathered whole over
@@ -270,25 +328,18 @@ class TPPlan:
 
     # -- the training forward ------------------------------------------------
     def train_params(self, params: dict) -> dict:
-        """``params`` (held: every leaf at its ``model`` shard) as the
-        training forward reads them: where attention does not split by
-        heads, every attention leaf split over ``model`` gathered whole
-        (one ``gather_model`` call for every attention group of the tree:
-        its gradient cut back to this rank's slice); where it does, the
+        """``params`` (this rank's shards) as the training forward reads
+        them before its layers: where attention splits by heads, the
         replicated qk-norm scales, read on the local heads, entered through
-        ``enter_model`` (one call)."""
-        groups = [(path, _node(params, path), _node(self.placements, path))
-                  for path in self.attn]
+        ``enter_model`` (one call).  An attention leaf split over ``model``
+        where the heads do not split is gathered whole with its layer
+        (``layer``: one ``gather_model`` a layer, its gradient cut back to
+        this rank's slice)."""
         if not self.heads:
-            items = [(path, n) for path, tree, pl in groups for n in sorted(tree)
-                     if "model" in self.held(pl[n])]
-            new = gather_model_leaves(
-                [_node(params, path)[n] for path, n in items],
-                [_node(self.placements, path)[n].index("model") for path, n in items], self.mesh)
-        else:
-            items = [(path, n) for path, tree, _ in groups for n in ("q_norm", "k_norm")
-                     if n in tree]
-            new = enter_model(tuple(_node(params, path)[n] for path, n in items), self.mesh)
+            return params
+        items = [(path, n) for path in self.attn for n in ("q_norm", "k_norm")
+                 if n in _node(params, path)]
+        new = enter_model(tuple(_node(params, path)[n] for path, n in items), self.mesh)
         return _replace(params, items, new)
 
     def train_logits(self, x: torch.Tensor, params: dict, tied: bool) -> torch.Tensor:
@@ -335,22 +386,12 @@ class TPPlan:
         hybrid's), enc or dec (the encdec family's encoder and decoder
         layers), its placement tree with the layer dim dropped, and
         whether ``cfg.remat`` recomputes it (the hybrid's tail is not)."""
-        def drop(tree):
-            return {k: drop(v) if isinstance(v, dict) else v[1:] for k, v in tree.items()}
+        def drop(tree, lead):
+            return {k: drop(v, lead) if isinstance(v, dict) else v[lead:]
+                    for k, v in tree.items()}
 
-        pl = self.placements
-        if cfg.family == "encdec":
-            return ([("enc", drop(pl["enc_layers"]), True)] * cfg.enc_layers
-                    + [("dec", drop(pl["dec_layers"]), True)] * cfg.n_layers)
-        if cfg.family == "hybrid":
-            from ..models.families import _hybrid_layout
-
-            n_groups, tail = _hybrid_layout(cfg)
-            out = [(kind, drop(pl["groups"][f"p{i}_{kind}"]), True)
-                   for _ in range(n_groups) for i, kind in enumerate(cfg.block_pattern)]
-            return out + [(kind, pl["tail"][f"t{i}_{kind}"], False) for i, kind in enumerate(tail)]
-        kind = "ssm" if cfg.family == "ssm" else "lm"
-        return [(kind, drop(pl["layers"]), True)] * cfg.n_layers
+        return [(kind, drop(_node(self.placements, path), lead), again)
+                for kind, path, again, lead in self._layer_paths(cfg)]
 
     def _ssm_splits(self, mixer: dict) -> tuple:
         """(in_proj's columns, the conv's channels, out_proj's rows) split
@@ -405,6 +446,18 @@ class TPPlan:
         n += int(dp > 1 and "data" in self.placements[head])
         return n + int(rows_split)
 
+    def _tops(self, cfg) -> list:
+        """The groups of top-level leaves the training forward gathers over
+        ``data`` (``top``), in order: the encdec family's encoder position
+        table and norm, then its embedding (the tied head's too) and final
+        norm; the others' embedding (the vlm family's ``patch_proj`` with it)
+        and then the final norm with the untied head."""
+        if cfg.family == "encdec":
+            return [("enc_pos",), ("enc_norm",), ("embed",), ("final_norm",)]
+        first = ("embed", "patch_proj") if cfg.family == "vlm" else ("embed",)
+        tied = cfg.tie_embeddings and cfg.family in ("dense", "moe", "vlm")
+        return [first, ("final_norm",) if tied else ("final_norm", "lm_head")]
+
     def grad_collectives(self, cfg, seq: int, split: bool = False,
                          frames: Optional[int] = None) -> int:
         """The collectives the loss and its gradients make on a rank under
@@ -412,51 +465,60 @@ class TPPlan:
         vlm family's patch prefix included, as the data pipeline's
         ``seq_len`` counts it) and, for the encdec family, ``frames``
         encoder frames (default the pipeline's ``min(seq, enc_frames)``).
-        A forward: the embedding's sum, and a layer's
-        compute: an attention layer's ``wo`` sum (or, where the heads do
-        not split, the sequence-sharded attention's gather, where ``model``
-        divides the layer's sequence: the encoder's frames, else ``seq``;
-        an encdec decoder layer's cross attention adds its ``wo`` sum where
-        the heads split) and ``w_down``
-        sum (the moe family's: its experts' partials, where ``experts`` or
-        ``ff`` splits them; with ``split`` first the routing's gather over
-        each data axis of size > 1, ``comm.batch_totals``); a Mamba-2
-        layer's gather of the ``in_proj`` columns and conv weights (where
-        either splits), the norm's sum (heads split) and ``out_proj``'s sum
-        (rows split); an RG-LRU layer's gates' and ``w_out``'s sums
-        (channels split) and its MLP's; then the loss's maximum gather and
-        its sum, and where the heads do not split one gather of every
-        attention leaf split over ``model``.  Its backward: the head's input
-        entered, an attention layer's q/k/v input (or the sequence split's
-        q, k and v) and MLP input (the moe family's token rows and gate
-        weights) entered (an encdec decoder layer's cross attention, where
-        the heads split, its decoder states and the encoder's output, each
-        entered apart), and where the heads split the qk-norm scales
+        A forward: each group of top-level leaves stored on ``data`` gathered
+        where it is used (``_tops``), the embedding's sum, and a layer's
+        gathers, one of its leaves stored on ``data`` (``data`` above 1) and
+        one of its attention leaves split over ``model`` where the heads do
+        not split, then its compute: an attention layer's ``wo`` sum (or,
+        where the heads do not split, the sequence-sharded attention's
+        gather, where ``model`` divides the layer's sequence: the encoder's
+        frames, else ``seq``; an encdec decoder layer's cross attention adds
+        its ``wo`` sum where the heads split) and ``w_down`` sum (the moe
+        family's: its experts' partials, where ``experts`` or ``ff`` splits
+        them; with ``split`` first the routing's gather over each data axis
+        of size > 1, ``comm.batch_totals``); a Mamba-2 layer's gather of the
+        ``in_proj`` columns and conv weights (where either splits), the
+        norm's sum (heads split) and ``out_proj``'s sum (rows split); an
+        RG-LRU layer's gates' and ``w_out``'s sums (channels split) and its
+        MLP's; then the loss's maximum gather and its sum.  Its backward:
+        with ``split`` each gather over ``data`` reduce-scatters (one
+        collective an axis of ``pod`` and ``data`` of size > 1); the head's
+        input entered, an attention layer's q/k/v input (or the sequence
+        split's q, k and v) and MLP input (the moe family's token rows and
+        gate weights) entered (an encdec decoder layer's cross attention,
+        where the heads split, its decoder states and the encoder's output,
+        each entered apart), and where the heads split the qk-norm scales
         entered; a Mamba-2 layer's input (``in_proj`` split), its summed
         squares and, where the heads split, its whole tensors and sliced
         replicated leaves (one sum a dtype: activations and fp32 leaves),
         or where they do not its norm's output (``out_proj`` split); an
         RG-LRU layer's input and its summed gates with ``lam`` (one sum a
-        dtype).  ``cfg.remat`` makes each recomputed layer's forward
-        collectives again in the backward but the sum that ends the layer:
-        the recompute stops at the last tensor the backward saved
-        (``torch.utils.checkpoint``'s early stop), and ``sum_model`` saves
-        none."""
+        dtype).  ``cfg.remat`` makes each recomputed layer's (the hybrid's
+        tail is not) forward collectives again in the backward, its gathers
+        included, but the sum that ends the layer: the recompute stops at
+        the last tensor the backward saved (``torch.utils.checkpoint``'s
+        early stop), and ``sum_model`` saves none."""
         from ..models.opt_flags import FLAGS
 
         sizes = [axis_size(self.mesh, a) for a in ("pod", "data")]
         live = [k for k in sizes if k > 1]
+        dp = sizes[1]
+        scatter = (1 + int(sizes[0] > 1)) if split else 0  # a data gather's backward
         if frames is None:
             frames = min(seq, cfg.enc_frames)
 
         def seq_split(s: int) -> bool:
-            return not self.heads and FLAGS["attn_seq_shard"] and s % self.tp == 0
+            return self.tp > 1 and not self.heads and FLAGS["attn_seq_shard"] and s % self.tp == 0
 
         dtypes = 1 if cfg.dtype != "bfloat16" else 2  # an entered tuple's sums
-        gathered = not self.heads and any(
-            "model" in p for path in self.attn for p in _node(self.placements, path).values())
-        forward = 3 * int(self.vocab) + int(gathered)
+        forward = 3 * int(self.vocab)
         backward = int(self.vocab) + int(self.heads and cfg.qk_norm)
+        for group in self._tops(cfg):
+            g = int(dp > 1 and any("data" in self.placements[n] for n in group
+                                   if n in self.placements))
+            forward, backward = forward + g, backward + g * scatter
+        attn_of = {"lm": ("attn",), "attn": ("mixer",), "enc": ("attn",),
+                   "dec": ("self_attn", "cross_attn")}
         remat = 0
         for kind, lpl, again in self._layers(cfg):
             if kind in ("lm", "attn", "enc", "dec"):
@@ -474,27 +536,98 @@ class TPPlan:
                 f = int(i or c) + int(self.ssm) + int(o)
                 b = int(i) + int(self.ssm) * (1 + dtypes) + int(o and not self.ssm)
                 r = f - int(o)
-            forward, backward = forward + f, backward + b
-            remat += r if cfg.remat and again else 0
+            on_data = dp > 1 and any("data" in p for _, p in tree_items(lpl))
+            heads_gather = int(not self.heads and any(
+                "model" in p for a in attn_of.get(kind, ()) for p in lpl[a].values()))
+            gathers = int(on_data) + heads_gather
+            forward, backward = forward + f + gathers, backward + b + int(on_data) * scatter
+            remat += r + gathers if cfg.remat and again else 0
         return forward + backward + remat
+
+    def fsdp_traffic(self, cfg, microbatches: int = 1, split: bool = False,
+                     itemsize: int = 4) -> dict:
+        """``{"fsdp-gather": {"count", "bytes"}, "reduce-scatter": {...}}``:
+        the gathers over ``data`` one training step makes on a rank and
+        their reduce-scatters (with ``split``), each count and the bytes this
+        rank receives, as ``comm.STATS["by_type"]`` counts them, from the
+        leaves' shapes (``itemsize`` bytes an entry).  A group of leaves
+        of ``W`` bytes a rank, whole over ``data`` at its ``model`` shard:
+        a gather receives ``(dp - 1) / dp`` of ``W`` (again in a layer's
+        recompute under ``cfg.remat``), its reduce-scatter the same over
+        ``data`` and ``(pods - 1) W`` more from the other pods."""
+        from ..models import build_model
+
+        sizes = mesh_shape(self.mesh)
+        dp, pods = sizes.get("data", 1), sizes.get("pod", 1)
+        out = {"fsdp-gather": {"count": 0, "bytes": 0},
+               "reduce-scatter": {"count": 0, "bytes": 0}}
+        if dp == 1:
+            return out
+        specs = build_model(cfg).specs()
+
+        def shard_bytes(spec, pl, lead=0):
+            return math.prod(shard_shape(spec.shape[lead:], pl[lead:], self.mesh)) * itemsize
+
+        groups = []  # (bytes a rank holds of the group's leaves on data, times gathered)
+        for names in self._tops(cfg):
+            w = sum(shard_bytes(specs[n], self.placements[n]) for n in names
+                    if n in specs and "data" in self.placements[n])
+            groups.append((w, 1))
+        for kind, path, again, lead in self._layer_paths(cfg):
+            spec, pl = _node(specs, path), _node(self.placements, path)
+            w = sum(shard_bytes(sp, p, lead) for (_, sp), (_, p)
+                    in zip(tree_items(spec), tree_items(pl)) if "data" in p)
+            groups.append((w, 2 if cfg.remat and again else 1))
+        for w, times in groups:
+            if w:
+                g, r = out["fsdp-gather"], out["reduce-scatter"]
+                g["count"] += microbatches * times
+                g["bytes"] += microbatches * times * (dp - 1) * w
+                if split:
+                    r["count"] += microbatches * (1 + int(pods > 1))
+                    r["bytes"] += microbatches * ((dp - 1) * w + (pods - 1) * dp * w)
+        return out
+
+    def _layer_paths(self, cfg) -> list:
+        """``(kind, path, remat, lead)`` of each layer of ``cfg`` in
+        ``_layers``' order: the path of its stack (or tail layer) in the
+        tree and the leading layer dims its leaves drop."""
+        if cfg.family == "encdec":
+            return ([("enc", ("enc_layers",), True, 1)] * cfg.enc_layers
+                    + [("dec", ("dec_layers",), True, 1)] * cfg.n_layers)
+        if cfg.family == "hybrid":
+            from ..models.families import _hybrid_layout
+
+            n_groups, tail = _hybrid_layout(cfg)
+            out = [(kind, ("groups", f"p{i}_{kind}"), True, 1)
+                   for _ in range(n_groups) for i, kind in enumerate(cfg.block_pattern)]
+            return out + [(kind, ("tail", f"t{i}_{kind}"), False, 0)
+                          for i, kind in enumerate(tail)]
+        return [("ssm" if cfg.family == "ssm" else "lm", ("layers",), True, 1)] * cfg.n_layers
 
     def train_collectives(self, cfg, seq: int, microbatches: int = 1, split: bool = False,
                           compress: bool = False, frames: Optional[int] = None) -> int:
         """The collectives one training step makes on a rank under this
         (training) plan: ``grad_collectives`` a microbatch (``frames``: the
-        encdec family's, as there); then once a step
-        the ``data`` gather, with ``split`` the sum over the data ranks of
-        every gradient leaf and the loss (``comm.sum_in_rank_order``: one
+        encdec family's, as there); then once a step, with ``split``, the
+        sum over the data ranks of the loss and of every gradient leaf no
+        ``data`` dim holds (one buffer: ``comm.sum_in_rank_order``, one
         all-reduce over one axis of two, else a gather an axis), the norm's
-        sum over ``model`` and with ``compress`` the scales' gather."""
-        sizes = [axis_size(self.mesh, a) for a in ("pod", "data")]
-        live = [k for k in sizes if k > 1]
+        ordered sum over every axis of size > 1 (``pod``, ``data`` and
+        ``model``, counted alike) and with ``compress`` the scales' gather
+        (one an axis)."""
+        def ordered_sum(axes) -> int:
+            live = [k for k in (axis_size(self.mesh, a) for a in axes) if k > 1]
+            return 1 if live == [2] else len(live)
+
         n = microbatches * self.grad_collectives(cfg, seq, split, frames)
-        pls = [pl for _, pl in tree_items(self.placements)]
-        n += int(axis_size(self.mesh, "data") > 1 and any("data" in pl for pl in pls))
         if split:
-            n += (len(pls) + 1) * (1 if live == [2] else len(live))
-        return n + 1 + int(compress)
+            n += ordered_sum(("pod", "data"))
+        every = ("pod", "data", "model")
+        n += ordered_sum(every)
+        if compress:
+            n += sum(axis_size(self.mesh, a) > 1 for a in every)
+        return n
 
 
 def _node(tree: dict, path: tuple):
@@ -565,11 +698,12 @@ def _plan(cfg, mesh, pl: dict, train: bool) -> TPPlan:
 def training_plan(cfg, mesh) -> Optional[TPPlan]:
     """The plan of a family's training step on ``mesh``: the serving plan's
     splits on the trainer's placements (``params_shardings``, the norm
-    scales on ``data`` and the SSM's on ``model`` too), held gathered over
-    ``data`` while the step computes.  None for no mesh or a ``model``
-    axis of 1 (the step is then the single-device program on gathered
-    parameters, ROADMAP A12 item 4)."""
-    if cfg.family not in PLAN_FAMILIES or axis_size(mesh, "model") == 1:
+    scales on ``data`` and the SSM's on ``model`` too), each layer's leaves
+    on ``data`` gathered at use (``TPPlan.layer``).  On a ``model`` axis of
+    1 the plan splits nothing over ``model`` and the compute is the
+    single-device program on gathered leaves.  None for no mesh or a mesh
+    of one rank."""
+    if cfg.family not in PLAN_FAMILIES or math.prod(mesh_shape(mesh).values()) <= 1:
         return None
     from ..models import build_model
 

@@ -13,10 +13,12 @@ no storage) under ``launch/op_cost.py``'s counter:
 * ``train`` — the port's train step (``train/step.py make_train_step``
   with ``Trainer``'s mesh arguments): parameters and both AdamW moments as
   rank 0's shards under ``dist/sharding.py params_shardings``, the batch
-  rows split over ``pod`` x ``data`` and the gradients summed over those
-  axes in rank order; every family's step tensor-parallel
-  (``dist.tp.training_plan``: the ``data`` dims gathered once, the forward
-  and backward on rank 0's ``model`` shards, the moe family's experts,
+  rows split over ``pod`` x ``data``; every family's step under its
+  training plan (``dist.tp.training_plan``: each layer's ``data``-sharded
+  leaves gathered at use and again in its recompute, their gradients
+  reduce-scattered over ``pod`` x ``data`` in rank order, so the record's
+  ``collectives`` hold ``fsdp-gather`` and ``reduce-scatter`` beside the
+  others; the forward and backward on rank 0's ``model`` shards, the moe family's experts,
   the SSM's heads, the RG-LRU's channels and the encdec family's encoder
   and decoder heads split over ``model``, the sequence-sharded attention
   where the heads do not divide ``model``); the moe routing over the

@@ -196,34 +196,55 @@ def lm_forward(params, batch, cfg):
     ``cfg.remat`` each layer is recomputed in the backward
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 
-    Under the trainer's tensor-parallel plan (``dist.tp.training_plan``)
-    ``params`` are this rank's ``model`` shards, the layers run on the
-    local heads and ff slab (``TPPlan.train_params``,
+    Under the trainer's plan (``dist.tp.training_plan``) ``params`` are
+    this rank's shards: the embedding (and the vlm family's
+    ``patch_proj``) is gathered over ``data`` where the lookup reads it,
+    each layer's leaves inside its call (``_gathered``: under
+    ``cfg.remat`` they are dropped after its forward and gathered again in
+    its recompute), the final norm and the untied head at the head
+    (``TPPlan.top``; a tied head reads the lookup's gathered table), the
+    layers run on the local heads and ff slab (``TPPlan.train_params``,
     ``dist.tp.local_config``) and the logits are this rank's vocab columns
-    (B, S, V / tp) of the text positions (the vlm family's patch rows
-    dropped before the head), which ``lm_loss`` takes to
-    ``TPPlan.xent``."""
-    plan = current_tp()
-    lcfg = cfg
+    (B, S, V / tp) of the text positions (where the vocabulary splits the
+    vlm family's patch rows are dropped before the head), which
+    ``lm_loss`` takes to ``TPPlan.xent``."""
+    plan = _train_plan()
+    lcfg, tied = cfg, None
+    remat = cfg.remat and torch.is_grad_enabled()
+    layer = _lm_layer
     if plan is not None:
         from ..dist.tp import local_config
 
         params, lcfg = plan.train_params(params), local_config(cfg, plan)
-    x, mask, positions = _lm_inputs(params, batch, cfg)
-    remat = cfg.remat and torch.is_grad_enabled()
-    layer = _remat_fn(_lm_layer)
+        tops = plan.top(params, ("embed", "patch_proj"))
+        x, mask, positions = _lm_inputs({**params, **tops}, batch, cfg)
+        tied = tops["embed"] if cfg.tie_embeddings else None
+        del tops
+        layer = _gathered(_lm_layer, ("layers",), ("attn",))
+    else:
+        x, mask, positions = _lm_inputs(params, batch, cfg)
+    again = _remat_fn(layer) if remat else layer
     aux = 0.0
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
-            x, a = checkpoint(layer, lp, x, lcfg, mask, positions, use_reentrant=False)
+            x, a = checkpoint(again, lp, x, lcfg, mask, positions, use_reentrant=False)
         else:
-            x, a = _lm_layer(lp, x, lcfg, mask, positions)
+            x, a = layer(lp, x, lcfg, mask, positions)
         aux = aux + a
-    x = rms_norm(x, params["final_norm"])
     if plan is not None:
-        if cfg.family == "vlm":  # only text positions produce logits
+        head = plan.top(params, ("final_norm",) if cfg.tie_embeddings else ("final_norm",
+                                                                            "lm_head"))
+        if tied is not None:
+            head["embed"] = tied
+        x = rms_norm(x, head["final_norm"])
+        text = cfg.family == "vlm"
+        if text and plan.vocab:  # only text positions produce logits
             x = x[:, cfg.patch_tokens :]
-        return plan.train_logits(x, params, cfg.tie_embeddings), aux
+        logits = plan.train_logits(x, head, cfg.tie_embeddings)
+        if text and not plan.vocab:  # as one device: the head on every position
+            logits = logits[:, cfg.patch_tokens :]
+        return logits, aux
+    x = rms_norm(x, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype))
     if cfg.family == "vlm":  # only text positions produce logits
         logits = logits[:, cfg.patch_tokens :]
@@ -479,9 +500,37 @@ def _remat_fn(fn):
     return fn if all(c is None for c in ctx) else functools.partial(_in_context, ctx, fn)
 
 
-def _layers(params: dict, tree_key: str, n: int, remat: bool, fn, x, *args):
+def _train_plan():
+    """The trainer's plan of the innermost context, or None."""
+    plan = current_tp()
+    return plan if plan is not None and plan.train else None
+
+
+def _gathered(fn, path: tuple, attn: tuple = (), lead: int = 1):
+    """``fn(lp, x, *args)`` on a layer ``lp`` of the trainer's shards at
+    ``path`` (one layer of the stack there, ``lead`` 1, or the hybrid's
+    tail layer, 0) with its leaves gathered where the compute wants them
+    whole (``TPPlan.layer``: over ``data``, and ``attn``'s heads over
+    ``model`` where they do not split) inside the call, so a recompute
+    gathers them again and nothing outside the call holds them."""
+    def run(lp, x, *args):
+        plan = current_tp()
+        pls = plan.placements
+        for k in path:
+            pls = pls[k]
+        return fn(plan.layer(lp, None, None, pls, attn, lead), x, *args)
+
+    return run
+
+
+def _layers(params: dict, tree_key: str, n: int, remat: bool, fn, x, *args, attn: tuple = ()):
     """``x`` through the ``n`` stacked layers ``params[tree_key]``, each
-    ``fn(lp, x, *args)``, recomputed in the backward under ``remat``."""
+    ``fn(lp, x, *args)``, recomputed in the backward under ``remat``.  Under
+    the trainer's plan each layer's leaves are gathered inside its call
+    (``_gathered``; ``attn``: its attention groups), so under ``remat`` they
+    are dropped after its forward and gathered again in its recompute."""
+    if _train_plan() is not None:
+        fn = _gathered(fn, (tree_key,), attn)
     again = _remat_fn(fn) if remat else fn
     for lp in _unstack(params[tree_key], n):
         x = checkpoint(again, lp, x, *args, use_reentrant=False) if remat else fn(lp, x, *args)
@@ -513,15 +562,20 @@ def _plan_layer(params: dict, path: tuple, i, attn: tuple = (), names=None) -> d
     return plan.layer(tree, i, names, pls, attn=attn)
 
 
-def _logits(params, x, head, tied: bool = False):
+def _logits(params, x, head, tied: bool = False, embed=None):
     """The head's logits of the final-normed ``x``: under the trainer's plan
     this rank's vocab columns of the untied ``lm_head`` or, ``tied`` (the
-    encdec family's), the embedding (``TPPlan.train_logits``), under a
-    serving plan gathered whole (``TPPlan.logits``)."""
-    x = rms_norm(x, params["final_norm"])
+    encdec family's), of ``embed``, the table the lookup gathered
+    (``TPPlan.train_logits``; the final norm and the untied head gathered
+    over ``data`` here, ``TPPlan.top``), under a serving plan gathered
+    whole (``TPPlan.logits``)."""
     plan = current_tp()
     if plan is not None and plan.train:
-        return plan.train_logits(x, params, tied=tied)
+        top = plan.top(params, ("final_norm",) if tied else ("final_norm", "lm_head"))
+        if tied:
+            top["embed"] = embed
+        return plan.train_logits(rms_norm(x, top["final_norm"]), top, tied=tied)
+    x = rms_norm(x, params["final_norm"])
     if plan is not None:
         return plan.logits(x, plan.head_matrix(params, tied=tied).to(x.dtype))
     return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
@@ -590,19 +644,23 @@ def hybrid_forward(params, batch, cfg):
     ``cfg.remat`` each group's layers are recomputed in the backward (the
     tail's are not, as in the reference).  An empty ``tail`` may be missing
     from the tree (a walk over leaves drops it).  Under the trainer's plan
-    the attention leaves are read as ``TPPlan.train_params`` holds them,
-    the heads local where they split (``dist.tp.local_config``), and the
-    logits are this rank's vocab columns; under a serving plan (no grad)
-    each layer's leaves are gathered at use."""
-    plan, lcfg = current_tp(), cfg
-    if plan is not None and plan.train:  # a serving caller's cfg is local already
+    each layer's leaves are gathered inside its call (``_gathered``: over
+    ``data``, and the attention leaves over ``model`` where the heads do not
+    split), the heads local where they split
+    (``dist.tp.local_config``), and the logits are this rank's vocab
+    columns; under a serving plan (no grad) each layer's leaves are
+    gathered at use."""
+    plan, lcfg = _train_plan(), cfg
+    tops = {}
+    if plan is not None:  # a serving caller's cfg is local already
         from ..dist.tp import local_config
 
         params, lcfg = plan.train_params(params), local_config(cfg, plan)
-    x = _embed_tokens(params, batch["tokens"], cfg)
+        tops = plan.top(params, ("embed",))
+    x = _embed_tokens({**params, **tops}, batch["tokens"], cfg)
+    del tops
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    layer = _remat_fn(_hybrid_layer) if remat else _hybrid_layer
     n_groups, _ = _hybrid_layout(cfg)
     serving = _serving_plan() is not None
     groups = {} if serving else {key: _unstack(tree, n_groups)
@@ -610,17 +668,27 @@ def hybrid_forward(params, batch, cfg):
     for g in range(n_groups):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"p{i}_{kind}"
-            lp = (_plan_layer(params, ("groups", key), g, _mixer_attn(kind)) if serving
-                  else groups[key][g])
-            if remat:
-                x = checkpoint(layer, lp, x, kind, lcfg, positions, use_reentrant=False)
-            else:
+            if serving:
+                lp = _plan_layer(params, ("groups", key), g, _mixer_attn(kind))
                 x = _hybrid_layer(lp, x, kind, lcfg, positions)
-            del lp
+                del lp
+                continue
+            fn = _hybrid_layer
+            if plan is not None:
+                fn = _gathered(_hybrid_layer, ("groups", key), _mixer_attn(kind))
+            if remat:
+                x = checkpoint(_remat_fn(fn), groups[key][g], x, kind, lcfg, positions,
+                               use_reentrant=False)
+            else:
+                x = fn(groups[key][g], x, kind, lcfg, positions)
     for name in params.get("tail", {}):
         kind = name.split("_", 1)[1]
-        x = _hybrid_layer(_plan_layer(params, ("tail", name), None, _mixer_attn(kind)), x,
-                          kind, lcfg, positions)
+        if plan is None:
+            x = _hybrid_layer(_plan_layer(params, ("tail", name), None, _mixer_attn(kind)), x,
+                              kind, lcfg, positions)
+            continue
+        fn = _gathered(_hybrid_layer, ("tail", name), _mixer_attn(kind), lead=0)
+        x = fn(params["tail"][name], x, kind, lcfg, positions)
     return _logits(params, x, params["lm_head"]), 0.0
 
 
@@ -716,9 +784,12 @@ def _ssm_layer(lp, x, cfg):
 
 def ssm_forward(params, batch, cfg):
     """Teacher-forced logits (B, S, V) and aux 0; under the trainer's plan
-    this rank's vocab columns, under a serving plan (no grad) each layer's
-    leaves gathered at use."""
-    x = _embed_tokens(params, batch["tokens"], cfg)
+    this rank's vocab columns (the embedding gathered over ``data`` for the
+    lookup, each layer's leaves inside its call, ``_layers``), under a
+    serving plan (no grad) each layer's leaves gathered at use."""
+    plan = _train_plan()
+    x = _embed_tokens({**params, **(plan.top(params, ("embed",)) if plan else {})},
+                      batch["tokens"], cfg)
     if _serving_plan() is not None:
         for i in range(cfg.n_layers):
             x = _ssm_layer(_plan_layer(params, ("layers",), i), x, cfg)
@@ -812,10 +883,14 @@ def encdec_encode(params, frames, cfg):
     over ``model`` where ``model`` divides F (as the reference's); under a
     serving plan each layer's leaves are gathered at use, and ``enc_pos``,
     ``(None, "embed")``, is gathered over ``data`` where it is stored
-    there."""
+    there; under the trainer's plan ``enc_pos`` and ``enc_norm`` are
+    gathered where they are read (``TPPlan.top``) and each layer's leaves
+    inside its call (``_layers``)."""
     adt = act_dtype(cfg)
     pos, plan = params["enc_pos"], current_tp()
-    if plan is not None:
+    if plan is not None and plan.train:
+        pos = plan.top(params, ("enc_pos",))["enc_pos"]
+    elif plan is not None:
         pos = plan.whole_data(pos, "enc_pos")
     x = frames.to(adt) + pos[None, : frames.shape[1]].to(adt)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -824,8 +899,12 @@ def encdec_encode(params, frames, cfg):
             x = _enc_layer(_plan_layer(params, ("enc_layers",), i, _ENC_ATTN), x, cfg, positions)
     else:
         remat = cfg.remat and torch.is_grad_enabled()
-        x = _layers(params, "enc_layers", cfg.enc_layers, remat, _enc_layer, x, cfg, positions)
-    return rms_norm(x, params["enc_norm"])
+        x = _layers(params, "enc_layers", cfg.enc_layers, remat, _enc_layer, x, cfg, positions,
+                    attn=_ENC_ATTN)
+    norm = params["enc_norm"]
+    if plan is not None and plan.train:
+        norm = plan.top(params, ("enc_norm",))["enc_norm"]
+    return rms_norm(x, norm)
 
 
 def _dec_layer(lp, x, cfg, positions, enc):
@@ -842,13 +921,15 @@ def encdec_forward(params, batch, cfg):
     backward on this rank's shards and the logits are its vocab columns of
     the tied head (``TPPlan.train_logits``); under a serving plan (no grad)
     each layer's leaves are gathered at use."""
-    plan, lcfg = current_tp(), cfg
-    if plan is not None and plan.train:  # a serving caller's cfg is local already
+    plan, lcfg, tops = _train_plan(), cfg, {}
+    if plan is not None:  # a serving caller's cfg is local already
         from ..dist.tp import local_config
 
         params, lcfg = plan.train_params(params), local_config(cfg, plan)
     enc = encdec_encode(params, batch["frames"], lcfg)
-    x = _embed_tokens(params, batch["tokens"], cfg)
+    if plan is not None:  # the lookup's and the tied head's table, gathered once
+        tops = plan.top(params, ("embed",))
+    x = _embed_tokens({**params, **tops}, batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     if _serving_plan() is not None:
         for i in range(cfg.n_layers):
@@ -857,8 +938,8 @@ def encdec_forward(params, batch, cfg):
     else:
         remat = cfg.remat and torch.is_grad_enabled()
         x = _layers(params, "dec_layers", cfg.n_layers, remat, _dec_layer, x, lcfg, positions,
-                    enc)
-    return _logits(params, x, params["embed"].T, tied=True), 0.0
+                    enc, attn=_DEC_ATTN)
+    return _logits(params, x, params["embed"].T, tied=True, embed=tops.get("embed")), 0.0
 
 
 def encdec_loss(params, batch, cfg):

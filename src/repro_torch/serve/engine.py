@@ -102,7 +102,25 @@ from ..models.families import RECURRENT_FAMILIES, _embed_tokens, act_dtype
 from .faults import FaultConfig
 from .metrics import acceptance_rate, tok_per_s
 
-__all__ = ["ServeConfig", "Engine"]
+__all__ = ["ServeConfig", "Engine", "choose_tokens"]
+
+
+def choose_tokens(logits: torch.Tensor, vocab: int, temperature: float = 0.0,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token ids from fp32 ``logits`` (..., V): the argmax, or with a
+    ``temperature`` the Gumbel-max draw ``argmax(logits / T + noise)``
+    (``noise`` the logits' shape), over the first ``vocab`` columns only, so
+    a padding column of the padded vocabulary (an id >= ``vocab``) is never
+    chosen (ROADMAP C17).  A slice of the logits and of the noise, not a
+    mask: an argmax over columns that hold the maximum picks the same id,
+    so every choice below ``vocab`` is the unsliced one, and the slice is
+    captured in a CUDA graph as it is.  Under a vocab-parallel head the
+    logits are gathered whole before any choice (``TPPlan.logits``), so
+    the padding columns, the last ``model`` rank's, are cut here too."""
+    x = logits[..., :vocab]
+    if temperature > 0:
+        x = x / temperature + noise[..., :vocab]
+    return torch.argmax(x, dim=-1)
 
 
 @dataclasses.dataclass
@@ -571,11 +589,12 @@ class Engine:
     def _choose(self, logits, noise, at) -> torch.Tensor:
         """Token ids (R,) from fp32 ``logits`` (R, V): argmax, or with a
         temperature the Gumbel-max draw ``argmax(logits / T + noise)`` whose
-        noise rows are the table's rows ``at``, reshaped to (R, V)."""
+        noise rows are the table's rows ``at``, reshaped to (R, V); never a
+        padding id (``choose_tokens``)."""
+        g = None
         if self.sc.temperature > 0:
             g = noise.index_select(0, at).reshape(logits.shape)
-            return torch.argmax(logits / self.sc.temperature + g, dim=-1)
-        return torch.argmax(logits, dim=-1)
+        return choose_tokens(logits, self.cfg.vocab, self.sc.temperature, g)
 
     @staticmethod
     def _feed(st) -> torch.Tensor:
@@ -629,7 +648,7 @@ class Engine:
         tok, drafts = st.token, []
         for _ in range(k):
             lg = self._logits(tok, cache, self._draft_packed)
-            tok = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+            tok = choose_tokens(lg[:, -1].float(), self.cfg.vocab)[:, None]
             drafts.append(tok)
         seq = torch.cat([st.token, *drafts], dim=1)  # (1, k + 1)
         cache["pos"].copy_(pos0)  # the verify rewrites rows pos0 .. pos0 + k
@@ -674,12 +693,11 @@ class Engine:
         gathered whole over ``data``, every slot's token chosen from its own
         noise row, written at ``st.col``, fed back, counts advanced."""
         logits = self._whole(logits, st.rows)
+        g = None
         if self.sc.temperature > 0:
             rows = torch.arange(logits.shape[0], device=logits.device)
             g = st.noise[rows, st.count.clamp(max=st.noise.shape[1] - 1)]
-            nxt = torch.argmax(logits / self.sc.temperature + g, dim=-1)
-        else:
-            nxt = torch.argmax(logits, dim=-1)
+        nxt = choose_tokens(logits, self.cfg.vocab, self.sc.temperature, g)
         at = st.col.view(1)
         st.toks.index_copy_(1, at, nxt[:, None])
         st.oks.index_copy_(1, at, torch.isfinite(logits).all(dim=-1)[:, None])
@@ -713,19 +731,18 @@ class Engine:
         tok, drafts = tok0, []
         for _ in range(k):
             lg = self._logits(tok, cache, self._draft_packed, rowwise=True)
-            tok = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+            tok = choose_tokens(lg[:, -1].float(), self.cfg.vocab)[:, None]
             drafts.append(tok)
         seq = torch.cat([tok0, *drafts], dim=1)  # (slots, k + 1)
         pos.copy_(pos0)  # the verify rewrites rows pos0 .. pos0 + k of every slot
         logits = self._logits(seq, cache, self._route_pack(dense), rowwise=True).float()
         logits, seq = self._whole(logits, st.rows), self._whole(seq, st.rows)
         at = st.count[:, None] + torch.arange(k + 1, device=logits.device)  # (slots, k + 1)
+        g = None
         if self.sc.temperature > 0:
             rows = torch.arange(logits.shape[0], device=logits.device)[:, None]
             g = st.noise[rows, at.clamp(max=st.noise.shape[1] - 1)]
-            v = torch.argmax(logits / self.sc.temperature + g, dim=-1)
-        else:
-            v = torch.argmax(logits, dim=-1)
+        v = choose_tokens(logits, self.cfg.vocab, self.sc.temperature, g)
         matched = (v[:, :k] == seq[:, 1:]).int().cumprod(dim=1).bool()
         accept = torch.cat([torch.ones_like(matched[:, :1]), matched], dim=1)
         nem = accept.sum(dim=1)  # (slots,), 1 .. k + 1
@@ -828,7 +845,7 @@ class Engine:
         ``st.token`` through a dense decode step, its greedy choice written
         to the (B, 1) output."""
         logits = self.model.decode_step(self.params, st.token, st.cache)[0][:, -1].float()
-        st.toks.copy_(torch.argmax(logits, dim=-1)[:, None])
+        st.toks.copy_(choose_tokens(logits, self.cfg.vocab)[:, None])
 
     def _prime_graph(self, b: int) -> _Graph:
         """The captured priming step at batch ``b`` (built at first use)."""
@@ -1056,7 +1073,7 @@ class Engine:
             batch[name] = torch.as_tensor(np.asarray(val), device=self.device)
         with self._context(split):
             logits, cache = self.model.prefill(self.params, batch, self.sc.max_len)
-        return torch.argmax(logits.float(), dim=-1)[:, None], cache
+        return choose_tokens(logits.float(), self.cfg.vocab)[:, None], cache
 
     def _prime_recurrent(self, prompts: np.ndarray, split: bool = False):
         """Prime a recurrent family's state by running the prompt through
@@ -1090,7 +1107,7 @@ class Engine:
         with self._context(split):
             for t in range(s):
                 logits = self.model.decode_step(self.params, toks[:, t : t + 1], cache)[0]
-        return torch.argmax(logits[:, -1].float(), dim=-1)[:, None], cache
+        return choose_tokens(logits[:, -1].float(), self.cfg.vocab)[:, None], cache
 
     @torch.no_grad()
     def prime_many(self, prompts, lengths):
@@ -1117,7 +1134,7 @@ class Engine:
         with self._context():
             logits, cache = self.model.prefill(self.params, {"tokens": tokens}, self.sc.max_len,
                                                lengths=lens)
-        return torch.argmax(logits.float(), dim=-1)[:, None], cache
+        return choose_tokens(logits.float(), self.cfg.vocab)[:, None], cache
 
     @torch.no_grad()
     def prefill_chunk(self, tokens, arena, table_row, start: int, true_len: int,

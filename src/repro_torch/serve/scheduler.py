@@ -120,7 +120,7 @@ from ..models.cache import (
     zero_blocks,
 )
 from ..dist.comm import axis_index, broadcast, broadcast_mesh
-from .engine import Engine
+from .engine import Engine, choose_tokens
 from .metrics import acceptance_rate, tok_per_s
 
 __all__ = ["Request", "Completion", "Scheduler", "Status"]
@@ -869,7 +869,8 @@ class Scheduler:
             job.start = s + n
             self._chunks += 1
             if job.start >= job.L:
-                self._complete_prefill(i, job, torch.argmax(logits.float(), dim=-1)[:, None])
+                self._complete_prefill(i, job, choose_tokens(logits.float(),
+                                                             self.eng.cfg.vocab)[:, None])
         self._admit_s += self._clock() - t0
 
     def _complete_prefill(self, i: int, job: _PrefillJob, first) -> None:

@@ -9,41 +9,42 @@ compression noise comes from a ``torch.Generator`` seeded by ``(0, step)``;
 it cannot reproduce the reference's threefry draws (ROADMAP.md C3), so a
 compressed run trains alike but not bit for bit.
 
-On a mesh (``make_train_step(..., mesh=, placements=)``) the parameters
-and both AdamW moments are each rank's shards under ``placements``
-(ZeRO-style: the moments follow the parameters).  With no plan (a
-``model`` axis of 1: the per-layer gather of ROADMAP A12 item 4 is still
-to come) a step gathers the parameters whole for the forward, so it is
-the single-device program on this rank's rows of the batch; with
-``split`` (the batch rows split over the pure data axes, ``("pod",
-"data")``) the gradients and the loss are summed over those ranks in
-their flattened rank order, pod-major, and
-divided by their count; the moe family's routing then counts over the
-whole batch, as the reference's program over the global batch does
-(``models.common.mesh_context``'s ``rows``, ``layers.moe``).  The
-global-norm clip runs on the whole gradients in the single-device order,
-and each rank then updates only its shard.  On a ``model`` axis alone the
-step is the single-device step bitwise.
-
-With a tensor-parallel plan (``plan=``, ``dist.tp.training_plan``: every
-family on a ``model`` axis above 1, the encdec family's encoder and
-decoder included) no rank gathers the tree: the step gathers every
-``data``-sharded leaf over ``data`` once (one
-``comm.gather_leaves`` a dtype), runs the forward and the backward under
-the plan (``models.common.mesh_context``), so the gradients are this
-rank's ``model`` shards, sums them over the data ranks as above and cuts
-them to its ``data`` shards.  The global norm is the ordered sum over
-``model`` of the ``model``-sharded leaves' squares plus the replicated
-leaves' once: one device's within rounding, the same scalar on every
-rank.  ``grad_compress`` takes each leaf's scale from the largest |g| over
-``model`` (exact) and draws the noise of the whole leaf from the step's
+On a mesh (``make_train_step(..., mesh=, placements=, plan=)``) the
+parameters and both AdamW moments are each rank's shards under
+``placements`` (ZeRO-style: the moments follow the parameters), and the
+step runs under the family's training plan (``dist.tp.training_plan``,
+one for every mesh of more than one rank; on a ``model`` axis of 1 it
+splits nothing over ``model``).  No rank gathers the tree (ROADMAP A12
+item 4): the forward gathers each layer's ``data``-sharded leaves where
+the layer runs (``TPPlan.layer``; the top-level leaves where they are
+read, ``TPPlan.top``); under ``cfg.remat`` a layer's gathered leaves are
+dropped after its forward and gathered again in its recompute (without
+remat autograd keeps them for the backward, as it keeps the
+activations).  With ``split`` (the batch rows split over the pure data axes,
+``("pod", "data")``) the backward of each of those gathers is a
+reduce-scatter in rank order (``comm.gather_data``): the gradient arrives
+summed over the data ranks in their flattened rank order, pod-major,
+divided by their count, and cut to this rank's shard; the loss and the
+gradients of the leaves no ``data`` dim holds are summed alike once a step
+(``_data_sum``).  The moe family's routing then counts over the whole
+batch, as the reference's program over the global batch does
+(``models.common.mesh_context``'s ``rows``, ``layers.moe``).  The forward
+and the backward run on this rank's ``model`` shards where the plan splits
+them, so the gradients are this rank's shards of every leaf.  The global
+norm is the ordered sum over every mesh axis of size > 1 of the split
+leaves' squares (each counted on the ranks of its distinct shards) plus
+the replicated leaves' once: one device's within rounding, the same scalar
+on every rank.  With ``microbatches=1``, no compression and no clip a
+step gives the bits of gathering the tree, summing the rows' gradients in
+rank order and cutting them to the shards (``tests/test_torch_fsdp.py``).
+``grad_compress`` takes each leaf's scale from the largest |g| over every
+axis (exact) and draws the noise of the whole leaf from the step's
 generator, one leaf at a time, keeping this rank's slice: one device's
 compressed step within rounding.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -52,7 +53,7 @@ import numpy as np
 import torch
 
 from ..optim import AdamState, adamw_update
-from ..optim.adamw import clip_by_global_norm, tree_items
+from ..optim.adamw import tree_items
 from ..optim.schedule import cosine_schedule
 
 __all__ = ["TrainHParams", "make_train_step", "compress_grads"]
@@ -98,32 +99,28 @@ def make_train_step(loss_fn: Callable, hp: TrainHParams, mesh=None, placements=N
     """``loss_fn(params, batch) -> scalar``.  Returns ``step(params, opt,
     batch, return_grads=False) -> (params, opt, {"loss", "gnorm", "lr"})``;
     params and opt are updated in place and returned.  With ``mesh``,
-    ``params`` and ``opt`` are this rank's shards under ``placements`` and
-    ``batch`` is its rows (``split``) or the whole batch; with ``plan`` the
-    step is tensor-parallel (see the module docstring).  ``return_grads``
-    adds ``"grads"``: the gradients the update clips (after the sum over
-    the data ranks and the compression), this rank's shards under
-    ``placements`` (whole on one device), in ``tree_items`` order."""
+    ``params`` and ``opt`` are this rank's shards under ``placements``,
+    ``batch`` is its rows (``split``) or the whole batch, and ``plan`` is
+    the family's training plan (see the module docstring).
+    ``return_grads`` adds ``"grads"``: the gradients the update clips (after
+    the sum over the data ranks and the compression), this rank's shards
+    under ``placements`` (whole on one device), in ``tree_items`` order."""
     from ..dist.sharding import _batch_axes
     from ..models.common import mesh_context
 
-    # the axes this rank's rows were cut over, for the moe routing
+    if mesh is not None and plan is None:
+        raise ValueError("a step on a mesh runs under its training plan "
+                         "(dist.tp.training_plan(cfg, mesh))")
+    # the axes this rank's rows were cut over, for the moe routing and the
+    # reduce-scatters of the gathered leaves' gradients
     rows = (mesh, _batch_axes(mesh)) if split else None
 
     def step(params: dict, opt: AdamState, batch: dict, return_grads: bool = False):
         t = int(opt.step)  # the lr of this update: the count before it
         lr = cosine_schedule(t, hp.warmup, hp.total_steps, hp.lr)
         if plan is not None:
-            return _tp_step(params, opt, batch, lr, t, return_grads)
-        shards = None
-        if mesh is not None:
-            from ..dist.sharding import gather_tree
-
-            shards, params = params, gather_tree(params, placements, mesh)
-        with contextlib.nullcontext() if rows is None else mesh_context(None, None, rows):
-            loss, grads = _accumulate(params, batch)
-        if shards is not None:
-            return _sharded_update(shards, params, grads, loss, opt, lr, t, return_grads)
+            return _sharded_step(params, opt, batch, lr, t, return_grads)
+        loss, grads = _accumulate(params, batch)
         if hp.grad_compress:
             grads = compress_grads(grads, t)
         kept = grads if return_grads else None
@@ -147,100 +144,83 @@ def make_train_step(loss_fn: Callable, hp: TrainHParams, mesh=None, placements=N
             losses.append(loss)
         return torch.stack(losses).mean(), [g / n for g in gsum]
 
-    def _data_sum(grads, loss):
-        """The gradients and the loss summed over the pure data axes in
-        flattened rank order and divided by their count, when the batch
-        rows split over them."""
+    def _data_sum(grads, loss, which):
+        """The loss and the gradients ``which`` (indices) summed over the pure
+        data axes in flattened rank order and divided by their count, when
+        the batch rows split over them: one ordered sum of one buffer (an
+        elementwise sum, so the bits of one sum a tensor)."""
         if not split:
             return grads, loss
         from ..dist.comm import axis_size, sum_in_rank_order
-        from ..dist.sharding import _batch_axes
 
         axes = _batch_axes(mesh)
         n = math.prod(axis_size(mesh, a) for a in axes)
-        return ([sum_in_rank_order(g, mesh, axes) / n for g in grads],
-                sum_in_rank_order(loss, mesh, axes) / n)
+        parts = [loss.reshape(1)] + [grads[i].reshape(-1) for i in which]
+        total = sum_in_rank_order(torch.cat(parts), mesh, axes) / n
+        grads, off = list(grads), 1
+        for i in which:
+            grads[i] = total[off:off + grads[i].numel()].view_as(grads[i])
+            off += grads[i].numel()
+        return grads, total[0]
 
-    def _sharded_update(shards, whole, grads, loss, opt, lr, t, return_grads):
-        """The update of a rank's ``shards`` from the gradients of the
-        ``whole`` parameters: summed over the data ranks in rank order when
-        the batch rows split, clipped whole, then cut to the rank's shards
-        (the clip already applied, ``adamw_update`` scales them by 1)."""
-        from ..dist.sharding import local_shard
+    def _global_norm(grads, pls):
+        """The global norm of the gradients from this rank's shards: each
+        split leaf's squares counted on the ranks of its distinct shards
+        (coordinate 0 on every axis its placement leaves whole), summed
+        over every axis in rank order, plus the replicated leaves' once."""
+        from ..dist.comm import axis_index, mesh_shape, sum_in_rank_order
+        from ..dist.sharding import _names
 
-        grads, loss = _data_sum(grads, loss)
-        if hp.grad_compress:
-            grads = compress_grads(grads, t)
-        spec = dict(tree_items(placements))
-        cut = [spec[path] for path, _ in tree_items(whole)]
-        kept = [local_shard(g, pl, mesh) for g, pl in zip(grads, cut)] if return_grads else None
-        grads, gnorm = clip_by_global_norm(grads, hp.max_grad_norm)
-        local = [local_shard(g, pl, mesh) for g, pl in zip(grads, cut)]
-        shards, opt, _ = adamw_update(shards, local, opt, lr, weight_decay=hp.weight_decay,
-                                      max_grad_norm=float("inf"))
-        return shards, opt, _metrics(loss, gnorm, lr, kept)
+        axes = tuple(mesh_shape(mesh))
+        coord = {a: axis_index(mesh, a) for a in axes}
+        zero = torch.zeros((), device=grads[0].device)
+        parts, rest = zero, zero
+        for g, pl in zip(grads, pls):
+            used = {a for e in pl for a in _names(e)}
+            q = g.float().square().sum()
+            if not used:
+                rest = rest + q
+            elif all(i == 0 for a, i in coord.items() if a not in used):
+                parts = parts + q
+        return torch.sqrt(sum_in_rank_order(parts, mesh, axes) + rest)
 
-    def _tp_step(shards, opt, batch, lr, t, return_grads):
-        """The tensor-parallel step of a rank's ``shards`` (module
+    def _sharded_step(shards, opt, batch, lr, t, return_grads):
+        """The step of a rank's ``shards`` under the plan (module
         docstring)."""
-        from ..dist.comm import gather_leaves, sum_in_rank_order
-        from ..dist.sharding import local_shard
-
-        paths, leaves = zip(*tree_items(shards))
         spec = dict(tree_items(placements))
-        pls = [spec[p] for p in paths]
-        held = list(leaves)
-        on_data = [i for i, pl in enumerate(pls) if "data" in pl]
-        for dtype in sorted({held[i].dtype for i in on_data}, key=str):
-            idx = [i for i in on_data if held[i].dtype == dtype]
-            whole = gather_leaves([held[i] for i in idx], [pls[i].index("data") for i in idx],
-                                  mesh, "data")
-            for i, w in zip(idx, whole):
-                held[i] = w
+        pls = [spec[p] for p, _ in tree_items(shards)]
         with mesh_context(mesh, plan, rows):
-            loss, grads = _accumulate(_tree(paths, held), batch)
-        del held
-        grads, loss = _data_sum(grads, loss)
-        model_pl = [tuple(a if a == "model" else None for a in pl) for pl in pls]
+            loss, grads = _accumulate(shards, batch)
+        grads, loss = _data_sum(grads, loss, [i for i, pl in enumerate(pls) if "data" not in pl])
         if hp.grad_compress:
-            grads = _tp_compress(grads, model_pl, t)
-        split_model = ["model" in pl for pl in model_pl]
-        sq = [g.float().square().sum() for g in grads]
-        parts = sum((q for q, m in zip(sq, split_model) if m), torch.zeros((), device=sq[0].device))
-        rest = sum((q for q, m in zip(sq, split_model) if not m),
-                   torch.zeros((), device=sq[0].device))
-        gnorm = torch.sqrt(sum_in_rank_order(parts, mesh, "model") + rest)
-        data_pl = [tuple(a if a == "data" else None for a in pl) for pl in pls]
-
-        def cut(g, pl):  # to this rank's data shard (a copy only where it cuts)
-            return local_shard(g, pl, mesh) if any(pl) else g
-
-        kept = [cut(g, pl) for g, pl in zip(grads, data_pl)] if return_grads else None
-        clip = not math.isinf(hp.max_grad_norm)  # else the scale is exactly 1: no copy
-        scale = torch.clamp(hp.max_grad_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
-        for i, pl in enumerate(data_pl):  # each leaf replaced, so one extra leaf at a time
-            grads[i] = cut(grads[i] * scale if clip else grads[i], pl)
+            grads = _sharded_compress(grads, pls, t)
+        gnorm = _global_norm(grads, pls)
+        kept = list(grads) if return_grads else None
+        if not math.isinf(hp.max_grad_norm):  # else the scale is exactly 1: no copy
+            scale = torch.clamp(hp.max_grad_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
+            for i in range(len(grads)):  # each leaf replaced, so one extra leaf at a time
+                grads[i] = grads[i] * scale
         # each gradient dropped once its leaf is updated, the largest leaves last
         shards, opt, _ = adamw_update(shards, grads, opt, lr, weight_decay=hp.weight_decay,
                                       max_grad_norm=float("inf"), consume=True)
         return shards, opt, _metrics(loss, gnorm, lr, kept)
 
-    def _tp_compress(grads, model_pl, t):
-        """``compress_grads`` of ``model``-sharded gradients: each leaf's
-        scale from the largest |g| over ``model`` (one gather of every
-        leaf's local maximum), the noise of the whole leaf drawn from the
-        step's generator in leaf order and cut to this rank's slice."""
-        from ..dist.comm import all_gather, axis_size
-        from ..dist.sharding import local_shard
+    def _sharded_compress(grads, pls, t):
+        """``compress_grads`` of sharded gradients: each leaf's scale from the
+        largest |g| over every axis (one gather an axis of every leaf's
+        local maximum), the noise of the whole leaf drawn from the step's
+        generator in leaf order and cut to this rank's shard."""
+        from ..dist.comm import gather_axes, mesh_shape
+        from ..dist.sharding import _names, local_shard
 
         seed = int(np.random.SeedSequence((0, t)).generate_state(1)[0])
         gen = torch.Generator(device=grads[0].device).manual_seed(seed)
         local_max = torch.stack([g.float().abs().max() for g in grads])
-        top = all_gather(local_max[None], mesh, "model", dim=0).amax(dim=0)
-        tp = axis_size(mesh, "model")
+        top = gather_axes(local_max, mesh, tuple(mesh_shape(mesh))).amax(dim=0)
+        sizes = mesh_shape(mesh)
         out = []
-        for g, pl, mx in zip(grads, model_pl, top):
-            shape = [n * (tp if a == "model" else 1) for n, a in zip(g.shape, pl)]
+        for g, pl, mx in zip(grads, pls, top):
+            shape = [n * math.prod(sizes[a] for a in _names(e)) for n, e in zip(g.shape, pl)]
             noise = local_shard(torch.rand(shape, generator=gen, device=g.device) - 0.5, pl,
                                 mesh)
             scale = torch.clamp_min(mx, 1e-12) / 127.0

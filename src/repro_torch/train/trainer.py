@@ -8,13 +8,13 @@ code (``launch/mesh.py``): the parameters and both AdamW moments are
 stored as each rank's shards under ``dist.sharding.params_shardings``,
 the batch rows split over every pure data axis, ``("pod", "data")``
 flattened pod-major as the reference's batch placement (when their
-product divides them), and the step is ``train/step.py``'s sharded step:
-on a ``model`` axis above 1 the tensor-parallel one, for every family
-(``dist.tp.training_plan``: no rank gathers the tree; the moe family's
+product divides them), and the step is ``train/step.py``'s sharded step
+under the family's training plan on every mesh (``dist.tp.training_plan``:
+no rank gathers the tree; each layer's ``data``-sharded leaves are
+gathered at use and their gradients reduce-scattered; the moe family's
 experts, the SSM's heads, the RG-LRU's channels and the encdec family's
-encoder and decoder heads split over ``model``), else the single-device
-program on gathered parameters, the moe routing over the whole batch
-where the rows split.  Each rank draws its shards leaf by leaf, and the
+encoder and decoder heads split over ``model`` where it is above 1), the
+moe routing over the whole batch where the rows split.  Each rank draws its shards leaf by leaf, and the
 pruning masks are refreshed one leaf at a time (each leaf gathered whole,
 ``magnitude_mask`` on it, this rank's shard kept: the single-device masks,
 bitwise).  A checkpoint stays the logical tree with the reference's files

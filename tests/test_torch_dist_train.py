@@ -21,10 +21,14 @@ pruning masks refreshed on the way:
   single-device loss at each of its 4 steps; the gap grows with steps, as
   Adam moves a weight whose tiny gradient changed sign;
 - 2x1 in lockstep (each step from one device's state): the loss within
-  1e-5 relative of the single-device step's, and the global norm of the
-  summed gradients and each rank's updated shards bitwise one device's
-  step over the same batch in two microbatches, so a wrong gradient sum
-  or a wrong sharded update fails;
+  1e-5 relative of the single-device step's; the summed gradients
+  bitwise one device's step over the same batch in two microbatches, cut
+  to the rank's shards (each layer's leaves gathered at use, their
+  gradients reduce-scattered in rank order), the global norm within 1e-6
+  of that step's (an ordered sum of the shards' squares), and each rank's
+  updated shards bitwise one device's update of those gradients at the
+  step's clip scale, so a wrong gradient sum or a wrong sharded update
+  fails;
 - a checkpoint written on 2x2 holds the logical tree, and 1x1 restores it
   bitwise equal to the 2x2 run's gathered state;
 - the placements store each leaf as its shard: a rank holds half of
@@ -93,9 +97,16 @@ def _lockstep(mesh):
     rank's shards of the single-device state and its rows of the batch,
     beside one device's whole-batch step and its step over the same batch
     in two microbatches (the ranks' rows): per step, the loss gap to the
-    whole-batch step (relative), and whether the global gradient norm and
-    this rank's updated shards (params, both moments) equal the
-    microbatched step's bitwise."""
+    whole-batch step (relative), the global norm's gap to the microbatched
+    step's (relative: the norm is an ordered sum of the shards' squares,
+    another order than one device's sum over each whole leaf), and whether
+    the summed gradients (``return_grads``) equal the microbatched step's
+    bitwise, cut to this rank's shards, and the updated shards (params,
+    both moments) equal one device's AdamW update of those gradients at
+    the step's own clip scale bitwise."""
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.optim import adamw_update
+
     cfg = get_smoke_config("vusa_edge")
     tc = _tc()
     one, dp = Trainer(cfg, tc, device="cpu"), Trainer(cfg, tc, device="cpu", mesh=mesh)
@@ -105,20 +116,29 @@ def _lockstep(mesh):
     data = iter(SyntheticDataset(cfg, tc.global_batch, tc.seq_len, seed=tc.seed,
                                  token_range=tc.token_range))
     shard = functools.partial(shard_tree, placements=dp.p_shard, mesh=mesh)
+    spec = [pl for _, pl in tree_items(dp.p_shard)]
     out = []
     for _ in range(STEPS):
         host = next(data)
         batch = {k: torch.from_numpy(v) for k, v in host.items()}
         rows = {k: torch.from_numpy(v[dp.rows]) for k, v in host.items()}
         new, state, got = dp.step_fn(shard(params), AdamState(opt.step.clone(), shard(opt.mu),
-                                                              shard(opt.nu)), rows)
-        acc, acc_opt, split = halves.step_fn(
-            _clone(params), AdamState(opt.step.clone(), _clone(opt.mu), _clone(opt.nu)), batch)
+                                                              shard(opt.nu)), rows,
+                                     return_grads=True)
+        _, _, split = halves.step_fn(
+            _clone(params), AdamState(opt.step.clone(), _clone(opt.mu), _clone(opt.nu)), batch,
+            return_grads=True)
+        scale = torch.clamp(tc.hp.max_grad_norm / torch.clamp_min(got["gnorm"], 1e-9), max=1.0)
+        ref, ref_opt = _clone(params), AdamState(opt.step.clone(), _clone(opt.mu), _clone(opt.nu))
+        adamw_update(ref, [g * scale for g in split["grads"]], ref_opt, got["lr"],
+                     weight_decay=tc.hp.weight_decay, max_grad_norm=float("inf"))
         params, opt, want = one.step_fn(params, opt, batch)
+        grads = all(torch.equal(g, local_shard(w, pl, mesh))
+                    for g, w, pl in zip(got["grads"], split["grads"], spec))
         out.append((abs(float(got["loss"]) / float(want["loss"]) - 1),
-                    bool(torch.equal(got["gnorm"], split["gnorm"])) and _equal(new, shard(acc))
-                    and _equal(state.mu, shard(acc_opt.mu)) and _equal(state.nu,
-                                                                       shard(acc_opt.nu))))
+                    abs(float(got["gnorm"]) / float(split["gnorm"]) - 1),
+                    grads and _equal(new, shard(ref)) and _equal(state.mu, shard(ref_opt.mu))
+                    and _equal(state.nu, shard(ref_opt.nu))))
     return out
 
 
@@ -184,8 +204,9 @@ def test_data_axis_training_within_tolerance(world, single):
 
 def test_data_axis_step_matches_the_single_device_step(world):
     for rank in world[0]:
-        gaps, bitwise = zip(*rank["2x1 lockstep"])
+        gaps, norms, bitwise = zip(*rank["2x1 lockstep"])
         assert len(gaps) == STEPS and max(gaps) <= 1e-5, gaps
+        assert max(norms) <= 1e-6, norms
         assert all(bitwise), bitwise
 
 

@@ -118,3 +118,66 @@ def test_validate_packed_rejects_corruption(vusa_pruned):
     eng.packed["head"]["values"][1, 2, 0] = float("nan")
     with pytest.raises(ValueError, match="lm_head: non-finite"):
         validate_packed(eng.packed)
+
+
+# ---------------------------------------------------------------------------
+# C17: the padding ids of a padded vocabulary are never chosen
+# ---------------------------------------------------------------------------
+# Every smoke config of both packages has a vocabulary of 512, a multiple of
+# the padding rule's 256, so none has a padding id: no cross-framework
+# greedy test of this file or of any other can meet one (the reference
+# still chooses over the padded logits, ROADMAP C17).  The cases below pad
+# ``vusa_edge`` to 512 from 500 ids and make the 12 padding columns the
+# largest logits of every position (``torch_tp_cases.padding_first_tree``).
+
+
+@pytest.fixture(scope="module")
+def padding_first():
+    from torch_tp_cases import padding_first_config, padding_first_tree
+
+    cfg = padding_first_config()
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, (2, 6)).astype(np.int32)
+    return cfg, params_from_numpy(padding_first_tree(), "cpu"), prompts
+
+
+def test_smoke_configs_have_no_padding_ids():
+    from repro_torch.configs import ARCH_IDS
+
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        assert cfg.padded_vocab == cfg.vocab == ref_smoke(arch).padded_vocab, arch
+
+
+def test_c17_padding_columns_are_the_largest_logits(padding_first):
+    """The cases' premise: every position's argmax over the padded logits
+    is a padding id."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    cfg, params, prompts = padding_first
+    assert cfg.padded_vocab - cfg.vocab == 12
+    with torch.no_grad():
+        logits, _ = build_model(cfg).forward(params, {"tokens": torch.as_tensor(prompts).long()})
+    assert bool((logits.argmax(dim=-1) >= cfg.vocab).all())
+
+
+C17_ROUTES = {"eager": dict(fused=False), "loop": {}, "packed": dict(packed_weights="all"),
+              "speculative": dict(speculative=True, draft_k=3)}
+# every route greedy and at T = 1, but the speculative one at T = 1 only: its
+# drafter chooses greedily whatever the temperature, its verifier shares
+# ``Engine._choose`` with the other routes
+C17_CASES = [(r, t) for r in C17_ROUTES for t in (0.0, 1.0) if r != "speculative" or t]
+
+
+@pytest.mark.parametrize("route,temperature", C17_CASES, ids=[f"{r}-{t}" for r, t in C17_CASES])
+def test_c17_no_padding_id_on_any_route(padding_first, route, temperature):
+    """One-shot ``generate`` on the eager loop, the fused loop (eager on the
+    CPU, the CUDA graph's step), the packed route and the speculative
+    drafter and verify (B = 1): no token reaches ``vocab``."""
+    cfg, params, prompts = padding_first
+    sc = ServeConfig(max_len=32, temperature=temperature, seed=5, **C17_ROUTES[route])
+    rows = prompts[:1] if route == "speculative" else prompts
+    out = Engine(cfg, params, sc, device="cpu").generate(rows, max_new=8)
+    assert out["tokens"].shape == (rows.shape[0], 8)
+    assert int(out["tokens"].max()) < cfg.vocab, out["tokens"]

@@ -485,3 +485,38 @@ def test_pool_step_rows_equal_b1_steps(vusa):
             many = eng._logits(token, pool, eng.packed, rowwise=True)
             for i, (_, c) in enumerate(primed):
                 assert torch.equal(many[i : i + 1], eng._logits(token[i : i + 1], c, eng.packed))
+
+
+# C17 (``test_torch_engine.py`` has the setup): with the padding columns the
+# largest logits, no completion of the scheduler holds a padding id, on the
+# slot and paged pools, under batched and sequential admission (the
+# prefill's first token), through chunked prefill (its last chunk's), greedy
+# and at T = 1, and through the speculative pool rounds at T = 1 (the
+# drafter's greedy choices and the verifier's draws)
+C17_POOLS = [
+    ("slot-batched", 0.0), ("slot-batched", 1.0), ("slot-sequential", 0.0),
+    ("slot-sequential", 1.0), ("paged-chunked", 0.0), ("paged-chunked", 1.0),
+    ("speculative", 1.0)]
+C17_KW = {
+    "slot-batched": dict(admission="batched"),
+    "slot-sequential": dict(admission="sequential"),
+    "paged-chunked": dict(admission="batched", page_size=8, prefill_chunk=8),
+    "speculative": dict(admission="batched", speculative=True, draft_k=3),
+}
+
+
+@pytest.mark.parametrize("pool,temperature", C17_POOLS, ids=[f"{p}-{t}" for p, t in C17_POOLS])
+def test_c17_no_padding_id_in_any_pool(pool, temperature):
+    from torch_tp_cases import padding_first_config, padding_first_tree
+
+    cfg = padding_first_config()
+    kw = dict(C17_KW[pool])
+    admission = kw.pop("admission")
+    eng = Engine(cfg, params_from_numpy(padding_first_tree(), "cpu"),
+                 ServeConfig(max_len=32, temperature=temperature, **kw), device="cpu")
+    reqs = _reqs(np.random.default_rng(2), [(5, 4), (11, 3), (3, 5)])
+    done = Scheduler(eng, slots=2, segment=3, admission=admission).run(reqs)
+    assert sorted(done) == [0, 1, 2]
+    for c in done.values():
+        assert c.status is Status.OK and len(c.tokens) > 0
+        assert int(np.max(c.tokens)) < cfg.vocab, c.tokens

@@ -32,8 +32,11 @@ redrawn so a misplaced one shows):
   skews, under staggered arrivals and deadlines, completes within the
   collectives' timeout with the same completions on every rank, equal to a
   one-device run on rank 0's clock;
-- C14: a 2x2x1 training step (the batch split over pod x data) is bitwise
-  one device's step over the same batch in four microbatches.
+- C14: a 2x2x1 training step (the batch split over pod x data) sums the
+  gradients bitwise as one device's step over the same batch in four
+  microbatches and updates its shards bitwise as one device's update of
+  them at the step's clip scale; its global norm (an ordered sum of the
+  shards' squares) within 1e-6 of that step's.
 """
 
 import dataclasses
@@ -396,8 +399,16 @@ def _pod_lockstep(mesh, device):
     """Each step of the (pod, data, model) trainer from this rank's shards
     of one device's state and its rows of the batch, beside one device's
     step over the same batch in four microbatches (the ranks' rows, in
-    flattened pod-major order): the rows taken, the loss gap, and whether
-    the global gradient norm and the updated shards are bitwise."""
+    flattened pod-major order): the rows taken, the loss gap, the global
+    norm's gap (an ordered sum of the shards' squares, not one device's
+    sum over each whole leaf), and whether the summed gradients are the
+    microbatched step's bitwise, cut to this rank's shards (each layer's
+    leaves gathered at use, their gradients reduce-scattered over (pod,
+    data) in rank order), and the updated shards one device's update of
+    them at the step's clip scale, bitwise."""
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.optim import adamw_update
+
     cfg = get_smoke_config("vusa_edge")
     tc = _tc()
     one = Trainer(cfg, tc, device="cpu")
@@ -408,20 +419,30 @@ def _pod_lockstep(mesh, device):
     data = iter(SyntheticDataset(cfg, tc.global_batch, tc.seq_len, seed=tc.seed,
                                  token_range=tc.token_range))
     shard = functools.partial(shard_tree, placements=dp.p_shard, mesh=mesh)
+    spec = [pl for _, pl in tree_items(dp.p_shard)]
     out = {"rows": (dp.rows.start, dp.rows.stop), "steps": []}
     for _ in range(TRAIN_STEPS):
         host = next(data)
         batch = {k: torch.from_numpy(v) for k, v in host.items()}
         rows = {k: torch.from_numpy(v[dp.rows]) for k, v in host.items()}
         new, state, got = dp.step_fn(shard(params), AdamState(opt.step.clone(), shard(opt.mu),
-                                                              shard(opt.nu)), rows)
-        acc, acc_opt, want = mb.step_fn(
-            _clone(params), AdamState(opt.step.clone(), _clone(opt.mu), _clone(opt.nu)), batch)
+                                                              shard(opt.nu)), rows,
+                                     return_grads=True)
+        _, _, want = mb.step_fn(
+            _clone(params), AdamState(opt.step.clone(), _clone(opt.mu), _clone(opt.nu)), batch,
+            return_grads=True)
+        scale = torch.clamp(tc.hp.max_grad_norm / torch.clamp_min(got["gnorm"], 1e-9), max=1.0)
+        ref, ref_opt = _clone(params), AdamState(opt.step.clone(), _clone(opt.mu), _clone(opt.nu))
+        adamw_update(ref, [g * scale for g in want["grads"]], ref_opt, got["lr"],
+                     weight_decay=tc.hp.weight_decay, max_grad_norm=float("inf"))
         params, opt, _ = one.step_fn(params, opt, batch)
+        grads = all(torch.equal(g, local_shard(w, pl, mesh))
+                    for g, w, pl in zip(got["grads"], want["grads"], spec))
         out["steps"].append((
             abs(float(got["loss"]) / float(want["loss"]) - 1),
-            bool(torch.equal(got["gnorm"], want["gnorm"])) and _equal(new, shard(acc))
-            and _equal(state.mu, shard(acc_opt.mu)) and _equal(state.nu, shard(acc_opt.nu))))
+            abs(float(got["gnorm"]) / float(want["gnorm"]) - 1),
+            grads and _equal(new, shard(ref)) and _equal(state.mu, shard(ref_opt.mu))
+            and _equal(state.nu, shard(ref_opt.nu))))
     return out
 
 
@@ -429,8 +450,8 @@ def test_pod_data_training_step_is_the_microbatched_step(tmp_path):
     ranks = spawn(_pod_lockstep, 2, 1, "gloo", "cpu", str(tmp_path), pod=2, timeout_s=300)
     assert [r["rows"] for r in ranks] == [(0, 1), (1, 2), (2, 3), (3, 4)]
     for rank in ranks:
-        gaps, bitwise = zip(*rank["steps"])
-        assert max(gaps) <= 1e-6 and all(bitwise), rank["steps"]
+        gaps, norms, bitwise = zip(*rank["steps"])
+        assert max(gaps) <= 1e-6 and max(norms) <= 1e-6 and all(bitwise), rank["steps"]
 
 
 # -- launchers ------------------------------------------------------------------

@@ -417,14 +417,17 @@ def test_full_config_rank_stores_under_three_tenths(arch):
 def test_encdec_keeps_the_whole_tree_path():
     """Every family has a plan now, the encdec family (whisper) too
     (``tests/test_torch_tp_encdec.py`` holds it on meshes); the trainer's
-    whole-tree path is left only where the ``model`` axis is 1 (ROADMAP
-    A12 item 4), for whisper as for every family, and no mesh has no
-    plan."""
+    whole-tree path is gone (ROADMAP A12 item 4): on a ``model`` axis of 1
+    the training plan splits nothing over ``model`` and gathers each
+    layer's leaves over ``data`` at use, for whisper as for every family,
+    and no mesh has no plan."""
     from repro_torch.dist.tp import PLAN_FAMILIES, serving_plan
     from repro_torch.models.families import FAMILIES
 
     cfg = get_smoke_config("whisper_tiny")
     assert set(PLAN_FAMILIES) == set(FAMILIES)
     for arch in ("whisper_tiny", "mamba2_2_7b"):
-        assert training_plan(get_smoke_config(arch), {"data": 2, "model": 1}) is None
+        plan = training_plan(get_smoke_config(arch), {"data": 2, "model": 1})
+        assert plan is not None and plan.tp == 1 and plan.train
+        assert not (plan.heads or plan.ff or plan.vocab or plan.ssm or plan.rglru)
     assert serving_plan(cfg, None) is None and training_plan(cfg, None) is None

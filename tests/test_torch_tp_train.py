@@ -31,8 +31,8 @@ port's one-device step:
   device's compressed step (each gradient entry within one int8 quantum);
 - the collectives of a step equal ``TPPlan.train_collectives``, with and
   without remat; a stand-in ``gather_tree`` that raises never runs in a
-  step or a mask refresh; masks refreshed leaf by leaf bitwise the
-  whole-tree masks;
+  step or a mask refresh on 1x2, 2x1 or 2x2; masks refreshed leaf by leaf
+  bitwise the whole-tree masks;
 - the 1x2-trained, pruned shards served by ``Engine(mesh=)`` give one
   device's greedy tokens on the gathered tree;
 - ``launch/train.py --model 2`` trains.
@@ -219,8 +219,9 @@ def _floor(arch: str, extra: str, tree: dict, draws: int = 4) -> dict:
 
 
 def _no_gather(tree, mesh):
-    """One TP step and one mask refresh with ``gather_tree`` replaced by a
-    stand-in that raises: whether either called it."""
+    """One training step and one mask refresh on ``mesh`` with
+    ``gather_tree`` replaced by a stand-in that raises: whether either
+    called it."""
     cfg = get_smoke_config("vusa_edge")
     tp = Trainer(cfg, _tc(), device="cpu", mesh=mesh)
     shards = shard_tree(params_from_numpy(tree, "cpu"), tp.p_shard, mesh)
@@ -365,7 +366,8 @@ def _ranks_2x2(mesh, device, trees):
     meshes = {"1x2": mesh["model"], "2x2": mesh}
     out = {c: _case(trees[c[1]], meshes[c[0]], c) for c in CASES_2X2}
     out["functions"] = _functions(mesh["model"])
-    out["no_gather"] = _no_gather(trees["vusa_edge"], mesh["model"])
+    out["no_gather"] = {name: _no_gather(trees["vusa_edge"], m) for name, m in
+                        (("1x2", mesh["model"]), ("2x1", mesh["data"]), ("2x2", mesh))}
     out["masks"] = _masks(trees["vusa_edge"], mesh)
     out["serve"] = _serve(mesh["model"])
     return out
@@ -526,7 +528,10 @@ def test_tp_compressed_step_matches_one_device(world_2x2):
 
 
 def test_tp_step_never_gathers_the_tree(world_2x2):
-    assert all(rank["no_gather"] for rank in world_2x2)
+    """On every mesh, a ``data`` axis alone (2x1) included: no step and no
+    mask refresh calls ``gather_tree``."""
+    for rank in world_2x2:
+        assert rank["no_gather"] == {"1x2": True, "2x1": True, "2x2": True}
 
 
 def test_tp_masks_refreshed_leaf_by_leaf_are_the_whole_tree_masks(world_2x2):

@@ -58,18 +58,17 @@ def _cfg():
     return get_smoke_config(ARCH)
 
 
-def _model_only(tree: dict) -> dict:
-    """A placement tree with every ``data`` dim whole: what the training
-    step holds while it computes (``TPPlan.held``)."""
-    return {k: _model_only(v) if isinstance(v, dict)
-            else tuple(a if a == "model" else None for a in v) for k, v in tree.items()}
+def _stored(tree, plan, mesh) -> dict:
+    """This rank's shards of ``tree`` under ``plan``'s placements."""
+    return shard_tree(params_from_numpy(tree, "cpu"), plan.placements, mesh)
 
 
 def _held(tree, plan, mesh) -> dict:
-    """This rank's leaves of ``tree`` as ``plan`` computes on them: stored
-    (a serving plan) or at their ``model`` shard (the training plan)."""
-    pls = _model_only(plan.placements) if plan.train else plan.placements
-    return shard_tree(params_from_numpy(tree, "cpu"), pls, mesh)
+    """This rank's leaves of ``tree`` as ``plan``'s embedding reads them:
+    stored, and under the training plan with the top-level leaves the
+    forward gathers over ``data`` before the lookup (``TPPlan.top``)."""
+    shards = _stored(tree, plan, mesh)
+    return {**shards, **plan.top(shards, ("embed", "patch_proj"))} if plan.train else shards
 
 
 def _embeddings(tree, mesh):
@@ -93,7 +92,7 @@ def _text_logits(tree, mesh):
     if plan is None:
         return None
     with torch.no_grad(), mesh_context(mesh, plan):
-        logits, _ = build_model(cfg).forward(_held(tree, plan, mesh), batches(cfg, 1)[0])
+        logits, _ = build_model(cfg).forward(_stored(tree, plan, mesh), batches(cfg, 1)[0])
     return {"logits": logits.numpy(), "start": plan.rank * logits.shape[-1]}
 
 

@@ -66,6 +66,33 @@ def batches(cfg, n):
     return [{k: torch.from_numpy(v) for k, v in next(data).items()} for _ in range(n)]
 
 
+PAD_VOCAB = 500  # vusa_edge's smoke config at this vocab pads to 512: 12 padding ids
+
+
+def padding_first_config():
+    """``vusa_edge``'s smoke config with ``PAD_VOCAB`` ids, padded to 512."""
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config("vusa_edge"), vocab=PAD_VOCAB)
+
+
+def padding_first_tree() -> dict:
+    """The port's seeded init of ``padding_first_config`` (numpy) whose
+    padding columns are the largest logits of every position (ROADMAP
+    C17): the head's padding columns set to +-c along the first six
+    coordinates of d_model, c 1e4 x the largest real column's norm, so
+    one of them is ``c max_k |h_k|`` for every final-normed ``h``, far
+    above every real logit and any Gumbel noise."""
+    cfg = padding_first_config()
+    params = build_model(cfg).init(0, device="cpu")
+    w = params["lm_head"]
+    c = 1e4 * float(w[:, :cfg.vocab].norm(dim=0).max())
+    w[:, cfg.vocab:] = 0.0
+    for j in range(cfg.padded_vocab - cfg.vocab):
+        w[j // 2, cfg.vocab + j] = c if j % 2 == 0 else -c
+    return params_to_numpy(params)
+
+
 def fp32_probs():
     layers.FLAGS["attn_bf16_probs"] = False
 
